@@ -1,0 +1,164 @@
+"""Device resolution and the build of the hand-written CUDA kernels.
+
+Every entry point of the port runs on the GPU unless the caller asks for
+the CPU (``device="cpu"``), which the tests do.  There is no silent
+switch: asking for CUDA on a host without a card raises.
+
+The kernels are CUDA C++ sources under ``kernels/*/csrc``, compiled on
+first use by ``nvcc`` for ``sm_90a`` into shared libraries with a plain C
+interface and loaded with :mod:`ctypes`.  Libraries go to
+``src/repro_torch/_build`` (git-ignored), keyed by a hash of the sources
+and flags, so an edit rebuilds and an unchanged tree reuses the build.
+:func:`build` starts one ``nvcc`` per library, all at once, and waits for
+all of them; a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+
+import torch
+
+__all__ = ["resolve_device", "check_kernel_device", "check_tensor",
+           "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: Where built libraries live (listed in .gitignore).
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+#: ``-fmad=false``: no fused multiply-add contraction, so every product
+#: and sum rounds on its own exactly as the plain PyTorch versions do.
+#: ``-Xptxas=-v`` makes the build log report each kernel's registers,
+#: shared memory and spills (kept in ``KernelLib.build_log``).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
+
+
+def resolve_device(device: Union[str, torch.device, None] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Raises when CUDA is asked for (explicitly or by default)
+    and no card is visible."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions")
+    return dev
+
+
+def check_kernel_device(t: torch.Tensor) -> None:
+    """A hand kernel runs only on a Hopper card (compute capability
+    9.x, the ``sm_90a`` build target)."""
+    major, minor = torch.cuda.get_device_capability(t.device)
+    if major != 9:
+        raise RuntimeError(
+            f"the CUDA kernels are built for sm_90a; device {t.device} "
+            f"has compute capability {major}.{minor}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what a kernel's raw pointer arithmetic assumes."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH)")
+    return found
+
+
+class KernelLib:
+    """One shared library built from one ``.cu`` source (plus the
+    headers it includes), with the C functions' ``argtypes`` declared
+    by the caller.  The library is built and loaded on the first
+    :meth:`get`, never at import."""
+
+    def __init__(self, name: str, source: str, headers: Sequence[str] = (),
+                 signatures: Optional[Dict[str, Tuple[list, type]]] = None
+                 ) -> None:
+        self.name = name
+        self.source = source
+        self.headers = tuple(headers)
+        self.signatures = dict(signatures or {})
+        #: kernel launches made through this library; the wrapper adds
+        #: one per launch, a caller resets it to 0 before a run it audits.
+        self.launches = 0
+        #: compiler output of this process's build (empty when the
+        #: library was already built).
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def path(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in (self.source,) + self.headers:
+            with open(f, "rb") as fh:
+                h.update(fh.read())
+        return os.path.join(BUILD_DIR,
+                            f"lib{self.name}-{h.hexdigest()[:16]}.so")
+
+    def _load(self) -> ctypes.CDLL:
+        lib = ctypes.CDLL(self.path())
+        for fn, (argtypes, restype) in self.signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        return lib
+
+    def get(self) -> ctypes.CDLL:
+        if self._lib is None:
+            build([self])
+        return self._lib
+
+
+def build(libs: Iterable[KernelLib]) -> None:
+    """Build every library that is not built yet, one ``nvcc`` process
+    per library, all started together; then load them all.  Raises
+    ``RuntimeError`` with the compiler output of any build that fails."""
+    libs = [lib for lib in libs if lib._lib is None]
+    todo = [lib for lib in libs if not os.path.isfile(lib.path())]
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for lib in todo:
+            out = lib.path()
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, lib.source]
+            procs.append((lib, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for lib, out, tmp, p in procs:
+            log, _ = p.communicate()
+            lib.build_log = log.decode(errors="replace")
+            if p.returncode != 0:
+                errors.append(f"nvcc failed for {lib.source} "
+                              f"(exit {p.returncode}):\n"
+                              f"{lib.build_log}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    for lib in libs:
+        lib._lib = lib._load()

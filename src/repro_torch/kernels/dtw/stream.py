@@ -1,0 +1,172 @@
+"""K1: the scored streaming tick — CUDA kernel, its wrapper and its plain
+PyTorch version.
+
+One service tick advances S streaming DTW rows and their (sy, syy, sxy)
+warp-path correlation moments by one chunk of C samples against the whole
+reference bank (``repro/kernels/dtw/stream.py::_stream_scored_kernel`` on
+the TPU).  The tensors keep the service's K-last tick layout: rows
+``[S, M, K]``, moms ``[3, S, M, K]``, bank ``[M, K]``.
+
+* :func:`stream_bank_extend_scored` is the wrapper: for CUDA tensors it
+  launches ``csrc/stream.cu`` (or raises); for CPU tensors it runs
+  :func:`stream_bank_extend_scored_plain`.  ``LIB.launches`` counts
+  kernel launches.
+* :func:`stream_bank_extend_scored_plain` evaluates the same recurrence
+  along anti-diagonals of the chunk block (the formulation of
+  ``repro.core.dtw._bank_extend_diag_impl``): every cell is
+  ``min(d + min(min(diag, vert), horiz), 3e38)`` with the diag, vert,
+  horiz selection order and horizontal runs carrying their anchor's
+  moment base, the exact per-cell arithmetic of the kernel's column
+  sweep, so the two agree bitwise on any input.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from ..common import KernelLib, check_kernel_device, check_tensor
+
+__all__ = ["INF", "MOM_SHIFT", "stream_bank_extend_scored",
+           "stream_bank_extend_scored_plain", "LIB"]
+
+#: DP saturation value (repro's ``_INF``).
+INF = 3.0e38
+#: Centre of the correlation moments (repro's ``_MOM_SHIFT``).
+MOM_SHIFT = 0.5
+#: Reference values beyond this are the sentinel padding of the
+#: anti-diagonal gather, not data (repro's ``_Y_VALID``).
+_Y_VALID = 1.0e30
+_BIG = 1.0e38
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+LIB = KernelLib(
+    "dtw_stream", os.path.join(_CSRC, "stream.cu"),
+    headers=(os.path.join(_CSRC, "dtw_sweep.cuh"),),
+    signatures={"dtw_stream_scored": (
+        [_P] * 10 + [_I] * 5 + [_P], ctypes.c_int)})
+
+
+def stream_bank_extend_scored(rows, moms, ns, bank_t, lengths, chunks,
+                              nvalid, qlens, band: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Advance the tick state by one padded chunk -> ``(rows, moms)``.
+
+    rows [S, M, K] f32, moms [3, S, M, K] f32, ns/nvalid/qlens [S] i32,
+    bank_t [M, K] f32, lengths [K] i32, chunks [S, C] f32.  Samples at or
+    past ``nvalid[s]`` leave slot s untouched.  CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if not rows.is_cuda:
+        return stream_bank_extend_scored_plain(rows, moms, ns, bank_t,
+                                               lengths, chunks, nvalid,
+                                               qlens, band)
+    dev = rows.device
+    check_kernel_device(rows)
+    s, m, k = rows.shape
+    c = chunks.shape[1]
+    check_tensor(rows, "rows", torch.float32, (s, m, k), dev)
+    check_tensor(moms, "moms", torch.float32, (3, s, m, k), dev)
+    check_tensor(bank_t, "bank_t", torch.float32, (m, k), dev)
+    check_tensor(chunks, "chunks", torch.float32, (s, c), dev)
+    for name, t, n in (("ns", ns, s), ("nvalid", nvalid, s),
+                       ("qlens", qlens, s), ("lengths", lengths, k)):
+        check_tensor(t, name, torch.int32, (n,), dev)
+    if band is not None and band < 0:
+        raise ValueError("band must be >= 0 (or None)")
+    out_rows = torch.empty_like(rows)
+    out_moms = torch.empty_like(moms)
+    err = LIB.get().dtw_stream_scored(
+        rows.data_ptr(), moms.data_ptr(), out_rows.data_ptr(),
+        out_moms.data_ptr(), ns.data_ptr(), nvalid.data_ptr(),
+        qlens.data_ptr(), bank_t.data_ptr(), lengths.data_ptr(),
+        chunks.data_ptr(), s, m, k, c, -1 if band is None else int(band),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dtw_stream_scored launch failed: CUDA error "
+                           f"{err}")
+    LIB.launches += 1
+    return out_rows, out_moms
+
+
+def stream_bank_extend_scored_plain(rows, moms, ns, bank_t, lengths,
+                                    chunks, nvalid, qlens,
+                                    band: Optional[int] = None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`stream_bank_extend_scored` (same
+    arguments and results), on whatever device the tensors are on.
+
+    Cell (i, j) of the chunk block lives on anti-diagonal t = i + j at
+    slot i; each of the C + M - 1 steps updates one [S, C, K] diagonal
+    elementwise.  The state row enters as the diagonal-indexed boundary,
+    and slot C - 1 emits the new state row column by column.  Padded
+    samples (i >= nvalid) pass the row above through unchanged."""
+    s, c = chunks.shape
+    m, k = bank_t.shape
+    dev = rows.device
+    f32 = torch.float32
+    ii = torch.arange(c, device=dev, dtype=torch.int32)
+    # reversed, sentinel-padded bank: slot i of diagonal t reads y[t - i]
+    yrp = torch.cat([torch.full((c, k), _BIG, dtype=f32, device=dev),
+                     bank_t.flip(0),
+                     torch.full((c, k), _BIG, dtype=f32, device=dev)])
+    corner = torch.where(ns == 0, 0.0, INF).to(f32)
+    # boundary index t: the diag predecessor D[-1, t-1]; t + 1: the vert.
+    prow = torch.cat([corner[:, None, None].expand(s, 1, k), rows,
+                      torch.full((s, c, k), INF, dtype=f32, device=dev)],
+                     dim=1)
+    pmom = torch.cat([torch.zeros((3, s, 1, k), dtype=f32, device=dev),
+                      moms,
+                      torch.zeros((3, s, c, k), dtype=f32, device=dev)],
+                     dim=2)
+    valid = (ii[None, :] < nvalid[:, None])[:, :, None]          # [S, C, 1]
+    xm = (chunks - MOM_SHIFT)[:, :, None]                        # [S, C, 1]
+    x3 = chunks[:, :, None]
+    if band is not None:
+        centers = torch.div((ns[:, None] + ii[None, :])[:, :, None]
+                            * (lengths[None, None, :] - 1),
+                            torch.clamp(qlens - 1, min=1)[:, None, None],
+                            rounding_mode="floor")               # [S, C, K]
+    prev = torch.full((s, c, k), INF, dtype=f32, device=dev)
+    pvert = torch.cat([prow[:, 0:1],
+                       torch.full((s, c - 1, k), INF, dtype=f32,
+                                  device=dev)], dim=1)
+    bprev = torch.zeros((3, s, c, k), dtype=f32, device=dev)
+    mprev = torch.zeros_like(bprev)
+    mvert = torch.zeros_like(bprev)
+    out_rows = torch.empty((s, m, k), dtype=f32, device=dev)
+    out_moms = torch.empty((3, s, m, k), dtype=f32, device=dev)
+    for t in range(c + m - 1):
+        yd = yrp[c + m - 1 - t: 2 * c + m - 1 - t]                # [C, K]
+        d = (x3 - yd[None]).abs()
+        if band is not None:
+            off = (t - ii)[None, :, None]
+            d = torch.where((off - centers).abs() <= band, d, INF)
+        p_vert = torch.cat([prow[:, t + 1: t + 2], prev[:, : c - 1]], dim=1)
+        p_diag = pvert
+        p_horiz = prev
+        best = torch.minimum(torch.minimum(p_diag, p_vert), p_horiz)
+        cell = torch.clamp_max(d + best, INF)
+        cell = torch.where(valid, cell, p_vert)
+        yc = torch.where(yd.abs() < _Y_VALID, yd - MOM_SHIFT, 0.0)[None]
+        delta = torch.stack([yc.expand(s, c, k), (yc * yc).expand(s, c, k),
+                             xm * yc])                           # [3, S, C, K]
+        m_vert = torch.cat([pmom[:, :, t + 1: t + 2], mprev[:, :, : c - 1]],
+                           dim=2)
+        m_diag = mvert
+        sel_diag = p_diag <= torch.minimum(p_vert, p_horiz)
+        sel_vert = ~sel_diag & (p_vert <= p_horiz)
+        base = torch.where(sel_diag, m_diag,
+                           torch.where(sel_vert, m_vert, bprev))
+        m_cell = torch.where(valid, base + delta, m_vert)
+        if t >= c - 1:
+            out_rows[:, t - (c - 1)] = cell[:, c - 1]
+            out_moms[:, :, t - (c - 1)] = m_cell[:, :, c - 1]
+        prev, pvert, bprev, mprev, mvert = cell, p_vert, base, m_cell, \
+            m_vert
+    return out_rows, out_moms
