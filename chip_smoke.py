@@ -8,20 +8,32 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order (any failure exits non-zero):
 
 1. print the card and build the CUDA kernels from ``src/repro_torch``
-   (``nvcc``, ``sm_90a``);
+   (``nvcc``, ``sm_90a``, one process per source, started together),
+   with each kernel's registers and spills;
 2. hold K1, the scored streaming tick, against its plain PyTorch version
    on the card: bitwise on dyadic-grid data, and on smooth data within
    the stated tolerance;
 3. the same for K2, the verdict scorer;
-4. the paper scenario: the exact point-mode ``TuningService`` matches
-   exim traces against a wordcount/terasort bank while they run; every
-   final verdict must be ``wordcount`` and every early decision must
-   come at the reference's fraction;
-5. the full-width run: S=256 in-flight jobs against a K=256 bank (M=360)
-   for 24 ticks of 16 samples, then one batched verdict of 32 jobs,
-   through both kernels (launch counts checked against the service's
-   dispatch counters), one tick held against the plain version, and
-   each kernel timed beside its plain version and its bound.
+4. the same for K4, the probabilistic tick, with six channels (exact)
+   and four (approx), dyadic variances on dyadic data; probabilities
+   within PROB_TOL;
+5. the same for K5 and K6, the exact and approx probabilistic verdict
+   scorers, and at zero variance their probabilities bitwise in {0, 1};
+6. the paper scenario: the point-mode ``TuningService`` matches exim
+   traces against a wordcount/terasort bank while they run; every final
+   verdict must be ``wordcount`` and every early decision must come at
+   the reference's fraction; then the same scenario in probabilistic
+   mode at zero variance, with both ``prob_mode``s, must decide exactly
+   as point mode did, every probability in {0, 1};
+7. the full-width runs: S=256 in-flight jobs against a K=256 bank
+   (M=360) for 24 ticks of 16 samples, then one batched verdict of 32
+   jobs — in point mode (K1, K2), exact probabilistic mode (K4 with six
+   channels, K5) and approx probabilistic mode (K4 with four channels,
+   K5, and K6 through ``dtw_score_bank_many(prob_mode="approx")``).
+   Each run sets every launch count to 0 just before it and checks them
+   against the service's dispatch counters just after; one tick is held
+   against the plain version, and each kernel is timed beside its plain
+   version and its bound.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -44,19 +57,43 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: Tolerances of the kernel-vs-plain checks.  Both sides do the same
 #: IEEE float32 operations per cell (the kernels are built without FMA
-#: contraction), so every check is expected to be exact; the smooth-data
-#: tolerance only allows for a rounding difference in the score tail.
+#: contraction), so every DP check is expected to be exact; the
+#: smooth-data tolerance only allows for a rounding difference in the
+#: score tail.
 DYADIC_TOL = 0.0
 SMOOTH_TOL = 1e-5
+#: Probabilities: the kernels' erfcf and the plain version's float64
+#: erfc differ in the last bits; the tail's other operations are the
+#: same in the same order.
+PROB_TOL = 2e-6
 
 #: Early-decision fractions of the reference on the paper scenario
 #: (BENCH_streaming.json rows stream_early_p0..p3).
 REF_EARLY = (0.44, 0.50, 0.47, 0.75)
 
 #: f32 arithmetic and compare operations per DP cell in csrc/dtw_sweep.cuh
-#: (cost: sub, abs; recurrence: 3 min, add; selection: min, 2 compares;
-#: moments: 6 adds, 2 muls), selects not counted.
-OPS_PER_CELL = 17
+#: for NCH moment channels (cost: sub, abs; recurrence: 3 min, add;
+#: selection: min, 2 compares; moments: 2 adds a channel, 2 muls a
+#: product channel), selects not counted: 17, 21, 29 for 3, 4, 6.
+def ops_per_cell(nch: int) -> int:
+    return 5 + 4 * nch
+
+
+#: The kernels of the table, in order, with the TPU kernel each replaces.
+KERNELS = {
+    "K1": ("K1 scored streaming tick", "stream.cu",
+           "src/repro/kernels/dtw/stream.py:136"),
+    "K2": ("K2 verdict scorer", "score.cu",
+           "src/repro/kernels/dtw/score.py:42"),
+    "K4-exact": ("K4 probabilistic tick, 6 channels (exact)", "stream.cu",
+                 "src/repro/kernels/dtw/stream.py:136"),
+    "K4-approx": ("K4 probabilistic tick, 4 channels (approx)",
+                  "stream.cu", "src/repro/kernels/dtw/stream.py:136"),
+    "K5": ("K5 exact probabilistic verdict scorer", "score.cu",
+           "src/repro/kernels/dtw/score.py:179"),
+    "K6": ("K6 approx probabilistic verdict scorer", "score.cu",
+           "src/repro/kernels/dtw/score.py:179"),
+}
 
 
 def card_line() -> str:
@@ -91,11 +128,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def counts() -> dict:
+    """Every kernel's launch count, by table key."""
+    from repro_torch.kernels.dtw import score, stream
+    return {"K1": stream.LIB.launches, "K2": score.LIB.launches,
+            "K4-exact": stream.VAR_LAUNCHES[6],
+            "K4-approx": stream.VAR_LAUNCHES[4],
+            "K5": score.VAR_LAUNCHES[6], "K6": score.VAR_LAUNCHES[4]}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.dtw import score, stream
+    stream.LIB.launches = score.LIB.launches = 0
+    for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
+        for key in d:
+            d[key] = 0
+
+
+def launched(before: dict, **want) -> None:
+    """Raise unless exactly the named kernels launched the named number
+    of times since ``before``."""
+    now = counts()
+    got = {key: now[key] - before[key] for key in now}
+    exp = {key: want.get(key.replace("-", "_"), 0) for key in now}
+    assert got == exp, f"launches {got} != expected {exp}"
+
+
 class ErrLog:
     """Largest absolute kernel-vs-plain difference seen per kernel."""
 
     def __init__(self) -> None:
-        self.err = {"K1": 0.0, "K2": 0.0}
+        self.err = {key: 0.0 for key in KERNELS}
 
     def diff(self, kernel: str, got: torch.Tensor, want: torch.Tensor,
              mask=None) -> float:
@@ -115,10 +178,34 @@ def _series(rng, n: int, dyadic: bool) -> np.ndarray:
                    + 0.05 * rng.normal(size=n), 0, 1).astype(np.float32)
 
 
+def _vars(rng, shape, dyadic: bool) -> np.ndarray:
+    if dyadic:
+        return (rng.integers(0, 5, shape) / 64.0).astype(np.float32)
+    return (0.01 * rng.random(shape)).astype(np.float32)
+
+
 def _bank(rng, k: int, lo: int, hi: int, dyadic: bool):
     from repro_torch.core.database import pack_series
     return pack_series([_series(rng, int(rng.integers(lo, hi + 1)), dyadic)
                         for _ in range(k)])
+
+
+def build_report(libs) -> None:
+    """One line per kernel: its registers, stack and spills as ptxas -v
+    reported them."""
+    for lib in libs:
+        name = "?"
+        props = ""
+        for line in lib.build_log.splitlines():
+            m = re.search(r"entry function .*?(stream_scored_kernel|"
+                          r"score_kernel)(?:ILi(\d+)E)?", line)
+            if m:
+                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            elif "spill" in line:
+                props = line.strip()
+            elif "registers" in line:
+                used = line.split(":", 1)[-1].strip()
+                print(f"[build] {lib.name} {name}: {used}; {props}")
 
 
 def check_k1(dev, errs: ErrLog) -> None:
@@ -126,7 +213,6 @@ def check_k1(dev, errs: ErrLog) -> None:
     block), ragged nvalid including 0, band None and 6, chunk widths 8,
     16 and 32 (32 takes two passes), four consecutive ticks each."""
     from repro_torch.core import dtw
-    from repro_torch.kernels.dtw import stream
     cases = [(dy, band, c) for dy in (True, False) for band in (None, 6)
              for c in (8, 16, 32)]
     for i, (dyadic, band, c) in enumerate(cases):
@@ -150,12 +236,12 @@ def check_k1(dev, errs: ErrLog) -> None:
             ch = np.stack([_series(rng, c, dyadic) for _ in range(s)])
             args = (bank_t, lengths, torch.tensor(ch, device=dev),
                     torch.tensor(nv, device=dev), qlens)
-            before = stream.LIB.launches
+            before = counts()
             out_k = dtw.bank_extend_tick_scored_dispatch(*st_k, *args,
                                                          band=band)
             out_p = dtw.bank_extend_tick_scored(*st_p, *args, band=band)
             torch.cuda.synchronize()
-            assert stream.LIB.launches == before + 1, "K1 did not launch"
+            launched(before, K1=1)
             fin = out_p[0] < 1e37
             assert torch.equal(fin, out_k[0] < 1e37), \
                 f"K1 case {i} tick {tick}: saturated cells differ"
@@ -196,11 +282,11 @@ def check_k2(dev, errs: ErrLog) -> None:
                 torch.tensor(bank.lengths, device=dev),
                 torch.tensor([f[0] for f in folds], device=dev),
                 torch.tensor([f[1] for f in folds], device=dev))
-        before = score.LIB.launches
+        before = counts()
         sk, dk = score.score_bank_offline(*args, band=band)
         sp, dp = score.score_bank_offline_plain(*args, band=band)
         torch.cuda.synchronize()
-        assert score.LIB.launches == before + 1, "K2 did not launch"
+        launched(before, K2=1)
         e = max(errs.diff("K2", sk, sp), errs.diff("K2", dk, dp))
         tol = DYADIC_TOL if dyadic else SMOOTH_TOL
         assert e <= tol, (f"K2 case {i} (dyadic={dyadic}, band={band}, "
@@ -210,54 +296,198 @@ def check_k2(dev, errs: ErrLog) -> None:
               f"tol {tol:g})")
 
 
-def paper_scenario(dev) -> list:
-    """The reference's paper scenario (benchmarks/bench_streaming.py):
-    exim traces matched WHILE they run against a preprocessed
-    wordcount/terasort bank (2 apps x 4 parameter sets), monitored at
-    4 Hz in 8-sample chunks."""
+def check_k4(dev, errs: ErrLog) -> None:
+    """K4 against its plain version, six channels and four: ragged banks,
+    ragged nvalid including 0, band None and 6, chunk widths 8, 16 and
+    32 (several passes: 8 rows a pass for six channels, 16 for four),
+    four consecutive ticks each; dyadic samples with dyadic variances,
+    and smooth samples with continuous variances."""
+    from repro_torch.core import dtw
+    cases = [(nch, dy, band, c) for nch in (6, 4) for dy in (True, False)
+             for band in (None, 6) for c in (8, 16, 32)]
+    for i, (nch, dyadic, band, c) in enumerate(cases):
+        key = "K4-exact" if nch == 6 else "K4-approx"
+        kern = dtw.bank_extend_tick_scored_var_dispatch if nch == 6 \
+            else dtw.bank_extend_tick_scored_var_approx_dispatch
+        plain = dtw.bank_extend_tick_scored_var if nch == 6 \
+            else dtw.bank_extend_tick_scored_var_approx
+        rng = np.random.default_rng(400 + i)
+        s, k = 5, 133
+        bank = _bank(rng, k, 12, 60, dyadic)
+        m = bank.series.shape[1]
+        bank_t = torch.tensor(bank.series.T.copy(), device=dev)
+        lengths = torch.tensor(bank.lengths, device=dev)
+        qlens = torch.full((s,), 4 * c, dtype=torch.int32, device=dev)
+        state = dtw.tick_state_from_numpy(
+            np.full((s, m, k), dtw._INF, np.float32),
+            np.zeros((nch, s, m, k), np.float32), np.zeros(s, np.int32),
+            np.zeros(s, np.float32), np.zeros(s, np.float32), dev,
+            vstats=np.zeros((s, 3), np.float32))
+        st_k, st_p = state, tuple(t.clone() for t in state)
+        tol = DYADIC_TOL if dyadic else SMOOTH_TOL
+        ep = 0.0
+        for tick in range(4):
+            nv = rng.integers(0, c + 1, size=s).astype(np.int32)
+            nv[tick % s] = 0
+            nv[(tick + 1) % s] = c
+            ch = np.stack([_series(rng, c, dyadic) for _ in range(s)])
+            vch = _vars(rng, (s, c), dyadic)
+            args = (bank_t, lengths, torch.tensor(ch, device=dev),
+                    torch.tensor(vch, device=dev),
+                    torch.tensor(nv, device=dev), qlens)
+            before = counts()
+            out_k = kern(*st_k, *args, band=band, threshold=0.85)
+            out_p = plain(*st_p, *args, band=band, threshold=0.85)
+            torch.cuda.synchronize()
+            launched(before, **{key.replace("-", "_"): 1})
+            fin = out_p[0] < 1e37
+            assert torch.equal(fin, out_k[0] < 1e37), \
+                f"{key} case {i} tick {tick}: saturated cells differ"
+            e = max(errs.diff(key, out_k[0], out_p[0], fin),
+                    errs.diff(key, out_k[1], out_p[1],
+                              fin[None].expand_as(out_p[1])),
+                    errs.diff(key, out_k[5], out_p[5]))
+            ep = max(ep, errs.diff(key, out_k[7], out_p[7]))
+            for a, b in zip(out_k[2:5] + (out_k[6],),
+                            out_p[2:5] + (out_p[6],)):
+                assert torch.equal(a, b), f"{key}: ns/sx/sxx/vstats differ"
+            assert e <= tol, (f"{key} case {i} (dyadic={dyadic}, "
+                              f"band={band}, C={c}) tick {tick}: max abs "
+                              f"err {e}")
+            assert ep <= PROB_TOL, f"{key} case {i}: probability err {ep}"
+            st_k = out_k[:5] + (out_k[6],)
+            st_p = out_p[:5] + (out_p[6],)
+        print(f"[{key}] dyadic={dyadic!s:5} band={band!s:4} C={c:2d}: "
+              f"4 ticks agree (state/score max abs err {e:.3g}, tol {tol:g};"
+              f" probability {ep:.3g}, tol {PROB_TOL:g})")
+
+
+def check_k56(dev, errs: ErrLog) -> None:
+    """K5 and K6 against their plain versions: ragged banks, ragged
+    query lengths (0, 1, < N and N), one-pass and multi-pass queries,
+    band None and 6; and at zero variance, probabilities bitwise the
+    plain version's, in {0, 1} and equal to 1{score >= threshold}."""
+    from repro_torch.core import dtw
+    from repro_torch.kernels.dtw import score
+    cases = [(ap, dy, band, n) for ap in (False, True)
+             for dy in (True, False) for band in (None, 6) for n in (12, 70)]
+    for i, (approx, dyadic, band, n) in enumerate(cases):
+        key = "K6" if approx else "K5"
+        rng = np.random.default_rng(500 + i)
+        j, k = 6, 133
+        bank = _bank(rng, k, 10, 60, dyadic)
+        xlens = np.asarray([0, 1, n, n - 3, n // 2, 2], np.int32)
+        xs = np.zeros((j, n), np.float32)
+        xv = np.zeros((j, n), np.float32)
+        for q, l in enumerate(xlens):
+            xs[q, :l] = _series(rng, int(l), dyadic)
+            xv[q, :l] = _vars(rng, int(l), dyadic)
+        folds = [dtw.query_moments(xs[q, :xlens[q]]) for q in range(j)]
+        vst = np.asarray([dtw.query_var_moments(xs[q, :xlens[q]],
+                                                xv[q, :xlens[q]])
+                          for q in range(j)], np.float32)
+        t = {name: torch.tensor(a, device=dev) for name, a in (
+            ("xs", xs), ("xl", xlens), ("bank", bank.series.T.copy()),
+            ("len", bank.lengths), ("vst", vst),
+            ("sx", np.asarray([f[0] for f in folds], np.float32)),
+            ("sxx", np.asarray([f[1] for f in folds], np.float32)))}
+        tol = DYADIC_TOL if dyadic else SMOOTH_TOL
+        for var in (xv, np.zeros_like(xv)):
+            args = (t["xs"], torch.tensor(var, device=dev), t["xl"],
+                    t["bank"], t["len"], t["sx"], t["sxx"],
+                    t["vst"] if var is xv else torch.zeros_like(t["vst"]))
+            before = counts()
+            sk, pk, dk = score.score_bank_offline_var(
+                *args, band=band, threshold=0.85, approx=approx)
+            sp, pp, dp = score.score_bank_offline_var_plain(
+                *args, band=band, threshold=0.85, approx=approx)
+            torch.cuda.synchronize()
+            launched(before, **{key: 1})
+            e = max(errs.diff(key, sk, sp), errs.diff(key, dk, dp))
+            ep = errs.diff(key, pk, pp)
+            assert e <= tol, (f"{key} case {i} (dyadic={dyadic}, "
+                              f"band={band}, N={n}): max abs err {e}")
+            assert ep <= PROB_TOL, f"{key} case {i}: probability err {ep}"
+            assert bool(torch.isfinite(pk).all())
+            if var is not xv:
+                assert torch.equal(pk, pp), f"{key}: zero-variance probs"
+                assert torch.equal(pk, (sk >= 0.85).float())
+        print(f"[{key}] dyadic={dyadic!s:5} band={band!s:4} N={n:2d}: "
+              f"scores and distances agree (max abs err {e:.3g}, tol "
+              f"{tol:g}); probabilities {ep:.3g} (tol {PROB_TOL:g}); zero "
+              f"variance bitwise the point rule")
+
+
+def paper_bank():
     from repro_torch import mrsim
     from repro_torch.core.database import SeriesBank, pack_series
     from repro_torch.core.filters import preprocess_bank
-    from repro_torch.kernels.dtw import score, stream
-    from repro_torch.serve.tuning import TuningService
-    dt = 0.25
     series, labels = [], []
     for app in ("wordcount", "terasort"):
         for p in mrsim.paper_param_sets():
-            series.append(mrsim.simulate_cpu_series(app, p, dt=dt))
+            series.append(mrsim.simulate_cpu_series(app, p, dt=0.25))
             labels.append(app)
     packed = pack_series(series, labels=labels)
-    bank = SeriesBank(preprocess_bank(packed.series, packed.lengths),
+    return SeriesBank(preprocess_bank(packed.series, packed.lengths),
                       packed.lengths, packed.labels)
-    fractions = []
+
+
+def paper_scenario(dev, bank, prob_mode=None, point=None) -> list:
+    """The reference's paper scenario (benchmarks/bench_streaming.py):
+    exim traces matched WHILE they run against a preprocessed
+    wordcount/terasort bank (2 apps x 4 parameter sets), monitored at
+    4 Hz in 8-sample chunks.  With ``prob_mode`` the service is
+    probabilistic and every push carries zero variance; it must then
+    decide exactly as the point run ``point`` did."""
+    from repro_torch import mrsim
+    from repro_torch.serve.tuning import TuningService
+    kw = {} if prob_mode is None else dict(min_probability=0.5,
+                                           prob_mode=prob_mode)
+    tag = "point" if prob_mode is None else f"prob {prob_mode}"
+    runs = []
     for j, p in enumerate(mrsim.paper_param_sets()):
         svc = TuningService(bank, band=16, threshold=0.85, margin=0.02,
                             stable_ticks=3, min_fraction=0.15,
-                            denoise=True, device=dev)
-        q = mrsim.simulate_cpu_series("exim", p, run=1, dt=dt)
-        stream.LIB.launches = score.LIB.launches = 0
+                            denoise=True, device=dev, **kw)
+        q = mrsim.simulate_cpu_series("exim", p, run=1, dt=0.25)
+        before = counts()
         svc.submit("exim", expected_len=len(q))
         early = None
         for chunk in mrsim.iter_cpu_series("exim", p, run=1, chunk=8,
-                                           dt=dt):
-            svc.push("exim", chunk)
+                                           dt=0.25):
+            if prob_mode is None:
+                svc.push("exim", chunk)
+            else:
+                svc.push("exim", chunk, variance=np.zeros_like(chunk))
             d = svc.tick().get("exim")
             early = early or d
         final = svc.finish("exim")
-        assert (stream.LIB.launches, score.LIB.launches) == \
-            (svc.dispatch_count, svc.offline_dispatch_count) == \
-            (svc.ticks, 1), "paper scenario did not run on the kernels"
+        assert svc.dispatch_count == svc.ticks
+        if prob_mode is None:
+            launched(before, K1=svc.ticks, K2=1)
+        else:
+            launched(before, K5=1, **{"K4_" + prob_mode: svc.ticks})
         frac = early.fraction_seen if early is not None else 1.0
-        print(f"[paper] pset{j}: early={early.matched if early else None}"
-              f"@{frac:.2f} (reference {REF_EARLY[j]:.2f}) "
-              f"final={final.matched} wc={final.scores['wordcount']:.4f} "
-              f"ts={final.scores['terasort']:.4f}")
+        print(f"[paper {tag}] pset{j}: early="
+              f"{early.matched if early else None}@{frac:.2f} (reference "
+              f"{REF_EARLY[j]:.2f}) final={final.matched} "
+              f"wc={final.scores['wordcount']:.4f} "
+              f"ts={final.scores['terasort']:.4f} "
+              f"p={final.probability}")
         assert final.matched == "wordcount", final.scores
         assert early is not None and early.matched == "wordcount"
-        fractions.append(round(frac, 2))
-    assert tuple(fractions) == REF_EARLY, \
-        f"early fractions {fractions} != reference {REF_EARLY}"
-    return fractions
+        assert round(frac, 2) == REF_EARLY[j], (frac, REF_EARLY[j])
+        if point is not None:
+            pe, pf = point[j]
+            assert (early.matched, early.corr, early.decided_at_fraction) \
+                == (pe.matched, pe.corr, pe.decided_at_fraction)
+            assert (final.matched, final.corr, final.scores) == \
+                (pf.matched, pf.corr, pf.scores)
+            assert early.probability == 1.0
+            assert final.probability in (0.0, 1.0)
+            assert (final.probability == 1.0) == (final.corr >= 0.85)
+        runs.append((early, final))
+    return runs
 
 
 def throughput_bank(rng, k: int):
@@ -276,138 +506,249 @@ def throughput_bank(rng, k: int):
     return pack_series(series, labels=[f"w{i % 16}" for i in range(k)])
 
 
-def full_width(dev, errs: ErrLog, name: str, s_jobs: int = 256,
+def _row(key, launches, errs, ms, plain_ms, bounds):
+    name, src, replaces = KERNELS[key]
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/dtw/csrc/{src}",
+                replaces=replaces, launches=launches,
+                max_abs_err=errs.err[key], ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bounds),
+                bound_by="bytes" if bounds[0] >= bounds[1] else "operations",
+                library_ms=None)
+
+
+def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
                k: int = 256, n_fin: int = 32, seed: int = 0) -> list:
     """S=256 jobs x K=256 references (M=360), 24 ticks of 16 samples,
-    then one batched verdict of 32 jobs; returns the kernel table rows."""
+    then one batched verdict of 32 jobs, in ``mode`` "point", "exact" or
+    "approx"; returns the kernel table rows of the run's kernels.
+
+    Point mode streams sinusoid+noise queries; the probabilistic modes
+    stream mrsim's heteroscedastic traces (``simulate_cpu_series_uncertain``
+    at dt = 1/16 s, noise 0.05) with their true per-sample variances."""
+    from repro_torch import mrsim
     from repro_torch.core import dtw
     from repro_torch.kernels.dtw import score, stream
     from repro_torch.serve.tuning import TuningService
+    prob = mode != "point"
+    nch = {"point": 3, "exact": 6, "approx": 4}[mode]
+    tick_key = {"point": "K1", "exact": "K4-exact",
+                "approx": "K4-approx"}[mode]
+    verdict_key = "K5" if prob else "K2"
     c, n_ticks = 16, 24
     rng = np.random.default_rng(seed)
     bank = throughput_bank(rng, k)
     m = bank.series.shape[1]
     assert m == 360, m
     qlen = n_ticks * c
-    queries = np.stack([np.clip(
-        0.5 + 0.3 * np.sin(2 * np.pi * rng.uniform(1, 7)
-                           * np.linspace(0, 1, qlen))
-        + 0.1 * rng.normal(size=qlen), 0, 1) for _ in range(s_jobs)]
-    ).astype(np.float32)
-    svc = TuningService(bank, slots=s_jobs, device=dev)
+    variances = None
+    if prob:
+        apps = list(mrsim.APPS)
+        traces = [mrsim.simulate_cpu_series_uncertain(
+            apps[i % 3], mrsim.paper_param_sets()[i % 4], run=i, dt=1 / 16,
+            noise=0.05) for i in range(s_jobs)]
+        queries = np.stack([q[:qlen] for q, _ in traces])
+        variances = np.stack([v[:qlen] for _, v in traces])
+        kw = dict(min_probability=0.5, prob_mode=mode)
+    else:
+        queries = np.stack([np.clip(
+            0.5 + 0.3 * np.sin(2 * np.pi * rng.uniform(1, 7)
+                               * np.linspace(0, 1, qlen))
+            + 0.1 * rng.normal(size=qlen), 0, 1) for _ in range(s_jobs)]
+        ).astype(np.float32)
+        kw = {}
+    svc = TuningService(bank, slots=s_jobs, device=dev, **kw)
     for i in range(s_jobs):
         svc.submit(f"job{i}", expected_len=qlen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stream.LIB.launches = score.LIB.launches = 0
+    reset_counts()
     tick_s = []
     for t in range(n_ticks):
         for i in range(s_jobs):
-            svc.push(f"job{i}", queries[i, t * c:(t + 1) * c])
+            sl = slice(t * c, (t + 1) * c)
+            if prob:
+                svc.push(f"job{i}", queries[i, sl], variance=variances[i, sl])
+            else:
+                svc.push(f"job{i}", queries[i, sl])
         if t == n_ticks // 2:
             slot_of = [svc._jobs[f"job{i}"].slot for i in range(s_jobs)]
             snap = (svc._rows.clone(), svc._moms.clone(), svc._ns.clone(),
                     svc._sx.clone(), svc._sxx.clone())
+            if prob:
+                snap += (svc._vstats.clone(),)
         t0 = time.perf_counter()
         svc.tick()
         torch.cuda.synchronize()
         tick_s.append(time.perf_counter() - t0)
         if t == n_ticks // 2:
+            jobs = [svc._jobs[f"job{i}"] for i in range(s_jobs)]
             after = (svc._rows.clone(), svc._moms.clone(),
-                     np.stack([svc._jobs[f"job{i}"].last_sims
-                               for i in range(s_jobs)]))
+                     np.stack([j.last_sims for j in jobs]),
+                     np.stack([j.last_probs for j in jobs]) if prob
+                     else None)
     fin_ids = [f"job{i}" for i in range(n_fin)]
     t0 = time.perf_counter()
     verdicts = svc.finish_many(fin_ids)
+    torch.cuda.synchronize()
     verdict_s = time.perf_counter() - t0
-    launches = (stream.LIB.launches, score.LIB.launches)
+    # the approx mode's offline oracle: dtw_score_bank_many(prob_mode=
+    # "approx") over the finished jobs, through K6
+    npad = dtw._pad_pow2(qlen)
+    xs_np = np.zeros((n_fin, npad), np.float32)
+    xs_np[:, :qlen] = queries[:n_fin]
+    xv_np = np.zeros((n_fin, npad), np.float32)
+    if prob:
+        xv_np[:, :qlen] = variances[:n_fin]
+    xl_np = np.full((n_fin,), qlen, np.int32)
+    if mode == "approx":
+        oracle = dtw.dtw_score_bank_many(
+            xs_np, bank.series, bank.lengths, xlens=xl_np, xvars=xv_np,
+            prob_mode="approx", plan=bank.score_plan(dev))
+        torch.cuda.synchronize()
+    got = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     in_use_gb = torch.cuda.memory_allocated() / 1e9
-    assert launches == (svc.dispatch_count, svc.offline_dispatch_count), \
-        (launches, svc.dispatch_count, svc.offline_dispatch_count)
-    assert launches == (n_ticks, 1), launches
+    want = {key: 0 for key in got}
+    want[tick_key] = svc.dispatch_count
+    want[verdict_key] = svc.offline_dispatch_count
+    if mode == "approx":
+        want["K6"] = 1
+    assert got == want, (mode, got, want)
+    assert (svc.dispatch_count, svc.offline_dispatch_count) == (n_ticks, 1)
     for v in verdicts.values():
         assert np.isfinite(v.corr) and len(v.scores) == 16
+        assert (v.probability is not None) == prob
+        if prob:
+            assert 0.0 <= v.probability <= 1.0
     ms_tick = 1e3 * float(np.median(tick_s))
-    print(f"[full] {s_jobs} jobs x K={k} x M={m}, C={c}: median "
+    print(f"[full {mode}] {s_jobs} jobs x K={k} x M={m}, C={c}: median "
           f"{ms_tick:.3f} ms/tick over {n_ticks} ticks (first "
           f"{1e3 * tick_s[0]:.3f} ms); verdict of {n_fin} jobs "
           f"{1e3 * verdict_s:.3f} ms; device memory in use "
-          f"{in_use_gb:.3f} GB, peak {peak_gb:.3f} GB; "
-          f"launches K1={launches[0]} K2={launches[1]} [{name}]")
+          f"{in_use_gb:.3f} GB, peak {peak_gb:.3f} GB; launches "
+          f"{ {key: n for key, n in got.items() if n} } [{name}]")
 
     # one full-width tick against the plain version on the same inputs
     t = n_ticks // 2
+    sl = slice(t * c, (t + 1) * c)
     chunks = torch.zeros((svc.slot_capacity, c), device=dev)
+    vchunks = torch.zeros((svc.slot_capacity, c), device=dev)
     for i in range(s_jobs):
-        chunks[slot_of[i]] = torch.tensor(queries[i, t * c:(t + 1) * c])
+        chunks[slot_of[i]] = torch.tensor(queries[i, sl])
+        if prob:
+            vchunks[slot_of[i]] = torch.tensor(variances[i, sl])
     nvalid = torch.full((s_jobs,), c, dtype=torch.int32, device=dev)
     qlens = torch.full((s_jobs,), qlen, dtype=torch.int32, device=dev)
-    plain = dtw.bank_extend_tick_scored(*snap, svc._bank_t, svc._lengths,
-                                        chunks, nvalid, qlens)
+    bank_t, lengths = svc._bank_t, svc._lengths
+    if mode == "point":
+        plain = dtw.bank_extend_tick_scored(*snap, bank_t, lengths, chunks,
+                                            nvalid, qlens)
+    else:
+        fn = dtw.bank_extend_tick_scored_var if mode == "exact" \
+            else dtw.bank_extend_tick_scored_var_approx
+        plain = fn(*snap, bank_t, lengths, chunks, vchunks, nvalid, qlens,
+                   threshold=svc.threshold)
     fin = plain[0] < 1e37
     assert torch.equal(fin, after[0] < 1e37)
     sims = torch.tensor(after[2], device=dev)
-    e = max(errs.diff("K1", after[0], plain[0], fin),
-            errs.diff("K1", after[1], plain[1], fin[None].expand_as(plain[1])),
-            errs.diff("K1", sims, plain[5][slot_of]))
-    assert e <= SMOOTH_TOL, f"full-width tick: max abs err {e}"
-    print(f"[full] tick {t} held against the plain version: max abs err "
-          f"{e:.3g} (tol {SMOOTH_TOL:g})")
+    e = max(errs.diff(tick_key, after[0], plain[0], fin),
+            errs.diff(tick_key, after[1], plain[1],
+                      fin[None].expand_as(plain[1])),
+            errs.diff(tick_key, sims, plain[5][slot_of]))
+    assert e <= SMOOTH_TOL, f"full-width {mode} tick: max abs err {e}"
+    ep = 0.0
+    if prob:
+        ep = errs.diff(tick_key, torch.tensor(after[3], device=dev),
+                       plain[7][slot_of])
+        assert ep <= PROB_TOL, f"full-width {mode} tick: probability {ep}"
+    print(f"[full {mode}] tick {t} held against the plain version: max abs "
+          f"err {e:.3g} (tol {SMOOTH_TOL:g}), probabilities {ep:.3g} (tol "
+          f"{PROB_TOL:g})")
 
     # timings at the main path's shapes, kernel beside plain version
     mem_bps, f32_flops = card_peaks(name)
-    args1 = (*snap[:3], svc._bank_t, svc._lengths, chunks, nvalid, qlens)
-    k1_ms = cuda_ms(lambda: stream.stream_bank_extend_scored(*args1), 20)
-    k1_plain = cuda_ms(lambda: stream.stream_bank_extend_scored_plain(
-        *args1), 2)
-    cells1 = int(nvalid.sum()) * m * k
-    bytes1 = 2 * 4 * 4 * s_jobs * m * k + 4 * (m * k + k + s_jobs * c
-                                               + 3 * s_jobs)
-    b1 = (1e3 * bytes1 / mem_bps, 1e3 * OPS_PER_CELL * cells1 / f32_flops)
-    queries_fin = [queries[i] for i in range(n_fin)]
-    npad = dtw._pad_pow2(qlen)
-    xs = torch.zeros((n_fin, npad), device=dev)
-    xs[:, :qlen] = torch.tensor(np.stack(queries_fin))
-    xlens = torch.full((n_fin,), qlen, dtype=torch.int32, device=dev)
-    folds = [dtw.query_moments(q) for q in queries_fin]
+    cells = int(nvalid.sum()) * m * k
+    tbytes = 2 * 4 * (1 + nch) * s_jobs * m * k + 4 * (
+        m * k + k + (2 if prob else 1) * s_jobs * c + 3 * s_jobs)
+    tb = (1e3 * tbytes / mem_bps, 1e3 * ops_per_cell(nch) * cells / f32_flops)
+    targs = (*snap[:3], bank_t, lengths, chunks)
+    if prob:
+        tk = lambda: stream.stream_bank_extend_scored_var(  # noqa: E731
+            *targs, vchunks, nvalid, qlens)
+        tp = lambda: stream.stream_bank_extend_scored_var_plain(  # noqa: E731
+            *targs, vchunks, nvalid, qlens)
+    else:
+        tk = lambda: stream.stream_bank_extend_scored(  # noqa: E731
+            *targs, nvalid, qlens)
+        tp = lambda: stream.stream_bank_extend_scored_plain(  # noqa: E731
+            *targs, nvalid, qlens)
+    t_ms = cuda_ms(tk, 20)
+    t_plain = cuda_ms(tp, 2)
+
+    xs = torch.tensor(xs_np, device=dev)
+    xv = torch.tensor(xv_np, device=dev)
+    xlens = torch.tensor(xl_np, device=dev)
+    folds = [dtw.query_moments(q) for q in queries[:n_fin]]
     sx = torch.tensor([f[0] for f in folds], device=dev)
     sxx = torch.tensor([f[1] for f in folds], device=dev)
-    args2 = (xs, xlens, svc._bank_t, svc._lengths, sx, sxx)
-    sk, dk = score.score_bank_offline(*args2)
-    sp, dp = score.score_bank_offline_plain(*args2)
-    e2 = max(errs.diff("K2", sk, sp), errs.diff("K2", dk, dp))
-    assert e2 <= SMOOTH_TOL, f"full-width verdict: max abs err {e2}"
-    # the service's verdicts are the per-workload maxima of K2's scores
+    vst = torch.tensor(np.asarray(
+        [dtw.query_var_moments(queries[i], variances[i]) for i in
+         range(n_fin)] if prob else np.zeros((n_fin, 3)), np.float32),
+        device=dev)
     labels = np.asarray(bank.labels)
-    for i in range(n_fin):
-        row = sk[i].double().cpu().numpy()
-        for w, v in verdicts[f"job{i}"].scores.items():
-            assert v == row[labels == w].max(), (i, w)
-    k2_ms = cuda_ms(lambda: score.score_bank_offline(*args2), 5)
-    k2_plain = cuda_ms(lambda: score.score_bank_offline_plain(*args2), 1)
-    cells2 = int(xlens.sum()) * int(svc._lengths.sum())
-    bytes2 = 4 * (n_fin * npad + 3 * n_fin + m * k + k + 2 * n_fin * k)
-    b2 = (1e3 * bytes2 / mem_bps, 1e3 * OPS_PER_CELL * cells2 / f32_flops)
-    print(f"[full] K1 {k1_ms:.4f} ms (plain {k1_plain:.2f} ms, bound "
-          f"{max(b1):.4f} ms); K2 {k2_ms:.4f} ms (plain {k2_plain:.2f} ms,"
-          f" bound {max(b2):.4f} ms) [{name}]")
-    return [
-        dict(name="K1 scored streaming tick", route="cuda",
-             source="src/repro_torch/kernels/dtw/csrc/stream.cu",
-             replaces="src/repro/kernels/dtw/stream.py:136",
-             launches=launches[0], max_abs_err=errs.err["K1"], ms=k1_ms,
-             plain_ms=k1_plain, bound_ms=max(b1),
-             bound_by="bytes" if b1[0] >= b1[1] else "operations",
-             library_ms=None),
-        dict(name="K2 verdict scorer", route="cuda",
-             source="src/repro_torch/kernels/dtw/csrc/score.cu",
-             replaces="src/repro/kernels/dtw/score.py:42",
-             launches=launches[1], max_abs_err=errs.err["K2"], ms=k2_ms,
-             plain_ms=k2_plain, bound_ms=max(b2),
-             bound_by="bytes" if b2[0] >= b2[1] else "operations",
-             library_ms=None),
-    ]
+    cells2 = int(xlens.sum()) * int(lengths.sum())
+    rows = [_row(tick_key, got[tick_key], errs, t_ms, t_plain, tb)]
+    verdict_keys = [verdict_key] + (["K6"] if mode == "approx" else [])
+    for key in verdict_keys:
+        vn = {"K2": 3, "K5": 6, "K6": 4}[key]
+        if key == "K2":
+            vargs = (xs, xlens, bank_t, lengths, sx, sxx)
+            vk = lambda: score.score_bank_offline(*vargs)  # noqa: E731
+            vp = lambda: score.score_bank_offline_plain(  # noqa: E731
+                *vargs)
+        else:
+            vargs = (xs, xv, xlens, bank_t, lengths, sx, sxx, vst)
+            ap = key == "K6"
+            vk = lambda: score.score_bank_offline_var(  # noqa: E731
+                *vargs, threshold=svc.threshold, approx=ap)
+            vp = lambda: score.score_bank_offline_var_plain(  # noqa: E731
+                *vargs, threshold=svc.threshold, approx=ap)
+        outk, outp = vk(), vp()
+        e2 = max(errs.diff(key, outk[0], outp[0]),
+                 errs.diff(key, outk[-1], outp[-1]))
+        assert e2 <= SMOOTH_TOL, f"full-width {key}: max abs err {e2}"
+        if key != "K2":
+            ep2 = errs.diff(key, outk[1], outp[1])
+            assert ep2 <= PROB_TOL, f"full-width {key}: probability {ep2}"
+        if key == verdict_key:
+            # the service's verdicts are the per-workload maxima of the
+            # verdict kernel's scores, and its probability the leader's
+            for i in range(n_fin):
+                row = outk[0][i].double().cpu().numpy()
+                dec = verdicts[f"job{i}"]
+                for w, v in dec.scores.items():
+                    assert v == row[labels == w].max(), (i, w)
+                if prob:
+                    pr = outk[1][i].double().cpu().numpy()
+                    lead = max(dec.scores, key=dec.scores.get)
+                    assert dec.probability == pr[labels == lead].max()
+        else:
+            assert torch.equal(oracle[0], outk[0])
+            assert torch.equal(oracle[1], outk[1])
+        v_ms = cuda_ms(vk, 5)
+        v_plain = cuda_ms(vp, 1)
+        vbytes = 4 * ((2 if key != "K2" else 1) * n_fin * npad
+                      + (6 if key != "K2" else 3) * n_fin + m * k + k
+                      + (3 if key != "K2" else 2) * n_fin * k)
+        vb = (1e3 * vbytes / mem_bps,
+              1e3 * ops_per_cell(vn) * cells2 / f32_flops)
+        rows.append(_row(key, got[key], errs, v_ms, v_plain, vb))
+    print(f"[full {mode}] " + "; ".join(
+        f"{r['name'].split()[0]} {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)"
+        for r in rows) + f" [{name}]")
+    return rows
 
 
 def main() -> int:
@@ -421,20 +762,28 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     common.build([stream.LIB, score.LIB])
-    print(f"[build] both kernels in {time.perf_counter() - t0:.1f} s")
-    for lib in (stream.LIB, score.LIB):
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {lib.name}: {line.strip()}")
+    print(f"[build] both kernel sources in {time.perf_counter() - t0:.1f} s")
+    build_report([stream.LIB, score.LIB])
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = ErrLog()
     check_k1(dev, errs)
     check_k2(dev, errs)
-    paper_scenario(dev)
-    rows = full_width(dev, errs, name)
-    print(json.dumps({"kernels": rows}))
+    check_k4(dev, errs)
+    check_k56(dev, errs)
+    bank = paper_bank()
+    point = paper_scenario(dev, bank)
+    for mode in ("exact", "approx"):
+        paper_scenario(dev, bank, mode, point)
+    rows = {}
+    for mode in ("point", "exact", "approx"):
+        for row in full_width(dev, errs, name, mode):
+            # K5 serves both probabilistic runs' verdicts: its row is the
+            # exact run's
+            rows.setdefault(row["name"], row)
+    table = [rows[KERNELS[key][0]] for key in KERNELS]
+    print(json.dumps({"kernels": table}))
     print(name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

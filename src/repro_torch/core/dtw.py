@@ -14,12 +14,25 @@ layer over its hand kernel in ``kernels.dtw``:
   (sy, syy, sxy) along the path backtracking would pick, and reduces to
   an ``[S, K]`` open-end correlation (:func:`_moment_scores`).  State is
   K-last: rows ``[S, M, K]``, moms ``[3, S, M, K]``, bank ``[M, K]``.
+* the **probabilistic ticks** (:func:`bank_extend_tick_scored_var_dispatch`
+  and :func:`bank_extend_tick_scored_var_approx_dispatch`): the same tick
+  for uncertain samples.  Per-sample measurement variances ``vchunks``
+  ride beside the samples, the slab carries six channels (exact: sy,
+  syy, sxy, svy, svyy, svxy) or four (approx: sy, syy, sxy, svy), the
+  path-independent folds ``vstats`` ``[S, 3]`` = (sv, svx, svxx) ride
+  beside sx/sxx, and the tick also returns ``[S, K]`` match
+  probabilities (:func:`_moment_scores_prob` or
+  :func:`_moment_scores_prob_approx`).
 * the **offline verdict** (:func:`dtw_score_bank_many`): complete
-  queries scored at the closed alignment endpoint ``(N-1, len_k-1)``.
+  queries scored at the closed alignment endpoint ``(N-1, len_k-1)``,
+  with match probabilities when ``xvars`` is given.
 
-CUDA tensors go through kernels K1 and K2; CPU tensors through their
-plain PyTorch versions.  :func:`bank_extend_tick_scored` is the plain tick
-on any device, which is what the kernel tick is held against.
+CUDA tensors go through kernels K1 (point tick), K4 (probabilistic
+ticks), K2 (point verdict), K5 and K6 (exact and approx probabilistic
+verdicts); CPU tensors through their plain PyTorch versions.
+:func:`bank_extend_tick_scored`, :func:`bank_extend_tick_scored_var` and
+:func:`bank_extend_tick_scored_var_approx` are the plain ticks on any
+device, which is what the kernel ticks are held against.
 
 Conventions match ``repro.core.dtw``: rows saturate at ``_INF = 3e38``,
 moments are centred by ``_MOM_SHIFT = 0.5``, the predecessor is chosen
@@ -42,14 +55,21 @@ from ..kernels.dtw import score as _score
 from ..kernels.dtw import stream as _stream
 
 __all__ = ["bank_extend_tick_scored", "bank_extend_tick_scored_dispatch",
-           "tick_state_from_numpy", "query_moments", "ScoreBankPlan",
-           "build_score_plan", "dtw_score_bank_many", "dtw_score_bank"]
+           "bank_extend_tick_scored_var",
+           "bank_extend_tick_scored_var_dispatch",
+           "bank_extend_tick_scored_var_approx",
+           "bank_extend_tick_scored_var_approx_dispatch",
+           "tick_state_from_numpy", "query_moments", "query_var_moments",
+           "ScoreBankPlan", "build_score_plan", "dtw_score_bank_many",
+           "dtw_score_bank"]
 
 _INF = _stream.INF
 _MOM_SHIFT = _stream.MOM_SHIFT
 
-#: The one score tail (shared with the verdict kernel's plain version).
+#: The score tails (shared with the verdict kernels' plain versions).
 _corr_from_moments = _score.corr_from_moments
+_prob_from_moments = _score.prob_from_moments
+_prob_from_moments_approx = _score.prob_from_moments_approx
 
 #: Chunks are padded up to the next power of two (>= _CHUNK_MIN), as the
 #: reference does, so a tick's chunk width takes few distinct values.
@@ -60,33 +80,75 @@ def _chunk_bucket(c: int) -> int:
     return max(_CHUNK_MIN, 1 << (max(c, 1) - 1).bit_length())
 
 
-def _moment_scores(rows, moms, ns, sx, sxx, lengths) -> torch.Tensor:
-    """Open-end warp correlation per (job, reference) -> [S, K].
-
-    Mask the DP row to true columns, take the open-end argmin (the best
-    reference prefix; ``torch.argmin`` returns the first minimum, as
-    ``jnp.argmin`` does), read the moments there and apply the score
-    tail.  Slots with no samples score 0."""
+def _open_end_moments(rows, moms, lengths) -> torch.Tensor:
+    """Moments at each (job, reference)'s open-end endpoint ->
+    [NCH, S, K]: mask the DP row to true columns and take the argmin (the
+    best reference prefix; ``torch.argmin`` returns the first minimum, as
+    ``jnp.argmin`` does)."""
     s, m, k = rows.shape
     colmask = torch.arange(m, device=rows.device)[:, None] < lengths[None, :]
     masked = torch.where(colmask[None], rows, _INF)
     j_end = torch.argmin(masked, dim=1)                            # [S, K]
-    msel = torch.gather(moms, 2, j_end[None, :, None, :].expand(3, s, 1, k)
-                        )[:, :, 0, :]                              # [3, S, K]
+    nch = moms.shape[0]
+    return torch.gather(moms, 2, j_end[None, :, None, :].expand(
+        nch, s, 1, k))[:, :, 0, :]                                 # [NCH,S,K]
+
+
+def _moment_scores(rows, moms, ns, sx, sxx, lengths) -> torch.Tensor:
+    """Open-end warp correlation per (job, reference) -> [S, K], read
+    from the first three moment channels.  Slots with no samples score
+    0."""
+    msel = _open_end_moments(rows, moms[:3], lengths)
     n = torch.clamp_min(ns, 1).to(torch.float32)[:, None]
     out = _corr_from_moments(msel[0], msel[1], msel[2], sx[:, None],
                              sxx[:, None], n)
     return torch.where(ns[:, None] > 0, out, 0.0)
 
 
+def _moment_scores_prob(rows, moms, ns, sx, sxx, vstats, lengths,
+                        threshold: float) -> torch.Tensor:
+    """Open-end match probability per (job, reference) -> [S, K]: the
+    same endpoint as :func:`_moment_scores`, all six channels of the
+    [6, S, M, K] slab and the ``vstats`` [S, 3] folds through
+    :func:`_prob_from_moments`.  Empty slots get 0 (no evidence)."""
+    ms = _open_end_moments(rows, moms, lengths)
+    n = torch.clamp_min(ns, 1).to(torch.float32)[:, None]
+    sv, svx, svxx = (vstats[:, i:i + 1] for i in range(3))
+    probs = _prob_from_moments(ms[0], ms[1], ms[2], ms[3], ms[4], ms[5],
+                               sx[:, None], sxx[:, None], sv, svx, svxx, n,
+                               threshold)
+    return torch.where(ns[:, None] > 0, probs, 0.0)
+
+
+def _moment_scores_prob_approx(rows, moms, ns, sx, sxx, vstats, lengths,
+                               threshold: float) -> torch.Tensor:
+    """The four-channel twin of :func:`_moment_scores_prob` through
+    :func:`_prob_from_moments_approx`.  The first four channels of an
+    exact six-channel slab give the same result (channel 3 is svy in
+    both layouts)."""
+    ms = _open_end_moments(rows, moms[:4], lengths)
+    n = torch.clamp_min(ns, 1).to(torch.float32)[:, None]
+    sv, svx, svxx = (vstats[:, i:i + 1] for i in range(3))
+    probs = _prob_from_moments_approx(ms[0], ms[1], ms[2], ms[3],
+                                      sx[:, None], sxx[:, None], sv, svx,
+                                      svxx, n, threshold)
+    return torch.where(ns[:, None] > 0, probs, 0.0)
+
+
+def _centred_valid(chunks, nvalid):
+    """The chunk's centred samples ``x - 0.5`` and the [S, C] f32 mask of
+    its valid samples."""
+    c = chunks.shape[1]
+    vmask = (torch.arange(c, device=chunks.device)[None, :]
+             < nvalid[:, None]).to(torch.float32)
+    return chunks - _MOM_SHIFT, vmask
+
+
 def _tick_tail(rows, moms, ns, sx, sxx, lengths, chunks, nvalid):
     """Query fold and open-end reduction around a chunk extend (kept out
     of the kernel, as in the reference): ``sx += Σ(x - 0.5)``,
     ``sxx += Σ(x - 0.5)²`` over the valid samples."""
-    c = chunks.shape[1]
-    xm = chunks - _MOM_SHIFT
-    vmask = (torch.arange(c, device=chunks.device)[None, :]
-             < nvalid[:, None]).to(torch.float32)
+    xm, vmask = _centred_valid(chunks, nvalid)
     sx2 = sx + torch.sum(xm * vmask, dim=1)
     sxx2 = sxx + torch.sum(xm * xm * vmask, dim=1)
     ns2 = ns + nvalid
@@ -121,20 +183,118 @@ def bank_extend_tick_scored_dispatch(rows, moms, ns, sx, sxx, bank_t,
     return _tick_tail(rows2, moms2, ns, sx, sxx, lengths, chunks, nvalid)
 
 
+def _tick_tail_var(rows, moms, ns, sx, sxx, vstats, lengths, chunks,
+                   vchunks, nvalid, threshold: float):
+    """The probabilistic tick's tail: the point tail, plus the variance
+    folds ``vstats += (Σv, Σv(x - 0.5), Σv(x - 0.5)²)`` over the valid
+    samples and the open-end match probabilities (exact tail for a
+    six-channel slab, approx for four) ->
+    ``(rows, moms, ns, sx, sxx, scores, vstats, probs)``."""
+    xm, vmask = _centred_valid(chunks, nvalid)
+    vq = vchunks * vmask
+    vstats2 = vstats + torch.stack(
+        [torch.sum(vq, dim=1), torch.sum(vq * xm, dim=1),
+         torch.sum(vq * xm * xm, dim=1)], dim=1)                  # [S, 3]
+    rows, moms, ns2, sx2, sxx2, scores = _tick_tail(
+        rows, moms, ns, sx, sxx, lengths, chunks, nvalid)
+    prob_fn = _moment_scores_prob if moms.shape[0] == 6 \
+        else _moment_scores_prob_approx
+    probs = prob_fn(rows, moms, ns2, sx2, sxx2, vstats2, lengths, threshold)
+    return rows, moms, ns2, sx2, sxx2, scores, vstats2, probs
+
+
+def _check_nch(moms, nch: int, what: str) -> None:
+    if moms.shape[0] != nch:
+        raise ValueError(f"{what} needs a {nch}-channel moment slab, got "
+                         f"{moms.shape[0]} channels")
+
+
+def bank_extend_tick_scored_var(rows, moms, ns, sx, sxx, vstats, bank_t,
+                                lengths, chunks, vchunks, nvalid, qlens,
+                                band: Optional[int] = None,
+                                threshold: float = 0.9):
+    """Plain variance-carrying scoring tick on the tensors' device ->
+    ``(rows, moms, ns, sx, sxx, scores, vstats, probs)``.
+
+    As :func:`bank_extend_tick_scored` with moms [6, S, M, K] (sy, syy,
+    sxy, svy, svyy, svxy), vstats [S, 3] (sv, svx, svxx) and vchunks
+    [S, C] per-sample variances; ``probs`` [S, K] are the
+    :func:`_prob_from_moments` match probabilities P[true warp
+    correlation >= ``threshold``] at the open-end endpoints."""
+    _check_nch(moms, 6, "the exact variance tick")
+    rows2, moms2 = _stream.stream_bank_extend_scored_var_plain(
+        rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid, qlens,
+        band)
+    return _tick_tail_var(rows2, moms2, ns, sx, sxx, vstats, lengths,
+                          chunks, vchunks, nvalid, threshold)
+
+
+def bank_extend_tick_scored_var_dispatch(rows, moms, ns, sx, sxx, vstats,
+                                         bank_t, lengths, chunks, vchunks,
+                                         nvalid, qlens,
+                                         band: Optional[int] = None,
+                                         threshold: float = 0.9):
+    """The service's exact probabilistic tick: kernel K4 with six
+    channels for CUDA tensors (the plain version for CPU tensors), then
+    the tail.  Same arguments and 8-tuple as
+    :func:`bank_extend_tick_scored_var`."""
+    _check_nch(moms, 6, "the exact variance tick")
+    rows2, moms2 = _stream.stream_bank_extend_scored_var(
+        rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid, qlens,
+        band)
+    return _tick_tail_var(rows2, moms2, ns, sx, sxx, vstats, lengths,
+                          chunks, vchunks, nvalid, threshold)
+
+
+def bank_extend_tick_scored_var_approx(rows, moms, ns, sx, sxx, vstats,
+                                       bank_t, lengths, chunks, vchunks,
+                                       nvalid, qlens,
+                                       band: Optional[int] = None,
+                                       threshold: float = 0.9):
+    """Plain approximate variance-carrying tick: as
+    :func:`bank_extend_tick_scored_var` with a FOUR-channel slab
+    [4, S, M, K] (sy, syy, sxy, svy) and the
+    :func:`_prob_from_moments_approx` tail."""
+    _check_nch(moms, 4, "the approx variance tick")
+    rows2, moms2 = _stream.stream_bank_extend_scored_var_plain(
+        rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid, qlens,
+        band)
+    return _tick_tail_var(rows2, moms2, ns, sx, sxx, vstats, lengths,
+                          chunks, vchunks, nvalid, threshold)
+
+
+def bank_extend_tick_scored_var_approx_dispatch(
+        rows, moms, ns, sx, sxx, vstats, bank_t, lengths, chunks, vchunks,
+        nvalid, qlens, band: Optional[int] = None, threshold: float = 0.9):
+    """The service's approx probabilistic tick: kernel K4 with four
+    channels for CUDA tensors (the plain version for CPU tensors), then
+    the tail.  Same arguments and 8-tuple as
+    :func:`bank_extend_tick_scored_var_approx`."""
+    _check_nch(moms, 4, "the approx variance tick")
+    rows2, moms2 = _stream.stream_bank_extend_scored_var(
+        rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid, qlens,
+        band)
+    return _tick_tail_var(rows2, moms2, ns, sx, sxx, vstats, lengths,
+                          chunks, vchunks, nvalid, threshold)
+
+
 def tick_state_from_numpy(rows, moms, ns, sx, sxx,
-                          device: Union[str, torch.device, None] = None):
+                          device: Union[str, torch.device, None] = None,
+                          vstats=None):
     """Tick state as ``repro`` holds it (numpy: rows [S, M, K], moms
-    [3, S, M, K], ns [S], sx/sxx [S]) -> the port's tensors on
-    ``device`` (f32, f32, i32, f32, f32), so both ticks can resume from
-    the same mid-flight state."""
+    [NCH, S, M, K], ns [S], sx/sxx [S], and in variance mode vstats
+    [S, 3]) -> the port's tensors on ``device`` (f32, f32, i32, f32,
+    f32, f32), so both ticks can resume from the same mid-flight
+    state."""
     dev = resolve_device(device)
 
     def put(a, dtype):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=dev)
-    return (put(rows, torch.float32), put(moms, torch.float32),
-            put(ns, torch.int32), put(sx, torch.float32),
-            put(sxx, torch.float32))
+    out = (put(rows, torch.float32), put(moms, torch.float32),
+           put(ns, torch.int32), put(sx, torch.float32),
+           put(sxx, torch.float32))
+    return out if vstats is None else out + (put(vstats, torch.float32),)
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +346,18 @@ def build_score_plan(series, lengths=None,
         lengths=torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def query_var_moments(x: np.ndarray, v: np.ndarray
+                      ) -> Tuple[np.float32, np.float32, np.float32]:
+    """Host-side path-independent variance folds (sv, svx, svxx) of a
+    query with per-sample variances ``v`` — the variance-mode companions
+    of :func:`query_moments` (same float64 accumulation, same
+    batch-invariance)."""
+    xm = np.asarray(x, np.float64).reshape(-1) - _MOM_SHIFT
+    vv = np.asarray(v, np.float64).reshape(-1)
+    return (np.float32(vv.sum()), np.float32((vv * xm).sum()),
+            np.float32((vv * xm * xm).sum()))
+
+
 def dtw_score_bank_many(xs, bank, lengths=None, xlens=None,
                         band: Optional[int] = None, sx=None, sxx=None, *,
                         xvars=None, vstats=None, threshold: float = 0.9,
@@ -201,13 +373,17 @@ def dtw_score_bank_many(xs, bank, lengths=None, xlens=None,
     [K, M] with ``lengths`` as everywhere else.  ``sx``/``sxx`` are the
     per-query folds (:func:`query_moments`), computed here when None.
     Runs on ``plan``'s device when a plan is given, else on ``device``
-    (CUDA by default).  Variance mode (``xvars``, ``vstats``,
-    ``prob_mode``; ``threshold`` only matters there) is not ported yet.
+    (CUDA by default).
+
+    Variance mode: ``xvars`` [J, N] per-sample measurement variances
+    (``vstats`` [J, 3] = (sv, svx, svxx) folds optional, see
+    :func:`query_var_moments`) makes the result ``(scores, probs)`` (plus
+    dists with ``return_distances``), ``probs`` [J, K] being P[true warp
+    correlation >= ``threshold``] through the exact six-channel tail
+    (kernel K5) or, with ``prob_mode="approx"``, the single-proxy tail
+    (kernel K6).  All-zero ``xvars`` reduce ``probs`` to the point rule
+    ``scores >= threshold`` exactly.
     """
-    if xvars is not None or vstats is not None or prob_mode != "exact":
-        raise NotImplementedError(
-            "probabilistic scoring (xvars=, vstats=, prob_mode=) is not "
-            "ported yet: ROADMAP.md queue 1 item 8")
     xs = np.asarray(xs, np.float32)
     if xs.ndim != 2:
         raise ValueError(f"xs must be [J, N], got shape {xs.shape}")
@@ -220,6 +396,19 @@ def dtw_score_bank_many(xs, bank, lengths=None, xlens=None,
         folds = [query_moments(xs[i, :xlens[i]]) for i in range(j)]
         sx = np.asarray([f[0] for f in folds], np.float32)
         sxx = np.asarray([f[1] for f in folds], np.float32)
+    if xvars is not None:
+        xvars = np.asarray(xvars, np.float32)
+        if xvars.shape != xs.shape:
+            raise ValueError(f"xvars must match xs shape {xs.shape}, "
+                             f"got {xvars.shape}")
+        if vstats is None:
+            vstats = np.asarray(
+                [query_var_moments(xs[i, :xlens[i]], xvars[i, :xlens[i]])
+                 for i in range(j)], np.float32)
+        vstats = np.asarray(vstats, np.float32).reshape(j, 3)
+    if prob_mode not in ("exact", "approx"):
+        raise ValueError(f"prob_mode must be 'exact' or 'approx', "
+                         f"got {prob_mode!r}")
     if plan is None:
         plan = build_score_plan(series, lengths, device)
     elif plan.k != k:
@@ -229,13 +418,23 @@ def dtw_score_bank_many(xs, bank, lengths=None, xlens=None,
     dev = plan.device
     if k == 0:
         z = torch.zeros((j, 0), dtype=torch.float32, device=dev)
-        return (z, z) if return_distances else z
-    scores, dists = _score.score_bank_offline(
-        torch.tensor(xs, device=dev),
-        torch.tensor(xlens, dtype=torch.int32, device=dev),
-        plan.bank_t, plan.lengths,
-        torch.tensor(np.asarray(sx, np.float32), device=dev),
-        torch.tensor(np.asarray(sxx, np.float32), device=dev), band)
+        out = (z, z) if xvars is not None else (z,)
+        out = out + (z,) if return_distances else out
+        return out if len(out) > 1 else out[0]
+    args = (torch.tensor(xs, device=dev),
+            torch.tensor(xlens, dtype=torch.int32, device=dev),
+            plan.bank_t, plan.lengths,
+            torch.tensor(np.asarray(sx, np.float32), device=dev),
+            torch.tensor(np.asarray(sxx, np.float32), device=dev))
+    if xvars is not None:
+        x, xl, bank_t, lens, sxt, sxxt = args
+        scores, probs, dists = _score.score_bank_offline_var(
+            x, torch.tensor(xvars, device=dev), xl, bank_t, lens, sxt, sxxt,
+            torch.tensor(vstats, device=dev), band, float(threshold),
+            approx=prob_mode == "approx")
+        return (scores, probs, dists) if return_distances \
+            else (scores, probs)
+    scores, dists = _score.score_bank_offline(*args, band)
     return (scores, dists) if return_distances else scores
 
 

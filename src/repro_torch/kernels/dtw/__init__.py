@@ -1,5 +1,6 @@
-"""DTW kernels: K1 the scored streaming tick (``stream``), K2 the offline
-verdict scorer (``score``)."""
+"""DTW kernels: K1 and K4, the point and probabilistic streaming ticks
+(``stream``); K2, K5 and K6, the point, exact and approx probabilistic
+verdict scorers (``score``)."""
 
 from . import score, stream
 

@@ -1,18 +1,24 @@
-"""K1: the scored streaming tick — CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""K1 and K4: the scored streaming ticks — CUDA kernels, their wrappers
+and their plain PyTorch versions.
 
-One service tick advances S streaming DTW rows and their (sy, syy, sxy)
-warp-path correlation moments by one chunk of C samples against the whole
-reference bank (``repro/kernels/dtw/stream.py::_stream_scored_kernel`` on
-the TPU).  The tensors keep the service's K-last tick layout: rows
-``[S, M, K]``, moms ``[3, S, M, K]``, bank ``[M, K]``.
+One service tick advances S streaming DTW rows and their warp-path
+correlation moments by one chunk of C samples against the whole reference
+bank (``repro/kernels/dtw/stream.py::_stream_scored_kernel`` on the TPU).
+K1 carries the three point channels (sy, syy, sxy); K4 (the same Pallas
+kernel with ``variance=True``) carries six (exact: sy, syy, sxy, svy,
+svyy, svxy) or four (approx: sy, syy, sxy, svy), each variance channel's
+per-cell pair being the sample's variance times the matching point pair.
+The tensors keep the service's K-last tick layout: rows ``[S, M, K]``,
+moms ``[NCH, S, M, K]``, bank ``[M, K]``, variances ``[S, C]``.
 
-* :func:`stream_bank_extend_scored` is the wrapper: for CUDA tensors it
-  launches ``csrc/stream.cu`` (or raises); for CPU tensors it runs
-  :func:`stream_bank_extend_scored_plain`.  ``LIB.launches`` counts
-  kernel launches.
-* :func:`stream_bank_extend_scored_plain` evaluates the same recurrence
-  along anti-diagonals of the chunk block (the formulation of
+* :func:`stream_bank_extend_scored` (K1) and
+  :func:`stream_bank_extend_scored_var` (K4) are the wrappers: for CUDA
+  tensors they launch ``csrc/stream.cu`` (or raise); for CPU tensors they
+  run the plain versions.  ``LIB.launches`` counts K1's launches and
+  ``VAR_LAUNCHES[nch]`` K4's, per channel count.
+* :func:`stream_bank_extend_scored_plain` and
+  :func:`stream_bank_extend_scored_var_plain` evaluate the same
+  recurrence along anti-diagonals of the chunk block (the formulation of
   ``repro.core.dtw._bank_extend_diag_impl``): every cell is
   ``min(d + min(min(diag, vert), horiz), 3e38)`` with the diag, vert,
   horiz selection order and horizontal runs carrying their anchor's
@@ -31,7 +37,9 @@ import torch
 from ..common import KernelLib, check_kernel_device, check_tensor
 
 __all__ = ["INF", "MOM_SHIFT", "stream_bank_extend_scored",
-           "stream_bank_extend_scored_plain", "LIB"]
+           "stream_bank_extend_scored_plain",
+           "stream_bank_extend_scored_var",
+           "stream_bank_extend_scored_var_plain", "LIB", "VAR_LAUNCHES"]
 
 #: DP saturation value (repro's ``_INF``).
 INF = 3.0e38
@@ -49,8 +57,37 @@ _I = ctypes.c_int
 LIB = KernelLib(
     "dtw_stream", os.path.join(_CSRC, "stream.cu"),
     headers=(os.path.join(_CSRC, "dtw_sweep.cuh"),),
-    signatures={"dtw_stream_scored": (
-        [_P] * 10 + [_I] * 5 + [_P], ctypes.c_int)})
+    signatures={
+        "dtw_stream_scored": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
+        "dtw_stream_scored_var": ([_P] * 11 + [_I] * 6 + [_P],
+                                  ctypes.c_int)})
+
+#: K4 launches by moment channel count: 6 is the exact tick, 4 the
+#: approx tick.  The wrapper adds one per launch; a caller resets them to
+#: 0 before a run it audits.
+VAR_LAUNCHES = {6: 0, 4: 0}
+
+
+def _check_tick(rows, moms, ns, bank_t, lengths, chunks, nvalid, qlens,
+                band, nch, vchunks=None) -> None:
+    """Raise unless the tick's tensors are what the kernel's pointer
+    arithmetic assumes (contiguous f32/i32 of the tick's shapes, one
+    device, a Hopper card)."""
+    dev = rows.device
+    check_kernel_device(rows)
+    s, m, k = rows.shape
+    c = chunks.shape[1]
+    check_tensor(rows, "rows", torch.float32, (s, m, k), dev)
+    check_tensor(moms, "moms", torch.float32, (nch, s, m, k), dev)
+    check_tensor(bank_t, "bank_t", torch.float32, (m, k), dev)
+    check_tensor(chunks, "chunks", torch.float32, (s, c), dev)
+    if vchunks is not None:
+        check_tensor(vchunks, "vchunks", torch.float32, (s, c), dev)
+    for name, t, n in (("ns", ns, s), ("nvalid", nvalid, s),
+                       ("qlens", qlens, s), ("lengths", lengths, k)):
+        check_tensor(t, name, torch.int32, (n,), dev)
+    if band is not None and band < 0:
+        raise ValueError("band must be >= 0 (or None)")
 
 
 def stream_bank_extend_scored(rows, moms, ns, bank_t, lengths, chunks,
@@ -66,31 +103,60 @@ def stream_bank_extend_scored(rows, moms, ns, bank_t, lengths, chunks,
         return stream_bank_extend_scored_plain(rows, moms, ns, bank_t,
                                                lengths, chunks, nvalid,
                                                qlens, band)
-    dev = rows.device
-    check_kernel_device(rows)
+    _check_tick(rows, moms, ns, bank_t, lengths, chunks, nvalid, qlens,
+                band, 3)
     s, m, k = rows.shape
-    c = chunks.shape[1]
-    check_tensor(rows, "rows", torch.float32, (s, m, k), dev)
-    check_tensor(moms, "moms", torch.float32, (3, s, m, k), dev)
-    check_tensor(bank_t, "bank_t", torch.float32, (m, k), dev)
-    check_tensor(chunks, "chunks", torch.float32, (s, c), dev)
-    for name, t, n in (("ns", ns, s), ("nvalid", nvalid, s),
-                       ("qlens", qlens, s), ("lengths", lengths, k)):
-        check_tensor(t, name, torch.int32, (n,), dev)
-    if band is not None and band < 0:
-        raise ValueError("band must be >= 0 (or None)")
     out_rows = torch.empty_like(rows)
     out_moms = torch.empty_like(moms)
     err = LIB.get().dtw_stream_scored(
         rows.data_ptr(), moms.data_ptr(), out_rows.data_ptr(),
         out_moms.data_ptr(), ns.data_ptr(), nvalid.data_ptr(),
         qlens.data_ptr(), bank_t.data_ptr(), lengths.data_ptr(),
-        chunks.data_ptr(), s, m, k, c, -1 if band is None else int(band),
-        torch.cuda.current_stream(dev).cuda_stream)
+        chunks.data_ptr(), s, m, k, chunks.shape[1],
+        -1 if band is None else int(band),
+        torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dtw_stream_scored launch failed: CUDA error "
                            f"{err}")
     LIB.launches += 1
+    return out_rows, out_moms
+
+
+def stream_bank_extend_scored_var(rows, moms, ns, bank_t, lengths, chunks,
+                                  vchunks, nvalid, qlens,
+                                  band: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: advance the variance-carrying tick state by one padded chunk
+    -> ``(rows, moms)``.
+
+    As :func:`stream_bank_extend_scored`, with moms [NCH, S, M, K] of
+    NCH = 6 (exact) or 4 (approx) channels and vchunks [S, C] f32 the
+    samples' measurement variances.  CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    nch = moms.shape[0]
+    if nch not in VAR_LAUNCHES:
+        raise ValueError(f"a variance tick carries 6 (exact) or 4 "
+                         f"(approx) moment channels, got {nch}")
+    if not rows.is_cuda:
+        return stream_bank_extend_scored_var_plain(
+            rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
+            qlens, band)
+    _check_tick(rows, moms, ns, bank_t, lengths, chunks, nvalid, qlens,
+                band, nch, vchunks)
+    s, m, k = rows.shape
+    out_rows = torch.empty_like(rows)
+    out_moms = torch.empty_like(moms)
+    err = LIB.get().dtw_stream_scored_var(
+        rows.data_ptr(), moms.data_ptr(), out_rows.data_ptr(),
+        out_moms.data_ptr(), ns.data_ptr(), nvalid.data_ptr(),
+        qlens.data_ptr(), bank_t.data_ptr(), lengths.data_ptr(),
+        chunks.data_ptr(), vchunks.data_ptr(), s, m, k, chunks.shape[1],
+        -1 if band is None else int(band), nch,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dtw_stream_scored_var launch failed: CUDA "
+                           f"error {err}")
+    VAR_LAUNCHES[nch] += 1
     return out_rows, out_moms
 
 
@@ -99,13 +165,36 @@ def stream_bank_extend_scored_plain(rows, moms, ns, bank_t, lengths,
                                     band: Optional[int] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`stream_bank_extend_scored` (same
-    arguments and results), on whatever device the tensors are on.
+    arguments and results), on whatever device the tensors are on."""
+    return _extend_plain(rows, moms, ns, bank_t, lengths, chunks, None,
+                         nvalid, qlens, band)
+
+
+def stream_bank_extend_scored_var_plain(rows, moms, ns, bank_t, lengths,
+                                        chunks, vchunks, nvalid, qlens,
+                                        band: Optional[int] = None
+                                        ) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Plain PyTorch version of :func:`stream_bank_extend_scored_var`
+    (same arguments and results), on whatever device the tensors are
+    on."""
+    return _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks,
+                         nvalid, qlens, band)
+
+
+def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
+                  qlens, band: Optional[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The anti-diagonal formulation shared by both plain versions.
 
     Cell (i, j) of the chunk block lives on anti-diagonal t = i + j at
     slot i; each of the C + M - 1 steps updates one [S, C, K] diagonal
     elementwise.  The state row enters as the diagonal-indexed boundary,
     and slot C - 1 emits the new state row column by column.  Padded
-    samples (i >= nvalid) pass the row above through unchanged."""
+    samples (i >= nvalid) pass the row above through unchanged.  With
+    ``vchunks`` the moms' channels 3.. take v times the matching point
+    pair, v * (xm * yc) in that order (the reference's)."""
+    nch = moms.shape[0]
     s, c = chunks.shape
     m, k = bank_t.shape
     dev = rows.device
@@ -120,13 +209,14 @@ def stream_bank_extend_scored_plain(rows, moms, ns, bank_t, lengths,
     prow = torch.cat([corner[:, None, None].expand(s, 1, k), rows,
                       torch.full((s, c, k), INF, dtype=f32, device=dev)],
                      dim=1)
-    pmom = torch.cat([torch.zeros((3, s, 1, k), dtype=f32, device=dev),
+    pmom = torch.cat([torch.zeros((nch, s, 1, k), dtype=f32, device=dev),
                       moms,
-                      torch.zeros((3, s, c, k), dtype=f32, device=dev)],
+                      torch.zeros((nch, s, c, k), dtype=f32, device=dev)],
                      dim=2)
     valid = (ii[None, :] < nvalid[:, None])[:, :, None]          # [S, C, 1]
     xm = (chunks - MOM_SHIFT)[:, :, None]                        # [S, C, 1]
     x3 = chunks[:, :, None]
+    vv = None if vchunks is None else vchunks[:, :, None]        # [S, C, 1]
     if band is not None:
         centers = torch.div((ns[:, None] + ii[None, :])[:, :, None]
                             * (lengths[None, None, :] - 1),
@@ -136,11 +226,11 @@ def stream_bank_extend_scored_plain(rows, moms, ns, bank_t, lengths,
     pvert = torch.cat([prow[:, 0:1],
                        torch.full((s, c - 1, k), INF, dtype=f32,
                                   device=dev)], dim=1)
-    bprev = torch.zeros((3, s, c, k), dtype=f32, device=dev)
+    bprev = torch.zeros((nch, s, c, k), dtype=f32, device=dev)
     mprev = torch.zeros_like(bprev)
     mvert = torch.zeros_like(bprev)
     out_rows = torch.empty((s, m, k), dtype=f32, device=dev)
-    out_moms = torch.empty((3, s, m, k), dtype=f32, device=dev)
+    out_moms = torch.empty((nch, s, m, k), dtype=f32, device=dev)
     for t in range(c + m - 1):
         yd = yrp[c + m - 1 - t: 2 * c + m - 1 - t]                # [C, K]
         d = (x3 - yd[None]).abs()
@@ -154,8 +244,10 @@ def stream_bank_extend_scored_plain(rows, moms, ns, bank_t, lengths,
         cell = torch.clamp_max(d + best, INF)
         cell = torch.where(valid, cell, p_vert)
         yc = torch.where(yd.abs() < _Y_VALID, yd - MOM_SHIFT, 0.0)[None]
-        delta = torch.stack([yc.expand(s, c, k), (yc * yc).expand(s, c, k),
-                             xm * yc])                           # [3, S, C, K]
+        pairs = [yc.expand(s, c, k), (yc * yc).expand(s, c, k), xm * yc]
+        if vv is not None:
+            pairs += [vv * p for p in pairs[:nch - 3]]
+        delta = torch.stack(pairs)                               # [NCH,S,C,K]
         m_vert = torch.cat([pmom[:, :, t + 1: t + 2], mprev[:, :, : c - 1]],
                            dim=2)
         m_diag = mvert

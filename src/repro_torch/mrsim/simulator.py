@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 __all__ = ["AppProfile", "APPS", "JobParams", "simulate_cpu_series",
-           "iter_cpu_series", "paper_param_sets"]
+           "simulate_cpu_series_uncertain", "iter_cpu_series",
+           "paper_param_sets"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +139,41 @@ def simulate_cpu_series(app: str, params: JobParams, *, run: int = 0,
     spikes = rng.random(u.shape) < 0.01
     u = np.where(spikes, u + rng.uniform(0.1, 0.3, size=u.shape), u)
     return np.clip(u, 0.0, 1.0).astype(np.float32)
+
+
+def simulate_cpu_series_uncertain(app: str, params: JobParams, *,
+                                  run: int = 0, dt: float = 1.0,
+                                  noise: float = 0.03
+                                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Heteroscedastic-noise twin of :func:`simulate_cpu_series` ->
+    ``(series, variance)``, both float32 [N].
+
+    The per-sample noise standard deviation is not constant: a slow
+    seeded envelope modulates it between ``0.25 * noise`` (a quiet
+    monitoring agent) and ``~1.75 * noise`` (a contended one), the shape
+    real SysStat pollers show when the node they share is loaded.  The
+    returned ``variance`` is the TRUE per-sample noise variance (the
+    envelope squared), what an uncertain-series matcher should be fed.
+    Its own RNG stream (seed namespace ``"het|"``) leaves
+    :func:`simulate_cpu_series` untouched.
+    """
+    clean = simulate_cpu_series(app, params, run=run, dt=dt, noise=0.0)
+    n = clean.shape[0]
+    h = hashlib.sha256(f"het|{app}|{params}|{run}".encode()).digest()
+    rng = np.random.default_rng(int.from_bytes(h[:4], "little"))
+    # slow envelope: a few random-phase sinusoids, normalized to
+    # [0.25, ~1.75] x noise.
+    t = np.arange(n, dtype=np.float64)
+    env = np.zeros(n)
+    for _ in range(3):
+        f = rng.uniform(0.002, 0.02)
+        env += rng.uniform(0.2, 1.0) * np.sin(2 * np.pi * f * t
+                                              + rng.uniform(0, 2 * np.pi))
+    env = 0.25 + 1.5 * (env - env.min()) / max(float(np.ptp(env)), 1e-9)
+    std = noise * env
+    u = clean.astype(np.float64) + rng.normal(0.0, 1.0, size=n) * std
+    var = (std * std).astype(np.float32)
+    return np.clip(u, 0.0, 1.0).astype(np.float32), var
 
 
 def iter_cpu_series(app: str, params: JobParams, *, run: int = 0,

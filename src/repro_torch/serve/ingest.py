@@ -30,9 +30,10 @@ here, so the tick engine only ever sees clean, causally-filtered chunks.
   whose monitoring agent has degraded.
 
 The filter is applied at *drain* time on the concatenated chunk, on the
-host, before the tick uploads it.  Per-sample measurement variances
-(``push(variance=)``, the probabilistic mode) are not ported yet:
-ROADMAP.md queue 1 item 8.
+host, before the tick uploads it.  In the probabilistic mode
+(``track_variance=True``) per-sample measurement variances ride beside
+the samples in a second queue (``push(variance=)``,
+``drain(with_variance=True)``).
 """
 
 from __future__ import annotations
@@ -450,20 +451,35 @@ class TraceLog:
 
 
 class _JobIngest:
-    """Per-job ingest state: queue + causal filter."""
+    """Per-job ingest state: queue (+ optional variance queue) + causal
+    filter."""
 
-    __slots__ = ("buffer", "filt", "pushed")
+    __slots__ = ("buffer", "vbuffer", "filt", "pushed")
 
     def __init__(self, buffer: BoundedBuffer,
-                 filt: Optional[StreamingFilter]) -> None:
+                 filt: Optional[StreamingFilter],
+                 vbuffer: Optional[BoundedBuffer] = None) -> None:
         self.buffer = buffer
+        self.vbuffer = vbuffer
         self.filt = filt
         self.pushed = 0
 
 
 class IngestFront:
     """Routes pushes into per-job bounded queues, stamps heartbeats, and
-    hands the tick engine causally-filtered chunks on drain."""
+    hands the tick engine causally-filtered chunks on drain.
+
+    ``track_variance=True`` adds a per-job *variance* queue riding in
+    lockstep with the sample queue (same limit/policy, identical chunk
+    sizes, so ``drop_oldest`` sheds both by the same counts and
+    ``reject`` raises before either mutates): :meth:`push` then accepts
+    optional per-sample measurement variances and
+    ``drain(with_variance=True)`` returns an aligned ``(chunk, vchunk)``
+    pair.  Samples pushed *without* an explicit variance get a default at
+    drain time: the squared causal-filter residual ``(raw - filtered)^2``
+    when ``denoise=True`` (the filter's own estimate of per-sample
+    measurement noise), else 0.0 — so exact pushes stay exact.
+    """
 
     def __init__(self, *, denoise: bool = False,
                  queue_limit: Optional[int] = None,
@@ -472,15 +488,12 @@ class IngestFront:
                  heartbeat_timeout: Optional[float] = None,
                  straggler_factor: float = 2.0,
                  track_variance: bool = False) -> None:
-        if track_variance:
-            raise NotImplementedError(
-                "per-sample variance tracking is not ported yet: "
-                "ROADMAP.md queue 1 item 8")
         BoundedBuffer(queue_limit, queue_policy)   # validate eagerly
         self.denoise = denoise
         self.queue_limit = queue_limit
         self.queue_policy = queue_policy
         self.trace = trace
+        self.track_variance = track_variance
         self.heartbeats = HeartbeatTracker(timeout=heartbeat_timeout) \
             if heartbeat_timeout is not None else None
         self.stragglers = StragglerDetector(factor=straggler_factor)
@@ -490,27 +503,52 @@ class IngestFront:
     def register(self, job_id: str) -> None:
         self._jobs[job_id] = _JobIngest(
             BoundedBuffer(self.queue_limit, self.queue_policy),
-            StreamingFilter() if self.denoise else None)
+            StreamingFilter() if self.denoise else None,
+            BoundedBuffer(self.queue_limit, self.queue_policy)
+            if self.track_variance else None)
 
     def push(self, job_id: str, samples: np.ndarray,
              variance: Optional[np.ndarray] = None,
              now: Optional[float] = None) -> None:
-        if variance is not None:
-            raise NotImplementedError(
-                "push(variance=) is not ported yet: ROADMAP.md queue 1 "
-                "item 8")
         ji = self._jobs[job_id]
         s = np.asarray(samples, np.float32).reshape(-1)
+        if variance is not None and ji.vbuffer is None:
+            raise ValueError("per-sample variance requires "
+                             "track_variance=True on the IngestFront")
         # Poison checks run BEFORE anything is enqueued or journaled:
         # a poisoned push is atomic (nothing partially accepted), so the
         # serving layer can quarantine the job while survivors never see
         # the bad values.
         if not np.all(np.isfinite(s)):
             raise PoisonedSampleError(job_id, "non-finite sample (NaN/Inf)")
+        if ji.vbuffer is not None:
+            # NaN marks "no variance supplied" — resolved to the causal
+            # filter residual (or 0.0) at drain time, when the filtered
+            # values exist.
+            v = np.full((s.shape[0],), np.nan, np.float32) \
+                if variance is None \
+                else np.asarray(variance, np.float32).reshape(-1)
+            if v.shape[0] != s.shape[0]:
+                raise ValueError(f"{s.shape[0]} samples but "
+                                 f"{v.shape[0]} variances")
+            supplied = v[~np.isnan(v)]
+            if np.any(supplied < 0.0):
+                raise PoisonedSampleError(
+                    job_id, "variances must be >= 0")
+            if not np.all(np.isfinite(supplied)):
+                raise PoisonedSampleError(job_id, "non-finite variance")
         ji.buffer.append(s)                      # may raise Backpressure
+        if ji.vbuffer is not None and s.shape[0]:
+            # Same pre-push pending count and same chunk length as the
+            # sample buffer, so this cannot raise after buffer accepted.
+            ji.vbuffer.append(v)
         ji.pushed += s.shape[0]
         if self.trace is not None and s.shape[0]:
-            self.trace.append(job_id, s, now=now)
+            # journal with full replay context: the variance row (when
+            # tracked) and the heartbeat stamp ride the chunk record.
+            self.trace.append(
+                job_id, s,
+                variance=v if ji.vbuffer is not None else None, now=now)
         if now is not None:
             if self.heartbeats is not None:
                 self.heartbeats.beat(job_id, ji.pushed, now)
@@ -522,16 +560,33 @@ class IngestFront:
     def has_data(self, job_id: str) -> bool:
         return len(self._jobs[job_id].buffer) > 0
 
-    def drain(self, job_id: str) -> Optional[np.ndarray]:
+    def drain(self, job_id: str, with_variance: bool = False):
         """Buffered samples as ONE causally-filtered chunk (None when
         the queue is empty) — bit-identical to filtering the same
         samples in any other push/drain grouping (the streaming filter
-        is stateful and causal)."""
+        is stateful and causal).
+
+        ``with_variance=True`` (requires ``track_variance=True``)
+        returns an aligned ``(chunk, vchunk)`` pair instead, with
+        unsupplied variances defaulted from the filter residual."""
         ji = self._jobs[job_id]
+        if with_variance and ji.vbuffer is None:
+            raise ValueError("drain(with_variance=True) requires "
+                             "track_variance=True on the IngestFront")
         raw = ji.buffer.drain()
         if raw is None:
-            return None
-        return ji.filt(raw) if ji.filt is not None else raw
+            return (None, None) if with_variance else None
+        chunk = ji.filt(raw) if ji.filt is not None else raw
+        if ji.vbuffer is None:
+            return chunk
+        vchunk = ji.vbuffer.drain()
+        if not with_variance:
+            return chunk
+        resid = (raw - chunk) ** 2 if ji.filt is not None \
+            else np.zeros_like(raw)
+        vchunk = np.where(np.isnan(vchunk), resid, vchunk) \
+            .astype(np.float32)
+        return chunk, vchunk
 
     def dropped(self, job_id: str) -> int:
         return self._jobs[job_id].buffer.dropped

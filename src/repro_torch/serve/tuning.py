@@ -4,7 +4,7 @@ The paper's end goal is acting on a job *before* it finishes: compare the
 utilization pattern observed so far against the reference database, and
 as soon as the most probable execution pattern is clear, transfer that
 workload's tuned configuration.  This service runs that matching phase
-online, in exact point mode, on one device.
+online on one device, in exact point mode or in probabilistic mode.
 
 Layered serving stack
 ---------------------
@@ -21,13 +21,14 @@ Layered serving stack
   warp-path correlation moments of every row cell live stacked with every
   other job's as ``[S, M, K]`` / ``[3, S, M, K]`` device tensors (K
   last).  :meth:`TuningService.tick` drains every due job's samples into
-  ONE launch of the scored streaming kernel (K1), which returns a
-  ``[S, K]`` open-end warp-correlation array.  ``dispatch_count`` records
-  the invariant: dispatches == ticks with data, however many jobs are in
-  flight.
+  ONE launch of the scored streaming kernel (K1, or K4 in probabilistic
+  mode), which returns a ``[S, K]`` open-end warp-correlation array.
+  ``dispatch_count`` records the invariant: dispatches == ticks with
+  data, however many jobs are in flight.
 * **verdicts** (this module): :meth:`TuningService.finish` recomputes the
   final verdict from the job's full (causally filtered) query at the
-  closed alignment endpoint with the verdict kernel (K2).
+  closed alignment endpoint with the verdict kernel (K2, or K5 in
+  probabilistic mode).
   :meth:`finish_many` renders J decisions from one drain tick + one
   launch, and :meth:`finish_later` parks completed jobs in a drain queue
   that :meth:`drain_finishes` — or an automatic drain at
@@ -47,13 +48,38 @@ A job's decisions (early and final — matched workload, correlation,
 admission order, tick-rate cohort, capacity history and verdict
 batching: per-job DP state is row-independent and per-reference.
 
+Probabilistic (uncertain-series) mode
+-------------------------------------
+``min_probability=`` switches the decision gates from the point
+correlation to a calibrated match probability (arXiv:1112.5505): pushes
+may carry per-sample measurement variances (``push(..., variance=)``;
+unsupplied variances default to the causal filter's squared residual,
+or 0.0 without ``denoise``), the tick's moment slab carries the
+variance-weighted twins of (sy, syy, sxy) along the same warp path
+beside a per-slot ``[S, 3]`` (sv, svx, svxx) fold, and the tick returns
+``[S, K]`` probabilities ``P[true warp correlation >= threshold]``
+beside the scores.  The leader is still ranked by point correlation, but
+the commit gate becomes ``P >= min_probability`` (in flight and at the
+final verdict), and the emitted ``TuneDecision`` records the
+probability.  At zero input variance the probability is exactly 1.0 iff
+the correlation clears ``threshold``, so probabilistic decisions reduce
+bitwise to the point rule.  ``prob_mode`` picks the in-flight tail:
+
+* ``"exact"`` (default): six channels ([6, S, M, K]: sy, syy, sxy, svy,
+  svyy, svxy), the exact tail.
+* ``"approx"``: four channels (sy, syy, sxy, svy), svyy and svxy rebuilt
+  at the tail from the folds — 5 state channels a cell instead of 7.
+
+Verdicts (:meth:`finish`, :meth:`finish_many`) always go through the
+exact six-channel scorer (kernel K5), whatever mode served the ticks, so
+verdict probabilities are bitwise independent of ``prob_mode``.
+
 Not ported yet (the constructor keywords exist and raise
 ``NotImplementedError`` naming the ROADMAP.md queue item): the
 distance-only tick and the serving-front extras (``score_in_flight=
 False``, ``retry_policy``, ``chaos``, ``overload``, ``admission``,
 ``breaker``, :class:`MultiTenantTuningService`: item 6), the wavelet
-prefilter (item 7), probabilistic matching (``min_probability``,
-``prob_mode``: item 8) and bank sharding (``mesh``: item 10).
+prefilter (item 7) and bank sharding (``mesh``: item 10).
 """
 
 from __future__ import annotations
@@ -94,9 +120,14 @@ class InFlightJob:
     leader: Optional[str] = None
     stable_for: int = 0
     early: Optional[TuneDecision] = None
+    #: per-sample measurement variances aligned with ``x`` (filled only
+    #: in probabilistic mode; empty otherwise).
+    vx: _RowBuffer = dataclasses.field(default_factory=_RowBuffer)
     #: last [K] open-end score row seen for this job (float64 on the
     #: host; None until the first tick touches the job).
     last_sims: Optional[np.ndarray] = None
+    #: last [K] match-probability row (probabilistic mode only).
+    last_probs: Optional[np.ndarray] = None
     #: QoS class the job was submitted under (read by admission control,
     #: which is not ported yet).
     qos: str = "silver"
@@ -113,6 +144,9 @@ class TuningService:
     :class:`SeriesBank` (matching only).  ``device`` is where the tick
     state lives and the kernels run: CUDA unless the caller passes
     another (``device="cpu"`` runs the kernels' plain versions).
+    ``min_probability=`` enables the probabilistic decision rule and
+    ``prob_mode`` ("exact" or "approx", the latter needing
+    ``min_probability``) its in-flight tail; see the module docstring.
 
     Serving-front knobs:
 
@@ -162,9 +196,16 @@ class TuningService:
         if not score_in_flight:
             raise _not_ported("score_in_flight=False (the distance-only "
                               "tick, kernel K3)", 6)
-        if min_probability is not None or prob_mode != "exact":
-            raise _not_ported("probabilistic matching (min_probability=, "
-                              "prob_mode=)", 8)
+        if min_probability is not None \
+                and not 0.0 < min_probability <= 1.0:
+            raise ValueError("min_probability must be in (0, 1]")
+        if prob_mode not in ("exact", "approx"):
+            raise ValueError("prob_mode must be 'exact' or 'approx', got "
+                             f"{prob_mode!r}")
+        if prob_mode == "approx" and min_probability is None:
+            raise ValueError("prob_mode='approx' needs min_probability= "
+                             "(the approximate tail serves the in-flight "
+                             "probability gate)")
         if mesh is not None:
             raise _not_ported("bank sharding (mesh=)", 10)
         if prefilter_top is not None:
@@ -190,6 +231,8 @@ class TuningService:
         self._n_workloads = len(set(self._labels))
         self.band = band
         self.threshold = threshold
+        self.min_probability = min_probability
+        self.prob_mode = prob_mode
         self.margin = margin
         self.stable_ticks = stable_ticks
         self.min_fraction = min_fraction
@@ -210,17 +253,27 @@ class TuningService:
         self._front = IngestFront(
             denoise=denoise, queue_limit=queue_limit,
             queue_policy=queue_policy, trace=trace_log,
-            heartbeat_timeout=heartbeat_timeout)
+            heartbeat_timeout=heartbeat_timeout,
+            track_variance=min_probability is not None)
         self._sched = SlotScheduler(slots, elastic=elastic_slots)
         self._s_cap = self._sched.capacity
         dev, s = self.device, self._s_cap
         self._rows = torch.full((s, m, k), _dtw._INF, dtype=torch.float32,
                                 device=dev)
-        self._moms = torch.zeros((3, s, m, k), dtype=torch.float32,
+        # moment channels: 3 point, 6 exact-probability, 4 approx
+        if min_probability is None:
+            nch = 3
+        else:
+            nch = 4 if prob_mode == "approx" else 6
+        self._moms = torch.zeros((nch, s, m, k), dtype=torch.float32,
                                  device=dev)
         self._ns = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._sx = torch.zeros((s,), dtype=torch.float32, device=dev)
         self._sxx = torch.zeros((s,), dtype=torch.float32, device=dev)
+        # probabilistic mode: per-slot (sv, svx, svxx) variance folds
+        self._vstats = torch.zeros((s, 3), dtype=torch.float32,
+                                   device=dev) \
+            if min_probability is not None else None
         self._qlens = np.zeros((s,), np.int32)
 
         #: kernel launches issued by :meth:`tick` — one per tick with
@@ -247,10 +300,11 @@ class TuningService:
         # internal drain tick of another job's finish()); surfaced by the
         # next tick() return so no decision is ever dropped.
         self._undelivered: Dict[str, TuneDecision] = {}
-        # deferred-finish drain queue: (job_id, full query, early
-        # decision) awaiting one batched verdict, plus auto-drained
-        # decisions not yet handed to the caller.
+        # deferred-finish drain queue: (job_id, full query, variances or
+        # None, early decision) awaiting one batched verdict, plus
+        # auto-drained decisions not yet handed to the caller.
         self._finish_queue: List[Tuple[str, np.ndarray,
+                                       Optional[np.ndarray],
                                        Optional[TuneDecision]]] = []
         self._finished: Dict[str, TuneDecision] = {}
 
@@ -272,6 +326,9 @@ class TuningService:
         self._sx = torch.where(fresh, 0.0, self._sx.index_select(0, gather))
         self._sxx = torch.where(fresh, 0.0,
                                 self._sxx.index_select(0, gather))
+        if self._vstats is not None:
+            self._vstats = torch.where(fresh[:, None], 0.0,
+                                       self._vstats.index_select(0, gather))
         self._qlens = np.where(src >= 0, self._qlens[np.maximum(src, 0)],
                                0).astype(np.int32)
         self._s_cap = len(src)
@@ -291,6 +348,8 @@ class TuningService:
         self._ns = torch.where(md, 0, self._ns)
         self._sx = torch.where(md, 0.0, self._sx)
         self._sxx = torch.where(md, 0.0, self._sxx)
+        if self._vstats is not None:
+            self._vstats = torch.where(md[:, None], 0.0, self._vstats)
         self._dirty = []
 
     def _maybe_shrink_slots(self) -> None:
@@ -346,12 +405,16 @@ class TuningService:
              now: Optional[float] = None) -> None:
         """Buffer newly observed samples; consumed at the job's next due
         tick.  ``now`` stamps the heartbeat/straggler trackers (when
-        armed).  ``variance`` (probabilistic mode) is not ported yet.
+        armed).  ``variance`` (probabilistic mode only) carries aligned
+        per-sample measurement variances; when omitted the ingest layer
+        estimates them from the causal filter residual at drain time
+        (0.0 without ``denoise``).
 
-        NaN/Inf samples QUARANTINE the job: the push is rejected
-        atomically by the ingest layer, the job is evicted with the
-        reason recorded in :attr:`quarantined`, and
-        ``PoisonedSampleError`` is re-raised to the caller."""
+        Poisoned payloads (NaN/Inf samples, negative or non-finite
+        variances) QUARANTINE the job: the push is rejected atomically
+        by the ingest layer, the job is evicted with the reason recorded
+        in :attr:`quarantined`, and ``PoisonedSampleError`` is re-raised
+        to the caller."""
         if job_id in self.quarantined:
             # a sick agent keeps streaming; swallow, never resurrect.
             self.quarantine_dropped += 1
@@ -388,15 +451,23 @@ class TuningService:
         out: Dict[str, Optional[TuneDecision]] = self._undelivered
         self._undelivered = {}
         due = self._sched.due_jobs(now, self._jobs.keys())
-        pending: List[Tuple[InFlightJob, np.ndarray]] = []
+        prob = self.min_probability is not None
+        pending: List[Tuple[InFlightJob, np.ndarray,
+                            Optional[np.ndarray]]] = []
         for job in self._jobs.values():
             if job.job_id not in due:
                 continue
-            chunk = self._front.drain(job.job_id)
+            if prob:
+                chunk, vchunk = self._front.drain(job.job_id,
+                                                  with_variance=True)
+            else:
+                chunk, vchunk = self._front.drain(job.job_id), None
             if chunk is None:
                 continue
             job.x.append(chunk)
-            pending.append((job, chunk))
+            if vchunk is not None:
+                job.vx.append(vchunk)
+            pending.append((job, chunk, vchunk))
         if not pending:
             return out
 
@@ -406,26 +477,46 @@ class TuningService:
         self._apply_resets()
         self._maybe_shrink_slots()
 
-        c = _dtw._chunk_bucket(max(ch.shape[0] for _, ch in pending))
+        c = _dtw._chunk_bucket(max(ch.shape[0] for _, ch, _ in pending))
         chunks = np.zeros((self._s_cap, c), np.float32)
         nvalid = np.zeros((self._s_cap,), np.int32)
-        for job, ch in pending:
+        vchunks = np.zeros((self._s_cap, c), np.float32) if prob else None
+        for job, ch, vch in pending:
             chunks[job.slot, : ch.shape[0]] = ch
             nvalid[job.slot] = ch.shape[0]
+            if prob:
+                vchunks[job.slot, : ch.shape[0]] = vch
         dev = self.device
-        (self._rows, self._moms, self._ns, self._sx, self._sxx,
-         scores) = _dtw.bank_extend_tick_scored_dispatch(
-            self._rows, self._moms, self._ns, self._sx, self._sxx,
-            self._bank_t, self._lengths, torch.from_numpy(chunks).to(dev),
-            torch.from_numpy(nvalid).to(dev),
-            torch.from_numpy(self._qlens).to(dev), band=self.band)
+        args = (self._bank_t, self._lengths,
+                torch.from_numpy(chunks).to(dev))
+        tail = (torch.from_numpy(nvalid).to(dev),
+                torch.from_numpy(self._qlens).to(dev))
+        probs_all = None
+        if prob:
+            tick_fn = _dtw.bank_extend_tick_scored_var_approx_dispatch \
+                if self.prob_mode == "approx" \
+                else _dtw.bank_extend_tick_scored_var_dispatch
+            (self._rows, self._moms, self._ns, self._sx, self._sxx, scores,
+             self._vstats, probs) = tick_fn(
+                self._rows, self._moms, self._ns, self._sx, self._sxx,
+                self._vstats, *args, torch.from_numpy(vchunks).to(dev),
+                *tail, band=self.band, threshold=float(self.threshold))
+            probs_all = probs.cpu().numpy().astype(np.float64)
+        else:
+            (self._rows, self._moms, self._ns, self._sx, self._sxx,
+             scores) = _dtw.bank_extend_tick_scored_dispatch(
+                self._rows, self._moms, self._ns, self._sx, self._sxx,
+                *args, *tail, band=self.band)
         self.dispatch_count += 1
-        # the tick's only device -> host transfer: the [S, K] scores.
+        # the tick's device -> host transfers: the [S, K] scores (and
+        # the [S, K] probabilities in probabilistic mode).
         sims_all = scores.cpu().numpy().astype(np.float64)
 
-        for job, ch in pending:
+        for job, ch, _ in pending:
             job.n += ch.shape[0]
             job.last_sims = sims_all[job.slot]
+            if probs_all is not None:
+                job.last_probs = probs_all[job.slot]
             decision = self._maybe_decide(job) if job.early is None \
                 else None
             if out.get(job.job_id) is None:
@@ -466,14 +557,25 @@ class TuningService:
         else:
             job.stable_for = 1 if margin_ok else 0
         job.leader = leader
+        # confidence gate: the point correlation threshold, or in
+        # probabilistic mode the leader workload's match probability (a
+        # flat posterior keeps the service abstaining even when the point
+        # estimate clears the threshold).  At zero input variance the
+        # probability is exactly 1{corr >= threshold}: the gates agree.
+        lp = None
+        if self.min_probability is not None:
+            lp = self._reduce(job.last_probs).get(leader, 0.0)
+            confident = lp >= self.min_probability
+        else:
+            confident = ls >= self.threshold
         if (job.fraction_seen >= self.min_fraction
-                and ls >= self.threshold
+                and confident
                 and job.stable_for >= self.stable_ticks):
             cfg = self.db.best_config(leader) if self.db is not None else None
             job.early = TuneDecision(
                 workload=job.job_id, matched=leader, corr=ls, config=cfg,
                 scores=scores, fraction_seen=job.fraction_seen, final=False,
-                decided_at_fraction=job.fraction_seen)
+                decided_at_fraction=job.fraction_seen, probability=lp)
             return job.early
         return None
 
@@ -485,7 +587,7 @@ class TuningService:
         decision if one was emitted.  Survivors are untouched."""
         if job_id not in self._jobs:
             raise KeyError(job_id)
-        _, early = self._retire(job_id)
+        _, _, early = self._retire(job_id)
         self.evicted_count += 1
         return early
 
@@ -503,15 +605,20 @@ class TuningService:
                 if j in self._jobs]
 
     # -- completion ----------------------------------------------------------
-    def _verdict_scores(self, queries) -> np.ndarray:
-        """[J, K] float64 closed-end scores for J completed queries in ONE
-        launch of the verdict kernel, the Sakoe-Chiba band re-derived
-        from each query's TRUE length.  Queries with fewer than 2 samples
-        score 0 without touching the device."""
+    def _verdict_scores(self, queries, variances=None):
+        """[J, K] float64 closed-end scores (and, in probabilistic mode,
+        the [J, K] match probabilities, else None) for J completed
+        queries in ONE launch of the verdict kernel, the Sakoe-Chiba band
+        re-derived from each query's TRUE length.  Queries with fewer
+        than 2 samples score 0 without touching the device.  Probabilities
+        always come from the exact six-channel tail (kernel K5)."""
+        prob = self.min_probability is not None
         out = np.zeros((len(queries), self._k), np.float64)
+        pout = np.zeros((len(queries), self._k), np.float64) \
+            if prob else None
         live = [i for i, q in enumerate(queries) if q.shape[0] >= 2]
         if not live:
-            return out
+            return out, pout
         # pow2 buckets on both axes, as the reference pads them
         jb = _dtw._pad_pow2(len(live), lo=1)
         npad = _dtw._pad_pow2(max(queries[i].shape[0] for i in live))
@@ -519,33 +626,51 @@ class TuningService:
         xl = np.zeros((jb,), np.int32)
         sx = np.zeros((jb,), np.float32)
         sxx = np.zeros((jb,), np.float32)
+        xv = np.zeros((jb, npad), np.float32) if prob else None
         for r, i in enumerate(live):
             q = queries[i]
             xs[r, : q.shape[0]] = q
             xl[r] = q.shape[0]
             sx[r], sxx[r] = _dtw.query_moments(q)
-        scores = _dtw.dtw_score_bank_many(
+            if prob:
+                v = variances[i]
+                if v is not None and v.shape[0] == q.shape[0]:
+                    xv[r, : q.shape[0]] = v
+        res = _dtw.dtw_score_bank_many(
             xs, self.bank.series, self.bank.lengths, xlens=xl,
-            band=self.band, sx=sx, sxx=sxx,
+            band=self.band, sx=sx, sxx=sxx, xvars=xv,
+            threshold=float(self.threshold),
             plan=self.bank.score_plan(self.device))
+        scores, probs = res if prob else (res, None)
         scores = scores.cpu().numpy().astype(np.float64)
+        if prob:
+            probs = probs.cpu().numpy().astype(np.float64)
         self.offline_dispatch_count += 1
         for r, i in enumerate(live):
             out[i] = scores[r]
-        return out
+            if prob:
+                pout[i] = probs[r]
+        return out, pout
 
     def _render_verdict(self, job_id: str, sims: np.ndarray,
-                        early: Optional[TuneDecision]) -> TuneDecision:
+                        early: Optional[TuneDecision],
+                        probs: Optional[np.ndarray] = None) -> TuneDecision:
         scores = self._reduce(sims)
         leader, ls, _ = self._rank(scores)
-        matched = leader if ls >= self.threshold else None
+        lp = None
+        if self.min_probability is not None:
+            lp = self._reduce(probs).get(leader, 0.0)
+            matched = leader if lp >= self.min_probability else None
+        else:
+            matched = leader if ls >= self.threshold else None
         cfg = self.db.best_config(matched) \
             if self.db is not None and matched is not None else None
         decision = TuneDecision(
             workload=job_id, matched=matched, corr=ls, config=cfg,
             scores=scores, fraction_seen=1.0, final=True,
             decided_at_fraction=(early.decided_at_fraction
-                                 if early is not None else 1.0))
+                                 if early is not None else 1.0),
+            probability=lp)
         if self.db is not None:
             self.db.record_decision(decision)
         return decision
@@ -561,14 +686,16 @@ class TuningService:
                     self._undelivered[jid] = d
 
     def _retire(self, job_id: str):
-        """Free a job's slot, returning its (full query, early decision).
-        A parked early decision must not outlive the job (the id is
-        reusable), so it is purged here."""
+        """Free a job's slot, returning its (full query, per-sample
+        variances or None, early decision).  A parked early decision must
+        not outlive the job (the id is reusable), so it is purged
+        here."""
         job = self._jobs.pop(job_id)
         self._undelivered.pop(job_id, None)
         self._sched.release(job_id)
         self._front.retire(job_id)
-        return job.x.view(), job.early
+        vx = job.vx.view() if self.min_probability is not None else None
+        return job.x.view(), vx, job.early
 
     def finish(self, job_id: str) -> TuneDecision:
         """Final verdict for a completed job, recomputed from the full
@@ -591,8 +718,11 @@ class TuningService:
             return {}
         self._drain_tick_for(set(ids))
         retired = [self._retire(j) for j in ids]
-        sims = self._verdict_scores([x for x, _ in retired])
-        return {jid: self._render_verdict(jid, sims[i], retired[i][1])
+        sims, probs = self._verdict_scores([x for x, _, _ in retired],
+                                           [v for _, v, _ in retired])
+        return {jid: self._render_verdict(
+                    jid, sims[i], retired[i][2],
+                    None if probs is None else probs[i])
                 for i, jid in enumerate(ids)}
 
     def finish_later(self, job_id: str) -> None:
@@ -608,8 +738,8 @@ class TuningService:
                 f"a verdict for job {job_id!r} is already pending "
                 "delivery; drain_finishes() before deferring a reused id")
         self._drain_tick_for({job_id})
-        x, early = self._retire(job_id)
-        self._finish_queue.append((job_id, x, early))
+        x, vx, early = self._retire(job_id)
+        self._finish_queue.append((job_id, x, vx, early))
         if len(self._finish_queue) >= self.finish_batch:
             self._finished.update(self._drain_queue())
 
@@ -617,9 +747,12 @@ class TuningService:
         if not self._finish_queue:
             return {}
         queued, self._finish_queue = self._finish_queue, []
-        sims = self._verdict_scores([x for _, x, _ in queued])
-        return {jid: self._render_verdict(jid, sims[i], early)
-                for i, (jid, _, early) in enumerate(queued)}
+        sims, probs = self._verdict_scores([x for _, x, _, _ in queued],
+                                           [v for _, _, v, _ in queued])
+        return {jid: self._render_verdict(
+                    jid, sims[i], early,
+                    None if probs is None else probs[i])
+                for i, (jid, _, _, early) in enumerate(queued)}
 
     def drain_finishes(self) -> Dict[str, TuneDecision]:
         """Render every deferred verdict (one batched launch), plus any

@@ -91,8 +91,9 @@ def test_plain_scorer_smooth_data():
 
 
 def test_score_bank_plan_and_unported_options():
-    """A plan is bank-specific; variance mode is not ported yet; a CPU
-    call counts no kernel launch."""
+    """A plan is bank-specific; variance mode (once an unported option,
+    now ported) returns scores and probabilities and refuses an unknown
+    prob_mode; a CPU call counts no kernel launch."""
     rng = np.random.default_rng(0)
     bank = pack_series([_dyadic_series(rng, 12) for _ in range(3)])
     xs = _dyadic_series(rng, 10)[None]
@@ -100,9 +101,13 @@ def test_score_bank_plan_and_unported_options():
                                  device="cpu")
     with pytest.raises(ValueError):
         tdtw.dtw_score_bank_many(xs, bank.series, bank.lengths, plan=plan)
-    with pytest.raises(NotImplementedError):
+    sc, pr = tdtw.dtw_score_bank_many(xs, bank.series, bank.lengths,
+                                      xvars=np.zeros_like(xs), device="cpu")
+    assert torch.equal(pr, (sc >= 0.9).float())
+    with pytest.raises(ValueError):
         tdtw.dtw_score_bank_many(xs, bank.series, bank.lengths,
-                                 xvars=np.zeros_like(xs), device="cpu")
+                                 xvars=np.zeros_like(xs), prob_mode="bogus",
+                                 device="cpu")
     before = tscore.LIB.launches
     full = tdtw.build_score_plan(bank.series, bank.lengths, device="cpu")
     a = tdtw.dtw_score_bank_many(xs, bank.series, bank.lengths, plan=full)

@@ -281,8 +281,7 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(score_in_flight=False), dict(min_probability=0.5),
-    dict(prob_mode="approx"), dict(mesh=object()), dict(prefilter_top=2),
+    dict(score_in_flight=False), dict(mesh=object()), dict(prefilter_top=2),
     dict(retry_policy=object()), dict(chaos=object()),
     dict(overload={}), dict(admission={}), dict(breaker=object())])
 def test_unported_options_raise(option):
