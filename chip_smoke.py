@@ -33,7 +33,30 @@ Phases, in order (any failure exits non-zero):
    Each run sets every launch count to 0 just before it and checks them
    against the service's dispatch counters just after; one tick is held
    against the plain version, and each kernel is timed beside its plain
-   version and its bound.
+   version and its bound;
+8. K3, the distance-only tick, against its plain version (bitwise on
+   dyadic data, SMOOTH_TOL on smooth data) and against K1's rows on the
+   same inputs (bitwise on any data);
+9. the paper scenario degraded: distance-only (``score_in_flight=
+   False``: K3, K2) and point mode pinned at the overload ladder's rung
+   3 by ``latency=`` overrides; both make no early decision and render
+   point mode's finals;
+10. the full-width distance-only run (S=256, K=256, M=360, 24 ticks of
+    16 samples, a verdict of 32: K3 and K2), its rows bitwise the point
+    run's and its verdicts the point run's; then the full-width ladder:
+    the exact-probability run of phase 7 walked through rungs 0, 1, 2
+    and 3 by ``latency=`` overrides, six ticks a rung, launching K4 with
+    six channels, K4 with four over ``moms[:4]``, K1 over ``moms[:3]``
+    and K3 once a tick of each rung; its 32 verdicts are bitwise phase
+    7's and its early decisions a subset of phase 7's;
+11. retry, breaker and chaos at the paper scenario's size: a fault plan
+    that fails every dispatch trips the breaker, the fallback (the same
+    dispatch without the chaos consult) serves through K1, whose
+    launches must equal the service's ``dispatch_count`` across the
+    burst, and after the burst the breaker re-closes; decisions bitwise
+    the fault-free run's;
+12. the multi-tenant front over the paper bank's two halves: decisions
+    equal to two separate services', dispatches their sum.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
@@ -85,6 +108,8 @@ KERNELS = {
            "src/repro/kernels/dtw/stream.py:136"),
     "K2": ("K2 verdict scorer", "score.cu",
            "src/repro/kernels/dtw/score.py:42"),
+    "K3": ("K3 distance-only streaming tick", "stream.cu",
+           "src/repro/kernels/dtw/stream.py:82"),
     "K4-exact": ("K4 probabilistic tick, 6 channels (exact)", "stream.cu",
                  "src/repro/kernels/dtw/stream.py:136"),
     "K4-approx": ("K4 probabilistic tick, 4 channels (approx)",
@@ -132,6 +157,7 @@ def counts() -> dict:
     """Every kernel's launch count, by table key."""
     from repro_torch.kernels.dtw import score, stream
     return {"K1": stream.LIB.launches, "K2": score.LIB.launches,
+            "K3": stream.DIST_LAUNCHES,
             "K4-exact": stream.VAR_LAUNCHES[6],
             "K4-approx": stream.VAR_LAUNCHES[4],
             "K5": score.VAR_LAUNCHES[6], "K6": score.VAR_LAUNCHES[4]}
@@ -140,6 +166,7 @@ def counts() -> dict:
 def reset_counts() -> None:
     from repro_torch.kernels.dtw import score, stream
     stream.LIB.launches = score.LIB.launches = 0
+    stream.DIST_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
         for key in d:
             d[key] = 0
@@ -418,6 +445,61 @@ def check_k56(dev, errs: ErrLog) -> None:
               f"variance bitwise the point rule")
 
 
+def check_k3(dev, errs: ErrLog) -> None:
+    """K3 against its plain version: ragged banks (K not a multiple of the
+    block), ragged nvalid including 0, band None and 6, chunk widths 8,
+    16 and 32 (32 takes two passes), four consecutive ticks each; and
+    against K1's rows, advanced in lockstep from the same state, bitwise
+    on any data (the distances never read the moments)."""
+    from repro_torch.core import dtw
+    from repro_torch.kernels.dtw import stream
+    cases = [(dy, band, c) for dy in (True, False) for band in (None, 6)
+             for c in (8, 16, 32)]
+    for i, (dyadic, band, c) in enumerate(cases):
+        rng = np.random.default_rng(300 + i)
+        s, k = 5, 133
+        bank = _bank(rng, k, 12, 60, dyadic)
+        m = bank.series.shape[1]
+        bank_t = torch.tensor(bank.series.T.copy(), device=dev)
+        lengths = torch.tensor(bank.lengths, device=dev)
+        qlens = torch.full((s,), 4 * c, dtype=torch.int32, device=dev)
+        rows_k = torch.full((s, m, k), dtw._INF, device=dev)
+        ns_k = torch.zeros(s, dtype=torch.int32, device=dev)
+        rows_p, ns_p = rows_k.clone(), ns_k.clone()
+        moms1 = torch.zeros((3, s, m, k), device=dev)
+        rows1 = rows_k.clone()
+        tol = DYADIC_TOL if dyadic else SMOOTH_TOL
+        for tick in range(4):
+            nv = rng.integers(0, c + 1, size=s).astype(np.int32)
+            nv[tick % s] = 0
+            nv[(tick + 1) % s] = c
+            ch = np.stack([_series(rng, c, dyadic) for _ in range(s)])
+            args = (bank_t, lengths, torch.tensor(ch, device=dev),
+                    torch.tensor(nv, device=dev), qlens)
+            before = counts()
+            rows_k, ns_k2 = dtw.bank_extend_tick_dispatch(rows_k, ns_k,
+                                                          *args, band=band)
+            rows1, moms1 = stream.stream_bank_extend_scored(
+                rows1, moms1, ns_k, *args, band=band)
+            rows_p, ns_p = dtw.bank_extend_tick(rows_p, ns_p, *args,
+                                                band=band)
+            torch.cuda.synchronize()
+            launched(before, K3=1, K1=1)
+            ns_k = ns_k2
+            fin = rows_p < 1e37
+            assert torch.equal(fin, rows_k < 1e37), \
+                f"K3 case {i} tick {tick}: saturated cells differ"
+            e = errs.diff("K3", rows_k, rows_p, fin)
+            assert torch.equal(ns_k, ns_p), "K3: ns differ"
+            assert e <= tol, (f"K3 case {i} (dyadic={dyadic}, band={band},"
+                              f" C={c}) tick {tick}: max abs err {e}")
+            assert torch.equal(rows_k, rows1), \
+                f"K3 case {i} tick {tick}: rows differ from K1's"
+        print(f"[K3] dyadic={dyadic!s:5} band={band!s:4} C={c:2d}: "
+              f"4 ticks agree (max abs err {errs.err['K3']:.3g}, "
+              f"tol {tol:g}); rows bitwise K1's")
+
+
 def paper_bank():
     from repro_torch import mrsim
     from repro_torch.core.database import SeriesBank, pack_series
@@ -490,6 +572,50 @@ def paper_scenario(dev, bank, prob_mode=None, point=None) -> list:
     return runs
 
 
+def paper_degraded(dev, bank, point) -> None:
+    """The paper scenario in distance-only mode (``score_in_flight=
+    False``), then in point mode pinned at the overload ladder's rung 3
+    (``distance_only``) by ``latency=`` overrides before the job starts,
+    as the reference's overload tests pre-heat a service.  Both must make
+    no early decision and render point mode's final verdicts bitwise,
+    through K3 and K2 alone."""
+    from repro_torch import mrsim
+    from repro_torch.serve.overload import OverloadConfig
+    from repro_torch.serve.tuning import TuningService
+    cfg = OverloadConfig(target_p99=0.01, patience=1, cooldown=1000,
+                         window=64, max_rung=3)
+    for tag, kw in (("distance-only", dict(score_in_flight=False)),
+                    ("rung 3", dict(overload=cfg))):
+        for j, p in enumerate(mrsim.paper_param_sets()):
+            svc = TuningService(bank, band=16, threshold=0.85, margin=0.02,
+                                stable_ticks=3, min_fraction=0.15,
+                                denoise=True, device=dev, **kw)
+            for _ in range(5):
+                svc.tick(latency=10.0)
+            q = mrsim.simulate_cpu_series("exim", p, run=1, dt=0.25)
+            before = counts()
+            svc.submit("exim", expected_len=len(q))
+            earlies = 0
+            for chunk in mrsim.iter_cpu_series("exim", p, run=1, chunk=8,
+                                               dt=0.25):
+                svc.push("exim", chunk)
+                earlies += svc.tick().get("exim") is not None
+            final = svc.finish("exim")
+            launched(before, K3=svc.dispatch_count, K2=1)
+            assert svc.dispatch_count == svc.ticks - 5
+            if "overload" in kw:
+                assert svc.rung == 3 and svc.worst_rung == 3
+            pf = point[j][1]
+            assert earlies == 0, f"{tag} pset{j}: early decisions"
+            assert (final.matched, final.corr, final.scores) == \
+                (pf.matched, pf.corr, pf.scores), f"{tag} pset{j}"
+            assert final.decided_at_fraction == 1.0
+            print(f"[paper {tag}] pset{j}: no early decision, final="
+                  f"{final.matched} wc={final.scores['wordcount']:.4f} "
+                  f"(point mode's, bitwise); K3 launches "
+                  f"{svc.dispatch_count}")
+
+
 def throughput_bank(rng, k: int):
     """The reference's throughput bank (bench_streaming._throughput_bank):
     K sinusoid+noise references with lengths drawn from six buckets up to
@@ -517,46 +643,61 @@ def _row(key, launches, errs, ms, plain_ms, bounds):
                 library_ms=None)
 
 
-def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
-               k: int = 256, n_fin: int = 32, seed: int = 0) -> list:
-    """S=256 jobs x K=256 references (M=360), 24 ticks of 16 samples,
-    then one batched verdict of 32 jobs, in ``mode`` "point", "exact" or
-    "approx"; returns the kernel table rows of the run's kernels.
+def full_inputs(mode: str, s_jobs: int, k: int, qlen: int, seed: int):
+    """The full-width runs' bank, queries [S, qlen] and variances (None
+    outside the probabilistic modes), from ``seed``.
 
-    Point mode streams sinusoid+noise queries; the probabilistic modes
-    stream mrsim's heteroscedastic traces (``simulate_cpu_series_uncertain``
-    at dt = 1/16 s, noise 0.05) with their true per-sample variances."""
+    The point and distance-only modes stream sinusoid+noise queries (the
+    same ones for the same seed); the probabilistic modes stream mrsim's
+    heteroscedastic traces (``simulate_cpu_series_uncertain`` at dt =
+    1/16 s, noise 0.05) with their true per-sample variances."""
     from repro_torch import mrsim
-    from repro_torch.core import dtw
-    from repro_torch.kernels.dtw import score, stream
-    from repro_torch.serve.tuning import TuningService
-    prob = mode != "point"
-    nch = {"point": 3, "exact": 6, "approx": 4}[mode]
-    tick_key = {"point": "K1", "exact": "K4-exact",
-                "approx": "K4-approx"}[mode]
-    verdict_key = "K5" if prob else "K2"
-    c, n_ticks = 16, 24
     rng = np.random.default_rng(seed)
     bank = throughput_bank(rng, k)
-    m = bank.series.shape[1]
-    assert m == 360, m
-    qlen = n_ticks * c
-    variances = None
-    if prob:
+    if mode in ("exact", "approx"):
         apps = list(mrsim.APPS)
         traces = [mrsim.simulate_cpu_series_uncertain(
             apps[i % 3], mrsim.paper_param_sets()[i % 4], run=i, dt=1 / 16,
             noise=0.05) for i in range(s_jobs)]
-        queries = np.stack([q[:qlen] for q, _ in traces])
-        variances = np.stack([v[:qlen] for _, v in traces])
-        kw = dict(min_probability=0.5, prob_mode=mode)
-    else:
-        queries = np.stack([np.clip(
-            0.5 + 0.3 * np.sin(2 * np.pi * rng.uniform(1, 7)
-                               * np.linspace(0, 1, qlen))
-            + 0.1 * rng.normal(size=qlen), 0, 1) for _ in range(s_jobs)]
-        ).astype(np.float32)
-        kw = {}
+        return (bank, np.stack([q[:qlen] for q, _ in traces]),
+                np.stack([v[:qlen] for _, v in traces]))
+    queries = np.stack([np.clip(
+        0.5 + 0.3 * np.sin(2 * np.pi * rng.uniform(1, 7)
+                           * np.linspace(0, 1, qlen))
+        + 0.1 * rng.normal(size=qlen), 0, 1) for _ in range(s_jobs)]
+    ).astype(np.float32)
+    return bank, queries, None
+
+
+def _verdict_key(d):
+    """What a verdict must reproduce across runs of the same jobs."""
+    return (d.matched, d.corr, d.scores, d.probability)
+
+
+def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
+               k: int = 256, n_fin: int = 32, seed: int = 0):
+    """S=256 jobs x K=256 references (M=360), 24 ticks of 16 samples,
+    then one batched verdict of 32 jobs, in ``mode`` "point", "exact",
+    "approx" or "distance" (``score_in_flight=False``).  Returns the
+    kernel table rows of the run's kernels and a record of the run
+    (early decisions, verdicts, the DP rows before the verdict)."""
+    from repro_torch.core import dtw
+    from repro_torch.kernels.dtw import score, stream
+    from repro_torch.serve.tuning import TuningService
+    prob = mode in ("exact", "approx")
+    nch = {"point": 3, "exact": 6, "approx": 4, "distance": 0}[mode]
+    tick_key = {"point": "K1", "exact": "K4-exact", "approx": "K4-approx",
+                "distance": "K3"}[mode]
+    verdict_key = "K5" if prob else "K2"
+    c, n_ticks = 16, 24
+    qlen = n_ticks * c
+    bank, queries, variances = full_inputs(mode, s_jobs, k, qlen, seed)
+    m = bank.series.shape[1]
+    assert m == 360, m
+    kw = {"point": {}, "distance": dict(score_in_flight=False)}.get(
+        mode, dict(min_probability=0.5, prob_mode=mode))
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
     svc = TuningService(bank, slots=s_jobs, device=dev, **kw)
     for i in range(s_jobs):
         svc.submit(f"job{i}", expected_len=qlen)
@@ -564,6 +705,7 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     tick_s = []
+    earlies = {}
     for t in range(n_ticks):
         for i in range(s_jobs):
             sl = slice(t * c, (t + 1) * c)
@@ -573,20 +715,26 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
                 svc.push(f"job{i}", queries[i, sl])
         if t == n_ticks // 2:
             slot_of = [svc._jobs[f"job{i}"].slot for i in range(s_jobs)]
-            snap = (svc._rows.clone(), svc._moms.clone(), svc._ns.clone(),
-                    svc._sx.clone(), svc._sxx.clone())
+            snap = (svc._rows.clone(),
+                    None if svc._moms is None else svc._moms.clone(),
+                    svc._ns.clone(), svc._sx.clone(), svc._sxx.clone())
             if prob:
                 snap += (svc._vstats.clone(),)
         t0 = time.perf_counter()
-        svc.tick()
+        out = svc.tick()
         torch.cuda.synchronize()
         tick_s.append(time.perf_counter() - t0)
+        earlies.update({j: (d.matched, d.corr, d.decided_at_fraction)
+                        for j, d in out.items() if d is not None})
         if t == n_ticks // 2:
             jobs = [svc._jobs[f"job{i}"] for i in range(s_jobs)]
-            after = (svc._rows.clone(), svc._moms.clone(),
-                     np.stack([j.last_sims for j in jobs]),
+            after = (svc._rows.clone(),
+                     None if svc._moms is None else svc._moms.clone(),
+                     None if mode == "distance"
+                     else np.stack([j.last_sims for j in jobs]),
                      np.stack([j.last_probs for j in jobs]) if prob
                      else None)
+    rows_before_verdict = svc._rows.clone()
     fin_ids = [f"job{i}" for i in range(n_fin)]
     t0 = time.perf_counter()
     verdicts = svc.finish_many(fin_ids)
@@ -616,6 +764,8 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
         want["K6"] = 1
     assert got == want, (mode, got, want)
     assert (svc.dispatch_count, svc.offline_dispatch_count) == (n_ticks, 1)
+    if mode == "distance":
+        assert not earlies, "distance-only run made early decisions"
     for v in verdicts.values():
         assert np.isfinite(v.corr) and len(v.scores) == 16
         assert (v.probability is not None) == prob
@@ -626,8 +776,10 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
           f"{ms_tick:.3f} ms/tick over {n_ticks} ticks (first "
           f"{1e3 * tick_s[0]:.3f} ms); verdict of {n_fin} jobs "
           f"{1e3 * verdict_s:.3f} ms; device memory in use "
-          f"{in_use_gb:.3f} GB, peak {peak_gb:.3f} GB; launches "
-          f"{ {key: n for key, n in got.items() if n} } [{name}]")
+          f"{in_use_gb:.3f} GB, peak {peak_gb:.3f} GB ({base_gb:.3f} GB "
+          f"in use before the run); launches "
+          f"{ {key: n for key, n in got.items() if n} }; "
+          f"{len(earlies)} early decisions [{name}]")
 
     # one full-width tick against the plain version on the same inputs
     t = n_ticks // 2
@@ -641,7 +793,10 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
     nvalid = torch.full((s_jobs,), c, dtype=torch.int32, device=dev)
     qlens = torch.full((s_jobs,), qlen, dtype=torch.int32, device=dev)
     bank_t, lengths = svc._bank_t, svc._lengths
-    if mode == "point":
+    if mode == "distance":
+        plain = dtw.bank_extend_tick(snap[0], snap[2], bank_t, lengths,
+                                     chunks, nvalid, qlens)
+    elif mode == "point":
         plain = dtw.bank_extend_tick_scored(*snap, bank_t, lengths, chunks,
                                             nvalid, qlens)
     else:
@@ -651,11 +806,12 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
                    threshold=svc.threshold)
     fin = plain[0] < 1e37
     assert torch.equal(fin, after[0] < 1e37)
-    sims = torch.tensor(after[2], device=dev)
-    e = max(errs.diff(tick_key, after[0], plain[0], fin),
-            errs.diff(tick_key, after[1], plain[1],
-                      fin[None].expand_as(plain[1])),
-            errs.diff(tick_key, sims, plain[5][slot_of]))
+    e = errs.diff(tick_key, after[0], plain[0], fin)
+    if mode != "distance":
+        sims = torch.tensor(after[2], device=dev)
+        e = max(e, errs.diff(tick_key, after[1], plain[1],
+                             fin[None].expand_as(plain[1])),
+                errs.diff(tick_key, sims, plain[5][slot_of]))
     assert e <= SMOOTH_TOL, f"full-width {mode} tick: max abs err {e}"
     ep = 0.0
     if prob:
@@ -672,19 +828,33 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
     tbytes = 2 * 4 * (1 + nch) * s_jobs * m * k + 4 * (
         m * k + k + (2 if prob else 1) * s_jobs * c + 3 * s_jobs)
     tb = (1e3 * tbytes / mem_bps, 1e3 * ops_per_cell(nch) * cells / f32_flops)
-    targs = (*snap[:3], bank_t, lengths, chunks)
-    if prob:
-        tk = lambda: stream.stream_bank_extend_scored_var(  # noqa: E731
-            *targs, vchunks, nvalid, qlens)
-        tp = lambda: stream.stream_bank_extend_scored_var_plain(  # noqa: E731
-            *targs, vchunks, nvalid, qlens)
+    if mode == "distance":
+        targs = (snap[0], snap[2], bank_t, lengths, chunks, nvalid, qlens)
+        tk = lambda: stream.stream_bank_extend(*targs)  # noqa: E731
+        tp = lambda: stream.stream_bank_extend_plain(*targs)  # noqa: E731
     else:
-        tk = lambda: stream.stream_bank_extend_scored(  # noqa: E731
-            *targs, nvalid, qlens)
-        tp = lambda: stream.stream_bank_extend_scored_plain(  # noqa: E731
-            *targs, nvalid, qlens)
+        targs = (*snap[:3], bank_t, lengths, chunks)
+        if prob:
+            tk = lambda: stream.stream_bank_extend_scored_var(  # noqa: E731
+                *targs, vchunks, nvalid, qlens)
+            tp = lambda: stream.stream_bank_extend_scored_var_plain(  # noqa
+                *targs, vchunks, nvalid, qlens)
+        else:
+            tk = lambda: stream.stream_bank_extend_scored(  # noqa: E731
+                *targs, nvalid, qlens)
+            tp = lambda: stream.stream_bank_extend_scored_plain(  # noqa
+                *targs, nvalid, qlens)
     t_ms = cuda_ms(tk, 20)
     t_plain = cuda_ms(tp, 2)
+    rows = [_row(tick_key, got[tick_key], errs, t_ms, t_plain, tb)]
+    record = dict(earlies=earlies, rows=rows_before_verdict,
+                  verdicts={j: _verdict_key(d) for j, d in verdicts.items()},
+                  ms_tick=ms_tick)
+    if mode == "distance":
+        # the verdict kernel's row comes from the point run
+        print(f"[full {mode}] K3 {t_ms:.4f} ms (plain {t_plain:.2f} ms, "
+              f"bound {max(tb):.4f} ms) [{name}]")
+        return rows, record
 
     xs = torch.tensor(xs_np, device=dev)
     xv = torch.tensor(xv_np, device=dev)
@@ -698,7 +868,6 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
         device=dev)
     labels = np.asarray(bank.labels)
     cells2 = int(xlens.sum()) * int(lengths.sum())
-    rows = [_row(tick_key, got[tick_key], errs, t_ms, t_plain, tb)]
     verdict_keys = [verdict_key] + (["K6"] if mode == "approx" else [])
     for key in verdict_keys:
         vn = {"K2": 3, "K5": 6, "K6": 4}[key]
@@ -748,7 +917,191 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
         f"{r['name'].split()[0]} {r['ms']:.4f} ms (plain "
         f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)"
         for r in rows) + f" [{name}]")
-    return rows
+    return rows, record
+
+
+def ladder(dev, name: str, exact: dict, s_jobs: int = 256, k: int = 256,
+           n_fin: int = 32, seed: int = 0, per_rung: int = 6) -> None:
+    """The full-width exact-probability run of phase 7 (same traces,
+    seed and shapes) under the overload ladder: ``latency=`` overrides
+    walk it up one rung after every ``per_rung`` ticks (window 1, EWMA
+    alpha 1, patience 1, no cool-down), through rungs 0 (K4, six
+    channels), 1 (``approx_prob``: K4 with four channels over
+    ``moms[:4]``), 2 (``exact_score``: K1 over ``moms[:3]``) and 3
+    (``distance_only``: K3).  Each kernel must launch once a tick of its
+    rung; the 32 verdicts (K5) must be bitwise the unloaded run's
+    ``exact`` and the early decisions a subset of its."""
+    from repro_torch.serve.overload import OverloadConfig
+    from repro_torch.serve.tuning import TuningService
+    c, n_ticks = 16, 4 * per_rung
+    qlen = n_ticks * c
+    bank, queries, variances = full_inputs("exact", s_jobs, k, qlen, seed)
+    cfg = OverloadConfig(target_p99=1.0, window=1, ewma_alpha=1.0,
+                         patience=1, cooldown=10 ** 6, max_rung=3)
+    svc = TuningService(bank, slots=s_jobs, device=dev, min_probability=0.5,
+                        prob_mode="exact", overload=cfg)
+    for i in range(s_jobs):
+        svc.submit(f"job{i}", expected_len=qlen)
+    torch.cuda.synchronize()
+    reset_counts()
+    rungs, tick_s, earlies = [], [], {}
+    for t in range(n_ticks):
+        for i in range(s_jobs):
+            sl = slice(t * c, (t + 1) * c)
+            svc.push(f"job{i}", queries[i, sl], variance=variances[i, sl])
+        rungs.append(svc.rung)
+        t0 = time.perf_counter()
+        out = svc.tick(latency=10.0 if t % per_rung == per_rung - 1
+                       else 0.0)
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t0)
+        earlies.update({j: (d.matched, d.corr, d.decided_at_fraction)
+                        for j, d in out.items() if d is not None})
+    verdicts = svc.finish_many([f"job{i}" for i in range(n_fin)])
+    torch.cuda.synchronize()
+    got = counts()
+    assert rungs == [r for r in range(4) for _ in range(per_rung)], rungs
+    want = {key: 0 for key in got}
+    want.update({"K4-exact": per_rung, "K4-approx": per_rung,
+                 "K1": per_rung, "K3": per_rung, "K5": 1})
+    assert got == want, ("ladder", got, want)
+    assert svc.dispatch_count == n_ticks and svc.worst_rung == 3
+    assert svc.overload_ticks == 3 * per_rung
+    assert all(j.degraded_level == 2 for j in svc._jobs.values())
+    for jid, d in verdicts.items():
+        assert _verdict_key(d) == exact["verdicts"][jid], jid
+    assert set(earlies.items()) <= set(exact["earlies"].items())
+    ms = [1e3 * float(np.median(tick_s[r * per_rung:(r + 1) * per_rung]))
+          for r in range(4)]
+    print(f"[ladder] exact service, {s_jobs} jobs x K={k} x M=360: rungs "
+          f"0-3 x {per_rung} ticks, median ms/tick by rung "
+          + " / ".join(f"{v:.3f}" for v in ms)
+          + f"; launches { {key: n for key, n in got.items() if n} }; "
+          f"{len(earlies)} early decisions (unloaded: "
+          f"{len(exact['earlies'])}, a superset); {n_fin} verdicts bitwise "
+          f"the unloaded run's [{name}]")
+
+
+def chaos_phase(dev, bank, point) -> None:
+    """Retry, breaker and chaos at the paper scenario's size: exim (first
+    parameter set) against the paper bank, with a fault plan that fails
+    every dispatch for the first ``burst`` ticks, a retry policy that
+    never sleeps and a circuit breaker.  While the faults last the
+    breaker opens (its half-open probes fail) and the fallback serves:
+    the same dispatch without the chaos consult, so K1 launches once for
+    every dispatch the service counts, degraded or not, and no plain
+    version runs on the card.  Once the plan is removed the breaker
+    re-closes.  Decisions, early and final, must be bitwise the
+    fault-free run's (phase 6)."""
+    from repro_torch import mrsim
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.runtime.retry import CircuitBreaker, RetryPolicy
+    from repro_torch.serve.tuning import TuningService
+    burst = 8
+    p = mrsim.paper_param_sets()[0]
+    br = CircuitBreaker(fail_threshold=2, cooldown=2, probe_interval=2,
+                        seed=0)
+    plan = FaultPlan(seed=0, dispatch_fail_rate=1.0)
+    svc = TuningService(bank, band=16, threshold=0.85, margin=0.02,
+                        stable_ticks=3, min_fraction=0.15, denoise=True,
+                        device=dev, breaker=br, chaos=plan,
+                        retry_policy=RetryPolicy(max_retries=1,
+                                                 base_delay=0.0, seed=0,
+                                                 sleep=lambda s: None))
+    q = mrsim.simulate_cpu_series("exim", p, run=1, dt=0.25)
+    reset_counts()
+    svc.submit("exim", expected_len=len(q))
+    early, walk = None, []
+    for t, chunk in enumerate(mrsim.iter_cpu_series("exim", p, run=1,
+                                                    chunk=8, dt=0.25)):
+        if t == burst:
+            assert br.engaged and br.opened_count >= 1 and svc.degraded
+            assert counts()["K1"] == svc.dispatch_count \
+                == svc.degraded_dispatch_count == burst
+            svc.chaos = None
+        svc.push("exim", chunk)
+        d = svc.tick().get("exim")
+        early = early or d
+        walk.append(br.state[0])
+    final = svc.finish("exim")
+    k1_after = counts()["K1"] - burst
+    assert br.state == br.CLOSED and br.reclosed_count >= 1
+    assert not svc.degraded and k1_after > 0 and counts()["K2"] == 1
+    assert counts()["K1"] == svc.dispatch_count
+    pe, pf = point[0]
+    assert (early.matched, early.corr, early.decided_at_fraction) == \
+        (pe.matched, pe.corr, pe.decided_at_fraction)
+    assert (final.matched, final.corr, final.scores) == \
+        (pf.matched, pf.corr, pf.scores)
+    print(f"[chaos] {plan.injected_failures} injected failures, "
+          f"{svc.retry_count} retries; breaker opened {br.opened_count}x, "
+          f"re-closed {br.reclosed_count}x (states by tick: "
+          f"{''.join(walk)}); {svc.degraded_dispatch_count} degraded "
+          f"dispatches served by K1, {k1_after} K1 launches after the "
+          f"burst, {svc.dispatch_count} dispatches in all; early "
+          f"{early.matched}@{early.fraction_seen:.2f} and final "
+          f"{final.matched} bitwise the fault-free run's")
+
+
+def multitenant_phase(dev, bank) -> None:
+    """Two tenants over the paper bank's halves (the wordcount and the
+    terasort references), each streaming exim at every paper parameter
+    set: every decision equals that of a separate service over the
+    tenant's half, and the front's dispatches are their sum."""
+    from repro_torch import mrsim
+    from repro_torch.core.database import SeriesBank
+    from repro_torch.serve.tuning import MultiTenantTuningService, \
+        TuningService
+    h = len(bank) // 2
+    halves = {"A": SeriesBank(bank.series[:h], bank.lengths[:h],
+                              bank.labels[:h]),
+              "B": SeriesBank(bank.series[h:], bank.lengths[h:],
+                              bank.labels[h:])}
+    kw = dict(band=16, threshold=0.85, margin=0.02, stable_ticks=3,
+              min_fraction=0.15, denoise=True, device=dev)
+    reset_counts()
+    front = MultiTenantTuningService(halves, **kw)
+    solo = {t: TuningService(b, **kw) for t, b in halves.items()}
+    streams = {}
+    for j, p in enumerate(mrsim.paper_param_sets()):
+        q = mrsim.simulate_cpu_series("exim", p, run=1, dt=0.25)
+        for t in halves:
+            jid = f"{t}{j}"
+            front.submit(jid, expected_len=len(q), tenant=t)
+            solo[t].submit(jid, expected_len=len(q))
+            streams[jid] = mrsim.iter_cpu_series("exim", p, run=1, chunk=8,
+                                                 dt=0.25)
+    n_ticks = 0
+    while streams:
+        done = []
+        for jid, it in streams.items():
+            chunk = next(it, None)
+            if chunk is None:
+                done.append(jid)
+            else:
+                front.push(jid, chunk)
+                solo[jid[0]].push(jid, chunk)
+        if done:
+            got = front.finish_many(done)
+            for jid in done:
+                want = solo[jid[0]].finish(jid)
+                assert got[jid] == want, jid
+                del streams[jid]
+        got = front.tick()
+        want = {}
+        for svc in solo.values():
+            want.update(svc.tick())
+        assert got == want
+        n_ticks += 1
+    assert front.dispatch_count == sum(s.dispatch_count
+                                       for s in solo.values())
+    assert front.engine("A").dispatch_count == solo["A"].dispatch_count
+    c = counts()
+    assert c["K1"] == 2 * front.dispatch_count
+    print(f"[multi-tenant] 2 tenants x 4 exim jobs over {n_ticks} ticks: "
+          f"decisions equal to separate services', dispatches "
+          f"{front.dispatch_count} = "
+          f"{' + '.join(str(s.dispatch_count) for s in solo.values())}")
 
 
 def main() -> int:
@@ -768,20 +1121,29 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = ErrLog()
-    check_k1(dev, errs)
-    check_k2(dev, errs)
-    check_k4(dev, errs)
-    check_k56(dev, errs)
+    for check in (check_k1, check_k2, check_k4, check_k56, check_k3):
+        check(dev, errs)
     bank = paper_bank()
     point = paper_scenario(dev, bank)
     for mode in ("exact", "approx"):
         paper_scenario(dev, bank, mode, point)
-    rows = {}
-    for mode in ("point", "exact", "approx"):
-        for row in full_width(dev, errs, name, mode):
+    paper_degraded(dev, bank, point)
+    rows, runs = {}, {}
+    for mode in ("point", "exact", "approx", "distance"):
+        mode_rows, runs[mode] = full_width(dev, errs, name, mode)
+        for row in mode_rows:
             # K5 serves both probabilistic runs' verdicts: its row is the
             # exact run's
             rows.setdefault(row["name"], row)
+    # the distance-only run streamed the point run's queries: the same
+    # DP rows (K3's against K1's, bitwise) and the same verdicts
+    assert torch.equal(runs["distance"]["rows"], runs["point"]["rows"])
+    assert runs["distance"]["verdicts"] == runs["point"]["verdicts"]
+    print("[full distance] DP rows before the verdict and all 32 verdicts "
+          "bitwise the point run's")
+    ladder(dev, name, runs["exact"])
+    chaos_phase(dev, bank, point)
+    multitenant_phase(dev, bank)
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

@@ -5,9 +5,14 @@ The paper's recurrence::
     D(i, j) = d(x_i, y_j) + min(D(i, j-1), D(i-1, j), D(i-1, j-1))
 
 with ``d`` the absolute difference of utilization samples.  This module
-holds the two device paths of the exact point-mode service, each a thin
-layer over its hand kernel in ``kernels.dtw``:
+holds the device paths of the service, each a thin layer over its hand
+kernel in ``kernels.dtw``:
 
+* the **distance-only tick** (:func:`bank_extend_tick_dispatch`): every
+  in-flight job's DP row advances by one chunk, with no moments and no
+  scores (``TuningService(score_in_flight=False)`` and the overload
+  ladder's ``distance_only`` rung).  Its rows are bitwise the scored
+  ticks' rows.
 * the **streaming tick** (:func:`bank_extend_tick_scored_dispatch`):
   every in-flight job's DP row advances by one chunk against the whole
   reference bank, carrying the warp-path correlation moments
@@ -27,10 +32,11 @@ layer over its hand kernel in ``kernels.dtw``:
   queries scored at the closed alignment endpoint ``(N-1, len_k-1)``,
   with match probabilities when ``xvars`` is given.
 
-CUDA tensors go through kernels K1 (point tick), K4 (probabilistic
-ticks), K2 (point verdict), K5 and K6 (exact and approx probabilistic
-verdicts); CPU tensors through their plain PyTorch versions.
-:func:`bank_extend_tick_scored`, :func:`bank_extend_tick_scored_var` and
+CUDA tensors go through kernels K3 (distance tick), K1 (point tick), K4
+(probabilistic ticks), K2 (point verdict), K5 and K6 (exact and approx
+probabilistic verdicts); CPU tensors through their plain PyTorch
+versions.  :func:`bank_extend_tick`, :func:`bank_extend_tick_scored`,
+:func:`bank_extend_tick_scored_var` and
 :func:`bank_extend_tick_scored_var_approx` are the plain ticks on any
 device, which is what the kernel ticks are held against.
 
@@ -54,7 +60,8 @@ from ..kernels.common import resolve_device
 from ..kernels.dtw import score as _score
 from ..kernels.dtw import stream as _stream
 
-__all__ = ["bank_extend_tick_scored", "bank_extend_tick_scored_dispatch",
+__all__ = ["bank_extend_tick", "bank_extend_tick_dispatch",
+           "bank_extend_tick_scored", "bank_extend_tick_scored_dispatch",
            "bank_extend_tick_scored_var",
            "bank_extend_tick_scored_var_dispatch",
            "bank_extend_tick_scored_var_approx",
@@ -154,6 +161,28 @@ def _tick_tail(rows, moms, ns, sx, sxx, lengths, chunks, nvalid):
     ns2 = ns + nvalid
     scores = _moment_scores(rows, moms, ns2, sx2, sxx2, lengths)
     return rows, moms, ns2, sx2, sxx2, scores
+
+
+def bank_extend_tick(rows, ns, bank_t, lengths, chunks, nvalid, qlens,
+                     band: Optional[int] = None):
+    """Plain distance-only tick on the tensors' device -> ``(rows, ns)``.
+
+    rows [S, M, K] f32, ns/nvalid/qlens [S] i32, bank_t [M, K] f32,
+    lengths [K] i32, chunks [S, C] f32; the rows are bitwise those of
+    :func:`bank_extend_tick_scored` on the same inputs."""
+    rows2 = _stream.stream_bank_extend_plain(rows, ns, bank_t, lengths,
+                                             chunks, nvalid, qlens, band)
+    return rows2, ns + nvalid
+
+
+def bank_extend_tick_dispatch(rows, ns, bank_t, lengths, chunks, nvalid,
+                              qlens, band: Optional[int] = None):
+    """The service's distance-only tick: kernel K3 for CUDA tensors (the
+    plain version for CPU tensors).  Same arguments and pair as
+    :func:`bank_extend_tick`."""
+    rows2 = _stream.stream_bank_extend(rows, ns, bank_t, lengths, chunks,
+                                       nvalid, qlens, band)
+    return rows2, ns + nvalid
 
 
 def bank_extend_tick_scored(rows, moms, ns, sx, sxx, bank_t, lengths,

@@ -25,6 +25,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 import torch
 
 __all__ = ["resolve_device", "check_kernel_device", "check_tensor",
+           "KernelLaunchError", "check_launch",
            "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,6 +40,23 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch that ``cudaGetLastError`` reported as failed.
+
+    The one device-side failure a resilient service retries (beside the
+    faults its chaos plan injects), as the reference retries its
+    runtime's device errors.  A failed build, a missing ``nvcc``
+    or a card of another compute capability raise other errors and are
+    never transient."""
+
+
+def check_launch(fn: str, err: int) -> None:
+    """Raise :class:`KernelLaunchError` unless the C entry point ``fn``
+    returned 0 (its ``cudaGetLastError()`` after the launch)."""
+    if err != 0:
+        raise KernelLaunchError(f"{fn} launch failed: CUDA error {err}")
 
 
 def resolve_device(device: Union[str, torch.device, None] = None

@@ -32,9 +32,14 @@
 //   NCH = 4 (approx prob):    (yc, yc^2, xm yc, v yc)
 //   NCH = 6 (exact prob):     (yc, yc^2, xm yc, v yc, v yc^2, v (xm yc))
 //
+//   NCH = 0 (distance only):  no pairs; the DP distances alone
+//
 // Each variance channel is v times the matching base pair, formed after
 // it (v * (xm * yc), never (v * xm) * yc), as the reference forms it.
-// Channel 3 is svy in both variance layouts.
+// Channel 3 is svy in both variance layouts. The distances never read
+// the moments, so every channel count computes bitwise the same rows:
+// the NCH = 0 instantiation (the distance-only tick) is the NCH = 3 one
+// with its moment code compiled out.
 //
 // Every add and multiply below is written with an _rn intrinsic, and the
 // library is built with -fmad=false: nothing is contracted into a fused
@@ -52,9 +57,21 @@ constexpr float kShift = 0.5f;
 // Rows a pass holds in registers for NCH channels: per row the distance,
 // NCH bases, x, x - 0.5, v and the band centre. 16 rows fit for 3 and 4
 // channels; 6 channels take 8 rows, so a 16-sample chunk is two passes.
+// With no channels a row is the distance, x and the band centre: 16 rows
+// take a 16-sample chunk (the main path's) in one pass at 69 registers
+// and no spill (ptxas -v on sm_90a), so seven 128-thread blocks fit an
+// SM; more rows would only serve chunks longer than the main path's, at
+// a lower occupancy. A longer chunk takes one more pass per 16 samples.
 template <int NCH>
 struct RowsPerPass {
   static constexpr int value = NCH == 6 ? 8 : 16;
+};
+
+// Array extent for NCH channels: C++ has no zero-length arrays, and with
+// NCH = 0 every loop over the channels runs zero times.
+template <int NCH>
+struct Extent {
+  static constexpr int value = NCH > 0 ? NCH : 1;
 };
 
 // The NCH pair values of one (row, column) cell (see the header).
@@ -76,7 +93,8 @@ __device__ __forceinline__ void pair(float yc, float yy, float xm, float v,
 // (v is not read when NCH == 3). Column j of the reference is
 // y[j * col_stride]; column j of the state row is d_in[j * col_stride]
 // and channel c of its moments m_in[c * ch_stride + j * col_stride]
-// (likewise for the outputs, which may alias the inputs). `fresh`: the
+// (likewise for the outputs, which may alias the inputs; with NCH = 0
+// m_in and m_out are not read and may be null). `fresh`: the
 // state row is the empty one (D = 3e38, moments 0) and is not read.
 // `write`: store the pass's last row. Column `capture` (-1: none) of the
 // last row is copied to cap[1 + NCH] (distance, then the moments).
@@ -88,9 +106,10 @@ __device__ __forceinline__ void sweep_pass(
     long long col_stride, int ncols, const float* d_in, const float* m_in,
     float* d_out, float* m_out, long long ch_stride, bool fresh, bool write,
     int capture, float cap[1 + NCH]) {
+  constexpr int NE = Extent<NCH>::value;
   float xr[ROWS], xm[ROWS], vr[ROWS];
   int center[ROWS];
-  float pd[ROWS], pb[NCH][ROWS];
+  float pd[ROWS], pb[NE][ROWS];
   const int qden = qlen - 1 > 1 ? qlen - 1 : 1;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -108,7 +127,7 @@ __device__ __forceinline__ void sweep_pass(
   // (column -1 is the virtual corner D[-1, -1] = 0 for a job's first
   // sample only).
   float sd_prev = n0 == 0 ? 0.f : kInf;
-  float sm_prev[NCH];
+  float sm_prev[NE];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) sm_prev[c] = 0.f;
   float yc_prev = 0.f;
@@ -118,7 +137,7 @@ __device__ __forceinline__ void sweep_pass(
     const float yc = __fsub_rn(yv, kShift);
     const float yy = __fmul_rn(yc, yc);
     const float yy_prev = __fmul_rn(yc_prev, yc_prev);
-    float sd, sm[NCH];
+    float sd, sm[NE];
     if (fresh) {
       sd = kInf;
 #pragma unroll
@@ -128,7 +147,7 @@ __device__ __forceinline__ void sweep_pass(
 #pragma unroll
       for (int c = 0; c < NCH; ++c) sm[c] = m_in[c * ch_stride + off];
     }
-    float dd = sd_prev, vd = sd, dm[NCH], vm[NCH];
+    float dd = sd_prev, vd = sd, dm[NE], vm[NE];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       dm[c] = sm_prev[c];
@@ -142,18 +161,21 @@ __device__ __forceinline__ void sweep_pass(
         if (band >= 0 && abs(j - center[r]) > band) d = kInf;
         const float best = fminf(fminf(dd, vd), hd);
         const float cell = fminf(__fadd_rn(d, best), kInf);
-        const bool sel_diag = dd <= fminf(vd, hd);
-        const bool sel_vert = !sel_diag && vd <= hd;
-        float cur[NCH], prv[NCH];
-        pair<NCH>(yc, yy, xm[r], vr[r], cur);
-        pair<NCH>(yc_prev, yy_prev, xm[r], vr[r], prv);
+        if constexpr (NCH > 0) {
+          const bool sel_diag = dd <= fminf(vd, hd);
+          const bool sel_vert = !sel_diag && vd <= hd;
+          float cur[NCH], prv[NCH];
+          pair<NCH>(yc, yy, xm[r], vr[r], cur);
+          pair<NCH>(yc_prev, yy_prev, xm[r], vr[r], prv);
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const float b = sel_diag ? dm[c] : (sel_vert ? vm[c] : pb[c][r]);
-          // row r's full moments at column j-1: the next row's diag.
-          dm[c] = __fadd_rn(pb[c][r], prv[c]);
-          pb[c][r] = b;
-          vm[c] = __fadd_rn(b, cur[c]);
+          for (int c = 0; c < NCH; ++c) {
+            const float b =
+                sel_diag ? dm[c] : (sel_vert ? vm[c] : pb[c][r]);
+            // row r's full moments at column j-1: the next row's diag.
+            dm[c] = __fadd_rn(pb[c][r], prv[c]);
+            pb[c][r] = b;
+            vm[c] = __fadd_rn(b, cur[c]);
+          }
         }
         dd = hd;
         pd[r] = cell;

@@ -1,5 +1,17 @@
-// K1 and K4: the scored streaming ticks (one service tick, all in-flight
+// K1, K3 and K4: the streaming ticks (one service tick, all in-flight
 // jobs).
+//
+// K3 replaces repro/kernels/dtw/stream.py::_stream_kernel (the Pallas TPU
+// kernel reached through stream_bank_extend_kernel): the distance-only
+// tick. It advances S streaming DP rows by one chunk of C samples and
+// carries no moments; it is the NCH = 0 instantiation of the same column
+// sweep, so its rows are bitwise K1's and K4's on the same inputs (the
+// reference's invariant that every tick flavour updates the DP rows
+// identically, on which the overload ladder's "delayed, never different"
+// rests). Where the TPU kernel solves each row with a min-plus
+// Hillis-Steele scan, the sweep walks the columns in order: the two agree
+// bitwise wherever every sum is exact (dyadic data), and to rounding
+// elsewhere.
 //
 // K1 replaces repro/kernels/dtw/stream.py::_stream_scored_kernel (the
 // Pallas TPU kernel reached through stream_bank_extend_scored_kernel). It
@@ -16,9 +28,19 @@
 // sweeps the M columns, so consecutive threads touch consecutive
 // addresses and every load and store is coalesced.
 //
-// Bound on this card: memory. The kernel reads and writes the 1 + NCH
+// Bound on this card: memory. K3 at the main path's full width (S = 256,
+// K = 256, M = 360, C = 16) reads and writes the [S, M, K] f32 row once:
+// 2 x 94.4 MB = 189 MB, 0.056 ms at 3.35 TB/s, against 5 f32 operations
+// a cell a sample (sub, abs, 2 min, add; the clamp's min not counted),
+// 1.9 GFLOP, 0.028 ms at 67 TFLOP/s. Its design does what K1's does: one
+// load and one store of each state element per pass, the pass's 16 rows
+// in registers, so a 16-sample chunk is one pass. A 16-row column chain
+// per thread is latency-bound rather than byte-bound; the kernel stays
+// simple in this slice.
+//
+// K1 and K4 are bound by memory too. They read and write the 1 + NCH
 // [S, M, K] f32 channels once a pass (2 x 4 (1 + NCH) bytes a state cell)
-// and does 5 + 4 NCH f32 operations (17, 21, 29) per state cell per
+// and do 5 + 4 NCH f32 operations (17, 21, 29) per state cell per
 // sample; at C = 16 that is under the H100's f32 balance of ~20
 // (67 TFLOP/s over 3.35 TB/s), so the state traffic sets the bound. The
 // design touches each state element twice (one load, one store) per pass
@@ -51,6 +73,7 @@ __global__ void stream_scored_kernel(
   const int lk = lengths[k];
   const float* x = chunks + (long long)s * C;
   const float* v = NCH > 3 ? vchunks + (long long)s * C : nullptr;
+  float* m_out = NCH > 0 ? out_moms + base : nullptr;
   float cap[1 + NCH];
   // nv == 0 still takes one pass: it copies the state row through.
   const int npass = nv > 0 ? (nv + R - 1) / R : 1;
@@ -58,11 +81,11 @@ __global__ void stream_scored_kernel(
     const int left = nv - p * R;
     const int nr = left < R ? left : R;
     const bool first = p == 0;
+    const float* m_in = NCH > 0 ? (first ? moms : out_moms) + base : nullptr;
     dtw::sweep_pass<NCH, R>(
         x + p * R, NCH > 3 ? v + p * R : nullptr, nr, n0 + p * R, ql, band,
-        lk, bank_t + k, K, M, first ? rows + base : out_rows + base,
-        first ? moms + base : out_moms + base, out_rows + base,
-        out_moms + base, ch, false, true, -1, cap);
+        lk, bank_t + k, K, M, first ? rows + base : out_rows + base, m_in,
+        out_rows + base, m_out, ch, false, true, -1, cap);
   }
 }
 
@@ -82,6 +105,19 @@ int launch(const float* rows, const float* moms, float* out_rows,
 }
 
 }  // namespace
+
+// K3: rows only (no moments). Returns cudaGetLastError() after the launch
+// (0 on success).
+extern "C" int dtw_stream_distance(const float* rows, float* out_rows,
+                                   const int* ns, const int* nvalid,
+                                   const int* qlens, const float* bank_t,
+                                   const int* lengths, const float* chunks,
+                                   int S, int M, int K, int C, int band,
+                                   void* stream) {
+  return launch<0>(rows, nullptr, out_rows, nullptr, ns, nvalid, qlens,
+                   bank_t, lengths, chunks, nullptr, S, M, K, C, band,
+                   stream);
+}
 
 // K1. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int dtw_stream_scored(const float* rows, const float* moms,

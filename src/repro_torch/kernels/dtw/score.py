@@ -47,7 +47,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..common import KernelLib, check_kernel_device, check_tensor
+from ..common import (KernelLib, check_kernel_device, check_launch,
+                      check_tensor)
 from .stream import (INF, _CSRC, stream_bank_extend_scored_plain,
                      stream_bank_extend_scored_var_plain)
 
@@ -243,9 +244,7 @@ def score_bank_offline(xs, xlens, bank_t, lengths, sx, sxx,
         scratch_d.data_ptr(), scratch_m.data_ptr(), scores.data_ptr(),
         dists.data_ptr(), j, n, m, k, -1 if band is None else int(band),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dtw_score_offline launch failed: CUDA error "
-                           f"{err}")
+    check_launch("dtw_score_offline", err)
     LIB.launches += 1
     return scores, dists
 
@@ -286,9 +285,7 @@ def score_bank_offline_var(xs, xvars, xlens, bank_t, lengths, sx, sxx,
         dists.data_ptr(), j, n, m, k, -1 if band is None else int(band),
         float(np.float32(threshold)), int(approx),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dtw_score_offline_var launch failed: CUDA "
-                           f"error {err}")
+    check_launch("dtw_score_offline_var", err)
     VAR_LAUNCHES[nch] += 1
     return scores, probs, dists
 

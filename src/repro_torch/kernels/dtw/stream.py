@@ -1,22 +1,27 @@
-"""K1 and K4: the scored streaming ticks — CUDA kernels, their wrappers
-and their plain PyTorch versions.
+"""K1, K3 and K4: the streaming ticks — CUDA kernels, their wrappers and
+their plain PyTorch versions.
 
-One service tick advances S streaming DTW rows and their warp-path
-correlation moments by one chunk of C samples against the whole reference
-bank (``repro/kernels/dtw/stream.py::_stream_scored_kernel`` on the TPU).
-K1 carries the three point channels (sy, syy, sxy); K4 (the same Pallas
-kernel with ``variance=True``) carries six (exact: sy, syy, sxy, svy,
-svyy, svxy) or four (approx: sy, syy, sxy, svy), each variance channel's
-per-cell pair being the sample's variance times the matching point pair.
-The tensors keep the service's K-last tick layout: rows ``[S, M, K]``,
-moms ``[NCH, S, M, K]``, bank ``[M, K]``, variances ``[S, C]``.
+One service tick advances S streaming DTW rows by one chunk of C samples
+against the whole reference bank.  K3
+(``repro/kernels/dtw/stream.py::_stream_kernel`` on the TPU) advances the
+rows alone: the distance-only tick.  K1 (``_stream_scored_kernel``)
+also carries the warp-path correlation moments, three point channels
+(sy, syy, sxy); K4 (the same Pallas kernel with ``variance=True``)
+carries six (exact: sy, syy, sxy, svy, svyy, svxy) or four (approx: sy,
+syy, sxy, svy), each variance channel's per-cell pair being the sample's
+variance times the matching point pair.  All three update the rows
+identically: K3's rows are bitwise K1's and K4's.  The tensors keep the
+service's K-last tick layout: rows ``[S, M, K]``, moms
+``[NCH, S, M, K]``, bank ``[M, K]``, variances ``[S, C]``.
 
-* :func:`stream_bank_extend_scored` (K1) and
-  :func:`stream_bank_extend_scored_var` (K4) are the wrappers: for CUDA
-  tensors they launch ``csrc/stream.cu`` (or raise); for CPU tensors they
-  run the plain versions.  ``LIB.launches`` counts K1's launches and
-  ``VAR_LAUNCHES[nch]`` K4's, per channel count.
-* :func:`stream_bank_extend_scored_plain` and
+* :func:`stream_bank_extend` (K3), :func:`stream_bank_extend_scored`
+  (K1) and :func:`stream_bank_extend_scored_var` (K4) are the wrappers:
+  for CUDA tensors they launch ``csrc/stream.cu`` (or raise); for CPU
+  tensors they run the plain versions.  ``DIST_LAUNCHES`` counts K3's
+  launches, ``LIB.launches`` K1's and ``VAR_LAUNCHES[nch]`` K4's, per
+  channel count.
+* :func:`stream_bank_extend_plain`,
+  :func:`stream_bank_extend_scored_plain` and
   :func:`stream_bank_extend_scored_var_plain` evaluate the same
   recurrence along anti-diagonals of the chunk block (the formulation of
   ``repro.core.dtw._bank_extend_diag_impl``): every cell is
@@ -34,12 +39,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import KernelLib, check_kernel_device, check_tensor
+from ..common import (KernelLib, check_kernel_device, check_launch,
+                      check_tensor)
 
-__all__ = ["INF", "MOM_SHIFT", "stream_bank_extend_scored",
+__all__ = ["INF", "MOM_SHIFT", "stream_bank_extend",
+           "stream_bank_extend_plain", "stream_bank_extend_scored",
            "stream_bank_extend_scored_plain",
            "stream_bank_extend_scored_var",
-           "stream_bank_extend_scored_var_plain", "LIB", "VAR_LAUNCHES"]
+           "stream_bank_extend_scored_var_plain", "LIB", "DIST_LAUNCHES",
+           "VAR_LAUNCHES"]
 
 #: DP saturation value (repro's ``_INF``).
 INF = 3.0e38
@@ -58,9 +66,14 @@ LIB = KernelLib(
     "dtw_stream", os.path.join(_CSRC, "stream.cu"),
     headers=(os.path.join(_CSRC, "dtw_sweep.cuh"),),
     signatures={
+        "dtw_stream_distance": ([_P] * 8 + [_I] * 5 + [_P], ctypes.c_int),
         "dtw_stream_scored": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
         "dtw_stream_scored_var": ([_P] * 11 + [_I] * 6 + [_P],
                                   ctypes.c_int)})
+
+#: K3 launches.  The wrapper adds one per launch; a caller resets it to
+#: 0 before a run it audits.
+DIST_LAUNCHES = 0
 
 #: K4 launches by moment channel count: 6 is the exact tick, 4 the
 #: approx tick.  The wrapper adds one per launch; a caller resets them to
@@ -72,13 +85,15 @@ def _check_tick(rows, moms, ns, bank_t, lengths, chunks, nvalid, qlens,
                 band, nch, vchunks=None) -> None:
     """Raise unless the tick's tensors are what the kernel's pointer
     arithmetic assumes (contiguous f32/i32 of the tick's shapes, one
-    device, a Hopper card)."""
+    device, a Hopper card); ``nch`` 0 is the distance-only tick, which
+    has no moments."""
     dev = rows.device
     check_kernel_device(rows)
     s, m, k = rows.shape
     c = chunks.shape[1]
     check_tensor(rows, "rows", torch.float32, (s, m, k), dev)
-    check_tensor(moms, "moms", torch.float32, (nch, s, m, k), dev)
+    if nch:
+        check_tensor(moms, "moms", torch.float32, (nch, s, m, k), dev)
     check_tensor(bank_t, "bank_t", torch.float32, (m, k), dev)
     check_tensor(chunks, "chunks", torch.float32, (s, c), dev)
     if vchunks is not None:
@@ -88,6 +103,34 @@ def _check_tick(rows, moms, ns, bank_t, lengths, chunks, nvalid, qlens,
         check_tensor(t, name, torch.int32, (n,), dev)
     if band is not None and band < 0:
         raise ValueError("band must be >= 0 (or None)")
+
+
+def stream_bank_extend(rows, ns, bank_t, lengths, chunks, nvalid, qlens,
+                       band: Optional[int] = None) -> torch.Tensor:
+    """K3: advance the distance-only tick state by one padded chunk ->
+    ``rows``.
+
+    rows [S, M, K] f32, ns/nvalid/qlens [S] i32, bank_t [M, K] f32,
+    lengths [K] i32, chunks [S, C] f32.  Samples at or past
+    ``nvalid[s]`` leave slot s untouched.  CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    global DIST_LAUNCHES
+    if not rows.is_cuda:
+        return stream_bank_extend_plain(rows, ns, bank_t, lengths, chunks,
+                                        nvalid, qlens, band)
+    _check_tick(rows, None, ns, bank_t, lengths, chunks, nvalid, qlens,
+                band, 0)
+    s, m, k = rows.shape
+    out_rows = torch.empty_like(rows)
+    err = LIB.get().dtw_stream_distance(
+        rows.data_ptr(), out_rows.data_ptr(), ns.data_ptr(),
+        nvalid.data_ptr(), qlens.data_ptr(), bank_t.data_ptr(),
+        lengths.data_ptr(), chunks.data_ptr(), s, m, k, chunks.shape[1],
+        -1 if band is None else int(band),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    check_launch("dtw_stream_distance", err)
+    DIST_LAUNCHES += 1
+    return out_rows
 
 
 def stream_bank_extend_scored(rows, moms, ns, bank_t, lengths, chunks,
@@ -115,9 +158,7 @@ def stream_bank_extend_scored(rows, moms, ns, bank_t, lengths, chunks,
         chunks.data_ptr(), s, m, k, chunks.shape[1],
         -1 if band is None else int(band),
         torch.cuda.current_stream(rows.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dtw_stream_scored launch failed: CUDA error "
-                           f"{err}")
+    check_launch("dtw_stream_scored", err)
     LIB.launches += 1
     return out_rows, out_moms
 
@@ -153,11 +194,19 @@ def stream_bank_extend_scored_var(rows, moms, ns, bank_t, lengths, chunks,
         chunks.data_ptr(), vchunks.data_ptr(), s, m, k, chunks.shape[1],
         -1 if band is None else int(band), nch,
         torch.cuda.current_stream(rows.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dtw_stream_scored_var launch failed: CUDA "
-                           f"error {err}")
+    check_launch("dtw_stream_scored_var", err)
     VAR_LAUNCHES[nch] += 1
     return out_rows, out_moms
+
+
+def stream_bank_extend_plain(rows, ns, bank_t, lengths, chunks, nvalid,
+                             qlens, band: Optional[int] = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stream_bank_extend` (same
+    arguments and result), on whatever device the tensors are on: the
+    scored recurrence with no moment channels."""
+    return _extend_plain(rows, None, ns, bank_t, lengths, chunks, None,
+                         nvalid, qlens, band)[0]
 
 
 def stream_bank_extend_scored_plain(rows, moms, ns, bank_t, lengths,
@@ -184,8 +233,8 @@ def stream_bank_extend_scored_var_plain(rows, moms, ns, bank_t, lengths,
 
 def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
                   qlens, band: Optional[int]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The anti-diagonal formulation shared by both plain versions.
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The anti-diagonal formulation shared by the plain versions.
 
     Cell (i, j) of the chunk block lives on anti-diagonal t = i + j at
     slot i; each of the C + M - 1 steps updates one [S, C, K] diagonal
@@ -193,8 +242,9 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
     and slot C - 1 emits the new state row column by column.  Padded
     samples (i >= nvalid) pass the row above through unchanged.  With
     ``vchunks`` the moms' channels 3.. take v times the matching point
-    pair, v * (xm * yc) in that order (the reference's)."""
-    nch = moms.shape[0]
+    pair, v * (xm * yc) in that order (the reference's).  ``moms`` None
+    is the distance-only tick: the rows alone, and None for the moments
+    (the distances do not depend on them)."""
     s, c = chunks.shape
     m, k = bank_t.shape
     dev = rows.device
@@ -209,14 +259,8 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
     prow = torch.cat([corner[:, None, None].expand(s, 1, k), rows,
                       torch.full((s, c, k), INF, dtype=f32, device=dev)],
                      dim=1)
-    pmom = torch.cat([torch.zeros((nch, s, 1, k), dtype=f32, device=dev),
-                      moms,
-                      torch.zeros((nch, s, c, k), dtype=f32, device=dev)],
-                     dim=2)
     valid = (ii[None, :] < nvalid[:, None])[:, :, None]          # [S, C, 1]
-    xm = (chunks - MOM_SHIFT)[:, :, None]                        # [S, C, 1]
     x3 = chunks[:, :, None]
-    vv = None if vchunks is None else vchunks[:, :, None]        # [S, C, 1]
     if band is not None:
         centers = torch.div((ns[:, None] + ii[None, :])[:, :, None]
                             * (lengths[None, None, :] - 1),
@@ -226,11 +270,21 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
     pvert = torch.cat([prow[:, 0:1],
                        torch.full((s, c - 1, k), INF, dtype=f32,
                                   device=dev)], dim=1)
-    bprev = torch.zeros((nch, s, c, k), dtype=f32, device=dev)
-    mprev = torch.zeros_like(bprev)
-    mvert = torch.zeros_like(bprev)
     out_rows = torch.empty((s, m, k), dtype=f32, device=dev)
-    out_moms = torch.empty((nch, s, m, k), dtype=f32, device=dev)
+    out_moms = None
+    if moms is not None:
+        nch = moms.shape[0]
+        pmom = torch.cat([torch.zeros((nch, s, 1, k), dtype=f32,
+                                      device=dev),
+                          moms,
+                          torch.zeros((nch, s, c, k), dtype=f32,
+                                      device=dev)], dim=2)
+        xm = (chunks - MOM_SHIFT)[:, :, None]                    # [S, C, 1]
+        vv = None if vchunks is None else vchunks[:, :, None]    # [S, C, 1]
+        bprev = torch.zeros((nch, s, c, k), dtype=f32, device=dev)
+        mprev = torch.zeros_like(bprev)
+        mvert = torch.zeros_like(bprev)
+        out_moms = torch.empty((nch, s, m, k), dtype=f32, device=dev)
     for t in range(c + m - 1):
         yd = yrp[c + m - 1 - t: 2 * c + m - 1 - t]                # [C, K]
         d = (x3 - yd[None]).abs()
@@ -243,22 +297,24 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
         best = torch.minimum(torch.minimum(p_diag, p_vert), p_horiz)
         cell = torch.clamp_max(d + best, INF)
         cell = torch.where(valid, cell, p_vert)
-        yc = torch.where(yd.abs() < _Y_VALID, yd - MOM_SHIFT, 0.0)[None]
-        pairs = [yc.expand(s, c, k), (yc * yc).expand(s, c, k), xm * yc]
-        if vv is not None:
-            pairs += [vv * p for p in pairs[:nch - 3]]
-        delta = torch.stack(pairs)                               # [NCH,S,C,K]
-        m_vert = torch.cat([pmom[:, :, t + 1: t + 2], mprev[:, :, : c - 1]],
-                           dim=2)
-        m_diag = mvert
-        sel_diag = p_diag <= torch.minimum(p_vert, p_horiz)
-        sel_vert = ~sel_diag & (p_vert <= p_horiz)
-        base = torch.where(sel_diag, m_diag,
-                           torch.where(sel_vert, m_vert, bprev))
-        m_cell = torch.where(valid, base + delta, m_vert)
         if t >= c - 1:
             out_rows[:, t - (c - 1)] = cell[:, c - 1]
-            out_moms[:, :, t - (c - 1)] = m_cell[:, :, c - 1]
-        prev, pvert, bprev, mprev, mvert = cell, p_vert, base, m_cell, \
-            m_vert
+        if moms is not None:
+            yc = torch.where(yd.abs() < _Y_VALID, yd - MOM_SHIFT, 0.0)[None]
+            pairs = [yc.expand(s, c, k), (yc * yc).expand(s, c, k), xm * yc]
+            if vv is not None:
+                pairs += [vv * p for p in pairs[:nch - 3]]
+            delta = torch.stack(pairs)                           # [NCH,S,C,K]
+            m_vert = torch.cat([pmom[:, :, t + 1: t + 2],
+                                mprev[:, :, : c - 1]], dim=2)
+            m_diag = mvert
+            sel_diag = p_diag <= torch.minimum(p_vert, p_horiz)
+            sel_vert = ~sel_diag & (p_vert <= p_horiz)
+            base = torch.where(sel_diag, m_diag,
+                               torch.where(sel_vert, m_vert, bprev))
+            m_cell = torch.where(valid, base + delta, m_vert)
+            if t >= c - 1:
+                out_moms[:, :, t - (c - 1)] = m_cell[:, :, c - 1]
+            bprev, mprev, mvert = base, m_cell, m_vert
+        prev, pvert = cell, p_vert
     return out_rows, out_moms

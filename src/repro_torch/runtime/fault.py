@@ -1,4 +1,4 @@
-"""Liveness and straggler tracking for the serving front.
+"""Liveness, straggler tracking and rescale decisions.
 
 Clock-injected and deterministic, so every policy is unit-testable
 without real failures:
@@ -9,15 +9,22 @@ without real failures:
   strings (``serve.ingest``) and evicts swept jobs.
 * :class:`StragglerDetector` — per-step durations; a worker consistently
   slower than ``factor`` x the median over a sliding window is flagged.
+* :class:`ElasticController` — given alive workers, picks the largest
+  usable data-parallel degree (a power of two) and emits a
+  :class:`RescaleDecision`; :meth:`ElasticController.decide_ahead` also
+  reads the serving stack's overload pressure.  Carrying a decision out
+  (``TuningService.rescale``) waits for bank sharding (ROADMAP.md queue
+  1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict, deque
-from typing import Deque, Dict, Hashable, List, Optional
+from typing import Deque, Dict, Hashable, List, Optional, Sequence
 
-__all__ = ["WorkerState", "HeartbeatTracker", "StragglerDetector"]
+__all__ = ["WorkerState", "HeartbeatTracker", "StragglerDetector",
+           "RescaleDecision", "ElasticController"]
 
 
 @dataclasses.dataclass
@@ -113,3 +120,89 @@ class StragglerDetector:
             if s[len(s) // 2] > self.factor * base:
                 out.append(wid)
         return sorted(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class RescaleDecision:
+    should_rescale: bool
+    new_data_parallel: int
+    dropped_workers: Sequence[int]
+    reason: str
+
+
+class ElasticController:
+    """Chooses the data-parallel degree from the alive/non-straggler set.
+
+    ``model_parallel`` stays fixed (changing the model-parallel degree
+    means re-sharding every weight — only worth it on large permanent
+    shrinkage); the data axis snaps to the largest power of two <= usable
+    hosts.
+    """
+
+    def __init__(self, model_parallel: int, min_data_parallel: int = 1):
+        self.model_parallel = model_parallel
+        self.min_data_parallel = min_data_parallel
+
+    @staticmethod
+    def _pow2_floor(n: int) -> int:
+        p = 1
+        while p * 2 <= n:
+            p *= 2
+        return p
+
+    def decide(self, current_data_parallel: int, alive: Sequence[int],
+               stragglers: Sequence[int] = ()) -> RescaleDecision:
+        usable = [w for w in alive if w not in set(stragglers)]
+        target = max(self.min_data_parallel, self._pow2_floor(len(usable)))
+        if target == current_data_parallel:
+            return RescaleDecision(False, current_data_parallel, (),
+                                   "stable")
+        dropped = tuple(sorted(set(alive) - set(usable)))
+        reason = ("shrink: dead/straggler workers" if
+                  target < current_data_parallel else "grow: workers joined")
+        return RescaleDecision(True, target, dropped, reason)
+
+    def decide_ahead(self, current_data_parallel: int,
+                     alive: Sequence[int],
+                     stragglers: Sequence[int] = (), *,
+                     overload_pressure: float = 0.0,
+                     grow_threshold: float = 0.75,
+                     shrink_threshold: float = 0.25) -> RescaleDecision:
+        """Rescale-AHEAD: :meth:`decide` reacts to workers dying; this
+        variant also reacts to the serving stack's measured overload
+        (``TuningService.overload_pressure()`` — the degradation
+        ladder's latency pressure and queue fill) BEFORE jobs are shed.
+
+        Pressure at or above ``grow_threshold`` doubles the data axis
+        (capped at the pow2 floor of the usable worker count — growing
+        past the hardware is not a plan); pressure at or below
+        ``shrink_threshold`` halves it (floored at
+        ``min_data_parallel``), reclaiming hosts an earlier spike
+        grabbed.  In between, defer to the reactive :meth:`decide`."""
+        if not 0.0 <= shrink_threshold < grow_threshold <= 1.0:
+            raise ValueError("need 0 <= shrink_threshold < "
+                             "grow_threshold <= 1")
+        usable = [w for w in alive if w not in set(stragglers)]
+        ceil = max(self.min_data_parallel, self._pow2_floor(len(usable)))
+        if overload_pressure >= grow_threshold \
+                and current_data_parallel < ceil:
+            target = min(ceil, current_data_parallel * 2)
+            return RescaleDecision(
+                True, target, (),
+                f"grow-ahead: overload pressure {overload_pressure:.2f}")
+        if overload_pressure <= shrink_threshold:
+            if self.min_data_parallel < current_data_parallel <= ceil:
+                target = max(self.min_data_parallel,
+                             current_data_parallel // 2)
+                return RescaleDecision(
+                    True, target, (),
+                    "shrink-ahead: overload pressure "
+                    f"{overload_pressure:.2f}")
+            # idle: reactive shrink (dead/straggler hosts) still applies,
+            # but never grow an idle service onto newly-joined workers.
+            d = self.decide(current_data_parallel, alive, stragglers)
+            if d.new_data_parallel > current_data_parallel:
+                return RescaleDecision(False, current_data_parallel, (),
+                                       "stable: idle")
+            return d
+        return self.decide(current_data_parallel, alive, stragglers)

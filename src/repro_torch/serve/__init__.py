@@ -1,13 +1,18 @@
 """Serving stack of the online tuning service: ingest -> scheduler ->
-tick engine -> verdicts."""
+tick engine -> verdicts, with the overload control plane beside it."""
 
 from .ingest import (BackpressureError, BoundedBuffer, IngestFront,
                      PoisonedSampleError, TraceLog)
+from .overload import (RUNGS, AdmissionController, AdmissionPolicy,
+                       AdmissionShedError, OverloadConfig,
+                       OverloadController)
 from .scheduler import (MIN_SLOT_BUCKET, SlotScheduler, TickCohorts,
                         slot_bucket)
 from .tuning import InFlightJob, MultiTenantTuningService, TuningService
 
 __all__ = ["BackpressureError", "BoundedBuffer", "IngestFront",
-           "PoisonedSampleError", "TraceLog", "MIN_SLOT_BUCKET",
-           "SlotScheduler", "TickCohorts", "slot_bucket", "InFlightJob",
+           "PoisonedSampleError", "TraceLog", "RUNGS", "AdmissionController",
+           "AdmissionPolicy", "AdmissionShedError", "OverloadConfig",
+           "OverloadController", "MIN_SLOT_BUCKET", "SlotScheduler",
+           "TickCohorts", "slot_bucket", "InFlightJob",
            "MultiTenantTuningService", "TuningService"]

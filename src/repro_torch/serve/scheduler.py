@@ -74,6 +74,11 @@ class TickCohorts:
     def __init__(self) -> None:
         self._hz: Dict[str, Optional[float]] = {}
         self._next_due: Dict[float, float] = {}
+        #: re-arm stretch factor (>= 1.0): the overload ladder's
+        #: ``slow_cohorts`` rung sets this > 1 so due cohorts re-arm
+        #: ``scale / hz`` ahead instead of ``1 / hz`` — jobs tick less
+        #: often under load, they are never skipped outright.
+        self.rate_scale: float = 1.0
 
     def assign(self, job_id: str, tick_hz: Optional[float]) -> None:
         if tick_hz is not None and tick_hz <= 0:
@@ -94,13 +99,13 @@ class TickCohorts:
 
     def due_jobs(self, now: Optional[float]) -> Set[str]:
         """Jobs whose cohort should drain at ``now`` (all jobs when
-        ``now`` is None); due rate-cohorts are re-armed ``1/hz`` ahead.
-        """
+        ``now`` is None); due rate-cohorts are re-armed
+        ``rate_scale/hz`` ahead."""
         if now is None:
             return set(self._hz)
         due_rates = {hz for hz, t in self._next_due.items() if now >= t}
         for hz in due_rates:
-            self._next_due[hz] = now + 1.0 / hz
+            self._next_due[hz] = now + self.rate_scale / hz
         return {j for j, hz in self._hz.items()
                 if hz is None or float(hz) in due_rates}
 

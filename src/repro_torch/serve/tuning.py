@@ -22,7 +22,8 @@ Layered serving stack
   other job's as ``[S, M, K]`` / ``[3, S, M, K]`` device tensors (K
   last).  :meth:`TuningService.tick` drains every due job's samples into
   ONE launch of the scored streaming kernel (K1, or K4 in probabilistic
-  mode), which returns a ``[S, K]`` open-end warp-correlation array.
+  mode), which returns a ``[S, K]`` open-end warp-correlation array (or
+  of the distance-only kernel K3, which returns none).
   ``dispatch_count`` records the invariant: dispatches == ticks with
   data, however many jobs are in flight.
 * **verdicts** (this module): :meth:`TuningService.finish` recomputes the
@@ -74,18 +75,53 @@ Verdicts (:meth:`finish`, :meth:`finish_many`) always go through the
 exact six-channel scorer (kernel K5), whatever mode served the ticks, so
 verdict probabilities are bitwise independent of ``prob_mode``.
 
+Distance-only mode and the overload ladder
+------------------------------------------
+``score_in_flight=False`` runs the distance-only tick (kernel K3): the
+DP rows advance, no moment slab is held and no early decision is made;
+:meth:`finish` still renders the offline verdict.  ``overload=`` arms the
+degradation ladder (``serve.overload``): the rung decided by earlier
+ticks' measured latencies caps the tick mode for the whole tick, in the
+expense order ``prob < approx_prob < scored < distance`` (a cap only
+ever makes the tick cheaper).  A probabilistic service capped at
+``approx_prob`` runs K4 with four channels over ``moms[:4]`` of its slab,
+one capped at ``scored`` runs K1 over ``moms[:3]``, and rung 3 runs K3 on
+the rows alone; the untouched channels go stale and are never read,
+because a job ticked below its base mode is marked ``degraded_level`` 1
+(2 at ``distance``) and makes no more early decisions.  Every tick
+flavour updates the rows identically, so finals are bitwise unchanged.
+``admission=`` sheds submits by QoS class under pressure.
+
+Resilient dispatch
+------------------
+``retry_policy=`` and ``breaker=`` (a ``runtime.retry.CircuitBreaker``)
+arm a fallback for the tick and verdict dispatches: after retries on an
+injected ``runtime.chaos.InjectedDispatchError``, or while the breaker
+is open, the same dispatch runs once more without consulting the chaos
+plan (the kernel on CUDA tensors, its plain version on CPU tensors, as
+everywhere).  Each such dispatch is counted in
+``degraded_dispatch_count``.  A real failed launch
+(``kernels.common.KernelLaunchError``) is retried like an injected
+fault but has no second path on the card: once it outlasts the retries,
+or fails a half-open probe, it raises ``runtime.retry.DispatchFailure``.
+Without ``retry_policy`` or ``breaker`` there is no fallback: a
+transient error that outlasts the chaos plan's burst raises
+``DispatchFailure``.  ``chaos=``
+(a ``runtime.chaos.FaultPlan``) injects dispatch failures, corrupted
+samples, clock skew and slow-dispatch latency at the service's hook
+points.
+
 Not ported yet (the constructor keywords exist and raise
-``NotImplementedError`` naming the ROADMAP.md queue item): the
-distance-only tick and the serving-front extras (``score_in_flight=
-False``, ``retry_policy``, ``chaos``, ``overload``, ``admission``,
-``breaker``, :class:`MultiTenantTuningService`: item 6), the wavelet
-prefilter (item 7) and bank sharding (``mesh``: item 10).
+``NotImplementedError`` naming the ROADMAP.md queue item): the wavelet
+prefilter (``prefilter_top``: item 7) and bank sharding (``mesh``:
+item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+import time
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,9 +130,32 @@ from ..core import dtw as _dtw
 from ..core.database import ReferenceDB, SeriesBank
 from ..core.similarity import MATCH_THRESHOLD
 from ..core.tuner import TuneDecision, _RowBuffer
-from ..kernels.common import resolve_device
+from ..kernels.common import KernelLaunchError, resolve_device
+from ..runtime.chaos import FaultPlan, InjectedDispatchError
+from ..runtime.retry import (CircuitBreaker, DispatchFailure, RetryPolicy,
+                             call_with_retry)
 from .ingest import IngestFront, PoisonedSampleError, TraceLog
+from .overload import (RUNGS, AdmissionController, AdmissionPolicy,
+                       AdmissionShedError, OverloadConfig,
+                       OverloadController)
 from .scheduler import SlotScheduler
+
+#: Errors a resilient dispatch retries: injected chaos faults and failed
+#: kernel launches (the reference's injected faults and device runtime
+#: errors).
+_TRANSIENT = (InjectedDispatchError, KernelLaunchError)
+
+#: Tick modes in expense order: a ladder cap only ever moves a tick
+#: right, never left.
+_MODE_ORDER = {"prob": 0, "approx_prob": 1, "scored": 2, "distance": 3}
+
+#: Each tick mode's dispatch (its kernel for CUDA tensors).
+_TICK_FNS = {
+    "prob": _dtw.bank_extend_tick_scored_var_dispatch,
+    "approx_prob": _dtw.bank_extend_tick_scored_var_approx_dispatch,
+    "scored": _dtw.bank_extend_tick_scored_dispatch,
+    "distance": _dtw.bank_extend_tick_dispatch,
+}
 
 __all__ = ["InFlightJob", "TuningService", "MultiTenantTuningService"]
 
@@ -128,9 +187,16 @@ class InFlightJob:
     last_sims: Optional[np.ndarray] = None
     #: last [K] match-probability row (probabilistic mode only).
     last_probs: Optional[np.ndarray] = None
-    #: QoS class the job was submitted under (read by admission control,
-    #: which is not ported yet).
+    #: QoS class (bronze/silver/gold) the job was admitted under.
     qos: str = "silver"
+    #: staleness marker set by degraded (ladder) ticks — monotone per
+    #: job, because a skipped side-channel contribution can never be
+    #: recovered in flight.  0 = all channels exact; 1 = variance
+    #: channels stale (early decisions suppressed); 2 = all moment
+    #: channels stale (``last_sims``/``last_probs`` frozen, no early
+    #: decisions ever — the final verdict recomputes offline from the
+    #: full query and is bitwise unchanged).
+    degraded_level: int = 0
 
     @property
     def fraction_seen(self) -> float:
@@ -147,6 +213,8 @@ class TuningService:
     ``min_probability=`` enables the probabilistic decision rule and
     ``prob_mode`` ("exact" or "approx", the latter needing
     ``min_probability``) its in-flight tail; see the module docstring.
+    ``score_in_flight=False`` is the distance-only mode (no moment slab,
+    no early decisions; ``collect_rows`` is its older alias).
 
     Serving-front knobs:
 
@@ -165,6 +233,12 @@ class TuningService:
     * ``submit(..., tick_hz=)`` assigns the job to a tick-rate cohort;
       ``tick(now=...)`` drains only due cohorts.
     * ``finish_batch`` sets the drain-queue auto-flush threshold.
+    * ``overload`` (an ``OverloadConfig``, ``OverloadController`` or its
+      dict) arms the degradation ladder; ``admission`` (an
+      ``AdmissionPolicy``, ``AdmissionController`` or its dict) the QoS
+      admission gate of :meth:`submit`.
+    * ``retry_policy``, ``breaker`` and ``chaos``: see "Resilient
+      dispatch" in the module docstring.
     """
 
     def __init__(self, refs: Union[ReferenceDB, SeriesBank], *,
@@ -188,17 +262,23 @@ class TuningService:
                  queue_policy: str = "reject",
                  trace_log: Optional[TraceLog] = None,
                  heartbeat_timeout: Optional[float] = None,
-                 retry_policy=None, chaos=None, overload=None,
-                 admission=None, breaker=None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 chaos: Optional[FaultPlan] = None,
+                 overload: Union[OverloadConfig, OverloadController,
+                                 Dict, None] = None,
+                 admission: Union[AdmissionPolicy, AdmissionController,
+                                  Dict, None] = None,
+                 breaker: Optional[CircuitBreaker] = None,
                  device: Union[str, torch.device, None] = None) -> None:
         if score_in_flight is None:
             score_in_flight = True if collect_rows is None else collect_rows
-        if not score_in_flight:
-            raise _not_ported("score_in_flight=False (the distance-only "
-                              "tick, kernel K3)", 6)
-        if min_probability is not None \
-                and not 0.0 < min_probability <= 1.0:
-            raise ValueError("min_probability must be in (0, 1]")
+        if min_probability is not None:
+            if not 0.0 < min_probability <= 1.0:
+                raise ValueError("min_probability must be in (0, 1]")
+            if not score_in_flight:
+                raise ValueError("min_probability needs "
+                                 "score_in_flight=True (the probability "
+                                 "rides the fused scoring tick)")
         if prob_mode not in ("exact", "approx"):
             raise ValueError("prob_mode must be 'exact' or 'approx', got "
                              f"{prob_mode!r}")
@@ -210,11 +290,6 @@ class TuningService:
             raise _not_ported("bank sharding (mesh=)", 10)
         if prefilter_top is not None:
             raise _not_ported("the wavelet prefilter (prefilter_top=)", 7)
-        for name, val in (("retry_policy", retry_policy), ("chaos", chaos),
-                          ("overload", overload), ("admission", admission),
-                          ("breaker", breaker)):
-            if val is not None:
-                raise _not_ported(f"{name}=", 6)
         if finish_batch < 1:
             raise ValueError("finish_batch must be >= 1")
         if isinstance(refs, ReferenceDB):
@@ -238,10 +313,32 @@ class TuningService:
         self.min_fraction = min_fraction
         self.slots = slots
         self.denoise = denoise
+        self.score_in_flight = score_in_flight
         self.finish_batch = finish_batch
+        self.retry_policy = retry_policy
+        self.chaos = chaos
+        self.breaker = breaker
+        # the overload control plane: the degradation-ladder controller
+        # and the admission gate (see serve.overload's runbook).  Dict
+        # forms rebuild them from a JSON config; a live controller keeps
+        # its walked state.
+        if isinstance(overload, dict):
+            overload = OverloadConfig(**overload)
+        if isinstance(overload, OverloadConfig):
+            overload = OverloadController(overload)
+        self._overload: Optional[OverloadController] = overload
+        if isinstance(admission, dict):
+            admission = AdmissionPolicy(**admission)
+        if isinstance(admission, AdmissionPolicy):
+            admission = AdmissionController(admission)
+        self._admission: Optional[AdmissionController] = admission
 
         k, m = self.bank.series.shape
         self._k = k
+        # admission cost proxy: expected job length over the bank's mean
+        # reference length (the cumulative-CPU estimate stand-in).
+        self._mean_ref_len = float(np.mean(
+            self.bank.lengths.astype(np.int32)))
         # one device upload of the bank serves the tick and the verdicts
         plan = self.bank.score_plan(self.device)
         self._bank_t = plan.bank_t                         # [M, K]
@@ -260,13 +357,14 @@ class TuningService:
         dev, s = self.device, self._s_cap
         self._rows = torch.full((s, m, k), _dtw._INF, dtype=torch.float32,
                                 device=dev)
-        # moment channels: 3 point, 6 exact-probability, 4 approx
+        # moment channels: 3 point, 6 exact-probability, 4 approx, and
+        # none in distance-only mode
         if min_probability is None:
             nch = 3
         else:
             nch = 4 if prob_mode == "approx" else 6
         self._moms = torch.zeros((nch, s, m, k), dtype=torch.float32,
-                                 device=dev)
+                                 device=dev) if score_in_flight else None
         self._ns = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._sx = torch.zeros((s,), dtype=torch.float32, device=dev)
         self._sxx = torch.zeros((s,), dtype=torch.float32, device=dev)
@@ -276,7 +374,7 @@ class TuningService:
             if min_probability is not None else None
         self._qlens = np.zeros((s,), np.int32)
 
-        #: kernel launches issued by :meth:`tick` — one per tick with
+        #: tick dispatches issued by :meth:`tick` — one per tick with
         #: data, however many jobs are live.
         self.dispatch_count = 0
         #: S-axis capacity changes (elastic grow / compact-shrink), never
@@ -296,6 +394,27 @@ class TuningService:
         self.quarantined_count = 0
         #: pushes dropped because their job was already quarantined.
         self.quarantine_dropped = 0
+        #: failed dispatch attempts absorbed by the retry wrapper
+        #: (failed kernel launches and injected chaos faults).
+        self.retry_count = 0
+        #: dispatches served by the fallback, the same dispatch without
+        #: the chaos consult (retries exhausted, or the breaker open):
+        #: the unfaulted results, degraded latency.
+        self.degraded_dispatch_count = 0
+        #: True when the most recent tick or verdict dispatch came from
+        #: the fallback.
+        self.last_tick_degraded = False
+        #: submits refused by admission control, total and per QoS class.
+        self.shed_count = 0
+        self.shed_by_class: Dict[str, int] = {}
+        #: top-level ticks observed while the ladder was above rung 0.
+        self.overload_ticks = 0
+        #: high-water ladder rung reached (see serve.overload.RUNGS).
+        self.worst_rung = 0
+        #: latency of the most recent top-level tick: host wall clock
+        #: around the tick (plus any chaos-injected slowdown), or the
+        #: ``tick(latency=)`` override; what the ladder observes.
+        self.last_tick_latency = 0.0
         # early decisions emitted by a tick the caller didn't see (the
         # internal drain tick of another job's finish()); surfaced by the
         # next tick() return so no decision is ever dropped.
@@ -320,8 +439,9 @@ class TuningService:
         fresh = torch.as_tensor(src < 0, device=dev)
         self._rows = torch.where(fresh[:, None, None], _dtw._INF,
                                  self._rows.index_select(0, gather))
-        self._moms = torch.where(fresh[None, :, None, None], 0.0,
-                                 self._moms.index_select(1, gather))
+        if self._moms is not None:
+            self._moms = torch.where(fresh[None, :, None, None], 0.0,
+                                     self._moms.index_select(1, gather))
         self._ns = torch.where(fresh, 0, self._ns.index_select(0, gather))
         self._sx = torch.where(fresh, 0.0, self._sx.index_select(0, gather))
         self._sxx = torch.where(fresh, 0.0,
@@ -344,7 +464,9 @@ class TuningService:
         mask[self._dirty] = True
         md = torch.as_tensor(mask, device=self.device)
         self._rows = torch.where(md[:, None, None], _dtw._INF, self._rows)
-        self._moms = torch.where(md[None, :, None, None], 0.0, self._moms)
+        if self._moms is not None:
+            self._moms = torch.where(md[None, :, None, None], 0.0,
+                                     self._moms)
         self._ns = torch.where(md, 0, self._ns)
         self._sx = torch.where(md, 0.0, self._sx)
         self._sxx = torch.where(md, 0.0, self._sxx)
@@ -373,6 +495,41 @@ class TuningService:
         """Current S bucket (== ``slots`` when ``elastic_slots=False``)."""
         return self._s_cap
 
+    def rescale(self, mesh) -> None:
+        """Re-home the device state onto another mesh, the hook an
+        ``ElasticController`` decision drives: not ported yet."""
+        raise _not_ported("TuningService.rescale (bank sharding)", 10)
+
+    # -- overload surface (serve.overload runbook) ---------------------------
+    @property
+    def rung(self) -> int:
+        """Current degradation-ladder rung (0 without a controller)."""
+        return 0 if self._overload is None else self._overload.rung
+
+    @property
+    def rung_history(self) -> List[Tuple[int, int, int]]:
+        """Ladder transitions ``(observation_index, from, to)`` — empty
+        without a controller."""
+        return [] if self._overload is None \
+            else list(self._overload.rung_history)
+
+    @property
+    def degraded(self) -> bool:
+        """True while the service is NOT serving its configured quality:
+        the circuit breaker has demoted the kernel path, or the overload
+        ladder sits above rung 0."""
+        return (self.breaker is not None and self.breaker.engaged) \
+            or self.rung > 0
+
+    def overload_pressure(self) -> float:
+        """Scalar [0, 1] rescale-ahead signal for
+        ``runtime.fault.ElasticController.decide_ahead``: the worse of
+        the ladder's latency pressure and the ingest queue fill."""
+        p = self._front.queue_fill()
+        if self._overload is not None:
+            p = max(p, self._overload.pressure())
+        return p
+
     def submit(self, job_id: str, expected_len: int,
                tick_hz: Optional[float] = None,
                qos: str = "silver") -> InFlightJob:
@@ -380,11 +537,31 @@ class TuningService:
         sample count; it anchors the Sakoe-Chiba band and the
         fraction-seen gate of the early-decision rule).  ``tick_hz``
         assigns the job to a tick-rate cohort: ``tick(now=...)`` drains
-        it only on its own period (None = every tick)."""
+        it only on its own period (None = every tick).
+
+        ``qos`` (bronze/silver/gold) is the job's admission class: with
+        ``admission=`` armed, a submit under measured overload raises
+        :class:`serve.overload.AdmissionShedError` — bronze sheds first,
+        gold last.  A shed submit leaves no state behind."""
         if job_id in self._jobs:
             raise ValueError(f"job {job_id!r} already in flight")
         if expected_len < 1:
             raise ValueError("expected_len must be >= 1")
+        if self._admission is not None:
+            rung_frac = (self._overload.rung / max(1, len(RUNGS) - 1)
+                         if self._overload is not None else 0.0)
+            cost_fill = min(1.0, expected_len / (
+                self._admission.policy.cost_scale * self._mean_ref_len))
+            try:
+                self._admission.admit(
+                    job_id, qos=qos, cost_fill=cost_fill,
+                    queue_fill=self._front.queue_fill(),
+                    rung_frac=rung_frac)
+            except AdmissionShedError:
+                self.shed_count += 1
+                self.shed_by_class[qos] = \
+                    self.shed_by_class.get(qos, 0) + 1
+                raise
         slot, grow_src = self._sched.admit(job_id, tick_hz)
         if grow_src is not None:
             self._repack_slots(grow_src)
@@ -408,7 +585,8 @@ class TuningService:
         armed).  ``variance`` (probabilistic mode only) carries aligned
         per-sample measurement variances; when omitted the ingest layer
         estimates them from the causal filter residual at drain time
-        (0.0 without ``denoise``).
+        (0.0 without ``denoise``).  A ``chaos`` plan may corrupt the
+        samples and skew ``now`` first.
 
         Poisoned payloads (NaN/Inf samples, negative or non-finite
         variances) QUARANTINE the job: the push is rejected atomically
@@ -421,6 +599,9 @@ class TuningService:
             return
         if job_id not in self._jobs:
             raise KeyError(job_id)
+        if self.chaos is not None:
+            samples = self.chaos.corrupt(samples)
+            now = self.chaos.skew(now)
         try:
             self._front.push(job_id, samples, variance=variance, now=now)
         except PoisonedSampleError as err:
@@ -433,21 +614,76 @@ class TuningService:
         self.evict(job_id)
 
     # -- the hot path --------------------------------------------------------
-    def tick(self, now: Optional[float] = None
-             ) -> Dict[str, Optional[TuneDecision]]:
+    def tick(self, now: Optional[float] = None, *,
+             latency: Optional[float] = None,
+             _observe: bool = True) -> Dict[str, Optional[TuneDecision]]:
         """Drain every due job's buffered samples into ONE launch of the
-        scored streaming tick, then apply the early-decision rule to the
+        streaming tick, then apply the early-decision rule to the
         returned [S, K] scores.
 
         ``now`` meters the tick-rate cohorts: only cohorts whose period
         has elapsed drain.  Without a clock every job is due.
+
+        Overload plumbing (``overload=``): the rung decided by earlier
+        observations holds for this whole tick (mode cap, cohort
+        stretch), then the tick's latency feeds the ladder: the host
+        wall clock around the tick, plus any chaos-injected slowdown, or
+        ``latency=`` when given (a recorded latency replayed).
+        ``_observe=False`` marks an internal drain tick (see
+        :meth:`finish`), which does not advance the ladder.
 
         Returns {job_id: TuneDecision} for decisions *newly emitted* this
         tick (None for touched jobs where the service abstains), plus any
         decision a previous internal tick (see :meth:`finish`) emitted
         but could not deliver.
         """
+        if self._overload is not None:
+            self._sched.cohorts.rate_scale = self._overload.cohort_scale
+            if _observe and self._overload.rung >= 1:
+                self.overload_ticks += 1
+        # On a card the host returns before a kernel ends.  A scored tick
+        # copies its [S, K] scores to the host, which waits for the
+        # kernel; a distance-only tick copies nothing back, so its
+        # measured latency is host time.  No synchronisation is added
+        # here that the reference lacks.
+        t0 = time.perf_counter()
+        out = self._tick_impl(now)
+        if _observe:
+            lat = time.perf_counter() - t0 if latency is None \
+                else float(latency)
+            if latency is None and self.chaos is not None:
+                lat += self.chaos.slow_dispatch("tick")
+            self.last_tick_latency = lat
+            if self._overload is not None:
+                self._overload.observe(lat)
+                self.worst_rung = max(self.worst_rung,
+                                      self._overload.rung)
+        return out
+
+    def _base_mode(self) -> str:
+        """The configured (unloaded) tick mode: ``"prob"`` (exact
+        6-channel probabilities), ``"approx_prob"`` (the 4-channel
+        approximate tail), ``"scored"`` or ``"distance"``."""
+        if self.min_probability is not None:
+            return "approx_prob" if self.prob_mode == "approx" else "prob"
+        return "scored" if self.score_in_flight else "distance"
+
+    def _tick_mode(self) -> str:
+        """This tick's mode: the configured mode, capped by the overload
+        ladder's current rung.  A cap only ever makes the tick CHEAPER
+        (the later of the two in the expense order), so a distance-only
+        service is never upgraded and an approx service never moves to
+        the exact tail."""
+        base = self._base_mode()
+        if self._overload is None:
+            return base
+        cap = self._overload.tick_mode_cap
+        return cap if _MODE_ORDER[cap] > _MODE_ORDER[base] else base
+
+    def _tick_impl(self, now: Optional[float]
+                   ) -> Dict[str, Optional[TuneDecision]]:
         self.ticks += 1
+        self.last_tick_degraded = False
         out: Dict[str, Optional[TuneDecision]] = self._undelivered
         self._undelivered = {}
         due = self._sched.due_jobs(now, self._jobs.keys())
@@ -487,41 +723,144 @@ class TuningService:
             if prob:
                 vchunks[job.slot, : ch.shape[0]] = vch
         dev = self.device
-        args = (self._bank_t, self._lengths,
+        data = (self._bank_t, self._lengths,
                 torch.from_numpy(chunks).to(dev))
         tail = (torch.from_numpy(nvalid).to(dev),
                 torch.from_numpy(self._qlens).to(dev))
-        probs_all = None
-        if prob:
-            tick_fn = _dtw.bank_extend_tick_scored_var_approx_dispatch \
-                if self.prob_mode == "approx" \
-                else _dtw.bank_extend_tick_scored_var_dispatch
-            (self._rows, self._moms, self._ns, self._sx, self._sxx, scores,
-             self._vstats, probs) = tick_fn(
-                self._rows, self._moms, self._ns, self._sx, self._sxx,
-                self._vstats, *args, torch.from_numpy(vchunks).to(dev),
-                *tail, band=self.band, threshold=float(self.threshold))
-            probs_all = probs.cpu().numpy().astype(np.float64)
+
+        # This tick's mode: the configured one, or a cheaper one under
+        # the overload ladder.  Every mode updates the DP rows (and ns)
+        # identically, so a capped tick leaves the rows bitwise what the
+        # full tick computes; the channels it skips go stale, and the
+        # jobs it touches are marked so that nothing reads them.
+        mode = self._tick_mode()
+        base = self._base_mode()
+        tick_fn = _TICK_FNS[mode]
+        sims_all = probs_all = None
+        if mode == "distance":
+            args = (self._rows, self._ns, *data, *tail)
+            self._rows, self._ns = self._dispatch_resilient(
+                tick_fn, args, dict(band=self.band), "tick")
         else:
-            (self._rows, self._moms, self._ns, self._sx, self._sxx,
-             scores) = _dtw.bank_extend_tick_scored_dispatch(
-                self._rows, self._moms, self._ns, self._sx, self._sxx,
-                *args, *tail, band=self.band)
+            # the mode's channels: all of the slab in the base mode, else
+            # its leading 3 (scored) or 4 (approx) channels.  A leading
+            # slice of the contiguous [NCH, S, M, K] slab is contiguous.
+            nch = {"prob": 6, "approx_prob": 4, "scored": 3}[mode]
+            moms_in = self._moms if mode == base else self._moms[:nch]
+            kw = dict(band=self.band)
+            if mode == "scored":
+                args = (self._rows, moms_in, self._ns, self._sx, self._sxx,
+                        *data, *tail)
+            else:
+                kw["threshold"] = float(self.threshold)
+                args = (self._rows, moms_in, self._ns, self._sx, self._sxx,
+                        self._vstats, *data,
+                        torch.from_numpy(vchunks).to(dev), *tail)
+            res = self._dispatch_resilient(tick_fn, args, kw, "tick")
+            self._rows, moms_out, self._ns, self._sx, self._sxx = res[:5]
+            if mode == base:
+                self._moms = moms_out
+            else:
+                # written back into the slab's leading channels in place:
+                # a concatenation would allocate a second slab.
+                self._moms[:nch].copy_(moms_out)
+            if mode != "scored":
+                self._vstats = res[6]
+                probs_all = res[7].cpu().numpy().astype(np.float64)
+            # the tick's device -> host transfers: the [S, K] scores (and
+            # the [S, K] probabilities in the probabilistic modes).
+            sims_all = res[5].cpu().numpy().astype(np.float64)
         self.dispatch_count += 1
-        # the tick's device -> host transfers: the [S, K] scores (and
-        # the [S, K] probabilities in probabilistic mode).
-        sims_all = scores.cpu().numpy().astype(np.float64)
+
+        if mode != base:
+            lvl = 2 if mode == "distance" else 1
+            for job, *_ in pending:
+                job.degraded_level = max(job.degraded_level, lvl)
 
         for job, ch, _ in pending:
             job.n += ch.shape[0]
-            job.last_sims = sims_all[job.slot]
-            if probs_all is not None:
-                job.last_probs = probs_all[job.slot]
-            decision = self._maybe_decide(job) if job.early is None \
-                else None
+            decision = None
+            # a level-2 job's moment channels are stale, so any score a
+            # later scored tick emits for its slot is garbage: freeze
+            # last_sims/last_probs at their last exact values.
+            if sims_all is not None and job.degraded_level < 2:
+                job.last_sims = sims_all[job.slot]
+                if probs_all is not None:
+                    job.last_probs = probs_all[job.slot]
+                if job.early is None and job.degraded_level == 0:
+                    decision = self._maybe_decide(job)
             if out.get(job.job_id) is None:
                 out[job.job_id] = decision
         return out
+
+    # -- dispatch resilience -------------------------------------------------
+    def _dispatch_resilient(self, fn, args, kwargs, kind: str):
+        """One tick or verdict dispatch, ``fn(*args, **kwargs)``, through
+        the retry wrapper and the circuit breaker.
+
+        With neither ``retry_policy``, ``chaos`` nor ``breaker`` armed
+        this is a plain call.  A chaos plan is consulted per attempt, so
+        a fault burst spans retries.  The fallback exists only when the
+        caller armed ``retry_policy`` or ``breaker``: it runs ``fn`` once
+        more without the chaos consult, so on a card the kernel serves it
+        (there is no plain version on CUDA tensors) and its result is the
+        unfaulted dispatch's, bitwise.  It serves after the retries on an
+        injected fault, and directly while the breaker is open; a
+        half-open breaker probes once per probe slot and re-closes on
+        success.  Every fallback dispatch is counted in
+        ``degraded_dispatch_count``.  A real ``KernelLaunchError`` has no
+        second path: once it outlasts the retries, or fails a probe, it
+        raises ``DispatchFailure``, and on the open breaker's direct path
+        it propagates as it is.  Injected faults move latency and
+        counters, never results."""
+        chaos, breaker = self.chaos, self.breaker
+        if chaos is None and self.retry_policy is None and breaker is None:
+            return fn(*args, **kwargs)
+        errors: List[BaseException] = []
+
+        def attempt():
+            if chaos is not None:
+                chaos.on_dispatch(kind)
+            return fn(*args, **kwargs)
+
+        def fallback():
+            if errors and isinstance(errors[-1], KernelLaunchError):
+                raise DispatchFailure(
+                    f"{kind} dispatch: kernel launch failed on every "
+                    "attempt") from errors[-1]
+            result = fn(*args, **kwargs)
+            self.degraded_dispatch_count += 1
+            self.last_tick_degraded = True
+            return result
+
+        if breaker is not None:
+            route = breaker.before_dispatch()
+            if route == "fallback":
+                return fallback()
+            if route == "probe":
+                try:
+                    result = attempt()       # one un-retried attempt
+                except _TRANSIENT as e:
+                    breaker.record_failure()
+                    errors.append(e)
+                    return fallback()
+                breaker.record_success()
+                return result
+
+        armed = self.retry_policy is not None or breaker is not None
+        policy = self.retry_policy or RetryPolicy(max_retries=0,
+                                                  base_delay=0.0)
+        result, report = call_with_retry(
+            attempt, policy=policy, transient=_TRANSIENT,
+            fallback=fallback if armed else None,
+            on_retry=lambda _, e: errors.append(e))
+        self.retry_count += report["retries"]
+        if breaker is not None:
+            if report["degraded"]:
+                breaker.record_failure()
+            else:
+                breaker.record_success()
+        return result
 
     # -- decision rule -------------------------------------------------------
     def _reduce(self, sims: np.ndarray) -> Dict[str, float]:
@@ -636,11 +975,12 @@ class TuningService:
                 v = variances[i]
                 if v is not None and v.shape[0] == q.shape[0]:
                     xv[r, : q.shape[0]] = v
-        res = _dtw.dtw_score_bank_many(
-            xs, self.bank.series, self.bank.lengths, xlens=xl,
-            band=self.band, sx=sx, sxx=sxx, xvars=xv,
-            threshold=float(self.threshold),
-            plan=self.bank.score_plan(self.device))
+        res = self._dispatch_resilient(
+            _dtw.dtw_score_bank_many,
+            (xs, self.bank.series, self.bank.lengths),
+            dict(xlens=xl, band=self.band, sx=sx, sxx=sxx, xvars=xv,
+                 threshold=float(self.threshold),
+                 plan=self.bank.score_plan(self.device)), "verdict")
         scores, probs = res if prob else (res, None)
         scores = scores.cpu().numpy().astype(np.float64)
         if prob:
@@ -678,9 +1018,11 @@ class TuningService:
     def _drain_tick_for(self, finishing) -> None:
         """Flush buffered samples before a verdict (ONE tick covering
         every live job) and park early decisions emitted for jobs that
-        are NOT being finished, so they surface from the next tick()."""
+        are NOT being finished, so they surface from the next tick().
+        The internal tick does not advance the overload ladder
+        (``_observe=False``): only top-level ticks are observed."""
         if any(self._front.has_data(j) for j in finishing):
-            emitted = self.tick()
+            emitted = self.tick(_observe=False)
             for jid, d in emitted.items():
                 if jid not in finishing and d is not None:
                     self._undelivered[jid] = d
@@ -772,7 +1114,128 @@ class TuningService:
 
 
 class MultiTenantTuningService:
-    """Per-tenant reference banks behind one front: not ported yet."""
+    """Continuous-batching front over per-tenant reference banks.
 
-    def __init__(self, banks, **engine_kwargs) -> None:
-        raise _not_ported("MultiTenantTuningService", 6)
+    ``banks`` maps tenant name -> :class:`ReferenceDB` or
+    :class:`SeriesBank`; each tenant gets an isolated
+    :class:`TuningService` engine (its own bank, device state, cohorts
+    and counters) built with the shared ``**engine_kwargs``.  Jobs are
+    keyed to a tenant at :meth:`submit` and routed by job id afterwards
+    — ids are unique across the front, so ``push``/``finish`` need no
+    tenant argument.  A :meth:`tick` drains every engine (each engine
+    dispatches only when one of its due jobs has data), so total device
+    dispatches are bounded by data-ticks x tenants.
+    """
+
+    def __init__(self, banks: Mapping[str, Union[ReferenceDB, SeriesBank]],
+                 **engine_kwargs) -> None:
+        if not banks:
+            raise ValueError("no tenants")
+        self._engines: Dict[str, TuningService] = {
+            t: TuningService(bank, **engine_kwargs)
+            for t, bank in banks.items()}
+        self._tenant_of: Dict[str, str] = {}
+
+    # -- routing --------------------------------------------------------------
+    def engine(self, tenant: str) -> TuningService:
+        """The tenant's tick engine (for counters/diagnostics)."""
+        return self._engines[tenant]
+
+    @property
+    def tenants(self) -> Tuple[str, ...]:
+        return tuple(self._engines)
+
+    @property
+    def n_active(self) -> int:
+        return sum(e.n_active for e in self._engines.values())
+
+    @property
+    def dispatch_count(self) -> int:
+        return sum(e.dispatch_count for e in self._engines.values())
+
+    @property
+    def offline_dispatch_count(self) -> int:
+        return sum(e.offline_dispatch_count for e in self._engines.values())
+
+    @property
+    def quarantined(self) -> Dict[str, str]:
+        """{job_id: poison reason} across every tenant engine."""
+        out: Dict[str, str] = {}
+        for e in self._engines.values():
+            out.update(e.quarantined)
+        return out
+
+    def _engine_of(self, job_id: str) -> TuningService:
+        return self._engines[self._tenant_of[job_id]]
+
+    # -- lifecycle ------------------------------------------------------------
+    def submit(self, job_id: str, expected_len: int, *, tenant: str,
+               tick_hz: Optional[float] = None,
+               qos: str = "silver") -> InFlightJob:
+        if tenant not in self._engines:
+            raise KeyError(f"unknown tenant {tenant!r}")
+        if job_id in self._tenant_of:
+            raise ValueError(f"job {job_id!r} already in flight "
+                             f"(tenant {self._tenant_of[job_id]!r})")
+        job = self._engines[tenant].submit(job_id, expected_len,
+                                           tick_hz=tick_hz, qos=qos)
+        self._tenant_of[job_id] = tenant
+        return job
+
+    def push(self, job_id: str, samples,
+             variance: Optional[np.ndarray] = None,
+             now: Optional[float] = None) -> None:
+        self._engine_of(job_id).push(job_id, samples, variance=variance,
+                                     now=now)
+
+    def tick(self, now: Optional[float] = None
+             ) -> Dict[str, Optional[TuneDecision]]:
+        out: Dict[str, Optional[TuneDecision]] = {}
+        for engine in self._engines.values():
+            out.update(engine.tick(now=now))
+        return out
+
+    def finish(self, job_id: str) -> TuneDecision:
+        return self.finish_many((job_id,))[job_id]
+
+    def finish_many(self, job_ids) -> Dict[str, TuneDecision]:
+        """Batched verdicts, grouped per tenant: one drain tick + one
+        verdict launch per tenant with completing jobs."""
+        ids = list(job_ids)
+        if len(set(ids)) != len(ids):
+            raise ValueError("duplicate job ids in finish_many")
+        missing = [j for j in ids if j not in self._tenant_of]
+        if missing:
+            raise KeyError(f"unknown job(s): {missing}")
+        by_tenant: Dict[str, List[str]] = {}
+        for jid in ids:
+            by_tenant.setdefault(self._tenant_of[jid], []).append(jid)
+        out: Dict[str, TuneDecision] = {}
+        for tenant, group in by_tenant.items():
+            out.update(self._engines[tenant].finish_many(group))
+            for jid in group:
+                del self._tenant_of[jid]
+        return out
+
+    def finish_later(self, job_id: str) -> None:
+        self._engine_of(job_id).finish_later(job_id)
+        del self._tenant_of[job_id]
+
+    def drain_finishes(self) -> Dict[str, TuneDecision]:
+        out: Dict[str, TuneDecision] = {}
+        for engine in self._engines.values():
+            out.update(engine.drain_finishes())
+        return out
+
+    @property
+    def pending_finishes(self) -> int:
+        return sum(e.pending_finishes for e in self._engines.values())
+
+    def sweep_stalled(self, now: float) -> Dict[str, Optional[TuneDecision]]:
+        out: Dict[str, Optional[TuneDecision]] = {}
+        for engine in self._engines.values():
+            evicted = engine.sweep_stalled(now)
+            for jid in evicted:
+                self._tenant_of.pop(jid, None)
+            out.update(evicted)
+        return out

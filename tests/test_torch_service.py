@@ -281,14 +281,96 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(score_in_flight=False), dict(mesh=object()), dict(prefilter_top=2),
-    dict(retry_policy=object()), dict(chaos=object()),
-    dict(overload={}), dict(admission={}), dict(breaker=object())])
+    dict(mesh=object()), dict(prefilter_top=2)])
 def test_unported_options_raise(option):
     bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
                        labels=("a", "b"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TuningService(bank, device="cpu", **option)
+
+
+def test_rescale_raises_until_bank_sharding():
+    bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
+                       labels=("a", "b"))
+    svc = TuningService(bank, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        svc.rescale(None)
+
+
+def test_distance_only_rejects_probabilities_and_multitenant_builds():
+    """``score_in_flight=False`` with ``min_probability=`` is refused as
+    in the reference (the probability rides the scoring tick), and the
+    multi-tenant front builds one engine per tenant."""
+    from repro_torch.serve.tuning import MultiTenantTuningService
+    bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
+                       labels=("a", "b"))
+    ref_bank = ref_pack([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
+                        labels=("a", "b"))
+    for cls, b, kw in ((TuningService, bank, dict(device="cpu")),
+                       (RefService, ref_bank, {})):
+        with pytest.raises(ValueError, match="score_in_flight=True"):
+            cls(b, score_in_flight=False, min_probability=0.5, **kw)
+    front = MultiTenantTuningService({"x": bank, "y": bank}, device="cpu",
+                                     score_in_flight=False)
+    assert front.tenants == ("x", "y")
+    assert front.engine("x")._moms is None
+
+
+def test_distance_only_golden_traces_tick_for_tick():
+    """All 12 golden jobs through a distance-only service per package:
+    no early decision in either, the same DP rows after every tick
+    (bitwise, and bitwise the scored service's rows), one launch per tick
+    with data, no moment slab, and final verdicts bitwise the
+    reference's (and the scored service's scores)."""
+    ref_bank, bank = _banks(tuple(mrsim.APPS))
+    ref = RefService(ref_bank, slots=16, score_in_flight=False, **KW)
+    svc = TuningService(bank, slots=16, device="cpu", collect_rows=False,
+                        **KW)
+    scored = TuningService(bank, slots=16, device="cpu", **KW)
+    assert svc._moms is None and ref._moms is None
+    streams = {}
+    for app in mrsim.APPS:
+        for j, p in enumerate(mrsim.paper_param_sets()):
+            jid = f"{app}-{j}"
+            q = mrsim.simulate_cpu_series(app, p, run=1, dt=DT)
+            for s in (ref, svc, scored):
+                s.submit(jid, expected_len=len(q))
+            streams[jid] = mrsim.iter_cpu_series(app, p, run=1,
+                                                 chunk=CHUNK, dt=DT)
+    before = tstream.DIST_LAUNCHES
+    while streams:
+        done = []
+        for jid, it in streams.items():
+            chunk = next(it, None)
+            if chunk is None:
+                done.append(jid)
+            else:
+                for s in (ref, svc, scored):
+                    s.push(jid, chunk)
+        if done:
+            want = ref.finish_many(done)
+            got = svc.finish_many(done)
+            full = scored.finish_many(done)
+            for jid in done:
+                _same_decision(got[jid], want[jid], 0.0)
+                assert (got[jid].matched, got[jid].corr,
+                        got[jid].scores) == (full[jid].matched,
+                                             full[jid].corr,
+                                             full[jid].scores)
+                del streams[jid]
+        want, got = ref.tick(), svc.tick()
+        scored.tick()
+        assert got.keys() == want.keys()
+        assert all(d is None for d in got.values())
+        assert all(d is None for d in want.values())
+        rr = np.asarray(ref._rows)
+        assert (rr < 1e37).sum() > 0 or not svc._jobs
+        np.testing.assert_array_equal(svc._rows.numpy(), rr)
+        np.testing.assert_array_equal(svc._rows.numpy(),
+                                      scored._rows.numpy())
+    assert svc.dispatch_count == ref.dispatch_count == \
+        scored.dispatch_count
+    assert tstream.DIST_LAUNCHES == before
 
 
 def test_quarantine_and_eviction_leave_survivors_untouched():
