@@ -56,7 +56,30 @@ Phases, in order (any failure exits non-zero):
     burst, and after the burst the breaker re-closes; decisions bitwise
     the fault-free run's;
 12. the multi-tenant front over the paper bank's two halves: decisions
-    equal to two separate services', dispatches their sum.
+    equal to two separate services', dispatches their sum;
+13. (run with the kernel checks, right after phase 8) K7, the DTW
+    matrix, against its plain version, bitwise on dyadic and smooth data:
+    the bank and pairs forms, banded, ragged, a 1100-row chunk (two row
+    bands), resumed from a carried row in chunks of 16 (bitwise the
+    one-shot matrix); its rows against K3's and its endpoints against
+    K2's distances, bitwise; the ``kernels.dtw.ops`` API bitwise the
+    wrapper; and K2 pairs against its plain version and against K2 on
+    the same pairs;
+14. the offline matching phase at the paper's size: Table 1 through the
+    scalar ``similarity`` (K7) and both ``similarity_bank`` engines (K2;
+    K7 and host backtracks), each within 2e-3 of
+    ``tests/golden/table1_similarity.json``; ``match_application``
+    through one K2 pairs launch (every count set to 0 just before it,
+    read just after; K2 pairs' bound counts the band's cells); the
+    quickstart scenario (``AutoTuner``
+    matches exim to wordcount and transfers its config);
+15. the offline matching phase at full width: 8 queries of 384 samples
+    against the K=256, M=360 bank through ``similarity_bank(
+    matrix_path=True)`` (one K7 launch each), within 5e-3 of the
+    matrix-free scores; one ``OnlineMatcher(collect_rows=True)`` job in
+    24 chunks of 16 (24 K7 launches), its rows bitwise the one-shot
+    matrix; K7 timed beside its plain version and bound, and the host
+    backtrack timed.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
@@ -90,6 +113,17 @@ SMOOTH_TOL = 1e-5
 #: same in the same order.
 PROB_TOL = 2e-6
 
+#: Table 1 against tests/golden/table1_similarity.json: the reference's
+#: own golden tolerance (tests/test_paper_table1_golden.py).
+TABLE1_TOL = 2e-3
+#: Matrix path against the matrix-free scorer on smooth data: the
+#: reference's warp-path-tie tolerance (tests/test_scored_matching.py).
+MATRIX_FREE_TOL = 5e-3
+#: OnlineMatcher.final_scores (one-pass float64 moments along the
+#: backtracked path) against the matrix path's two-pass float64
+#: correlation of the same path: the two formulas round differently.
+FINAL_TOL = 1e-9
+
 #: Early-decision fractions of the reference on the paper scenario
 #: (BENCH_streaming.json rows stream_early_p0..p3).
 REF_EARLY = (0.44, 0.50, 0.47, 0.75)
@@ -118,7 +152,28 @@ KERNELS = {
            "src/repro/kernels/dtw/score.py:179"),
     "K6": ("K6 approx probabilistic verdict scorer", "score.cu",
            "src/repro/kernels/dtw/score.py:179"),
+    "K7": ("K7 DTW accumulated-cost matrix", "matrix.cu",
+           "src/repro/kernels/dtw/kernel.py:54"),
+    "K2-pairs": ("K2 pairs verdict scorer", "score.cu",
+                 "src/repro/kernels/dtw/score.py:42"),
 }
+
+
+def band_cells(qlens, rlens, band) -> int:
+    """DP cells inside the Sakoe-Chiba band, summed over (query,
+    reference) pairs of true lengths ``qlens[p]`` x ``rlens[p]`` (every
+    cell with ``band`` None); row i of a pair is centred on column
+    i * (rlen - 1) // max(qlen - 1, 1), as in the kernels."""
+    total = 0
+    for q, r in zip(np.asarray(qlens).tolist(), np.asarray(rlens).tolist()):
+        if band is None:
+            total += q * r
+            continue
+        centre = np.arange(q) * (r - 1) // max(q - 1, 1)
+        lo = np.maximum(centre - band, 0)
+        hi = np.minimum(centre + band, r - 1)
+        total += int(np.maximum(hi - lo + 1, 0).sum())
+    return total
 
 
 def card_line() -> str:
@@ -155,18 +210,19 @@ def cuda_ms(fn, reps: int) -> float:
 
 def counts() -> dict:
     """Every kernel's launch count, by table key."""
-    from repro_torch.kernels.dtw import score, stream
+    from repro_torch.kernels.dtw import matrix, score, stream
     return {"K1": stream.LIB.launches, "K2": score.LIB.launches,
             "K3": stream.DIST_LAUNCHES,
             "K4-exact": stream.VAR_LAUNCHES[6],
             "K4-approx": stream.VAR_LAUNCHES[4],
-            "K5": score.VAR_LAUNCHES[6], "K6": score.VAR_LAUNCHES[4]}
+            "K5": score.VAR_LAUNCHES[6], "K6": score.VAR_LAUNCHES[4],
+            "K7": matrix.LIB.launches, "K2-pairs": score.PAIRS_LAUNCHES}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.dtw import score, stream
-    stream.LIB.launches = score.LIB.launches = 0
-    stream.DIST_LAUNCHES = 0
+    from repro_torch.kernels.dtw import matrix, score, stream
+    stream.LIB.launches = score.LIB.launches = matrix.LIB.launches = 0
+    stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
         for key in d:
             d[key] = 0
@@ -225,7 +281,8 @@ def build_report(libs) -> None:
         props = ""
         for line in lib.build_log.splitlines():
             m = re.search(r"entry function .*?(stream_scored_kernel|"
-                          r"score_kernel)(?:ILi(\d+)E)?", line)
+                          r"score_pairs_kernel|score_kernel|"
+                          r"dtw_matrix_kernel)(?:ILi(\d+)E)?", line)
             if m:
                 name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             elif "spill" in line:
@@ -498,6 +555,186 @@ def check_k3(dev, errs: ErrLog) -> None:
         print(f"[K3] dyadic={dyadic!s:5} band={band!s:4} C={c:2d}: "
               f"4 ticks agree (max abs err {errs.err['K3']:.3g}, "
               f"tol {tol:g}); rows bitwise K1's")
+
+
+def check_k7(dev, errs: ErrLog) -> None:
+    """K7 against its plain version, bitwise on dyadic and smooth data
+    (the DP is min and add only): the bank form (one query, ragged
+    references) and the pairs form (ragged queries), band None and 6,
+    chunks of 12, 40 and 70 rows and one of 1100 (two bands of 1024
+    rows); resumed from a carried row in chunks of 16, bitwise the
+    one-shot matrix; K7's rows against K3's rows advanced from the same
+    state (bitwise on any data), and K7's matrix at (xlen - 1, len_k - 1)
+    against K2's endpoint distances; the ``ops`` API bitwise
+    ``dtw_rows``."""
+    from repro_torch.core import dtw
+    from repro_torch.kernels.dtw import matrix, ops, score, stream
+    cases = [(dy, band, n) for dy in (True, False) for band in (None, 6)
+             for n in (12, 40, 70)]
+    for i, (dyadic, band, n) in enumerate(cases):
+        rng = np.random.default_rng(700 + i)
+        k = 37
+        bank = _bank(rng, k, 10, 60, dyadic)
+        m = bank.series.shape[1]
+        ys = torch.tensor(bank.series, device=dev)
+        lens = torch.tensor(bank.lengths, device=dev)
+        x = torch.tensor(_series(rng, n, dyadic), device=dev)
+        qn = torch.full((k,), n, dtype=torch.int32, device=dev)
+        before = counts()
+        rk, lk = matrix.dtw_rows(x, ys, qn, lens, band=band)
+        rp, lp = matrix.dtw_rows_plain(x, ys, qn, lens, band=band)
+        # the pairs form: ragged queries, band centred on their lengths
+        xs = torch.tensor(np.stack([_series(rng, n, dyadic)
+                                    for _ in range(k)]), device=dev)
+        xl = torch.tensor(rng.integers(1, n + 1, k).astype(np.int32),
+                          device=dev)
+        pk, _ = matrix.dtw_rows(xs, ys, xl, lens, band=band)
+        pp, _ = matrix.dtw_rows_plain(xs, ys, xl, lens, band=band)
+        # resumed: chunks of 16 from the carried row, rows collected
+        st = dtw.dtw_bank_init(bank.series, bank.lengths, band=band,
+                               query_len=n, device=dev)
+        parts = []
+        for lo in range(0, n, 16):
+            st, rows = dtw.dtw_bank_extend(st, x[lo:lo + 16],
+                                           collect_rows=True)
+            parts.append(rows)
+        torch.cuda.synchronize()
+        launched(before, K7=2 + (n + 15) // 16)
+        for a, b in ((rk, rp), (lk, lp), (pk, pp)):
+            errs.diff("K7", a, b)
+            assert torch.equal(a, b), f"K7 case {i}: kernel != plain"
+        assert torch.equal(torch.cat(parts).transpose(0, 1), rk), \
+            f"K7 case {i}: resumed rows differ from the one-shot matrix"
+        assert torch.equal(st.row, rk[:, -1]), f"K7 case {i}: carried row"
+        # K3's rows from the same (fresh) state, one tick of n samples
+        rows3 = stream.stream_bank_extend(
+            torch.full((1, m, k), dtw._INF, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            ys.t().contiguous(), lens, x[None].contiguous(),
+            torch.full((1,), n, dtype=torch.int32, device=dev),
+            torch.full((1,), n, dtype=torch.int32, device=dev), band)
+        assert torch.equal(rows3[0].t(), rk[:, -1]), \
+            f"K7 case {i}: last row differs from K3's"
+        # K2's endpoint distances: query q of the pairs form vs every
+        # reference, read from K7's pairs matrix at (xlen - 1, len_k - 1)
+        xlc = xl.cpu().numpy()
+        xsn = xs.cpu().numpy()
+        folds = [dtw.query_moments(xsn[q, :xlc[q]]) for q in range(k)]
+        _, d2 = score.score_bank_offline(
+            xs, xl, ys.t().contiguous(), lens,
+            torch.tensor([f[0] for f in folds], device=dev),
+            torch.tensor([f[1] for f in folds], device=dev), band)
+        kk = torch.arange(k, device=dev)
+        d7 = pk[kk, xl.long() - 1, lens.long() - 1]
+        assert torch.equal(d2[kk, kk], d7), \
+            f"K7 case {i}: endpoints differ from K2's distances"
+        print(f"[K7] dyadic={dyadic!s:5} band={band!s:4} N={n:2d}: bank "
+              f"and pairs forms bitwise the plain version; resumed in "
+              f"chunks of 16 bitwise the one-shot matrix; last row "
+              f"bitwise K3's; endpoints bitwise K2's distances")
+    # the ops API (the reference's entry points to K7): one launch each,
+    # bitwise dtw_rows on the same inputs
+    rng = np.random.default_rng(798)
+    k, n = 37, 40
+    bank = _bank(rng, k, 10, 60, False)
+    m = bank.series.shape[1]
+    ys = torch.tensor(bank.series, device=dev)
+    lens = torch.tensor(bank.lengths, device=dev)
+    x = torch.tensor(_series(rng, n, False), device=dev)
+    xs = torch.tensor(np.stack([_series(rng, n, False) for _ in range(k)]),
+                      device=dev)
+    xl = torch.tensor(rng.integers(1, n + 1, k).astype(np.int32), device=dev)
+    before = counts()
+    db = ops.dtw_batched(x, ys, dev)
+    dbp = ops.dtw_batched_pairs(xs, ys, dev)
+    dd = ops.dtw_distances(x, ys, dev, lengths=lens)
+    ddp = ops.dtw_distances_pairs(xs, ys, xl, lens, device=dev)
+    torch.cuda.synchronize()
+    launched(before, K7=4)
+    qn = torch.full((k,), n, dtype=torch.int32, device=dev)
+    full = torch.full((k,), m, dtype=torch.int32, device=dev)
+    rb, _ = matrix.dtw_rows(x, ys, qn, full)
+    rpp, _ = matrix.dtw_rows(xs, ys, qn, full)
+    kk = torch.arange(k, device=dev)
+    assert torch.equal(db, rb) and torch.equal(dbp, rpp), "ops matrices"
+    assert torch.equal(dd, rb[kk, -1, lens.long() - 1]), "ops distances"
+    assert torch.equal(ddp, rpp[kk, xl.long() - 1, lens.long() - 1]), \
+        "ops pair distances"
+    print("[K7] ops.dtw_batched, dtw_batched_pairs, dtw_distances and "
+          "dtw_distances_pairs: one launch each, bitwise dtw_rows")
+    # a chunk longer than one block: two bands of rows
+    rng = np.random.default_rng(799)
+    bank = _bank(rng, 3, 40, 50, False)
+    ys = torch.tensor(bank.series, device=dev)
+    lens = torch.tensor(bank.lengths, device=dev)
+    x = torch.tensor(_series(rng, 1100, False), device=dev)
+    qn = torch.full((3,), 1100, dtype=torch.int32, device=dev)
+    for band in (None, 6):
+        for collect in (True, False):
+            rk, lk = matrix.dtw_rows(x, ys, qn, lens, band=band,
+                                     collect_rows=collect)
+            rp, lp = matrix.dtw_rows_plain(x, ys, qn, lens, band=band,
+                                           collect_rows=collect)
+            assert torch.equal(lk, lp) and (not collect or
+                                            torch.equal(rk, rp))
+    # edge shapes: one row, one column, band 0
+    for n, m, band in ((1, 1, None), (1, 7, None), (7, 1, None),
+                       (9, 13, 0), (13, 9, 0)):
+        ys = torch.tensor(_series(rng, 3 * m, False).reshape(3, m),
+                          device=dev)
+        x = torch.tensor(_series(rng, n, False), device=dev)
+        ln = torch.full((3,), m, dtype=torch.int32, device=dev)
+        qn = torch.full((3,), n, dtype=torch.int32, device=dev)
+        rk, lk = matrix.dtw_rows(x, ys, qn, ln, band=band)
+        rp, lp = matrix.dtw_rows_plain(x, ys, qn, ln, band=band)
+        assert torch.equal(rk, rp) and torch.equal(lk, lp), (n, m, band)
+    print("[K7] N=1100 (two bands of rows), band None and 6, with and "
+          "without the rows; N x M = 1 x 1, 1 x 7, 7 x 1, and band 0: "
+          "bitwise the plain version")
+
+
+def check_k2_pairs(dev, errs: ErrLog) -> None:
+    """K2 pairs against its plain version (bitwise on dyadic data,
+    SMOOTH_TOL on smooth data) and against K2 on the same pairs (the
+    diagonal of a P x P verdict; bitwise on any data): ragged query and
+    reference lengths (0, 1, < N and N), one-pass and multi-pass queries,
+    band None and 6."""
+    from repro_torch.core import dtw
+    from repro_torch.kernels.dtw import score
+    cases = [(dy, band, n) for dy in (True, False) for band in (None, 6)
+             for n in (12, 70)]
+    for i, (dyadic, band, n) in enumerate(cases):
+        rng = np.random.default_rng(800 + i)
+        p = 70
+        bank = _bank(rng, p, 10, 60, dyadic)
+        xlens = rng.integers(0, n + 1, p).astype(np.int32)
+        xlens[:3] = (0, 1, n)
+        xs = np.zeros((p, n), np.float32)
+        for q, l in enumerate(xlens):
+            xs[q, :l] = _series(rng, int(l), dyadic)
+        folds = [dtw.query_moments(xs[q, :xlens[q]]) for q in range(p)]
+        args = (torch.tensor(xs, device=dev),
+                torch.tensor(xlens, device=dev),
+                torch.tensor(bank.series.T.copy(), device=dev),
+                torch.tensor(bank.lengths, device=dev),
+                torch.tensor([f[0] for f in folds], device=dev),
+                torch.tensor([f[1] for f in folds], device=dev))
+        before = counts()
+        sk, dk = score.score_pairs(*args, band=band)
+        sp, dp = score.score_pairs_plain(*args, band=band)
+        s2, d2 = score.score_bank_offline(*args, band=band)
+        torch.cuda.synchronize()
+        launched(before, K2_pairs=1, K2=1)
+        e = max(errs.diff("K2-pairs", sk, sp), errs.diff("K2-pairs", dk, dp))
+        tol = DYADIC_TOL if dyadic else SMOOTH_TOL
+        assert e <= tol, (f"K2 pairs case {i} (dyadic={dyadic}, band="
+                          f"{band}, N={n}): max abs err {e}")
+        kk = torch.arange(p, device=dev)
+        assert torch.equal(sk, s2[kk, kk]) and torch.equal(dk, d2[kk, kk]), \
+            f"K2 pairs case {i}: differs from K2 on the same pairs"
+        print(f"[K2 pairs] dyadic={dyadic!s:5} band={band!s:4} N={n:2d}: "
+              f"scores and distances agree (max abs err {e:.3g}, tol "
+              f"{tol:g}); bitwise K2's on the same pairs")
 
 
 def paper_bank():
@@ -1104,24 +1341,255 @@ def multitenant_phase(dev, bank) -> None:
           f"{' + '.join(str(s.dispatch_count) for s in solo.values())}")
 
 
+def paper_matching(dev, errs: ErrLog, name: str):
+    """The offline matching phase at the paper's size (phase 14): Table 1
+    (``tests/golden/table1_similarity.json``, a data file) through the
+    scalar ``similarity`` (K7 with K = 1 and a host backtrack) and both
+    ``similarity_bank`` engines (K2; K7 and host backtracks), each within
+    TABLE1_TOL of the golden; ``match_application`` on the same series
+    through one K2 pairs launch, its scores bitwise K2's Table-1 diagonal;
+    and the quickstart scenario (``AutoTuner(band=8)``, wordcount and
+    terasort profiled over the paper's parameter sets, exim run 1
+    matched), which must match wordcount and transfer its config.
+    Returns K2 pairs' kernel table row, timed on the match's inputs."""
+    from repro_torch import mrsim
+    from repro_torch.core import AutoTuner, ReferenceDB
+    from repro_torch.core import dtw
+    from repro_torch.core.database import pack_series
+    from repro_torch.core.similarity import (match_application, similarity,
+                                             similarity_bank)
+    from repro_torch.kernels.dtw import score
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "table1_similarity.json")) as f:
+        golden = json.load(f)
+    band = golden["band"]
+    psets = mrsim.paper_param_sets()
+    assert [p.as_dict() for p in psets] == golden["param_sets"]
+    queries = [mrsim.simulate_cpu_series(golden["query_app"], p,
+                                         run=golden["query_run"])
+               for p in psets]
+    refs = {app: [mrsim.simulate_cpu_series(app, p) for p in psets]
+            for app in golden["similarity"]}
+    n = len(psets)
+    before = counts()
+    tables = {"scalar": {}, "K2": {}, "K7": {}}
+    for app, rs in refs.items():
+        tables["scalar"][app] = [[similarity(queries[j], rs[i],
+                                             preprocess=True, band=band,
+                                             device=dev)
+                                  for j in range(n)] for i in range(n)]
+        for key, mp in (("K2", False), ("K7", True)):
+            cols = [similarity_bank(queries[j], rs, preprocess=True,
+                                    band=band, matrix_path=mp, device=dev)
+                    for j in range(n)]
+            tables[key][app] = [[float(cols[j][i]) for j in range(n)]
+                                for i in range(n)]
+    torch.cuda.synchronize()
+    napps = len(refs)
+    launched(before, K7=napps * n * n + napps * n, K2=napps * n)
+    engines = {"scalar": "similarity (K7, K=1)",
+               "K2": "similarity_bank (K2)",
+               "K7": "similarity_bank(matrix_path=True) (K7)"}
+    for key, table in tables.items():
+        err = max(float(np.abs(np.asarray(table[app])
+                               - np.asarray(golden["similarity"][app])).max())
+                  for app in table)
+        assert err <= TABLE1_TOL, f"Table 1 through {key}: max err {err}"
+        print(f"[paper matching] Table 1 through {engines[key]}: max abs "
+              f"err {err:.3g} against the golden (tol {TABLE1_TOL:g})")
+    reset_counts()
+    res = match_application(queries, refs, band=band, device=dev)
+    torch.cuda.synchronize()
+    pairs_launches = counts()["K2-pairs"]
+    launched({key: 0 for key in KERNELS}, K2_pairs=1)
+    for app in refs:
+        diag = [tables["K2"][app][j][j] for j in range(n)]
+        assert res.scores[app] == diag, (app, res.scores[app], diag)
+    assert res.best == "wordcount", res
+    print(f"[paper matching] match_application (one K2 pairs launch): "
+          f"best={res.best} wins={dict(res.wins)}; scores bitwise K2's "
+          f"Table-1 diagonal")
+    # the quickstart scenario (examples/quickstart.py)
+    db = ReferenceDB()
+    tuner = AutoTuner(db, band=8, device=dev)
+    for app in ("wordcount", "terasort"):
+        for p in psets:
+            tuner.profile(app, p.as_dict(), mrsim.simulate_cpu_series(app, p))
+    db.set_best_config("wordcount", {"mappers": 21, "reducers": 30,
+                                     "split_mb": 10, "input_mb": 80}, 1.0)
+    db.set_best_config("terasort", {"mappers": 42, "reducers": 33,
+                                    "split_mb": 20, "input_mb": 60}, 1.0)
+    before = counts()
+    dec = tuner.match("exim-mainlog", mrsim.simulate_cpu_series(
+        "exim", psets[0], run=1))
+    torch.cuda.synchronize()
+    launched(before, K2=1)
+    assert dec.matched == "wordcount" and dec.corr >= 0.9, dec
+    assert dec.config == db.best_config("wordcount"), dec.config
+    print(f"[paper matching] quickstart: matched={dec.matched} "
+          f"corr={dec.corr:.6f}, config {dec.config} transferred")
+
+    # K2 pairs timed on the match's own inputs (P = 8 pairs)
+    qbank = pack_series(queries).preprocessed()
+    names = list(refs)
+    rbank = pack_series([refs[a][j] for a in names for j in range(n)]
+                        ).preprocessed()
+    qidx = np.tile(np.arange(n), len(names))
+    xs, xl = qbank.series[qidx], qbank.lengths[qidx]
+    folds = [dtw.query_moments(xs[i, :xl[i]]) for i in range(len(qidx))]
+    args = (torch.tensor(xs, device=dev), torch.tensor(xl, device=dev),
+            torch.tensor(rbank.series.T.copy(), device=dev),
+            torch.tensor(rbank.lengths, device=dev),
+            torch.tensor([f[0] for f in folds], device=dev),
+            torch.tensor([f[1] for f in folds], device=dev))
+    outk = score.score_pairs(*args, band=band)
+    outp = score.score_pairs_plain(*args, band=band)
+    e = max(errs.diff("K2-pairs", outk[0], outp[0]),
+            errs.diff("K2-pairs", outk[1], outp[1]))
+    assert e <= SMOOTH_TOL, f"K2 pairs on the match's inputs: {e}"
+    assert torch.equal(outk[0].double().cpu(),
+                       torch.tensor([res.scores[a][j] for a in names
+                                     for j in range(n)],
+                                    dtype=torch.float64))
+    mem_bps, f32_flops = card_peaks(name)
+    p_, nq = xs.shape
+    m = rbank.series.shape[1]
+    cells = band_cells(xl, rbank.lengths, band)
+    pbytes = 4 * (p_ * nq + p_ + m * p_ + p_ + 2 * p_ + 2 * p_)
+    pb = (1e3 * pbytes / mem_bps, 1e3 * ops_per_cell(3) * cells / f32_flops)
+    t_ms = cuda_ms(lambda: score.score_pairs(*args, band=band), 20)
+    t_plain = cuda_ms(lambda: score.score_pairs_plain(*args, band=band), 2)
+    print(f"[paper matching] K2 pairs (P={p_}, N={nq}, M={m}, band {band}) "
+          f"{t_ms:.4f} ms (plain {t_plain:.2f} ms, bound {max(pb):.5f} ms) "
+          f"[{name}]")
+    return _row("K2-pairs", pairs_launches, errs, t_ms, t_plain, pb)
+
+
+def full_matching(dev, errs: ErrLog, name: str, n_q: int = 8, k: int = 256,
+                  qlen: int = 384, seed: int = 0):
+    """The offline matching phase at full width (phase 15): the
+    throughput bank (K = 256, M = 360) and ``n_q`` 384-sample queries of
+    the point-mode run.  ``similarity_bank(matrix_path=True)`` for each
+    query (one K7 launch and 256 host backtracks each) must lie within
+    MATRIX_FREE_TOL of the matrix-free K2 scores; one
+    ``OnlineMatcher(collect_rows=True)`` job streams query 0 in 24 chunks
+    of 16 (24 K7 launches, each resumed from the carried row): its rows
+    must be bitwise the one-shot K7 matrix, and its ``final_scores``
+    (the host backtrack of those rows, one-pass moments) within
+    FINAL_TOL of the matrix path's two-pass score.  Launch counts are
+    audited around the run; K7 is then timed (the full matrix and one
+    16-row chunk) beside its plain version and its bound, and the host
+    backtrack of one query is timed.  Returns K7's kernel table row."""
+    from repro_torch.core import dtw
+    from repro_torch.core.similarity import _warp_corr, similarity_bank
+    from repro_torch.core.tuner import OnlineMatcher
+    from repro_torch.kernels.dtw import matrix
+    bank, queries, _ = full_inputs("point", n_q, k, qlen, seed)
+    m = bank.series.shape[1]
+    assert m == 360, m
+    c = 16
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mat = np.stack([similarity_bank(q, bank, matrix_path=True, device=dev)
+                    for q in queries])
+    mat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    free = np.stack([similarity_bank(q, bank, device=dev) for q in queries])
+    free_s = time.perf_counter() - t0
+    om = OnlineMatcher(bank, collect_rows=True, device=dev)
+    t0 = time.perf_counter()
+    for lo in range(0, qlen, c):
+        om.extend(queries[0, lo:lo + c])
+    stream_s = time.perf_counter() - t0
+    final = om.final_scores()
+    torch.cuda.synchronize()
+    got = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {key: 0 for key in got}
+    want.update(K7=n_q + qlen // c, K2=n_q)
+    assert got == want, ("full matching", got, want)
+    e_free = float(np.abs(mat - free).max())
+    assert e_free <= MATRIX_FREE_TOL, f"matrix path vs K2: {e_free}"
+    D = dtw.dtw_matrix_bank(queries[0], bank.series, bank.lengths,
+                            device=dev)
+    Dh = D.cpu().numpy()
+    rows = om._rows.view()
+    assert np.array_equal(rows, Dh.transpose(1, 0, 2)), \
+        "streamed rows differ from the one-shot matrix"
+    e_fin = float(np.abs(final - mat[0]).max())
+    assert e_fin <= FINAL_TOL, f"final_scores vs matrix path: {e_fin}"
+    # the host backtrack of one query's 256 matrices, alone
+    t0 = time.perf_counter()
+    for r in range(k):
+        l = int(bank.lengths[r])
+        _warp_corr(queries[0], bank.series[r, :l], Dh[r, :, :l])
+    bt_s = time.perf_counter() - t0
+    print(f"[full matching] {n_q} queries x K={k} x M={m}, N={qlen}: "
+          f"matrix path {1e3 * mat_s / n_q:.1f} ms a query (one K7 launch, "
+          f"host backtracks {1e3 * bt_s:.1f} ms of it), matrix-free "
+          f"{1e3 * free_s / n_q:.2f} ms a query; scores within "
+          f"{e_free:.3g} (tol {MATRIX_FREE_TOL:g}); OnlineMatcher "
+          f"{qlen // c} chunks of {c} in {1e3 * stream_s:.1f} ms, rows "
+          f"bitwise the one-shot matrix, final_scores within {e_fin:.3g} "
+          f"of the matrix path (tol {FINAL_TOL:g}); device memory peak "
+          f"{peak_gb:.3f} GB ({base_gb:.3f} GB in use before); launches "
+          f"{ {key: v for key, v in got.items() if v} } [{name}]")
+
+    ys = torch.tensor(bank.series, device=dev)
+    lens = torch.tensor(bank.lengths, device=dev)
+    x = torch.tensor(queries[0], device=dev)
+    qn = torch.full((k,), qlen, dtype=torch.int32, device=dev)
+    rk, _ = matrix.dtw_rows(x, ys, qn, lens)
+    rp, _ = matrix.dtw_rows_plain(x, ys, qn, lens)
+    errs.diff("K7", rk, rp)
+    assert torch.equal(rk, rp) and torch.equal(rk, D), "full-width K7"
+    row = rk[:, qlen // 2 - 1].contiguous()
+    xc = x[qlen // 2: qlen // 2 + c].contiguous()
+    ck, lk = matrix.dtw_rows(xc, ys, qn, lens, row=row, n0=qlen // 2)
+    assert torch.equal(ck, rk[:, qlen // 2: qlen // 2 + c])
+    assert torch.equal(lk, rk[:, qlen // 2 + c - 1])
+    mem_bps, f32_flops = card_peaks(name)
+    kbytes = 4 * (k * qlen * m + qlen + k * m + 2 * k)
+    kb = (1e3 * kbytes / mem_bps, 1e3 * ops_per_cell(0) * k * qlen * m
+          / f32_flops)
+    t_ms = cuda_ms(lambda: matrix.dtw_rows(x, ys, qn, lens), 20)
+    t_plain = cuda_ms(lambda: matrix.dtw_rows_plain(x, ys, qn, lens), 1)
+    t_chunk = cuda_ms(lambda: matrix.dtw_rows(xc, ys, qn, lens, row=row,
+                                              n0=qlen // 2), 20)
+    t_last = cuda_ms(lambda: matrix.dtw_rows(x, ys, qn, lens,
+                                             collect_rows=False), 20)
+    print(f"[full matching] K7 full matrix {t_ms:.4f} ms (plain "
+          f"{t_plain:.2f} ms, bound {max(kb):.4f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}); the same "
+          f"writing the last row only {t_last:.4f} ms; one resumed 16-row "
+          f"chunk {t_chunk:.4f} ms [{name}]")
+    return _row("K7", got["K7"], errs, t_ms, t_plain, kb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from repro_torch.kernels import common
-    from repro_torch.kernels.dtw import score, stream
+    from repro_torch.kernels.dtw import matrix, score, stream
     name = card_line()
     print(f"[card] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    common.build([stream.LIB, score.LIB])
-    print(f"[build] both kernel sources in {time.perf_counter() - t0:.1f} s")
-    build_report([stream.LIB, score.LIB])
+    libs = [stream.LIB, score.LIB, matrix.LIB]
+    common.build(libs)
+    print(f"[build] {len(libs)} kernel sources in "
+          f"{time.perf_counter() - t0:.1f} s")
+    build_report(libs)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = ErrLog()
-    for check in (check_k1, check_k2, check_k4, check_k56, check_k3):
+    for check in (check_k1, check_k2, check_k4, check_k56, check_k3,
+                  check_k7, check_k2_pairs):
         check(dev, errs)
     bank = paper_bank()
     point = paper_scenario(dev, bank)
@@ -1144,6 +1612,9 @@ def main() -> int:
     ladder(dev, name, runs["exact"])
     chaos_phase(dev, bank, point)
     multitenant_phase(dev, bank)
+    for row in (paper_matching(dev, errs, name),
+                full_matching(dev, errs, name)):
+        rows[row["name"]] = row
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

@@ -1,1 +1,40 @@
-"""Matching core of the port: reference database, filters, DTW."""
+"""Matching core of the port: the paper's contribution.
+
+Pipeline (paper Fig. 3/4): profile -> Chebyshev de-noise -> [0,1]
+normalize -> store in ReferenceDB; match new workloads with DTW +
+correlation (>= 0.9) and transfer the matched workload's best-known
+configuration parameters (AutoTuner).  The names are ``repro.core``'s,
+less those of modules not ported yet (``wavelet``, ``signatures``,
+``hloparse``: ROADMAP.md).
+"""
+
+from .filters import (cheby1_design, lfilter, filtfilt, denoise, normalize01,
+                      preprocess, preprocess_bank, StreamingFilter)
+from .dtw import (cost_matrix, dtw_matrix, dtw_distance, dtw_matrix_banded,
+                  dtw_matrix_bank, dtw_matrix_pairs, dtw_distance_bank,
+                  dtw_score_bank, dtw_score_bank_many, dtw_score_pairs,
+                  query_moments, ScoreBankPlan, build_score_plan,
+                  DtwBankState, dtw_bank_init, dtw_bank_extend,
+                  backtrack, warp_to, dtw_warp)
+from .similarity import (correlation, similarity, similarity_bank,
+                         MatchResult, match_series, match_application,
+                         MATCH_THRESHOLD, RunningMoments,
+                         prefix_similarity_bank)
+from .database import Entry, SeriesBank, pack_series, ReferenceDB
+from .tuner import AutoTuner, TuneDecision, OnlineMatcher
+
+__all__ = [
+    "cheby1_design", "lfilter", "filtfilt", "denoise", "normalize01",
+    "preprocess", "preprocess_bank", "StreamingFilter",
+    "cost_matrix", "dtw_matrix", "dtw_distance", "dtw_matrix_banded",
+    "dtw_matrix_bank", "dtw_matrix_pairs", "dtw_distance_bank",
+    "dtw_score_bank", "dtw_score_bank_many", "dtw_score_pairs",
+    "query_moments", "ScoreBankPlan", "build_score_plan",
+    "DtwBankState", "dtw_bank_init", "dtw_bank_extend",
+    "backtrack", "warp_to", "dtw_warp",
+    "correlation", "similarity", "similarity_bank", "MatchResult",
+    "match_series", "match_application", "MATCH_THRESHOLD",
+    "RunningMoments", "prefix_similarity_bank",
+    "Entry", "SeriesBank", "pack_series", "ReferenceDB",
+    "AutoTuner", "TuneDecision", "OnlineMatcher",
+]

@@ -1,4 +1,5 @@
-"""Dynamic Time Warping for the online tuning service (paper §3.1.2).
+"""Dynamic Time Warping for the online tuning service and the offline
+matching phase (paper §3.1.2).
 
 The paper's recurrence::
 
@@ -30,12 +31,21 @@ kernel in ``kernels.dtw``:
   :func:`_moment_scores_prob_approx`).
 * the **offline verdict** (:func:`dtw_score_bank_many`): complete
   queries scored at the closed alignment endpoint ``(N-1, len_k-1)``,
-  with match probabilities when ``xvars`` is given.
+  with match probabilities when ``xvars`` is given; and for P
+  (query, reference) pairs (:func:`dtw_score_pairs`).
+* the **matrix path** of the offline matching phase: full accumulated-
+  cost matrices (:func:`dtw_matrix`, :func:`dtw_matrix_banded`,
+  :func:`dtw_matrix_bank`, :func:`dtw_matrix_pairs`), distances
+  (:func:`dtw_distance_bank`), the streaming bank DP that a single
+  in-flight job carries across chunks (:class:`DtwBankState`,
+  :func:`dtw_bank_extend`), and the host backtrack into the warped
+  series Y' (:func:`backtrack`, :func:`warp_to`, :func:`dtw_warp`).
 
 CUDA tensors go through kernels K3 (distance tick), K1 (point tick), K4
-(probabilistic ticks), K2 (point verdict), K5 and K6 (exact and approx
-probabilistic verdicts); CPU tensors through their plain PyTorch
-versions.  :func:`bank_extend_tick`, :func:`bank_extend_tick_scored`,
+(probabilistic ticks), K2 (point verdict, and its pairs entry), K5 and K6
+(exact and approx probabilistic verdicts) and K7 (every matrix, row and
+distance of the matrix path); CPU tensors through their plain PyTorch
+versions.  Backtracking stays numpy on the host, as in the reference.  :func:`bank_extend_tick`, :func:`bank_extend_tick_scored`,
 :func:`bank_extend_tick_scored_var` and
 :func:`bank_extend_tick_scored_var_approx` are the plain ticks on any
 device, which is what the kernel ticks are held against.
@@ -51,12 +61,14 @@ re-derived per reference from its true length.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..kernels.common import resolve_device
+from ..kernels.common import as_tensor, resolve_device
+from ..kernels.dtw import matrix as _matrix
+from ..kernels.dtw import ops as _ops
 from ..kernels.dtw import score as _score
 from ..kernels.dtw import stream as _stream
 
@@ -68,7 +80,11 @@ __all__ = ["bank_extend_tick", "bank_extend_tick_dispatch",
            "bank_extend_tick_scored_var_approx_dispatch",
            "tick_state_from_numpy", "query_moments", "query_var_moments",
            "ScoreBankPlan", "build_score_plan", "dtw_score_bank_many",
-           "dtw_score_bank"]
+           "dtw_score_bank", "cost_matrix", "dtw_matrix", "dtw_distance",
+           "dtw_matrix_banded", "dtw_matrix_bank", "dtw_matrix_pairs",
+           "dtw_distance_bank", "dtw_score_pairs", "DtwBankState",
+           "dtw_bank_init", "dtw_bank_extend", "backtrack", "warp_to",
+           "dtw_warp"]
 
 _INF = _stream.INF
 _MOM_SHIFT = _stream.MOM_SHIFT
@@ -478,3 +494,263 @@ def dtw_score_bank(x, bank, lengths=None, band: Optional[int] = None, *,
                               plan=plan, device=device,
                               return_distances=return_distances)
     return (out[0][0], out[1][0]) if return_distances else out[0]
+
+
+# ---------------------------------------------------------------------------
+# The offline matching phase: full matrices, distances, streaming bank DP,
+# backtracking (paper Fig. 4-a/4-b, Eq. 1-3)
+# ---------------------------------------------------------------------------
+
+Device = Union[str, torch.device, None]
+_F32, _I32 = torch.float32, torch.int32
+
+
+def cost_matrix(x, y, device: Device = None) -> torch.Tensor:
+    """Pairwise |x_i - y_j| (paper Eq. 2) -> f32 [N, M]."""
+    dev = resolve_device(device)
+    x, y = as_tensor(x, _F32, dev), as_tensor(y, _F32, dev)
+    return (x[:, None] - y[None, :]).abs()
+
+
+def _pair_matrix(x, y, band: Optional[int], device: Device) -> torch.Tensor:
+    """[N, M] matrix of one pair through K7 (K = 1), band centred on the
+    pair's full lengths."""
+    dev = resolve_device(device)
+    y = as_tensor(y, _F32, dev).reshape(1, -1)
+    return _ops.dtw_batched(x, y, dev, band=band)[0]
+
+
+def dtw_matrix(x, y, device: Device = None) -> torch.Tensor:
+    """Full accumulated-cost matrix D — f32 [N, M] (paper Eq. 1)."""
+    return _pair_matrix(x, y, None, device)
+
+
+def dtw_distance(x, y, device: Device = None) -> torch.Tensor:
+    """Similarity distance D(N, M) between two series (a 0-d tensor)."""
+    return dtw_matrix(x, y, device)[-1, -1]
+
+
+def dtw_matrix_banded(x, y, band: int, device: Device = None
+                      ) -> torch.Tensor:
+    """DTW restricted to the Sakoe-Chiba band |j - centre(i)| <= band;
+    the full [N, M] matrix with 3e38 outside the band (so backtracking
+    still works)."""
+    return _pair_matrix(x, y, band, device)
+
+
+def dtw_matrix_bank(x, bank, lengths=None, band: Optional[int] = None,
+                    device: Device = None) -> torch.Tensor:
+    """One query x [N] against a padded bank [K, M] -> D matrices
+    [K, N, M], one K7 launch (``kernels.dtw.ops.dtw_batched``).
+
+    ``lengths`` (int32 [K], true series lengths) is only consulted by the
+    banded variant, whose band is centred on the query's padded length N
+    and each reference's true length (the reference's geometry); callers
+    slice ``D[k, :, :lengths[k]]`` before backtracking."""
+    return _ops.dtw_batched(x, bank, device, lengths=lengths, band=band)
+
+
+def dtw_matrix_pairs(xs, ys, xlens=None, ylens=None,
+                     band: Optional[int] = None,
+                     device: Device = None) -> torch.Tensor:
+    """Pairwise batched DTW: queries xs [P, N] vs references ys [P, M] ->
+    D matrices [P, N, M], one K7 launch for all P pairs; the band of pair
+    p is centred on its true lengths ``xlens[p]`` and ``ylens[p]``."""
+    return _ops.dtw_batched_pairs(xs, ys, device, xlens=xlens, ylens=ylens,
+                                  band=band)
+
+
+def dtw_distance_bank(x, bank, lengths=None, band: Optional[int] = None,
+                      device: Device = None) -> torch.Tensor:
+    """Distances D(N, len_k) of one query against the whole bank -> [K]:
+    one K7 launch that writes only the last row, read at column
+    ``lengths[k] - 1`` (``kernels.dtw.ops.dtw_distances``); the banded
+    variant equals the scalar banded solve of each unpadded series."""
+    return _ops.dtw_distances(x, bank, device, lengths=lengths, band=band)
+
+
+def dtw_score_pairs(xs, ys, xlens=None, ylens=None,
+                    band: Optional[int] = None, *,
+                    return_distances: bool = False,
+                    device: Device = None):
+    """Pairwise closed-end warp correlations -> f32 [P]: query p vs
+    reference p, ragged on both sides (the engine behind
+    ``match_application``), one launch of K2's pairs entry; with
+    ``return_distances`` also the DTW distances D(xlen_p, ylen_p)."""
+    dev = resolve_device(device)
+    xs = np.asarray(xs, np.float32)
+    ys = np.asarray(ys, np.float32)
+    p, n = xs.shape
+    xl = np.full((p,), n, np.int32) if xlens is None \
+        else np.asarray(xlens, np.int32)
+    yl = np.full((p,), ys.shape[1], np.int32) if ylens is None \
+        else np.asarray(ylens, np.int32)
+    folds = [query_moments(xs[i, :xl[i]]) for i in range(p)]
+    scores, dists = _score.score_pairs(
+        as_tensor(xs, _F32, dev), as_tensor(xl, _I32, dev),
+        as_tensor(ys.T, _F32, dev), as_tensor(yl, _I32, dev),
+        as_tensor([f[0] for f in folds], _F32, dev),
+        as_tensor([f[1] for f in folds], _F32, dev), band)
+    return (scores, dists) if return_distances else scores
+
+
+@dataclasses.dataclass(frozen=True)
+class DtwBankState:
+    """Streaming DP state of one query against a padded [K, M] bank.
+
+    Immutable: :func:`dtw_bank_extend` returns a new state.  ``row`` holds
+    D[n-1, :] per reference (all 3e38 before the first sample); ``n`` is
+    the number of query samples consumed so far.  The tensors live on one
+    device, the one K7 runs on.
+    """
+    row: torch.Tensor                 # [K, M] f32
+    n: int                            # samples consumed
+    bank: torch.Tensor                # [K, M] f32
+    lengths: torch.Tensor             # [K] i32
+    band: Optional[int] = None
+    query_len: Optional[int] = None   # required (and fixed) when banded
+
+    def __len__(self) -> int:
+        return int(self.bank.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.row.device
+
+    def distances(self) -> torch.Tensor:
+        """D(n, len_k) against every *complete* reference -> [K]
+        (banded: once n == query_len; 3e38 before any sample arrived)."""
+        return self.row.gather(1, (self.lengths.long() - 1)[:, None])[:, 0]
+
+    def prefix_distances(self) -> torch.Tensor:
+        """Open-end distances min_j D(n, j) over true columns -> [K]:
+        the best alignment of the consumed prefix against any prefix of
+        each reference, non-decreasing in ``n``."""
+        m = self.row.shape[1]
+        cols = torch.arange(m, device=self.row.device)[None, :]
+        masked = torch.where(cols < self.lengths[:, None], self.row, _INF)
+        return masked.amin(dim=1)
+
+    def dehydrate(self) -> Dict[str, np.ndarray]:
+        """Host-resident dict of the full streaming state (numpy leaves,
+        the reference's keys and layout); :meth:`hydrate` reverses it
+        exactly, here or in the reference."""
+        meta = np.asarray([self.n,
+                           -1 if self.band is None else self.band,
+                           -1 if self.query_len is None
+                           else self.query_len], np.int64)
+        return {"row": self.row.cpu().numpy(),
+                "bank": self.bank.cpu().numpy(),
+                "lengths": self.lengths.cpu().numpy(), "meta": meta}
+
+    @staticmethod
+    def hydrate(tree: Dict[str, np.ndarray],
+                device: Device = None) -> "DtwBankState":
+        """Rebuild a :class:`DtwBankState` on ``device`` from
+        :meth:`dehydrate` output — the port's or the reference's.  The
+        round trip is bitwise: every leaf is stored verbatim."""
+        dev = resolve_device(device)
+        n, band, qlen = (int(v) for v in np.asarray(tree["meta"]))
+        return DtwBankState(
+            row=as_tensor(tree["row"], _F32, dev), n=n,
+            bank=as_tensor(tree["bank"], _F32, dev),
+            lengths=as_tensor(tree["lengths"], _I32, dev),
+            band=None if band < 0 else band,
+            query_len=None if qlen < 0 else qlen)
+
+
+def dtw_bank_init(bank, lengths=None, band: Optional[int] = None,
+                  query_len: Optional[int] = None,
+                  device: Device = None) -> DtwBankState:
+    """Fresh streaming state for one query against a padded [K, M] bank
+    on ``device``.  ``query_len`` (the expected total query length) is
+    required for the banded variant: the Sakoe-Chiba corridor of row i is
+    placed relative to the full query."""
+    dev = resolve_device(device)
+    bank = as_tensor(bank, _F32, dev)
+    k, m = bank.shape
+    if band is not None and query_len is None:
+        raise ValueError("banded streaming needs query_len (the band "
+                         "geometry depends on the full query length)")
+    return DtwBankState(row=torch.full((k, m), _INF, dtype=_F32, device=dev),
+                        n=0, bank=bank,
+                        lengths=_matrix.lengths_or_full(lengths, k, m, dev),
+                        band=band, query_len=query_len)
+
+
+def dtw_bank_extend(state: DtwBankState, chunk, collect_rows: bool = False
+                    ) -> Tuple[DtwBankState, Optional[torch.Tensor]]:
+    """Consume one chunk of query samples; one K7 launch resumed from the
+    state's row.
+
+    Returns ``(new_state, rows)`` where ``rows`` is the [c, K, M] stack of
+    DP rows produced by this chunk (a view of the kernel's [K, c, M]
+    output) when ``collect_rows``, else None.  Any chunking reproduces
+    the one-shot matrix bitwise: every cell is the same update."""
+    dev = state.device
+    chunk = as_tensor(chunk, _F32, dev).reshape(-1)
+    c = int(chunk.shape[0])
+    k, m = state.row.shape
+    if c == 0:
+        return state, (torch.zeros((0, k, m), dtype=_F32, device=dev)
+                       if collect_rows else None)
+    qlens = torch.full((k,), state.query_len or 0, dtype=_I32, device=dev)
+    rows, last = _matrix.dtw_rows(chunk, state.bank, qlens, state.lengths,
+                                  row=state.row, n0=state.n,
+                                  band=state.band,
+                                  collect_rows=collect_rows)
+    new = dataclasses.replace(state, row=last, n=state.n + c)
+    return new, (rows.transpose(0, 1) if collect_rows else None)
+
+
+# ---------------------------------------------------------------------------
+# Backtracking / warping (numpy on the host; O(N+M), data-dependent)
+# ---------------------------------------------------------------------------
+
+def backtrack(D) -> np.ndarray:
+    """Minimum-distance path through D from (0, 0) to (N-1, M-1) ->
+    int64 [P, 2] of (i, j) pairs, non-decreasing in both coordinates.
+
+    The predecessor is the one ``np.argmin`` of (diag, vert, horiz)
+    picks in the reference: the first minimum, or the first NaN.  It is
+    written as comparisons on the three scalars, which pick the same
+    cell several times faster than building an array for ``argmin``."""
+    D = np.asarray(D)
+    n, m = D.shape
+    i, j = n - 1, m - 1
+    path = [(i, j)]
+    while i > 0 or j > 0:
+        if i == 0:
+            j -= 1
+        elif j == 0:
+            i -= 1
+        else:
+            a, b, c = D[i - 1, j - 1], D[i - 1, j], D[i, j - 1]
+            if a != a or (a <= b and a <= c):
+                i, j = i - 1, j - 1
+            elif b != b or b <= c:
+                i -= 1
+            else:
+                j -= 1
+        path.append((i, j))
+    return np.asarray(path[::-1], dtype=np.int64)
+
+
+def warp_to(y: np.ndarray, path: np.ndarray, n: int) -> np.ndarray:
+    """Build Y' (length n, aligned with X) from Y by repeating elements
+    along the DTW path (paper §3.1.2: Y' is made from Y by repeating some
+    of its elements based on D(X, Y))."""
+    yp = np.empty(n, dtype=np.asarray(y).dtype)
+    for i, j in path:          # path is sorted by i; later pairs overwrite
+        yp[i] = y[j]
+    return yp
+
+
+def dtw_warp(x: np.ndarray, y: np.ndarray, band: Optional[int] = None,
+             device: Device = None) -> Tuple[np.ndarray, float]:
+    """Full pipeline: DTW (K7 on ``device``) -> host backtrack -> warped
+    Y' and distance D(N, M)."""
+    D = _pair_matrix(np.asarray(x, np.float32), np.asarray(y, np.float32),
+                     band, device).cpu().numpy()
+    path = backtrack(D)
+    return warp_to(np.asarray(y), path, len(np.asarray(x))), float(D[-1, -1])

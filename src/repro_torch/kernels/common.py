@@ -22,9 +22,11 @@ import shutil
 import subprocess
 from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_kernel_device", "check_tensor",
+__all__ = ["resolve_device", "as_tensor", "check_kernel_device",
+           "check_tensor",
            "KernelLaunchError", "check_launch",
            "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR"]
 
@@ -72,6 +74,16 @@ def resolve_device(device: Union[str, torch.device, None] = None
     return dev
 
 
+def as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``a`` (a tensor, numpy array or sequence) as a contiguous ``dtype``
+    tensor on ``device``: a copy of an array, a tensor that already is
+    one as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype).contiguous()
+    return torch.tensor(np.ascontiguousarray(a, dtype=_NP[dtype]),
+                        device=device)
+
+
 def check_kernel_device(t: torch.Tensor) -> None:
     """A hand kernel runs only on a Hopper card (compute capability
     9.x, the ``sm_90a`` build target)."""
@@ -92,6 +104,9 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
             f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+_NP = {torch.float32: np.float32, torch.int32: np.int32}
 
 
 def _nvcc() -> str:

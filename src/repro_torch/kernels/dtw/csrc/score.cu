@@ -16,6 +16,12 @@
 // probability tail (prob_tail.cuh) beside the point score: scores,
 // probs and dists, each [J, K].
 //
+// K2 pairs is K2's entry for P (query, reference) pairs: thread p scores
+// query p against reference p (repro/core/dtw.py::dtw_score_pairs, the
+// engine of match_application, which the reference runs as jnp). It is
+// K2's sweep and tail on a K-last [M, P] reference block, so its scores
+// and distances are bitwise K2's for the same pair.
+//
 // Design: one thread per (query q, reference k) runs the streaming tick's
 // column sweep (dtw_sweep.cuh) over the query in passes of
 // RowsPerPass<NCH> samples, starting from the empty row, with ns = 0 (so
@@ -40,6 +46,54 @@
 
 namespace {
 
+// Closed-end score of one (query, reference) pair: the query x [xl]
+// (variances v, read when NCH > 3) runs through the moment-carrying DP
+// from a fresh row in passes of RowsPerPass<NCH> samples over reference
+// columns y[j * col_stride], j < lk, resuming each pass from the scratch
+// row at column stride col_stride and channel stride ch; the endpoint
+// (xl - 1, lk - 1) goes through the score tail (and the probability tail
+// for NCH > 3). One definition for the bank and the pairs kernels, so
+// their scores and distances are bitwise the same for the same pair.
+template <int NCH>
+__device__ __forceinline__ void score_one(
+    const float* x, const float* v, int xl, const float* y,
+    long long col_stride, int lk, float sxq, float sxxq, const float* vs,
+    float* scratch_d, float* scratch_m, long long ch, int band,
+    float threshold, float* score, float* prob, float* dist) {
+  constexpr int R = dtw::RowsPerPass<NCH>::value;
+  float cap[1 + NCH];
+  cap[0] = dtw::kInf;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) cap[1 + c] = 0.f;
+  const int npass = (xl + R - 1) / R;
+  for (int p = 0; p < npass; ++p) {
+    const int left = xl - p * R;
+    const int nr = left < R ? left : R;
+    const bool last = p == npass - 1;
+    dtw::sweep_pass<NCH, R>(
+        x + p * R, NCH > 3 ? v + p * R : nullptr, nr, p * R, xl, band, lk,
+        y, col_stride, lk, scratch_d, scratch_m, scratch_d, scratch_m, ch,
+        p == 0, !last, last ? lk - 1 : -1, cap);
+  }
+  const float n = (float)(xl > 1 ? xl : 1);
+  const float s = dtw::corr_from_moments(cap[1], cap[2], cap[3], sxq, sxxq,
+                                         n);
+  *score = xl > 0 ? s : 0.f;
+  *dist = cap[0];
+  if constexpr (NCH > 3) {
+    float pr;
+    if constexpr (NCH == 6)
+      pr = dtw::prob_from_moments(cap[1], cap[2], cap[3], cap[4], cap[5],
+                                  cap[6], sxq, sxxq, vs[0], vs[1], vs[2], n,
+                                  threshold);
+    else
+      pr = dtw::prob_from_moments_approx(cap[1], cap[2], cap[3], cap[4],
+                                         sxq, sxxq, vs[0], vs[1], vs[2], n,
+                                         threshold);
+    *prob = xl > 0 ? pr : 0.f;
+  }
+}
+
 template <int NCH>
 __global__ void score_kernel(const float* __restrict__ xs,
                              const float* __restrict__ xvars,
@@ -54,51 +108,38 @@ __global__ void score_kernel(const float* __restrict__ xs,
                              float* __restrict__ probs,
                              float* __restrict__ dists, int J, int N, int M,
                              int K, int band, float threshold) {
-  constexpr int R = dtw::RowsPerPass<NCH>::value;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int q = blockIdx.y;
   if (k >= K) return;
-  const int xl = xlens[q];
-  const int lk = lengths[k];
   const long long mk = (long long)M * K;
   const long long base = (long long)q * mk + k;
-  const long long ch = (long long)J * mk;
-  const float* x = xs + (long long)q * N;
-  const float* v = NCH > 3 ? xvars + (long long)q * N : nullptr;
-  float cap[1 + NCH];
-  cap[0] = dtw::kInf;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) cap[1 + c] = 0.f;
-  const int npass = (xl + R - 1) / R;
-  for (int p = 0; p < npass; ++p) {
-    const int left = xl - p * R;
-    const int nr = left < R ? left : R;
-    const bool last = p == npass - 1;
-    dtw::sweep_pass<NCH, R>(
-        x + p * R, NCH > 3 ? v + p * R : nullptr, nr, p * R, xl, band, lk,
-        bank_t + k, K, lk, scratch_d + base, scratch_m + base,
-        scratch_d + base, scratch_m + base, ch, p == 0, !last,
-        last ? lk - 1 : -1, cap);
-  }
-  const float n = (float)(xl > 1 ? xl : 1);
   const long long o = (long long)q * K + k;
-  const float s = dtw::corr_from_moments(cap[1], cap[2], cap[3], sx[q],
-                                         sxx[q], n);
-  scores[o] = xl > 0 ? s : 0.f;
-  dists[o] = cap[0];
-  if constexpr (NCH > 3) {
-    const float* vs = vstats + 3LL * q;
-    float p;
-    if constexpr (NCH == 6)
-      p = dtw::prob_from_moments(cap[1], cap[2], cap[3], cap[4], cap[5],
-                                 cap[6], sx[q], sxx[q], vs[0], vs[1],
-                                 vs[2], n, threshold);
-    else
-      p = dtw::prob_from_moments_approx(cap[1], cap[2], cap[3], cap[4],
-                                        sx[q], sxx[q], vs[0], vs[1], vs[2],
-                                        n, threshold);
-    probs[o] = xl > 0 ? p : 0.f;
-  }
+  score_one<NCH>(xs + (long long)q * N,
+                 NCH > 3 ? xvars + (long long)q * N : nullptr, xlens[q],
+                 bank_t + k, K, lengths[k], sx[q], sxx[q],
+                 NCH > 3 ? vstats + 3LL * q : nullptr, scratch_d + base,
+                 scratch_m + base, (long long)J * mk, band, threshold,
+                 scores + o, NCH > 3 ? probs + o : nullptr, dists + o);
+}
+
+// K2 pairs: thread p scores query p against reference p (column p of the
+// K-last [M, P] reference block), the sweep and tail of K2.
+__global__ void score_pairs_kernel(const float* __restrict__ xs,
+                                   const int* __restrict__ xlens,
+                                   const float* __restrict__ ys_t,
+                                   const int* __restrict__ ylens,
+                                   const float* __restrict__ sx,
+                                   const float* __restrict__ sxx,
+                                   float* scratch_d, float* scratch_m,
+                                   float* __restrict__ scores,
+                                   float* __restrict__ dists, int P, int N,
+                                   int M, int band) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  score_one<3>(xs + (long long)p * N, nullptr, xlens[p], ys_t + p, P,
+               ylens[p], sx[p], sxx[p], nullptr, scratch_d + p,
+               scratch_m + p, (long long)M * P, band, 0.f, scores + p,
+               nullptr, dists + p);
 }
 
 template <int NCH>
@@ -152,4 +193,23 @@ extern "C" int dtw_score_offline_var(const float* xs, const float* xvars,
   return launch<6>(xs, xvars, xlens, bank_t, lengths, sx, sxx, vstats,
                    scratch_d, scratch_m, scores, probs, dists, J, N, M, K,
                    band, threshold, stream);
+}
+
+// K2 pairs. ys_t is the [M, P] K-last block of the P references; the
+// scratch tensors are [M, P] and [3, M, P] f32, read only when some query
+// is longer than one pass. Returns cudaGetLastError() after the launch (0
+// on success).
+extern "C" int dtw_score_pairs(const float* xs, const int* xlens,
+                               const float* ys_t, const int* ylens,
+                               const float* sx, const float* sxx,
+                               float* scratch_d, float* scratch_m,
+                               float* scores, float* dists, int P, int N,
+                               int M, int band, void* stream) {
+  if (P == 0) return 0;
+  const dim3 block(64);
+  const dim3 grid((P + block.x - 1) / block.x);
+  score_pairs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      xs, xlens, ys_t, ylens, sx, sxx, scratch_d, scratch_m, scores, dists,
+      P, N, M, band);
+  return (int)cudaGetLastError();
 }

@@ -10,6 +10,9 @@ through a score tail.
 * K2 (``repro/kernels/dtw/score.py::_score_kernel`` on the TPU): three
   point channels and :func:`corr_from_moments` -> ``[J, K]`` scores and
   endpoint distances.
+* K2 pairs: K2 for P (query, reference) pairs, query p against
+  reference p (:func:`score_pairs`, the engine of
+  ``core.similarity.match_application``); bitwise K2 for the same pair.
 * K5 and K6 (``_score_var_kernel``, exact and ``approx=True``): each
   query sample carries a measurement variance, the DP carries 6 (exact)
   or 4 (approx) channels, and :func:`prob_from_moments` or
@@ -22,7 +25,8 @@ take the plain versions, which are the streaming ticks' plain versions
 run over the whole query from the empty state (``ns = 0``, band centres
 from ``xlen``) and read at column ``len_k - 1``: the same per-cell
 arithmetic as the kernels, so the DP agrees bitwise.  ``LIB.launches``
-counts K2's launches and ``VAR_LAUNCHES[nch]`` K5's (6) and K6's (4).
+counts K2's launches, ``PAIRS_LAUNCHES`` K2 pairs' and
+``VAR_LAUNCHES[nch]`` K5's (6) and K6's (4).
 
 The tails are the reference's (``repro.core.dtw._corr_from_moments``,
 ``_prob_from_moments``, ``_prob_from_moments_approx``) with the same
@@ -55,7 +59,8 @@ from .stream import (INF, _CSRC, stream_bank_extend_scored_plain,
 __all__ = ["corr_from_moments", "prob_from_moments",
            "prob_from_moments_approx", "score_bank_offline",
            "score_bank_offline_plain", "score_bank_offline_var",
-           "score_bank_offline_var_plain", "LIB", "VAR_LAUNCHES"]
+           "score_bank_offline_var_plain", "score_pairs",
+           "score_pairs_plain", "LIB", "VAR_LAUNCHES", "PAIRS_LAUNCHES"]
 
 #: Rows a pass of the column sweep holds in registers, by moment channel
 #: count (``RowsPerPass`` in ``csrc/dtw_sweep.cuh``): longer queries need
@@ -75,7 +80,12 @@ LIB = KernelLib(
     signatures={
         "dtw_score_offline": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
         "dtw_score_offline_var": ([_P] * 13 + [_I] * 5 + [ctypes.c_float]
-                                  + [_I, _P], ctypes.c_int)})
+                                  + [_I, _P], ctypes.c_int),
+        "dtw_score_pairs": ([_P] * 10 + [_I] * 4 + [_P], ctypes.c_int)})
+
+#: K2 pairs launches (:func:`score_pairs`).  The wrapper adds one per
+#: launch; a caller resets it to 0 before a run it audits.
+PAIRS_LAUNCHES = 0
 
 #: K5 (6 channels, the exact tail) and K6 (4 channels, the approx tail)
 #: launches.  The wrapper adds one per launch; a caller resets them to 0
@@ -288,6 +298,61 @@ def score_bank_offline_var(xs, xvars, xlens, bank_t, lengths, sx, sxx,
     check_launch("dtw_score_offline_var", err)
     VAR_LAUNCHES[nch] += 1
     return scores, probs, dists
+
+
+def score_pairs(xs, xlens, ys_t, ylens, sx, sxx, band: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 pairs: closed-end score and endpoint distance of query p
+    against reference p -> ``(scores, dists)``, both [P] f32.
+
+    xs [P, N] f32 (padded; ``xlens`` [P] i32 true lengths), ys_t [M, P]
+    f32 the references K-last (column p is reference p, padded; ``ylens``
+    [P] i32), sx/sxx [P] f32 centred query folds.  Bitwise K2's result
+    for the same pair.  CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    global PAIRS_LAUNCHES
+    if not xs.is_cuda:
+        return score_pairs_plain(xs, xlens, ys_t, ylens, sx, sxx, band)
+    _check_verdict(xs, xlens, ys_t, ylens, sx, sxx, band)
+    dev = xs.device
+    p, n = xs.shape
+    m = ys_t.shape[0]
+    if ys_t.shape[1] != p:
+        raise ValueError(f"{p} queries but {ys_t.shape[1]} references")
+    scores = torch.empty((p,), dtype=torch.float32, device=dev)
+    dists = torch.empty((p,), dtype=torch.float32, device=dev)
+    scratch_d, scratch_m = _scratch(3, 1, n, m, p, dev)
+    err = LIB.get().dtw_score_pairs(
+        xs.data_ptr(), xlens.data_ptr(), ys_t.data_ptr(), ylens.data_ptr(),
+        sx.data_ptr(), sxx.data_ptr(), scratch_d.data_ptr(),
+        scratch_m.data_ptr(), scores.data_ptr(), dists.data_ptr(), p, n, m,
+        -1 if band is None else int(band),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("dtw_score_pairs", err)
+    PAIRS_LAUNCHES += 1
+    return scores, dists
+
+
+def score_pairs_plain(xs, xlens, ys_t, ylens, sx, sxx,
+                      band: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`score_pairs` (same arguments and
+    results), on whatever device the tensors are on: K2's plain version
+    with a bank of one reference for each query."""
+    p = xs.shape[0]
+    m = ys_t.shape[0]
+    dev = xs.device
+    rows, moms = stream_bank_extend_scored_plain(
+        torch.full((p, m, 1), INF, dtype=torch.float32, device=dev),
+        torch.zeros((3, p, m, 1), dtype=torch.float32, device=dev),
+        torch.zeros((p,), dtype=torch.int32, device=dev),
+        ys_t.t()[:, :, None], ylens[:, None], xs, xlens, xlens, band)
+    pp = torch.arange(p, device=dev)
+    jend = (ylens - 1).long()
+    dists, msel = rows[pp, jend, 0], moms[:, pp, jend, 0]
+    nn = torch.clamp_min(xlens, 1).to(torch.float32)
+    scores = corr_from_moments(msel[0], msel[1], msel[2], sx, sxx, nn)
+    return torch.where(xlens > 0, scores, 0.0), dists
 
 
 def _endpoint(rows, moms, lengths):

@@ -232,7 +232,8 @@ def stream_bank_extend_scored_var_plain(rows, moms, ns, bank_t, lengths,
 
 
 def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
-                  qlens, band: Optional[int]
+                  qlens, band: Optional[int],
+                  all_rows: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The anti-diagonal formulation shared by the plain versions.
 
@@ -244,16 +245,22 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
     ``vchunks`` the moms' channels 3.. take v times the matching point
     pair, v * (xm * yc) in that order (the reference's).  ``moms`` None
     is the distance-only tick: the rows alone, and None for the moments
-    (the distances do not depend on them)."""
+    (the distances do not depend on them).  ``bank_t`` may also be
+    [S, M, K] with ``lengths`` [S, K]: a bank of its own for each job
+    (the plain versions of K2 pairs and K7, one reference a job).  With
+    ``all_rows`` [S, C, M, K] every row of the chunk block is written
+    there too, not only the last (K7's collected rows)."""
     s, c = chunks.shape
-    m, k = bank_t.shape
+    m, k = bank_t.shape[-2:]
     dev = rows.device
     f32 = torch.float32
     ii = torch.arange(c, device=dev, dtype=torch.int32)
-    # reversed, sentinel-padded bank: slot i of diagonal t reads y[t - i]
-    yrp = torch.cat([torch.full((c, k), _BIG, dtype=f32, device=dev),
-                     bank_t.flip(0),
-                     torch.full((c, k), _BIG, dtype=f32, device=dev)])
+    il = ii.long()
+    # reversed, sentinel-padded bank [1 or S, M + 2C, K]: slot i of
+    # diagonal t reads y[t - i]
+    bank3 = bank_t if bank_t.dim() == 3 else bank_t[None]
+    big = torch.full((bank3.shape[0], c, k), _BIG, dtype=f32, device=dev)
+    yrp = torch.cat([big, bank3.flip(1), big], dim=1)
     corner = torch.where(ns == 0, 0.0, INF).to(f32)
     # boundary index t: the diag predecessor D[-1, t-1]; t + 1: the vert.
     prow = torch.cat([corner[:, None, None].expand(s, 1, k), rows,
@@ -263,7 +270,7 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
     x3 = chunks[:, :, None]
     if band is not None:
         centers = torch.div((ns[:, None] + ii[None, :])[:, :, None]
-                            * (lengths[None, None, :] - 1),
+                            * (lengths[..., None, :] - 1),
                             torch.clamp(qlens - 1, min=1)[:, None, None],
                             rounding_mode="floor")               # [S, C, K]
     prev = torch.full((s, c, k), INF, dtype=f32, device=dev)
@@ -286,8 +293,8 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
         mvert = torch.zeros_like(bprev)
         out_moms = torch.empty((nch, s, m, k), dtype=f32, device=dev)
     for t in range(c + m - 1):
-        yd = yrp[c + m - 1 - t: 2 * c + m - 1 - t]                # [C, K]
-        d = (x3 - yd[None]).abs()
+        yd = yrp[:, c + m - 1 - t: 2 * c + m - 1 - t]      # [1 or S, C, K]
+        d = (x3 - yd).abs()
         if band is not None:
             off = (t - ii)[None, :, None]
             d = torch.where((off - centers).abs() <= band, d, INF)
@@ -299,8 +306,12 @@ def _extend_plain(rows, moms, ns, bank_t, lengths, chunks, vchunks, nvalid,
         cell = torch.where(valid, cell, p_vert)
         if t >= c - 1:
             out_rows[:, t - (c - 1)] = cell[:, c - 1]
+        if all_rows is not None:
+            jj = t - il
+            ok = (jj >= 0) & (jj < m)
+            all_rows[:, il[ok], jj[ok]] = cell[:, ok]
         if moms is not None:
-            yc = torch.where(yd.abs() < _Y_VALID, yd - MOM_SHIFT, 0.0)[None]
+            yc = torch.where(yd.abs() < _Y_VALID, yd - MOM_SHIFT, 0.0)
             pairs = [yc.expand(s, c, k), (yc * yc).expand(s, c, k), xm * yc]
             if vv is not None:
                 pairs += [vv * p for p in pairs[:nch - 3]]

@@ -1,0 +1,408 @@
+"""The port's offline matching phase (paper Fig. 4-a/4-b) — similarity,
+both ``similarity_bank`` engines, ``match_series``,
+``match_application``, ``prefix_similarity_bank``, ``AutoTuner`` and
+``OnlineMatcher`` — against ``repro.core`` on the same numpy-seeded and
+mrsim inputs, ``device="cpu"`` (the kernels' plain versions).
+
+Tolerances: dyadic-grid data is compared bitwise (every DP sum is exact,
+so both packages backtrack the same path and correlate the same pairs
+with the same float64 code).  On continuous data the port's matrices are
+the per-cell recurrence, bitwise the cells the reference's matrix-free
+scorer selects predecessors on, but not the cells of the reference's
+min-plus scans (its matrix path), which round differently and can flip a
+near-tie of the backtrack (one score moves by ~5e-3 on seed 7 below).
+So on continuous data every port engine is held to the reference's
+matrix-free scorer, the same warp path: to SMOOTH_TOL, the rounding of
+its float32 moments.  Table 1 is held to the golden file's own 2e-3
+(tests/test_paper_table1_golden.py).
+"""
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro import mrsim as rmrsim
+from repro.core import AutoTuner as RAutoTuner
+from repro.core import OnlineMatcher as ROnlineMatcher
+from repro.core import ReferenceDB as RReferenceDB
+from repro.core.database import pack_series as rpack
+from repro_torch import mrsim
+from repro_torch.core import AutoTuner, OnlineMatcher, ReferenceDB
+from repro_torch.core.database import pack_series
+
+rsim = importlib.import_module("repro.core.similarity")
+tsim = importlib.import_module("repro_torch.core.similarity")
+
+SMOOTH_TOL = 1e-5
+TABLE1_TOL = 2e-3
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "table1_similarity.json")
+
+
+def _dyadic(rng, n):
+    return (rng.integers(0, 9, n) / 8.0).astype(np.float32)
+
+
+def _smooth(rng, n):
+    t = np.linspace(0, 1, n)
+    return np.clip(0.5 + 0.3 * np.sin(2 * np.pi * rng.uniform(1, 4) * t)
+                   + 0.05 * rng.normal(size=n), 0, 1).astype(np.float32)
+
+
+def _check(got, want, dyadic):
+    if dyadic:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    else:
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=SMOOTH_TOL)
+
+
+def test_correlation_is_the_reference():
+    rng = np.random.default_rng(1)
+    for _ in range(5):
+        x, y = rng.random(20), rng.random(20)
+        assert tsim.correlation(x, y) == rsim.correlation(x, y)
+    c = np.full(9, 0.25)
+    assert tsim.correlation(c, c) == rsim.correlation(c, c) == 1.0
+    with pytest.raises(ValueError):
+        tsim.correlation(np.zeros(3), np.zeros(4))
+
+
+def _free(x, refs, band, preprocess=False):
+    """The reference's matrix-free scores of x against refs (float64)."""
+    return rsim.similarity_bank(x, rpack(refs), band=band,
+                                preprocess=preprocess)
+
+
+@pytest.mark.parametrize("band", [None, 5])
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_similarity_scalar(band, dyadic):
+    """The scalar ``similarity`` (one K7 matrix, host backtrack): bitwise
+    the reference's on dyadic data; on continuous data, raw and with the
+    paper's preprocessing, within SMOOTH_TOL of the reference's
+    matrix-free score of the same pair (the same warp path)."""
+    rng = np.random.default_rng(3)
+    make = _dyadic if dyadic else _smooth
+    for _ in range(3):
+        x, y = make(rng, 31), make(rng, 44)
+        got = tsim.similarity(x, y, band=band, device="cpu")
+        if dyadic:
+            assert got == rsim.similarity(x, y, band=band)
+        else:
+            np.testing.assert_allclose(got, _free(x, [y], band)[0],
+                                       atol=SMOOTH_TOL)
+        np.testing.assert_allclose(
+            tsim.similarity(x, y, preprocess=True, band=band, device="cpu"),
+            _free(x, [y], band, preprocess=True)[0], atol=SMOOTH_TOL)
+
+
+@pytest.mark.parametrize("band", [None, 6])
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_similarity_bank_both_engines(band, dyadic, monkeypatch):
+    """Both engines, ragged bank: bitwise the reference's same engine on
+    dyadic data; on continuous data within SMOOTH_TOL of the reference's
+    matrix-free engine.  The matrix path chunked two references a launch
+    by shrinking the port's MAX_MATRIX_ELEMS changes nothing."""
+    rng = np.random.default_rng(7 if band is None else 8)
+    make = _dyadic if dyadic else _smooth
+    refs = [make(rng, int(rng.integers(12, 40))) for _ in range(7)]
+    bank = pack_series(refs)
+    x = make(rng, 33)
+    for mp in (False, True):
+        got = tsim.similarity_bank(x, bank, band=band, matrix_path=mp,
+                                   device="cpu")
+        assert got.dtype == np.float64 and got.shape == (7,)
+        if dyadic:
+            np.testing.assert_array_equal(got, rsim.similarity_bank(
+                x, rpack(refs), band=band, matrix_path=mp))
+        else:
+            np.testing.assert_allclose(got, _free(x, refs, band),
+                                       atol=SMOOTH_TOL)
+    whole = tsim.similarity_bank(x, refs, band=band, matrix_path=True,
+                                 device="cpu")
+    monkeypatch.setattr(tsim, "MAX_MATRIX_ELEMS",
+                        2 * x.shape[0] * bank.series.shape[1])
+    chunked = tsim.similarity_bank(x, bank, band=band, matrix_path=True,
+                                   device="cpu")
+    np.testing.assert_array_equal(chunked, whole)
+
+
+def test_similarity_bank_preprocess_and_inputs():
+    """``preprocess=True`` on mrsim series (both engines, against the
+    reference's matrix-free engine) and the input forms: a SeriesBank, a
+    padded array with lengths, a ragged list; the reference's
+    rejections."""
+    ps = mrsim.paper_param_sets()
+    refs = [mrsim.simulate_cpu_series(a, p) for a in ("wordcount",
+                                                      "terasort")
+            for p in ps[:2]]
+    x = mrsim.simulate_cpu_series("exim", ps[1], run=1)
+    bank = pack_series(refs)
+    want = _free(x, refs, 8, preprocess=True)
+    for mp in (False, True):
+        got = tsim.similarity_bank(x, bank, preprocess=True, band=8,
+                                   matrix_path=mp, device="cpu")
+        np.testing.assert_allclose(got, want, atol=SMOOTH_TOL)
+        arr = tsim.similarity_bank(x, bank.series, bank.lengths,
+                                   preprocess=True, band=8, matrix_path=mp,
+                                   device="cpu")
+        np.testing.assert_array_equal(arr, got)
+    with pytest.raises(ValueError, match=r"\[K, M\]"):
+        tsim.similarity_bank(x, refs[0], device="cpu")
+    with pytest.raises(ValueError):
+        tsim.similarity_bank(x, refs, np.full(4, 9), device="cpu")
+    assert tsim.similarity_bank(x, [], device="cpu").shape == (0,)
+
+
+def test_match_series_and_match_application():
+    """``match_series`` and ``match_application`` (K2 pairs) against the
+    reference on the paper's series: the same winner and wins, scores to
+    SMOOTH_TOL; degenerate inputs as the reference handles them."""
+    ps = mrsim.paper_param_sets()
+    q = [mrsim.simulate_cpu_series("exim", p, run=1) for p in ps]
+    refs = {a: [mrsim.simulate_cpu_series(a, p) for p in ps]
+            for a in ("wordcount", "terasort")}
+    got = tsim.match_series(q[0], {a: r[0] for a, r in refs.items()},
+                            band=8, device="cpu")
+    want = rsim.match_series(q[0], {a: r[0] for a, r in refs.items()},
+                             band=8)
+    assert list(got) == list(want)
+    np.testing.assert_allclose(list(got.values()), list(want.values()),
+                               atol=SMOOTH_TOL)
+    for band in (None, 8):
+        a = tsim.match_application(q, refs, band=band, device="cpu")
+        b = rsim.match_application(q, refs, band=band)
+        assert (a.best, dict(a.wins), a.threshold) == \
+            (b.best, dict(b.wins), b.threshold)
+        for name in refs:
+            np.testing.assert_allclose(a.scores[name], b.scores[name],
+                                       atol=SMOOTH_TOL)
+    assert a.best == "wordcount"
+    empty = tsim.match_application([], {"a": []}, device="cpu")
+    assert empty.best is None and empty.wins == {"a": 0}
+    with pytest.raises(ValueError, match="series"):
+        tsim.match_application(q, {"a": q[:2]}, device="cpu")
+
+
+@pytest.mark.parametrize("band", [None, 4])
+def test_prefix_similarity_bank(band):
+    """Open- and closed-end prefix scores from streamed rows equal the
+    reference's bitwise on dyadic data (the rows are bitwise); the
+    closed end with an explicit band (None included) takes the
+    matrix-free scorer and needs no rows; without one, rows are
+    required (the ``_BAND_UNSET`` rule)."""
+    rng = np.random.default_rng(9)
+    refs = [_dyadic(rng, int(rng.integers(10, 30))) for _ in range(5)]
+    bank, rbank = pack_series(refs), rpack(refs)
+    x = _dyadic(rng, 22)
+    st = tsim._dtw.dtw_bank_init(bank.series, bank.lengths, band=band,
+                                 query_len=22, device="cpu")
+    st, rows = tsim._dtw.dtw_bank_extend(st, x, collect_rows=True)
+    rows = rows.numpy()
+    for n in (5, 22):
+        for open_end in (True, False):
+            got = tsim.prefix_similarity_bank(x[:n], bank, rows[:n],
+                                              open_end=open_end)
+            want = rsim.prefix_similarity_bank(x[:n], rbank, rows[:n],
+                                               open_end=open_end)
+            np.testing.assert_array_equal(got, want)
+    got = tsim.prefix_similarity_bank(x, bank, None, open_end=False,
+                                      band=band, device="cpu")
+    want = rsim.prefix_similarity_bank(x, rbank, None, open_end=False,
+                                       band=band)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="rows are required"):
+        tsim.prefix_similarity_bank(x, bank, None, open_end=False)
+    with pytest.raises(ValueError, match="DP rows"):
+        tsim.prefix_similarity_bank(x[:10], bank, rows)
+
+
+def _series(mr, app, j=0, run=0):
+    return mr.simulate_cpu_series(app, mr.paper_param_sets()[j], run=run)
+
+
+def test_tuner_transfers_config_to_similar_workload():
+    """tests/test_database_tuner.py:37 in both packages: exim matches
+    wordcount and inherits its config; the same scores to SMOOTH_TOL."""
+    out = []
+    for AT, DB, mr, kw in ((AutoTuner, ReferenceDB, mrsim,
+                            {"device": "cpu"}),
+                           (RAutoTuner, RReferenceDB, rmrsim, {})):
+        db = DB()
+        tuner = AT(db, band=8, **kw)
+        tuner.profile("wordcount", {"j": 0}, _series(mr, "wordcount"))
+        tuner.profile("terasort", {"j": 0}, _series(mr, "terasort"))
+        db.set_best_config("wordcount", {"remat": "dots", "microbatch": 4},
+                           2.0)
+        db.set_best_config("terasort", {"remat": "full"}, 1.0)
+        out.append(tuner.match("exim", _series(mr, "exim", run=1)))
+    got, want = out
+    assert got.matched == want.matched == "wordcount" and got.corr >= 0.9
+    assert got.config == want.config == {"remat": "dots", "microbatch": 4}
+    assert list(got.scores) == list(want.scores)
+    np.testing.assert_allclose(list(got.scores.values()),
+                               list(want.scores.values()), atol=SMOOTH_TOL)
+
+
+def test_tuner_falls_back_below_threshold():
+    """tests/test_database_tuner.py:51: below the threshold the fallback
+    search runs, is recorded, and the same decision as the reference's
+    comes back."""
+    out = []
+    for AT, DB, mr, kw in ((AutoTuner, ReferenceDB, mrsim,
+                            {"device": "cpu"}),
+                           (RAutoTuner, RReferenceDB, rmrsim, {})):
+        db = DB()
+        tuner = AT(db, threshold=0.999999, band=4, **kw)
+        tuner.profile("a", {}, _series(mr, "terasort"))
+        db.set_best_config("a", {"x": 1}, 1.0)
+        calls = []
+        d = tuner.tune("b", _series(mr, "wordcount", run=3),
+                       fallback=lambda: calls.append(1) or {"y": 2})
+        assert calls == [1] and d.config == {"y": 2}
+        assert db.best_config("b") == {"y": 2}
+        out.append(d)
+    assert out[0].matched == out[1].matched
+    assert abs(out[0].corr - out[1].corr) <= SMOOTH_TOL
+    tuner = AutoTuner(ReferenceDB(), device="cpu")
+    with pytest.raises(ValueError, match="no series"):
+        tuner.record("z", {"q": 1}, 1.0)
+    tuner.record("z", {"q": 1}, 1.0, series=_series(mrsim, "exim"))
+    assert tuner.db.best_config("z") == {"q": 1}
+
+
+def test_quickstart_scenario():
+    """examples/quickstart.py in both packages: exim matches wordcount
+    with the same correlation (to 1e-6) and the transferred config."""
+    out = []
+    for AT, DB, mr, kw in ((AutoTuner, ReferenceDB, mrsim,
+                            {"device": "cpu"}),
+                           (RAutoTuner, RReferenceDB, rmrsim, {})):
+        db = DB()
+        tuner = AT(db, band=8, **kw)
+        for app in ("wordcount", "terasort"):
+            for p in mr.paper_param_sets():
+                tuner.profile(app, p.as_dict(), mr.simulate_cpu_series(app, p))
+        db.set_best_config("wordcount", {"mappers": 21, "reducers": 30,
+                                         "split_mb": 10, "input_mb": 80},
+                           score=1.0)
+        db.set_best_config("terasort", {"mappers": 42, "reducers": 33,
+                                        "split_mb": 20, "input_mb": 60},
+                           score=1.0)
+        out.append(tuner.match("exim-mainlog", mr.simulate_cpu_series(
+            "exim", mr.paper_param_sets()[0], run=1)))
+    got, want = out
+    assert got.matched == want.matched == "wordcount"
+    assert abs(got.corr - want.corr) <= 1e-6
+    assert got.config == want.config
+
+
+def test_wavelet_prefilter_raises_until_ported():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        AutoTuner(ReferenceDB(), wavelet_prefilter=2, device="cpu")
+
+
+@pytest.mark.parametrize("band", [None, 5])
+def test_online_matcher_against_reference(band):
+    """OnlineMatcher in both packages on the same chunks: prefix and
+    final scores, distances and prefix distances bitwise on dyadic data;
+    ``collect_rows=False`` finals (K2) too; with ``denoise=True`` (the
+    ported causal filter) to SMOOTH_TOL."""
+    rng = np.random.default_rng(13)
+    refs = [_dyadic(rng, int(rng.integers(12, 30))) for _ in range(6)]
+    bank, rbank = pack_series(refs), rpack(refs)
+    x = _dyadic(rng, 40)
+    for collect, denoise in ((True, False), (False, False), (True, True)):
+        kw = dict(band=band, query_len=40, collect_rows=collect,
+                  denoise=denoise)
+        om = OnlineMatcher(bank, device="cpu", **kw)
+        rom = ROnlineMatcher(rbank, **kw)
+        for lo in range(0, 40, 9):
+            om.extend(x[lo:lo + 9])
+            rom.extend(x[lo:lo + 9])
+            assert om.n == rom.n
+            pairs = [(om.distances(), rom.distances()),
+                     (om.prefix_distances(), rom.prefix_distances())]
+            if collect:
+                pairs.append((om.prefix_scores(), rom.prefix_scores()))
+            for g, w in pairs:
+                _check(g, w, not denoise)
+        _check(om.final_scores(), rom.final_scores(), not denoise)
+        np.testing.assert_array_equal(om.query(), rom.query())
+    om = OnlineMatcher(bank, collect_rows=False, device="cpu")
+    om.extend(x[:1])
+    with pytest.raises(ValueError, match="collect_rows"):
+        om.prefix_scores()
+    assert (om.final_scores() == 0).all()
+
+
+def test_table1_golden_through_both_engines():
+    """Paper Table 1 through the port's scalar ``similarity`` and both
+    ``similarity_bank`` engines, within the golden's 2e-3."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    ps = mrsim.paper_param_sets()
+    assert [p.as_dict() for p in ps] == golden["param_sets"]
+    queries = [mrsim.simulate_cpu_series(golden["query_app"], p,
+                                         run=golden["query_run"])
+               for p in ps]
+    for app, want in golden["similarity"].items():
+        refs = [mrsim.simulate_cpu_series(app, p) for p in ps]
+        scalar = [[tsim.similarity(queries[j], refs[i], preprocess=True,
+                                   band=golden["band"], device="cpu")
+                   for j in range(4)] for i in range(4)]
+        np.testing.assert_allclose(scalar, want, atol=TABLE1_TOL)
+        for mp in (False, True):
+            cols = [tsim.similarity_bank(queries[j], refs, preprocess=True,
+                                         band=golden["band"],
+                                         matrix_path=mp, device="cpu")
+                    for j in range(4)]
+            np.testing.assert_allclose(np.stack(cols, axis=1), want,
+                                       atol=TABLE1_TOL)
+
+
+def test_matching_raises_without_a_card(monkeypatch):
+    """The default (CUDA) entry points raise without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2)
+    x = np.linspace(0, 1, 10, dtype=np.float32)
+    for call in (lambda: AutoTuner(ReferenceDB()),
+                 lambda: OnlineMatcher(bank),
+                 lambda: tsim.similarity(x, x),
+                 lambda: tsim.similarity_bank(x, bank),
+                 lambda: tsim.similarity_bank(x, bank, matrix_path=True),
+                 lambda: tsim.match_application([x], {"a": [x]})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_core_exports_reference_names():
+    """``repro_torch.core`` exports the slice's names under the
+    reference's names."""
+    import repro.core as rc
+    import repro_torch.core as tc
+    assert set(tc.__all__) <= set(rc.__all__)
+    for name in ("AutoTuner", "OnlineMatcher", "similarity_bank",
+                 "match_application", "dtw_matrix_bank", "dtw_bank_extend",
+                 "DtwBankState", "dtw_warp", "dtw_score_pairs"):
+        assert name in tc.__all__ and hasattr(tc, name)
+
+
+def test_matching_slice_imports_without_jax():
+    """The slice's modules import with jax and repro made unimportable."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.core, repro_torch.kernels.dtw.ops, "
+            "repro_torch.core.tuner; print('ok')")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
