@@ -79,7 +79,31 @@ Phases, in order (any failure exits non-zero):
     matrix-free scores; one ``OnlineMatcher(collect_rows=True)`` job in
     24 chunks of 16 (24 K7 launches), its rows bitwise the one-shot
     matrix; K7 timed beside its plain version and bound, and the host
-    backtrack timed.
+    backtrack timed;
+16. K8, the batched IIR filter, against its plain version on the
+    reference's IIR test shapes and every order 1-8 (bitwise expected,
+    differing elements counted, each within IIR_TOL), then the paper's
+    order-6 de-noise over a reference DB of B=8192 series x T=3600
+    samples through ``kernels.iir.lfilter_batched`` (one launch), held
+    to the plain version and, on 64 series, both to the float64 oracle
+    within IIR_ORACLE_TOL;
+    timed beside its plain version and bound;
+17. K9, flash attention, against its plain version on the reference's
+    test shapes (f32 within ATTN_F32_TOL, bf16 within ATTN_BF16_TOL and
+    one bf16 step), S != T, dh 96 and 128, ragged tiles; then
+    granite-20b's causal prefill layer (48 heads, kv 1, dh 128,
+    S=T=4096, bf16) through ``kernels.attention.flash_attention`` (one
+    launch), held to the plain version (and the same inputs in f32 too),
+    timed beside it, its bound and ``scaled_dot_product_attention``;
+    phi3-mini's MHA (32 heads, dh 96, S=4096, bf16) checked the same way,
+    untimed;
+18. K10, the GLA chunked scan, against its plain version on the
+    reference's test shapes (rtol GLA_RTOL, atol GLA_ATOL), then
+    zamba2-7b's SSD scan (112 heads of 64, state 64, chunk 256, S=4096,
+    bf16) through ``kernels.gla.gla_scan`` (one launch), held to the
+    plain version (the float32 state within the tolerance, the bf16
+    output within one bf16 ulp besides, and the same inputs in float32
+    within the tolerance), timed beside its plain version and bound.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
@@ -89,11 +113,13 @@ and imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -124,6 +150,33 @@ MATRIX_FREE_TOL = 5e-3
 #: correlation of the same path: the two formulas round differently.
 FINAL_TOL = 1e-9
 
+#: K8 against its plain version and the float64 oracle: the reference's
+#: tolerance for the order-6 filter (tests/test_kernels.py).  The two
+#: versions are expected bitwise but for the plain version's double
+#: rounding of its fused multiply-adds, which is counted.
+IIR_TOL = 5e-3
+#: Both versions against the float64 oracle over the full width's 3600
+#: samples: float32 arithmetic on this ill-conditioned filter drifts from
+#: the exact recurrence by up to ~6e-3 over that length (on the CPU, the
+#: reference's recurrence bitwise alike), beyond IIR_TOL, which the
+#: reference set on series of 64 to 512 samples.
+IIR_ORACLE_TOL = 1e-2
+#: One bfloat16 step, relative: a bfloat16 output may round to the other
+#: side of a step where the float32 sums differ in their last bit.
+BF16_ULP = 2.0 ** -7
+#: K9 against its plain version: the reference's tolerances
+#: (tests/test_kernels.py), float32 and bfloat16.  The reference set the
+#: bfloat16 one at S <= 256, where |o| is ~0.2; at S = 4096 a typical |o|
+#: is ~0.03, below it, so a bfloat16 output is also held within one
+#: bfloat16 step (BF16_ULP relative) plus ATTN_F32_TOL of the plain
+#: version's, and the same inputs in float32 within ATTN_F32_TOL.
+ATTN_F32_TOL = 1e-5
+ATTN_BF16_TOL = 5e-2
+#: K10 against its plain version: the reference's kernel-against-model-
+#: path tolerance (tests/test_kernels.py); a bfloat16 output within one
+#: bfloat16 step besides.
+GLA_RTOL, GLA_ATOL = 1e-4, 1e-5
+
 #: Early-decision fractions of the reference on the paper scenario
 #: (BENCH_streaming.json rows stream_early_p0..p3).
 REF_EARLY = (0.44, 0.50, 0.47, 0.75)
@@ -136,26 +189,37 @@ def ops_per_cell(nch: int) -> int:
     return 5 + 4 * nch
 
 
-#: The kernels of the table, in order, with the TPU kernel each replaces.
+#: The kernels of the table, in order, with their sources and the TPU
+#: kernel each replaces.
+_DTW = "src/repro_torch/kernels/dtw/csrc/"
 KERNELS = {
-    "K1": ("K1 scored streaming tick", "stream.cu",
+    "K1": ("K1 scored streaming tick", _DTW + "stream.cu",
            "src/repro/kernels/dtw/stream.py:136"),
-    "K2": ("K2 verdict scorer", "score.cu",
+    "K2": ("K2 verdict scorer", _DTW + "score.cu",
            "src/repro/kernels/dtw/score.py:42"),
-    "K3": ("K3 distance-only streaming tick", "stream.cu",
+    "K3": ("K3 distance-only streaming tick", _DTW + "stream.cu",
            "src/repro/kernels/dtw/stream.py:82"),
-    "K4-exact": ("K4 probabilistic tick, 6 channels (exact)", "stream.cu",
-                 "src/repro/kernels/dtw/stream.py:136"),
+    "K4-exact": ("K4 probabilistic tick, 6 channels (exact)",
+                 _DTW + "stream.cu", "src/repro/kernels/dtw/stream.py:136"),
     "K4-approx": ("K4 probabilistic tick, 4 channels (approx)",
-                  "stream.cu", "src/repro/kernels/dtw/stream.py:136"),
-    "K5": ("K5 exact probabilistic verdict scorer", "score.cu",
+                  _DTW + "stream.cu", "src/repro/kernels/dtw/stream.py:136"),
+    "K5": ("K5 exact probabilistic verdict scorer", _DTW + "score.cu",
            "src/repro/kernels/dtw/score.py:179"),
-    "K6": ("K6 approx probabilistic verdict scorer", "score.cu",
+    "K6": ("K6 approx probabilistic verdict scorer", _DTW + "score.cu",
            "src/repro/kernels/dtw/score.py:179"),
-    "K7": ("K7 DTW accumulated-cost matrix", "matrix.cu",
+    "K7": ("K7 DTW accumulated-cost matrix", _DTW + "matrix.cu",
            "src/repro/kernels/dtw/kernel.py:54"),
-    "K2-pairs": ("K2 pairs verdict scorer", "score.cu",
+    "K2-pairs": ("K2 pairs verdict scorer", _DTW + "score.cu",
                  "src/repro/kernels/dtw/score.py:42"),
+    "K8": ("K8 batched IIR filter",
+           "src/repro_torch/kernels/iir/csrc/iir.cu",
+           "src/repro/kernels/iir/kernel.py:26"),
+    "K9": ("K9 causal GQA flash attention",
+           "src/repro_torch/kernels/attention/csrc/flash.cu",
+           "src/repro/kernels/attention/kernel.py:26"),
+    "K10": ("K10 chunked GLA scan",
+            "src/repro_torch/kernels/gla/csrc/gla.cu",
+            "src/repro/kernels/gla/kernel.py:22"),
 }
 
 
@@ -184,13 +248,14 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    """(memory bytes/s, f32 FLOP/s) of the named card (NVIDIA data
-    sheets; the SXM part's figures for an unrecognised H100)."""
+    """(memory bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s) of the
+    named card (NVIDIA data sheets; the SXM part's figures for an
+    unrecognised H100)."""
     if "PCIe" in name:
-        return 2.0e12, 51.2e12
+        return 2.0e12, 51.2e12, 756e12
     if "NVL" in name:
-        return 3.9e12, 60.0e12
-    return 3.35e12, 67.0e12
+        return 3.9e12, 60.0e12, 835e12
+    return 3.35e12, 67.0e12, 989e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -210,18 +275,25 @@ def cuda_ms(fn, reps: int) -> float:
 
 def counts() -> dict:
     """Every kernel's launch count, by table key."""
+    from repro_torch.kernels import attention, gla, iir
     from repro_torch.kernels.dtw import matrix, score, stream
     return {"K1": stream.LIB.launches, "K2": score.LIB.launches,
             "K3": stream.DIST_LAUNCHES,
             "K4-exact": stream.VAR_LAUNCHES[6],
             "K4-approx": stream.VAR_LAUNCHES[4],
             "K5": score.VAR_LAUNCHES[6], "K6": score.VAR_LAUNCHES[4],
-            "K7": matrix.LIB.launches, "K2-pairs": score.PAIRS_LAUNCHES}
+            "K7": matrix.LIB.launches, "K2-pairs": score.PAIRS_LAUNCHES,
+            "K8": iir.kernel.LIB.launches,
+            "K9": attention.kernel.LIB.launches,
+            "K10": gla.kernel.LIB.launches}
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import attention, gla, iir
     from repro_torch.kernels.dtw import matrix, score, stream
     stream.LIB.launches = score.LIB.launches = matrix.LIB.launches = 0
+    iir.kernel.LIB.launches = attention.kernel.LIB.launches = 0
+    gla.kernel.LIB.launches = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
         for key in d:
@@ -282,9 +354,13 @@ def build_report(libs) -> None:
         for line in lib.build_log.splitlines():
             m = re.search(r"entry function .*?(stream_scored_kernel|"
                           r"score_pairs_kernel|score_kernel|"
-                          r"dtw_matrix_kernel)(?:ILi(\d+)E)?", line)
+                          r"dtw_matrix_kernel|iir_kernel|flash_kernel|"
+                          r"gla_kernel)(?:I(.*?)EE)?", line)
             if m:
-                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                # template arguments, e.g. "Li6" -> 6, "fLi128" -> f32,128
+                targs = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
+                targs = re.sub(r"^f(?=Li)", "f32,", targs).replace("Li", "")
+                name = m.group(1) + (f"<{targs}>" if targs else "")
             elif "spill" in line:
                 props = line.strip()
             elif "registers" in line:
@@ -869,15 +945,15 @@ def throughput_bank(rng, k: int):
     return pack_series(series, labels=[f"w{i % 16}" for i in range(k)])
 
 
-def _row(key, launches, errs, ms, plain_ms, bounds):
+def _row(key, launches, errs, ms, plain_ms, bounds, library_ms=None):
     name, src, replaces = KERNELS[key]
     return dict(name=name, route="cuda",
-                source=f"src/repro_torch/kernels/dtw/csrc/{src}",
+                source=src,
                 replaces=replaces, launches=launches,
                 max_abs_err=errs.err[key], ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bounds),
                 bound_by="bytes" if bounds[0] >= bounds[1] else "operations",
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def full_inputs(mode: str, s_jobs: int, k: int, qlen: int, seed: int):
@@ -1060,7 +1136,7 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
           f"{PROB_TOL:g})")
 
     # timings at the main path's shapes, kernel beside plain version
-    mem_bps, f32_flops = card_peaks(name)
+    mem_bps, f32_flops, _ = card_peaks(name)
     cells = int(nvalid.sum()) * m * k
     tbytes = 2 * 4 * (1 + nch) * s_jobs * m * k + 4 * (
         m * k + k + (2 if prob else 1) * s_jobs * c + 3 * s_jobs)
@@ -1451,7 +1527,7 @@ def paper_matching(dev, errs: ErrLog, name: str):
                        torch.tensor([res.scores[a][j] for a in names
                                      for j in range(n)],
                                     dtype=torch.float64))
-    mem_bps, f32_flops = card_peaks(name)
+    mem_bps, f32_flops, _ = card_peaks(name)
     p_, nq = xs.shape
     m = rbank.series.shape[1]
     cells = band_cells(xl, rbank.lengths, band)
@@ -1551,7 +1627,7 @@ def full_matching(dev, errs: ErrLog, name: str, n_q: int = 8, k: int = 256,
     ck, lk = matrix.dtw_rows(xc, ys, qn, lens, row=row, n0=qlen // 2)
     assert torch.equal(ck, rk[:, qlen // 2: qlen // 2 + c])
     assert torch.equal(lk, rk[:, qlen // 2 + c - 1])
-    mem_bps, f32_flops = card_peaks(name)
+    mem_bps, f32_flops, _ = card_peaks(name)
     kbytes = 4 * (k * qlen * m + qlen + k * m + 2 * k)
     kb = (1e3 * kbytes / mem_bps, 1e3 * ops_per_cell(0) * k * qlen * m
           / f32_flops)
@@ -1569,17 +1645,411 @@ def full_matching(dev, errs: ErrLog, name: str, n_q: int = 8, k: int = 256,
     return _row("K7", got["K7"], errs, t_ms, t_plain, kb)
 
 
+def _close(got: torch.Tensor, want: torch.Tensor, rtol: float,
+           atol: float) -> bool:
+    """|got - want| <= atol + rtol |want| elementwise (float64)."""
+    g, w = got.double(), want.double()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def check_k8(dev, errs: ErrLog) -> None:
+    """K8 against its plain version (and both against the float64
+    oracle) on the reference's IIR test shapes (tests/test_kernels.py),
+    the paper's order 6 at 130 x 512, and every order 1-8 (each a
+    template instantiation): bitwise expected, the differing elements
+    counted, every difference within IIR_TOL."""
+    from repro_torch.core.filters import cheby1_design
+    from repro_torch.kernels.iir import kernel, lfilter_ref
+    cases = [(6, 0.125, 3, 100), (4, 0.3, 130, 64), (2, 0.5, 1, 257),
+             (6, 0.125, 130, 512)]
+    cases += [(order, 0.3, 37, 70) for order in range(1, 9)]
+    for order, cutoff, bsz, t in cases:
+        b, a = cheby1_design(order, 1.0, cutoff)
+        x = np.random.default_rng(bsz * t).normal(size=(bsz, t)) \
+            .astype(np.float32)
+        bt, at = kernel.coeffs(b, a, dev)
+        xt = torch.tensor(x, device=dev)
+        before = counts()
+        yk = kernel.iir_filter(bt, at, xt)
+        torch.cuda.synchronize()
+        launched(before, K8=1)
+        yp = kernel.iir_filter_plain(bt, at, xt)
+        e = errs.diff("K8", yk, yp)
+        nd = int((yk != yp).sum())
+        e_ref = float(np.abs(yk.cpu().numpy() - lfilter_ref(b, a, x)).max())
+        assert e <= IIR_TOL and e_ref <= IIR_TOL, \
+            f"K8 order {order} {bsz}x{t}: {e} vs plain, {e_ref} vs oracle"
+        print(f"[K8] order {order} cutoff {cutoff} B={bsz} T={t}: {nd} of "
+              f"{yk.numel()} elements differ from the plain version (max "
+              f"{e:.3g}), oracle within {e_ref:.3g} (tol {IIR_TOL:g})")
+
+
+def _f32_once(exact: Fraction) -> np.float32:
+    """The float32 nearest the rational ``exact``, ties to even: one
+    rounding (normal range)."""
+    if exact == 0:
+        return np.float32(0.0)
+    mag = abs(exact)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    if Fraction(2) ** e > mag:
+        e -= 1                              # 2^e <= |exact| < 2^(e + 1)
+    unit = Fraction(2) ** (e - 23)          # the float32 spacing there
+    return np.float32(math.copysign(float(round(mag / unit) * unit), exact))
+
+
+def _df2t_witness(b, a, x):
+    """df2t's recurrence (kernels/iir/kernel.py) on one float32 series,
+    step by step on the host, two ways: each fused multiply-add rounded
+    once from the exact rational (``__fmaf_rn``, K8's) and through
+    float64 (``_fma``, the plain version's).  Returns (y once, y through
+    float64, the first fma whose two roundings differ: (t, which, p, q,
+    r, once, float64) or None)."""
+    order = len(b) - 1
+    zero = np.float32(0.0)
+    out, first = [], None
+    for twice in (False, True):
+        z = [zero] * order
+        y = np.empty(len(x), np.float32)
+        for t, xt in enumerate(x):
+            def fma(p, q, r, which):
+                nonlocal first
+                f64 = np.float32(np.float64(p) * np.float64(q)
+                                 + np.float64(r))
+                if twice:
+                    return f64
+                once = _f32_once(Fraction(float(p)) * Fraction(float(q))
+                                 + Fraction(float(r)))
+                if first is None and once != f64:
+                    first = (t, which, p, q, r, once, f64)
+                return once
+            yt = fma(b[0], xt, z[0], "y")
+            z = [fma(b[i + 1], xt, -(a[i + 1] * yt), f"z{i}")
+                 + (z[i + 1] if i + 1 < order else zero)
+                 for i in range(order)]
+            y[t] = yt
+        out.append(y)
+    return out[0], out[1], first
+
+
+def full_iir(dev, errs: ErrLog, name: str, bsz: int = 8192, t: int = 3600,
+             seed: int = 16):
+    """K8 at full width (phase 16): the paper's order-6 Chebyshev
+    de-noise (1 dB ripple, cutoff 0.125) over a reference DB of ``bsz``
+    series x ``t`` samples (an hour of 1 Hz CPU utilization per profiled
+    run) through ``kernels.iir.lfilter_batched``: one launch, held to the
+    plain version (differing elements counted, each within IIR_TOL) and,
+    on 64 series, both to the float64 oracle within IIR_ORACLE_TOL; timed
+    beside the plain version and the bound.  Returns K8's kernel table
+    row."""
+    from repro_torch.core import filters
+    from repro_torch.kernels.iir import kernel, lfilter_batched, lfilter_ref
+    b, a = filters.cheby1_design(filters.DEFAULT_ORDER,
+                                 filters.DEFAULT_RIPPLE_DB,
+                                 filters.DEFAULT_CUTOFF)
+    order = len(b) - 1
+    # utilization-like: a per-series level and phase swing, square-ish
+    # map/reduce waves, sampling noise; clipped to [0, 1]
+    rng = np.random.default_rng(seed)
+    tt = np.arange(t, dtype=np.float32)[None, :]
+    level = rng.uniform(0.2, 0.7, (bsz, 1)).astype(np.float32)
+    period = rng.uniform(120, 900, (bsz, 1)).astype(np.float32)
+    wave = np.sign(np.sin(2 * np.pi * tt / period)).astype(np.float32)
+    x = np.clip(level + 0.2 * wave + 0.08 * rng.standard_normal(
+        (bsz, t), dtype=np.float32), 0, 1).astype(np.float32)
+    xt = torch.tensor(x, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    y = lfilter_batched(b, a, xt, device=dev)
+    torch.cuda.synchronize()
+    got = counts()
+    assert got == {**{key: 0 for key in got}, "K8": 1}, got
+    bt, at = kernel.coeffs(b, a, dev)
+    yp = kernel.iir_filter_plain(bt, at, xt)
+    e = errs.diff("K8", y, yp)
+    nd = int((y != yp).sum())
+    nrows = int((y != yp).any(dim=1).sum())
+    assert e <= IIR_TOL, f"full-width K8 vs plain: {e}"
+    # witness the differing series (up to 4): K8's row must be the
+    # recurrence with each fma rounded once, the plain version's the one
+    # rounded through float64, and the two must part at a double rounding
+    bn, an = bt.cpu().numpy(), at.cpu().numpy()
+    for i in torch.nonzero((y != yp).any(dim=1)).flatten().tolist()[:4]:
+        once, twice, first = _df2t_witness(bn, an, x[i])
+        yi, ypi = y[i].cpu().numpy(), yp[i].cpu().numpy()
+        t_out = int(np.flatnonzero(yi != ypi)[0])
+        assert first is not None and first[0] <= t_out, (i, first, t_out)
+        assert np.array_equal(yi, once), f"K8 series {i}: not fmaf's"
+        assert np.array_equal(ypi, twice), f"plain series {i}: not _fma's"
+        t_fma, which, p, q, r, f_once, f_f64 = first
+        print(f"[full IIR] series {i}: at t={t_fma} the fma of {which} "
+              f"({float(p)!r} * {float(q)!r} + {float(r)!r}) rounds to "
+              f"{float(f_once)!r} once and to {float(f_f64)!r} through "
+              f"float64; outputs part at t={t_out}; K8's row is bitwise "
+              f"the recurrence rounded once, the plain version's the one "
+              f"through float64")
+    sub = lfilter_ref(b, a, x[:64])
+    e_ref = max(float(np.abs(y[:64].cpu().numpy() - sub).max()),
+                float(np.abs(yp[:64].cpu().numpy() - sub).max()))
+    assert e_ref <= IIR_ORACLE_TOL, f"full-width K8 vs the oracle: {e_ref}"
+    assert torch.isfinite(y).all()
+    mem_bps, f32_flops, _ = card_peaks(name)
+    kb = (1e3 * 4 * (2 * bsz * t + 2 * (order + 1)) / mem_bps,
+          1e3 * (2 + 4 * order) * bsz * t / f32_flops)
+    t_ms = cuda_ms(lambda: kernel.iir_filter(bt, at, xt), 20)
+    t_plain = cuda_ms(lambda: kernel.iir_filter_plain(bt, at, xt), 1)
+    print(f"[full IIR] order {order}, B={bsz} x T={t}: one launch; {nd} of "
+          f"{y.numel()} elements, in {nrows} of {bsz} series, differ from "
+          f"the plain version (max {e:.3g}, tol {IIR_TOL:g}); 64 series "
+          f"within {e_ref:.3g} of the float64 oracle (tol "
+          f"{IIR_ORACLE_TOL:g}); K8 {t_ms:.4f} ms (plain {t_plain:.2f} ms, "
+          f"bound {max(kb):.4f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}) [{name}]")
+    return _row("K8", got["K8"], errs, t_ms, t_plain, kb)
+
+
+def _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype):
+    return (torch.randn((b, h, s, dh), generator=gen, device=dev).to(dtype),
+            torch.randn((b, kv, t, dh), generator=gen, device=dev).to(dtype),
+            torch.randn((b, kv, t, dv), generator=gen, device=dev).to(dtype))
+
+
+def check_k9(dev, errs: ErrLog) -> None:
+    """K9 against its plain version on the reference's test shapes
+    (tests/test_kernels.py: four f32 and bf16 cases, non-causal), S != T
+    both ways (the top-left mask), dv != dh, dh 96 and 128, and tiles
+    ragged against the kernel's 64 x 64 (S = T = 96)."""
+    from repro_torch.kernels.attention import kernel
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(1, 2, 2, 128, 128, 32, 32, 64, 64, True, f32),
+             (2, 4, 2, 256, 256, 32, 32, 128, 128, True, f32),
+             (1, 8, 1, 128, 128, 64, 64, 32, 64, True, f32),
+             (2, 4, 4, 128, 128, 16, 16, 64, 32, True, bf16),
+             (1, 2, 2, 64, 64, 16, 16, 32, 32, False, f32),
+             (1, 4, 2, 64, 128, 16, 24, 32, 32, True, f32),
+             (1, 4, 2, 128, 64, 16, 24, 64, 32, True, f32),
+             (1, 4, 4, 256, 256, 96, 96, 128, 128, True, bf16),
+             (1, 6, 2, 256, 256, 128, 128, 128, 128, True, f32),
+             (1, 2, 1, 96, 96, 64, 48, 32, 32, True, f32),
+             (1, 2, 1, 96, 96, 64, 64, 32, 32, False, bf16)]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for (b, h, kv, s, t, dh, dv, bq, bk, causal, dtype) in cases:
+        q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype)
+        before = counts()
+        ok = kernel.flash_forward(q, k, v, bq, bk, causal)
+        torch.cuda.synchronize()
+        launched(before, K9=1)
+        assert ok.dtype == dtype
+        op = kernel.flash_forward_plain(q, k, v, bq, bk, causal)
+        e = _attn_diff(errs, ok, op,
+                       f"K9 {(b, h, kv, s, t, dh, dv, causal, dtype)}")
+        print(f"[K9] B={b} H={h} KV={kv} S={s} T={t} dh={dh} dv={dv} "
+              f"causal={causal!s:5} {str(dtype)[6:]}: max abs err {e:.3g} "
+              f"({_attn_limit(ok)}; mean |o| {float(op.abs().mean()):.3g})")
+
+
+def _attn_limit(o: torch.Tensor) -> str:
+    if o.dtype == torch.float32:
+        return f"tol {ATTN_F32_TOL:g}"
+    return (f"tol {ATTN_BF16_TOL:g} and one bf16 step: {BF16_ULP:g} |o| + "
+            f"{ATTN_F32_TOL:g}")
+
+
+def _attn_diff(errs: ErrLog, got, want, what: str) -> float:
+    """Hold K9's o to the plain version's: float32 within ATTN_F32_TOL;
+    bfloat16 within ATTN_BF16_TOL and within one bfloat16 step
+    (BF16_ULP |o| + ATTN_F32_TOL).  Returns the max abs err."""
+    e = errs.diff("K9", got, want)
+    if got.dtype == torch.float32:
+        ok = e <= ATTN_F32_TOL
+    else:
+        ok = e <= ATTN_BF16_TOL and _close(got, want, BF16_ULP, ATTN_F32_TOL)
+    assert ok, f"{what}: max abs err {e} beyond {_attn_limit(got)}"
+    return e
+
+
+def _attn_full(errs: ErrLog, q, k, v, o, what: str) -> str:
+    """A full-width bf16 K9 output ``o`` of (q, k, v) held to the plain
+    version, and the same inputs in float32 through K9 held to the plain
+    version in float32; returns the report."""
+    from repro_torch.kernels.attention import kernel
+    op = kernel.flash_forward_plain(q, k, v)
+    e = _attn_diff(errs, o, op, what)
+    mean = float(op.float().abs().mean())
+    del op
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    o32 = kernel.flash_forward(q32, k32, v32)
+    e32 = _attn_diff(errs, o32, kernel.flash_forward_plain(q32, k32, v32),
+                     what + " (f32)")
+    return (f"max abs err {e:.3g} vs plain ({_attn_limit(o)}; mean |o| "
+            f"{mean:.3g}); the same inputs in f32 {e32:.3g} "
+            f"({_attn_limit(o32)})")
+
+
+def _sdpa(q, k, v):
+    """The one PyTorch call that computes K9's function (a yardstick,
+    never on the port's path)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+
+
+def full_attention(dev, errs: ErrLog, name: str, s: int = 4096,
+                   seed: int = 17):
+    """K9 at full width (phase 17): one layer of granite-20b's causal
+    prefill (configs/granite_20b.py: 48 heads, kv 1, head dim 128) at
+    B = 1, S = T = 4096 in bf16 through ``kernels.attention.
+    flash_attention``: one launch, held to the plain version within
+    ATTN_BF16_TOL and one bf16 step, timed beside it, its bound and
+    ``scaled_dot_product_attention``; then phi3-mini's MHA
+    (configs/phi3_mini_3p8b.py: 32 heads, head dim 96) at S = 4096,
+    checked untimed; each also in float32 against the plain version in
+    float32.  Returns K9's kernel table row."""
+    from repro_torch.kernels.attention import flash_attention, kernel
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, kv, dh = 1, 48, 1, 128
+    q, k, v = _attn_inputs(gen, dev, b, h, kv, s, s, dh, dh, torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_counts()
+    o = flash_attention(q, k, v, device=dev)
+    torch.cuda.synchronize()
+    got = counts()
+    assert got == {**{key: 0 for key in got}, "K9": 1}, got
+    assert o.shape == (b, h, s, dh) and o.dtype == torch.bfloat16
+    assert torch.isfinite(o.float()).all()
+    report = _attn_full(errs, q, k, v, o, "full-width K9")
+    e_lib = float((_sdpa(q, k, v).double() - o.double()).abs().max())
+    pairs = s * (s + 1) // 2
+    mem_bps, f32_flops, bf16_flops = card_peaks(name)
+    kb = (1e3 * 2 * (2 * b * h * s * dh + 2 * b * kv * s * dh) / mem_bps,
+          1e3 * 2 * (dh + dh) * pairs * b * h / bf16_flops)
+    t_ms = cuda_ms(lambda: kernel.flash_forward(q, k, v), 5)
+    t_plain = cuda_ms(lambda: kernel.flash_forward_plain(q, k, v), 1)
+    t_lib = cuda_ms(lambda: _sdpa(q, k, v), 20)
+    f32_floor = 1e3 * 2 * (dh + dh) * pairs * b * h / f32_flops
+    print(f"[full attention] granite-20b layer, H={h} KV={kv} S=T={s} "
+          f"dh={dh} bf16, causal: one launch; {report}; {e_lib:.3g} vs "
+          f"SDPA; K9 {t_ms:.4f} ms "
+          f"(plain {t_plain:.2f} ms, SDPA {t_lib:.4f} ms, bound "
+          f"{max(kb):.4f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}, f32 CUDA-core "
+          f"floor {f32_floor:.3f} ms) [{name}]")
+    row = _row("K9", got["K9"], errs, t_ms, t_plain, kb, library_ms=t_lib)
+    del q, k, v, o
+    # phi3-mini's MHA, checked untimed
+    h, dh = 32, 96
+    q, k, v = _attn_inputs(gen, dev, 1, h, h, s, s, dh, dh, torch.bfloat16)
+    before = counts()
+    o = flash_attention(q, k, v, device=dev)
+    torch.cuda.synchronize()
+    launched(before, K9=1)
+    report = _attn_full(errs, q, k, v, o, "phi3-mini K9")
+    print(f"[full attention] phi3-mini layer, H=KV={h} S=T={s} dh={dh} "
+          f"bf16: one launch; {report}")
+    return row
+
+
+def _gla_inputs(gen, dev, b, h, s, dk, dv, dtype):
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return (rn(b, h, s, dk).to(dtype), (0.3 * rn(b, h, s, dk)).to(dtype),
+            rn(b, h, s, dv).to(dtype), -(0.2 * rn(b, h, s)).abs())
+
+
+def _gla_diff(errs: ErrLog, got, want, bf16: bool) -> int:
+    """Hold K10's (o, state) to the plain version's: the state and a
+    float32 o within GLA_RTOL / GLA_ATOL; a bf16 o within one bf16 ulp
+    besides.  Returns the count of o's elements that differ."""
+    (ok, sk), (op, sp) = got, want
+    errs.diff("K10", ok, op)
+    errs.diff("K10", sk, sp)
+    assert _close(sk, sp, GLA_RTOL, GLA_ATOL), "K10 state"
+    assert _close(ok, op, GLA_RTOL + (BF16_ULP if bf16 else 0.0),
+                       GLA_ATOL), "K10 output"
+    return int((ok != op).sum())
+
+
+def check_k10(dev, errs: ErrLog) -> None:
+    """K10 against its plain version on the reference's test shapes
+    (tests/test_kernels.py: three, and the model-path case), dk = 128,
+    chunks of 256 (four 64-row tiles) and of 24 (a ragged tile), bf16."""
+    from repro_torch.kernels.gla import kernel
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(1, 2, 32, 8, 8, 8, f32), (2, 3, 64, 16, 8, 16, f32),
+             (1, 1, 128, 64, 64, 32, f32), (1, 2, 64, 8, 4, 16, f32),
+             (1, 2, 256, 128, 96, 64, f32), (1, 3, 512, 64, 64, 256, f32),
+             (2, 2, 96, 32, 16, 24, f32), (1, 3, 512, 64, 64, 256, bf16)]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for (b, h, s, dk, dv, chunk, dtype) in cases:
+        q, k, v, la = _gla_inputs(gen, dev, b, h, s, dk, dv, dtype)
+        g = kernel.chunk_cumsum(la, chunk)
+        before = counts()
+        res = kernel.gla_chunks(q, k, v, g, chunk)
+        torch.cuda.synchronize()
+        launched(before, K10=1)
+        nd = _gla_diff(errs, res, kernel.gla_chunks_plain(q, k, v, g, chunk),
+                       dtype == bf16)
+        print(f"[K10] B={b} H={h} S={s} dk={dk} dv={dv} chunk={chunk} "
+              f"{str(dtype)[6:]}: within rtol {GLA_RTOL:g} / atol "
+              f"{GLA_ATOL:g} of the plain version ({nd} output elements "
+              f"differ)")
+
+
+def full_gla(dev, errs: ErrLog, name: str, s: int = 4096, seed: int = 18):
+    """K10 at full width (phase 18): zamba2-7b's SSD scan
+    (configs/zamba2_7b.py: d_inner 7168 = 112 heads of 64, ssm_state 64,
+    gla_chunk 256; models/ssm.py) at B = 1, S = 4096 in bf16 through
+    ``kernels.gla.gla_scan``: one launch, held to the plain version on
+    the same cumsum, and the same inputs in float32 held to it too;
+    timed beside the plain version and the bound.  Returns K10's kernel
+    table row."""
+    from repro_torch.kernels.gla import gla_scan, kernel
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, dk, dv, chunk = 1, 112, 64, 64, 256
+    q, k, v, la = _gla_inputs(gen, dev, b, h, s, dk, dv, torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_counts()
+    o, st = gla_scan(q, k, v, la, chunk=chunk, device=dev)
+    torch.cuda.synchronize()
+    got = counts()
+    assert got == {**{key: 0 for key in got}, "K10": 1}, got
+    assert o.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert torch.isfinite(o.float()).all() and torch.isfinite(st).all()
+    g = kernel.chunk_cumsum(la, chunk)
+    nd = _gla_diff(errs, (o, st), kernel.gla_chunks_plain(q, k, v, g, chunk),
+                   True)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    nd32 = _gla_diff(errs, kernel.gla_chunks(q32, k32, v32, g, chunk),
+                     kernel.gla_chunks_plain(q32, k32, v32, g, chunk), False)
+    nc = s // chunk
+    flops = b * h * nc * (chunk * (chunk + 1) // 2 * 2 * (dk + dv)
+                          + 2 * 2 * chunk * dk * dv)
+    nbytes = 2 * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
+    mem_bps, _, bf16_flops = card_peaks(name)
+    kb = (1e3 * nbytes / mem_bps, 1e3 * flops / bf16_flops)
+    t_ms = cuda_ms(lambda: kernel.gla_chunks(q, k, v, g, chunk), 10)
+    t_plain = cuda_ms(lambda: kernel.gla_chunks_plain(q, k, v, g, chunk), 2)
+    print(f"[full GLA] zamba2-7b scan, H={h} S={s} dk=dv={dk} chunk="
+          f"{chunk} bf16: one launch; state within rtol {GLA_RTOL:g} / atol "
+          f"{GLA_ATOL:g} of the plain version, output within one bf16 ulp "
+          f"({nd} of {o.numel()} elements differ); the same inputs in f32 "
+          f"within the tolerance ({nd32} differ); K10 {t_ms:.4f} ms (plain "
+          f"{t_plain:.2f} ms, bound {max(kb):.4f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}; {b * h} blocks "
+          f"on {torch.cuda.get_device_properties(dev).multi_processor_count}"
+          f" SMs) [{name}]")
+    return _row("K10", got["K10"], errs, t_ms, t_plain, kb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    from repro_torch.kernels import common
+    from repro_torch.kernels import attention, common, gla, iir
     from repro_torch.kernels.dtw import matrix, score, stream
     name = card_line()
     print(f"[card] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    libs = [stream.LIB, score.LIB, matrix.LIB]
+    libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
+            attention.kernel.LIB, gla.kernel.LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1614,6 +2084,11 @@ def main() -> int:
     multitenant_phase(dev, bank)
     for row in (paper_matching(dev, errs, name),
                 full_matching(dev, errs, name)):
+        rows[row["name"]] = row
+    for check, full in ((check_k8, full_iir), (check_k9, full_attention),
+                        (check_k10, full_gla)):
+        check(dev, errs)
+        row = full(dev, errs, name)
         rows[row["name"]] = row
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -4,7 +4,10 @@ The online tuning service (``serve.tuning``), in exact point mode and
 in probabilistic mode, the offline matching phase (``core``:
 ``AutoTuner``, ``similarity_bank``, ``match_application``,
 ``OnlineMatcher``) and the modules they need, with their DTW kernels
-written by hand in CUDA C++ (``kernels.dtw``).  Entry points run on the
+written by hand in CUDA C++ (``kernels.dtw``); and the reference's other
+kernel entry points, each on its own CUDA kernel: the batched IIR filter
+(``kernels.iir``), flash attention (``kernels.attention``) and the GLA
+scan (``kernels.gla``).  Entry points run on the
 GPU unless ``device="cpu"`` is passed, which runs the kernels' plain
 PyTorch versions.  The package imports neither ``jax`` nor ``repro``.
 """

@@ -4,7 +4,8 @@ The paper de-noises every captured CPU-utilization series with a 6th-order
 low-pass Chebyshev filter before storing/matching (§3.1.1, §4).  The filter
 is designed here (analog Chebyshev-I prototype -> frequency pre-warp ->
 bilinear transform) in numpy, and applied as a direct-form-II-transposed
-recurrence over float32 tensors, in the reference's order of operations.
+recurrence over float32 tensors, in the reference's order of operations
+(``kernels/iir/kernel.py::df2t``, the plain version of kernel K8).
 
 The recurrence is serial in time and tiny per step, so it runs on the host
 (CPU tensors) whatever device the matcher uses: the service filters each
@@ -19,6 +20,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.iir.kernel import coeffs as _coeffs
+from ..kernels.iir.kernel import df2t as _df2t
 
 __all__ = [
     "cheby1_design",
@@ -81,43 +85,6 @@ def cheby1_design(order: int, ripple_db: float, cutoff: float) -> Tuple[np.ndarr
 # ---------------------------------------------------------------------------
 # Filter application
 # ---------------------------------------------------------------------------
-
-def _coeffs(b, a) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(b, a) normalized by a[0] in float64, then rounded to float32."""
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64) / a[0]
-    return (torch.tensor(b, dtype=torch.float32),
-            torch.tensor(a / a[0], dtype=torch.float32))
-
-
-def _fma(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """``p * q + r`` rounded once to float32 (a fused multiply-add): the
-    float32 product is exact in float64."""
-    return (p.double() * q.double() + r.double()).float()
-
-
-def _df2t(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
-          z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Direct-form-II-transposed pass over the last axis of x [B, T] from
-    state z [B, n-1] -> (y [B, T], final state).
-
-    The reference's compiled recurrence contracts ``b0 x + z0`` and
-    ``b x - a y`` into fused multiply-adds, and this order-6 filter is
-    ill-conditioned in float32 (one rounding moves outputs by ~1e-3), so
-    the same two steps are fused here: the two packages filter alike."""
-    b0, bk, ak = b[0], b[1:][None, :], a[1:][None, :]
-    ys = []
-    for t in range(x.shape[-1]):
-        xt = x[:, t]
-        yt = _fma(b0.expand_as(xt), xt, z[:, 0])
-        # z_i <- b_{i+1} x - a_{i+1} y + z_{i+1}
-        xb = xt[:, None].expand_as(z)
-        z = (_fma(bk.expand_as(z), xb, -(ak * yt[:, None]))
-             + torch.nn.functional.pad(z[:, 1:], (0, 1)))
-        ys.append(yt)
-    y = torch.stack(ys, dim=-1) if ys else x.clone()
-    return y, z
-
 
 def lfilter(b: np.ndarray, a: np.ndarray, x) -> torch.Tensor:
     """Apply an IIR filter along the last axis (normalizes by a[0]);

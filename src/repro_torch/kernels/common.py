@@ -25,7 +25,9 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "check_kernel_device",
+__all__ = ["resolve_device", "as_tensor", "as_float_tensor",
+           "FLOAT_DTYPES", "FLOAT_IO_HEADER", "check_float_dtypes",
+           "check_kernel_device",
            "check_tensor",
            "KernelLaunchError", "check_launch",
            "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR"]
@@ -77,11 +79,42 @@ def resolve_device(device: Union[str, torch.device, None] = None
 def as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``a`` (a tensor, numpy array or sequence) as a contiguous ``dtype``
     tensor on ``device``: a copy of an array, a tensor that already is
-    one as it is."""
+    one as it is.  numpy has no bfloat16, so a bfloat16 tensor must come
+    as a tensor; an array asked to become one raises."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype).contiguous()
+    if dtype not in _NP:
+        raise TypeError(
+            f"as_tensor: numpy has no {dtype}; pass a {dtype} tensor "
+            f"(e.g. torch.tensor(x).to({dtype}))")
     return torch.tensor(np.ascontiguousarray(a, dtype=_NP[dtype]),
                         device=device)
+
+
+#: The input dtypes of the attention kernels (K9, K10).
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+#: Their shared load/store and head-dim dispatch header.
+FLOAT_IO_HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "csrc", "float_io.cuh")
+
+
+def check_float_dtypes(**tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of FLOAT_DTYPES that the named tensors share (an
+    attention kernel's inputs); raises ValueError otherwise."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or not dtypes <= set(FLOAT_DTYPES):
+        raise ValueError(
+            f"{', '.join(tensors)} must share one dtype of {FLOAT_DTYPES}; "
+            f"got {', '.join(str(t.dtype) for t in tensors.values())}")
+    return dtypes.pop()
+
+
+def as_float_tensor(a, device: torch.device) -> torch.Tensor:
+    """``a`` as a contiguous tensor on ``device``: a tensor keeps its
+    dtype (one of FLOAT_DTYPES for the attention kernels), anything else
+    becomes float32."""
+    return as_tensor(a, a.dtype if isinstance(a, torch.Tensor)
+                     else torch.float32, device)
 
 
 def check_kernel_device(t: torch.Tensor) -> None:
@@ -94,14 +127,18 @@ def check_kernel_device(t: torch.Tensor) -> None:
             f"has compute capability {major}.{minor}")
 
 
-def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+def check_tensor(t: torch.Tensor, name: str, dtype, shape,
                  device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` — what a kernel's raw pointer arithmetic assumes."""
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` on
+    ``device`` whose dtype is ``dtype`` (or one of a tuple of dtypes,
+    e.g. ``(torch.float32, torch.bfloat16)``) — what a kernel's raw
+    pointer arithmetic assumes."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
         raise ValueError(
-            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"{name}: want contiguous {'/'.join(map(str, dtypes))} "
+            f"{tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
 

@@ -1,0 +1,140 @@
+"""K10: the chunked gated-linear-attention scan — the CUDA kernel, its
+wrapper and its plain PyTorch version.
+
+K10 (``repro/kernels/gla/kernel.py::_gla_kernel`` on the TPU) evaluates
+the recurrence ``S_t = a_t S_{t-1} + k_t^T v_t``, ``o_t = q_t S_t`` per
+(batch, head) chunk by chunk, the [dk, dv] state carried in float32.  With
+``g`` the within-chunk inclusive cumsum of ``log_a`` and L the chunk
+length, each chunk computes
+
+    o_i = sum_{j <= i} (q_i . k_j) e^{g_i - g_j} v_j + e^{g_i} q_i S
+    S  <- e^{g_L} S + sum_j (k_j e^{g_L - g_j})^T v_j
+
+for q, k [B, H, S, dk] and v [B, H, S, dv] in float32 or bfloat16 (one
+dtype for the three), returning o in v's dtype and the final state
+[B, H, dk, dv] in float32.  The cumsum stays a torch op outside the
+kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
+
+* :func:`gla_chunks` is the wrapper: CUDA tensors launch ``csrc/gla.cu``
+  (or raise), CPU tensors take :func:`gla_chunks_plain`.
+  ``LIB.launches`` counts the launches.
+* :func:`gla_chunks_plain` is the reference kernel's chunk loop, batched
+  over (batch, head).  Its products go through ``torch.matmul``; the
+  CUDA kernel's never do.
+* :func:`chunk_cumsum` is the within-chunk cumsum both take as ``g``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Tuple
+
+import torch
+
+from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
+                      check_float_dtypes, check_kernel_device,
+                      check_launch, check_tensor)
+
+__all__ = ["gla_chunks", "gla_chunks_plain", "chunk_cumsum", "LIB",
+           "MAX_HEAD_DIM"]
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: Largest dk and dv the kernel takes.
+MAX_HEAD_DIM = 128
+
+LIB = KernelLib(
+    "gla", os.path.join(_CSRC, "gla.cu"),
+    headers=(FLOAT_IO_HEADER,),
+    signatures={"gla_scan_fwd": ([_P] * 6 + [_I] * 6 + [_P],
+                                 ctypes.c_int)})
+
+
+def chunk_cumsum(log_a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """log_a [B, H, S] -> its inclusive cumsum within each chunk, float32
+    [B, H, S]."""
+    b, h, s = log_a.shape
+    return torch.cumsum(log_a.reshape(b, h, s // chunk, chunk).float(),
+                        dim=-1).reshape(b, h, s)
+
+
+def _shapes(q, k, v, g, chunk: int):
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or v.dim() != 4 \
+            or tuple(v.shape[:3]) != tuple(q.shape[:3]) \
+            or tuple(g.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"want q, k [B, H, S, dk], v [B, H, S, dv], g "
+                         f"[B, H, S]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(g.shape)}")
+    b, h, s, dk = q.shape
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"pad S = {s} to a multiple of chunk = {chunk}")
+    check_float_dtypes(q=q, k=k, v=v)
+    return b, h, s, dk, v.shape[-1]
+
+
+def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               g: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: the chunked scan of q, k [B, H, S, dk], v [B, H, S, dv] with
+    the within-chunk cumsum g [B, H, S] (float32) -> (o [B, H, S, dv] in
+    v's dtype, final state [B, H, dk, dv] float32).  CUDA tensors launch
+    the kernel (dk, dv <= MAX_HEAD_DIM); CPU tensors take the plain
+    version."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    if not q.is_cuda:
+        return gla_chunks_plain(q, k, v, g, chunk)
+    dev = q.device
+    check_kernel_device(q)
+    if max(dk, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"K10 takes dk, dv up to {MAX_HEAD_DIM}, got "
+                         f"{dk}, {dv}")
+    check_tensor(q, "q", FLOAT_DTYPES, (b, h, s, dk), dev)
+    check_tensor(k, "k", q.dtype, (b, h, s, dk), dev)
+    check_tensor(v, "v", q.dtype, (b, h, s, dv), dev)
+    check_tensor(g, "g", torch.float32, (b, h, s), dev)
+    o = torch.empty((b, h, s, dv), dtype=v.dtype, device=dev)
+    state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
+    err = LIB.get().gla_scan_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        o.data_ptr(), state.data_ptr(), b * h, s, chunk, dk, dv,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("gla_scan_fwd", err)
+    LIB.launches += 1
+    return o, state
+
+
+def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     g: torch.Tensor, chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`gla_chunks` (same arguments and
+    results), on whatever device the tensors are on."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    dev = q.device
+    qf = q.reshape(b * h, s, dk)
+    kf = k.reshape(b * h, s, dk)
+    vf = v.reshape(b * h, s, dv)
+    gf = g.reshape(b * h, s).float()
+    idx = torch.arange(chunk, device=dev)
+    causal = idx[:, None] >= idx[None, :]
+    state = torch.zeros((b * h, dk, dv), dtype=torch.float32, device=dev)
+    out = torch.empty((b * h, s, dv), dtype=v.dtype, device=dev)
+    for c0 in range(0, s, chunk):
+        qb = qf[:, c0:c0 + chunk].float()                 # [BH, L, dk]
+        kb = kf[:, c0:c0 + chunk].float()
+        vb = vf[:, c0:c0 + chunk].float()
+        gb = gf[:, c0:c0 + chunk]                         # [BH, L]
+        scores = torch.matmul(qb, kb.transpose(1, 2))
+        decay = torch.exp(gb[:, :, None] - gb[:, None, :])
+        scores = torch.where(causal, scores * decay, 0.0)
+        o = torch.matmul(scores, vb)
+        o = o + torch.exp(gb)[:, :, None] * torch.matmul(qb, state)
+        out[:, c0:c0 + chunk] = o.to(v.dtype)
+        w = torch.exp(gb[:, -1:] - gb)                    # [BH, L]
+        state = (torch.exp(gb[:, -1])[:, None, None] * state
+                 + torch.matmul((kb * w[:, :, None]).transpose(1, 2), vb))
+    return out.reshape(b, h, s, dv), state.reshape(b, h, dk, dv)

@@ -254,7 +254,9 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serve.tuning, repro_torch.mrsim, "
-            "repro_torch.core.filters; print('ok')")
+            "repro_torch.core.filters, repro_torch.kernels.iir, "
+            "repro_torch.kernels.attention, repro_torch.kernels.gla; "
+            "print('ok')")
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,
