@@ -13,12 +13,17 @@ Phases, in order (any failure exits non-zero):
 2. hold K1, the scored streaming tick, against its plain PyTorch version
    on the card: bitwise on dyadic-grid data, and on smooth data within
    the stated tolerance;
-3. the same for K2, the verdict scorer;
+3. the same for K2, the verdict scorer (a warp per pair sweeping the DP
+   as a wavefront of 32 strips), on ragged banks and on banks with
+   references of 1 and 5 columns (shorter than a strip) and longer than
+   one 384-column panel, queries of 0-2 rows and shorter than the 32
+   lanes, and a band of 2 (narrower than a strip);
 4. the same for K4, the probabilistic tick, with six channels (exact)
    and four (approx), dyadic variances on dyadic data; probabilities
    within PROB_TOL;
 5. the same for K5 and K6, the exact and approx probabilistic verdict
-   scorers, and at zero variance their probabilities bitwise in {0, 1};
+   scorers, on phase 3's shapes, and at zero variance their
+   probabilities bitwise in {0, 1};
 6. the paper scenario: the point-mode ``TuningService`` matches exim
    traces against a wordcount/terasort bank while they run; every final
    verdict must be ``wordcount`` and every early decision must come at
@@ -90,12 +95,15 @@ Phases, in order (any failure exits non-zero):
     timed beside its plain version and bound;
 17. K9, flash attention, against its plain version on the reference's
     test shapes (f32 within ATTN_F32_TOL, bf16 within ATTN_BF16_TOL and
-    one bf16 step), S != T, dh 96 and 128, ragged tiles; then
-    granite-20b's causal prefill layer (48 heads, kv 1, dh 128,
-    S=T=4096, bf16) through ``kernels.attention.flash_attention`` (one
-    launch), held to the plain version (and the same inputs in f32 too),
-    timed beside it, its bound and ``scaled_dot_product_attention``;
-    phi3-mini's MHA (32 heads, dh 96, S=4096, bf16) checked the same way,
+    one bf16 step), S != T, dh 96 and 128, ragged tiles, and in bf16 head
+    dims padded in shared memory (dh 24 / dv 48, dh 20 / dv 12); bf16
+    launches the tensor-core kernel (``wgmma``), f32 the CUDA-core one;
+    then granite-20b's causal prefill layer (48 heads, kv 1, dh 128,
+    S=T=4096) through ``kernels.attention.flash_attention`` in bf16 and
+    in f32 (one launch each), held to the plain version, each timed
+    beside it, its bound and ``scaled_dot_product_attention``, with the
+    f32 CUDA-core floor and the HGMMA count of the bf16 kernel's SASS;
+    phi3-mini's MHA (32 heads, dh 96, S=4096) checked the same way,
     untimed;
 18. K10, the GLA chunked scan, against its plain version on the
     reference's test shapes (rtol GLA_RTOL, atol GLA_ATOL), then
@@ -214,9 +222,12 @@ KERNELS = {
     "K8": ("K8 batched IIR filter",
            "src/repro_torch/kernels/iir/csrc/iir.cu",
            "src/repro/kernels/iir/kernel.py:26"),
-    "K9": ("K9 causal GQA flash attention",
-           "src/repro_torch/kernels/attention/csrc/flash.cu",
+    "K9": ("K9 causal GQA flash attention, bf16 (wgmma)",
+           "src/repro_torch/kernels/attention/csrc/flash_wgmma.cu",
            "src/repro/kernels/attention/kernel.py:26"),
+    "K9-f32": ("K9 causal GQA flash attention, f32 (CUDA cores)",
+               "src/repro_torch/kernels/attention/csrc/flash.cu",
+               "src/repro/kernels/attention/kernel.py:26"),
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
@@ -284,7 +295,8 @@ def counts() -> dict:
             "K5": score.VAR_LAUNCHES[6], "K6": score.VAR_LAUNCHES[4],
             "K7": matrix.LIB.launches, "K2-pairs": score.PAIRS_LAUNCHES,
             "K8": iir.kernel.LIB.launches,
-            "K9": attention.kernel.LIB.launches,
+            "K9": attention.kernel.BF16_LIB.launches,
+            "K9-f32": attention.kernel.LIB.launches,
             "K10": gla.kernel.LIB.launches}
 
 
@@ -293,6 +305,7 @@ def reset_counts() -> None:
     from repro_torch.kernels.dtw import matrix, score, stream
     stream.LIB.launches = score.LIB.launches = matrix.LIB.launches = 0
     iir.kernel.LIB.launches = attention.kernel.LIB.launches = 0
+    attention.kernel.BF16_LIB.launches = 0
     gla.kernel.LIB.launches = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
@@ -345,6 +358,22 @@ def _bank(rng, k: int, lo: int, hi: int, dyadic: bool):
                         for _ in range(k)])
 
 
+#: Reference lengths that the verdict scorers' wavefront treats apart
+#: (32 lanes of up to 12 columns): one column, shorter than a strip, and
+#: longer than one 384-column panel (two and three panels).
+WAVEFRONT_LENGTHS = (1, 5, 11, 385, 500, 800, 1000)
+
+
+def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
+    """A ragged bank of k references of 10-60 samples; with ``panels``,
+    its first references take WAVEFRONT_LENGTHS."""
+    from repro_torch.core.database import pack_series
+    lens = [int(rng.integers(10, 61)) for _ in range(k)]
+    if panels:
+        lens[:len(WAVEFRONT_LENGTHS)] = WAVEFRONT_LENGTHS
+    return pack_series([_series(rng, n, dyadic) for n in lens])
+
+
 def build_report(libs) -> None:
     """One line per kernel: its registers, stack and spills as ptxas -v
     reported them."""
@@ -355,11 +384,15 @@ def build_report(libs) -> None:
             m = re.search(r"entry function .*?(stream_scored_kernel|"
                           r"score_pairs_kernel|score_kernel|"
                           r"dtw_matrix_kernel|iir_kernel|flash_kernel|"
+                          r"flash_wgmma_kernel|"
                           r"gla_kernel)(?:I(.*?)EE)?", line)
             if m:
                 # template arguments, e.g. "Li6" -> 6, "fLi128" -> f32,128
                 targs = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
-                targs = re.sub(r"^f(?=Li)", "f32,", targs).replace("Li", "")
+                targs = re.sub(r"^f(?=Li)", "f32,", targs)
+                targs = re.sub(r"Lb([01])", lambda b: "band" if b.group(1)
+                               == "1" else "no band", targs)
+                targs = targs.replace("Li", "").replace("E", ",")
                 name = m.group(1) + (f"<{targs}>" if targs else "")
             elif "spill" in line:
                 props = line.strip()
@@ -421,16 +454,19 @@ def check_k1(dev, errs: ErrLog) -> None:
 
 def check_k2(dev, errs: ErrLog) -> None:
     """K2 against its plain version: ragged banks, ragged query lengths
-    (0, 1, < N and N), one-pass (N <= 16) and multi-pass queries, band
-    None and 6."""
+    (0, 1, 2, < N and N: all but N = 70 shorter than the 32 lanes), band
+    None, 6 and 2 (narrower than a strip); and banks with references of
+    1 and 5 columns (shorter than a strip) and longer than one panel
+    (WAVEFRONT_LENGTHS)."""
     from repro_torch.core import dtw
     from repro_torch.kernels.dtw import score
-    cases = [(dy, band, n) for dy in (True, False) for band in (None, 6)
+    cases = [(dy, band, n, pan) for pan in (False, True)
+             for dy in (True, False) for band in (None, 6, 2)
              for n in (12, 70)]
-    for i, (dyadic, band, n) in enumerate(cases):
+    for i, (dyadic, band, n, panels) in enumerate(cases):
         rng = np.random.default_rng(200 + i)
         j, k = 6, 133
-        bank = _bank(rng, k, 10, 60, dyadic)
+        bank = _bank_shapes(rng, k, dyadic, panels)
         xlens = np.asarray([0, 1, n, n - 3, n // 2, 2], np.int32)
         xs = np.zeros((j, n), np.float32)
         for q, l in enumerate(xlens):
@@ -450,10 +486,10 @@ def check_k2(dev, errs: ErrLog) -> None:
         e = max(errs.diff("K2", sk, sp), errs.diff("K2", dk, dp))
         tol = DYADIC_TOL if dyadic else SMOOTH_TOL
         assert e <= tol, (f"K2 case {i} (dyadic={dyadic}, band={band}, "
-                          f"N={n}): max abs err {e}")
-        print(f"[K2] dyadic={dyadic!s:5} band={band!s:4} N={n:2d}: "
-              f"scores and distances agree (max abs err {e:.3g}, "
-              f"tol {tol:g})")
+                          f"N={n}, panels={panels}): max abs err {e}")
+        print(f"[K2] dyadic={dyadic!s:5} band={band!s:4} N={n:2d} "
+              f"M={bank.series.shape[1]:4d}: scores and distances agree "
+              f"(max abs err {e:.3g}, tol {tol:g})")
 
 
 def check_k4(dev, errs: ErrLog) -> None:
@@ -529,13 +565,14 @@ def check_k56(dev, errs: ErrLog) -> None:
     plain version's, in {0, 1} and equal to 1{score >= threshold}."""
     from repro_torch.core import dtw
     from repro_torch.kernels.dtw import score
-    cases = [(ap, dy, band, n) for ap in (False, True)
-             for dy in (True, False) for band in (None, 6) for n in (12, 70)]
-    for i, (approx, dyadic, band, n) in enumerate(cases):
+    cases = [(ap, dy, band, n, pan) for pan in (False, True)
+             for ap in (False, True) for dy in (True, False)
+             for band in (None, 6, 2) for n in (12, 70)]
+    for i, (approx, dyadic, band, n, panels) in enumerate(cases):
         key = "K6" if approx else "K5"
         rng = np.random.default_rng(500 + i)
         j, k = 6, 133
-        bank = _bank(rng, k, 10, 60, dyadic)
+        bank = _bank_shapes(rng, k, dyadic, panels)
         xlens = np.asarray([0, 1, n, n - 3, n // 2, 2], np.int32)
         xs = np.zeros((j, n), np.float32)
         xv = np.zeros((j, n), np.float32)
@@ -572,9 +609,9 @@ def check_k56(dev, errs: ErrLog) -> None:
             if var is not xv:
                 assert torch.equal(pk, pp), f"{key}: zero-variance probs"
                 assert torch.equal(pk, (sk >= 0.85).float())
-        print(f"[{key}] dyadic={dyadic!s:5} band={band!s:4} N={n:2d}: "
-              f"scores and distances agree (max abs err {e:.3g}, tol "
-              f"{tol:g}); probabilities {ep:.3g} (tol {PROB_TOL:g}); zero "
+        print(f"[{key}] dyadic={dyadic!s:5} band={band!s:4} N={n:2d} "
+              f"M={bank.series.shape[1]:4d}: scores and distances agree "
+              f"(max abs err {e:.3g}, tol {tol:g}); probabilities {ep:.3g} (tol {PROB_TOL:g}); zero "
               f"variance bitwise the point rule")
 
 
@@ -772,17 +809,18 @@ def check_k7(dev, errs: ErrLog) -> None:
 def check_k2_pairs(dev, errs: ErrLog) -> None:
     """K2 pairs against its plain version (bitwise on dyadic data,
     SMOOTH_TOL on smooth data) and against K2 on the same pairs (the
-    diagonal of a P x P verdict; bitwise on any data): ragged query and
-    reference lengths (0, 1, < N and N), one-pass and multi-pass queries,
-    band None and 6."""
+    diagonal of a P x P verdict; bitwise on any data): ragged query
+    lengths (0, 1, < N and N), reference lengths 10-60 and
+    WAVEFRONT_LENGTHS (shorter than a strip, longer than a panel), band
+    None, 6 and 2."""
     from repro_torch.core import dtw
     from repro_torch.kernels.dtw import score
-    cases = [(dy, band, n) for dy in (True, False) for band in (None, 6)
+    cases = [(dy, band, n) for dy in (True, False) for band in (None, 6, 2)
              for n in (12, 70)]
     for i, (dyadic, band, n) in enumerate(cases):
         rng = np.random.default_rng(800 + i)
         p = 70
-        bank = _bank(rng, p, 10, 60, dyadic)
+        bank = _bank_shapes(rng, p, dyadic, panels=True)
         xlens = rng.integers(0, n + 1, p).astype(np.int32)
         xlens[:3] = (0, 1, n)
         xs = np.zeros((p, n), np.float32)
@@ -1813,11 +1851,20 @@ def _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype):
             torch.randn((b, kv, t, dv), generator=gen, device=dev).to(dtype))
 
 
+def _k9_key(dtype) -> str:
+    """The kernel a K9 input dtype launches: bf16 the tensor-core one,
+    f32 the CUDA-core one."""
+    return "K9" if dtype == torch.bfloat16 else "K9-f32"
+
+
 def check_k9(dev, errs: ErrLog) -> None:
     """K9 against its plain version on the reference's test shapes
     (tests/test_kernels.py: four f32 and bf16 cases, non-causal), S != T
     both ways (the top-left mask), dv != dh, dh 96 and 128, and tiles
-    ragged against the kernel's 64 x 64 (S = T = 96)."""
+    ragged against the kernels' 64 x 64 (S = T = 96); in bf16 also head
+    dims padded in shared memory (dh 24, dv 48; dh 20, dv 12, whose rows
+    are not whole 16-byte chunks), dh 128 and S != T non-causal.  Each
+    call launches the kernel of its dtype once."""
     from repro_torch.kernels.attention import kernel
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(1, 2, 2, 128, 128, 32, 32, 64, 64, True, f32),
@@ -1830,14 +1877,18 @@ def check_k9(dev, errs: ErrLog) -> None:
              (1, 4, 4, 256, 256, 96, 96, 128, 128, True, bf16),
              (1, 6, 2, 256, 256, 128, 128, 128, 128, True, f32),
              (1, 2, 1, 96, 96, 64, 48, 32, 32, True, f32),
-             (1, 2, 1, 96, 96, 64, 64, 32, 32, False, bf16)]
+             (1, 2, 1, 96, 96, 64, 64, 32, 32, False, bf16),
+             (1, 4, 2, 128, 192, 24, 48, 64, 64, True, bf16),
+             (1, 2, 1, 96, 96, 20, 12, 32, 32, True, bf16),
+             (1, 6, 2, 256, 256, 128, 128, 128, 128, True, bf16),
+             (1, 2, 2, 128, 320, 128, 128, 64, 64, False, bf16)]
     gen = torch.Generator(device=dev).manual_seed(17)
     for (b, h, kv, s, t, dh, dv, bq, bk, causal, dtype) in cases:
         q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype)
         before = counts()
         ok = kernel.flash_forward(q, k, v, bq, bk, causal)
         torch.cuda.synchronize()
-        launched(before, K9=1)
+        launched(before, **{_k9_key(dtype).replace("-", "_"): 1})
         assert ok.dtype == dtype
         op = kernel.flash_forward_plain(q, k, v, bq, bk, causal)
         e = _attn_diff(errs, ok, op,
@@ -1858,7 +1909,7 @@ def _attn_diff(errs: ErrLog, got, want, what: str) -> float:
     """Hold K9's o to the plain version's: float32 within ATTN_F32_TOL;
     bfloat16 within ATTN_BF16_TOL and within one bfloat16 step
     (BF16_ULP |o| + ATTN_F32_TOL).  Returns the max abs err."""
-    e = errs.diff("K9", got, want)
+    e = errs.diff(_k9_key(got.dtype), got, want)
     if got.dtype == torch.float32:
         ok = e <= ATTN_F32_TOL
     else:
@@ -1867,19 +1918,38 @@ def _attn_diff(errs: ErrLog, got, want, what: str) -> float:
     return e
 
 
-def _attn_full(errs: ErrLog, q, k, v, o, what: str) -> str:
+def _attn_layer(dev, q, k, v, what: str):
+    """One layer through ``kernels.attention.flash_attention`` in bf16,
+    then the same inputs in float32, each call with every count set to 0
+    just before it and read just after (one launch of the dtype's
+    kernel).  Returns (o, o32, bf16 counts, f32 counts)."""
+    from repro_torch.kernels.attention import flash_attention
+    torch.cuda.synchronize()
+    outs = []
+    for x in ((q, k, v), (q.float(), k.float(), v.float())):
+        reset_counts()
+        o = flash_attention(*x, device=dev)
+        torch.cuda.synchronize()
+        got = counts()
+        key = _k9_key(x[0].dtype)
+        assert got == {**{n: 0 for n in got}, key: 1}, (what, got)
+        assert o.shape == x[0].shape[:3] + (x[2].shape[-1],)
+        assert o.dtype == x[0].dtype and torch.isfinite(o.float()).all()
+        outs += [o, got]
+    return outs[0], outs[2], outs[1], outs[3]
+
+
+def _attn_full(errs: ErrLog, q, k, v, o, o32, what: str) -> str:
     """A full-width bf16 K9 output ``o`` of (q, k, v) held to the plain
-    version, and the same inputs in float32 through K9 held to the plain
-    version in float32; returns the report."""
+    version, and ``o32``, the same inputs through K9 in float32, held to
+    the plain version in float32; returns the report."""
     from repro_torch.kernels.attention import kernel
     op = kernel.flash_forward_plain(q, k, v)
     e = _attn_diff(errs, o, op, what)
     mean = float(op.float().abs().mean())
     del op
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    o32 = kernel.flash_forward(q32, k32, v32)
-    e32 = _attn_diff(errs, o32, kernel.flash_forward_plain(q32, k32, v32),
-                     what + " (f32)")
+    e32 = _attn_diff(errs, o32, kernel.flash_forward_plain(
+        q.float(), k.float(), v.float()), what + " (f32)")
     return (f"max abs err {e:.3g} vs plain ({_attn_limit(o)}; mean |o| "
             f"{mean:.3g}); the same inputs in f32 {e32:.3g} "
             f"({_attn_limit(o32)})")
@@ -1892,59 +1962,75 @@ def _sdpa(q, k, v):
         q, k, v, is_causal=True, enable_gqa=True)
 
 
+def sass_count(lib, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of a built kernel library
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import common
+    tool = os.path.join(os.path.dirname(common._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib.path()], check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    return sum(opcode in line for line in out.splitlines())
+
+
 def full_attention(dev, errs: ErrLog, name: str, s: int = 4096,
                    seed: int = 17):
     """K9 at full width (phase 17): one layer of granite-20b's causal
     prefill (configs/granite_20b.py: 48 heads, kv 1, head dim 128) at
-    B = 1, S = T = 4096 in bf16 through ``kernels.attention.
-    flash_attention``: one launch, held to the plain version within
-    ATTN_BF16_TOL and one bf16 step, timed beside it, its bound and
-    ``scaled_dot_product_attention``; then phi3-mini's MHA
-    (configs/phi3_mini_3p8b.py: 32 heads, head dim 96) at S = 4096,
-    checked untimed; each also in float32 against the plain version in
-    float32.  Returns K9's kernel table row."""
-    from repro_torch.kernels.attention import flash_attention, kernel
+    B = 1, S = T = 4096 through ``kernels.attention.flash_attention`` in
+    bf16 (the tensor-core kernel, one launch) and in float32 (the
+    CUDA-core kernel, one launch), held to the plain version (bf16 within
+    ATTN_BF16_TOL and one bf16 step, f32 within ATTN_F32_TOL), each timed
+    beside the plain version, its bound and ``scaled_dot_product_attention``
+    on the same inputs; the bf16 kernel's SASS must hold HGMMA.  Then
+    phi3-mini's MHA (configs/phi3_mini_3p8b.py: 32 heads, head dim 96) at
+    S = 4096, checked the same way, untimed.  Returns the two kernel table
+    rows."""
+    from repro_torch.kernels.attention import kernel
     gen = torch.Generator(device=dev).manual_seed(seed)
     b, h, kv, dh = 1, 48, 1, 128
     q, k, v = _attn_inputs(gen, dev, b, h, kv, s, s, dh, dh, torch.bfloat16)
-    torch.cuda.synchronize()
-    reset_counts()
-    o = flash_attention(q, k, v, device=dev)
-    torch.cuda.synchronize()
-    got = counts()
-    assert got == {**{key: 0 for key in got}, "K9": 1}, got
-    assert o.shape == (b, h, s, dh) and o.dtype == torch.bfloat16
-    assert torch.isfinite(o.float()).all()
-    report = _attn_full(errs, q, k, v, o, "full-width K9")
+    o, o32, got, got32 = _attn_layer(dev, q, k, v, "granite")
+    report = _attn_full(errs, q, k, v, o, o32, "full-width K9")
     e_lib = float((_sdpa(q, k, v).double() - o.double()).abs().max())
+    hgmma = sass_count(kernel.BF16_LIB, "HGMMA")
+    assert hgmma > 0, "no HGMMA in the bf16 K9's SASS"
     pairs = s * (s + 1) // 2
+    flops = 2 * (dh + dh) * pairs * b * h
     mem_bps, f32_flops, bf16_flops = card_peaks(name)
-    kb = (1e3 * 2 * (2 * b * h * s * dh + 2 * b * kv * s * dh) / mem_bps,
-          1e3 * 2 * (dh + dh) * pairs * b * h / bf16_flops)
-    t_ms = cuda_ms(lambda: kernel.flash_forward(q, k, v), 5)
-    t_plain = cuda_ms(lambda: kernel.flash_forward_plain(q, k, v), 1)
-    t_lib = cuda_ms(lambda: _sdpa(q, k, v), 20)
-    f32_floor = 1e3 * 2 * (dh + dh) * pairs * b * h / f32_flops
+    rows = []
+    for x, key in (((q, k, v), "K9"),
+                   ((q.float(), k.float(), v.float()), "K9-f32")):
+        width = x[0].element_size()
+        kb = (1e3 * width * (2 * b * h * s * dh + 2 * b * kv * s * dh)
+              / mem_bps,
+              1e3 * flops / (bf16_flops if key == "K9" else f32_flops))
+        t_ms = cuda_ms(lambda: kernel.flash_forward(*x), 5)
+        t_plain = cuda_ms(lambda: kernel.flash_forward_plain(*x), 1)
+        t_lib = cuda_ms(lambda: _sdpa(*x), 20)
+        rows.append(_row(key, (got if key == "K9" else got32)[key], errs,
+                         t_ms, t_plain, kb, library_ms=t_lib))
+        del x
+    r16, r32 = rows
     print(f"[full attention] granite-20b layer, H={h} KV={kv} S=T={s} "
-          f"dh={dh} bf16, causal: one launch; {report}; {e_lib:.3g} vs "
-          f"SDPA; K9 {t_ms:.4f} ms "
-          f"(plain {t_plain:.2f} ms, SDPA {t_lib:.4f} ms, bound "
-          f"{max(kb):.4f} ms by "
-          f"{'bytes' if kb[0] >= kb[1] else 'operations'}, f32 CUDA-core "
-          f"floor {f32_floor:.3f} ms) [{name}]")
-    row = _row("K9", got["K9"], errs, t_ms, t_plain, kb, library_ms=t_lib)
-    del q, k, v, o
+          f"dh={dh}, causal: one launch a dtype; {report}; {e_lib:.3g} vs "
+          f"SDPA; bf16 K9 (wgmma, {hgmma} HGMMA in its SASS) "
+          f"{r16['ms']:.4f} ms (plain {r16['plain_ms']:.2f} ms, SDPA "
+          f"{r16['library_ms']:.4f} ms, bound {r16['bound_ms']:.4f} ms by "
+          f"{r16['bound_by']}, {1.5 * r16['bound_ms']:.4f} ms with the "
+          f"split P's second PV product; f32 CUDA-core floor "
+          f"{1e3 * flops / f32_flops:.3f} ms); f32 K9 (CUDA cores) "
+          f"{r32['ms']:.4f} ms (plain {r32['plain_ms']:.2f} ms, SDPA f32 "
+          f"{r32['library_ms']:.4f} ms, bound {r32['bound_ms']:.4f} ms) "
+          f"[{name}]")
+    del q, k, v, o, o32
     # phi3-mini's MHA, checked untimed
     h, dh = 32, 96
     q, k, v = _attn_inputs(gen, dev, 1, h, h, s, s, dh, dh, torch.bfloat16)
-    before = counts()
-    o = flash_attention(q, k, v, device=dev)
-    torch.cuda.synchronize()
-    launched(before, K9=1)
-    report = _attn_full(errs, q, k, v, o, "phi3-mini K9")
-    print(f"[full attention] phi3-mini layer, H=KV={h} S=T={s} dh={dh} "
-          f"bf16: one launch; {report}")
-    return row
+    o, o32, _, _ = _attn_layer(dev, q, k, v, "phi3-mini")
+    report = _attn_full(errs, q, k, v, o, o32, "phi3-mini K9")
+    print(f"[full attention] phi3-mini layer, H=KV={h} S=T={s} dh={dh}: "
+          f"one launch a dtype; {report}")
+    return rows
 
 
 def _gla_inputs(gen, dev, b, h, s, dk, dv, dtype):
@@ -2049,7 +2135,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
-            attention.kernel.LIB, gla.kernel.LIB]
+            attention.kernel.LIB, attention.kernel.BF16_LIB, gla.kernel.LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2088,8 +2174,9 @@ def main() -> int:
     for check, full in ((check_k8, full_iir), (check_k9, full_attention),
                         (check_k10, full_gla)):
         check(dev, errs)
-        row = full(dev, errs, name)
-        rows[row["name"]] = row
+        out = full(dev, errs, name)
+        for row in out if isinstance(out, list) else [out]:
+            rows[row["name"]] = row
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

@@ -1,10 +1,13 @@
-// K9: causal (or not) GQA flash-attention forward,
+// K9 for float32 inputs: causal (or not) GQA flash-attention forward on
+// CUDA cores,
 //
 //   o[b, h, s] = sum_t softmax_t(q[b, h, s] . k[b, h / G, t] * dh^-0.5)
 //                * v[b, h / G, t],         G = H / KV,
 //
-// for q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv] in float32 or
-// bfloat16, the math in float32, o [B, H, S, dv] in q's dtype.
+// for q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv] and o [B, H, S,
+// dv] in float32. Bfloat16 inputs go to flash_wgmma.cu, on the tensor
+// cores; float32 stays here, since TF32 products keep about three decimal
+// digits, too few for the float32 check (1e-5).
 //
 // K9 replaces repro/kernels/attention/kernel.py::_flash_kernel (entry
 // flash_attention_kernel_call), the Pallas TPU kernel reached through
@@ -18,21 +21,20 @@
 // Design: one block of 256 threads per (b, h, 64-row query tile), the tiles
 // with the most kv tiles under the frontier launched first. The scaled q
 // tile stays in shared memory; each 64-row kv tile of kv head h / G is
-// staged into shared memory as float32 (zero-padded to the head dim D of
-// the instantiation: 32, 64 or 128, the largest dh and dv taken). The
+// staged into shared memory (zero-padded to the head dim D of the
+// instantiation: 32, 64 or 128, the largest dh and dv taken). The
 // 16 x 16 threads each own a 4 x 4 block of the 64 x 64 score tile (rows
 // ty + 16 i, columns tx + 16 j) and a 4 x D/16 block of the output rows'
 // accumulators; a row's max and sum are reduced over the 16 lanes that
 // share it with shuffles. Every dot product is written out as fmaf on CUDA
-// cores; the tensor cores (wgmma) are left to a later version.
+// cores.
 //
 // Bound on this card: operations. Granite-20B's causal prefill layer
-// (H = 48, KV = 1, S = T = 4096, dh = dv = 128, bf16) needs 206.2 GFLOP
-// (S (S + 1) / 2 query-key pairs, 4 dh FLOPs each), 0.209 ms at the
-// 989 TFLOP/s bf16 tensor-core peak; its 102.8 MB of q, k, v and o take
-// 0.031 ms at 3.35 TB/s. On CUDA cores at 67 TFLOP/s the floor is 3.08 ms;
-// this version issues two shared-memory loads per four fmas in the score
-// loop, so the shared-memory pipe, not the fma pipe, bounds it.
+// (H = 48, KV = 1, S = T = 4096, dh = dv = 128) needs 206.2 GFLOP (S (S +
+// 1) / 2 query-key pairs, 4 dh FLOPs each): 3.08 ms at the 67 TFLOP/s
+// float32 CUDA-core peak. This version issues two shared-memory loads per
+// four fmas in the score loop, so the shared-memory pipe, not the fma
+// pipe, bounds it.
 #include "../../csrc/float_io.cuh"
 
 namespace {
@@ -42,20 +44,17 @@ constexpr int kBK = 64;        // kv rows per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNeg = -1.0e30f;
 
-using float_io::store;
-using float_io::to_f32;
-
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)(2 * kBQ * (D + 1) + kBK * D + kBQ * (kBK + 1)) *
          sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int BH, int H,
-                 int G, int S, int Tk, int dh, int dv, float scale,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int BH,
+                 int H, int G, int S, int Tk, int dh, int dv, float scale,
                  int causal) {
   extern __shared__ float sh[];
   constexpr int LD = D + 1;    // row stride of Qs and Ks (no bank conflict)
@@ -71,16 +70,16 @@ __global__ void __launch_bounds__(kThreads)
   const int qi = nq - 1 - (int)(blockIdx.x / BH);
   const int bh = (int)(blockIdx.x % BH);
   const int kvh = (bh / H) * (H / G) + (bh % H) / G;  // b * KV + h / G
-  const T* qp = q + (long long)bh * S * dh;
-  const T* kp = k + (long long)kvh * Tk * dh;
-  const T* vp = v + (long long)kvh * Tk * dv;
-  T* op = o + (long long)bh * S * dv;
+  const float* qp = q + (long long)bh * S * dh;
+  const float* kp = k + (long long)kvh * Tk * dh;
+  const float* vp = v + (long long)kvh * Tk * dv;
+  float* op = o + (long long)bh * S * dv;
   const int q0 = qi * kBQ;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     Qs[r * LD + c] = (q0 + r < S && c < dh)
-                         ? __fmul_rn(to_f32(qp[(long long)(q0 + r) * dh + c]),
+                         ? __fmul_rn(qp[(long long)(q0 + r) * dh + c],
                                      scale)
                          : 0.f;
   }
@@ -103,9 +102,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / D, c = e % D;
       const bool row = t0 + r < Tk;
       Ks[r * LD + c] =
-          (row && c < dh) ? to_f32(kp[(long long)(t0 + r) * dh + c]) : 0.f;
+          (row && c < dh) ? kp[(long long)(t0 + r) * dh + c] : 0.f;
       Vs[r * D + c] =
-          (row && c < dv) ? to_f32(vp[(long long)(t0 + r) * dv + c]) : 0.f;
+          (row && c < dv) ? vp[(long long)(t0 + r) * dv + c] : 0.f;
     }
     __syncthreads();
     float sc[4][4];
@@ -182,40 +181,35 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < RC; ++c) {
       const int col = tx + 16 * c;
       if (col < dv)
-        store(op + (long long)r * dv + col, __fdiv_rn(acc[i][c], den));
+        op[(long long)r * dv + col] = __fdiv_rn(acc[i][c], den);
     }
   }
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KV, int S, int Tk, int dh, int dv, float scale,
-             int causal, cudaStream_t stream) {
+int dispatch(const float* q, const float* k, const float* v, float* o,
+             int B, int H, int KV, int S, int Tk, int dh, int dv,
+             float scale, int causal, cudaStream_t stream) {
   return float_io::dispatch_head_dim(dh > dv ? dh : dv, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     return float_io::launch(
-        flash_kernel<T, D>, B * H * ((S + kBQ - 1) / kBQ), kThreads,
-        smem_bytes<D>(), stream, (const T*)q, (const T*)k, (const T*)v,
-        (T*)o, B * H, H, H / KV, S, Tk, dh, dv, scale, causal);
+        flash_kernel<D>, B * H * ((S + kBQ - 1) / kBQ), kThreads,
+        smem_bytes<D>(), stream, q, k, v, o, B * H, H, H / KV, S, Tk, dh,
+        dv, scale, causal);
   });
 }
 
 }  // namespace
 
-// K9. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B, H, S, dv],
-// row-major, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1); scale is
-// dh^-0.5 rounded to float32; dh, dv <= 128. Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for a head dim
-// over 128.
+// K9, float32. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B,
+// H, S, dv], row-major float32; scale is dh^-0.5 rounded to float32; dh,
+// dv <= 128. Returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue for a head dim over 128.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int KV, int S, int Tk, int dh, int dv,
-                                   int bf16, float scale, int causal,
-                                   void* stream) {
+                                   float scale, int causal, void* stream) {
   if (B == 0 || H == 0 || S == 0 || dv == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
-                                        scale, causal, s)
-              : dispatch<float>(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale,
-                                causal, s);
+  return dispatch((const float*)q, (const float*)k, (const float*)v,
+                  (float*)o, B, H, KV, S, Tk, dh, dv, scale, causal,
+                  (cudaStream_t)stream);
 }

@@ -1,10 +1,13 @@
-// Column sweep of the moment-carrying DTW recurrence, shared by the
-// streaming ticks (stream.cu) and the offline verdict scorers (score.cu).
+// The moment-carrying DTW recurrence: its cell update (dp_cell, the one
+// definition that the ticks' column sweep below, K1, K3 and K4, and the
+// verdict scorers' warp wavefront, score.cu's K2, K2 pairs, K5 and K6,
+// both call, so they cannot drift apart), and the column sweep.
 //
-// One thread owns one (query, reference) pair. It walks the reference
-// columns j = 0, 1, ... left to right and, at each column, updates up to
-// ROWS query rows top to bottom, keeping the previous column's value of
-// each row (DP distance plus NCH warp-path moment bases) in registers:
+// In the sweep one thread owns one (query, reference) pair. It walks the
+// reference columns j = 0, 1, ... left to right and, at each column,
+// updates up to ROWS query rows top to bottom, keeping the previous
+// column's value of each row (DP distance plus NCH warp-path moment
+// bases) in registers:
 //
 //   diag(i, j)  = row i-1 at column j-1   (the state row for i = 0)
 //   vert(i, j)  = row i-1 at column j     (the state row for i = 0)
@@ -88,6 +91,56 @@ __device__ __forceinline__ void pair(float yc, float yy, float xm, float v,
   }
 }
 
+// The full moments of a cell from its base: base + pair(i, j), channel by
+// channel.
+template <int NCH>
+__device__ __forceinline__ void moments(const float base[], float yc,
+                                        float yy, float xm, float v,
+                                        float out[]) {
+  if constexpr (NCH > 0) {
+    float pr[NCH];
+    pair<NCH>(yc, yy, xm, v, pr);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) out[c] = __fadd_rn(base[c], pr[c]);
+  }
+}
+
+// One cell (row i, column j) of the recurrence. Row i is the sample x
+// (xm = x - 0.5, variance v) with band centre `center`; column j is y (yc
+// = y - 0.5, yy = yc^2). Its predecessors: diag (dd, full moments dm),
+// vert (vd, full moments vm) and horiz (hd, base hb); band < 0 is no
+// band, and BAND = false compiles the band test out. Returns D(i, j); hb
+// becomes the cell's base (the selected predecessor's full moments for
+// diag and vert, the left neighbour's base for horiz) and m its full
+// moments, base + pair(i, j). m may alias vm.
+template <int NCH, bool BAND = true>
+__device__ __forceinline__ float dp_cell(float x, float xm, float v, int center,
+                                         float y, float yc, float yy, int j,
+                                         int band, float dd, const float dm[],
+                                         float vd, const float vm[], float hd,
+                                         float hb[], float m[]) {
+  float d = fabsf(__fsub_rn(x, y));
+  if (BAND && band >= 0 && abs(j - center) > band) d = kInf;
+  // min is exact: min(dd, min(vd, hd)) is min(min(dd, vd), hd) bitwise,
+  // and the inner min serves the selection too
+  const float vh = fminf(vd, hd);
+  const float best = fminf(dd, vh);
+  const float cell = fminf(__fadd_rn(d, best), kInf);
+  if constexpr (NCH > 0) {
+    const bool sel_diag = dd <= vh;
+    const bool sel_vert = !sel_diag && vd <= hd;
+    float cur[NCH];
+    pair<NCH>(yc, yy, xm, v, cur);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const float b = sel_diag ? dm[c] : (sel_vert ? vm[c] : hb[c]);
+      hb[c] = b;
+      m[c] = __fadd_rn(b, cur[c]);
+    }
+  }
+  return cell;
+}
+
 // One pass of `nrows` (<= ROWS) query rows over reference columns
 // [0, ncols). Row r is query sample n0 + r, x[r], with variance v[r]
 // (v is not read when NCH == 3). Column j of the reference is
@@ -109,7 +162,7 @@ __device__ __forceinline__ void sweep_pass(
   constexpr int NE = Extent<NCH>::value;
   float xr[ROWS], xm[ROWS], vr[ROWS];
   int center[ROWS];
-  float pd[ROWS], pb[NE][ROWS];
+  float pd[ROWS], pb[ROWS][NE];
   const int qden = qlen - 1 > 1 ? qlen - 1 : 1;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -121,7 +174,7 @@ __device__ __forceinline__ void sweep_pass(
     center[r] = band >= 0 ? ((n0 + r) * (len_k - 1)) / qden : 0;
     pd[r] = kInf;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) pb[c][r] = 0.f;
+    for (int c = 0; c < NCH; ++c) pb[r][c] = 0.f;
   }
   // the state row one column to the left: the diag predecessor of row 0
   // (column -1 is the virtual corner D[-1, -1] = 0 for a job's first
@@ -157,26 +210,14 @@ __device__ __forceinline__ void sweep_pass(
     for (int r = 0; r < ROWS; ++r) {
       if (r < nrows) {
         const float hd = pd[r];
-        float d = fabsf(__fsub_rn(xr[r], yv));
-        if (band >= 0 && abs(j - center[r]) > band) d = kInf;
-        const float best = fminf(fminf(dd, vd), hd);
-        const float cell = fminf(__fadd_rn(d, best), kInf);
-        if constexpr (NCH > 0) {
-          const bool sel_diag = dd <= fminf(vd, hd);
-          const bool sel_vert = !sel_diag && vd <= hd;
-          float cur[NCH], prv[NCH];
-          pair<NCH>(yc, yy, xm[r], vr[r], cur);
-          pair<NCH>(yc_prev, yy_prev, xm[r], vr[r], prv);
+        // row r's full moments at column j-1: the next row's diag
+        float nd[NE];
+        moments<NCH>(pb[r], yc_prev, yy_prev, xm[r], vr[r], nd);
+        const float cell =
+            dp_cell<NCH>(xr[r], xm[r], vr[r], center[r], yv, yc, yy, j, band,
+                         dd, dm, vd, vm, hd, pb[r], vm);
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const float b =
-                sel_diag ? dm[c] : (sel_vert ? vm[c] : pb[c][r]);
-            // row r's full moments at column j-1: the next row's diag.
-            dm[c] = __fadd_rn(pb[c][r], prv[c]);
-            pb[c][r] = b;
-            vm[c] = __fadd_rn(b, cur[c]);
-          }
-        }
+        for (int c = 0; c < NCH; ++c) dm[c] = nd[c];
         dd = hd;
         pd[r] = cell;
         vd = cell;

@@ -62,10 +62,8 @@ __all__ = ["corr_from_moments", "prob_from_moments",
            "score_bank_offline_var_plain", "score_pairs",
            "score_pairs_plain", "LIB", "VAR_LAUNCHES", "PAIRS_LAUNCHES"]
 
-#: Rows a pass of the column sweep holds in registers, by moment channel
-#: count (``RowsPerPass`` in ``csrc/dtw_sweep.cuh``): longer queries need
-#: the scratch row.
-_ROWS_PER_PASS = {3: 16, 4: 16, 6: 8}
+#: Lanes of the kernels' warp wavefront: a panel spans 32 strips.
+_LANES = 32
 
 #: sqrt(2) rounded to float32, as ``jnp.sqrt(jnp.float32(2.0))`` gives it.
 _SQRT2 = float(np.sqrt(np.float32(2.0)))
@@ -78,10 +76,11 @@ LIB = KernelLib(
     headers=(os.path.join(_CSRC, "dtw_sweep.cuh"),
              os.path.join(_CSRC, "prob_tail.cuh")),
     signatures={
-        "dtw_score_offline": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
-        "dtw_score_offline_var": ([_P] * 13 + [_I] * 5 + [ctypes.c_float]
+        "dtw_score_strip": ([_I], ctypes.c_int),
+        "dtw_score_offline": ([_P] * 9 + [_I] * 4 + [_P], ctypes.c_int),
+        "dtw_score_offline_var": ([_P] * 12 + [_I] * 4 + [ctypes.c_float]
                                   + [_I, _P], ctypes.c_int),
-        "dtw_score_pairs": ([_P] * 10 + [_I] * 4 + [_P], ctypes.c_int)})
+        "dtw_score_pairs": ([_P] * 9 + [_I] * 3 + [_P], ctypes.c_int)})
 
 #: K2 pairs launches (:func:`score_pairs`).  The wrapper adds one per
 #: launch; a caller resets it to 0 before a run it audits.
@@ -216,16 +215,15 @@ def _check_verdict(xs, xlens, bank_t, lengths, sx, sxx, band) -> None:
         raise ValueError("band must be >= 0 (or None)")
 
 
-def _scratch(nch: int, j: int, n: int, m: int, k: int, dev):
-    """The row a query resumes from between passes: [J, M, K] distances
-    and [NCH, J, M, K] moments, or 1-element stand-ins that are never
-    read when every query fits one pass."""
-    if n > _ROWS_PER_PASS[nch]:
-        return (torch.empty((j, m, k), dtype=torch.float32, device=dev),
-                torch.empty((nch, j, m, k), dtype=torch.float32,
-                            device=dev))
-    one = torch.empty((1,), dtype=torch.float32, device=dev)
-    return one, one
+def _edges(nch: int, pairs: int, n: int, m: int, dev) -> torch.Tensor:
+    """The panel-edge buffer of the kernels' wavefront: [pairs, N, 1 +
+    NCH] f32 (a panel's right edge column, distance and moment bases,
+    for the next panel) when a reference can be longer than one panel of
+    32 strips, else a 1-element stand-in that is never read."""
+    if m > _LANES * LIB.get().dtw_score_strip(nch):
+        return torch.empty((pairs, n, 1 + nch), dtype=torch.float32,
+                           device=dev)
+    return torch.empty((1,), dtype=torch.float32, device=dev)
 
 
 def score_bank_offline(xs, xlens, bank_t, lengths, sx, sxx,
@@ -247,12 +245,12 @@ def score_bank_offline(xs, xlens, bank_t, lengths, sx, sxx,
     m, k = bank_t.shape
     scores = torch.empty((j, k), dtype=torch.float32, device=dev)
     dists = torch.empty((j, k), dtype=torch.float32, device=dev)
-    scratch_d, scratch_m = _scratch(3, j, n, m, k, dev)
+    edges = _edges(3, j * k, n, m, dev)
     err = LIB.get().dtw_score_offline(
         xs.data_ptr(), xlens.data_ptr(), bank_t.data_ptr(),
         lengths.data_ptr(), sx.data_ptr(), sxx.data_ptr(),
-        scratch_d.data_ptr(), scratch_m.data_ptr(), scores.data_ptr(),
-        dists.data_ptr(), j, n, m, k, -1 if band is None else int(band),
+        edges.data_ptr(), scores.data_ptr(), dists.data_ptr(), j, n, k,
+        -1 if band is None else int(band),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("dtw_score_offline", err)
     LIB.launches += 1
@@ -286,13 +284,13 @@ def score_bank_offline_var(xs, xvars, xlens, bank_t, lengths, sx, sxx,
     nch = 4 if approx else 6
     scores, probs, dists = (torch.empty((j, k), dtype=torch.float32,
                                         device=dev) for _ in range(3))
-    scratch_d, scratch_m = _scratch(nch, j, n, m, k, dev)
+    edges = _edges(nch, j * k, n, m, dev)
     err = LIB.get().dtw_score_offline_var(
         xs.data_ptr(), xvars.data_ptr(), xlens.data_ptr(),
         bank_t.data_ptr(), lengths.data_ptr(), sx.data_ptr(),
-        sxx.data_ptr(), vstats.data_ptr(), scratch_d.data_ptr(),
-        scratch_m.data_ptr(), scores.data_ptr(), probs.data_ptr(),
-        dists.data_ptr(), j, n, m, k, -1 if band is None else int(band),
+        sxx.data_ptr(), vstats.data_ptr(), edges.data_ptr(),
+        scores.data_ptr(), probs.data_ptr(), dists.data_ptr(), j, n, k,
+        -1 if band is None else int(band),
         float(np.float32(threshold)), int(approx),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("dtw_score_offline_var", err)
@@ -321,12 +319,11 @@ def score_pairs(xs, xlens, ys_t, ylens, sx, sxx, band: Optional[int] = None
         raise ValueError(f"{p} queries but {ys_t.shape[1]} references")
     scores = torch.empty((p,), dtype=torch.float32, device=dev)
     dists = torch.empty((p,), dtype=torch.float32, device=dev)
-    scratch_d, scratch_m = _scratch(3, 1, n, m, p, dev)
+    edges = _edges(3, p, n, m, dev)
     err = LIB.get().dtw_score_pairs(
         xs.data_ptr(), xlens.data_ptr(), ys_t.data_ptr(), ylens.data_ptr(),
-        sx.data_ptr(), sxx.data_ptr(), scratch_d.data_ptr(),
-        scratch_m.data_ptr(), scores.data_ptr(), dists.data_ptr(), p, n, m,
-        -1 if band is None else int(band),
+        sx.data_ptr(), sxx.data_ptr(), edges.data_ptr(), scores.data_ptr(),
+        dists.data_ptr(), p, n, -1 if band is None else int(band),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("dtw_score_pairs", err)
     PAIRS_LAUNCHES += 1
