@@ -9,18 +9,20 @@ Phases, in order (any failure exits non-zero):
 
 1. print the card and build the CUDA kernels from ``src/repro_torch``
    (``nvcc``, ``sm_90a``, one process per source, started together),
-   with each kernel's registers and spills;
+   with each kernel's registers and spills, and for the ticks' sweep
+   its resident warps an SM and SASS instructions a cell;
 2. hold K1, the scored streaming tick, against its plain PyTorch version
    on the card: bitwise on dyadic-grid data, and on smooth data within
-   the stated tolerance;
+   the stated tolerance, at chunk widths 1-32 and banks of 1, 7 and 133
+   references (``tick_cases``);
 3. the same for K2, the verdict scorer (a warp per pair sweeping the DP
    as a wavefront of 32 strips), on ragged banks and on banks with
    references of 1 and 5 columns (shorter than a strip) and longer than
    one 384-column panel, queries of 0-2 rows and shorter than the 32
    lanes, and a band of 2 (narrower than a strip);
 4. the same for K4, the probabilistic tick, with six channels (exact)
-   and four (approx), dyadic variances on dyadic data; probabilities
-   within PROB_TOL;
+   and four (approx), dyadic variances on dyadic data, on the same
+   shapes; probabilities within PROB_TOL;
 5. the same for K5 and K6, the exact and approx probabilistic verdict
    scorers, on phase 3's shapes, and at zero variance their
    probabilities bitwise in {0, 1};
@@ -38,10 +40,11 @@ Phases, in order (any failure exits non-zero):
    Each run sets every launch count to 0 just before it and checks them
    against the service's dispatch counters just after; one tick is held
    against the plain version, and each kernel is timed beside its plain
-   version and its bound;
+   version and its bound, the tick kernel also as a share of the median
+   tick;
 8. K3, the distance-only tick, against its plain version (bitwise on
    dyadic data, SMOOTH_TOL on smooth data) and against K1's rows on the
-   same inputs (bitwise on any data);
+   same inputs (bitwise on any data), on phase 2's shapes;
 9. the paper scenario degraded: distance-only (``score_in_flight=
    False``: K3, K2) and point mode pinned at the overload ladder's rung
    3 by ``latency=`` overrides; both make no early decision and render
@@ -53,7 +56,8 @@ Phases, in order (any failure exits non-zero):
     and 3 by ``latency=`` overrides, six ticks a rung, launching K4 with
     six channels, K4 with four over ``moms[:4]``, K1 over ``moms[:3]``
     and K3 once a tick of each rung; its 32 verdicts are bitwise phase
-    7's and its early decisions a subset of phase 7's;
+    7's and its early decisions a subset of phase 7's; each rung's tick
+    kernel is printed as a share of the rung's median tick;
 11. retry, breaker and chaos at the paper scenario's size: a fault plan
     that fails every dispatch trips the breaker, the fallback (the same
     dispatch without the chaos consult) serves through K1, whose
@@ -195,6 +199,14 @@ REF_EARLY = (0.44, 0.50, 0.47, 0.75)
 #: product channel), selects not counted: 17, 21, 29 for 3, 4, 6.
 def ops_per_cell(nch: int) -> int:
     return 5 + 4 * nch
+
+
+def dtw_op_rate(name: str) -> float:
+    """f32 operations a second for the DTW cells (``ops_per_cell``): the
+    kernels are built with ``-fmad=false`` and a cell has no fused
+    multiply-add, so each add, multiply, min and compare is one
+    instruction a lane, half ``card_peaks``' FMA-counted f32 rate."""
+    return card_peaks(name)[1] / 2
 
 
 #: The kernels of the table, in order, with their sources and the TPU
@@ -364,6 +376,20 @@ def _bank(rng, k: int, lo: int, hi: int, dyadic: bool):
 WAVEFRONT_LENGTHS = (1, 5, 11, 385, 500, 800, 1000)
 
 
+def tick_cases():
+    """The tick checks' cases (dyadic, band, chunk width C, bank size K):
+    first C = 8, 16 and 32 (32 takes two 16-sample passes) at K = 133
+    (not a multiple of a block), then chunks that do not fill the
+    sweep's split of 16 rows over a group of threads (C = 1, 12 and 24)
+    and banks of fewer references than a warp (K = 1 and 7)."""
+    first = [(dy, band, c, 133) for dy in (True, False)
+             for band in (None, 6) for c in (8, 16, 32)]
+    edges = [(c, 133) for c in (1, 12, 24)] + [
+        (c, k) for k in (1, 7) for c in (12, 16, 24)]
+    return first + [(dy, band, c, k) for dy in (True, False)
+                    for band in (None, 6) for c, k in edges]
+
+
 def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
     """A ragged bank of k references of 10-60 samples; with ``panels``,
     its first references take WAVEFRONT_LENGTHS."""
@@ -374,43 +400,123 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
     return pack_series([_series(rng, n, dyadic) for n in lens])
 
 
+_KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
+                        r"score_kernel|dtw_matrix_kernel|iir_kernel|"
+                        r"flash_kernel|flash_wgmma_kernel|gla_kernel)"
+                        r"(?:I(.*?)EE)?")
+
+
+def kernel_name(mangled: str):
+    """A kernel's name with its template arguments (``Li6`` -> 6,
+    ``fLi128`` -> f32,128, ``Lb1`` -> band) from a mangled symbol, or
+    None for another symbol."""
+    m = _KERNEL_RE.search(mangled)
+    if not m:
+        return None
+    targs = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
+    targs = re.sub(r"^f(?=Li)", "f32,", targs)
+    targs = re.sub(r"Lb([01])", lambda b: "band" if b.group(1) == "1"
+                   else "no band", targs)
+    targs = targs.replace("Li", "").replace("E", ",").rstrip(",")
+    return m.group(1) + (f"<{targs}>" if targs else "")
+
+
+def sass(lib) -> str:
+    """The SASS of a built kernel library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import common
+    tool = os.path.join(os.path.dirname(common._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", lib.path()], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+
+
+def sass_cell_loops(lib, kernel: str) -> dict:
+    """The innermost loops of each instantiation of ``kernel`` in the
+    SASS of a built library (``cuobjdump -sass``) that hold DP cells:
+    {name: [(instructions, cells), ...]} in address order.  A loop is
+    the span from a backward branch's target to the branch; its cells
+    are its FMNMX instructions over 3 (``dp_cell``'s min(vert, horiz),
+    min(diag, .) and the 3e38 clamp)."""
+    funcs, cur = {}, None
+    for line in sass(lib).splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :", 1)[1].strip())
+            cur = funcs.setdefault(name, []) if name and name.startswith(
+                kernel + "<") else None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if cur is not None and m:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    loops = {}
+    for name, ins in funcs.items():
+        spans = []
+        for addr, text in ins:
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            hexes = re.findall(r"0x([0-9a-f]+)", text)
+            if op.startswith("BRA") and hexes and int(hexes[-1], 16) < addr:
+                spans.append((int(hexes[-1], 16), addr))
+        inner = [a for a in spans if not any(
+            b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
+        found = []
+        for lo, hi in sorted(inner):
+            body = [t for a, t in ins if lo <= a <= hi]
+            nmin = sum(re.search(r"\bFMNMX\b", t) is not None
+                       for t in body)
+            if nmin >= 3:
+                found.append((len(body), nmin // 3))
+        loops[name] = found
+    return loops
+
+
+def occupancy(regs: int, threads: int) -> int:
+    """Resident warps an SM for a kernel of ``regs`` registers a thread
+    in blocks of ``threads`` (65,536 registers an SM, allocated 256 a
+    warp; at most 64 warps and 32 blocks; shared memory not counted: the
+    sweep's 9-23 KB a block never sets the limit)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    wpb = -(-threads // 32)
+    blocks = min(65536 // (per_warp * wpb), 64 // wpb, 32)
+    return blocks * wpb
+
+
 def build_report(libs) -> None:
     """One line per kernel: its registers, stack and spills as ptxas -v
-    reported them."""
+    reported them; for the ticks' sweep (``stream_scored_kernel``), also
+    its resident warps an SM and the SASS instructions per cell of each
+    of its cell loops."""
+    from repro_torch.kernels.dtw import stream
     for lib in libs:
         name = "?"
         props = ""
+        loops = sass_cell_loops(lib, "stream_scored_kernel") \
+            if lib is stream.LIB else {}
         for line in lib.build_log.splitlines():
-            m = re.search(r"entry function .*?(stream_scored_kernel|"
-                          r"score_pairs_kernel|score_kernel|"
-                          r"dtw_matrix_kernel|iir_kernel|flash_kernel|"
-                          r"flash_wgmma_kernel|"
-                          r"gla_kernel)(?:I(.*?)EE)?", line)
+            m = re.search(r"entry function '(.*?)'", line)
             if m:
-                # template arguments, e.g. "Li6" -> 6, "fLi128" -> f32,128
-                targs = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
-                targs = re.sub(r"^f(?=Li)", "f32,", targs)
-                targs = re.sub(r"Lb([01])", lambda b: "band" if b.group(1)
-                               == "1" else "no band", targs)
-                targs = targs.replace("Li", "").replace("E", ",")
-                name = m.group(1) + (f"<{targs}>" if targs else "")
+                name = kernel_name(m.group(1)) or "?"
             elif "spill" in line:
                 props = line.strip()
             elif "registers" in line:
                 used = line.split(":", 1)[-1].strip()
-                print(f"[build] {lib.name} {name}: {used}; {props}")
+                extra = ""
+                if name in loops:
+                    regs = int(re.search(r"(\d+) registers", used).group(1))
+                    extra = (f"; {occupancy(regs, stream.BLOCK)} warps an "
+                             f"SM at {stream.BLOCK} threads a block; cell "
+                             f"loops " + ", ".join(
+                                 f"{n} SASS / {c} cells = {n / c:.2f} a cell"
+                                 for n, c in loops[name]))
+                print(f"[build] {lib.name} {name}: {used}; {props}{extra}")
 
 
 def check_k1(dev, errs: ErrLog) -> None:
-    """K1 against its plain version: ragged banks (K not a multiple of the
-    block), ragged nvalid including 0, band None and 6, chunk widths 8,
-    16 and 32 (32 takes two passes), four consecutive ticks each."""
+    """K1 against its plain version on ``tick_cases()``: ragged banks,
+    ragged nvalid including 0, band None and 6, four consecutive ticks
+    each."""
     from repro_torch.core import dtw
-    cases = [(dy, band, c) for dy in (True, False) for band in (None, 6)
-             for c in (8, 16, 32)]
-    for i, (dyadic, band, c) in enumerate(cases):
+    for i, (dyadic, band, c, k) in enumerate(tick_cases()):
         rng = np.random.default_rng(100 + i)
-        s, k = 5, 133
+        s = 5
         bank = _bank(rng, k, 12, 60, dyadic)
         m = bank.series.shape[1]
         bank_t = torch.tensor(bank.series.T.copy(), device=dev)
@@ -445,10 +551,10 @@ def check_k1(dev, errs: ErrLog) -> None:
             for a, b in zip(out_k[2:5], out_p[2:5]):
                 assert torch.equal(a, b), "K1: ns/sx/sxx differ"
             assert e <= tol, (f"K1 case {i} (dyadic={dyadic}, band={band},"
-                              f" C={c}) tick {tick}: max abs err {e}")
+                              f" C={c}, K={k}) tick {tick}: max abs err {e}")
             st_k, st_p = out_k[:5], out_p[:5]
-        print(f"[K1] dyadic={dyadic!s:5} band={band!s:4} C={c:2d}: "
-              f"4 ticks agree (max abs err {errs.err['K1']:.3g}, "
+        print(f"[K1] dyadic={dyadic!s:5} band={band!s:4} C={c:2d} "
+              f"K={k:3d}: 4 ticks agree (max abs err {errs.err['K1']:.3g}, "
               f"tol {tol:g})")
 
 
@@ -493,22 +599,22 @@ def check_k2(dev, errs: ErrLog) -> None:
 
 
 def check_k4(dev, errs: ErrLog) -> None:
-    """K4 against its plain version, six channels and four: ragged banks,
-    ragged nvalid including 0, band None and 6, chunk widths 8, 16 and
-    32 (several passes: 8 rows a pass for six channels, 16 for four),
-    four consecutive ticks each; dyadic samples with dyadic variances,
-    and smooth samples with continuous variances."""
+    """K4 against its plain version, six channels and four, on
+    ``tick_cases()``: ragged banks, ragged nvalid including 0, band None
+    and 6, four consecutive ticks each; dyadic samples with dyadic
+    variances, and smooth samples with continuous variances."""
     from repro_torch.core import dtw
-    cases = [(nch, dy, band, c) for nch in (6, 4) for dy in (True, False)
-             for band in (None, 6) for c in (8, 16, 32)]
-    for i, (nch, dyadic, band, c) in enumerate(cases):
+    first = [(nch, *case) for nch in (6, 4) for case in tick_cases()[:12]]
+    cases = first + [(nch, *case) for nch in (6, 4)
+                     for case in tick_cases()[12:]]
+    for i, (nch, dyadic, band, c, k) in enumerate(cases):
         key = "K4-exact" if nch == 6 else "K4-approx"
         kern = dtw.bank_extend_tick_scored_var_dispatch if nch == 6 \
             else dtw.bank_extend_tick_scored_var_approx_dispatch
         plain = dtw.bank_extend_tick_scored_var if nch == 6 \
             else dtw.bank_extend_tick_scored_var_approx
         rng = np.random.default_rng(400 + i)
-        s, k = 5, 133
+        s = 5
         bank = _bank(rng, k, 12, 60, dyadic)
         m = bank.series.shape[1]
         bank_t = torch.tensor(bank.series.T.copy(), device=dev)
@@ -548,14 +654,14 @@ def check_k4(dev, errs: ErrLog) -> None:
                             out_p[2:5] + (out_p[6],)):
                 assert torch.equal(a, b), f"{key}: ns/sx/sxx/vstats differ"
             assert e <= tol, (f"{key} case {i} (dyadic={dyadic}, "
-                              f"band={band}, C={c}) tick {tick}: max abs "
-                              f"err {e}")
+                              f"band={band}, C={c}, K={k}) tick {tick}: "
+                              f"max abs err {e}")
             assert ep <= PROB_TOL, f"{key} case {i}: probability err {ep}"
             st_k = out_k[:5] + (out_k[6],)
             st_p = out_p[:5] + (out_p[6],)
-        print(f"[{key}] dyadic={dyadic!s:5} band={band!s:4} C={c:2d}: "
-              f"4 ticks agree (state/score max abs err {e:.3g}, tol {tol:g};"
-              f" probability {ep:.3g}, tol {PROB_TOL:g})")
+        print(f"[{key}] dyadic={dyadic!s:5} band={band!s:4} C={c:2d} "
+              f"K={k:3d}: 4 ticks agree (state/score max abs err {e:.3g}, "
+              f"tol {tol:g}; probability {ep:.3g}, tol {PROB_TOL:g})")
 
 
 def check_k56(dev, errs: ErrLog) -> None:
@@ -616,18 +722,16 @@ def check_k56(dev, errs: ErrLog) -> None:
 
 
 def check_k3(dev, errs: ErrLog) -> None:
-    """K3 against its plain version: ragged banks (K not a multiple of the
-    block), ragged nvalid including 0, band None and 6, chunk widths 8,
-    16 and 32 (32 takes two passes), four consecutive ticks each; and
-    against K1's rows, advanced in lockstep from the same state, bitwise
-    on any data (the distances never read the moments)."""
+    """K3 against its plain version on ``tick_cases()``: ragged banks,
+    ragged nvalid including 0, band None and 6, four consecutive ticks
+    each; and against K1's rows, advanced in lockstep from the same
+    state, bitwise on any data (the distances never read the
+    moments)."""
     from repro_torch.core import dtw
     from repro_torch.kernels.dtw import stream
-    cases = [(dy, band, c) for dy in (True, False) for band in (None, 6)
-             for c in (8, 16, 32)]
-    for i, (dyadic, band, c) in enumerate(cases):
+    for i, (dyadic, band, c, k) in enumerate(tick_cases()):
         rng = np.random.default_rng(300 + i)
-        s, k = 5, 133
+        s = 5
         bank = _bank(rng, k, 12, 60, dyadic)
         m = bank.series.shape[1]
         bank_t = torch.tensor(bank.series.T.copy(), device=dev)
@@ -662,11 +766,11 @@ def check_k3(dev, errs: ErrLog) -> None:
             e = errs.diff("K3", rows_k, rows_p, fin)
             assert torch.equal(ns_k, ns_p), "K3: ns differ"
             assert e <= tol, (f"K3 case {i} (dyadic={dyadic}, band={band},"
-                              f" C={c}) tick {tick}: max abs err {e}")
+                              f" C={c}, K={k}) tick {tick}: max abs err {e}")
             assert torch.equal(rows_k, rows1), \
                 f"K3 case {i} tick {tick}: rows differ from K1's"
-        print(f"[K3] dyadic={dyadic!s:5} band={band!s:4} C={c:2d}: "
-              f"4 ticks agree (max abs err {errs.err['K3']:.3g}, "
+        print(f"[K3] dyadic={dyadic!s:5} band={band!s:4} C={c:2d} "
+              f"K={k:3d}: 4 ticks agree (max abs err {errs.err['K3']:.3g}, "
               f"tol {tol:g}); rows bitwise K1's")
 
 
@@ -1174,11 +1278,11 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
           f"{PROB_TOL:g})")
 
     # timings at the main path's shapes, kernel beside plain version
-    mem_bps, f32_flops, _ = card_peaks(name)
+    mem_bps, dtw_ops = card_peaks(name)[0], dtw_op_rate(name)
     cells = int(nvalid.sum()) * m * k
     tbytes = 2 * 4 * (1 + nch) * s_jobs * m * k + 4 * (
         m * k + k + (2 if prob else 1) * s_jobs * c + 3 * s_jobs)
-    tb = (1e3 * tbytes / mem_bps, 1e3 * ops_per_cell(nch) * cells / f32_flops)
+    tb = (1e3 * tbytes / mem_bps, 1e3 * ops_per_cell(nch) * cells / dtw_ops)
     if mode == "distance":
         targs = (snap[0], snap[2], bank_t, lengths, chunks, nvalid, qlens)
         tk = lambda: stream.stream_bank_extend(*targs)  # noqa: E731
@@ -1198,6 +1302,9 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
     t_ms = cuda_ms(tk, 20)
     t_plain = cuda_ms(tp, 2)
     rows = [_row(tick_key, got[tick_key], errs, t_ms, t_plain, tb)]
+    print(f"[full {mode}] tick kernel {tick_key} {t_ms:.4f} ms: "
+          f"{100 * t_ms / ms_tick:.2f}% of the median tick "
+          f"({ms_tick:.3f} ms) [{name}]")
     record = dict(earlies=earlies, rows=rows_before_verdict,
                   verdicts={j: _verdict_key(d) for j, d in verdicts.items()},
                   ms_tick=ms_tick)
@@ -1262,7 +1369,7 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
                       + (6 if key != "K2" else 3) * n_fin + m * k + k
                       + (3 if key != "K2" else 2) * n_fin * k)
         vb = (1e3 * vbytes / mem_bps,
-              1e3 * ops_per_cell(vn) * cells2 / f32_flops)
+              1e3 * ops_per_cell(vn) * cells2 / dtw_ops)
         rows.append(_row(key, got[key], errs, v_ms, v_plain, vb))
     print(f"[full {mode}] " + "; ".join(
         f"{r['name'].split()[0]} {r['ms']:.4f} ms (plain "
@@ -1271,8 +1378,9 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
     return rows, record
 
 
-def ladder(dev, name: str, exact: dict, s_jobs: int = 256, k: int = 256,
-           n_fin: int = 32, seed: int = 0, per_rung: int = 6) -> None:
+def ladder(dev, name: str, exact: dict, tick_ms: dict, s_jobs: int = 256,
+           k: int = 256, n_fin: int = 32, seed: int = 0,
+           per_rung: int = 6) -> None:
     """The full-width exact-probability run of phase 7 (same traces,
     seed and shapes) under the overload ladder: ``latency=`` overrides
     walk it up one rung after every ``per_rung`` ticks (window 1, EWMA
@@ -1281,7 +1389,10 @@ def ladder(dev, name: str, exact: dict, s_jobs: int = 256, k: int = 256,
     ``moms[:4]``), 2 (``exact_score``: K1 over ``moms[:3]``) and 3
     (``distance_only``: K3).  Each kernel must launch once a tick of its
     rung; the 32 verdicts (K5) must be bitwise the unloaded run's
-    ``exact`` and the early decisions a subset of its."""
+    ``exact`` and the early decisions a subset of its.  ``tick_ms``
+    holds the four tick kernels' times (phases 7 and 10, by table key):
+    each rung's kernel is printed as a share of the rung's median
+    tick."""
     from repro_torch.serve.overload import OverloadConfig
     from repro_torch.serve.tuning import TuningService
     c, n_ticks = 16, 4 * per_rung
@@ -1331,6 +1442,12 @@ def ladder(dev, name: str, exact: dict, s_jobs: int = 256, k: int = 256,
           f"{len(earlies)} early decisions (unloaded: "
           f"{len(exact['earlies'])}, a superset); {n_fin} verdicts bitwise "
           f"the unloaded run's [{name}]")
+    rung_keys = ("K4-exact", "K4-approx", "K1", "K3")
+    print("[ladder] tick kernel share of the median tick by rung: "
+          + "; ".join(f"{r} {key} {tick_ms[key]:.4f} / {v:.3f} ms = "
+                      f"{100 * tick_ms[key] / v:.2f}%"
+                      for r, (key, v) in enumerate(zip(rung_keys, ms)))
+          + f" [{name}]")
 
 
 def chaos_phase(dev, bank, point) -> None:
@@ -1565,12 +1682,12 @@ def paper_matching(dev, errs: ErrLog, name: str):
                        torch.tensor([res.scores[a][j] for a in names
                                      for j in range(n)],
                                     dtype=torch.float64))
-    mem_bps, f32_flops, _ = card_peaks(name)
+    mem_bps, dtw_ops = card_peaks(name)[0], dtw_op_rate(name)
     p_, nq = xs.shape
     m = rbank.series.shape[1]
     cells = band_cells(xl, rbank.lengths, band)
     pbytes = 4 * (p_ * nq + p_ + m * p_ + p_ + 2 * p_ + 2 * p_)
-    pb = (1e3 * pbytes / mem_bps, 1e3 * ops_per_cell(3) * cells / f32_flops)
+    pb = (1e3 * pbytes / mem_bps, 1e3 * ops_per_cell(3) * cells / dtw_ops)
     t_ms = cuda_ms(lambda: score.score_pairs(*args, band=band), 20)
     t_plain = cuda_ms(lambda: score.score_pairs_plain(*args, band=band), 2)
     print(f"[paper matching] K2 pairs (P={p_}, N={nq}, M={m}, band {band}) "
@@ -1665,10 +1782,10 @@ def full_matching(dev, errs: ErrLog, name: str, n_q: int = 8, k: int = 256,
     ck, lk = matrix.dtw_rows(xc, ys, qn, lens, row=row, n0=qlen // 2)
     assert torch.equal(ck, rk[:, qlen // 2: qlen // 2 + c])
     assert torch.equal(lk, rk[:, qlen // 2 + c - 1])
-    mem_bps, f32_flops, _ = card_peaks(name)
+    mem_bps, dtw_ops = card_peaks(name)[0], dtw_op_rate(name)
     kbytes = 4 * (k * qlen * m + qlen + k * m + 2 * k)
     kb = (1e3 * kbytes / mem_bps, 1e3 * ops_per_cell(0) * k * qlen * m
-          / f32_flops)
+          / dtw_ops)
     t_ms = cuda_ms(lambda: matrix.dtw_rows(x, ys, qn, lens), 20)
     t_plain = cuda_ms(lambda: matrix.dtw_rows_plain(x, ys, qn, lens), 1)
     t_chunk = cuda_ms(lambda: matrix.dtw_rows(xc, ys, qn, lens, row=row,
@@ -1963,13 +2080,9 @@ def _sdpa(q, k, v):
 
 
 def sass_count(lib, opcode: str) -> int:
-    """Instructions of ``opcode`` in the SASS of a built kernel library
-    (``cuobjdump -sass``)."""
-    from repro_torch.kernels import common
-    tool = os.path.join(os.path.dirname(common._nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", lib.path()], check=True,
-                         capture_output=True, text=True, timeout=120).stdout
-    return sum(opcode in line for line in out.splitlines())
+    """Instructions of ``opcode`` in the SASS of a built kernel
+    library."""
+    return sum(opcode in line for line in sass(lib).splitlines())
 
 
 def full_attention(dev, errs: ErrLog, name: str, s: int = 4096,
@@ -2165,7 +2278,9 @@ def main() -> int:
     assert runs["distance"]["verdicts"] == runs["point"]["verdicts"]
     print("[full distance] DP rows before the verdict and all 32 verdicts "
           "bitwise the point run's")
-    ladder(dev, name, runs["exact"])
+    ladder(dev, name, runs["exact"],
+           {key: rows[KERNELS[key][0]]["ms"]
+            for key in ("K4-exact", "K4-approx", "K1", "K3")})
     chaos_phase(dev, bank, point)
     multitenant_phase(dev, bank)
     for row in (paper_matching(dev, errs, name),

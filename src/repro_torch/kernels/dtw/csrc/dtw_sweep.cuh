@@ -3,11 +3,11 @@
 // verdict scorers' warp wavefront, score.cu's K2, K2 pairs, K5 and K6,
 // both call, so they cannot drift apart), and the column sweep.
 //
-// In the sweep one thread owns one (query, reference) pair. It walks the
-// reference columns j = 0, 1, ... left to right and, at each column,
-// updates up to ROWS query rows top to bottom, keeping the previous
-// column's value of each row (DP distance plus NCH warp-path moment
-// bases) in registers:
+// In the sweep a group of G lanes of one warp owns one (query,
+// reference) pair. Together they walk the reference columns j = 0, 1, ...
+// left to right through a pass of up to 16 query rows, each row keeping
+// its value at the previous column in registers (DP distance, NCH
+// warp-path moment bases, and the NCH full moments base + pair):
 //
 //   diag(i, j)  = row i-1 at column j-1   (the state row for i = 0)
 //   vert(i, j)  = row i-1 at column j     (the state row for i = 0)
@@ -21,12 +21,23 @@
 // anchored cell (diag or vert) takes its predecessor's full moments as
 // base, a horizontal cell carries the base of its left neighbour. That is
 // what the Pallas kernel's anchored forward fill computes, so the two
-// round alike. Only the state row (the last valid query row) is read and
-// written: each column costs one coalesced load and store per channel,
-// since neighbouring threads hold neighbouring references in the K-last
-// layout. The state row is the DP row after the previous samples; a pass
-// handles at most ROWS samples and longer chunks take several passes over
-// the row, which keeps the row set in registers.
+// round alike.
+//
+// The pass's rows are split over the group: lane g holds rows
+// [g R, (g + 1) R), R = 16 / G, and runs skewed, column j = t - g at step
+// t. Its first row's vert (column j) and diag (column j - 1) are lane
+// g - 1's last row, received by __shfl_up_sync one step late with the
+// column's y; lane 0 reads them from the state row instead, the last
+// lane writes its last row back as the new state row. Only the state row
+// is read and written, once a pass: each column costs one load and one
+// store per channel, and the groups of a warp hold neighbouring
+// references of the K-last layout, so they fill whole 32-byte sectors.
+// The warp stages both through shared memory (sweep_pass). A lane
+// before its first column (t < g) is fed the virtual column j < 0 (y =
+// 0.5, distance 3e38, moments 0), which leaves its rows as they start;
+// after its last it computes columns past M that nothing reads. A pass
+// handles at most 16 samples; a longer chunk takes one more pass over
+// the row per 16 samples.
 //
 // The pair of row i and column j, with yc = y_j - 0.5, xm = x_i - 0.5 and
 // v_i the sample's measurement variance, is
@@ -42,7 +53,8 @@
 // Channel 3 is svy in both variance layouts. The distances never read
 // the moments, so every channel count computes bitwise the same rows:
 // the NCH = 0 instantiation (the distance-only tick) is the NCH = 3 one
-// with its moment code compiled out.
+// with its moment code compiled out and its minimum taken in another,
+// exactly equal, order.
 //
 // Every add and multiply below is written with an _rn intrinsic, and the
 // library is built with -fmad=false: nothing is contracted into a fused
@@ -50,25 +62,13 @@
 // version's does.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace dtw {
 
 constexpr float kInf = 3.0e38f;
 constexpr float kShift = 0.5f;
-
-// Rows a pass holds in registers for NCH channels: per row the distance,
-// NCH bases, x, x - 0.5, v and the band centre. 16 rows fit for 3 and 4
-// channels; 6 channels take 8 rows, so a 16-sample chunk is two passes.
-// With no channels a row is the distance, x and the band centre: 16 rows
-// take a 16-sample chunk (the main path's) in one pass at 69 registers
-// and no spill (ptxas -v on sm_90a), so seven 128-thread blocks fit an
-// SM; more rows would only serve chunks longer than the main path's, at
-// a lower occupancy. A longer chunk takes one more pass per 16 samples.
-template <int NCH>
-struct RowsPerPass {
-  static constexpr int value = NCH == 6 ? 8 : 16;
-};
 
 // Array extent for NCH channels: C++ has no zero-length arrays, and with
 // NCH = 0 every loop over the channels runs zero times.
@@ -121,10 +121,12 @@ __device__ __forceinline__ float dp_cell(float x, float xm, float v, int center,
                                          float hb[], float m[]) {
   float d = fabsf(__fsub_rn(x, y));
   if (BAND && band >= 0 && abs(j - center) > band) d = kInf;
-  // min is exact: min(dd, min(vd, hd)) is min(min(dd, vd), hd) bitwise,
-  // and the inner min serves the selection too
+  // min is exact: min(dd, min(vd, hd)) is min(min(dd, vd), hd) bitwise.
+  // With moments the inner min serves the selection too; without, the
+  // diag and horiz are known before the vert (the row above), so only
+  // the outer min waits on it.
   const float vh = fminf(vd, hd);
-  const float best = fminf(dd, vh);
+  const float best = NCH > 0 ? fminf(dd, vh) : fminf(vd, fminf(dd, hd));
   const float cell = fminf(__fadd_rn(d, best), kInf);
   if constexpr (NCH > 0) {
     const bool sel_diag = dd <= vh;
@@ -141,103 +143,223 @@ __device__ __forceinline__ float dp_cell(float x, float xm, float v, int center,
   return cell;
 }
 
-// One pass of `nrows` (<= ROWS) query rows over reference columns
-// [0, ncols). Row r is query sample n0 + r, x[r], with variance v[r]
-// (v is not read when NCH == 3). Column j of the reference is
-// y[j * col_stride]; column j of the state row is d_in[j * col_stride]
-// and channel c of its moments m_in[c * ch_stride + j * col_stride]
-// (likewise for the outputs, which may alias the inputs; with NCH = 0
-// m_in and m_out are not read and may be null). `fresh`: the
-// state row is the empty one (D = 3e38, moments 0) and is not read.
-// `write`: store the pass's last row. Column `capture` (-1: none) of the
-// last row is copied to cap[1 + NCH] (distance, then the moments).
-// nrows == 0 copies the state row through.
-template <int NCH, int ROWS>
+
+// The ticks' column sweep (see the header).
+
+// Rows a pass holds, split over a group.
+constexpr int kPassRows = 16;
+// Column slots of a warp's load ring: the copies of a column are issued
+// kRing - 1 steps before it is computed.
+constexpr int kRing = 8;
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Lanes a group holds for NCH channels (a power of 2 dividing 16): each
+// lane keeps 16 / G rows of 2 + 2 NCH floats (3 + 2 NCH with variances).
+// Fewer lanes with more rows each ran faster on an H100, as long as the
+// rows fit the registers: a lane's rows run a column in series, but each
+// extra lane adds its column's shuffles and a slice of the staging.
+// Sixteen rows of 3 channels take 235 registers, eight of 6 take 236.
+template <int NCH>
+struct Split {
+  static constexpr int value = NCH == 0 ? 1 : NCH == 3 ? 1 : 2;
+};
+
+// A warp's shared column tiles: the load ring (per slot, the state row's
+// distance, NCH moments and the reference's y for each of the warp's
+// groups) and one column of the last lanes' rows on their way out.
+template <int NCH, int G>
+struct Stage {
+  static constexpr int NG = kWarp / G;  // groups a warp
+  static constexpr int NV = NCH + 2;    // values a column loads
+  static constexpr int NS = NCH + 1;    // values a column stores
+  float ring[kRing][NV][NG];
+  float out[NS][NG];
+};
+
+// One pass of `nrows` (<= kPassRows) query rows over reference columns
+// [0, M), run by one warp for its groups: the group's k is k0 + lane / G
+// and the lane is g = lane % G of it. Row r of the lane is query sample
+// n0 + g R + r, x[g R + r], with variance v[g R + r] (read when NCH > 3).
+// Column j of reference k is y[j * K + k]; of the state row, d_in[j * K
+// + k] and channel c of its moments m_in[c * ch_stride + j * K + k]
+// (d_in, m_in, y and the outputs are offset to the warp's slot; with NCH
+// = 0, m_in and m_out are not read; M K < 2^31). The pass's last row
+// goes to d_out and m_out, which never alias the inputs, for k < K; a
+// group past K sweeps reference K - 1. FULL: nrows == kPassRows, so no row is guarded.
+// A row at or past nrows passes the row above through, as a padded
+// sample does; nrows == 0 copies the state row through.
+//
+// Loads: each lane copies its share of a column's NV x NG values into
+// the ring with cp.async (4 bytes each), kRing - 1 columns ahead; lane 0
+// of each group reads its values there. Stores: the last lanes write
+// their column into `out`, and the warp copies it to memory, each lane
+// its share. __syncwarp orders each hand-over.
+template <int NCH, int G, bool BAND, bool FULL>
 __device__ __forceinline__ void sweep_pass(
-    const float* __restrict__ x, const float* __restrict__ v, int nrows,
-    int n0, int qlen, int band, int len_k, const float* __restrict__ y,
-    long long col_stride, int ncols, const float* d_in, const float* m_in,
-    float* d_out, float* m_out, long long ch_stride, bool fresh, bool write,
-    int capture, float cap[1 + NCH]) {
+    Stage<NCH, G>& st, int lane, const float* __restrict__ x,
+    const float* __restrict__ v, int nrows, int n0, int qlen, int band,
+    int len_k, const float* __restrict__ y, int k0, int K, int M,
+    const float* d_in, const float* m_in, float* d_out, float* m_out,
+    long long ch_stride) {
+  using S = Stage<NCH, G>;
+  constexpr int R = kPassRows / G;
   constexpr int NE = Extent<NCH>::value;
-  float xr[ROWS], xm[ROWS], vr[ROWS];
-  int center[ROWS];
-  float pd[ROWS], pb[ROWS][NE];
+  constexpr int NI = (S::NV * S::NG + kWarp - 1) / kWarp;  // copies a lane
+  constexpr int NO = (S::NS * S::NG + kWarp - 1) / kWarp;  // stores a lane
+  const int g = lane % G;
+  const int q = lane / G;
+  const int k = min(k0 + q, K - 1);
+  const int nr = FULL ? R : min(max(nrows - g * R, 0), R);
+  float xr[R], xm[R], vr[R];
+  int center[R];
+  float pd[R], pb[R][NE], pf[R][NE];
   const int qden = qlen - 1 > 1 ? qlen - 1 : 1;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const float xv = r < nrows ? x[r] : 0.f;
+  for (int r = 0; r < R; ++r) {
+    const bool ok = FULL || r < nr;
+    const float xv = ok ? x[g * R + r] : 0.f;
     xr[r] = xv;
     xm[r] = __fsub_rn(xv, kShift);
-    vr[r] = (NCH > 3 && r < nrows) ? v[r] : 0.f;
+    vr[r] = NCH > 3 && ok ? v[g * R + r] : 0.f;
     // all terms are non-negative: C's '/' is the floor division
-    center[r] = band >= 0 ? ((n0 + r) * (len_k - 1)) / qden : 0;
+    center[r] = BAND ? ((n0 + g * R + r) * (len_k - 1)) / qden : 0;
     pd[r] = kInf;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) pb[r][c] = 0.f;
+    for (int c = 0; c < NCH; ++c) pb[r][c] = pf[r][c] = 0.f;
   }
-  // the state row one column to the left: the diag predecessor of row 0
+  // this lane's shares: value i = lane + 32 n of a column is value i / NG
+  // of group i % NG
+  const float* src[NI];
+  int src_at[NI];
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+    const int i = lane + kWarp * n;
+    const int val = i / S::NG, grp = i % S::NG;
+    const int kk = min(k0 + grp, K - 1);
+    src[n] = (val == 0        ? d_in
+              : val < S::NV - 1 ? m_in + (val - 1) * ch_stride
+                                : y) + kk;
+    src_at[n] = i < S::NV * S::NG ? i : -1;
+  }
+  float* dst[NO];
+  int dst_at[NO];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int i = lane + kWarp * n;
+    const int val = i / S::NG, grp = i % S::NG;
+    dst[n] = (val == 0 ? d_out : m_out + (val - 1) * ch_stride) + k0 + grp;
+    dst_at[n] = i < S::NS * S::NG && k0 + grp < K ? i : -1;
+  }
+  // copy column j, if there is one, into ring slot `slot`; commit a
+  // group every step, empty or not, so that the wait below counts steps
+  auto fetch = [&](int j, int slot) {
+    if (j < M) {
+      const int off = j * K;
+#pragma unroll
+      for (int n = 0; n < NI; ++n)
+        if (S::NV * S::NG % kWarp == 0 || src_at[n] >= 0)
+          __pipeline_memcpy_async(&st.ring[slot][0][0] + src_at[n],
+                                  src[n] + off, sizeof(float));
+    }
+    __pipeline_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < kRing - 1; ++u) fetch(u, u);
+  // the lane's last row at the previous step (the virtual column before
+  // the first), and its first row's diag: the column before the input's
   // (column -1 is the virtual corner D[-1, -1] = 0 for a job's first
-  // sample only).
-  float sd_prev = n0 == 0 ? 0.f : kInf;
-  float sm_prev[NE];
+  // sample only)
+  float od = kInf, om[NE], oy = kShift;
+  float dd0 = g == 0 && n0 == 0 ? 0.f : kInf, dm0[NE];
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) sm_prev[c] = 0.f;
-  float yc_prev = 0.f;
-  for (int j = 0; j < ncols; ++j) {
-    const long long off = (long long)j * col_stride;
-    const float yv = y[off];
-    const float yc = __fsub_rn(yv, kShift);
-    const float yy = __fmul_rn(yc, yc);
-    const float yy_prev = __fmul_rn(yc_prev, yc_prev);
-    float sd, sm[NE];
-    if (fresh) {
-      sd = kInf;
+  for (int c = 0; c < NCH; ++c) om[c] = dm0[c] = 0.f;
+  const int nsteps = M + G - 1;
+  for (int t0 = 0; t0 < nsteps; t0 += kRing) {
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) sm[c] = 0.f;
-    } else {
-      sd = d_in[off];
+    for (int u = 0; u < kRing; ++u) {
+      const int t = t0 + u;
+      const int j = t - g;
+      // column t's copies are done (kRing - 2 later ones may not be),
+      // and every lane's are visible; the slot read at step t - 1 is
+      // free again
+      __pipeline_wait_prior(kRing - 2);
+      __syncwarp();
+      // this step's column: lane 0's from the ring, the others' from
+      // the lane before
+      float id = od, im[NE], iy = oy;
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) sm[c] = m_in[c * ch_stride + off];
-    }
-    float dd = sd_prev, vd = sd, dm[NE], vm[NE];
+      for (int c = 0; c < NCH; ++c) im[c] = om[c];
+      if constexpr (G > 1) {
+        id = __shfl_up_sync(kFullMask, id, 1, G);
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      dm[c] = sm_prev[c];
-      vm[c] = sm[c];
-    }
+        for (int c = 0; c < NCH; ++c)
+          im[c] = __shfl_up_sync(kFullMask, im[c], 1, G);
+        iy = __shfl_up_sync(kFullMask, iy, 1, G);
+      }
+      if (g == 0) {
+        id = st.ring[u][0][q];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (r < nrows) {
-        const float hd = pd[r];
-        // row r's full moments at column j-1: the next row's diag
-        float nd[NE];
-        moments<NCH>(pb[r], yc_prev, yy_prev, xm[r], vr[r], nd);
-        const float cell =
-            dp_cell<NCH>(xr[r], xm[r], vr[r], center[r], yv, yc, yy, j, band,
-                         dd, dm, vd, vm, hd, pb[r], vm);
+        for (int c = 0; c < NCH; ++c) im[c] = st.ring[u][1 + c][q];
+        iy = st.ring[u][S::NV - 1][q];
+      }
+      fetch(t + kRing - 1, (u + kRing - 1) % kRing);
+      const float yc = __fsub_rn(iy, kShift);
+      const float yy = __fmul_rn(yc, yc);
+      float dd = dd0, dm[NE], vd = id, vm[NE];
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) dm[c] = nd[c];
-        dd = hd;
-        pd[r] = cell;
-        vd = cell;
+      for (int c = 0; c < NCH; ++c) {
+        dm[c] = dm0[c];
+        vm[c] = im[c];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (FULL || r < nr) {
+          const float hd = pd[r];
+          // row r's full moments at column j - 1: the next row's diag
+          float nd[NE];
+#pragma unroll
+          for (int c = 0; c < NCH; ++c) nd[c] = pf[r][c];
+          const float cell =
+              dp_cell<NCH, BAND>(xr[r], xm[r], vr[r], center[r], iy, yc,
+                                 yy, j, band, dd, dm, vd, vm, hd, pb[r],
+                                 pf[r]);
+          dd = hd;
+          vd = cell;
+          pd[r] = cell;
+#pragma unroll
+          for (int c = 0; c < NCH; ++c) {
+            dm[c] = nd[c];
+            vm[c] = pf[r][c];
+          }
+        }
+      }
+      dd0 = id;
+      od = vd;
+      oy = iy;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        dm0[c] = im[c];
+        om[c] = vm[c];
+      }
+      // the last lanes' column t - (G - 1) out through `out`
+      const int js = t - (G - 1);
+      if (js >= 0 && js < M) {
+        if (g == G - 1) {
+          st.out[0][q] = vd;
+#pragma unroll
+          for (int c = 0; c < NCH; ++c) st.out[1 + c][q] = vm[c];
+        }
+        __syncwarp();
+        const int off = js * K;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          if (dst_at[n] >= 0) dst[n][off] = (&st.out[0][0])[dst_at[n]];
       }
     }
-    if (write) {
-      d_out[off] = vd;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) m_out[c * ch_stride + off] = vm[c];
-    }
-    if (j == capture) {
-      cap[0] = vd;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) cap[1 + c] = vm[c];
-    }
-    sd_prev = sd;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) sm_prev[c] = sm[c];
-    yc_prev = yc;
   }
+  __pipeline_wait_prior(0);
+  __syncwarp();
 }
 
 }  // namespace dtw

@@ -42,8 +42,9 @@
 //
 // Bound on this card: bytes. At full width (K = 256 pairs, N = 384 rows,
 // M = 360) the matrix stack is 141.6 MB written once, 0.042 ms at
-// 3.35 TB/s; its 35.4 M cells take 5 f32 operations each, 0.003 ms at
-// 67 TFLOP/s. This first version is latency-bound rather than byte-bound:
+// 3.35 TB/s; its 35.4 M cells take 5 f32 operations each, 0.005 ms at
+// 33.5 T operations a second (no FMA under -fmad=false: half the FMA-
+// counted 67 TFLOP/s). This first version is latency-bound rather than byte-bound:
 // each step is one dependent cell per thread plus a barrier, and a
 // warp's stores go to 32 different rows (stride M - 1), one 4-byte
 // sector write each, which L2 merges before they reach memory. Staging

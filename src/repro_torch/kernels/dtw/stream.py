@@ -66,10 +66,16 @@ LIB = KernelLib(
     "dtw_stream", os.path.join(_CSRC, "stream.cu"),
     headers=(os.path.join(_CSRC, "dtw_sweep.cuh"),),
     signatures={
-        "dtw_stream_distance": ([_P] * 8 + [_I] * 5 + [_P], ctypes.c_int),
-        "dtw_stream_scored": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
-        "dtw_stream_scored_var": ([_P] * 11 + [_I] * 6 + [_P],
+        "dtw_stream_distance": ([_P] * 9 + [_I] * 5 + [_P], ctypes.c_int),
+        "dtw_stream_scored": ([_P] * 12 + [_I] * 5 + [_P], ctypes.c_int),
+        "dtw_stream_scored_var": ([_P] * 13 + [_I] * 6 + [_P],
                                   ctypes.c_int)})
+
+#: Threads a block of ``csrc/stream.cu``'s launches.
+BLOCK = 128
+#: Samples a pass of the kernels' sweep takes (``dtw_sweep.cuh``'s
+#: ``kPassRows``): a longer chunk takes one more pass per PASS_ROWS.
+PASS_ROWS = 16
 
 #: K3 launches.  The wrapper adds one per launch; a caller resets it to
 #: 0 before a run it audits.
@@ -103,6 +109,21 @@ def _check_tick(rows, moms, ns, bank_t, lengths, chunks, nvalid, qlens,
         check_tensor(t, name, torch.int32, (n,), dev)
     if band is not None and band < 0:
         raise ValueError("band must be >= 0 (or None)")
+    if m * k >= 2 ** 31:
+        raise ValueError(f"the kernels index a [M, K] = [{m}, {k}] row "
+                         f"with 32-bit offsets: M K must be < 2^31")
+
+
+def _scratch(t: Optional[torch.Tensor], c: int) -> Optional[torch.Tensor]:
+    """A scratch tensor shaped as ``t`` for the kernels' passes past the
+    first (a chunk of ``c`` > PASS_ROWS samples), else None: the passes
+    alternate between it and the output, so that no pass reads what it
+    writes.  The caller holds it until the launch is enqueued."""
+    return torch.empty_like(t) if t is not None and c > PASS_ROWS else None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def stream_bank_extend(rows, ns, bank_t, lengths, chunks, nvalid, qlens,
@@ -122,8 +143,9 @@ def stream_bank_extend(rows, ns, bank_t, lengths, chunks, nvalid, qlens,
                 band, 0)
     s, m, k = rows.shape
     out_rows = torch.empty_like(rows)
+    tmp_rows = _scratch(rows, chunks.shape[1])
     err = LIB.get().dtw_stream_distance(
-        rows.data_ptr(), out_rows.data_ptr(), ns.data_ptr(),
+        rows.data_ptr(), out_rows.data_ptr(), _ptr(tmp_rows), ns.data_ptr(),
         nvalid.data_ptr(), qlens.data_ptr(), bank_t.data_ptr(),
         lengths.data_ptr(), chunks.data_ptr(), s, m, k, chunks.shape[1],
         -1 if band is None else int(band),
@@ -151,11 +173,13 @@ def stream_bank_extend_scored(rows, moms, ns, bank_t, lengths, chunks,
     s, m, k = rows.shape
     out_rows = torch.empty_like(rows)
     out_moms = torch.empty_like(moms)
+    tmp_rows = _scratch(rows, chunks.shape[1])
+    tmp_moms = _scratch(moms, chunks.shape[1])
     err = LIB.get().dtw_stream_scored(
         rows.data_ptr(), moms.data_ptr(), out_rows.data_ptr(),
-        out_moms.data_ptr(), ns.data_ptr(), nvalid.data_ptr(),
-        qlens.data_ptr(), bank_t.data_ptr(), lengths.data_ptr(),
-        chunks.data_ptr(), s, m, k, chunks.shape[1],
+        out_moms.data_ptr(), _ptr(tmp_rows), _ptr(tmp_moms), ns.data_ptr(),
+        nvalid.data_ptr(), qlens.data_ptr(), bank_t.data_ptr(),
+        lengths.data_ptr(), chunks.data_ptr(), s, m, k, chunks.shape[1],
         -1 if band is None else int(band),
         torch.cuda.current_stream(rows.device).cuda_stream)
     check_launch("dtw_stream_scored", err)
@@ -187,11 +211,14 @@ def stream_bank_extend_scored_var(rows, moms, ns, bank_t, lengths, chunks,
     s, m, k = rows.shape
     out_rows = torch.empty_like(rows)
     out_moms = torch.empty_like(moms)
+    tmp_rows = _scratch(rows, chunks.shape[1])
+    tmp_moms = _scratch(moms, chunks.shape[1])
     err = LIB.get().dtw_stream_scored_var(
         rows.data_ptr(), moms.data_ptr(), out_rows.data_ptr(),
-        out_moms.data_ptr(), ns.data_ptr(), nvalid.data_ptr(),
-        qlens.data_ptr(), bank_t.data_ptr(), lengths.data_ptr(),
-        chunks.data_ptr(), vchunks.data_ptr(), s, m, k, chunks.shape[1],
+        out_moms.data_ptr(), _ptr(tmp_rows), _ptr(tmp_moms), ns.data_ptr(),
+        nvalid.data_ptr(), qlens.data_ptr(), bank_t.data_ptr(),
+        lengths.data_ptr(), chunks.data_ptr(), vchunks.data_ptr(), s, m, k,
+        chunks.shape[1],
         -1 if band is None else int(band), nch,
         torch.cuda.current_stream(rows.device).cuda_stream)
     check_launch("dtw_stream_scored_var", err)

@@ -103,9 +103,8 @@ def _assert_tick(out, ref, prob_tol):
 def test_var_tick_bitwise_vs_reference(nch, ref, band, c):
     """Four ragged ticks (per-job nvalid in [0, C], ragged bank, block_k
     4 forcing reference-tile padding in the Pallas kernel) from the empty
-    state, in the tick layout [NCH, S, M, K] on both sides.  C = 16 and
-    32 are the chunks the kernel takes in several passes (8 rows a pass
-    for six channels, 16 for four)."""
+    state, in the tick layout [NCH, S, M, K] on both sides.  C = 32 is a
+    chunk the kernel takes in two passes (16 rows a pass)."""
     seed = {None: 23, 6: 29}[band] + 100 * nch + c
     rng = np.random.default_rng(seed)
     bank = pack_series([_dyadic_series(rng, int(rng.integers(12, 30)))
