@@ -9,8 +9,9 @@ Phases, in order (any failure exits non-zero):
 
 1. print the card and build the CUDA kernels from ``src/repro_torch``
    (``nvcc``, ``sm_90a``, one process per source, started together),
-   with each kernel's registers and spills, and for the ticks' sweep
-   its resident warps an SM and SASS instructions a cell;
+   with each kernel's registers and spills, for the ticks' sweep its
+   resident warps an SM and SASS instructions a cell, for K7 its SASS
+   and store counts and for K9 f32 its HGMMA count;
 2. hold K1, the scored streaming tick, against its plain PyTorch version
    on the card: bitwise on dyadic-grid data, and on smooth data within
    the stated tolerance, at chunk widths 1-32 and banks of 1, 7 and 133
@@ -68,8 +69,9 @@ Phases, in order (any failure exits non-zero):
     equal to two separate services', dispatches their sum;
 13. (run with the kernel checks, right after phase 8) K7, the DTW
     matrix, against its plain version, bitwise on dyadic and smooth data:
-    the bank and pairs forms, banded, ragged, a 1100-row chunk (two row
-    bands), resumed from a carried row in chunks of 16 (bitwise the
+    the bank and pairs forms, banded, ragged, a 1100-row chunk,
+    references of up to 1000 columns (three 384-column panels), resumed
+    from a carried row in chunks of 16 and of one row (bitwise the
     one-shot matrix); its rows against K3's and its endpoints against
     K2's distances, bitwise; the ``kernels.dtw.ops`` API bitwise the
     wrapper; and K2 pairs against its plain version and against K2 on
@@ -87,8 +89,10 @@ Phases, in order (any failure exits non-zero):
     matrix_path=True)`` (one K7 launch each), within 5e-3 of the
     matrix-free scores; one ``OnlineMatcher(collect_rows=True)`` job in
     24 chunks of 16 (24 K7 launches), its rows bitwise the one-shot
-    matrix; K7 timed beside its plain version and bound, and the host
-    backtrack timed;
+    matrix; K7 timed (the full matrix, a resumed chunk, the last row
+    only; back-to-back calls from CUDA events and the kernel's own device
+    time from the profiler) beside its plain version, its bound and the
+    parent's times, and the host backtrack timed;
 16. K8, the batched IIR filter, against its plain version on the
     reference's IIR test shapes and every order 1-8 (bitwise expected,
     differing elements counted, each within IIR_TOL), then the paper's
@@ -101,12 +105,15 @@ Phases, in order (any failure exits non-zero):
     test shapes (f32 within ATTN_F32_TOL, bf16 within ATTN_BF16_TOL and
     one bf16 step), S != T, dh 96 and 128, ragged tiles, and in bf16 head
     dims padded in shared memory (dh 24 / dv 48, dh 20 / dv 12); bf16
-    launches the tensor-core kernel (``wgmma``), f32 the CUDA-core one;
-    then granite-20b's causal prefill layer (48 heads, kv 1, dh 128,
+    launches the bf16 ``wgmma`` kernel, f32 the split-TF32 one, also at
+    dh 18 / dv 10 and on inputs one element into their storage (its
+    element-wise loads); then
+    granite-20b's causal prefill layer (48 heads, kv 1, dh 128,
     S=T=4096) through ``kernels.attention.flash_attention`` in bf16 and
     in f32 (one launch each), held to the plain version, each timed
-    beside it, its bound and ``scaled_dot_product_attention``, with the
-    f32 CUDA-core floor and the HGMMA count of the bf16 kernel's SASS;
+    beside it, its bound (f32: three TF32 products) and
+    ``scaled_dot_product_attention``, with the HGMMA counts of both
+    kernels' SASS;
     phi3-mini's MHA (32 heads, dh 96, S=4096) checked the same way,
     untimed;
 18. K10, the GLA chunked scan, against its plain version on the
@@ -189,6 +196,13 @@ ATTN_BF16_TOL = 5e-2
 #: bfloat16 step besides.
 GLA_RTOL, GLA_ATOL = 1e-4, 1e-5
 
+#: The earlier designs' times of K7 and K9 f32 (ms; PERF.md's kernel
+#: table, NVIDIA H100 80GB HBM3, 700.00 W; CUDA-event means): K7's full
+#: matrix (K=256, N=384, M=360), one resumed 16-row chunk and the last row
+#: only; K9 f32 at granite's layer.  Printed beside this run's times.
+PARENT_MS = {"K7": 0.8538, "K7-chunk": 0.0667, "K7-last": 0.2104,
+             "K9-f32": 8.0395}
+
 #: Early-decision fractions of the reference on the paper scenario
 #: (BENCH_streaming.json rows stream_early_p0..p3).
 REF_EARLY = (0.44, 0.50, 0.47, 0.75)
@@ -237,8 +251,8 @@ KERNELS = {
     "K9": ("K9 causal GQA flash attention, bf16 (wgmma)",
            "src/repro_torch/kernels/attention/csrc/flash_wgmma.cu",
            "src/repro/kernels/attention/kernel.py:26"),
-    "K9-f32": ("K9 causal GQA flash attention, f32 (CUDA cores)",
-               "src/repro_torch/kernels/attention/csrc/flash.cu",
+    "K9-f32": ("K9 causal GQA flash attention, f32 (split TF32, wgmma)",
+               "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
                "src/repro/kernels/attention/kernel.py:26"),
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
@@ -271,14 +285,14 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    """(memory bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s) of the
-    named card (NVIDIA data sheets; the SXM part's figures for an
-    unrecognised H100)."""
+    """(memory bytes/s, f32 FLOP/s, dense bf16 and dense TF32 tensor-core
+    FLOP/s) of the named card (NVIDIA data sheets; the SXM part's figures
+    for an unrecognised H100)."""
     if "PCIe" in name:
-        return 2.0e12, 51.2e12, 756e12
+        return 2.0e12, 51.2e12, 756e12, 378e12
     if "NVL" in name:
-        return 3.9e12, 60.0e12, 835e12
-    return 3.35e12, 67.0e12, 989e12
+        return 3.9e12, 60.0e12, 835e12, 417.5e12
+    return 3.35e12, 67.0e12, 989e12, 494.7e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -294,6 +308,35 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    ``kernel`` over ``reps`` calls of ``fn`` (after one warm-up call),
+    from ``torch.profiler``'s kernel records: the kernel alone, without
+    the host's launch path that back-to-back calls timed by ``cuda_ms``
+    include.  Returns (ms, launches recorded), or (None, 0) when the
+    profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+            n += ev.count
+    return (us / n / 1e3, n) if n and us > 0 else (None, 0)
+
+
+def _dev_str(dev_ms) -> str:
+    ms, n = dev_ms
+    return "not measured (no kernel record)" if ms is None \
+        else f"{ms:.4f} ms ({n} launches)"
 
 
 def counts() -> dict:
@@ -402,9 +445,8 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
 
 _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
-                        r"flash_kernel|flash_wgmma_kernel|gla_kernel)"
+                        r"flash_tf32_kernel|flash_wgmma_kernel|gla_kernel)"
                         r"(?:I(.*?)EE)?")
-
 
 def kernel_name(mangled: str):
     """A kernel's name with its template arguments (``Li6`` -> 6,
@@ -415,8 +457,8 @@ def kernel_name(mangled: str):
         return None
     targs = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
     targs = re.sub(r"^f(?=Li)", "f32,", targs)
-    targs = re.sub(r"Lb([01])", lambda b: "band" if b.group(1) == "1"
-                   else "no band", targs)
+    targs = re.sub(r"Lb([01])", lambda b: ("no band", "band")[
+        int(b.group(1))], targs)
     targs = targs.replace("Li", "").replace("E", ",").rstrip(",")
     return m.group(1) + (f"<{targs}>" if targs else "")
 
@@ -430,13 +472,9 @@ def sass(lib) -> str:
                           timeout=120).stdout
 
 
-def sass_cell_loops(lib, kernel: str) -> dict:
-    """The innermost loops of each instantiation of ``kernel`` in the
-    SASS of a built library (``cuobjdump -sass``) that hold DP cells:
-    {name: [(instructions, cells), ...]} in address order.  A loop is
-    the span from a backward branch's target to the branch; its cells
-    are its FMNMX instructions over 3 (``dp_cell``'s min(vert, horiz),
-    min(diag, .) and the 3e38 clamp)."""
+def sass_functions(lib, kernel: str) -> dict:
+    """Each instantiation of ``kernel`` in the SASS of a built library
+    (``cuobjdump -sass``): {name: [(address, instruction), ...]}."""
     funcs, cur = {}, None
     for line in sass(lib).splitlines():
         if "Function :" in line:
@@ -447,11 +485,34 @@ def sass_cell_loops(lib, kernel: str) -> dict:
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if cur is not None and m:
             cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _opcode(text: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+
+
+def sass_ops(lib, kernel: str, ops) -> dict:
+    """{name: "N SASS, k OP, ..."} for each instantiation of ``kernel``:
+    its instruction count and the count of each opcode prefix in
+    ``ops``."""
+    return {name: ", ".join([f"{len(ins)} SASS"] + [
+        f"{sum(_opcode(t).startswith(op) for _, t in ins)} {op}"
+        for op in ops]) for name, ins in sass_functions(lib, kernel).items()}
+
+
+def sass_cell_loops(lib, kernel: str) -> dict:
+    """The innermost loops of each instantiation of ``kernel`` in the
+    SASS of a built library (``cuobjdump -sass``) that hold DP cells:
+    {name: [(instructions, cells), ...]} in address order.  A loop is
+    the span from a backward branch's target to the branch; its cells
+    are its FMNMX instructions over 3 (``dp_cell``'s min(vert, horiz),
+    min(diag, .) and the 3e38 clamp)."""
     loops = {}
-    for name, ins in funcs.items():
+    for name, ins in sass_functions(lib, kernel).items():
         spans = []
         for addr, text in ins:
-            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            op = _opcode(text)
             hexes = re.findall(r"0x([0-9a-f]+)", text)
             if op.startswith("BRA") and hexes and int(hexes[-1], 16) < addr:
                 spans.append((int(hexes[-1], 16), addr))
@@ -483,13 +544,23 @@ def build_report(libs) -> None:
     """One line per kernel: its registers, stack and spills as ptxas -v
     reported them; for the ticks' sweep (``stream_scored_kernel``), also
     its resident warps an SM and the SASS instructions per cell of each
-    of its cell loops."""
-    from repro_torch.kernels.dtw import stream
+    of its cell loops; for K7 (``dtw_matrix_kernel``) and K9 f32
+    (``flash_tf32_kernel``), its SASS instructions and the count of the
+    opcodes that carry its work (K7: FMNMX, three a cell; shuffles;
+    global stores; K9 f32: HGMMA)."""
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.dtw import matrix, stream
     for lib in libs:
         name = "?"
         props = ""
         loops = sass_cell_loops(lib, "stream_scored_kernel") \
             if lib is stream.LIB else {}
+        ops = {}
+        if lib is matrix.LIB:
+            ops = sass_ops(lib, "dtw_matrix_kernel",
+                           ("FMNMX", "SHFL", "STG"))
+        elif lib is attn.LIB:
+            ops = sass_ops(lib, "flash_tf32_kernel", ("HGMMA",))
         for line in lib.build_log.splitlines():
             m = re.search(r"entry function '(.*?)'", line)
             if m:
@@ -506,6 +577,8 @@ def build_report(libs) -> None:
                              f"loops " + ", ".join(
                                  f"{n} SASS / {c} cells = {n / c:.2f} a cell"
                                  for n, c in loops[name]))
+                if name in ops:
+                    extra = f"; {ops[name]}"
                 print(f"[build] {lib.name} {name}: {used}; {props}{extra}")
 
 
@@ -776,15 +849,17 @@ def check_k3(dev, errs: ErrLog) -> None:
 
 def check_k7(dev, errs: ErrLog) -> None:
     """K7 against its plain version, bitwise on dyadic and smooth data
-    (the DP is min and add only): the bank form (one query, ragged
-    references) and the pairs form (ragged queries), band None and 6,
-    chunks of 12, 40 and 70 rows and one of 1100 (two bands of 1024
-    rows); resumed from a carried row in chunks of 16, bitwise the
-    one-shot matrix; K7's rows against K3's rows advanced from the same
-    state (bitwise on any data), and K7's matrix at (xlen - 1, len_k - 1)
-    against K2's endpoint distances; the ``ops`` API bitwise
-    ``dtw_rows``."""
+    (the DP is min and add only): the bank form (one
+    query, ragged references) and the pairs form (ragged queries), band
+    None and 6, chunks of 12, 40 and 70 rows and one of 1100; references
+    longer than one 384-column panel (385-1000 columns) and shorter than a
+    strip; chunks of one row (C = 1); resumed from a carried row in
+    chunks of 16 and of 1, bitwise the one-shot matrix; K7's rows against
+    K3's rows advanced from the same state (bitwise on any data), and
+    K7's matrix at (xlen - 1, len_k - 1) against K2's endpoint distances;
+    the ``ops`` API bitwise ``dtw_rows``."""
     from repro_torch.core import dtw
+    from repro_torch.core.database import pack_series
     from repro_torch.kernels.dtw import matrix, ops, score, stream
     cases = [(dy, band, n) for dy in (True, False) for band in (None, 6)
              for n in (12, 40, 70)]
@@ -879,7 +954,7 @@ def check_k7(dev, errs: ErrLog) -> None:
         "ops pair distances"
     print("[K7] ops.dtw_batched, dtw_batched_pairs, dtw_distances and "
           "dtw_distances_pairs: one launch each, bitwise dtw_rows")
-    # a chunk longer than one block: two bands of rows
+    # a chunk of 1100 rows
     rng = np.random.default_rng(799)
     bank = _bank(rng, 3, 40, 50, False)
     ys = torch.tensor(bank.series, device=dev)
@@ -888,10 +963,10 @@ def check_k7(dev, errs: ErrLog) -> None:
     qn = torch.full((3,), 1100, dtype=torch.int32, device=dev)
     for band in (None, 6):
         for collect in (True, False):
-            rk, lk = matrix.dtw_rows(x, ys, qn, lens, band=band,
-                                     collect_rows=collect)
             rp, lp = matrix.dtw_rows_plain(x, ys, qn, lens, band=band,
                                            collect_rows=collect)
+            rk, lk = matrix.dtw_rows(x, ys, qn, lens, band=band,
+                                     collect_rows=collect)
             assert torch.equal(lk, lp) and (not collect or
                                             torch.equal(rk, rp))
     # edge shapes: one row, one column, band 0
@@ -902,12 +977,44 @@ def check_k7(dev, errs: ErrLog) -> None:
         x = torch.tensor(_series(rng, n, False), device=dev)
         ln = torch.full((3,), m, dtype=torch.int32, device=dev)
         qn = torch.full((3,), n, dtype=torch.int32, device=dev)
-        rk, lk = matrix.dtw_rows(x, ys, qn, ln, band=band)
         rp, lp = matrix.dtw_rows_plain(x, ys, qn, ln, band=band)
+        rk, lk = matrix.dtw_rows(x, ys, qn, ln, band=band)
         assert torch.equal(rk, rp) and torch.equal(lk, lp), (n, m, band)
-    print("[K7] N=1100 (two bands of rows), band None and 6, with and "
-          "without the rows; N x M = 1 x 1, 1 x 7, 7 x 1, and band 0: "
-          "bitwise the plain version")
+    # panels and one-row chunks: references of 1-1000 columns (up to three
+    # 384-column panels), the bank and pairs forms, with and without the
+    # rows; then the same query resumed a row at a time
+    lens_p = (1, 5, 11, 385, 500, 800, 1000, 40)
+    for j, (dyadic, band) in enumerate((d, b) for d in (True, False)
+                                       for b in (None, 6)):
+        rng = np.random.default_rng(780 + j)
+        bank = pack_series([_series(rng, n, dyadic) for n in lens_p])
+        k, m = bank.series.shape
+        ys = torch.tensor(bank.series, device=dev)
+        lens = torch.tensor(bank.lengths, device=dev)
+        n = 45
+        x = torch.tensor(_series(rng, n, dyadic), device=dev)
+        xs = torch.tensor(np.stack([_series(rng, n, dyadic)
+                                    for _ in range(k)]), device=dev)
+        qn = torch.full((k,), n, dtype=torch.int32, device=dev)
+        rp, lp = matrix.dtw_rows_plain(x, ys, qn, lens, band=band)
+        pp, _ = matrix.dtw_rows_plain(xs, ys, qn, lens, band=band)
+        for collect in (True, False):
+            rk, lk = matrix.dtw_rows(x, ys, qn, lens, band=band,
+                                     collect_rows=collect)
+            assert torch.equal(lk, lp) and (
+                not collect or torch.equal(rk, rp)), j
+        pk, _ = matrix.dtw_rows(xs, ys, qn, lens, band=band)
+        assert torch.equal(pk, pp), j
+        row = None
+        for i in range(n):
+            ck, row = matrix.dtw_rows(x[i:i + 1], ys, qn, lens, row=row,
+                                      n0=i, band=band)
+            assert torch.equal(ck[:, 0], rp[:, i]), (j, i)
+        assert torch.equal(row, lp)
+    print("[K7] N=1100, band None and 6, with and without the rows; N x M "
+          "= 1 x 1, 1 x 7, 7 x 1, and band 0; references of 1-1000 "
+          "columns (three panels), bank and pairs forms, resumed a row "
+          "(C = 1) at a time: bitwise the plain version")
 
 
 def check_k2_pairs(dev, errs: ErrLog) -> None:
@@ -1582,7 +1689,8 @@ def paper_matching(dev, errs: ErrLog, name: str):
     and the quickstart scenario (``AutoTuner(band=8)``, wordcount and
     terasort profiled over the paper's parameter sets, exim run 1
     matched), which must match wordcount and transfer its config.
-    Returns K2 pairs' kernel table row, timed on the match's inputs."""
+    Returns K2 pairs' kernel table row, timed on the match's inputs (the
+    kernel's device time, from the profiler)."""
     from repro_torch import mrsim
     from repro_torch.core import AutoTuner, ReferenceDB
     from repro_torch.core import dtw
@@ -1688,11 +1796,17 @@ def paper_matching(dev, errs: ErrLog, name: str):
     cells = band_cells(xl, rbank.lengths, band)
     pbytes = 4 * (p_ * nq + p_ + m * p_ + p_ + 2 * p_ + 2 * p_)
     pb = (1e3 * pbytes / mem_bps, 1e3 * ops_per_cell(3) * cells / dtw_ops)
-    t_ms = cuda_ms(lambda: score.score_pairs(*args, band=band), 20)
+    # an 8-pair launch: back-to-back calls measure the host's launch path
+    # as much as the kernel, so the row takes the kernel's device time
+    t_ev = cuda_ms(lambda: score.score_pairs(*args, band=band), 20)
+    t_dev = device_ms(lambda: score.score_pairs(*args, band=band), 20,
+                      "score_pairs_kernel")
     t_plain = cuda_ms(lambda: score.score_pairs_plain(*args, band=band), 2)
+    t_ms = t_ev if t_dev[0] is None else t_dev[0]
     print(f"[paper matching] K2 pairs (P={p_}, N={nq}, M={m}, band {band}) "
-          f"{t_ms:.4f} ms (plain {t_plain:.2f} ms, bound {max(pb):.5f} ms) "
-          f"[{name}]")
+          f"device time a launch (profiler) {_dev_str(t_dev)}, back-to-back "
+          f"calls (CUDA events) {t_ev:.4f} ms (plain {t_plain:.2f} ms, "
+          f"bound {max(pb):.5f} ms) [{name}]")
     return _row("K2-pairs", pairs_launches, errs, t_ms, t_plain, pb)
 
 
@@ -1786,17 +1900,26 @@ def full_matching(dev, errs: ErrLog, name: str, n_q: int = 8, k: int = 256,
     kbytes = 4 * (k * qlen * m + qlen + k * m + 2 * k)
     kb = (1e3 * kbytes / mem_bps, 1e3 * ops_per_cell(0) * k * qlen * m
           / dtw_ops)
-    t_ms = cuda_ms(lambda: matrix.dtw_rows(x, ys, qn, lens), 20)
+    # the full matrix, one resumed 16-row chunk, the last row only
+    calls = (lambda: matrix.dtw_rows(x, ys, qn, lens),
+             lambda: matrix.dtw_rows(xc, ys, qn, lens, row=row,
+                                     n0=qlen // 2),
+             lambda: matrix.dtw_rows(x, ys, qn, lens, collect_rows=False))
+    t_ms, t_chunk, t_last = (cuda_ms(f, 20) for f in calls)
+    d_ms, d_chunk, d_last = (device_ms(f, 20, "dtw_matrix_kernel")
+                             for f in calls)
     t_plain = cuda_ms(lambda: matrix.dtw_rows_plain(x, ys, qn, lens), 1)
-    t_chunk = cuda_ms(lambda: matrix.dtw_rows(xc, ys, qn, lens, row=row,
-                                              n0=qlen // 2), 20)
-    t_last = cuda_ms(lambda: matrix.dtw_rows(x, ys, qn, lens,
-                                             collect_rows=False), 20)
     print(f"[full matching] K7 full matrix {t_ms:.4f} ms (plain "
           f"{t_plain:.2f} ms, bound {max(kb):.4f} ms by "
           f"{'bytes' if kb[0] >= kb[1] else 'operations'}); the same "
           f"writing the last row only {t_last:.4f} ms; one resumed 16-row "
-          f"chunk {t_chunk:.4f} ms [{name}]")
+          f"chunk {t_chunk:.4f} ms (back-to-back calls, CUDA events); "
+          f"device time a launch (profiler): full {_dev_str(d_ms)}, chunk "
+          f"{_dev_str(d_chunk)}, last row {_dev_str(d_last)}; the parent's "
+          f"kernel (PERF.md): full {PARENT_MS['K7']}, chunk "
+          f"{PARENT_MS['K7-chunk']}, last row {PARENT_MS['K7-last']} ms; "
+          f"the matrix path's query {1e3 * mat_s / n_q:.1f} ms, K7 "
+          f"{100 * t_ms / (1e3 * mat_s / n_q):.2f}% of it [{name}]")
     return _row("K7", got["K7"], errs, t_ms, t_plain, kb)
 
 
@@ -1947,7 +2070,7 @@ def full_iir(dev, errs: ErrLog, name: str, bsz: int = 8192, t: int = 3600,
                 float(np.abs(yp[:64].cpu().numpy() - sub).max()))
     assert e_ref <= IIR_ORACLE_TOL, f"full-width K8 vs the oracle: {e_ref}"
     assert torch.isfinite(y).all()
-    mem_bps, f32_flops, _ = card_peaks(name)
+    mem_bps, f32_flops, _, _ = card_peaks(name)
     kb = (1e3 * 4 * (2 * bsz * t + 2 * (order + 1)) / mem_bps,
           1e3 * (2 + 4 * order) * bsz * t / f32_flops)
     t_ms = cuda_ms(lambda: kernel.iir_filter(bt, at, xt), 20)
@@ -1968,9 +2091,17 @@ def _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype):
             torch.randn((b, kv, t, dv), generator=gen, device=dev).to(dtype))
 
 
+def _at_offset(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous view that starts one element into its
+    storage (not 16-byte aligned): K9's element-wise loads."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
 def _k9_key(dtype) -> str:
-    """The kernel a K9 input dtype launches: bf16 the tensor-core one,
-    f32 the CUDA-core one."""
+    """The kernel a K9 input dtype launches: bf16 the bf16 ``wgmma``
+    one, f32 the split-TF32 one."""
     return "K9" if dtype == torch.bfloat16 else "K9-f32"
 
 
@@ -1980,8 +2111,11 @@ def check_k9(dev, errs: ErrLog) -> None:
     both ways (the top-left mask), dv != dh, dh 96 and 128, and tiles
     ragged against the kernels' 64 x 64 (S = T = 96); in bf16 also head
     dims padded in shared memory (dh 24, dv 48; dh 20, dv 12, whose rows
-    are not whole 16-byte chunks), dh 128 and S != T non-causal.  Each
-    call launches the kernel of its dtype once."""
+    are not whole 16-byte chunks), dh 128 and S != T non-causal; in f32
+    also rows that are not whole 16-byte chunks (dh 18, dv 10, S != T
+    both ways) and q, k, v that start one element into their storage
+    (dh 64 and 18), which take the element-wise loads.  Each call
+    launches the kernel of its dtype once."""
     from repro_torch.kernels.attention import kernel
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(1, 2, 2, 128, 128, 32, 32, 64, 64, True, f32),
@@ -1998,10 +2132,18 @@ def check_k9(dev, errs: ErrLog) -> None:
              (1, 4, 2, 128, 192, 24, 48, 64, 64, True, bf16),
              (1, 2, 1, 96, 96, 20, 12, 32, 32, True, bf16),
              (1, 6, 2, 256, 256, 128, 128, 128, 128, True, bf16),
-             (1, 2, 2, 128, 320, 128, 128, 64, 64, False, bf16)]
+             (1, 2, 2, 128, 320, 128, 128, 64, 64, False, bf16),
+             (1, 2, 1, 96, 160, 18, 10, 32, 32, True, f32),
+             (1, 4, 2, 128, 64, 18, 10, 64, 32, True, f32)]
+    # f32 inputs one element into their storage
+    offset = [(1, 4, 2, 128, 192, 64, 64, 64, 64, True, f32),
+              (1, 2, 1, 96, 160, 18, 10, 32, 32, True, f32)]
     gen = torch.Generator(device=dev).manual_seed(17)
-    for (b, h, kv, s, t, dh, dv, bq, bk, causal, dtype) in cases:
+    for (b, h, kv, s, t, dh, dv, bq, bk, causal, dtype), at in \
+            [(c, False) for c in cases] + [(c, True) for c in offset]:
         q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype)
+        if at:
+            q, k, v = (_at_offset(x) for x in (q, k, v))
         before = counts()
         ok = kernel.flash_forward(q, k, v, bq, bk, causal)
         torch.cuda.synchronize()
@@ -2009,10 +2151,12 @@ def check_k9(dev, errs: ErrLog) -> None:
         assert ok.dtype == dtype
         op = kernel.flash_forward_plain(q, k, v, bq, bk, causal)
         e = _attn_diff(errs, ok, op,
-                       f"K9 {(b, h, kv, s, t, dh, dv, causal, dtype)}")
+                       f"K9 {(b, h, kv, s, t, dh, dv, causal, dtype, at)}")
         print(f"[K9] B={b} H={h} KV={kv} S={s} T={t} dh={dh} dv={dv} "
-              f"causal={causal!s:5} {str(dtype)[6:]}: max abs err {e:.3g} "
-              f"({_attn_limit(ok)}; mean |o| {float(op.abs().mean()):.3g})")
+              f"causal={causal!s:5} {str(dtype)[6:]}"
+              f"{' (one element into storage)' if at else ''}: max abs err "
+              f"{e:.3g} ({_attn_limit(ok)}; mean |o| "
+              f"{float(op.abs().mean()):.3g})")
 
 
 def _attn_limit(o: torch.Tensor) -> str:
@@ -2090,11 +2234,11 @@ def full_attention(dev, errs: ErrLog, name: str, s: int = 4096,
     """K9 at full width (phase 17): one layer of granite-20b's causal
     prefill (configs/granite_20b.py: 48 heads, kv 1, head dim 128) at
     B = 1, S = T = 4096 through ``kernels.attention.flash_attention`` in
-    bf16 (the tensor-core kernel, one launch) and in float32 (the
-    CUDA-core kernel, one launch), held to the plain version (bf16 within
-    ATTN_BF16_TOL and one bf16 step, f32 within ATTN_F32_TOL), each timed
-    beside the plain version, its bound and ``scaled_dot_product_attention``
-    on the same inputs; the bf16 kernel's SASS must hold HGMMA.  Then
+    bf16 (one launch) and in float32 (the split-TF32 kernel, one
+    launch), held to the plain version (bf16 within ATTN_BF16_TOL and one
+    bf16 step, f32 within ATTN_F32_TOL), each timed beside the plain
+    version, its bound and ``scaled_dot_product_attention`` on the same
+    inputs; both kernels' SASS must hold HGMMA.  Then
     phi3-mini's MHA (configs/phi3_mini_3p8b.py: 32 heads, head dim 96) at
     S = 4096, checked the same way, untimed.  Returns the two kernel table
     rows."""
@@ -2107,16 +2251,20 @@ def full_attention(dev, errs: ErrLog, name: str, s: int = 4096,
     e_lib = float((_sdpa(q, k, v).double() - o.double()).abs().max())
     hgmma = sass_count(kernel.BF16_LIB, "HGMMA")
     assert hgmma > 0, "no HGMMA in the bf16 K9's SASS"
+    hgmma32 = sass_count(kernel.LIB, "HGMMA")
+    assert hgmma32 > 0, "no HGMMA in the f32 K9's SASS"
     pairs = s * (s + 1) // 2
     flops = 2 * (dh + dh) * pairs * b * h
-    mem_bps, f32_flops, bf16_flops = card_peaks(name)
+    mem_bps, f32_flops, bf16_flops, tf32_flops = card_peaks(name)
     rows = []
     for x, key in (((q, k, v), "K9"),
                    ((q.float(), k.float(), v.float()), "K9-f32")):
         width = x[0].element_size()
+        # f32: the three TF32 products of the split at the TF32 peak
         kb = (1e3 * width * (2 * b * h * s * dh + 2 * b * kv * s * dh)
               / mem_bps,
-              1e3 * flops / (bf16_flops if key == "K9" else f32_flops))
+              1e3 * flops / bf16_flops if key == "K9"
+              else 1e3 * 3 * flops / tf32_flops)
         t_ms = cuda_ms(lambda: kernel.flash_forward(*x), 5)
         t_plain = cuda_ms(lambda: kernel.flash_forward_plain(*x), 1)
         t_lib = cuda_ms(lambda: _sdpa(*x), 20)
@@ -2130,11 +2278,13 @@ def full_attention(dev, errs: ErrLog, name: str, s: int = 4096,
           f"{r16['ms']:.4f} ms (plain {r16['plain_ms']:.2f} ms, SDPA "
           f"{r16['library_ms']:.4f} ms, bound {r16['bound_ms']:.4f} ms by "
           f"{r16['bound_by']}, {1.5 * r16['bound_ms']:.4f} ms with the "
-          f"split P's second PV product; f32 CUDA-core floor "
-          f"{1e3 * flops / f32_flops:.3f} ms); f32 K9 (CUDA cores) "
-          f"{r32['ms']:.4f} ms (plain {r32['plain_ms']:.2f} ms, SDPA f32 "
-          f"{r32['library_ms']:.4f} ms, bound {r32['bound_ms']:.4f} ms) "
-          f"[{name}]")
+          f"split P's second PV product); f32 K9 (split TF32, {hgmma32} "
+          f"HGMMA in its SASS) {r32['ms']:.4f} ms (plain "
+          f"{r32['plain_ms']:.2f} ms, SDPA f32 {r32['library_ms']:.4f} ms, "
+          f"bound {r32['bound_ms']:.4f} ms by {r32['bound_by']}: three "
+          f"TF32 products at {tf32_flops / 1e12:g} TFLOP/s; the f32 "
+          f"CUDA-core floor {1e3 * flops / f32_flops:.3f} ms; the parent's "
+          f"CUDA-core kernel {PARENT_MS['K9-f32']} ms, PERF.md) [{name}]")
     del q, k, v, o, o32
     # phi3-mini's MHA, checked untimed
     h, dh = 32, 96
@@ -2221,7 +2371,7 @@ def full_gla(dev, errs: ErrLog, name: str, s: int = 4096, seed: int = 18):
     flops = b * h * nc * (chunk * (chunk + 1) // 2 * 2 * (dk + dv)
                           + 2 * 2 * chunk * dk * dv)
     nbytes = 2 * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
-    mem_bps, _, bf16_flops = card_peaks(name)
+    mem_bps, _, bf16_flops, _ = card_peaks(name)
     kb = (1e3 * nbytes / mem_bps, 1e3 * flops / bf16_flops)
     t_ms = cuda_ms(lambda: kernel.gla_chunks(q, k, v, g, chunk), 10)
     t_plain = cuda_ms(lambda: kernel.gla_chunks_plain(q, k, v, g, chunk), 2)

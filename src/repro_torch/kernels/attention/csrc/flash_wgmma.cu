@@ -6,8 +6,8 @@
 //
 // for q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv] in bfloat16, the
 // softmax and every sum in float32, o [B, H, S, dv] in bfloat16. Float32
-// inputs go to the CUDA-core kernel of flash.cu: TF32 products keep about
-// three decimal digits, too few for the float32 check.
+// inputs go to flash_tf32.cu, which splits each operand into two TF32
+// parts.
 //
 // K9 replaces repro/kernels/attention/kernel.py::_flash_kernel (entry
 // flash_attention_kernel_call). Its conventions are kept but one: masked
@@ -44,8 +44,8 @@
 // P rounded to bfloat16 alone is off by up to 2^-9 of each weight, which
 // moves an output past one bfloat16 step of the float32 reference on ~10%
 // of the elements at S = 4096; the split keeps P to ~2^-17 at 1.5x the
-// reference's flops. The products, the fence, commit and wait are written
-// in PTX.
+// reference's flops. The products are written in PTX, the fence, commit
+// and wait too (wgmma.cuh).
 //
 // Bound on this card: operations. Granite-20B's causal prefill layer
 // (H = 48, KV = 1, S = T = 4096, dh = dv = 128) needs 206.2 GFLOP (S (S +
@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -67,17 +68,6 @@ constexpr uint32_t kAtom = 64 * 128;  // a 64-row x 64-column bf16 sub-tile
 template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes() {
   return (D / 64) * kAtom;
-}
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  auto enc = [](uint32_t x) { return (uint64_t)((x & 0x3FFFF) >> 4); };
-  return enc(addr) | (enc(lbo) << 16) | (enc(sbo) << 32) | (1ull << 62);
 }
 
 // Rows [row0, row0 + 64) and columns [0, cols) of the row-major
@@ -126,35 +116,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     }
   }
 }
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins an accumulator register at this point of the program: the
-// compiler may not move its reads or writes across a wgmma wait or fence.
-__device__ __forceinline__ void pin(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-
-#define WG_D8(d, i)                                                    \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D32(d) WG_D8(d, 0), WG_D8(d, 8), WG_D8(d, 16), WG_D8(d, 24)
-#define WG_D64(d) \
-  WG_D32(d), WG_D8(d, 32), WG_D8(d, 40), WG_D8(d, 48), WG_D8(d, 56)
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A and B K-major in shared
 // memory; scale_d = 0 overwrites d.
@@ -291,7 +252,7 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
                        int causal, int vec) {
   extern __shared__ uint8_t smem_raw[];
   constexpr uint32_t TB = tile_bytes<D>();
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
   const int wg = tid / kThreads, wt = tid % kThreads;
   const int warp = wt / 32, g = (wt % 32) / 4, qd = wt % 4;
@@ -316,9 +277,9 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
   for (int st = 0; st < 2 && st < last; ++st) {
     load_tile<D, kThreads * NH>(sK(st), kp, st * kBK, Tk, dh, vec, tid);
     load_tile<D, kThreads * NH>(sV(st), vp, st * kBK, Tk, dv, vec, tid);
-    cp_async_commit();
+    wgmma::cp_async_commit();
   }
-  if (last == 0) cp_async_commit();
+  if (last == 0) wgmma::cp_async_commit();
 
   constexpr int NO = D / 2;  // output accumulators a thread: D / 8 x 4
   float acc[NO];
@@ -331,28 +292,28 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     const int st = kt & 1;
     const int t0 = kt * kBK;
     if (kt + 1 < last)
-      cp_async_wait<1>();
+      wgmma::cp_async_wait<1>();
     else
-      cp_async_wait<0>();
+      wgmma::cp_async_wait<0>();
     // the tile's generic-proxy stores become visible to wgmma (the async
     // proxy), then to every thread of the block
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wgmma::fence_proxy_async();
     __syncthreads();
 
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    wg_fence();
+    wgmma::fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
-      wgmma_ss_n64(s, desc(sQ + off, 16, 1024), desc(sK(st) + off, 16, 1024),
-                   kk > 0);
+      wgmma_ss_n64(s, wgmma::desc(sQ + off, 16, 1024),
+                   wgmma::desc(sK(st) + off, 16, 1024), kk > 0);
     }
-    wg_commit();
-    wg_wait();
+    wgmma::commit();
+    wgmma::wait();
 #pragma unroll
-    for (int i = 0; i < 32; ++i) pin(s[i]);
+    for (int i = 0; i < 32; ++i) wgmma::pin(s[i]);
 
     // scale after the product, mask (only a tile that crosses the
     // diagonal or the ragged T edge needs it), online softmax
@@ -402,28 +363,30 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
                  __float2bfloat16_rn(__fsub_rn(p1, __bfloat162float(h1))));
       }
 #pragma unroll
-    for (int i = 0; i < NO; ++i) pin(acc[i]);
-    wg_fence();
+    for (int i = 0; i < NO; ++i) wgmma::pin(acc[i]);
+    wgmma::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::run(acc, phi[kk], desc(sV(st) + kk * 2048, kAtom, 1024));
+      WgmmaRS<D>::run(acc, phi[kk],
+                      wgmma::desc(sV(st) + kk * 2048, kAtom, 1024));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::run(acc, plo[kk], desc(sV(st) + kk * 2048, kAtom, 1024));
-    wg_commit();
-    wg_wait();
+      WgmmaRS<D>::run(acc, plo[kk],
+                      wgmma::desc(sV(st) + kk * 2048, kAtom, 1024));
+    wgmma::commit();
+    wgmma::wait();
 #pragma unroll
-    for (int i = 0; i < NO; ++i) pin(acc[i]);
+    for (int i = 0; i < NO; ++i) wgmma::pin(acc[i]);
     __syncthreads();  // every read of stage st is done
     if (kt + 2 < last) {
       load_tile<D, kThreads * NH>(sK(st), kp, (kt + 2) * kBK, Tk, dh, vec,
                                   tid);
       load_tile<D, kThreads * NH>(sV(st), vp, (kt + 2) * kBK, Tk, dv, vec,
                                   tid);
-      cp_async_commit();
+      wgmma::cp_async_commit();
     }
   }
-  cp_async_wait<0>();
+  wgmma::cp_async_wait<0>();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;

@@ -16,23 +16,25 @@ The numpy oracle ``ref.attention_ref`` aligns the mask bottom-right
 follows the kernel.
 
 * :func:`flash_forward` is the wrapper.  CUDA tensors launch a kernel
-  (or raise), chosen by dtype: bfloat16 inputs ``csrc/flash_wgmma.cu``,
-  on the tensor cores (``wgmma``; the score is scaled after the product,
-  since a scaled q is not representable in bfloat16, and P enters the PV
-  product as two bfloat16 parts, P_hi + P_lo); float32 inputs
-  ``csrc/flash.cu`` on CUDA cores (TF32 would keep too few digits for
-  the float32 tolerance).  CPU tensors take :func:`flash_forward_plain`.
-  ``BF16_LIB.launches`` and ``LIB.launches`` count the two kernels'
-  launches.
+  (or raise), chosen by dtype, both on the tensor cores (``wgmma``):
+  bfloat16 inputs ``csrc/flash_wgmma.cu`` (the score is scaled after the
+  product, since a scaled q is not representable in bfloat16, and P
+  enters the PV product as two bfloat16 parts, P_hi + P_lo); float32
+  inputs ``csrc/flash_tf32.cu``, every operand split into two TF32
+  parts and each product taken as three TF32 products (one would keep
+  too few digits for the float32 tolerance).  CPU tensors take
+  :func:`flash_forward_plain`.  ``BF16_LIB.launches`` and
+  ``LIB.launches`` count the two kernels' launches.
 * :func:`flash_forward_plain` is the reference kernel's block loop: for
   each ``bq`` query block, an online softmax over the ``bk`` kv blocks up
   to the causal frontier, in float32.  Its products go through
   ``torch.matmul``; the CUDA kernels' never do.
 
 ``bq`` and ``bk`` are the reference's tiling: S and T must be multiples
-of them, as there.  The CUDA kernels tile by 64 x 64 whatever they are;
-a kv block past the frontier contributes exact zeros, so the tiling
-changes only the order of the float32 sums.
+of them, as there.  The CUDA kernels tile by 64 query rows and 64 (bf16)
+or 32 (f32) kv rows whatever they are; a kv block past the frontier
+contributes exact zeros, so the tiling changes only the order of the
+float32 sums.
 """
 
 from __future__ import annotations
@@ -59,16 +61,17 @@ MAX_HEAD_DIM = 128
 #: The masked score of the reference kernel.
 NEG = -1.0e30
 
-#: K9 for float32 inputs, on CUDA cores.
+_WGMMA_HEADER = os.path.join(_CSRC, "wgmma.cuh")
+#: K9 for float32 inputs, on the tensor cores as split TF32.
 LIB = KernelLib(
-    "flash", os.path.join(_CSRC, "flash.cu"),
-    headers=(FLOAT_IO_HEADER,),
-    signatures={"flash_attention_fwd": (
-        [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _P], ctypes.c_int)})
+    "flash_tf32", os.path.join(_CSRC, "flash_tf32.cu"),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
+    signatures={"flash_attention_fwd_tf32": (
+        [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 #: K9 for bfloat16 inputs, on the tensor cores.
 BF16_LIB = KernelLib(
     "flash_wgmma", os.path.join(_CSRC, "flash_wgmma.cu"),
-    headers=(FLOAT_IO_HEADER,),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
     signatures={"flash_attention_fwd_bf16": (
         [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 
@@ -100,8 +103,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K9: attention of q [B, H, S, dh] over k [B, KV, T, dh] and v
     [B, KV, T, dv] -> o [B, H, S, dv] in q's dtype.  CUDA tensors launch
     the kernel of their dtype (dh, dv <= MAX_HEAD_DIM): bfloat16 the
-    tensor-core one, float32 the CUDA-core one; CPU tensors take the
-    plain version."""
+    bf16 one, float32 the split-TF32 one; CPU tensors take the plain
+    version."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, bq, bk, causal)
@@ -117,20 +120,18 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = float(np.float32(dh ** -0.5))
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if q.dtype == torch.bfloat16:
-        # whole 16-byte rows go by cp.async; other head dims element-wise
-        vec = dh % 8 == 0 and dv % 8 == 0 and all(p % 16 == 0
+    # whole 16-byte chunks of a row go by one load; other head dims
+    # element-wise
+    per = 16 // q.element_size()
+    vec = dh % per == 0 and dv % per == 0 and all(p % 16 == 0
                                                   for p in ptrs[:3])
-        err = BF16_LIB.get().flash_attention_fwd_bf16(
-            *ptrs, b, h, kv, s, t, dh, dv, scale, int(causal), int(vec),
-            stream)
-        check_launch("flash_attention_fwd_bf16", err)
-        BF16_LIB.launches += 1
-    else:
-        err = LIB.get().flash_attention_fwd(
-            *ptrs, b, h, kv, s, t, dh, dv, scale, int(causal), stream)
-        check_launch("flash_attention_fwd", err)
-        LIB.launches += 1
+    lib = BF16_LIB if q.dtype == torch.bfloat16 else LIB
+    fn = "flash_attention_fwd_bf16" if lib is BF16_LIB \
+        else "flash_attention_fwd_tf32"
+    err = getattr(lib.get(), fn)(*ptrs, b, h, kv, s, t, dh, dv, scale,
+                                 int(causal), int(vec), stream)
+    check_launch(fn, err)
+    lib.launches += 1
     return o
 
 

@@ -1,8 +1,9 @@
-// Shared by the attention kernels, K9 (attention/csrc/flash.cu and
-// flash_wgmma.cu) and K10 (gla/csrc/gla.cu): loads of float32 or bfloat16 inputs as float32, stores
-// of float32 results rounded to nearest even into the output's dtype, the
-// choice of a kernel's head-dim instantiation, and a launch that opts in to
-// more than 48 KB of dynamic shared memory.
+// Shared by the attention kernels, K9 (attention/csrc/flash_tf32.cu and
+// flash_wgmma.cu) and K10 (gla/csrc/gla.cu): loads of float32 or bfloat16
+// inputs as float32, stores of float32 results rounded to nearest even
+// into the output's dtype, the choice of a kernel's head-dim
+// instantiation, and a launch that opts in to more than 48 KB of dynamic
+// shared memory.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,7 +12,9 @@ bank (last row only).
 
 * :func:`dtw_rows` is the wrapper: CUDA tensors launch
   ``csrc/matrix.cu`` (or raise), CPU tensors take :func:`dtw_rows_plain`.
-  ``LIB.launches`` counts the launches.
+  ``LIB.launches`` counts the launches.  The kernel runs a warp per pair
+  as a wavefront of 32 column strips, the verdict scorers' schedule;
+  ``tests/test_torch_matrix_schedule.py`` replays it in numpy.
 * :func:`dtw_rows_plain` evaluates the same cells along anti-diagonals
   through the ticks' plain sweep (``stream._extend_plain``),
   ``min(d + min(min(diag, vert), horiz), 3e38)`` with the same operations
@@ -46,10 +48,11 @@ _I = ctypes.c_int
 
 LIB = KernelLib(
     "dtw_matrix", os.path.join(_CSRC, "matrix.cu"),
+    headers=(os.path.join(_CSRC, "dtw_sweep.cuh"),),
     signatures={"dtw_matrix_rows": (
-        [_P, ctypes.c_longlong] + [_P] * 6 + [_I] * 5 + [_P],
-        ctypes.c_int)})
-
+        [_P, ctypes.c_longlong] + [_P] * 7 + [_I] * 5 + [_P],
+        ctypes.c_int),
+        "dtw_matrix_panel": ([], ctypes.c_int)})
 
 def lengths_or_full(lengths, k: int, m: int,
                     dev: torch.device) -> torch.Tensor:
@@ -102,11 +105,16 @@ def dtw_rows(xs, ys, qlens, rlens, row=None, n0: int = 0,
     rows = torch.empty((p, c, m), dtype=torch.float32, device=dev) \
         if collect_rows else None
     last = torch.empty((p, m), dtype=torch.float32, device=dev)
-    err = LIB.get().dtw_matrix_rows(
+    lib = LIB.get()
+    # a reference longer than one panel: the panels' [P, C] edge columns
+    edges = torch.empty((p, c), dtype=torch.float32, device=dev) \
+        if m > lib.dtw_matrix_panel() else None
+    err = lib.dtw_matrix_rows(
         xs.data_ptr(), 0 if xs.dim() == 1 else c, ys.data_ptr(),
         None if row is None else row.data_ptr(), qlens.data_ptr(),
         rlens.data_ptr(), None if rows is None else rows.data_ptr(),
-        last.data_ptr(), p, c, m, int(n0), -1 if band is None else int(band),
+        last.data_ptr(), None if edges is None else edges.data_ptr(), p, c,
+        m, int(n0), -1 if band is None else int(band),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("dtw_matrix_rows", err)
     LIB.launches += 1

@@ -219,3 +219,141 @@ def test_wgmma_precision_split_p(split):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=BF16_TOL)
     else:
         assert float(bad.float().mean()) > 0.01, int(bad.sum())
+
+
+# --- the float32 kernel's split TF32 (csrc/flash_tf32.cu), emulated ---
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 explicit mantissa bits
+    (the low 13 of 23 cleared), to nearest, ties away from zero."""
+    u = x.float().contiguous().numpy().view(np.uint32)
+    r = ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return torch.from_numpy(r.copy())
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _emulate_tf32(q, k, v, three: bool) -> torch.Tensor:
+    """The float32 tensor-core kernel's precision in torch, causal, over
+    its 32-key tiles: q scaled (rounded to float32), then each operand
+    split into TF32 parts and every product taken as hi lo + lo hi + hi hi,
+    the small products first (``three``), or as one TF32 product; the
+    online softmax in float32.  Tiles past a row's frontier add exact
+    zeros, so every row runs every tile."""
+    b, h, s, dh = q.shape
+    g = h // k.shape[1]
+    scale = float(np.float32(dh ** -0.5))
+    qh, ql = _split(q * scale)
+    kf = k.repeat_interleave(g, dim=1)
+    vf = v.repeat_interleave(g, dim=1)
+    m = torch.full((b, h, s), tkernel.NEG)
+    l = torch.zeros((b, h, s))
+    o = torch.zeros((b, h, s, vf.shape[-1]))
+    rows = torch.arange(s)[:, None]
+
+    def dot(ah, al, bh, bl):
+        if not three:
+            return torch.matmul(ah, bh)
+        return (torch.matmul(ah, bl) + torch.matmul(al, bh)) \
+            + torch.matmul(ah, bh)
+
+    for t0 in range(0, kf.shape[2], 32):
+        kh, kl = _split(kf[:, :, t0:t0 + 32])
+        vh, vl = _split(vf[:, :, t0:t0 + 32])
+        sc = dot(qh, ql, kh.transpose(-1, -2), kl.transpose(-1, -2))
+        sc = torch.where(t0 + torch.arange(32)[None] <= rows, sc,
+                         tkernel.NEG)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        ph, pl = _split(p)
+        o = o * alpha[..., None] + dot(ph, pl, vh, vl)
+        m = m_new
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def test_tf32_rounding_emulation():
+    """The emulated ``cvt.rna.tf32.f32``: ties go away from zero, and the
+    two parts of a float32 hold it to ~2^-22."""
+    one = np.float32(1.0)
+    half_ulp = np.float32(2.0 ** -11)
+    x = torch.tensor([one + half_ulp, one + half_ulp - np.float32(2 ** -23),
+                      -(one + half_ulp), 3.0, 0.0], dtype=torch.float32)
+    want = [1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 3.0, 0.0]
+    assert _tf32(x).tolist() == want
+    a = torch.tensor(np.random.default_rng(3).normal(size=4096)
+                     .astype(np.float32))
+    hi, lo = _split(a)
+    assert bool(((_tf32(hi) == hi) & (_tf32(lo) == lo)).all())
+    rel = ((hi.double() + lo.double() - a.double()).abs()
+           / a.double().abs()).max()
+    assert float(rel) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("three", [True, False])
+@pytest.mark.parametrize("dh", [128, 96])
+def test_tf32_precision_three_products(dh, three):
+    """Why the float32 kernel takes three TF32 products: emulated at its
+    precision on a seeded causal GQA layer (H 2, KV 1, S 1024), its
+    output is held to the plain version with the on-card tolerance,
+    F32_TOL (``chip_smoke.py``'s ATTN_F32_TOL).  Three products pass at
+    dh 128 and 96; one TF32 product is witnessed to violate it."""
+    q, k, v = (torch.tensor(t) for t in
+               _qkv(np.random.default_rng(dh), 1, 2, 1, 1024, 1024, dh))
+    want = tkernel.flash_forward_plain(q, k, v)
+    err = float((_emulate_tf32(q, k, v, three) - want).abs().max())
+    if three:
+        assert err <= F32_TOL, err
+    else:
+        assert err > F32_TOL, err
+
+
+def test_tf32_p_fragment_and_permuted_v_staging():
+    """P enters the PV product from registers: the m64n32 accumulator's
+    layout (register 4 j + 2 h + e of thread t: row 16 w + g + 8 h, column
+    8 j + 2 qd + e) read as the TF32 A fragments of four k8 steps
+    (register r: row 16 w + g + 8 (r % 2), column qd + 4 (r / 2)), against
+    Vt staged by the kernel's thread units (unit u: chunk u % 8 of Vt rows
+    4 (u // 8) ..), which put kv row 8 j + sigma(c) at position 8 j + c.
+    Every A element and every Vt position is written once, and sum_j A_j
+    Vt_j^T is exactly P V (integer data: every sum exact)."""
+    rng = np.random.default_rng(9)
+    d = 24
+    p = rng.integers(-8, 9, (64, 32)).astype(np.float64)
+    v = rng.integers(-8, 9, (32, d)).astype(np.float64)
+    # the accumulator of each of the 128 threads
+    acc = np.empty((128, 16))
+    for t in range(128):
+        w, g, qd = t // 32, (t % 32) // 4, t % 4
+        for j in range(4):
+            for h in range(2):
+                for e in range(2):
+                    acc[t, 4 * j + 2 * h + e] = p[16 * w + g + 8 * h,
+                                                  8 * j + 2 * qd + e]
+    # the kernel's staging of Vt [d, 32]: unit u, kv rows 8 (ch / 2) +
+    # ch % 2 + 2 m at positions 4 ch + m of Vt rows 4 nv + e
+    vt = np.full((d, 32), np.nan)
+    for u in range(2 * d):
+        ch, nv = u % 8, u // 8
+        for m in range(4):
+            for e in range(4):
+                assert np.isnan(vt[4 * nv + e, 4 * ch + m])
+                vt[4 * nv + e, 4 * ch + m] = v[8 * (ch // 2) + ch % 2 + 2 * m,
+                                               4 * nv + e]
+    assert not np.isnan(vt).any()
+    o = np.zeros((64, d))
+    for j in range(4):
+        a = np.full((64, 8), np.nan)
+        for t in range(128):
+            w, g, qd = t // 32, (t % 32) // 4, t % 4
+            for r in range(4):
+                row, col = 16 * w + g + 8 * (r % 2), qd + 4 * (r // 2)
+                assert np.isnan(a[row, col])
+                a[row, col] = acc[t, 4 * j + 2 * (r % 2) + r // 2]
+        assert not np.isnan(a).any()
+        o += a @ vt[:, 8 * j:8 * j + 8].T
+    np.testing.assert_array_equal(o, p @ v)
