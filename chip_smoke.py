@@ -196,12 +196,14 @@ ATTN_BF16_TOL = 5e-2
 #: bfloat16 step besides.
 GLA_RTOL, GLA_ATOL = 1e-4, 1e-5
 
-#: The earlier designs' times of K7 and K9 f32 (ms; PERF.md's kernel
-#: table, NVIDIA H100 80GB HBM3, 700.00 W; CUDA-event means): K7's full
-#: matrix (K=256, N=384, M=360), one resumed 16-row chunk and the last row
-#: only; K9 f32 at granite's layer.  Printed beside this run's times.
+#: The earlier designs' times of K7, K9 f32, K8 and K10 (ms; PERF.md's
+#: kernel table, NVIDIA H100 80GB HBM3, 700.00 W; CUDA-event means): K7's
+#: full matrix (K=256, N=384, M=360), one resumed 16-row chunk and the
+#: last row only; K9 f32 at granite's layer; K8 at the 8192 x 3600
+#: de-noise and K10 at zamba2's scan (PR 18's call J).  Printed beside
+#: this run's times.
 PARENT_MS = {"K7": 0.8538, "K7-chunk": 0.0667, "K7-last": 0.2104,
-             "K9-f32": 8.0395}
+             "K9-f32": 8.0395, "K8": 0.2960, "K10": 2.4236}
 
 #: Early-decision fractions of the reference on the paper scenario
 #: (BENCH_streaming.json rows stream_early_p0..p3).
@@ -445,7 +447,8 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
 
 _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
-                        r"flash_tf32_kernel|flash_wgmma_kernel|gla_kernel)"
+                        r"flash_tf32_kernel|flash_wgmma_kernel|"
+                        r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel)"
                         r"(?:I(.*?)EE)?")
 
 def kernel_name(mangled: str):
@@ -479,8 +482,8 @@ def sass_functions(lib, kernel: str) -> dict:
     for line in sass(lib).splitlines():
         if "Function :" in line:
             name = kernel_name(line.split("Function :", 1)[1].strip())
-            cur = funcs.setdefault(name, []) if name and name.startswith(
-                kernel + "<") else None
+            cur = funcs.setdefault(name, []) if name and (
+                name == kernel or name.startswith(kernel + "<")) else None
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if cur is not None and m:
@@ -547,7 +550,11 @@ def build_report(libs) -> None:
     of its cell loops; for K7 (``dtw_matrix_kernel``) and K9 f32
     (``flash_tf32_kernel``), its SASS instructions and the count of the
     opcodes that carry its work (K7: FMNMX, three a cell; shuffles;
-    global stores; K9 f32: HGMMA)."""
+    global stores; K9 f32: HGMMA), for K10's bf16 kernel
+    (``gla_ws_kernel``, ``gla_mma_kernel``) its warpgroup-MMA count,
+    HGMMA, and for K8
+    (``iir_kernel``) its asynchronous copies, LDGSTS."""
+    from repro_torch.kernels import gla, iir
     from repro_torch.kernels.attention import kernel as attn
     from repro_torch.kernels.dtw import matrix, stream
     for lib in libs:
@@ -561,6 +568,11 @@ def build_report(libs) -> None:
                            ("FMNMX", "SHFL", "STG"))
         elif lib is attn.LIB:
             ops = sass_ops(lib, "flash_tf32_kernel", ("HGMMA",))
+        elif lib is gla.kernel.LIB:
+            ops = {**sass_ops(lib, "gla_ws_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "gla_mma_kernel", ("HGMMA",))}
+        elif lib is iir.kernel.LIB:
+            ops = sass_ops(lib, "iir_kernel", ("LDGSTS",))
         for line in lib.build_log.splitlines():
             m = re.search(r"entry function '(.*?)'", line)
             if m:
@@ -1934,19 +1946,27 @@ def check_k8(dev, errs: ErrLog) -> None:
     """K8 against its plain version (and both against the float64
     oracle) on the reference's IIR test shapes (tests/test_kernels.py),
     the paper's order 6 at 130 x 512, and every order 1-8 (each a
-    template instantiation): bitwise expected, the differing elements
+    template instantiation); then the ring's edges: one series (B = 1) of
+    3600 samples, T = 1, T shorter than a 64-sample tile (40: whole
+    16-byte copies; 13: 4-byte copies) and x one element into its storage
+    (4-byte copies at T = 512): bitwise expected, the differing elements
     counted, every difference within IIR_TOL."""
     from repro_torch.core.filters import cheby1_design
     from repro_torch.kernels.iir import kernel, lfilter_ref
-    cases = [(6, 0.125, 3, 100), (4, 0.3, 130, 64), (2, 0.5, 1, 257),
-             (6, 0.125, 130, 512)]
-    cases += [(order, 0.3, 37, 70) for order in range(1, 9)]
-    for order, cutoff, bsz, t in cases:
+    cases = [(6, 0.125, 3, 100, False), (4, 0.3, 130, 64, False),
+             (2, 0.5, 1, 257, False), (6, 0.125, 130, 512, False)]
+    cases += [(order, 0.3, 37, 70, False) for order in range(1, 9)]
+    cases += [(6, 0.125, 1, 3600, False), (6, 0.125, 37, 1, False),
+              (4, 0.3, 37, 40, False), (4, 0.3, 5, 13, False),
+              (6, 0.125, 130, 512, True)]
+    for order, cutoff, bsz, t, at_offset in cases:
         b, a = cheby1_design(order, 1.0, cutoff)
         x = np.random.default_rng(bsz * t).normal(size=(bsz, t)) \
             .astype(np.float32)
         bt, at = kernel.coeffs(b, a, dev)
         xt = torch.tensor(x, device=dev)
+        if at_offset:
+            xt = _at_offset(xt)
         before = counts()
         yk = kernel.iir_filter(bt, at, xt)
         torch.cuda.synchronize()
@@ -1957,7 +1977,8 @@ def check_k8(dev, errs: ErrLog) -> None:
         e_ref = float(np.abs(yk.cpu().numpy() - lfilter_ref(b, a, x)).max())
         assert e <= IIR_TOL and e_ref <= IIR_TOL, \
             f"K8 order {order} {bsz}x{t}: {e} vs plain, {e_ref} vs oracle"
-        print(f"[K8] order {order} cutoff {cutoff} B={bsz} T={t}: {nd} of "
+        print(f"[K8] order {order} cutoff {cutoff} B={bsz} T={t}"
+              f"{' (one element into storage)' if at_offset else ''}: {nd} of "
               f"{yk.numel()} elements differ from the plain version (max "
               f"{e:.3g}), oracle within {e_ref:.3g} (tol {IIR_TOL:g})")
 
@@ -2017,8 +2038,9 @@ def full_iir(dev, errs: ErrLog, name: str, bsz: int = 8192, t: int = 3600,
     run) through ``kernels.iir.lfilter_batched``: one launch, held to the
     plain version (differing elements counted, each within IIR_TOL) and,
     on 64 series, both to the float64 oracle within IIR_ORACLE_TOL; timed
-    beside the plain version and the bound.  Returns K8's kernel table
-    row."""
+    beside the plain version, the bound and the parent's time, with a
+    launch's device time from ``torch.profiler``; its SASS must hold
+    asynchronous copies (LDGSTS).  Returns K8's kernel table row."""
     from repro_torch.core import filters
     from repro_torch.kernels.iir import kernel, lfilter_batched, lfilter_ref
     b, a = filters.cheby1_design(filters.DEFAULT_ORDER,
@@ -2073,13 +2095,19 @@ def full_iir(dev, errs: ErrLog, name: str, bsz: int = 8192, t: int = 3600,
     mem_bps, f32_flops, _, _ = card_peaks(name)
     kb = (1e3 * 4 * (2 * bsz * t + 2 * (order + 1)) / mem_bps,
           1e3 * (2 + 4 * order) * bsz * t / f32_flops)
+    ldgsts = sass_count(kernel.LIB, "LDGSTS")
+    assert ldgsts > 0, "no LDGSTS (cp.async) in K8's SASS"
     t_ms = cuda_ms(lambda: kernel.iir_filter(bt, at, xt), 20)
+    t_dev = device_ms(lambda: kernel.iir_filter(bt, at, xt), 20,
+                      "iir_kernel")
     t_plain = cuda_ms(lambda: kernel.iir_filter_plain(bt, at, xt), 1)
     print(f"[full IIR] order {order}, B={bsz} x T={t}: one launch; {nd} of "
           f"{y.numel()} elements, in {nrows} of {bsz} series, differ from "
           f"the plain version (max {e:.3g}, tol {IIR_TOL:g}); 64 series "
           f"within {e_ref:.3g} of the float64 oracle (tol "
-          f"{IIR_ORACLE_TOL:g}); K8 {t_ms:.4f} ms (plain {t_plain:.2f} ms, "
+          f"{IIR_ORACLE_TOL:g}); K8 ({ldgsts} LDGSTS in its SASS) "
+          f"{t_ms:.4f} ms, device {_dev_str(t_dev)} (the parent's "
+          f"{PARENT_MS['K8']} ms, PERF.md; plain {t_plain:.2f} ms, "
           f"bound {max(kb):.4f} ms by "
           f"{'bytes' if kb[0] >= kb[1] else 'operations'}) [{name}]")
     return _row("K8", got["K8"], errs, t_ms, t_plain, kb)
@@ -2093,7 +2121,8 @@ def _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, dtype):
 
 def _at_offset(x: torch.Tensor) -> torch.Tensor:
     """x's values in a contiguous view that starts one element into its
-    storage (not 16-byte aligned): K9's element-wise loads."""
+    storage (not 16-byte aligned): the element-wise loads of K9 and K10,
+    K8's 4-byte copies."""
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     buf[1:].copy_(x.reshape(-1))
     return buf[1:].view(x.shape)
@@ -2318,16 +2347,38 @@ def _gla_diff(errs: ErrLog, got, want, bf16: bool) -> int:
 def check_k10(dev, errs: ErrLog) -> None:
     """K10 against its plain version on the reference's test shapes
     (tests/test_kernels.py: three, and the model-path case), dk = 128,
-    chunks of 256 (four 64-row tiles) and of 24 (a ragged tile), bf16."""
+    chunks of 256 (four 64-row tiles) and of 24 (a ragged tile), bf16;
+    then the chunk-parallel kernels' edges, in bf16 (the tensor-core
+    kernel) and f32: chunk 24, dk 128 / dv 96, one chunk a head (nc = 1,
+    no predecessor), a long look-back chain (chunk 8, nc = 64), head dims
+    that are not whole 16-byte rows (dk 8 / dv 4, dk 20 / dv 12), chunks
+    of 192 and 512 (passes of 128 query rows, one of them partial), and
+    q, k, v one element into their storage (the element-wise loads)."""
     from repro_torch.kernels.gla import kernel
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(1, 2, 32, 8, 8, 8, f32), (2, 3, 64, 16, 8, 16, f32),
              (1, 1, 128, 64, 64, 32, f32), (1, 2, 64, 8, 4, 16, f32),
              (1, 2, 256, 128, 96, 64, f32), (1, 3, 512, 64, 64, 256, f32),
              (2, 2, 96, 32, 16, 24, f32), (1, 3, 512, 64, 64, 256, bf16)]
+    cases = [c + (False,) for c in cases] + [
+        (2, 2, 96, 32, 16, 24, bf16, False),
+        (1, 2, 256, 128, 96, 64, bf16, False),
+        (1, 2, 64, 64, 64, 64, bf16, False),
+        (1, 2, 64, 64, 64, 64, f32, False),
+        (1, 3, 512, 16, 16, 8, bf16, False),
+        (1, 3, 512, 16, 16, 8, f32, False),
+        (1, 2, 64, 8, 4, 16, bf16, False),
+        (1, 2, 160, 20, 12, 32, bf16, False),
+        (1, 2, 384, 64, 64, 192, bf16, False),
+        (1, 1, 1024, 128, 128, 512, bf16, False),
+        (1, 3, 512, 64, 64, 256, bf16, True),
+        (2, 2, 96, 32, 16, 24, bf16, True),
+        (2, 2, 96, 32, 16, 24, f32, True)]
     gen = torch.Generator(device=dev).manual_seed(18)
-    for (b, h, s, dk, dv, chunk, dtype) in cases:
+    for (b, h, s, dk, dv, chunk, dtype, at) in cases:
         q, k, v, la = _gla_inputs(gen, dev, b, h, s, dk, dv, dtype)
+        if at:
+            q, k, v = (_at_offset(x) for x in (q, k, v))
         g = kernel.chunk_cumsum(la, chunk)
         before = counts()
         res = kernel.gla_chunks(q, k, v, g, chunk)
@@ -2336,7 +2387,8 @@ def check_k10(dev, errs: ErrLog) -> None:
         nd = _gla_diff(errs, res, kernel.gla_chunks_plain(q, k, v, g, chunk),
                        dtype == bf16)
         print(f"[K10] B={b} H={h} S={s} dk={dk} dv={dv} chunk={chunk} "
-              f"{str(dtype)[6:]}: within rtol {GLA_RTOL:g} / atol "
+              f"{str(dtype)[6:]}{' (one element into storage)' if at else ''}"
+              f": within rtol {GLA_RTOL:g} / atol "
               f"{GLA_ATOL:g} of the plain version ({nd} output elements "
               f"differ)")
 
@@ -2347,8 +2399,10 @@ def full_gla(dev, errs: ErrLog, name: str, s: int = 4096, seed: int = 18):
     gla_chunk 256; models/ssm.py) at B = 1, S = 4096 in bf16 through
     ``kernels.gla.gla_scan``: one launch, held to the plain version on
     the same cumsum, and the same inputs in float32 held to it too;
-    timed beside the plain version and the bound.  Returns K10's kernel
-    table row."""
+    timed beside the plain version, the bound and the parent's time, with
+    a launch's device time from ``torch.profiler``; the bf16 kernel's
+    SASS must hold warpgroup-MMA instructions (HGMMA).  Returns K10's
+    kernel table row."""
     from repro_torch.kernels.gla import gla_scan, kernel
     gen = torch.Generator(device=dev).manual_seed(seed)
     b, h, dk, dv, chunk = 1, 112, 64, 64, 256
@@ -2373,16 +2427,23 @@ def full_gla(dev, errs: ErrLog, name: str, s: int = 4096, seed: int = 18):
     nbytes = 2 * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
     mem_bps, _, bf16_flops, _ = card_peaks(name)
     kb = (1e3 * nbytes / mem_bps, 1e3 * flops / bf16_flops)
+    hgmma = sass_count(kernel.LIB, "HGMMA")
+    assert hgmma > 0, "no HGMMA in K10's SASS"
     t_ms = cuda_ms(lambda: kernel.gla_chunks(q, k, v, g, chunk), 10)
+    t_dev = device_ms(lambda: kernel.gla_chunks(q, k, v, g, chunk), 10,
+                      "gla_ws_kernel")
     t_plain = cuda_ms(lambda: kernel.gla_chunks_plain(q, k, v, g, chunk), 2)
     print(f"[full GLA] zamba2-7b scan, H={h} S={s} dk=dv={dk} chunk="
           f"{chunk} bf16: one launch; state within rtol {GLA_RTOL:g} / atol "
           f"{GLA_ATOL:g} of the plain version, output within one bf16 ulp "
           f"({nd} of {o.numel()} elements differ); the same inputs in f32 "
-          f"within the tolerance ({nd32} differ); K10 {t_ms:.4f} ms (plain "
-          f"{t_plain:.2f} ms, bound {max(kb):.4f} ms by "
-          f"{'bytes' if kb[0] >= kb[1] else 'operations'}; {b * h} blocks "
-          f"on {torch.cuda.get_device_properties(dev).multi_processor_count}"
+          f"within the tolerance ({nd32} differ); K10 ({hgmma} HGMMA in its "
+          f"SASS) {t_ms:.4f} ms, device {_dev_str(t_dev)} (the parent's "
+          f"{PARENT_MS['K10']} ms, PERF.md; plain {t_plain:.2f} ms, bound "
+          f"{max(kb):.4f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}; {b * h * nc} "
+          f"(head, chunk) units on "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count}"
           f" SMs) [{name}]")
     return _row("K10", got["K10"], errs, t_ms, t_plain, kb)
 

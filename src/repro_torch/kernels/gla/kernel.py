@@ -17,7 +17,11 @@ kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
 
 * :func:`gla_chunks` is the wrapper: CUDA tensors launch ``csrc/gla.cu``
   (or raise), CPU tensors take :func:`gla_chunks_plain`.
-  ``LIB.launches`` counts the launches.
+  ``LIB.launches`` counts the launches.  The kernel computes each
+  (head, chunk) as a unit of its own and hands each chunk's state to the
+  next chunk's unit inside the launch (a look-back through a float32
+  scratch the wrapper allocates, [B H, S / chunk, dk, dv], and int32
+  flags that the C entry zeroes on the stream before it launches).
 * :func:`gla_chunks_plain` is the reference kernel's chunk loop, batched
   over (batch, head).  Its products go through ``torch.matmul``; the
   CUDA kernel's never do.
@@ -48,8 +52,10 @@ MAX_HEAD_DIM = 128
 
 LIB = KernelLib(
     "gla", os.path.join(_CSRC, "gla.cu"),
-    headers=(FLOAT_IO_HEADER,),
-    signatures={"gla_scan_fwd": ([_P] * 6 + [_I] * 6 + [_P],
+    headers=(FLOAT_IO_HEADER,
+             os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
+                          "attention", "csrc", "wgmma.cuh")),
+    signatures={"gla_scan_fwd": ([_P] * 8 + [_I] * 6 + [_P],
                                  ctypes.c_int)})
 
 
@@ -98,9 +104,14 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_tensor(g, "g", torch.float32, (b, h, s), dev)
     o = torch.empty((b, h, s, dv), dtype=v.dtype, device=dev)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
+    units = b * h * (s // chunk)
+    scratch = torch.empty((units * dk * dv,), dtype=torch.float32,
+                          device=dev)
+    sync = torch.empty((1 + units,), dtype=torch.int32, device=dev)
     err = LIB.get().gla_scan_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        o.data_ptr(), state.data_ptr(), b * h, s, chunk, dk, dv,
+        o.data_ptr(), state.data_ptr(), scratch.data_ptr(), sync.data_ptr(),
+        b * h, s, chunk, dk, dv,
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("gla_scan_fwd", err)
