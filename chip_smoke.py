@@ -122,7 +122,36 @@ Phases, in order (any failure exits non-zero):
     bf16) through ``kernels.gla.gla_scan`` (one launch), held to the
     plain version (the float32 state within the tolerance, the bf16
     output within one bf16 ulp besides, and the same inputs in float32
-    within the tolerance), timed beside its plain version and bound.
+    within the tolerance), timed beside its plain version and bound;
+19. the wavelet prefilter at the paper's size: each golden trace (exim,
+    wordcount, terasort) against the 12-reference golden bank (band 16,
+    denoise, chunks of 8) by an unpruned and a ``prefilter_top=4``
+    service side by side, in point mode (K1, K2) and exact probabilistic
+    mode at zero variance (K4 with six channels, K5): decisions and
+    finals equal tick for tick, the pruned scores on each tick's live
+    columns bitwise the unpruned ones, one tick launch a dispatch; the
+    quickstart through ``AutoTuner(band=8, wavelet_prefilter=1)``
+    (wordcount, one K2 launch);
+20. the pruned scored tick at full width: the bench's diverse bank (K =
+    256 distinct workloads, M = 360), S = 256 jobs (16 workloads x 16
+    instances), 16 ticks of 16 samples, by distance-only, unpruned and
+    pruned (``prefilter_top=2``, margin 0, engaged at 10%) services:
+    true references survive, leaders and a 32-job verdict equal the
+    unpruned run's, live-column scores bitwise on every tick, at least
+    one re-pack to fewer than 256 columns, launches equal to dispatches;
+    each run's median ms/tick, the packed widths, the re-pack times and
+    ``_update_prefilter``'s host time printed, and K1 at the final packed
+    width held against its plain version and timed beside it and its
+    bound (the table's K1-pruned row);
+21. recovery on the card: phase 20's pruned run journaled
+    (``RecoverableTuningService``), checkpointed after tick 8, run to
+    tick 16 and recovered into a fresh object: the replayed ticks launch
+    K1 once each, and the packed columns, live sets, scores, rows, moment
+    slabs and 32 verdicts are bitwise the uninterrupted run's (the
+    snapshot's bytes, save and restore-plus-replay times printed); then
+    the reference's kill-and-recover command tape in child processes on
+    the card (a serving child SIGKILLs itself after command 19, a second
+    recovers): decisions bitwise a golden child's.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
@@ -231,6 +260,8 @@ _DTW = "src/repro_torch/kernels/dtw/csrc/"
 KERNELS = {
     "K1": ("K1 scored streaming tick", _DTW + "stream.cu",
            "src/repro/kernels/dtw/stream.py:136"),
+    "K1-pruned": ("K1 scored streaming tick on the prefilter's packed bank",
+                  _DTW + "stream.cu", "src/repro/kernels/dtw/stream.py:136"),
     "K2": ("K2 verdict scorer", _DTW + "score.cu",
            "src/repro/kernels/dtw/score.py:42"),
     "K3": ("K3 distance-only streaming tick", _DTW + "stream.cu",
@@ -2448,6 +2479,556 @@ def full_gla(dev, errs: ErrLog, name: str, s: int = 4096, seed: int = 18):
     return _row("K10", got["K10"], errs, t_ms, t_plain, kb)
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the wavelet prefilter and crash recovery
+# ---------------------------------------------------------------------------
+
+def golden_bank():
+    """The reference's golden-trace bank (tests/test_streaming.py
+    ``golden_bank``): every mrsim app x the paper's parameter sets,
+    preprocessed."""
+    from repro_torch import mrsim
+    from repro_torch.core.database import SeriesBank, pack_series
+    from repro_torch.core.filters import preprocess_bank
+    series, labels = [], []
+    for app in mrsim.APPS:
+        for p in mrsim.paper_param_sets():
+            series.append(mrsim.simulate_cpu_series(app, p, dt=0.25))
+            labels.append(app)
+    packed = pack_series(series, labels=labels)
+    return SeriesBank(preprocess_bank(packed.series, packed.lengths),
+                      packed.lengths, packed.labels)
+
+
+def _live(job, k: int) -> np.ndarray:
+    """A job's live-reference mask over the full bank (a copy)."""
+    return np.ones(k, bool) if job.allowed is None else job.allowed.copy()
+
+
+def prefilter_paper(dev) -> None:
+    """Phase 19: the prefilter at the paper's size.  Each golden trace
+    (exim, wordcount, terasort; first parameter set, run 1) streamed in
+    8-sample chunks against the golden bank (band 16, denoise) by an
+    unpruned and a pruned (``prefilter_top=4``) service side by side, in
+    point mode (K1, K2) and in exact probabilistic mode at zero variance
+    (K4 with six channels, K5): every in-flight decision and every final
+    equal, tick for tick; on every tick the pruned scores (and
+    probabilities) on the job's live columns bitwise the unpruned ones;
+    one tick launch a tick in each run.  Then the quickstart through
+    ``AutoTuner(band=8, wavelet_prefilter=1)``: it must match wordcount
+    with ``used_wavelet_prefilter`` set, through one K2 launch."""
+    from repro_torch import mrsim
+    from repro_torch.core import AutoTuner, ReferenceDB
+    from repro_torch.serve.tuning import TuningService
+    bank = golden_bank()
+    k = len(bank)
+    p = mrsim.paper_param_sets()[0]
+    kw = dict(band=16, threshold=0.85, margin=0.02, stable_ticks=3,
+              min_fraction=0.15, denoise=True, device=dev)
+    for mode, tick_key, verdict_key in (("point", "K1", "K2"),
+                                        ("exact", "K4-exact", "K5")):
+        mkw = dict(kw) if mode == "point" else dict(kw, min_probability=0.5)
+        for app in sorted(mrsim.APPS):
+            q = mrsim.simulate_cpu_series(app, p, run=1, dt=0.25)
+            runs = [TuningService(bank, prefilter_top=pf, **mkw)
+                    for pf in (None, 4)]
+            for svc in runs:
+                svc.submit(app, expected_len=len(q))
+            reset_counts()
+            ticks, early, narrowest = [0, 0], None, k
+            for chunk in mrsim.iter_cpu_series(app, p, run=1, chunk=8,
+                                               dt=0.25):
+                live = _live(runs[1]._jobs[app], k)
+                outs = []
+                for i, svc in enumerate(runs):
+                    before = counts()[tick_key]
+                    if mode == "point":
+                        svc.push(app, chunk)
+                    else:
+                        svc.push(app, chunk, variance=np.zeros_like(chunk))
+                    d = svc.tick().get(app)
+                    ticks[i] += counts()[tick_key] - before
+                    outs.append(None if d is None else
+                                (d.matched, d.corr, d.decided_at_fraction,
+                                 d.probability))
+                assert outs[0] == outs[1], (mode, app, outs)
+                early = early or outs[1]
+                narrowest = min(narrowest, len(runs[1]._packed_idx))
+                un, pr = runs[0]._jobs[app], runs[1]._jobs[app]
+                assert np.array_equal(pr.last_sims[live], un.last_sims[live])
+                assert np.isneginf(pr.last_sims[~live]).all()
+                if mode != "point":
+                    assert np.array_equal(pr.last_probs[live],
+                                          un.last_probs[live])
+            finals = [svc.finish(app) for svc in runs]
+            assert _verdict_key(finals[0]) == _verdict_key(finals[1])
+            assert finals[0].decided_at_fraction == \
+                finals[1].decided_at_fraction
+            for svc, n in zip(runs, ticks):
+                assert svc.dispatch_count == svc.ticks == n
+            launched({key: 0 for key in KERNELS},
+                     **{tick_key.replace("-", "_"): sum(ticks),
+                        verdict_key: 2})
+            print(f"[prefilter paper {mode}] {app}: {runs[1].ticks} ticks, "
+                  f"early {None if early is None else early[0]} at "
+                  f"{None if early is None else early[2]}, final "
+                  f"{finals[1].matched} (corr {finals[1].corr:.6f}); "
+                  f"pruned and unpruned equal tick for tick; pack "
+                  f"narrowed to {narrowest} of {k} references, "
+                  f"{runs[1].repack_count} re-packs; {tick_key} launches "
+                  f"{ticks[1]} + {ticks[0]}, the two runs' dispatches")
+    # the quickstart scenario, narrowed by the wavelet prefilter
+    db = ReferenceDB()
+    tuner = AutoTuner(db, band=8, wavelet_prefilter=1, device=dev)
+    psets = mrsim.paper_param_sets()
+    for app in ("wordcount", "terasort"):
+        for ps in psets:
+            tuner.profile(app, ps.as_dict(),
+                          mrsim.simulate_cpu_series(app, ps))
+    db.set_best_config("wordcount", {"mappers": 21, "reducers": 30,
+                                     "split_mb": 10, "input_mb": 80}, 1.0)
+    db.set_best_config("terasort", {"mappers": 42, "reducers": 33,
+                                    "split_mb": 20, "input_mb": 60}, 1.0)
+    reset_counts()
+    dec = tuner.match("exim-mainlog", mrsim.simulate_cpu_series(
+        "exim", psets[0], run=1))
+    torch.cuda.synchronize()
+    launched({key: 0 for key in KERNELS}, K2=1)
+    assert dec.used_wavelet_prefilter and list(dec.scores) == ["wordcount"]
+    assert dec.matched == "wordcount" and dec.corr >= 0.9, dec
+    assert dec.config == db.best_config("wordcount"), dec.config
+    print(f"[prefilter paper] quickstart with wavelet_prefilter=1: "
+          f"candidates narrowed to {list(dec.scores)}, matched="
+          f"{dec.matched} corr={dec.corr:.6f}, one K2 launch")
+
+
+def diverse_bank(rng, k: int):
+    """The reference bench's diverse bank (bench_streaming.py
+    ``_diverse_bank``): one distinct workload a reference, lengths from
+    six buckets up to 360 samples; the large-K regime the prefilter is
+    for."""
+    from repro_torch.core.database import pack_series
+    buckets = (180, 220, 256, 300, 330, 360)
+    series = []
+    for i in range(k):
+        n = buckets[int(rng.integers(len(buckets)))]
+        t = np.linspace(0, 1, n, dtype=np.float32)
+        f = 1.5 + 0.07 * i
+        s = (0.5 + 0.28 * np.sin(2 * np.pi * f * t + 0.37 * i)
+             + 0.12 * np.sin(2 * np.pi * 3.1 * f * t)
+             + 0.06 * rng.normal(size=n).astype(np.float32))
+        series.append(np.clip(s, 0, 1).astype(np.float32))
+    return pack_series(series)
+
+
+#: Phase 20's pruned service: the bench's prefilter settings
+#: (bench_streaming.py PRUNED_TOP, PRUNED_MIN_FRACTION, margin 0).
+PRUNED_KW = dict(prefilter_top=2, prefilter_margin=0.0,
+                 prefilter_min_fraction=0.1)
+
+
+def pruned_inputs(s_jobs: int = 256, k: int = 256, qlen: int = 256,
+                  seed: int = 7):
+    """Phase 20's bank, the S jobs' target references and their queries:
+    16 workloads, S / 16 concurrent instances each, every target at least
+    qlen + 8 samples long, its first qlen samples plus noise 0.05."""
+    bank = diverse_bank(np.random.default_rng(seed), k)
+    long_refs = [i for i in range(k) if bank.lengths[i] >= qlen + 8]
+    step = len(long_refs) // 16
+    per = s_jobs // 16
+    targets = [long_refs[(j // per) * step] for j in range(s_jobs)]
+    r = np.random.default_rng(1)
+    queries = np.stack([np.clip(bank.row(t)[:qlen]
+                                + 0.05 * r.normal(size=qlen), 0, 1)
+                        for t in targets]).astype(np.float32)
+    return bank, targets, queries
+
+
+def prefilter_full(dev, errs: ErrLog, name: str, s_jobs: int = 256,
+                   k: int = 256, n_ticks: int = 16, c: int = 16,
+                   n_fin: int = 32):
+    """Phase 20: the pruned scored tick at full width.  The bench's
+    diverse bank (K = 256, M = 360) and S = 256 jobs (16 workloads, 16
+    instances each) streamed in 16 ticks of 16 samples by a
+    distance-only, an unpruned scored and a pruned scored service
+    (``PRUNED_KW``) on the same queries; the unpruned and pruned services
+    tick side by side.  Checks: every job's true reference survives, each
+    job's leader is the unpruned run's, one dispatch a tick, at least one
+    re-pack, fewer than K packed columns, on every tick the pruned scores
+    on each job's live columns bitwise the unpruned ones, a verdict of 32
+    jobs bitwise the unpruned run's, and K1's (K3's) launches equal to
+    each run's dispatches.  Prints each run's median ms/tick, the packed
+    width after each re-pack, each re-pack's time and the host time of
+    ``_update_prefilter`` a tick; times K1 at the final packed width
+    beside its plain version and bound.  Returns the K1-pruned kernel
+    table row and the pruned run's record for phase 21."""
+    from repro_torch.kernels.dtw import stream
+    from repro_torch.serve.tuning import TuningService
+    bank, targets, queries = pruned_inputs(s_jobs, k, n_ticks * c)
+    m = bank.series.shape[1]
+    assert m == 360, m
+    qlen = n_ticks * c
+
+    def push(svc, t):
+        for j in range(s_jobs):
+            svc.push(f"job{j}", queries[j, t * c:(t + 1) * c])
+
+    def timed_tick(svc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.tick()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # distance-only, alone
+    dist = TuningService(bank, slots=s_jobs, device=dev,
+                         score_in_flight=False)
+    for j in range(s_jobs):
+        dist.submit(f"job{j}", expected_len=qlen)
+    reset_counts()
+    dist_s = []
+    for t in range(n_ticks):
+        push(dist, t)
+        dist_s.append(timed_tick(dist))
+    launched({key: 0 for key in KERNELS}, K3=dist.dispatch_count)
+    assert dist.dispatch_count == n_ticks
+
+    runs = {"unpruned": TuningService(bank, slots=s_jobs, device=dev),
+            "pruned": TuningService(bank, slots=s_jobs, device=dev,
+                                    **PRUNED_KW)}
+    pr = runs["pruned"]
+    for svc in runs.values():
+        for j in range(s_jobs):
+            svc.submit(f"job{j}", expected_len=qlen)
+    repack_ms, update_ms, widths = [], [], []
+    inner_repack, inner_update = pr._maybe_repack, pr._update_prefilter
+
+    def timed_repack():
+        before = pr.repack_count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner_repack()
+        torch.cuda.synchronize()
+        if pr.repack_count != before:
+            repack_ms.append(1e3 * (time.perf_counter() - t0))
+            widths.append((pr.ticks, len(pr._packed_idx), pr._kp))
+
+    def timed_update(pending):
+        t0 = time.perf_counter()
+        inner_update(pending)
+        update_ms.append(1e3 * (time.perf_counter() - t0))
+
+    pr._maybe_repack, pr._update_prefilter = timed_repack, timed_update
+    reset_counts()
+    tick_s = {key: [] for key in runs}
+    k1 = {key: 0 for key in runs}
+    for t in range(n_ticks):
+        live = [_live(pr._jobs[f"job{j}"], k) for j in range(s_jobs)]
+        for key, svc in runs.items():
+            push(svc, t)
+            before = counts()["K1"]
+            tick_s[key].append(timed_tick(svc))
+            k1[key] += counts()["K1"] - before
+        for j in range(s_jobs):
+            un = runs["unpruned"]._jobs[f"job{j}"].last_sims
+            pj = pr._jobs[f"job{j}"].last_sims
+            assert np.array_equal(pj[live[j]], un[live[j]]), (t, j)
+            assert np.isneginf(pj[~live[j]]).all(), (t, j)
+    got = counts()
+    assert got == {**{key: 0 for key in got},
+                   "K1": sum(k1.values())}, got
+    for key, svc in runs.items():
+        assert svc.dispatch_count == svc.ticks == k1[key] == n_ticks, key
+    assert pr.repack_count >= 1 and len(pr._packed_idx) < k
+    for j, tj in enumerate(targets):
+        job = pr._jobs[f"job{j}"]
+        assert tj in pr._packed_idx and (job.allowed is None
+                                         or job.allowed[tj]), \
+            f"the prefilter dropped job{j}'s true reference {tj}"
+        lead_p = int(np.argmax(job.last_sims))
+        lead_u = int(np.argmax(runs["unpruned"]._jobs[f"job{j}"].last_sims))
+        assert lead_p == lead_u, (j, lead_p, lead_u)
+    # the uninterrupted run's state at tick 16, for phase 21
+    k_live = len(pr._packed_idx)
+    record = dict(
+        bank=bank, queries=queries, packed_idx=pr._packed_idx.copy(),
+        allowed={jid: None if job.allowed is None else job.allowed.copy()
+                 for jid, job in pr._jobs.items()},
+        last_sims={jid: job.last_sims.copy() for jid, job in pr._jobs.items()},
+        rows=pr._rows[:, :, :k_live].clone(),
+        moms=pr._moms[..., :k_live].clone(),
+        slots={jid: job.slot for jid, job in pr._jobs.items()})
+
+    fin_ids = [f"job{j}" for j in range(n_fin)]
+    reset_counts()
+    verdicts = {key: svc.finish_many(fin_ids) for key, svc in runs.items()}
+    launched({key: 0 for key in KERNELS}, K2=2)
+    for jid in fin_ids:
+        assert _verdict_key(verdicts["pruned"][jid]) == \
+            _verdict_key(verdicts["unpruned"][jid]), jid
+    record["finals"] = {jid: _verdict_key(d)
+                        for jid, d in verdicts["pruned"].items()}
+    med = {key: 1e3 * float(np.median(v)) for key, v in tick_s.items()}
+    med["distance"] = 1e3 * float(np.median(dist_s))
+    print(f"[prefilter full] {s_jobs} jobs x K={k} x M={m}, C={c}, "
+          f"{n_ticks} ticks: median ms/tick pruned {med['pruned']:.3f}, "
+          f"unpruned {med['unpruned']:.3f}, distance-only "
+          f"{med['distance']:.3f} [{name}]")
+    print(f"[prefilter full] packed width after each re-pack (tick, live, "
+          f"padded): {widths}; re-pack ms {[round(x, 3) for x in repack_ms]}"
+          f"; _update_prefilter host ms a tick: median "
+          f"{float(np.median(update_ms)):.3f}, max {max(update_ms):.3f}, "
+          f"total {sum(update_ms):.3f} over {len(update_ms)} ticks "
+          f"({100 * sum(update_ms) / (1e3 * sum(tick_s['pruned'])):.1f}% of "
+          f"the pruned ticks' time) [{name}]")
+    print(f"[prefilter full] every job's true reference survived, leaders "
+          f"the unpruned run's; pruned scores on live columns bitwise the "
+          f"unpruned ones on all {n_ticks} ticks; {n_fin} verdicts bitwise; "
+          f"K1 launches {k1['pruned']} pruned + {k1['unpruned']} unpruned, "
+          f"K3 {dist.dispatch_count}")
+
+    # K1 at the final packed width, on the pruned run's state and its
+    # last chunk (the state after the verdict's slots were freed is the
+    # same tensors: no tick ran since)
+    kp = pr._kp
+    s_cap = pr.slot_capacity
+    chunks = torch.zeros((s_cap, c), device=dev)
+    last = slice((n_ticks - 1) * c, n_ticks * c)
+    for j in range(s_jobs):
+        chunks[record["slots"][f"job{j}"]] = torch.tensor(queries[j, last])
+    nvalid = torch.full((s_cap,), c, dtype=torch.int32, device=dev)
+    qlens = torch.full((s_cap,), qlen, dtype=torch.int32, device=dev)
+    args = (pr._rows, pr._moms, pr._ns, pr._bank_t, pr._lengths, chunks,
+            nvalid, qlens)
+    outk = stream.stream_bank_extend_scored(*args)
+    outp = stream.stream_bank_extend_scored_plain(*args)
+    fin = outp[0] < 1e37
+    assert torch.equal(fin, outk[0] < 1e37)
+    e = max(errs.diff("K1-pruned", outk[0], outp[0], fin),
+            errs.diff("K1-pruned", outk[1], outp[1],
+                      fin[None].expand_as(outp[1])))
+    assert e <= SMOOTH_TOL, f"K1 at the packed width: max abs err {e}"
+    mem_bps, dtw_ops = card_peaks(name)[0], dtw_op_rate(name)
+    tbytes = 2 * 4 * (1 + 3) * s_cap * m * kp + 4 * (
+        m * kp + kp + s_cap * c + 3 * s_cap)
+    tb = (1e3 * tbytes / mem_bps,
+          1e3 * ops_per_cell(3) * int(nvalid.sum()) * m * kp / dtw_ops)
+    t_ms = cuda_ms(lambda: stream.stream_bank_extend_scored(*args), 20)
+    t_dev = device_ms(lambda: stream.stream_bank_extend_scored(*args), 10,
+                      "stream_scored_kernel")
+    t_plain = cuda_ms(lambda: stream.stream_bank_extend_scored_plain(*args),
+                      2)
+    print(f"[prefilter full] K1 at the packed width kp={kp} ({k_live} live "
+          f"of {k}; S={s_cap}, M={m}): held against the plain version, max "
+          f"abs err {e:.3g} (tol {SMOOTH_TOL:g}); {t_ms:.4f} ms (CUDA "
+          f"events), device {_dev_str(t_dev)}, plain {t_plain:.2f} ms, "
+          f"bound {max(tb):.4f} ms by "
+          f"{'bytes' if tb[0] >= tb[1] else 'operations'}; "
+          f"{100 * t_ms / med['pruned']:.2f}% of the median pruned tick "
+          f"[{name}]")
+    return _row("K1-pruned", k1["pruned"], errs, t_ms, t_plain, tb), record
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def recovery_full(dev, name: str, record: dict, ckpt_tick: int = 8,
+                  n_ticks: int = 16, c: int = 16, n_fin: int = 32) -> None:
+    """Phase 21, first half: phase 20's pruned run again as a
+    ``RecoverableTuningService`` on the card under a temporary directory,
+    checkpointed after tick ``ckpt_tick`` and run to tick 16, then
+    recovered into a fresh object from the same root.  The journal tail
+    must replay (``replayed`` > 0) with one K1 launch for each replayed
+    tick, and the recovered service's packed columns, every job's live
+    set and scores, the live columns of its rows and moment slabs, and
+    its 32 verdicts must be bitwise phase 20's uninterrupted run's."""
+    import tempfile
+    from repro_torch.serve.recovery import RecoverableTuningService
+    bank, queries = record["bank"], record["queries"]
+    s_jobs = queries.shape[0]
+    with tempfile.TemporaryDirectory() as root:
+        live = RecoverableTuningService(bank, root=root, device=dev,
+                                        slots=s_jobs, **PRUNED_KW)
+        for j in range(s_jobs):
+            live.submit(f"job{j}", expected_len=n_ticks * c)
+        t0 = time.perf_counter()
+        for t in range(n_ticks):
+            for j in range(s_jobs):
+                live.push(f"job{j}", queries[j, t * c:(t + 1) * c])
+            live.tick()
+            if t + 1 == ckpt_tick:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step = live.checkpoint()
+                save_ms = 1e3 * (time.perf_counter() - t1)
+                ckpt_bytes = _dir_bytes(os.path.join(
+                    root, "ckpt", f"step_{step:06d}"))
+                ckpt_width = len(live.svc._packed_idx)
+        torch.cuda.synchronize()
+        journaled_s = time.perf_counter() - t0
+        wal_bytes = _dir_bytes(os.path.join(root, "wal"))
+        del live
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = RecoverableTuningService.recover(bank, root=root, device=dev)
+        torch.cuda.synchronize()
+        recover_ms = 1e3 * (time.perf_counter() - t0)
+        replayed_ticks = rec.dispatch_count - ckpt_tick
+        assert rec.replayed > 0 and replayed_ticks == n_ticks - ckpt_tick
+        launched({key: 0 for key in KERNELS}, K1=replayed_ticks)
+        svc = rec.svc
+        assert np.array_equal(svc._packed_idx, record["packed_idx"])
+        k_live = len(svc._packed_idx)
+        for jid, job in svc._jobs.items():
+            want = record["allowed"][jid]
+            assert (job.allowed is None) == (want is None), jid
+            assert want is None or np.array_equal(job.allowed, want), jid
+            assert np.array_equal(job.last_sims, record["last_sims"][jid])
+            assert job.slot == record["slots"][jid]
+        assert torch.equal(svc._rows[:, :, :k_live], record["rows"])
+        assert torch.equal(svc._moms[..., :k_live], record["moms"])
+        verdicts = rec.finish_many([f"job{j}" for j in range(n_fin)])
+        for jid, d in verdicts.items():
+            assert _verdict_key(d) == record["finals"][jid], jid
+    print(f"[recovery full] {s_jobs} jobs, K={len(bank)}, pruned: 16 "
+          f"journaled ticks in {journaled_s:.2f} s (WAL {wal_bytes} bytes); "
+          f"snapshot after tick {ckpt_tick} ({ckpt_width} packed columns): "
+          f"{ckpt_bytes} bytes, saved in {save_ms:.1f} ms; restore + replay "
+          f"of {rec.replayed} journal records ({replayed_ticks} ticks, "
+          f"{replayed_ticks} K1 launches) {recover_ms:.1f} ms; packed "
+          f"columns, live sets, scores, rows, moments and {n_fin} verdicts "
+          f"bitwise the uninterrupted run's [{name}]")
+
+
+#: The kill-and-recover child (the reference's
+#: tests/test_crash_recovery.py command tape, on the card): ``golden``
+#: runs the tape on a plain service; ``serve`` runs it journaled,
+#: checkpoints after command 11 and SIGKILLs itself after command 19;
+#: ``recover`` rebuilds from snapshot + journal tail and resumes at
+#: ``wal.next_seq``.  Each prints its decisions (float-hex scores) by
+#: command index; ``recover`` also its K1 launches and replayed ticks.
+CRASH_CHILD = r'''
+import json, os, signal, sys
+import numpy as np
+from repro_torch.core.database import pack_series
+from repro_torch.kernels.dtw import stream
+from repro_torch.runtime.chaos import FaultPlan
+from repro_torch.serve.recovery import RecoverableTuningService
+from repro_torch.serve.tuning import TuningService
+
+MODE, ROOT, CKPT_AT = sys.argv[1], sys.argv[2], 11
+rng = np.random.default_rng(7)
+series = [np.abs(np.cumsum(rng.normal(size=int(n)))).astype(np.float32)
+          for n in rng.integers(40, 90, size=6)]
+bank = pack_series(series, labels=[f"w{i}" for i in range(6)])
+streams = {f"j{i}": np.abs(np.cumsum(rng.normal(size=64)))
+           .astype(np.float32) for i in range(3)}
+cmds = [("submit", j) for j in streams]
+for t in range(8):
+    cmds += [("push", j, t) for j in streams] + [("tick", float(t))]
+cmds += [("finish", sorted(streams))]
+
+
+def keyd(decisions):
+    return [[j, None] if d is None else
+            [j, d.matched, float(d.corr).hex(), d.final,
+             sorted([k, float(v).hex()] for k, v in d.scores.items())]
+            for j, d in sorted(decisions.items())]
+
+
+def run_cmd(svc, cmd):
+    if cmd[0] == "submit":
+        svc.submit(cmd[1], 64)
+    elif cmd[0] == "push":
+        j, t = cmd[1], cmd[2]
+        svc.push(j, streams[j][t * 8:(t + 1) * 8], now=float(t))
+    elif cmd[0] == "tick":
+        return keyd(svc.tick(now=cmd[1]))
+    elif cmd[0] == "finish":
+        return keyd(svc.finish_many(cmd[1]))
+
+
+KW = dict(threshold=0.5, margin=0.01, stable_ticks=2, min_fraction=0.2,
+          slots=4, device="cuda")
+if MODE == "golden":
+    svc = TuningService(bank, **KW)
+    out = {str(i): d for i, cmd in enumerate(cmds)
+           if (d := run_cmd(svc, cmd)) is not None}
+    print("GOLDEN " + json.dumps(out), flush=True)
+elif MODE == "serve":
+    svc = RecoverableTuningService(bank, root=ROOT, **KW)
+    plan = FaultPlan(seed=0, kill_every=20)
+    for i, cmd in enumerate(cmds):
+        run_cmd(svc, cmd)
+        print(f"ACK {i}", flush=True)
+        if i == CKPT_AT:
+            svc.checkpoint()
+            print(f"CKPT {i}", flush=True)
+        if plan.should_kill(i):
+            os.kill(os.getpid(), signal.SIGKILL)
+    print("SERVE_DONE", flush=True)
+else:
+    svc = RecoverableTuningService.recover(bank, root=ROOT, **KW)
+    ticks = svc.dispatch_count - sum(c[0] == "tick"
+                                     for c in cmds[:CKPT_AT + 1])
+    print(f"RESUMED_AT {svc.wal.next_seq} REPLAYED {svc.replayed} "
+          f"K1 {stream.LIB.launches} TICKS {ticks}", flush=True)
+    out = {str(i): d for i in range(svc.wal.next_seq, len(cmds))
+           if (d := run_cmd(svc, cmds[i])) is not None}
+    print("RECOVERED " + json.dumps(out), flush=True)
+'''
+
+
+def recovery_kill() -> None:
+    """Phase 21, second half: kill and recover at the paper's size, in
+    child processes on the card.  A serving child runs the reference's
+    crash-recovery command tape journaled, checkpoints after command 11
+    and SIGKILLs itself after command 19 (the fault plan's kill point);
+    a second child recovers from snapshot + journal tail (one K1 launch
+    a replayed tick) and resumes the tape; every decision it emits must
+    equal a golden child's at the same command index, bitwise."""
+    import signal
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def child(mode, root):
+        return subprocess.run([sys.executable, "-c", CRASH_CHILD, mode,
+                               root], env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "svc")
+        t0 = time.perf_counter()
+        g = child("golden", root)
+        assert g.returncode == 0, g.stdout + g.stderr
+        golden = json.loads(g.stdout.split("GOLDEN ", 1)[1].splitlines()[0])
+        s = child("serve", root)
+        assert s.returncode == -signal.SIGKILL, (s.returncode, s.stdout,
+                                                 s.stderr)
+        assert "CKPT 11" in s.stdout and "ACK 19" in s.stdout
+        assert "ACK 20" not in s.stdout and "SERVE_DONE" not in s.stdout
+        r = child("recover", root)
+        assert r.returncode == 0, r.stdout + r.stderr
+        head = r.stdout.split("RESUMED_AT ", 1)[1].split()
+        resume, replayed, k1, ticks = (int(head[0]), int(head[2]),
+                                       int(head[4]), int(head[6]))
+        assert (resume, replayed) == (20, 20 - 1 - 11), head
+        assert k1 == ticks > 0, head
+        recovered = json.loads(
+            r.stdout.split("RECOVERED ", 1)[1].splitlines()[0])
+        assert recovered and str(3 + 8 * 4) in recovered
+        for i, dec in recovered.items():
+            assert int(i) >= resume and dec == golden[i], (i, dec)
+    print(f"[recovery kill] the serving child died by SIGKILL after "
+          f"command 19 (checkpoint after 11); the recovering child replayed "
+          f"{replayed} journal records ({ticks} ticks, {k1} K1 launches), "
+          f"resumed at command {resume}, and its {len(recovered)} decision "
+          f"sets equal the golden child's bitwise; three children in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2503,6 +3084,11 @@ def main() -> int:
         out = full(dev, errs, name)
         for row in out if isinstance(out, list) else [out]:
             rows[row["name"]] = row
+    prefilter_paper(dev)
+    row, record = prefilter_full(dev, errs, name)
+    rows[row["name"]] = row
+    recovery_full(dev, name, record)
+    recovery_kill()
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

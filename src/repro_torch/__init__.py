@@ -1,9 +1,11 @@
 """PyTorch port of ``repro`` for one NVIDIA H100.
 
 The online tuning service (``serve.tuning``), in exact point mode and
-in probabilistic mode, the offline matching phase (``core``:
-``AutoTuner``, ``similarity_bank``, ``match_application``,
-``OnlineMatcher``) and the modules they need, with their DTW kernels
+in probabilistic mode, with its streaming wavelet prefilter and crash
+recovery (``serve.recovery`` over ``checkpoint``), the offline
+matching phase (``core``: ``AutoTuner``, ``similarity_bank``,
+``match_application``, ``OnlineMatcher``) and the modules they need,
+with their DTW kernels
 written by hand in CUDA C++ (``kernels.dtw``); and the reference's other
 kernel entry points, each on its own CUDA kernel: the batched IIR filter
 (``kernels.iir``), flash attention (``kernels.attention``) and the GLA

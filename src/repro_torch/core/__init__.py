@@ -21,6 +21,11 @@ from .similarity import (correlation, similarity, similarity_bank,
                          MATCH_THRESHOLD, RunningMoments,
                          prefix_similarity_bank)
 from .database import Entry, SeriesBank, pack_series, ReferenceDB
+from .wavelet import (haar_dwt, haar_idwt, compress, reconstruct,
+                      wavelet_distance, wavelet_similarity,
+                      match_series_wavelet, haar_dwt_bank, compress_bank,
+                      wavelet_similarity_bank, coeff_similarity_bank,
+                      StreamingHaar)
 from .tuner import AutoTuner, TuneDecision, OnlineMatcher
 
 __all__ = [
@@ -36,5 +41,9 @@ __all__ = [
     "match_series", "match_application", "MATCH_THRESHOLD",
     "RunningMoments", "prefix_similarity_bank",
     "Entry", "SeriesBank", "pack_series", "ReferenceDB",
+    "haar_dwt", "haar_idwt", "compress", "reconstruct", "wavelet_distance",
+    "wavelet_similarity", "match_series_wavelet", "haar_dwt_bank",
+    "compress_bank", "wavelet_similarity_bank", "coeff_similarity_bank",
+    "StreamingHaar",
     "AutoTuner", "TuneDecision", "OnlineMatcher",
 ]

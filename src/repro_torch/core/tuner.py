@@ -18,8 +18,10 @@ scored from the collected rows on the host.  A service multiplexing many
 jobs uses ``serve.tuning.TuningService`` instead.
 
 Both run on ``device``, CUDA unless the caller passes ``device="cpu"``.
-The wavelet prefilter (``AutoTuner(wavelet_prefilter=)``) is not ported
-yet (ROADMAP.md queue 1 item 7) and raises.
+``AutoTuner(wavelet_prefilter=P)`` ranks the candidates by the batched
+wavelet-domain similarity (``wavelet.wavelet_similarity_bank``, numpy on
+the host) and scores only the top P with the DTW pipeline (one K2
+launch).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from . import dtw as _dtw
 from . import filters as _filters
+from . import wavelet as _wavelet
 from .database import ReferenceDB, SeriesBank
 from .similarity import (MATCH_THRESHOLD, prefix_similarity_bank,
                          similarity_bank as _sim_bank)
@@ -98,12 +101,9 @@ class AutoTuner:
                  wavelet_prefilter: int = 0,
                  wavelet_coeffs: int = 64,
                  device: Union[str, torch.device, None] = None) -> None:
-        """``wavelet_prefilter`` > 0 (rank candidates in the wavelet
-        domain first) is not ported yet and raises."""
-        if wavelet_prefilter:
-            raise NotImplementedError(
-                "AutoTuner(wavelet_prefilter=) is not ported yet: "
-                "ROADMAP.md queue 1 item 7 (core/wavelet.py)")
+        """``wavelet_prefilter``: if >0, rank candidates by the fast
+        wavelet-domain similarity first and run full DTW only on the top-k
+        (the paper's future-work scaling fix)."""
         self.db = db
         self.threshold = threshold
         self.band = band
@@ -131,6 +131,19 @@ class AutoTuner:
         q = self.preprocess(series)
         candidates = [w for w in self.db.workloads()
                       if w != workload and w not in exclude]
+
+        used_prefilter = False
+        if self.wavelet_prefilter and len(candidates) > self.wavelet_prefilter:
+            used_prefilter = True
+            bank = self.db.bank(workloads=candidates)
+            wsims = _wavelet.wavelet_similarity_bank(
+                q, bank.series, bank.lengths, m=self.wavelet_coeffs)
+            wbest: Dict[str, float] = {}
+            for lbl, s in zip(bank.labels, wsims):
+                wbest[lbl] = max(wbest.get(lbl, -1.0), float(s))
+            ranked = sorted(candidates, key=lambda w: wbest[w], reverse=True)
+            candidates = ranked[:self.wavelet_prefilter]
+
         scores: Dict[str, float] = {}
         if candidates:
             bank = self.db.bank(workloads=candidates)
@@ -151,7 +164,8 @@ class AutoTuner:
         else:
             matched = None if corr < self.threshold else matched
         return TuneDecision(workload=workload, matched=matched, corr=corr,
-                            config=config, scores=scores)
+                            config=config, scores=scores,
+                            used_wavelet_prefilter=used_prefilter)
 
     # -- feedback ------------------------------------------------------------------
     def record(self, workload: str, config: Mapping[str, Any], score: float,

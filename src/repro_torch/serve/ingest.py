@@ -160,8 +160,7 @@ class TraceLog:
     atomic (tmp+rename via ``core.database``), so readers — and a
     service restarted mid-write — never observe a torn file.
 
-    WAL duties (what crash recovery replays; recovery itself is not
-    ported yet: ROADMAP.md queue 1 item 9):
+    WAL duties (``serve.recovery``):
 
     * **records carry replay context** — a chunk record can ride with
       the push's per-sample variances and heartbeat timestamp (aux
@@ -181,7 +180,7 @@ class TraceLog:
       ``journal_write_errors``; the next flush retries the identical
       segment (atomic overwrite, so a half-landed attempt is
       harmless).  ``durable_seq`` reports how far the journal is
-      actually on disk — recovery must not advance a
+      actually on disk — ``serve.recovery`` refuses to advance a
       checkpoint watermark past it, because records that exist only in
       this process would otherwise be double-applied or lost.
     * :meth:`prune` drops segments wholly below a snapshot watermark

@@ -42,11 +42,12 @@ rung  name             effect on the tick engine
                        early decisions for jobs ticked here
                        (``degraded_level=2``); final verdicts recomputed
                        offline from the full query, bitwise unchanged
-4     deep_prune       ``prefilter_top`` halved — fewer live references
-                       per tick (DTW veto still applies); a controller
-                       state only until the wavelet prefilter is ported
-                       (ROADMAP.md queue 1 item 7): without a prefilter
-                       it changes nothing
+4     deep_prune       the prune's ``prefilter_top`` divided by
+                       ``prefilter_divisor`` (2); the tick itself is
+                       distance-only as at rung 3, and a job it ticks
+                       (``degraded_level=2``) stops shrinking its live
+                       set, as in the reference; without
+                       ``prefilter_top=`` this rung is rung 3
 5     slow_cohorts     ``TickCohorts`` re-arm intervals stretched by
                        ``cohort_scale`` — jobs tick less often
 6     reject           admission pressure pinned to 1.0 — every submit

@@ -109,6 +109,24 @@ class TickCohorts:
         return {j for j, hz in self._hz.items()
                 if hz is None or float(hz) in due_rates}
 
+    # -- (de)hydration (serve.recovery) --------------------------------------
+    def state_dict(self) -> Dict:
+        """JSON-able snapshot of the cohort clocks (``-inf`` next-due
+        values survive the round trip: stdlib json emits ``-Infinity``),
+        so a restored service re-arms every cohort where the snapshotted
+        one left it.  The keys are the reference's."""
+        return {"hz": dict(self._hz),
+                "next_due": {repr(hz): t
+                             for hz, t in self._next_due.items()},
+                "rate_scale": self.rate_scale}
+
+    def load_state(self, state: Dict) -> None:
+        self._hz = {j: (None if hz is None else float(hz))
+                    for j, hz in state["hz"].items()}
+        self._next_due = {float(hz): float(t)
+                          for hz, t in state["next_due"].items()}
+        self.rate_scale = float(state.get("rate_scale", 1.0))
+
 
 class SlotScheduler:
     """Slot admission/eviction with power-of-two S-axis capacity.
@@ -201,3 +219,22 @@ class SlotScheduler:
                  job_ids: Iterable[str]) -> Set[str]:
         due = self.cohorts.due_jobs(now)
         return due.intersection(job_ids) if now is not None else set(job_ids)
+
+    # -- (de)hydration (serve.recovery) --------------------------------------
+    def state_dict(self) -> Dict:
+        """JSON-able snapshot of the slot layout (capacity bucket, free
+        list ORDER, job -> slot map, cohort clocks).  The free-list order
+        decides which slot the next admit takes, so a restored service
+        packs its next jobs as the snapshotted one would have."""
+        return {"max_slots": self.max_slots, "elastic": self.elastic,
+                "capacity": self.capacity, "free": list(self._free),
+                "slot_of": dict(self._slot_of),
+                "cohorts": self.cohorts.state_dict()}
+
+    def load_state(self, state: Dict) -> None:
+        self.max_slots = int(state["max_slots"])
+        self.elastic = bool(state["elastic"])
+        self.capacity = int(state["capacity"])
+        self._free = [int(s) for s in state["free"]]
+        self._slot_of = {j: int(s) for j, s in state["slot_of"].items()}
+        self.cohorts.load_state(state["cohorts"])

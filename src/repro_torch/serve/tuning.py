@@ -111,10 +111,34 @@ transient error that outlasts the chaos plan's burst raises
 samples, clock skew and slow-dispatch latency at the service's hook
 points.
 
-Not ported yet (the constructor keywords exist and raise
-``NotImplementedError`` naming the ROADMAP.md queue item): the wavelet
-prefilter (``prefilter_top``: item 7) and bank sharding (``mesh``:
-item 10).
+Streaming wavelet prefilter
+---------------------------
+``prefilter_top=P`` prunes the bank at large K.  Each job keeps a
+``core.wavelet.StreamingHaar`` of its (filtered) prefix; after each tick
+its live-reference set (``InFlightJob.allowed``, over the full bank)
+shrinks to the union of two top-P (+ ``prefilter_margin``) rules: the
+Haar cosine against every reference's prefix of the same length, and
+the job's own in-flight DTW scores, which veto the eviction of anything
+still plausibly winning (and keep the best reference of each of the top
+two workloads).  Sets only shrink.  At the top of the next data tick the
+union of the active jobs' sets becomes the packed K axis: the bank, the
+DP rows and the moment slab are gathered on the device (``index_select``
+on their K axis, padded to a power of two of at least 8 with length-1,
+zero-series columns whose state starts fresh) whenever the union has
+outgrown the pack or shrunk past the next bucket.  ``repack_count``
+counts these re-packs; they never add a dispatch.  Scores leave the tick
+sliced to the live columns, scattered back to full-bank columns (-inf
+where unpacked), and masked per job to its own set (-inf scores, 0.0
+probabilities).  Every DP cell is per (job, reference), so a pruned
+run's scores on a job's allowed columns are bitwise the unpruned run's.
+The overload ladder's ``deep_prune`` rung divides P by its
+``prefilter_divisor``.
+
+Crash safety (``serve.recovery``) snapshots this service and replays its
+write-ahead log; ``_admission_suppressed`` keeps a replayed submit from
+being shed again.  Bank sharding (``mesh=``, :meth:`rescale`) is not
+ported yet and raises ``NotImplementedError`` naming ROADMAP.md queue 1
+item 10.
 """
 
 from __future__ import annotations
@@ -127,6 +151,7 @@ import numpy as np
 import torch
 
 from ..core import dtw as _dtw
+from ..core import wavelet as _wavelet
 from ..core.database import ReferenceDB, SeriesBank
 from ..core.similarity import MATCH_THRESHOLD
 from ..core.tuner import TuneDecision, _RowBuffer
@@ -187,6 +212,14 @@ class InFlightJob:
     last_sims: Optional[np.ndarray] = None
     #: last [K] match-probability row (probabilistic mode only).
     last_probs: Optional[np.ndarray] = None
+    #: streaming-Haar prefix coefficients of the (filtered) query: the
+    #: wavelet prefilter's per-job transform state (None without it).
+    haar: Optional[_wavelet.StreamingHaar] = None
+    #: bool [K] over the FULL bank: references still live for this job.
+    #: None means all (prefilter off, or not engaged yet).  Monotone: a
+    #: reference once dropped never comes back for this job, so its DP
+    #: column may leave the packed tick without going stale for it.
+    allowed: Optional[np.ndarray] = None
     #: QoS class (bronze/silver/gold) the job was admitted under.
     qos: str = "silver"
     #: staleness marker set by degraded (ladder) ticks — monotone per
@@ -215,6 +248,9 @@ class TuningService:
     ``min_probability``) its in-flight tail; see the module docstring.
     ``score_in_flight=False`` is the distance-only mode (no moment slab,
     no early decisions; ``collect_rows`` is its older alias).
+    ``prefilter_top=P`` enables the streaming wavelet prefilter (see the
+    module docstring); it needs ``score_in_flight=True``, whose in-flight
+    scores veto the prune.
 
     Serving-front knobs:
 
@@ -288,8 +324,16 @@ class TuningService:
                              "probability gate)")
         if mesh is not None:
             raise _not_ported("bank sharding (mesh=)", 10)
-        if prefilter_top is not None:
-            raise _not_ported("the wavelet prefilter (prefilter_top=)", 7)
+        if prefilter_top is not None and prefilter_top < 1:
+            raise ValueError("prefilter_top must be >= 1 (or None)")
+        if prefilter_top is not None and not score_in_flight:
+            # without the tick's scores there is no DTW veto: the
+            # warp-blind wavelet ranking alone evicts warp-matching
+            # references (the paper's exim-vs-wordcount case), and sticky
+            # pruning makes that irrecoverable in flight.
+            raise ValueError("prefilter_top needs score_in_flight=True "
+                             "(the prune rule's soundness veto runs on "
+                             "the in-flight DTW scores)")
         if finish_batch < 1:
             raise ValueError("finish_batch must be >= 1")
         if isinstance(refs, ReferenceDB):
@@ -314,6 +358,10 @@ class TuningService:
         self.slots = slots
         self.denoise = denoise
         self.score_in_flight = score_in_flight
+        self.prefilter_top = prefilter_top
+        self.prefilter_margin = prefilter_margin
+        self.prefilter_min_fraction = prefilter_min_fraction
+        self.prefilter_coeffs = prefilter_coeffs
         self.finish_batch = finish_batch
         self.retry_policy = retry_policy
         self.chaos = chaos
@@ -332,17 +380,48 @@ class TuningService:
         if isinstance(admission, AdmissionPolicy):
             admission = AdmissionController(admission)
         self._admission: Optional[AdmissionController] = admission
+        # a WAL replay (serve.recovery) must never shed a journaled
+        # submit: the live run already admitted it.
+        self._admission_suppressed = False
+        # the serializable constructor config that serve.recovery
+        # persists in a snapshot, with the reference's keys, so that a
+        # restoring process rebuilds an identical service (the device,
+        # trace log, retry policy, chaos plan and breaker are
+        # process-local and re-supplied at restore).
+        self._config: Dict[str, object] = dict(
+            band=band, threshold=threshold,
+            min_probability=min_probability, prob_mode=prob_mode,
+            margin=margin,
+            stable_ticks=stable_ticks, min_fraction=min_fraction,
+            slots=slots, denoise=denoise, score_in_flight=score_in_flight,
+            prefilter_top=prefilter_top, prefilter_margin=prefilter_margin,
+            prefilter_min_fraction=prefilter_min_fraction,
+            prefilter_coeffs=prefilter_coeffs, finish_batch=finish_batch,
+            elastic_slots=elastic_slots, queue_limit=queue_limit,
+            queue_policy=queue_policy,
+            heartbeat_timeout=heartbeat_timeout,
+            overload=(dataclasses.asdict(self._overload.config)
+                      if self._overload is not None else None),
+            admission=(dataclasses.asdict(self._admission.policy)
+                       if self._admission is not None else None))
 
         k, m = self.bank.series.shape
         self._k = k
+        self._m = m
+        # devices the bank axis spans: 1 until bank sharding is ported
+        # (ROADMAP.md queue 1 item 10).
+        self._ndev = 1
+        # the true lengths, where the prefilter cuts reference prefixes
+        # (a pack gathers its bank columns from the device upload below)
+        self._full_lengths = self.bank.lengths.astype(np.int32)
         # admission cost proxy: expected job length over the bank's mean
         # reference length (the cumulative-CPU estimate stand-in).
-        self._mean_ref_len = float(np.mean(
-            self.bank.lengths.astype(np.int32)))
-        # one device upload of the bank serves the tick and the verdicts
-        plan = self.bank.score_plan(self.device)
-        self._bank_t = plan.bank_t                         # [M, K]
-        self._lengths = plan.lengths                       # [K]
+        self._mean_ref_len = float(np.mean(self._full_lengths))
+        self._wcoeff_cache: Dict[Tuple[int, int], np.ndarray] = {}
+        # one device upload of the full bank serves the verdicts, and the
+        # tick while its pack is the whole bank; a pruned pack gathers
+        # its [M, kp] columns from it on the device.
+        self._plan = self.bank.score_plan(self.device)
         self._jobs: Dict[str, InFlightJob] = {}
         # slots awaiting their fresh-state reset (applied in one masked
         # op at the top of the next data tick, see submit()).
@@ -355,16 +434,6 @@ class TuningService:
         self._sched = SlotScheduler(slots, elastic=elastic_slots)
         self._s_cap = self._sched.capacity
         dev, s = self.device, self._s_cap
-        self._rows = torch.full((s, m, k), _dtw._INF, dtype=torch.float32,
-                                device=dev)
-        # moment channels: 3 point, 6 exact-probability, 4 approx, and
-        # none in distance-only mode
-        if min_probability is None:
-            nch = 3
-        else:
-            nch = 4 if prob_mode == "approx" else 6
-        self._moms = torch.zeros((nch, s, m, k), dtype=torch.float32,
-                                 device=dev) if score_in_flight else None
         self._ns = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._sx = torch.zeros((s,), dtype=torch.float32, device=dev)
         self._sxx = torch.zeros((s,), dtype=torch.float32, device=dev)
@@ -373,13 +442,25 @@ class TuningService:
                                    device=dev) \
             if min_probability is not None else None
         self._qlens = np.zeros((s,), np.int32)
+        # the tick's K axis: the bank columns packed on the device (all
+        # of them until the prefilter prunes), and their [S, M, kp] DP
+        # rows and [NCH, S, M, kp] moment slab.
+        self._packed_idx = np.arange(k)
+        self._pack_device_state(self._packed_idx, rows=None, moms=None)
 
         #: tick dispatches issued by :meth:`tick` — one per tick with
         #: data, however many jobs are live.
         self.dispatch_count = 0
+        #: prefilter re-packs: the K-axis gathers that shrink or re-grow
+        #: the packed bank and state when the survivor set changes.  A
+        #: re-pack is state motion, never a dispatch.
+        self.repack_count = 0
         #: S-axis capacity changes (elastic grow / compact-shrink), never
         #: a dispatch.
         self.slot_repack_count = 0
+        #: mesh re-homes by :meth:`rescale`: always 0 until bank sharding
+        #: is ported (ROADMAP.md queue 1 item 10); snapshots record it.
+        self.rescale_count = 0
         #: jobs dropped by :meth:`evict`/:meth:`sweep_stalled` (no
         #: verdict rendered).
         self.evicted_count = 0
@@ -426,6 +507,71 @@ class TuningService:
                                        Optional[np.ndarray],
                                        Optional[TuneDecision]]] = []
         self._finished: Dict[str, TuneDecision] = {}
+
+    # -- packed device state (full bank or pruned survivor subset) -----------
+    def _k_bucket(self, k: int) -> int:
+        """Padded width of a pruned pack: a power of two (so re-packs
+        cycle through at most log2(K) tick shapes), at least 8, and a
+        multiple of the device count."""
+        kp = max(8, 1 << (max(k, 1) - 1).bit_length())
+        return kp + ((-kp) % self._ndev)
+
+    def _pack_device_state(self, idx: np.ndarray, rows, moms) -> None:
+        """(Re)build the tick's device tensors over bank columns ``idx``
+        (full-bank order kept).  ``rows``/``moms`` ([S, M, K_old] /
+        [NCH, S, M, K_old], aligned with the PREVIOUS ``_packed_idx``)
+        carry the surviving columns' DP state, gathered on the device by
+        ``index_select`` on the K axis, so a re-pack never moves the
+        slabs through the host.  Columns without prior state start fresh
+        (+inf row, zero moments): exact for jobs that have consumed
+        nothing, don't-care for jobs whose prefilter already dropped the
+        reference (their scores for it are masked after every tick).
+        ``rows=None`` allocates fresh state.
+
+        The full pack is the bank itself (the verdicts' upload); a pruned
+        pack pads to :meth:`_k_bucket` with length-1, zero-series
+        columns."""
+        k_new, m, dev = len(idx), self._m, self.device
+        full = k_new == self._k
+        kp = self._k + ((-self._k) % self._ndev) if full \
+            else self._k_bucket(k_new)
+        if full and kp == self._k:
+            self._bank_t, self._lengths = \
+                self._plan.bank_t, self._plan.lengths
+        else:
+            cols = np.zeros((kp,), np.int64)
+            cols[:k_new] = idx
+            gather = torch.as_tensor(cols, device=dev)
+            pad = torch.as_tensor(np.arange(kp) >= k_new, device=dev)
+            self._bank_t = torch.where(
+                pad[None, :], 0.0, self._plan.bank_t.index_select(1, gather))
+            self._lengths = torch.where(
+                pad, 1, self._plan.lengths.index_select(0, gather))
+        if rows is None:
+            self._rows = torch.full((self._s_cap, m, kp), _dtw._INF,
+                                    dtype=torch.float32, device=dev)
+            # moment channels: 3 point, 6 exact-probability, 4 approx,
+            # and none in distance-only mode
+            if self.min_probability is None:
+                nch = 3
+            else:
+                nch = 4 if self.prob_mode == "approx" else 6
+            self._moms = torch.zeros(
+                (nch, self._s_cap, m, kp), dtype=torch.float32,
+                device=dev) if self.score_in_flight else None
+        else:
+            pos = np.full((self._k,), -1, np.int64)
+            pos[self._packed_idx] = np.arange(len(self._packed_idx))
+            src = np.concatenate([pos[idx], np.full((kp - k_new,), -1)])
+            gather = torch.as_tensor(np.maximum(src, 0), device=dev)
+            fresh = torch.as_tensor(src < 0, device=dev)
+            self._rows = torch.where(fresh[None, None, :], _dtw._INF,
+                                     rows.index_select(2, gather))
+            if moms is not None:
+                self._moms = torch.where(fresh[None, None, None, :], 0.0,
+                                         moms.index_select(3, gather))
+        self._packed_idx = np.asarray(idx)
+        self._kp = kp
 
     # -- slot-indexed device state ---------------------------------------------
     def _repack_slots(self, src: np.ndarray) -> None:
@@ -484,6 +630,137 @@ class TuningService:
         self._repack_slots(src)
         for jid, s in moves.items():
             self._jobs[jid].slot = s
+
+    # -- streaming wavelet prefilter -----------------------------------------
+    def _ref_prefix_coeffs(self, size: int, n: int) -> np.ndarray:
+        """Compressed Haar coefficient bank of every reference's first
+        ``n`` samples, edge-extended to target length ``size``: the
+        counterpart of a job's :class:`StreamingHaar` prefix
+        coefficients (``n`` job samples correspond to about ``n``
+        reference samples; comparing the prefix against FULL references
+        would correlate the job's constant extension tail against unseen
+        reference structure).  Cached per (size, n): lockstep jobs share
+        the transform."""
+        key = (size, n)
+        cb = self._wcoeff_cache.get(key)
+        if cb is None:
+            series = self.bank.series.astype(np.float64)
+            w = series.shape[1]
+            cut = np.minimum(self._full_lengths, n)             # [K]
+            edge = np.take_along_axis(series, (cut - 1)[:, None], axis=1)
+            bp = np.where(np.arange(w)[None, :] < cut[:, None], series,
+                          edge)
+            bp = np.pad(bp, ((0, 0), (0, size - w)), mode="edge") \
+                if size >= w else bp[:, :size]
+            cb = _wavelet.compress_bank(_wavelet.haar_dwt_bank(bp),
+                                        self.prefilter_coeffs)
+            if len(self._wcoeff_cache) >= 16:
+                self._wcoeff_cache.pop(next(iter(self._wcoeff_cache)))
+            self._wcoeff_cache[key] = cb
+        return cb
+
+    @staticmethod
+    def _top_p_with_margin(sims: np.ndarray, allowed: np.ndarray, p: int,
+                           margin: float) -> np.ndarray:
+        """Bool keep-mask: references ranking in the top ``p`` of ``sims``
+        among ``allowed``, widened by ``margin`` (anything within margin
+        of the p-th best survives too, so near-ties are not evicted on
+        ranking noise)."""
+        ranked = np.where(allowed, sims, -np.inf)
+        kth = np.partition(ranked, -p)[-p]
+        return ranked >= kth - margin
+
+    def _update_prefilter(self, pending) -> None:
+        """Shrink each touched job's live-reference set.  Two top-P (+
+        margin) rules vote and the UNION survives:
+
+        * the streaming-Haar ranking (coarse, warp-blind, cheap) proposes
+          the bulk prune;
+        * the job's own in-flight open-end DTW scores (from the tick just
+          run) veto the eviction of anything still plausibly winning: the
+          Haar cosine compares prefixes rigidly, so a reference that
+          matches the job only under warping (the paper's
+          exim-vs-wordcount case) ranks poorly there while its warp
+          correlation is already high.
+
+        Sticky per job: sets only ever shrink, so a dropped reference's
+        DP column never has to re-enter for a job that already has
+        samples (re-entry would be stale)."""
+        p = self.prefilter_top
+        if self._overload is not None:
+            # deep_prune rung: survivor sets shrink harder (sticky, so
+            # the deeper cut persists after de-escalation).
+            p = max(1, p // self._overload.prefilter_divisor)
+        for job, *_ in pending:
+            if job.haar is None or job.n < 2:
+                continue
+            if job.degraded_level >= 2:
+                # distance-only ticks froze this job's DTW veto scores;
+                # pruning on a stale veto could evict the eventual
+                # winner, so the live set stops shrinking.
+                continue
+            if job.fraction_seen < self.prefilter_min_fraction:
+                continue
+            if self.score_in_flight and job.last_sims is None:
+                continue          # no DTW veto yet: too early to prune
+            allowed = job.allowed if job.allowed is not None \
+                else np.ones((self._k,), bool)
+            if int(allowed.sum()) <= p:
+                continue                              # converged
+            keep = self._top_p_with_margin(
+                _wavelet.coeff_similarity_bank(
+                    job.haar.compressed(self.prefilter_coeffs),
+                    self._ref_prefix_coeffs(job.haar.size, job.n)),
+                allowed, p, self.prefilter_margin)
+            if job.last_sims is not None:
+                dsims = np.where(allowed,
+                                 np.nan_to_num(job.last_sims, neginf=-1.0),
+                                 -np.inf)
+                keep |= self._top_p_with_margin(dsims, allowed, p,
+                                                self.prefilter_margin)
+                # the early-decision margin compares the leader WORKLOAD
+                # against the runner-up WORKLOAD: protect the best
+                # reference of each of the current top-2 workloads, or
+                # evicting the whole runner-up family would floor its
+                # score to -1.0 and make the margin gate vacuously true.
+                seen = set()
+                for r in np.argsort(dsims)[::-1]:
+                    if not np.isfinite(dsims[r]) or len(seen) == 2:
+                        break
+                    if self._labels[r] not in seen:
+                        seen.add(self._labels[r])
+                        keep[r] = True
+            job.allowed = np.logical_and(allowed, keep)
+
+    def _survivors(self) -> np.ndarray:
+        """Union of the active jobs' live sets -> full-bank index array.
+        A job whose prefilter has not engaged needs every reference."""
+        mask = np.zeros((self._k,), bool)
+        for job in self._jobs.values():
+            if job.allowed is None:
+                return np.arange(self._k)
+            mask |= job.allowed
+        return np.flatnonzero(mask)
+
+    def _maybe_repack(self) -> None:
+        """Re-pack the device state when the survivor union has outgrown
+        the packed columns (a fresh job needs everything again) or has
+        shrunk past the next power-of-two bucket.  A pack that merely
+        *contains* the survivors is left alone: the extra columns cost at
+        most one bucket's compute, while every re-pack is a gather of
+        the whole state."""
+        if self.prefilter_top is None:
+            return
+        idx = self._survivors()
+        grown = not np.isin(idx, self._packed_idx,
+                            assume_unique=True).all()
+        full = len(idx) == self._k
+        kp_target = self._k + ((-self._k) % self._ndev) if full \
+            else self._k_bucket(len(idx))
+        if not grown and kp_target >= self._kp:
+            return
+        self._pack_device_state(idx, self._rows, self._moms)
+        self.repack_count += 1
 
     # -- job lifecycle -------------------------------------------------------
     @property
@@ -547,7 +824,7 @@ class TuningService:
             raise ValueError(f"job {job_id!r} already in flight")
         if expected_len < 1:
             raise ValueError("expected_len must be >= 1")
-        if self._admission is not None:
+        if self._admission is not None and not self._admission_suppressed:
             rung_frac = (self._overload.rung / max(1, len(RUNGS) - 1)
                          if self._overload is not None else 0.0)
             cost_fill = min(1.0, expected_len / (
@@ -572,7 +849,9 @@ class TuningService:
         self._dirty.append(slot)
         self._qlens[slot] = expected_len
         job = InFlightJob(job_id=job_id, slot=slot, expected_len=expected_len,
-                          tick_hz=tick_hz, qos=qos)
+                          tick_hz=tick_hz, qos=qos,
+                          haar=_wavelet.StreamingHaar(expected_len)
+                          if self.prefilter_top is not None else None)
         self._front.register(job_id)
         self._jobs[job_id] = job
         return job
@@ -703,15 +982,21 @@ class TuningService:
             job.x.append(chunk)
             if vchunk is not None:
                 job.vx.append(vchunk)
+            if job.haar is not None:
+                job.haar.update(chunk)
             pending.append((job, chunk, vchunk))
         if not pending:
             return out
 
         # state motion first (never a dispatch): deferred fresh-slot
-        # resets, then the S-axis shrink when the active set fits a
-        # smaller bucket.
+        # resets (so no gather moves stale rows), then the K-axis re-pack
+        # when the prefilter's survivor union crossed a bucket boundary,
+        # then the S-axis shrink when the active set fits a smaller
+        # bucket.
         self._apply_resets()
+        self._maybe_repack()
         self._maybe_shrink_slots()
+        k_live = len(self._packed_idx)
 
         c = _dtw._chunk_bucket(max(ch.shape[0] for _, ch, _ in pending))
         chunks = np.zeros((self._s_cap, c), np.float32)
@@ -764,12 +1049,20 @@ class TuningService:
                 # written back into the slab's leading channels in place:
                 # a concatenation would allocate a second slab.
                 self._moms[:nch].copy_(moms_out)
+            # the tick's device -> host transfers: the [S, kp] scores (and
+            # the [S, kp] probabilities in the probabilistic modes),
+            # sliced to the live columns (a padded column's score is
+            # meaningless) and scattered back to full-bank columns: an
+            # unpacked reference reads -inf (never a leader, never a
+            # runner-up) and carries zero match probability.
+            sims_all = np.full((self._s_cap, self._k), -np.inf)
+            sims_all[:, self._packed_idx] = \
+                res[5][:, :k_live].cpu().numpy().astype(np.float64)
             if mode != "scored":
                 self._vstats = res[6]
-                probs_all = res[7].cpu().numpy().astype(np.float64)
-            # the tick's device -> host transfers: the [S, K] scores (and
-            # the [S, K] probabilities in the probabilistic modes).
-            sims_all = res[5].cpu().numpy().astype(np.float64)
+                probs_all = np.zeros((self._s_cap, self._k))
+                probs_all[:, self._packed_idx] = \
+                    res[7][:, :k_live].cpu().numpy().astype(np.float64)
         self.dispatch_count += 1
 
         if mode != base:
@@ -784,13 +1077,25 @@ class TuningService:
             # later scored tick emits for its slot is garbage: freeze
             # last_sims/last_probs at their last exact values.
             if sims_all is not None and job.degraded_level < 2:
-                job.last_sims = sims_all[job.slot]
+                sims = sims_all[job.slot]
+                if job.allowed is not None:
+                    # a column another job kept alive may be pruned for
+                    # THIS job: mask it out of this job's view.
+                    sims = np.where(job.allowed, sims, -np.inf)
+                job.last_sims = sims
                 if probs_all is not None:
-                    job.last_probs = probs_all[job.slot]
+                    pr = probs_all[job.slot]
+                    if job.allowed is not None:
+                        pr = np.where(job.allowed, pr, 0.0)
+                    job.last_probs = pr
                 if job.early is None and job.degraded_level == 0:
                     decision = self._maybe_decide(job)
             if out.get(job.job_id) is None:
                 out[job.job_id] = decision
+        # prune with THIS tick's scores (n just advanced): the re-pack
+        # they imply happens at the top of the next data tick.
+        if self.prefilter_top is not None:
+            self._update_prefilter(pending)
         return out
 
     # -- dispatch resilience -------------------------------------------------

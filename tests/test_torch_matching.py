@@ -304,8 +304,14 @@ def test_quickstart_scenario():
 
 
 def test_wavelet_prefilter_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AutoTuner(ReferenceDB(), wavelet_prefilter=2, device="cpu")
+    """The wavelet prefilter is ported (ROADMAP.md queue 1 item 7): the
+    keyword no longer raises, and with no more candidates than its
+    budget the match runs unnarrowed, as in the reference
+    (tests/test_torch_prefilter.py holds the narrowed match)."""
+    tuner = AutoTuner(ReferenceDB(), wavelet_prefilter=2, device="cpu")
+    d = tuner.match("w", np.linspace(0, 1, 16, dtype=np.float32))
+    assert tuner.wavelet_prefilter == 2
+    assert not d.used_wavelet_prefilter and d.matched is None
 
 
 @pytest.mark.parametrize("band", [None, 5])

@@ -283,11 +283,13 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(prefilter_top=2)])
+    dict(mesh=object()), dict(mesh=object(), prefilter_top=2)])
 def test_unported_options_raise(option):
+    """Bank sharding is the one service option left to port (the wavelet
+    prefilter, item 7, is ported: tests/test_torch_prefilter.py)."""
     bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
                        labels=("a", "b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 10"):
         TuningService(bank, device="cpu", **option)
 
 
