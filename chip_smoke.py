@@ -151,7 +151,23 @@ Phases, in order (any failure exits non-zero):
     snapshot's bytes, save and restore-plus-replay times printed); then
     the reference's kill-and-recover command tape in child processes on
     the card (a serving child SIGKILLs itself after command 19, a second
-    recovers): decisions bitwise a golden child's.
+    recovers): decisions bitwise a golden child's;
+22. bank sharding (``mesh=``) on the card, its meshes naming the one
+    card more than once: the reference sharded test's drive (K = 11
+    over 8 shards, 2 columns a shard, the last shards all padding;
+    ragged chunks; point, exact, approx, distance-only and pruned, one
+    column a shard) bitwise the unsharded runs, and each tick kernel on
+    a 2- and a 1-column shard against its plain version; a mesh of one
+    bitwise ``mesh=None``; phase 7's point, exact and distance-only
+    runs on 4 shards, bitwise phase 7's (rows, moments, scores,
+    earlies, 32 verdicts; every shard's folds equal), the tick kernel
+    launched 4 times a dispatch, each run's median ms/tick beside phase
+    7's and each shard's K1 timed beside the unsharded K1; the point
+    schedule on an unsharded and a 4-shard service side by side, ticks
+    interleaved, each tick's and dispatch's host time; the point run
+    rescaled 4 -> None -> 2 mid-run, and its 4-shard snapshot restored
+    onto None and onto 2 shards, all bitwise phase 7's; phase 20's
+    pruned run on 4 shards, bitwise phase 20's record.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
@@ -1340,6 +1356,10 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
                      np.stack([j.last_probs for j in jobs]) if prob
                      else None)
     rows_before_verdict = svc._rows.clone()
+    # the rest of the state phase 22's sharded runs are held to
+    moms_before_verdict = None if svc._moms is None else svc._moms.clone()
+    sims_before_verdict = None if mode == "distance" else np.stack(
+        [svc._jobs[f"job{i}"].last_sims for i in range(s_jobs)])
     fin_ids = [f"job{i}" for i in range(n_fin)]
     t0 = time.perf_counter()
     verdicts = svc.finish_many(fin_ids)
@@ -1456,6 +1476,7 @@ def full_width(dev, errs: ErrLog, name: str, mode: str, s_jobs: int = 256,
           f"{100 * t_ms / ms_tick:.2f}% of the median tick "
           f"({ms_tick:.3f} ms) [{name}]")
     record = dict(earlies=earlies, rows=rows_before_verdict,
+                  moms=moms_before_verdict, sims=sims_before_verdict,
                   verdicts={j: _verdict_key(d) for j, d in verdicts.items()},
                   ms_tick=ms_tick)
     if mode == "distance":
@@ -3029,6 +3050,488 @@ def recovery_kill() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: bank sharding
+# ---------------------------------------------------------------------------
+
+def card_mesh(n):
+    """A bank mesh of ``n`` shards, all on the one card (the counterpart
+    of the reference's forced host devices); None for ``n`` None."""
+    from repro_torch.sharding import make_mesh
+    return None if n is None else make_mesh(n, devices=["cuda:0"] * n)
+
+
+#: Each mode's tick kernel and verdict kernel, by table key.
+TICK_KEYS = {"point": ("K1", "K2"), "exact": ("K4-exact", "K5"),
+             "approx": ("K4-approx", "K5"), "distance": ("K3", "K2")}
+
+
+def _final_state(svc, mode: str, s_jobs: int) -> dict:
+    """What a run must reproduce before its verdict: the DP rows and
+    moment slab (gathered from the shards), every job's scores and early
+    decision."""
+    jobs = [svc._jobs[f"job{i}"] for i in range(s_jobs)]
+    return dict(
+        rows=svc._rows.clone(),
+        moms=None if svc._moms is None else svc._moms.clone(),
+        sims=None if mode == "distance"
+        else np.stack([j.last_sims for j in jobs]),
+        earlies={j.job_id: (j.early.matched, j.early.corr,
+                            j.early.decided_at_fraction)
+                 for j in jobs if j.early is not None})
+
+
+def _hold_full(got: dict, want: dict, what: str) -> None:
+    """A sharded (rescaled, restored) full-width run against phase 7's
+    run of the same mode: rows, moment slab, scores, early decisions and
+    the 32 verdicts bitwise."""
+    assert torch.equal(got["rows"], want["rows"]), what
+    assert (got["moms"] is None) == (want["moms"] is None), what
+    assert got["moms"] is None or torch.equal(got["moms"], want["moms"]), \
+        what
+    assert (got["sims"] is None) == (want["sims"] is None), what
+    assert got["sims"] is None or np.array_equal(got["sims"],
+                                                 want["sims"]), what
+    assert got["earlies"] == want["earlies"], what
+    assert got["verdicts"] == want["verdicts"], what
+
+
+def drive_full(svc, mode: str, ticks, at=None, s_jobs: int = 256,
+               k: int = 256, n_fin: int = 32, c: int = 16, seed: int = 0):
+    """Phase 7's schedule on ``svc`` for the given tick indices: every
+    job's 16 samples of the tick, then one tick; ``at`` maps a tick index
+    to a callable run before that tick (a rescale, a snapshot).  Then the
+    state before the verdict and the verdict of 32 jobs.  Returns the
+    run's record and its tick times (host clock + synchronise)."""
+    _, queries, variances = full_inputs(mode, s_jobs, k, 24 * c, seed)
+    prob = mode in ("exact", "approx")
+    tick_s = []
+    for t in ticks:
+        if at and t in at:
+            at[t]()
+        for i in range(s_jobs):
+            sl = slice(t * c, (t + 1) * c)
+            if prob:
+                svc.push(f"job{i}", queries[i, sl], variance=variances[i, sl])
+            else:
+                svc.push(f"job{i}", queries[i, sl])
+        t0 = time.perf_counter()
+        svc.tick()
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t0)
+    record = _final_state(svc, mode, s_jobs)
+    verdicts = svc.finish_many([f"job{i}" for i in range(n_fin)])
+    record["verdicts"] = {j: _verdict_key(d) for j, d in verdicts.items()}
+    return record, tick_s
+
+
+def _full_service(mode: str, mesh, s_jobs: int = 256, k: int = 256,
+                  seed: int = 0, dev=None):
+    from repro_torch.serve.tuning import TuningService
+    bank = full_inputs(mode, 1, k, 16, seed)[0]
+    kw = {"point": {}, "distance": dict(score_in_flight=False)}.get(
+        mode, dict(min_probability=0.5, prob_mode=mode))
+    svc = TuningService(bank, slots=s_jobs, mesh=mesh, device=dev, **kw)
+    for i in range(s_jobs):
+        svc.submit(f"job{i}", expected_len=24 * 16)
+    return svc
+
+
+def sharded_full(dev, errs: ErrLog, name: str, runs: dict, k1_ms: float,
+                 n: int = 4, s_jobs: int = 256, k: int = 256) -> None:
+    """Phase 22, first part: phase 7's point, exact and distance-only
+    runs again on ``n`` shards of the card.  Each must be bitwise phase
+    7's run (rows, moment slab, scores, earlies, 32 verdicts), every
+    shard's ``ns``, ``sx`` and ``sxx`` bitwise the others', and its tick
+    kernel must launch ``n`` times a dispatch (the verdict kernel once a
+    verdict).  Prints each run's median ms/tick beside phase 7's, and in
+    point mode each shard's K1 launch timed beside the unsharded K1."""
+    from repro_torch.kernels.dtw import stream
+    med = {}
+    for mode in ("point", "exact", "distance"):
+        tick_key, verdict_key = TICK_KEYS[mode]
+        svc = _full_service(mode, card_mesh(n), s_jobs, k)
+        assert len(svc._shards) == n and svc._kp == k
+        reset_counts()
+        got, tick_s = drive_full(svc, mode, range(24), s_jobs=s_jobs, k=k)
+        c = counts()
+        want = {key: 0 for key in c}
+        want[tick_key] = n * svc.dispatch_count
+        want[verdict_key] = svc.offline_dispatch_count
+        assert c == want and svc.dispatch_count == 24, (mode, c, want)
+        _hold_full(got, runs[mode], f"{n}-shard {mode}")
+        for sh in svc._shards[1:]:
+            for f in ("ns", "sx", "sxx", "vstats"):
+                a, b = getattr(sh, f), getattr(svc._shards[0], f)
+                assert (a is None) == (b is None) and (
+                    a is None or torch.equal(a, b)), (mode, f)
+            assert sh.rows.shape[2] == k // n and sh.rows.is_contiguous()
+        med[mode] = 1e3 * float(np.median(tick_s))
+        print(f"[sharding full {mode}] {s_jobs} jobs x K={k} over {n} "
+              f"shards of the card: median {med[mode]:.3f} ms/tick "
+              f"(unsharded, phase 7: {runs[mode]['ms_tick']:.3f}); "
+              f"{tick_key} {c[tick_key]} launches = {n} x "
+              f"{svc.dispatch_count} dispatches; rows, moments, scores, "
+              f"{len(got['earlies'])} earlies and 32 verdicts bitwise "
+              f"phase 7's [{name}]")
+        if mode != "point":
+            continue
+        # each shard's K1 at its [S, M, K / n] slice, on its state and
+        # phase 7's tick-12 chunk, beside the unsharded K1
+        _, queries, _ = full_inputs("point", s_jobs, k, 384, 0)
+        s_cap = svc.slot_capacity
+        assert s_cap == s_jobs
+        chunks = torch.tensor(queries[:, 12 * 16:13 * 16], device=dev)
+        nvalid = torch.full((s_cap,), 16, dtype=torch.int32, device=dev)
+        qlens = torch.full((s_cap,), 384, dtype=torch.int32, device=dev)
+        launches = [
+            (lambda sh=sh: stream.stream_bank_extend_scored(
+                sh.rows, sh.moms, sh.ns, sh.bank_t, sh.lengths, chunks,
+                nvalid, qlens)) for sh in svc._shards]
+        for sh, fn in zip(svc._shards, launches):
+            outk = fn()
+            outp = stream.stream_bank_extend_scored_plain(
+                sh.rows, sh.moms, sh.ns, sh.bank_t, sh.lengths, chunks,
+                nvalid, qlens)
+            fin = outp[0] < 1e37
+            assert torch.equal(fin, outk[0] < 1e37)
+            e = max(errs.diff("K1", outk[0], outp[0], fin),
+                    errs.diff("K1", outk[1], outp[1],
+                              fin[None].expand_as(outp[1])))
+            assert e <= SMOOTH_TOL, f"K1 on a {k // n}-column shard: {e}"
+        shard_ms = [cuda_ms(fn, 20) for fn in launches]
+        all_ms = cuda_ms(lambda: [fn() for fn in launches], 20)
+        shard_dev = device_ms(launches[0], 10, "stream_scored_kernel")
+        print(f"[sharding full point] K1 a shard ([{s_cap}, 360, "
+              f"{k // n}]): {', '.join(f'{x:.4f}' for x in shard_ms)} ms "
+              f"(CUDA events; shard 0 device {_dev_str(shard_dev)}); the "
+              f"{n} launches back to back {all_ms:.4f} ms, "
+              f"{all_ms / k1_ms:.2f}x the unsharded K1 ({k1_ms:.4f} ms); "
+              f"each held against the plain version [{name}]")
+    print(f"[sharding full] median ms/tick over {n} shards against "
+          f"unsharded: " + ", ".join(
+              f"{m} {med[m]:.3f} / {runs[m]['ms_tick']:.3f}" for m in med)
+          + f" [{name}]")
+
+
+def rescale_full(dev, name: str, runs: dict, n_ticks: int = 24,
+                 s_jobs: int = 256, k: int = 256) -> None:
+    """Phase 22, second part: phase 7's point run started on 4 shards,
+    snapshotted before tick 8, rescaled onto the one device (``None``)
+    before tick 8 and onto 2 shards before tick 16; then the 4-shard
+    snapshot restored onto ``None`` and onto 2 shards, each run on from
+    tick 8.  All three bitwise phase 7's run; K1 launches follow each
+    run's shard count."""
+    from repro_torch.serve.recovery import restore_service, snapshot_service
+    want = runs["point"]
+    svc = _full_service("point", card_mesh(4), s_jobs, k)
+    snap = {}
+
+    def to_none():
+        snap["tree"] = snapshot_service(svc)
+        svc.rescale(None)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    got, _ = drive_full(svc, "point", range(n_ticks),
+                        at={8: to_none, 16: lambda: svc.rescale(
+                            card_mesh(2))}, s_jobs=s_jobs, k=k)
+    total_s = time.perf_counter() - t0
+    assert svc.rescale_count == 2 and len(svc._shards) == 2
+    assert counts()["K1"] == 4 * 8 + 8 + 2 * 8, counts()["K1"]
+    _hold_full(got, want, "rescaled 4 -> None -> 2")
+    bank = svc.bank
+    restored_ms = {}
+    for n in (None, 2):
+        t1 = time.perf_counter()
+        twin = restore_service(snap["tree"], bank, mesh=card_mesh(n),
+                               device=dev if n is None else None)
+        torch.cuda.synchronize()
+        restored_ms[n] = 1e3 * (time.perf_counter() - t1)
+        assert len(twin._shards) == (n or 1) and twin.dispatch_count == 8
+        reset_counts()
+        got, _ = drive_full(twin, "point", range(8, n_ticks),
+                            s_jobs=s_jobs, k=k)
+        assert counts()["K1"] == (n or 1) * (n_ticks - 8)
+        _hold_full(got, want, f"4-shard snapshot restored onto {n}")
+    rows = snap["tree"]["device"]["rows"]
+    print(f"[sharding rescale] point run of {s_jobs} jobs: 4 shards, "
+          f"rescaled "
+          f"onto None before tick 8 and onto 2 shards before tick 16 "
+          f"({n_ticks} ticks and the verdict in {total_s:.2f} s); the "
+          f"4-shard snapshot before tick 8 (rows {tuple(rows.shape)}) "
+          f"restored onto None in {restored_ms[None]:.1f} ms and onto 2 "
+          f"shards in {restored_ms[2]:.1f} ms: all three runs bitwise "
+          f"phase 7's [{name}]")
+
+
+def pruned_sharded(name: str, record: dict, n: int = 4, n_ticks: int = 16,
+                   c: int = 16, n_fin: int = 32) -> None:
+    """Phase 22, third part: phase 20's pruned run on ``n`` shards of the
+    card: the packed columns, live sets, scores, live rows and moment
+    slab after 16 ticks and the 32 verdicts bitwise phase 20's record,
+    every packed width a multiple of ``n``, and K1 launched ``n`` times a
+    dispatch."""
+    from repro_torch.serve.tuning import TuningService
+    bank, queries = record["bank"], record["queries"]
+    s_jobs = queries.shape[0]
+    svc = TuningService(bank, slots=s_jobs, mesh=card_mesh(n), **PRUNED_KW)
+    for j in range(s_jobs):
+        svc.submit(f"job{j}", expected_len=n_ticks * c)
+    reset_counts()
+    kps, tick_s = set(), []
+    for t in range(n_ticks):
+        for j in range(s_jobs):
+            svc.push(f"job{j}", queries[j, t * c:(t + 1) * c])
+        t0 = time.perf_counter()
+        svc.tick()
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t0)
+        kps.add(svc._kp)
+    assert counts()["K1"] == n * svc.dispatch_count == n * n_ticks
+    assert all(kp % n == 0 for kp in kps) and svc.repack_count >= 1
+    assert np.array_equal(svc._packed_idx, record["packed_idx"])
+    k_live = len(svc._packed_idx)
+    for jid, job in svc._jobs.items():
+        want = record["allowed"][jid]
+        assert (job.allowed is None) == (want is None), jid
+        assert want is None or np.array_equal(job.allowed, want), jid
+        assert np.array_equal(job.last_sims, record["last_sims"][jid]), jid
+        assert job.slot == record["slots"][jid], jid
+    assert torch.equal(svc._rows[:, :, :k_live], record["rows"])
+    assert torch.equal(svc._moms[..., :k_live], record["moms"])
+    verdicts = svc.finish_many([f"job{j}" for j in range(n_fin)])
+    for jid, d in verdicts.items():
+        assert _verdict_key(d) == record["finals"][jid], jid
+    print(f"[sharding pruned] phase 20's pruned run over {n} shards: "
+          f"packed widths {sorted(kps)} ({k_live} live at the end, "
+          f"{svc._kp // n} columns a shard), {svc.repack_count} re-packs; "
+          f"median {1e3 * float(np.median(tick_s)):.3f} ms/tick; K1 "
+          f"{n} x {svc.dispatch_count} launches; packed columns, live sets, "
+          f"scores, rows, moments and {n_fin} verdicts bitwise phase 20's "
+          f"[{name}]")
+
+
+def k11_bank(rng):
+    """The reference sharded test's bank (tests/test_streaming_sharded.py):
+    K = 11 references of 18-40 samples, four workloads."""
+    from repro_torch.core.database import pack_series
+    series = []
+    for i in range(11):
+        n = int(rng.integers(18, 40))
+        t = np.linspace(0, 1, n, dtype=np.float32)
+        s = 0.5 + 0.3 * np.sin(2 * np.pi * (1.5 + 0.7 * i) * t) \
+            + 0.04 * rng.normal(size=n)
+        series.append(np.clip(s, 0, 1).astype(np.float32))
+    return pack_series(series, labels=[f"w{i % 4}" for i in range(11)])
+
+
+def small_sharded(dev, errs: ErrLog, name: str) -> None:
+    """Phase 22, fourth part: the reference sharded test's drive on the
+    card.  K = 11 references over 8 shards of the card (16 padded
+    columns, 2 a shard, the last shards all padding), three jobs pushing
+    ragged chunks (7, 3, 9, 0, 5 samples, drifting), band None and 6, in
+    point, exact, approx and distance-only mode, and the pruned service
+    (``prefilter_top=2``: 8 packed columns, one a shard): every tick's
+    scores, probabilities and DP rows, the decisions and the finals
+    bitwise the unsharded run on the card, the tick kernel launched 8
+    times a dispatch.  A mesh of one (``make_mesh(1)``) bitwise
+    ``mesh=None``.  Then each mode's kernel on a 2-column and a
+    1-column shard held against its plain version."""
+    from repro_torch.kernels.dtw import stream
+    from repro_torch.serve.tuning import TuningService
+    from repro_torch.sharding import make_mesh
+    bank = k11_bank(np.random.default_rng(0))
+    rng = np.random.default_rng(100)
+    queries = {}
+    for j in range(3):
+        t = np.linspace(0, 1, 42, dtype=np.float32)
+        q = 0.5 + 0.3 * np.sin(2 * np.pi * (1.5 + 0.7 * j) * t) \
+            + 0.04 * rng.normal(size=42)
+        queries[f"job{j}"] = np.clip(q, 0, 1).astype(np.float32)
+    vrs = {j: (0.01 * np.abs(rng.normal(size=42))).astype(np.float32)
+           for j in queries}
+    kw = dict(threshold=0.5, margin=0.01, stable_ticks=2, min_fraction=0.2,
+              slots=4)
+    modes = {"point": {}, "exact": dict(min_probability=0.5),
+             "approx": dict(min_probability=0.5, prob_mode="approx"),
+             "distance": dict(score_in_flight=False),
+             "pruned": dict(prefilter_top=2, prefilter_margin=0.02)}
+
+    def drive(svc, prob):
+        out, pos = [], {j: 0 for j in queries}
+        sizes = {j: (7, 3, 9, 0, 5)[i:] + (7, 3, 9, 0, 5)[:i]
+                 for i, j in enumerate(queries)}
+        t = 0
+        while any(pos[j] < 42 for j in queries):
+            for j, q in queries.items():
+                sl = slice(pos[j], pos[j] + sizes[j][t % 5])
+                if prob:
+                    svc.push(j, q[sl], variance=vrs[j][sl])
+                else:
+                    svc.push(j, q[sl])
+                pos[j] = min(sl.stop, 42)
+            dec = svc.tick()
+            t += 1
+            out.append((
+                sorted((j, d.matched, d.corr, d.probability)
+                       for j, d in dec.items() if d is not None),
+                [(j, None if job.last_sims is None
+                  else job.last_sims.tolist(),
+                  None if job.last_probs is None
+                  else job.last_probs.tolist())
+                 for j, job in svc._jobs.items()],
+                svc._rows[:, :, :len(svc._packed_idx)].cpu()))
+        return out, svc
+
+    def same(a, b):
+        assert len(a) == len(b)
+        for (da, sa, ra), (db, sb, rb) in zip(a, b):
+            assert da == db and sa == sb and torch.equal(ra, rb)
+
+    n_runs, widths = 0, {}
+    for mode, extra in modes.items():
+        prob = "min_probability" in extra
+        key = {"point": "K1", "pruned": "K1", "exact": "K4-exact",
+               "approx": "K4-approx", "distance": "K3"}[mode]
+        for band in ((None, 6) if mode in ("point", "pruned") else (6,)):
+            runs = {}
+            for n in (None, 8):
+                svc = TuningService(bank, band=band, device=dev,
+                                    mesh=card_mesh(n), **kw, **extra)
+                for j, q in queries.items():
+                    svc.submit(j, expected_len=len(q))
+                reset_counts()
+                trace, svc = drive(svc, prob)
+                assert counts()[key] == (n or 1) * svc.dispatch_count
+                assert svc.dispatch_count == svc.ticks
+                fin = svc.finish_many(list(queries))
+                runs[n] = (trace, {j: _verdict_key(d)
+                                   for j, d in fin.items()}, svc)
+                n_runs += 1
+            same(runs[None][0], runs[8][0])
+            assert runs[None][1] == runs[8][1], (mode, band)
+            svc = runs[8][2]
+            assert svc.repack_count == runs[None][2].repack_count
+            widths[(mode, band)] = svc._kp // 8
+            # the tick kernel on the first shard (2 or 1 real columns) and
+            # the last (all padding), against its plain version
+            s_cap = svc.slot_capacity
+            g = torch.Generator().manual_seed(3)
+            chunks = torch.rand((s_cap, 9), generator=g).to(dev)
+            vch = (0.01 * torch.rand((s_cap, 9), generator=g)).to(dev)
+            nvalid = torch.tensor(([9, 4, 0, 7] * s_cap)[:s_cap],
+                                  dtype=torch.int32, device=dev)
+            qlens = torch.full((s_cap,), 42, dtype=torch.int32, device=dev)
+            for sh in (svc._shards[0], svc._shards[-1]):
+                if mode == "distance":
+                    args = (sh.rows, sh.ns, sh.bank_t, sh.lengths, chunks,
+                            nvalid, qlens)
+                    outk = (stream.stream_bank_extend(*args, band=band),)
+                    outp = (stream.stream_bank_extend_plain(*args,
+                                                            band=band),)
+                elif prob:
+                    args = (sh.rows, sh.moms, sh.ns, sh.bank_t, sh.lengths,
+                            chunks, vch, nvalid, qlens)
+                    outk = stream.stream_bank_extend_scored_var(*args,
+                                                                band=band)
+                    outp = stream.stream_bank_extend_scored_var_plain(
+                        *args, band=band)
+                else:
+                    args = (sh.rows, sh.moms, sh.ns, sh.bank_t, sh.lengths,
+                            chunks, nvalid, qlens)
+                    outk = stream.stream_bank_extend_scored(*args,
+                                                            band=band)
+                    outp = stream.stream_bank_extend_scored_plain(
+                        *args, band=band)
+                # cells still at +inf (slots that never took a sample)
+                # must agree, and the rest within the tolerance
+                fin = outp[0] < 1e37
+                assert torch.equal(fin, outk[0] < 1e37), (mode, band)
+                e = errs.diff(key, outk[0], outp[0], fin)
+                if len(outk) > 1:
+                    e = max(e, errs.diff(key, outk[1], outp[1],
+                                         fin[None].expand_as(outp[1])))
+                assert e <= SMOOTH_TOL, (mode, band, e)
+    # a mesh of one is mesh=None
+    one = {}
+    for mesh in (None, make_mesh(1)):
+        svc = TuningService(bank, band=6, device=dev, mesh=mesh, **kw)
+        for j, q in queries.items():
+            svc.submit(j, expected_len=len(q))
+        trace, svc = drive(svc, False)
+        one[mesh is None] = (trace, {j: _verdict_key(d) for j, d in
+                                     svc.finish_many(list(queries)).items()})
+    same(one[True][0], one[False][0])
+    assert one[True][1] == one[False][1]
+    print(f"[sharding small] K = 11 over 8 shards of the card, {n_runs} "
+          f"runs (point and pruned at band None and 6; exact, approx, "
+          f"distance-only at band 6): scores, probabilities, rows, "
+          f"decisions and finals bitwise the unsharded runs, the tick "
+          f"kernel 8 launches a dispatch; columns a shard "
+          f"{sorted(set(widths.values()))}; each tick kernel on a first "
+          f"and a last (all-padding) shard within {SMOOTH_TOL:g} of its "
+          f"plain version; make_mesh(1) bitwise mesh=None")
+
+
+def interleaved_point(dev, name: str, n: int = 4, s_jobs: int = 256,
+                      k: int = 256, n_ticks: int = 24) -> None:
+    """Phase 22, the sharded tick's cost: phase 7's point schedule on an
+    unsharded and an ``n``-shard service side by side, their ticks
+    interleaved (the order swapped every tick) so that both see the same
+    host; every tick's scores bitwise the other's.  Prints each
+    service's median ms/tick (host clock + synchronise) and the median
+    host time of its dispatch (``_fan_out``: the launches and the tick
+    tails enqueued, no synchronise) beside the rest of the tick."""
+    _, queries, _ = full_inputs("point", s_jobs, k, n_ticks * 16, 0)
+    svcs = {1: _full_service("point", None, s_jobs, k, dev=dev),
+            n: _full_service("point", card_mesh(n), s_jobs, k)}
+    fan_s = {key: [] for key in svcs}
+    for key, svc in svcs.items():
+        inner = svc._fan_out
+
+        def timed(*args, _inner=inner, _key=key):
+            t0 = time.perf_counter()
+            out = _inner(*args)
+            fan_s[_key].append(time.perf_counter() - t0)
+            return out
+        svc._fan_out = timed
+    tick_s = {key: [] for key in svcs}
+    for t in range(n_ticks):
+        order = list(svcs) if t % 2 == 0 else list(svcs)[::-1]
+        for key in order:
+            svc = svcs[key]
+            for i in range(s_jobs):
+                svc.push(f"job{i}", queries[i, t * 16:(t + 1) * 16])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.tick()
+            torch.cuda.synchronize()
+            tick_s[key].append(time.perf_counter() - t0)
+        for i in range(s_jobs):
+            assert np.array_equal(svcs[1]._jobs[f"job{i}"].last_sims,
+                                  svcs[n]._jobs[f"job{i}"].last_sims)
+    med = {key: 1e3 * float(np.median(v)) for key, v in tick_s.items()}
+    fan = {key: 1e3 * float(np.median(v)) for key, v in fan_s.items()}
+    print(f"[sharding interleaved] point, {s_jobs} jobs x K={k}, "
+          f"{n_ticks} ticks each, interleaved: median ms/tick unsharded "
+          f"{med[1]:.3f}, {n} shards {med[n]:.3f} ({med[n] - med[1]:+.3f}); "
+          f"dispatch host time (launches and tails enqueued) unsharded "
+          f"{fan[1]:.3f}, {n} shards {fan[n]:.3f} ms; the rest of the tick "
+          f"{med[1] - fan[1]:.3f} / {med[n] - fan[n]:.3f} ms; scores bitwise "
+          f"on every tick [{name}]")
+
+
+def sharding_phase(dev, errs: ErrLog, name: str, runs: dict, record: dict,
+                   k1_ms: float) -> None:
+    """Phase 22: bank sharding on the card (see the module docstring)."""
+    small_sharded(dev, errs, name)
+    sharded_full(dev, errs, name, runs, k1_ms)
+    interleaved_point(dev, name)
+    rescale_full(dev, name, runs)
+    pruned_sharded(name, record)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3089,6 +3592,8 @@ def main() -> int:
     rows[row["name"]] = row
     recovery_full(dev, name, record)
     recovery_kill()
+    sharding_phase(dev, errs, name, runs, record,
+                   rows[KERNELS["K1"][0]]["ms"])
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

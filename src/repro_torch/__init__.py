@@ -1,8 +1,9 @@
 """PyTorch port of ``repro`` for one NVIDIA H100.
 
 The online tuning service (``serve.tuning``), in exact point mode and
-in probabilistic mode, with its streaming wavelet prefilter and crash
-recovery (``serve.recovery`` over ``checkpoint``), the offline
+in probabilistic mode, with its streaming wavelet prefilter, crash
+recovery (``serve.recovery`` over ``checkpoint``) and bank sharding
+over a device mesh (``sharding``), the offline
 matching phase (``core``: ``AutoTuner``, ``similarity_bank``,
 ``match_application``, ``OnlineMatcher``) and the modules they need,
 with their DTW kernels

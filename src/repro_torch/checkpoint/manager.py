@@ -17,8 +17,10 @@ flattened in the reference's (jax's) leaf order, dict keys sorted, and
 the manifest carries the same ``treedef`` text, ``leaf_paths``,
 ``leaf_%05d`` keys and content hash, so a checkpoint written by either
 package loads in the other.  :func:`restore_checkpoint` places the leaves
-on one torch device; restoring onto a device mesh (``mesh=``,
-``specs=``) is not ported yet (ROADMAP.md queue 1 item 10).
+on one torch device, or, with ``mesh=`` and ``specs=``, lays each leaf
+that has a spec over the mesh's devices as a
+:class:`repro_torch.sharding.ShardedTensor` (an elastic restore onto
+another mesh).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
+from ..sharding.mesh import BankMesh, PartitionSpec, shard_tensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "load_checkpoint_tree",
            "CheckpointManager"]
@@ -199,20 +202,54 @@ def _torch_dtype(tgt: Any):
     return torch.from_numpy(np.zeros((), np.dtype(tgt.dtype))).dtype
 
 
+def _spec_leaves(target: Any, specs: Any) -> List[Optional[PartitionSpec]]:
+    """The spec of each leaf of ``target``, in ``_flatten``'s order.
+    ``specs`` mirrors ``target``'s containers down to where a spec (a
+    :class:`PartitionSpec`, or a tuple or list of axis names at a leaf)
+    or None stands, which then covers every leaf beneath it."""
+    if specs is None or isinstance(specs, PartitionSpec):
+        return [specs] * len(_flatten(target)[0])
+    if isinstance(target, dict):
+        if not isinstance(specs, dict) or set(specs) != set(target):
+            raise ValueError(f"specs {specs!r} do not match the target's "
+                             f"keys {sorted(target)}")
+        return [s for key in sorted(target)
+                for s in _spec_leaves(target[key], specs[key])]
+    if isinstance(target, (list, tuple)):
+        if not isinstance(specs, (list, tuple)) \
+                or len(specs) != len(target):
+            raise ValueError(f"specs {specs!r} do not match a target "
+                             f"sequence of {len(target)}")
+        return [s for t, sp in zip(target, specs)
+                for s in _spec_leaves(t, sp)]
+    if target is None:
+        return []
+    if not isinstance(specs, (list, tuple)):
+        raise ValueError(f"spec {specs!r} for a leaf: expected a "
+                         "PartitionSpec, a tuple of axis names or None")
+    return [PartitionSpec(*specs)]
+
+
 def restore_checkpoint(root: str, target: Any, step: Optional[int] = None,
-                       mesh=None, specs: Any = None, verify: bool = True,
+                       mesh: Optional[BankMesh] = None, specs: Any = None,
+                       verify: bool = True,
                        device: Union[str, torch.device, None] = None
                        ) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target`` (a tree of tensors, numpy
     arrays, or anything with ``shape`` and ``dtype``), each leaf a tensor
     of the target leaf's dtype on ``device`` (CUDA unless the caller
-    passes another).  ``mesh``/``specs`` (restoring onto a device mesh)
-    are not ported yet and raise."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(mesh=, specs=) is not ported yet: "
-            "ROADMAP.md queue 1 item 10 (bank sharding)")
-    dev = resolve_device(device)
+    passes another; the mesh's first device when ``mesh`` is given).
+
+    With ``mesh`` (a 1-D :class:`repro_torch.sharding.BankMesh`) and
+    ``specs`` (a tree mirroring ``target``, see :func:`_spec_leaves`),
+    each leaf with a spec comes back as a
+    :class:`repro_torch.sharding.ShardedTensor` laid over the mesh: split
+    along the dim its spec names by the mesh's axis, or replicated when
+    the spec names none (``PartitionSpec()`` or all None).  A leaf with
+    no spec (None) is restored as without a mesh.  As in the reference,
+    ``specs`` without ``mesh`` place nothing."""
+    dev = mesh.primary if mesh is not None and device is None \
+        else resolve_device(device)
     path = _resolve_step_dir(root, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -224,13 +261,16 @@ def restore_checkpoint(root: str, target: Any, step: Optional[int] = None,
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"leaf count mismatch: target {len(leaves)} vs "
                          f"checkpoint {manifest['n_leaves']}")
+    spec_leaves = _spec_leaves(target, specs) if mesh is not None \
+        else [None] * len(leaves)
     out = []
-    for i, tgt in enumerate(leaves):
+    for i, (tgt, spec) in enumerate(zip(leaves, spec_leaves)):
         a = arrays[_leaf_key(i)]
         if tuple(a.shape) != tuple(tgt.shape):
             raise ValueError(f"shape mismatch at leaf {i}: {a.shape} vs "
                              f"{tuple(tgt.shape)}")
-        out.append(torch.tensor(a).to(device=dev, dtype=_torch_dtype(tgt)))
+        t = torch.tensor(a).to(device=dev, dtype=_torch_dtype(tgt))
+        out.append(t if spec is None else shard_tensor(t, mesh, spec))
     return _unflatten(target, iter(out)), manifest
 
 
@@ -285,8 +325,8 @@ class CheckpointManager:
         self._gc()
         return path
 
-    def restore(self, target: Any, step: Optional[int] = None, mesh=None,
-                specs: Any = None,
+    def restore(self, target: Any, step: Optional[int] = None,
+                mesh: Optional[BankMesh] = None, specs: Any = None,
                 device: Union[str, torch.device, None] = None
                 ) -> Tuple[Any, Dict]:
         return restore_checkpoint(self.root, target, step=step, mesh=mesh,

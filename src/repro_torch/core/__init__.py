@@ -4,8 +4,8 @@ Pipeline (paper Fig. 3/4): profile -> Chebyshev de-noise -> [0,1]
 normalize -> store in ReferenceDB; match new workloads with DTW +
 correlation (>= 0.9) and transfer the matched workload's best-known
 configuration parameters (AutoTuner).  The names are ``repro.core``'s,
-less those of modules not ported yet (``wavelet``, ``signatures``,
-``hloparse``: ROADMAP.md).
+less those of modules not ported yet (``signatures``, ``hloparse``:
+ROADMAP.md).
 """
 
 from .filters import (cheby1_design, lfilter, filtfilt, denoise, normalize01,

@@ -12,9 +12,9 @@ without real failures:
 * :class:`ElasticController` — given alive workers, picks the largest
   usable data-parallel degree (a power of two) and emits a
   :class:`RescaleDecision`; :meth:`ElasticController.decide_ahead` also
-  reads the serving stack's overload pressure.  Carrying a decision out
-  (``TuningService.rescale``) waits for bank sharding (ROADMAP.md queue
-  1 item 10).
+  reads the serving stack's overload pressure.  A decision is carried
+  out by ``TuningService.rescale``, which re-homes the service's bank
+  shards onto the new mesh.
 """
 
 from __future__ import annotations

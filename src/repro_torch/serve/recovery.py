@@ -11,16 +11,18 @@ the whole service durable with the database recipe:
 **snapshot + write-ahead log (WAL) => bit-identical recovery.**
 
 * :func:`snapshot_service` dehydrates a live :class:`TuningService` into
-  ONE dict-nested numpy tree (device slabs copied to the host with
-  ``.cpu().numpy()`` and sliced to the live packed columns; every queue,
-  clock, counter and pending verdict alongside; the JSON-able metadata
-  rides as a ``uint8`` leaf) that round-trips through
+  ONE dict-nested numpy tree (device slabs gathered from the bank
+  shards, copied to the host and sliced to the live packed columns;
+  every queue, clock, counter and pending verdict alongside; the
+  JSON-able metadata rides as a ``uint8`` leaf) that round-trips through
   :mod:`repro_torch.checkpoint`: two-phase atomic saves,
   manifest-verified restores, no pickles.
 * :func:`restore_service` rehydrates that tree into a fresh process on
-  ``device``: the packed state is re-homed through the service's own
-  K-axis gather (``_pack_device_state``, an identity gather plus the
-  re-pad), so the restored ticks run on the card's kernels.
+  ``device``, or onto a bank mesh of any device count (``mesh=``): the
+  packed state is re-homed through the service's own K-axis gather
+  (``_pack_device_state``, an identity gather plus the re-pad to the
+  target's width, split over its shards), so the restored ticks run on
+  the card's kernels.
 * :class:`RecoverableTuningService` wraps the service with the WAL
   discipline.  The ingest layer's :class:`~repro_torch.serve.ingest.
   TraceLog` IS the journal: every accepted push already lands there with
@@ -50,11 +52,11 @@ recovery proceeds from the durable prefix.  A crash mid-snapshot leaves
 no ``manifest.json``, so :func:`repro_torch.checkpoint.
 load_checkpoint_tree` falls back to the newest COMPLETE step.
 
-What is NOT persisted: process-local handles (the device, the retry
-policy, a chaos plan, the ReferenceDB object), which the restoring
+What is NOT persisted: process-local handles (the device or mesh, the
+retry policy, a chaos plan, the ReferenceDB object), which the restoring
 caller re-supplies, and the wavelet coefficient cache, rebuilt lazily,
-bitwise the same.  Restoring onto a device mesh (``mesh=``) is not
-ported yet (ROADMAP.md queue 1 item 10).
+bitwise the same.  A snapshot holds no trace of the mesh it was taken
+on, so it restores onto any other.
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ from ..kernels.common import resolve_device
 from ..runtime.chaos import FaultPlan
 from ..runtime.fault import WorkerState
 from ..runtime.retry import CircuitBreaker, RetryPolicy
+from ..sharding.mesh import BankMesh
 from .ingest import PoisonedSampleError, TraceLog
-from .tuning import InFlightJob, TuningService, _not_ported
+from .tuning import InFlightJob, TuningService
 
 __all__ = ["SNAPSHOT_VERSION", "snapshot_service", "restore_service",
            "RecoverableTuningService"]
@@ -130,8 +133,9 @@ def snapshot_service(svc: TuningService) -> Dict[str, Any]:
     :func:`repro_torch.checkpoint.save_checkpoint` persists with
     leaf-path manifests, so :func:`repro_torch.checkpoint.
     load_checkpoint_tree` rebuilds it in a fresh process with no target
-    skeleton.  Device state comes back to the host sliced to the live
-    packed columns (``k_live``); re-padding is the restorer's job.
+    skeleton.  Device state comes back to the host gathered from the
+    bank shards, then sliced to the live packed columns (``k_live``);
+    re-padding is the restorer's job.
     Metadata that is JSON, not array (config, slot layout, per-job
     scalars, pending decisions, counters), rides as one ``uint8`` JSON
     leaf."""
@@ -274,33 +278,34 @@ def snapshot_service(svc: TuningService) -> Dict[str, Any]:
 def restore_service(tree: Dict[str, Any],
                     refs: Union[ReferenceDB, SeriesBank], *,
                     device: Union[str, torch.device, None] = None,
-                    mesh=None,
+                    mesh: Optional[BankMesh] = None,
                     trace_log: Optional[TraceLog] = None,
                     retry_policy: Optional[RetryPolicy] = None,
                     chaos: Optional[FaultPlan] = None,
                     breaker: Optional[CircuitBreaker] = None
                     ) -> TuningService:
     """Rehydrate a :func:`snapshot_service` tree into a live service on
-    ``device`` (CUDA unless the caller passes another).
+    ``device`` (CUDA unless the caller passes another), or sharded over
+    ``mesh`` (a 1-D :class:`repro_torch.sharding.BankMesh`).
 
     ``refs`` must be the SAME reference bank the snapshot was taken
-    against (content-hash enforced).  The packed device state is
-    re-homed by the service's K-axis gather with the snapshot's columns
-    as the previous pack: an identity gather on the live columns plus
-    fresh padding to the bucket width.  Process-local handles
-    (``trace_log``, ``retry_policy``, ``chaos``, ``breaker``) are
-    re-supplied here, not persisted, but the breaker's state machine and
-    the overload ladder's rung/window ARE restored onto them, so an
-    overloaded service recovers mid-ladder.  ``mesh=`` is not ported yet
-    and raises."""
-    if mesh is not None:
-        raise _not_ported("restore_service(mesh=)", 10)
+    against (content-hash enforced).  ``mesh`` may differ from the
+    crashed process's: the packed device state is re-homed by the
+    service's K-axis gather with the snapshot's columns as the previous
+    pack, an identity gather on the live columns plus fresh padding to
+    the target mesh's width (exactly a rescale's re-pad), then split
+    over its shards.  Every score is a per-column quantity, so the
+    restored service's decisions are bitwise identical whatever the
+    mesh.  Process-local handles (``trace_log``, ``retry_policy``,
+    ``chaos``, ``breaker``) are re-supplied here, not persisted, but the
+    breaker's state machine and the overload ladder's rung/window ARE
+    restored onto them, so an overloaded service recovers mid-ladder."""
     meta = json.loads(bytes(np.asarray(tree["meta_json"],
                                        np.uint8)).decode())
     if meta["version"] != SNAPSHOT_VERSION:
         raise ValueError(f"snapshot version {meta['version']} != "
                          f"{SNAPSHOT_VERSION}")
-    svc = TuningService(refs, device=device, trace_log=trace_log,
+    svc = TuningService(refs, device=device, mesh=mesh, trace_log=trace_log,
                         retry_policy=retry_policy, chaos=chaos,
                         breaker=breaker, **meta["config"])
     dev = svc.device
@@ -321,18 +326,17 @@ def restore_service(tree: Dict[str, Any],
     def upload(name, dtype):
         return torch.tensor(np.asarray(state[name], dtype), device=dev)
 
-    svc._ns = upload("ns", np.int32)
-    svc._sx = upload("sx", np.float32)
-    svc._sxx = upload("sxx", np.float32)
-    if "vstats" in state:
-        svc._vstats = upload("vstats", np.float32)
+    svc._replicate(upload("ns", np.int32), upload("sx", np.float32),
+                   upload("sxx", np.float32),
+                   upload("vstats", np.float32) if "vstats" in state
+                   else None)
     svc._qlens = np.asarray(state["qlens"], np.int32).copy()
 
     # Re-home the packed DP state.  _pack_device_state gathers surviving
     # columns out of tensors aligned with the PREVIOUS _packed_idx: set
     # that to the snapshot's index first and the gather is the identity
-    # on the live columns, with fresh +inf/zero padding to the bucket
-    # width.
+    # on the live columns, with fresh +inf/zero padding to the target
+    # mesh's bucket width, split over its shards.
     idx = np.asarray(state["packed_idx"], np.int64)
     rows = upload("rows", np.float32)
     moms = upload("moms", np.float32) if "moms" in state else None
@@ -467,7 +471,7 @@ class RecoverableTuningService:
                  root: str,
                  keep: int = 3,
                  device: Union[str, torch.device, None] = None,
-                 mesh=None,
+                 mesh: Optional[BankMesh] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  chaos: Optional[FaultPlan] = None,
                  _service: Optional[TuningService] = None,
@@ -608,7 +612,7 @@ class RecoverableTuningService:
                 root: str,
                 keep: int = 3,
                 device: Union[str, torch.device, None] = None,
-                mesh=None,
+                mesh: Optional[BankMesh] = None,
                 retry_policy: Optional[RetryPolicy] = None,
                 chaos: Optional[FaultPlan] = None,
                 breaker: Optional[CircuitBreaker] = None,
@@ -619,11 +623,11 @@ class RecoverableTuningService:
         from the beginning against a fresh service.  The restored
         service is bit-identical to the crashed one's last DURABLE
         state: same scores, probabilities, decisions, counters, and
-        schedule position.  Replayed ticks run on ``device``'s kernels.
-        ``mesh=`` is not ported yet and raises."""
-        if mesh is not None:
-            raise _not_ported("RecoverableTuningService.recover(mesh=)", 10)
-        device = resolve_device(device)
+        schedule position, even when ``mesh`` differs from the crashed
+        process's.  Replayed ticks run on ``device``'s (or the mesh's)
+        kernels."""
+        if mesh is None:
+            device = resolve_device(device)
         wal = TraceLog(os.path.join(root, "wal"), max_segments=1 << 30)
         watermark = 0
         svc: Optional[TuningService] = None
@@ -632,15 +636,15 @@ class RecoverableTuningService:
         except FileNotFoundError:
             tree = None
         if tree is not None:
-            svc = restore_service(tree, refs, device=device, trace_log=wal,
-                                  retry_policy=retry_policy, chaos=chaos,
-                                  breaker=breaker)
+            svc = restore_service(tree, refs, device=device, mesh=mesh,
+                                  trace_log=wal, retry_policy=retry_policy,
+                                  chaos=chaos, breaker=breaker)
             watermark = json.loads(bytes(np.asarray(
                 tree["meta_json"], np.uint8)).decode())["watermark"]
         else:
-            svc = TuningService(refs, device=device, trace_log=wal,
-                                retry_policy=retry_policy, chaos=chaos,
-                                breaker=breaker, **svc_kwargs)
+            svc = TuningService(refs, device=device, mesh=mesh,
+                                trace_log=wal, retry_policy=retry_policy,
+                                chaos=chaos, breaker=breaker, **svc_kwargs)
 
         out = cls.__new__(cls)
         out.root = root

@@ -4,7 +4,8 @@ The paper's end goal is acting on a job *before* it finishes: compare the
 utilization pattern observed so far against the reference database, and
 as soon as the most probable execution pattern is clear, transfer that
 workload's tuned configuration.  This service runs that matching phase
-online on one device, in exact point mode or in probabilistic mode.
+online on one device or a mesh of them, in exact point mode or in
+probabilistic mode.
 
 Layered serving stack
 ---------------------
@@ -136,13 +137,31 @@ The overload ladder's ``deep_prune`` rung divides P by its
 
 Crash safety (``serve.recovery``) snapshots this service and replays its
 write-ahead log; ``_admission_suppressed`` keeps a replayed submit from
-being shed again.  Bank sharding (``mesh=``, :meth:`rescale`) is not
-ported yet and raises ``NotImplementedError`` naming ROADMAP.md queue 1
-item 10.
+being shed again.
+
+Bank sharding
+-------------
+``mesh=`` (a 1-D :class:`repro_torch.sharding.BankMesh`) splits the K
+axis over the mesh's devices, single-controller as the reference is: one
+service object drives every shard.  Each shard keeps its slice of the
+packed bank, lengths, DP rows and moment slab as contiguous tensors on
+its own device, beside its own copies of the replicated per-slot folds
+(``ns``, ``sx``, ``sxx``, ``vstats``).  The full pack pads K to a
+multiple of the device count, a pruned pack to :meth:`_k_bucket`.  A
+tick launches the mode's kernel once a shard on that shard's K slice,
+inside ONE dispatch (one ``dispatch_count``, one chaos consult, one
+retry envelope); the ``[S, kp / n]`` scores are concatenated along K on
+the primary device (the mesh's first) and leave in one host transfer.
+Every DP cell and score is per (job, reference), so a sharded service's
+scores, rows and decisions are bitwise the unsharded one's.  The
+verdicts stay unsharded on the primary device.  :meth:`rescale` re-homes
+the state onto another mesh (or ``None``) mid-flight by the same gather
+a prefilter re-pack uses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Mapping, Optional, Tuple, Union
@@ -159,6 +178,7 @@ from ..kernels.common import KernelLaunchError, resolve_device
 from ..runtime.chaos import FaultPlan, InjectedDispatchError
 from ..runtime.retry import (CircuitBreaker, DispatchFailure, RetryPolicy,
                              call_with_retry)
+from ..sharding.mesh import BankMesh, canonical_device, mesh_layout
 from .ingest import IngestFront, PoisonedSampleError, TraceLog
 from .overload import (RUNGS, AdmissionController, AdmissionPolicy,
                        AdmissionShedError, OverloadConfig,
@@ -185,9 +205,30 @@ _TICK_FNS = {
 __all__ = ["InFlightJob", "TuningService", "MultiTenantTuningService"]
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
+@dataclasses.dataclass
+class _Shard:
+    """One K shard's tick state, every tensor contiguous on ``device``:
+    its slice of the packed bank ([M, kp / n] ``bank_t``, [kp / n]
+    ``lengths``), of the DP rows ([S, M, kp / n]) and of the moment slab
+    ([NCH, S, M, kp / n], None in distance-only mode), and its own copy
+    of the replicated per-slot folds (``ns``, ``sx``, ``sxx`` [S];
+    ``vstats`` [S, 3] in probabilistic mode)."""
+    device: torch.device
+    bank_t: Optional[torch.Tensor] = None
+    lengths: Optional[torch.Tensor] = None
+    rows: Optional[torch.Tensor] = None
+    moms: Optional[torch.Tensor] = None
+    ns: Optional[torch.Tensor] = None
+    sx: Optional[torch.Tensor] = None
+    sxx: Optional[torch.Tensor] = None
+    vstats: Optional[torch.Tensor] = None
+
+
+def _on(device: torch.device):
+    """The context a shard's launch runs in: its card made current (a
+    kernel launches on the current card), nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -243,6 +284,10 @@ class TuningService:
     :class:`SeriesBank` (matching only).  ``device`` is where the tick
     state lives and the kernels run: CUDA unless the caller passes
     another (``device="cpu"`` runs the kernels' plain versions).
+    ``mesh=`` (a 1-D :class:`repro_torch.sharding.BankMesh`) shards the
+    bank axis over the mesh's devices instead (see "Bank sharding" in
+    the module docstring); ``device`` then defaults to the mesh's first
+    device, and naming another raises.
     ``min_probability=`` enables the probabilistic decision rule and
     ``prob_mode`` ("exact" or "approx", the latter needing
     ``min_probability``) its in-flight tail; see the module docstring.
@@ -322,8 +367,7 @@ class TuningService:
             raise ValueError("prob_mode='approx' needs min_probability= "
                              "(the approximate tail serves the in-flight "
                              "probability gate)")
-        if mesh is not None:
-            raise _not_ported("bank sharding (mesh=)", 10)
+        ndev, axis, primary = mesh_layout(mesh)
         if prefilter_top is not None and prefilter_top < 1:
             raise ValueError("prefilter_top must be >= 1 (or None)")
         if prefilter_top is not None and not score_in_flight:
@@ -344,7 +388,14 @@ class TuningService:
             self.bank = refs
         if len(self.bank) == 0:
             raise ValueError("empty reference bank")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and canonical_device(device) != primary:
+                raise ValueError(f"device={device!r} is not the mesh's "
+                                 f"first device {primary}")
+            self.device = primary
+        self.mesh: Optional[BankMesh] = mesh
         self._labels: Tuple[str, ...] = self.bank.labels or tuple(
             f"ref{k}" for k in range(len(self.bank)))
         self._n_workloads = len(set(self._labels))
@@ -408,9 +459,10 @@ class TuningService:
         k, m = self.bank.series.shape
         self._k = k
         self._m = m
-        # devices the bank axis spans: 1 until bank sharding is ported
-        # (ROADMAP.md queue 1 item 10).
-        self._ndev = 1
+        # the devices the bank axis spans, and the mesh axis it is named
+        # by (None unsharded)
+        self._ndev = ndev
+        self._axis = axis
         # the true lengths, where the prefilter cuts reference prefixes
         # (a pack gathers its bank columns from the device upload below)
         self._full_lengths = self.bank.lengths.astype(np.int32)
@@ -434,13 +486,15 @@ class TuningService:
         self._sched = SlotScheduler(slots, elastic=elastic_slots)
         self._s_cap = self._sched.capacity
         dev, s = self.device, self._s_cap
-        self._ns = torch.zeros((s,), dtype=torch.int32, device=dev)
-        self._sx = torch.zeros((s,), dtype=torch.float32, device=dev)
-        self._sxx = torch.zeros((s,), dtype=torch.float32, device=dev)
-        # probabilistic mode: per-slot (sv, svx, svxx) variance folds
-        self._vstats = torch.zeros((s, 3), dtype=torch.float32,
-                                   device=dev) \
-            if min_probability is not None else None
+        self._shards = [_Shard(d) for d in self._shard_devices()]
+        # per-slot query folds, and in probabilistic mode the (sv, svx,
+        # svxx) variance folds: one copy a shard
+        self._replicate(
+            torch.zeros((s,), dtype=torch.int32, device=dev),
+            torch.zeros((s,), dtype=torch.float32, device=dev),
+            torch.zeros((s,), dtype=torch.float32, device=dev),
+            torch.zeros((s, 3), dtype=torch.float32, device=dev)
+            if min_probability is not None else None)
         self._qlens = np.zeros((s,), np.int32)
         # the tick's K axis: the bank columns packed on the device (all
         # of them until the prefilter prunes), and their [S, M, kp] DP
@@ -458,8 +512,7 @@ class TuningService:
         #: S-axis capacity changes (elastic grow / compact-shrink), never
         #: a dispatch.
         self.slot_repack_count = 0
-        #: mesh re-homes by :meth:`rescale`: always 0 until bank sharding
-        #: is ported (ROADMAP.md queue 1 item 10); snapshots record it.
+        #: mesh re-homes by :meth:`rescale`, never a dispatch.
         self.rescale_count = 0
         #: jobs dropped by :meth:`evict`/:meth:`sweep_stalled` (no
         #: verdict rendered).
@@ -509,6 +562,57 @@ class TuningService:
         self._finished: Dict[str, TuneDecision] = {}
 
     # -- packed device state (full bank or pruned survivor subset) -----------
+    def _shard_devices(self) -> Tuple[torch.device, ...]:
+        """Each K shard's device: the mesh's, or the one device."""
+        return (self.device,) if self.mesh is None \
+            else self.mesh.device_list
+
+    def _split(self, t: Optional[torch.Tensor], dim: int):
+        """``t`` (on the primary device) as one part a shard along
+        ``dim``: itself when unsharded, else a contiguous copy of each
+        part on its shard's device."""
+        if t is None:
+            return [None] * self._ndev
+        return [t] if self.mesh is None else self.mesh.split(t, dim)
+
+    def _cat(self, parts: List[Optional[torch.Tensor]],
+             dim: int) -> Optional[torch.Tensor]:
+        """Per-shard parts concatenated along ``dim`` on the primary
+        device (the one shard's own tensor when unsharded)."""
+        if parts[0] is None or len(parts) == 1:
+            return parts[0]
+        return self.mesh.gather(parts, dim)
+
+    def _gather(self, name: str, dim: int) -> Optional[torch.Tensor]:
+        """The shards' ``name`` tensors, whole (see :meth:`_cat`)."""
+        return self._cat([getattr(sh, name) for sh in self._shards], dim)
+
+    def _replicate(self, ns, sx, sxx, vstats) -> None:
+        """Give every shard its own copy of the per-slot folds."""
+        for name, t in (("ns", ns), ("sx", sx), ("sxx", sxx),
+                        ("vstats", vstats)):
+            parts = [t] * self._ndev if t is None or self.mesh is None \
+                else self.mesh.replicate(t)
+            for sh, part in zip(self._shards, parts):
+                setattr(sh, name, part)
+
+    # The packed state, whole: K-indexed tensors gathered onto the primary
+    # device (each shard's own when unsharded), the replicated folds as
+    # shard 0 holds them (every shard computes them identically).
+    _bank_t = property(lambda self: self._gather("bank_t", 1))
+    _lengths = property(lambda self: self._gather("lengths", 0))
+    _rows = property(lambda self: self._gather("rows", 2))
+    _moms = property(lambda self: self._gather("moms", 3))
+    _ns = property(lambda self: self._shards[0].ns)
+    _sx = property(lambda self: self._shards[0].sx)
+    _sxx = property(lambda self: self._shards[0].sxx)
+    _vstats = property(lambda self: self._shards[0].vstats)
+
+    def _k_full(self) -> int:
+        """Padded width of the full pack: K up to a multiple of the
+        device count."""
+        return self._k + ((-self._k) % self._ndev)
+
     def _k_bucket(self, k: int) -> int:
         """Padded width of a pruned pack: a power of two (so re-packs
         cycle through at most log2(K) tick shapes), at least 8, and a
@@ -518,83 +622,98 @@ class TuningService:
 
     def _pack_device_state(self, idx: np.ndarray, rows, moms) -> None:
         """(Re)build the tick's device tensors over bank columns ``idx``
-        (full-bank order kept).  ``rows``/``moms`` ([S, M, K_old] /
-        [NCH, S, M, K_old], aligned with the PREVIOUS ``_packed_idx``)
-        carry the surviving columns' DP state, gathered on the device by
+        (full-bank order kept) and split them over the shards.
+        ``rows``/``moms`` ([S, M, K_old] / [NCH, S, M, K_old] on the
+        primary device, aligned with the PREVIOUS ``_packed_idx``) carry
+        the surviving columns' DP state, gathered on the device by
         ``index_select`` on the K axis, so a re-pack never moves the
         slabs through the host.  Columns without prior state start fresh
         (+inf row, zero moments): exact for jobs that have consumed
         nothing, don't-care for jobs whose prefilter already dropped the
         reference (their scores for it are masked after every tick).
-        ``rows=None`` allocates fresh state.
+        ``rows=None`` allocates fresh state on each shard.
 
-        The full pack is the bank itself (the verdicts' upload); a pruned
-        pack pads to :meth:`_k_bucket` with length-1, zero-series
-        columns."""
+        The full pack is the bank itself (the verdicts' upload), padded
+        to :meth:`_k_full`; a pruned pack pads to :meth:`_k_bucket`.
+        Padding columns have length 1 and a zero series."""
         k_new, m, dev = len(idx), self._m, self.device
         full = k_new == self._k
-        kp = self._k + ((-self._k) % self._ndev) if full \
-            else self._k_bucket(k_new)
+        kp = self._k_full() if full else self._k_bucket(k_new)
         if full and kp == self._k:
-            self._bank_t, self._lengths = \
-                self._plan.bank_t, self._plan.lengths
+            bank_t, lengths = self._plan.bank_t, self._plan.lengths
         else:
             cols = np.zeros((kp,), np.int64)
             cols[:k_new] = idx
             gather = torch.as_tensor(cols, device=dev)
             pad = torch.as_tensor(np.arange(kp) >= k_new, device=dev)
-            self._bank_t = torch.where(
+            bank_t = torch.where(
                 pad[None, :], 0.0, self._plan.bank_t.index_select(1, gather))
-            self._lengths = torch.where(
+            lengths = torch.where(
                 pad, 1, self._plan.lengths.index_select(0, gather))
-        if rows is None:
-            self._rows = torch.full((self._s_cap, m, kp), _dtw._INF,
-                                    dtype=torch.float32, device=dev)
-            # moment channels: 3 point, 6 exact-probability, 4 approx,
-            # and none in distance-only mode
-            if self.min_probability is None:
-                nch = 3
-            else:
-                nch = 4 if self.prob_mode == "approx" else 6
-            self._moms = torch.zeros(
-                (nch, self._s_cap, m, kp), dtype=torch.float32,
-                device=dev) if self.score_in_flight else None
+        # moment channels: 3 point, 6 exact-probability, 4 approx, and
+        # none in distance-only mode
+        if self.min_probability is None:
+            nch = 3
         else:
+            nch = 4 if self.prob_mode == "approx" else 6
+        w = kp // self._ndev
+        for sh, b, ln in zip(self._shards, self._split(bank_t, 1),
+                             self._split(lengths, 0)):
+            sh.bank_t, sh.lengths = b, ln
+            if rows is None:
+                sh.rows = torch.full((self._s_cap, m, w), _dtw._INF,
+                                     dtype=torch.float32, device=sh.device)
+                sh.moms = torch.zeros(
+                    (nch, self._s_cap, m, w), dtype=torch.float32,
+                    device=sh.device) if self.score_in_flight else None
+        if rows is not None:
             pos = np.full((self._k,), -1, np.int64)
             pos[self._packed_idx] = np.arange(len(self._packed_idx))
             src = np.concatenate([pos[idx], np.full((kp - k_new,), -1)])
             gather = torch.as_tensor(np.maximum(src, 0), device=dev)
             fresh = torch.as_tensor(src < 0, device=dev)
-            self._rows = torch.where(fresh[None, None, :], _dtw._INF,
-                                     rows.index_select(2, gather))
-            if moms is not None:
-                self._moms = torch.where(fresh[None, None, None, :], 0.0,
-                                         moms.index_select(3, gather))
+            rows_s = self._split(torch.where(
+                fresh[None, None, :], _dtw._INF,
+                rows.index_select(2, gather)), 2)
+            moms_s = self._split(None if moms is None else torch.where(
+                fresh[None, None, None, :], 0.0,
+                moms.index_select(3, gather)), 3)
+            for sh, r, mo in zip(self._shards, rows_s, moms_s):
+                sh.rows = r
+                if moms is not None:
+                    sh.moms = mo
         self._packed_idx = np.asarray(idx)
         self._kp = kp
 
     # -- slot-indexed device state ---------------------------------------------
+    def _on_shards(self, host: np.ndarray):
+        """``host`` uploaded once to each distinct shard device ->
+        {device: tensor}."""
+        return {d: torch.as_tensor(host, device=d)
+                for d in dict.fromkeys(sh.device for sh in self._shards)}
+
     def _repack_slots(self, src: np.ndarray) -> None:
         """Apply an S-axis gather plan from the scheduler (new slot ->
-        old slot, -1 = fresh) to every slot-indexed tensor, on the
-        device.  Per-job DP state is row-independent, so a slot move is
-        bit-exact; fresh rows get the +inf/zero init a reset writes."""
-        dev = self.device
-        gather = torch.as_tensor(np.maximum(src, 0), dtype=torch.long,
-                                 device=dev)
-        fresh = torch.as_tensor(src < 0, device=dev)
-        self._rows = torch.where(fresh[:, None, None], _dtw._INF,
-                                 self._rows.index_select(0, gather))
-        if self._moms is not None:
-            self._moms = torch.where(fresh[None, :, None, None], 0.0,
-                                     self._moms.index_select(1, gather))
-        self._ns = torch.where(fresh, 0, self._ns.index_select(0, gather))
-        self._sx = torch.where(fresh, 0.0, self._sx.index_select(0, gather))
-        self._sxx = torch.where(fresh, 0.0,
-                                self._sxx.index_select(0, gather))
-        if self._vstats is not None:
-            self._vstats = torch.where(fresh[:, None], 0.0,
-                                       self._vstats.index_select(0, gather))
+        old slot, -1 = fresh) to every slot-indexed tensor of every
+        shard, on its device.  Per-job DP state is row-independent, so a
+        slot move is bit-exact; fresh rows get the +inf/zero init a reset
+        writes."""
+        gathers = self._on_shards(np.maximum(src, 0).astype(np.int64))
+        freshes = self._on_shards(src < 0)
+        for sh in self._shards:
+            gather, fresh = gathers[sh.device], freshes[sh.device]
+            sh.rows = torch.where(fresh[:, None, None], _dtw._INF,
+                                  sh.rows.index_select(0, gather))
+            if sh.moms is not None:
+                sh.moms = torch.where(fresh[None, :, None, None], 0.0,
+                                      sh.moms.index_select(1, gather))
+            sh.ns = torch.where(fresh, 0, sh.ns.index_select(0, gather))
+            sh.sx = torch.where(fresh, 0.0, sh.sx.index_select(0, gather))
+            sh.sxx = torch.where(fresh, 0.0,
+                                 sh.sxx.index_select(0, gather))
+            if sh.vstats is not None:
+                sh.vstats = torch.where(fresh[:, None], 0.0,
+                                        sh.vstats.index_select(0, gather))
         self._qlens = np.where(src >= 0, self._qlens[np.maximum(src, 0)],
                                0).astype(np.int32)
         self._s_cap = len(src)
@@ -603,21 +722,23 @@ class TuningService:
     def _apply_resets(self) -> None:
         """Fresh-initialize every slot submitted since the last data tick
         (+inf DP row, zero moments/query stats) in ONE masked op per
-        tensor, before any gather or launch."""
+        tensor of each shard, before any gather or launch."""
         if not self._dirty:
             return
         mask = np.zeros((self._s_cap,), bool)
         mask[self._dirty] = True
-        md = torch.as_tensor(mask, device=self.device)
-        self._rows = torch.where(md[:, None, None], _dtw._INF, self._rows)
-        if self._moms is not None:
-            self._moms = torch.where(md[None, :, None, None], 0.0,
-                                     self._moms)
-        self._ns = torch.where(md, 0, self._ns)
-        self._sx = torch.where(md, 0.0, self._sx)
-        self._sxx = torch.where(md, 0.0, self._sxx)
-        if self._vstats is not None:
-            self._vstats = torch.where(md[:, None], 0.0, self._vstats)
+        masks = self._on_shards(mask)
+        for sh in self._shards:
+            md = masks[sh.device]
+            sh.rows = torch.where(md[:, None, None], _dtw._INF, sh.rows)
+            if sh.moms is not None:
+                sh.moms = torch.where(md[None, :, None, None], 0.0,
+                                      sh.moms)
+            sh.ns = torch.where(md, 0, sh.ns)
+            sh.sx = torch.where(md, 0.0, sh.sx)
+            sh.sxx = torch.where(md, 0.0, sh.sxx)
+            if sh.vstats is not None:
+                sh.vstats = torch.where(md[:, None], 0.0, sh.vstats)
         self._dirty = []
 
     def _maybe_shrink_slots(self) -> None:
@@ -755,8 +876,7 @@ class TuningService:
         grown = not np.isin(idx, self._packed_idx,
                             assume_unique=True).all()
         full = len(idx) == self._k
-        kp_target = self._k + ((-self._k) % self._ndev) if full \
-            else self._k_bucket(len(idx))
+        kp_target = self._k_full() if full else self._k_bucket(len(idx))
         if not grown and kp_target >= self._kp:
             return
         self._pack_device_state(idx, self._rows, self._moms)
@@ -772,10 +892,31 @@ class TuningService:
         """Current S bucket (== ``slots`` when ``elastic_slots=False``)."""
         return self._s_cap
 
-    def rescale(self, mesh) -> None:
-        """Re-home the device state onto another mesh, the hook an
-        ``ElasticController`` decision drives: not ported yet."""
-        raise _not_ported("TuningService.rescale (bank sharding)", 10)
+    def rescale(self, mesh: Optional[BankMesh]) -> None:
+        """Re-home the device state onto another 1-D mesh (or, with
+        ``None``, onto the primary device alone) mid-flight: the hook an
+        ``runtime.fault.ElasticController`` rescale decision drives when
+        hosts die or join.  The shards are gathered onto the primary
+        device, the pack re-pads to the new device-count multiple by the
+        same gather a prefilter re-pack uses, and the result is split
+        over the new mesh, so scores and decisions are unchanged.  With a
+        mesh, its first device becomes the primary device."""
+        ndev, axis, primary = mesh_layout(mesh)
+        rows, moms = self._rows, self._moms
+        folds = (self._ns, self._sx, self._sxx, self._vstats)
+        if primary is not None and primary != self.device:
+            # the verdicts' bank upload follows the primary device
+            self.device = primary
+            self._plan = self.bank.score_plan(primary)
+            rows = rows.to(primary)
+            moms = None if moms is None else moms.to(primary)
+            folds = tuple(None if t is None else t.to(primary)
+                          for t in folds)
+        self.mesh, self._ndev, self._axis = mesh, ndev, axis
+        self._shards = [_Shard(d) for d in self._shard_devices()]
+        self._replicate(*folds)
+        self._pack_device_state(self._packed_idx, rows, moms)
+        self.rescale_count += 1
 
     # -- overload surface (serve.overload runbook) ---------------------------
     @property
@@ -1007,12 +1148,6 @@ class TuningService:
             nvalid[job.slot] = ch.shape[0]
             if prob:
                 vchunks[job.slot, : ch.shape[0]] = vch
-        dev = self.device
-        data = (self._bank_t, self._lengths,
-                torch.from_numpy(chunks).to(dev))
-        tail = (torch.from_numpy(nvalid).to(dev),
-                torch.from_numpy(self._qlens).to(dev))
-
         # This tick's mode: the configured one, or a cheaper one under
         # the overload ladder.  Every mode updates the DP rows (and ns)
         # identically, so a capped tick leaves the rows bitwise what the
@@ -1020,49 +1155,54 @@ class TuningService:
         # jobs it touches are marked so that nothing reads them.
         mode = self._tick_mode()
         base = self._base_mode()
-        tick_fn = _TICK_FNS[mode]
-        sims_all = probs_all = None
-        if mode == "distance":
-            args = (self._rows, self._ns, *data, *tail)
-            self._rows, self._ns = self._dispatch_resilient(
-                tick_fn, args, dict(band=self.band), "tick")
-        else:
-            # the mode's channels: all of the slab in the base mode, else
-            # its leading 3 (scored) or 4 (approx) channels.  A leading
-            # slice of the contiguous [NCH, S, M, K] slab is contiguous.
-            nch = {"prob": 6, "approx_prob": 4, "scored": 3}[mode]
-            moms_in = self._moms if mode == base else self._moms[:nch]
-            kw = dict(band=self.band)
-            if mode == "scored":
-                args = (self._rows, moms_in, self._ns, self._sx, self._sxx,
-                        *data, *tail)
-            else:
-                kw["threshold"] = float(self.threshold)
-                args = (self._rows, moms_in, self._ns, self._sx, self._sxx,
-                        self._vstats, *data,
-                        torch.from_numpy(vchunks).to(dev), *tail)
-            res = self._dispatch_resilient(tick_fn, args, kw, "tick")
-            self._rows, moms_out, self._ns, self._sx, self._sxx = res[:5]
+        # the mode's channels: all of the slab in the base mode, else its
+        # leading 3 (scored) or 4 (approx) channels.  A leading slice of
+        # the contiguous [NCH, S, M, K] slab is contiguous.
+        nch = {"prob": 6, "approx_prob": 4, "scored": 3,
+               "distance": 0}[mode]
+        # the chunk, its valid counts and the expected lengths (and the
+        # variances) are uploaded once to each shard device
+        inputs = (self._on_shards(chunks), self._on_shards(nvalid),
+                  self._on_shards(self._qlens),
+                  self._on_shards(vchunks) if mode in ("prob", "approx_prob")
+                  else None)
+        # ONE dispatch: every shard's launch on its own K slice, retried
+        # as a whole; the state is assigned only after every shard has
+        # returned, so a retried dispatch never sees a half-advanced one.
+        results = self._dispatch_resilient(
+            self._fan_out, (mode, nch, inputs), {}, "tick")
+        for sh, res in zip(self._shards, results):
+            if mode == "distance":
+                sh.rows, sh.ns = res
+                continue
+            sh.rows, moms_out, sh.ns, sh.sx, sh.sxx = res[:5]
             if mode == base:
-                self._moms = moms_out
+                sh.moms = moms_out
             else:
                 # written back into the slab's leading channels in place:
                 # a concatenation would allocate a second slab.
-                self._moms[:nch].copy_(moms_out)
-            # the tick's device -> host transfers: the [S, kp] scores (and
-            # the [S, kp] probabilities in the probabilistic modes),
-            # sliced to the live columns (a padded column's score is
-            # meaningless) and scattered back to full-bank columns: an
-            # unpacked reference reads -inf (never a leader, never a
-            # runner-up) and carries zero match probability.
-            sims_all = np.full((self._s_cap, self._k), -np.inf)
-            sims_all[:, self._packed_idx] = \
-                res[5][:, :k_live].cpu().numpy().astype(np.float64)
+                sh.moms[:nch].copy_(moms_out)
             if mode != "scored":
-                self._vstats = res[6]
+                sh.vstats = res[6]
+        sims_all = probs_all = None
+        if mode != "distance":
+            # the tick's device -> host transfers: the [S, kp] scores (and
+            # the [S, kp] probabilities in the probabilistic modes), the
+            # shards' [S, kp / n] parts concatenated along K on the
+            # primary device, sliced to the live columns (a padded
+            # column's score is meaningless) and scattered back to
+            # full-bank columns: an unpacked reference reads -inf (never a
+            # leader, never a runner-up) and carries zero match
+            # probability.
+            sims_all = np.full((self._s_cap, self._k), -np.inf)
+            sims_all[:, self._packed_idx] = self._cat(
+                [res[5] for res in results], 1)[:, :k_live].cpu().numpy() \
+                .astype(np.float64)
+            if mode != "scored":
                 probs_all = np.zeros((self._s_cap, self._k))
-                probs_all[:, self._packed_idx] = \
-                    res[7][:, :k_live].cpu().numpy().astype(np.float64)
+                probs_all[:, self._packed_idx] = self._cat(
+                    [res[7] for res in results], 1)[:, :k_live].cpu() \
+                    .numpy().astype(np.float64)
         self.dispatch_count += 1
 
         if mode != base:
@@ -1097,6 +1237,34 @@ class TuningService:
         if self.prefilter_top is not None:
             self._update_prefilter(pending)
         return out
+
+    def _fan_out(self, mode: str, nch: int, inputs) -> List[tuple]:
+        """One tick's launches: the mode's tick function (its kernel for
+        CUDA tensors) once a shard, on the shard's K slice and device,
+        with that device's copies of the chunk inputs.  Returns each
+        shard's results; the caller assigns them."""
+        chunks, nvalid, qlens, vchunks = inputs
+        tick_fn, base = _TICK_FNS[mode], self._base_mode()
+        kw = dict(band=self.band)
+        if mode in ("prob", "approx_prob"):
+            kw["threshold"] = float(self.threshold)
+        results = []
+        for sh in self._shards:
+            d = sh.device
+            data = (sh.bank_t, sh.lengths, chunks[d])
+            tail = (nvalid[d], qlens[d])
+            with _on(d):
+                if mode == "distance":
+                    res = tick_fn(sh.rows, sh.ns, *data, *tail, **kw)
+                else:
+                    moms_in = sh.moms if mode == base else sh.moms[:nch]
+                    head = (sh.rows, moms_in, sh.ns, sh.sx, sh.sxx)
+                    res = tick_fn(*head, *data, *tail, **kw) \
+                        if mode == "scored" else \
+                        tick_fn(*head, sh.vstats, *data, vchunks[d], *tail,
+                                **kw)
+            results.append(res)
+        return results
 
     # -- dispatch resilience -------------------------------------------------
     def _dispatch_resilient(self, fn, args, kwargs, kind: str):

@@ -131,13 +131,6 @@ def test_shape_mismatch_rejected(tmp_path):
         restore_checkpoint(str(tmp_path), bad, device="cpu")
 
 
-def test_mesh_restore_raises_until_bank_sharding(tmp_path):
-    save_checkpoint(str(tmp_path), 1, _tree())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        restore_checkpoint(str(tmp_path), _tree(), mesh=object(),
-                           device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # files written by one package, read by the other
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ decisions, scores and counters bit-identical to a service that ran it
 uninterrupted.  Then the two packages' snapshots cross: a snapshot the
 reference wrote restores in the port and replays to the reference's
 decisions (and the other way round), the port's kill-and-recover runs
-in child processes, and the recovery modules import no jax."""
+in child processes (unsharded, and crashing on 8 bank shards to recover
+onto 4), and the recovery modules import no jax."""
 import os
 import signal
 import subprocess
@@ -258,8 +259,6 @@ def test_restore_rejects_wrong_bank():
     tree = snapshot_service(svc)
     with pytest.raises(ValueError, match="different reference bank"):
         restore_service(tree, _bank(seed=123), **CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        restore_service(tree, _bank(), mesh=object(), **CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -743,9 +742,11 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.runtime.chaos import FaultPlan
     from repro_torch.serve.recovery import RecoverableTuningService
     from repro_torch.serve.tuning import TuningService
+    from repro_torch.sharding import make_mesh
 
     MODE = os.environ["CR_MODE"]            # golden | serve | recover
     ROOT = os.environ["CR_ROOT"]
+    MESH = os.environ.get("CR_MESH", "none")  # bank shards, or none
     KILL_EVERY = int(os.environ.get("CR_KILL_EVERY", "0")) or None
     CKPT_AT = int(os.environ.get("CR_CKPT_AT", "11"))
 
@@ -791,6 +792,8 @@ SCRIPT = textwrap.dedent("""
 
     KW = dict(threshold=0.5, margin=0.01, stable_ticks=2,
               min_fraction=0.2, slots=4, device="cpu")
+    if MESH != "none":
+        KW["mesh"] = make_mesh(int(MESH), devices=["cpu"] * int(MESH))
 
     if MODE == "golden":
         svc = TuningService(bank, **KW)
@@ -836,17 +839,15 @@ def _child(mode, root, **env_extra):
                           capture_output=True, text=True, timeout=600)
 
 
-def test_kill_and_recover_unsharded(tmp_path):
-    """SIGKILL a serving child mid-tape (after a checkpoint at command
-    11), recover in a second child from snapshot + journal tail, and
-    hold every decision it emits bitwise to a golden child's."""
+def _kill_and_recover(tmp_path, crash_mesh="none", recover_mesh="none"):
     import json
     root = tmp_path / "svc"
-    g = _child("golden", root)
+    g = _child("golden", root, CR_MESH=recover_mesh)
     assert g.returncode == 0, g.stdout + g.stderr
     golden = json.loads(g.stdout.split("GOLDEN ", 1)[1].splitlines()[0])
 
-    s = _child("serve", root, CR_KILL_EVERY=20, CR_CKPT_AT=11)
+    s = _child("serve", root, CR_KILL_EVERY=20, CR_CKPT_AT=11,
+               CR_MESH=crash_mesh)
     assert s.returncode == -signal.SIGKILL, \
         f"serve process should die by SIGKILL: {s.returncode}\n" \
         + s.stdout + s.stderr
@@ -854,7 +855,7 @@ def test_kill_and_recover_unsharded(tmp_path):
     assert "CKPT 11" in s.stdout, s.stdout + s.stderr
     assert "ACK 19" in s.stdout and "ACK 20" not in s.stdout, s.stdout
 
-    r = _child("recover", root)
+    r = _child("recover", root, CR_MESH=recover_mesh)
     assert r.returncode == 0, r.stdout + r.stderr
     head = r.stdout.split("RESUMED_AT ", 1)[1].split()
     resume, replayed = int(head[0]), int(head[2])
@@ -869,11 +870,28 @@ def test_kill_and_recover_unsharded(tmp_path):
     assert str(N_CMDS - 1) in recovered
 
 
+def test_kill_and_recover_unsharded(tmp_path):
+    """SIGKILL a serving child mid-tape (after a checkpoint at command
+    11), recover in a second child from snapshot + journal tail, and
+    hold every decision it emits bitwise to a golden child's."""
+    _kill_and_recover(tmp_path)
+
+
+def test_kill_and_recover_onto_fewer_devices(tmp_path):
+    """The reference's test of the same name: crash on a mesh of 8 bank
+    shards, recover onto 4, the golden run on 4.  Decisions are still
+    bitwise the golden child's: recovery composes with elastic
+    rescale."""
+    _kill_and_recover(tmp_path, crash_mesh="8", recover_mesh="4")
+
+
 def test_recovery_modules_import_no_jax():
-    """``repro_torch.serve.recovery`` and ``repro_torch.checkpoint`` pull
-    in no module of jax or of the reference package."""
+    """``repro_torch.serve.recovery``, ``repro_torch.checkpoint`` and
+    ``repro_torch.sharding`` pull in no module of jax or of the reference
+    package."""
     code = ("import sys; import repro_torch.serve.recovery, "
-            "repro_torch.checkpoint, repro_torch.core.wavelet; "
+            "repro_torch.checkpoint, repro_torch.core.wavelet, "
+            "repro_torch.sharding; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print('bad', bad)")

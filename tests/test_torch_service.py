@@ -282,25 +282,6 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     assert (tstream.LIB.launches, tscore.LIB.launches) == before
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(mesh=object(), prefilter_top=2)])
-def test_unported_options_raise(option):
-    """Bank sharding is the one service option left to port (the wavelet
-    prefilter, item 7, is ported: tests/test_torch_prefilter.py)."""
-    bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
-                       labels=("a", "b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 10"):
-        TuningService(bank, device="cpu", **option)
-
-
-def test_rescale_raises_until_bank_sharding():
-    bank = pack_series([np.linspace(0, 1, 12, dtype=np.float32)] * 2,
-                       labels=("a", "b"))
-    svc = TuningService(bank, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        svc.rescale(None)
-
-
 def test_distance_only_rejects_probabilities_and_multitenant_builds():
     """``score_in_flight=False`` with ``min_probability=`` is refused as
     in the reference (the probability rides the scoring tick), and the
