@@ -168,14 +168,33 @@ Phases, in order (any failure exits non-zero):
     rescaled 4 -> None -> 2 mid-run, and its 4-shard snapshot restored
     onto None and onto 2 shards, all bitwise phase 7's; phase 20's
     pruned run on 4 shards, bitwise phase 20's record.
+23. model serving on the card (``repro_torch.models``, ``serve.engine``):
+    first K9 and K10 against their plain versions at the shapes the
+    model path gives them; then zamba2-7b at full width and depth (81
+    layers, random bf16 weights from a seeded generator) serving 4
+    prompts of 4096 tokens for 32 new tokens through
+    ``ServeEngine.generate``: K9 launched 13 times and K10 68 times, all
+    in the prefill, none in a decode step; the prefill's last logits
+    against ``forward``'s at S - 1 and the first decode step's against
+    ``forward`` over S + 1 tokens at S (MODEL_BF16_REL); the prefill's
+    ms and tokens/s, the decode's median ms a step, K9's and K10's
+    share of the prefill and the peak memory.  granite-20b at full width
+    cut to 8 layers the same way (2 prompts, 16 new tokens, K9 8 times
+    a prefill).  Last the card held to the CPU in float32: zamba2 (one
+    period, 6 layers) and granite (2 layers) at full width, one prompt
+    of 320 tokens: prefill logits, every cache and three decode steps
+    of the same weights on the card (K9 f32, K10) and on the CPU (the
+    plain versions) within MODEL_F32_RTOL / MODEL_F32_ATOL.
 
-It prints the kernel table as one JSON line, the card's name and power
+It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
+rows with their launches on phase 23's model path besides), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
 and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -240,6 +259,23 @@ ATTN_BF16_TOL = 5e-2
 #: path tolerance (tests/test_kernels.py); a bfloat16 output within one
 #: bfloat16 step besides.
 GLA_RTOL, GLA_ATOL = 1e-4, 1e-5
+
+#: Phase 23, bf16 at full width: the prefill's last logits against
+#: ``forward``'s at S - 1, and the first decode step's against ``forward``
+#: over S + 1 tokens at S, held to max |a - b| <= MODEL_BF16_REL max |b|.
+#: The two sides take different bf16 roundings (the decode's plain
+#: attention rounds its scores to bf16, K9 keeps them in float32; the
+#: GEMMs differ in shape), which grow over depth: zamba2's 81 layers in
+#: bf16 on the CPU (width cut to 512, S = 300, the plain versions) gave
+#: 0.024, granite's 8 layers 0.009; a wrong cache, offset or state would
+#: give O(1).  Stated before phase 23's first run.
+MODEL_BF16_REL = 0.1
+#: Phase 23, float32: the card (K9 f32 as split TF32, K10 f32, cuBLAS
+#: without TF32) against the CPU (the plain versions) on the same
+#: weights, for logits and caches: |a - b| <= ATOL + RTOL |b|.  Each side
+#: sums in its own order (relative ~1e-6 a product); six layers at full
+#: width, |logits| ~ 1.  Stated before phase 23's first run.
+MODEL_F32_RTOL, MODEL_F32_ATOL = 1e-3, 1e-3
 
 #: The earlier designs' times of K7, K9 f32, K8 and K10 (ms; PERF.md's
 #: kernel table, NVIDIA H100 80GB HBM3, 700.00 W; CUDA-event means): K7's
@@ -3532,6 +3568,341 @@ def sharding_phase(dev, errs: ErrLog, name: str, runs: dict, record: dict,
     pruned_sharded(name, record)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: model serving on the card
+# ---------------------------------------------------------------------------
+
+#: The shapes phase 23's model path gives K9 and K10 (configs/zamba2_7b.py:
+#: 32 heads of 3584 / 32 = 112, 112 SSD heads of 64, state 64, chunk 256;
+#: configs/granite_20b.py: 48 heads, kv 1, dh 128), bf16 at S = 4096 and
+#: float32 at S = 320, padded as the model pads them (64 for K9, the chunk
+#: for K10): (B, H, KV, S, dh) and (B, H, S, dk, dv, chunk).
+MODEL_K9 = ((4, 32, 32, 4096, 112, torch.bfloat16),
+            (2, 48, 1, 4096, 128, torch.bfloat16),
+            (1, 32, 32, 384, 112, torch.float32),
+            (1, 48, 1, 384, 128, torch.float32))
+MODEL_K10 = ((4, 112, 4096, 64, 64, 256, torch.bfloat16),
+             (1, 112, 512, 64, 64, 256, torch.float32))
+
+
+def check_model_kernels(dev, errs: ErrLog, name: str) -> dict:
+    """K9 and K10 at the shapes of phase 23's model path against their
+    plain versions (one launch each), each bf16 shape timed by CUDA
+    events.  Returns {"K9": ms, "K9-granite": ms, "K10": ms}."""
+    from repro_torch.kernels.attention import kernel as k9
+    from repro_torch.kernels.gla import kernel as k10
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ms = {}
+    for (b, h, kv, s, dh, dtype), key in zip(
+            MODEL_K9, ("K9", "K9-granite", None, None)):
+        q, k, v = _attn_inputs(gen, dev, b, h, kv, s, s, dh, dh, dtype)
+        before = counts()
+        o = k9.flash_forward(q, k, v, 64, 64)
+        torch.cuda.synchronize()
+        launched(before, **{_k9_key(dtype).replace("-", "_"): 1})
+        e = _attn_diff(errs, o, k9.flash_forward_plain(q, k, v),
+                       f"model-path K9 {(b, h, kv, s, dh, dtype)}")
+        line = (f"[model K9] B={b} H={h} KV={kv} S={s} dh={dh} "
+                f"{str(dtype)[6:]}: max abs err {e:.3g} ({_attn_limit(o)})")
+        if key:
+            ms[key] = cuda_ms(lambda: k9.flash_forward(q, k, v, 64, 64), 5)
+            line += f"; {ms[key]:.4f} ms [{name}]"
+        print(line)
+        del q, k, v, o
+    for b, h, s, dk, dv, chunk, dtype in MODEL_K10:
+        q, k, v, la = _gla_inputs(gen, dev, b, h, s, dk, dv, dtype)
+        g = k10.chunk_cumsum(la, chunk)
+        before = counts()
+        res = k10.gla_chunks(q, k, v, g, chunk)
+        torch.cuda.synchronize()
+        launched(before, K10=1)
+        nd = _gla_diff(errs, res, k10.gla_chunks_plain(q, k, v, g, chunk),
+                       dtype == torch.bfloat16)
+        line = (f"[model K10] B={b} H={h} S={s} dk={dk} dv={dv} chunk="
+                f"{chunk} {str(dtype)[6:]}: within rtol {GLA_RTOL:g} / "
+                f"atol {GLA_ATOL:g} ({nd} output elements differ)")
+        if dtype == torch.bfloat16:
+            ms["K10"] = cuda_ms(lambda: k10.gla_chunks(q, k, v, g, chunk), 5)
+            line += f"; {ms['K10']:.4f} ms [{name}]"
+        print(line)
+        del q, k, v, la, g, res
+    return ms
+
+
+def _model(arch: str, dev, seed: int, **over):
+    """``arch``'s published config (``over`` replaced) with random weights
+    drawn on ``dev`` from a generator seeded ``seed``."""
+    from repro_torch import configs, models
+    cfg = dataclasses.replace(configs.get(arch), **over)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cfg, models.init(cfg, generator=gen, device=dev)
+
+
+def _prompts(cfg, b: int, s: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def _only(got: dict, **want) -> bool:
+    return got == {**{key: 0 for key in got}, **want}
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| (float64)."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+#: cuBLAS's kernel names (the GEMMs of every projection and MLP).
+GEMM_NAMES = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
+
+
+def traced_ms(fn, top: int = 6) -> dict:
+    """Device time of one call of ``fn``, from ``torch.profiler``: "all"
+    (every kernel and copy), "K9" and "K10" (theirs), "gemm" (cuBLAS's,
+    GEMM_NAMES), "wall" (the call's host-clock ms under the profiler) and
+    "top" (the ``top`` kernels by device time: [(name, ms, launches)])."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    out = {"all": 0.0, "K9": 0.0, "K10": 0.0, "gemm": 0.0, "wall": wall}
+    by = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        ms = (ev.self_cuda_time_total if t is None else t) / 1e3
+        out["all"] += ms
+        by.append((ev.key[:60], ms, ev.count))
+        if "flash_wgmma_kernel" in ev.key:
+            out["K9"] += ms
+        if "gla_ws_kernel" in ev.key:
+            out["K10"] += ms
+        if any(g in ev.key for g in GEMM_NAMES):
+            out["gemm"] += ms
+    out["top"] = sorted(by, key=lambda e: -e[1])[:top]
+    return out
+
+
+def _top_str(tr: dict) -> str:
+    return "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in tr["top"])
+
+
+def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
+               k9: int, k10: int, k9_ms: float, k10_ms: float,
+               **over) -> dict:
+    """Phase 23 (a) and (b): ``arch`` at full width (``over`` cuts its
+    depth) with random bf16 weights serves ``b`` prompts of ``s`` tokens
+    for ``new`` tokens through ``ServeEngine.generate``, every count set
+    to 0 just before and read just after: K9 ``k9`` times and K10 ``k10``
+    times (one prefill), nothing in the decode steps.  Then one prefill
+    (the same launches) and one decode step (none) are held to
+    ``forward`` over s + 1 tokens within MODEL_BF16_REL; the prefill and
+    the decode step are timed on the host clock around a synchronised
+    call (prefill: median of 3, each on a fresh cache; decode: median of
+    16 steps) and one prefill is traced by ``torch.profiler``.  K9's and
+    K10's share of the prefill: their launches times ``k9_ms`` and
+    ``k10_ms``, CUDA-event times of one launch at the same shapes
+    (``check_model_kernels``).  Returns the numbers it prints."""
+    from repro_torch import models
+    from repro_torch.serve import ServeEngine
+    cfg, model = _model(arch, dev, 23, **over)
+    n_par = models.param_count(model)
+    kinds = cfg.layer_kinds()
+    assert kinds.count("mamba2") == k10
+    assert kinds.count("attn") + kinds.count("shared_attn") == k9
+    prompts = _prompts(cfg, b, s, 23)
+    engine = ServeEngine(model, cfg, max_len=s + new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=new)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert _only(got, K9=k9, K10=k10), (arch, got)
+    assert out.shape == (b, new) and out.dtype == np.int32
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    toks = torch.as_tensor(prompts, device=dev)
+    with torch.inference_mode():
+        cache = models.make_cache(cfg, b, s + new, concrete=True, device=dev)
+        reset_counts()
+        last, cache = models.prefill(model, toks, cache, cfg)
+        torch.cuda.synchronize()
+        assert _only(counts(), K9=k9, K10=k10), (arch, counts())
+        nxt = last.argmax(-1)
+        reset_counts()
+        step, cache = models.decode_step(model, nxt, cache, s, cfg)
+        torch.cuda.synchronize()
+        assert _only(counts()), (arch, counts())
+        del cache
+        reset_counts()
+        full, _ = models.forward(model, torch.cat([toks, nxt[:, None]], 1),
+                                 cfg)
+        torch.cuda.synchronize()
+        assert _only(counts(), K9=k9, K10=k10), (arch, counts())
+        assert torch.isfinite(full.float()).all()
+        e_pre, e_dec = _rel(last, full[:, s - 1]), _rel(step, full[:, s])
+        del full
+        assert e_pre <= MODEL_BF16_REL and e_dec <= MODEL_BF16_REL, \
+            (arch, e_pre, e_dec)
+
+        def fresh():
+            return models.make_cache(cfg, b, s + new, concrete=True,
+                                     device=dev)
+
+        pre_ms = []
+        for _ in range(3):
+            cache = fresh()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = models.prefill(model, toks, cache, cfg)
+            torch.cuda.synchronize()
+            pre_ms.append(1e3 * (time.perf_counter() - t0))
+        tok, dec_ms = last.argmax(-1), []
+        for i in range(16):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = models.decode_step(model, tok, cache, s + i, cfg)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            dec_ms.append(1e3 * (time.perf_counter() - t0))
+        dec_tr = traced_ms(
+            lambda: models.decode_step(model, tok, cache, s + 16, cfg))
+        del cache
+        cache = fresh()
+        dev_ms = traced_ms(lambda: models.prefill(model, toks, cache, cfg))
+        del cache
+    pre, dec = float(np.median(pre_ms)), float(np.median(dec_ms))
+    rec = dict(arch=arch, layers=cfg.num_layers, params=n_par, B=b, S=s,
+               new=new, generate_s=t_gen, prefill_ms=pre,
+               prefill_tok_s=b * s / (pre / 1e3), decode_ms=dec,
+               decode_tok_s=b / (dec / 1e3), peak_gb=peak / 1e9,
+               e_prefill=e_pre, e_decode=e_dec, traced=dev_ms,
+               traced_decode=dec_tr,
+               k9_share=k9 * k9_ms / pre, k10_share=k10 * k10_ms / pre)
+    print(f"[serve {arch}] {cfg.num_layers} layers ({k10} mamba2, {k9} "
+          f"attention), {n_par / 1e9:.3f} B params bf16; "
+          f"ServeEngine.generate {b} x {s} tokens + {new} new: "
+          f"{t_gen:.2f} s, K9 {k9} and K10 {k10} launches, none in decode; "
+          f"prefill {pre:.1f} ms (median of 3; "
+          f"{rec['prefill_tok_s']:.0f} tokens/s), decode {dec:.2f} ms a "
+          f"step (median of 16; {rec['decode_tok_s']:.1f} tokens/s), peak "
+          f"memory {rec['peak_gb']:.2f} GB; K9 {k9} x {k9_ms:.4f} ms = "
+          f"{100 * rec['k9_share']:.2f}% and K10 {k10} x {k10_ms:.4f} ms "
+          f"= {100 * rec['k10_share']:.2f}% of the prefill (CUDA events); "
+          f"one traced prefill: kernels "
+          f"{dev_ms['all']:.1f} ms device ({100 * dev_ms['all'] / pre:.1f}% "
+          f"of the median prefill): GEMMs {dev_ms['gemm']:.1f}, K9 "
+          f"{dev_ms['K9']:.2f}, K10 {dev_ms['K10']:.2f}, the rest "
+          f"(elementwise, copies) "
+          f"{dev_ms['all'] - dev_ms['gemm'] - dev_ms['K9'] - dev_ms['K10']:.1f}"
+          f" ms; prefill logits vs forward's at S - 1 "
+          f"{e_pre:.3g}, decode step's vs forward's at S {e_dec:.3g} "
+          f"(relative max, limit {MODEL_BF16_REL:g}) [{name}]")
+    print(f"[serve {arch}] the traced prefill's top kernels: "
+          f"{_top_str(dev_ms)}")
+    print(f"[serve {arch}] one traced decode step: {dec_tr['wall']:.2f} ms "
+          f"wall, kernels {dec_tr['all']:.2f} ms device "
+          f"({100 * dec_tr['all'] / dec_tr['wall']:.1f}% busy; GEMMs "
+          f"{dec_tr['gemm']:.2f} ms); top: "
+          f"{_top_str(dec_tr)}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cache_cpu(cache: dict) -> list:
+    return [{n: t.detach().to("cpu", copy=True) for n, t in layer.items()}
+            for layer in cache["layers"]]
+
+
+def _serve_steps(model, cfg, toks: torch.Tensor, tokens, dev):
+    """One prefill of ``toks`` and a decode step for each of ``tokens``
+    (None: take the greedy ones) on ``dev``; the logits, the caches after
+    the prefill and after the last step (on the CPU), and the tokens."""
+    from repro_torch import models
+    b, s = toks.shape
+    n = 3 if tokens is None else len(tokens)
+    with torch.inference_mode():
+        cache = models.make_cache(cfg, b, s + n, concrete=True, device=dev)
+        last, cache = models.prefill(model, toks.to(dev), cache, cfg)
+        logits, pre_cache, fed = [last.cpu()], _cache_cpu(cache), []
+        for i in range(n):
+            tok = last.argmax(-1) if tokens is None else tokens[i].to(dev)
+            last, cache = models.decode_step(model, tok, cache, s + i, cfg)
+            fed.append(tok.cpu())
+            logits.append(last.cpu())
+        return logits, pre_cache, _cache_cpu(cache), fed
+
+
+def f32_card_vs_cpu(dev, name: str, arch: str, layers: int, k9: int,
+                    k10: int, s: int = 320) -> dict:
+    """Phase 23 (c): ``arch`` at full width cut to ``layers`` layers in
+    float32, one prompt of ``s`` tokens: the prefill (K9 f32 ``k9``
+    times, K10 ``k10`` times), its caches and three greedy decode steps
+    on the card, then the same weights moved to the CPU fed the same
+    tokens (the plain versions, which the CPU tests hold to the JAX
+    package): logits and every cache within MODEL_F32_RTOL /
+    MODEL_F32_ATOL."""
+    cfg, model = _model(arch, dev, 23, num_layers=layers,
+                        param_dtype="float32", dtype="float32")
+    toks = torch.as_tensor(_prompts(cfg, 1, s, 23))
+    reset_counts()
+    card = _serve_steps(model, cfg, toks, None, dev)
+    torch.cuda.synchronize()
+    assert _only(counts(), **{"K9-f32": k9, "K10": k10}), counts()
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    host = _serve_steps(model, cfg, toks, card[3], torch.device("cpu"))
+    errs = {}
+    for what, got, want in (("logits", card[0], host[0]),
+                            ("prefill caches",
+                             [t for c in card[1] for t in c.values()],
+                             [t for c in host[1] for t in c.values()]),
+                            ("final caches",
+                             [t for c in card[2] for t in c.values()],
+                             [t for c in host[2] for t in c.values()])):
+        errs[what] = max(float((g.double() - w.double()).abs().max())
+                         for g, w in zip(got, want))
+        assert all(torch.isfinite(g).all() for g in got), (arch, what)
+        assert all(_close(g, w, MODEL_F32_RTOL, MODEL_F32_ATOL)
+                   for g, w in zip(got, want)), (arch, what, errs[what])
+    print(f"[serve f32] {arch}, {layers} layers at full width, S={s}: "
+          f"card (K9 f32 x {k9}, K10 x {k10}) vs CPU on the same weights: "
+          f"max abs err logits (prefill and 3 decode steps) "
+          f"{errs['logits']:.3g}, caches after the prefill "
+          f"{errs['prefill caches']:.3g}, after the last step "
+          f"{errs['final caches']:.3g} (rtol {MODEL_F32_RTOL:g}, atol "
+          f"{MODEL_F32_ATOL:g})")
+    del model
+    return errs
+
+
+def model_phase(dev, errs: ErrLog, name: str) -> dict:
+    """Phase 23: model serving on the card (see the module docstring).
+    Returns the model path's launches, by table key and run."""
+    t0 = time.perf_counter()
+    kernel_ms = check_model_kernels(dev, errs, name)
+    serve_full(dev, name, "zamba2-7b", 4, 4096, 32, 13, 68,
+               kernel_ms["K9"], kernel_ms["K10"])
+    serve_full(dev, name, "granite-20b", 2, 4096, 16, 8, 0,
+               kernel_ms["K9-granite"], 0.0, num_layers=8)
+    f32_card_vs_cpu(dev, name, "zamba2-7b", 6, 1, 5)
+    f32_card_vs_cpu(dev, name, "granite-20b", 2, 2, 0)
+    print(f"[models] phase 23 in {time.perf_counter() - t0:.1f} s [{name}]")
+    return {"K9": {"zamba2-7b prefill (81 layers)": 13,
+                   "granite-20b prefill (8 of 52 layers)": 8},
+            "K9-f32": {"zamba2-7b f32 prefill (6 layers)": 1,
+                       "granite-20b f32 prefill (2 layers)": 2},
+            "K10": {"zamba2-7b prefill (81 layers)": 68,
+                    "zamba2-7b f32 prefill (6 layers)": 5}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3594,6 +3965,10 @@ def main() -> int:
     recovery_kill()
     sharding_phase(dev, errs, name, runs, record,
                    rows[KERNELS["K1"][0]]["ms"])
+    for key, paths in model_phase(dev, errs, name).items():
+        row = rows[KERNELS[key][0]]
+        row["model_launches"] = paths
+        row["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

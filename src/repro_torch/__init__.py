@@ -10,7 +10,10 @@ with their DTW kernels
 written by hand in CUDA C++ (``kernels.dtw``); and the reference's other
 kernel entry points, each on its own CUDA kernel: the batched IIR filter
 (``kernels.iir``), flash attention (``kernels.attention``) and the GLA
-scan (``kernels.gla``).  Entry points run on the
+scan (``kernels.gla``); and the model zoo's serving path for the
+archs without experts (``configs``, ``models``: GQA attention whose
+prefill runs K9, Mamba2 whose prefill runs K10; ``serve.engine``,
+``launch.serve``).  Entry points run on the
 GPU unless ``device="cpu"`` is passed, which runs the kernels' plain
 PyTorch versions.  The package imports neither ``jax`` nor ``repro``.
 """

@@ -13,8 +13,10 @@ host without a card, or ``["cuda:0"] * 4`` on a machine with one card.
 
 The reference's ``sharding/compat.py`` has no counterpart here: it is a
 shim over jax's moving ``shard_map`` API, and the port launches one
-kernel a shard instead.  Its ``sharding/rules.py`` and ``launch/mesh.py``
-map model pytrees onto a mesh and belong with the model zoo's port.
+kernel a shard instead.  Of its ``sharding/rules.py`` the port has
+``ExecConfig`` (:mod:`repro_torch.sharding.rules`); the rules that map
+model pytrees onto a mesh, and ``launch/mesh.py``, wait for the model
+zoo's dry-run.
 """
 
 from __future__ import annotations

@@ -255,7 +255,9 @@ def test_port_imports_without_jax():
             "sys.modules['repro'] = None; "
             "import repro_torch.serve.tuning, repro_torch.mrsim, "
             "repro_torch.core.filters, repro_torch.kernels.iir, "
-            "repro_torch.kernels.attention, repro_torch.kernels.gla; "
+            "repro_torch.kernels.attention, repro_torch.kernels.gla, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.serve.engine, repro_torch.launch.serve; "
             "print('ok')")
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, PYTHONPATH=src)
@@ -280,6 +282,18 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         bank.score_plan()
     assert (tstream.LIB.launches, tscore.LIB.launches) == before
+    # the model zoo: init, a concrete cache and the CLI's device
+    from repro_torch import configs, models
+    from repro_torch.kernels.attention import kernel as k9
+    from repro_torch.kernels.gla import kernel as k10
+    cfg = configs.smoke_config("zamba2-7b")
+    before = (k9.LIB.launches, k9.BF16_LIB.launches, k10.LIB.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.make_cache(cfg, 1, 8, concrete=True)
+    assert (k9.LIB.launches, k9.BF16_LIB.launches,
+            k10.LIB.launches) == before
 
 
 def test_distance_only_rejects_probabilities_and_multitenant_builds():
