@@ -185,11 +185,32 @@ Phases, in order (any failure exits non-zero):
     of 320 tokens: prefill logits, every cache and three decode steps
     of the same weights on the card (K9 f32, K10) and on the CPU (the
     plain versions) within MODEL_F32_RTOL / MODEL_F32_ATOL.
+24. MoE/MLA serving on the card (``models.attention.MLAttention``,
+    ``models.moe``): (a) K9 at MLA's head (q and k 192 wide, v 128; its
+    ``<192, 128>`` instantiations) against its plain version at
+    deepseek-v2's (B 4, 128 heads, S 4096) and kimi-k2's (B 2, 64 heads)
+    bf16 prefill shapes and at deepseek's f32 one (S 384), one launch
+    each, timed beside the plain version, the bound and SDPA;
+    (b) deepseek-v2-236b at full width cut to 5 layers (1 dense + 4 MoE,
+    random bf16 weights) serving 4 prompts of 4096 tokens for 32 new
+    tokens through ``ServeEngine.generate``: K9 5 times a prefill, 0 a
+    decode step; prefill and decode held to ``forward`` (MODEL_BF16_REL)
+    on the batch rows where both compute the same function; each MoE
+    layer's dropped assignments and the decode step's routing against
+    forward's; prefill and decode timed and traced, the peak memory;
+    (c) kimi-k2-1t-a32b cut to 2 layers (1 dense + 1 MoE), 2 x 4096 + 16,
+    K9 2 times a prefill, the same checks; (d) deepseek-v2 cut to 2
+    layers in float32, card against CPU (K9 f32 2 times): logits and
+    caches within MODEL_F32_RTOL / _ATOL, the routing equal in every MoE
+    call but at near-ties within ROUTE_TIE (each witnessed); (e) one
+    deepseek MoE layer run twice on the same input on the card, bitwise
+    equal, and timed at the prefill's and a decode step's token counts.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
-rows with their launches on phase 23's model path besides), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  It needs no network
-and imports nothing of JAX.
+rows with their launches on phases 23 and 24's model paths besides, and
+K9's two rows at MLA's head), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  It needs no network and imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -276,6 +297,12 @@ MODEL_BF16_REL = 0.1
 #: sums in its own order (relative ~1e-6 a product); six layers at full
 #: width, |logits| ~ 1.  Stated before phase 23's first run.
 MODEL_F32_RTOL, MODEL_F32_ATOL = 1e-3, 1e-3
+#: Phase 24, float32 card vs CPU: a token's chosen experts may differ
+#: only where the CPU's router probabilities at the first differing rank
+#: and the next lie within ROUTE_TIE of each other (a near-tie that the
+#: two sides' summation orders may break either way).  Stated before
+#: phase 24's first run.
+ROUTE_TIE = 1e-6
 
 #: The earlier designs' times of K7, K9 f32, K8 and K10 (ms; PERF.md's
 #: kernel table, NVIDIA H100 80GB HBM3, 700.00 W; CUDA-event means): K7's
@@ -339,6 +366,14 @@ KERNELS = {
     "K9-f32": ("K9 causal GQA flash attention, f32 (split TF32, wgmma)",
                "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
                "src/repro/kernels/attention/kernel.py:26"),
+    "K9-mla": ("K9 causal flash attention at MLA's head (dh 192, dv 128), "
+               "bf16 (wgmma)",
+               "src/repro_torch/kernels/attention/csrc/flash_wgmma.cu",
+               "src/repro/kernels/attention/kernel.py:26"),
+    "K9-f32-mla": ("K9 causal flash attention at MLA's head (dh 192, dv "
+                   "128), f32 (split TF32, wgmma)",
+                   "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
+                   "src/repro/kernels/attention/kernel.py:26"),
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
@@ -651,6 +686,8 @@ def build_report(libs) -> None:
                            ("FMNMX", "SHFL", "STG"))
         elif lib is attn.LIB:
             ops = sass_ops(lib, "flash_tf32_kernel", ("HGMMA",))
+        elif lib is attn.BF16_LIB:
+            ops = sass_ops(lib, "flash_wgmma_kernel", ("HGMMA",))
         elif lib is gla.kernel.LIB:
             ops = {**sass_ops(lib, "gla_ws_kernel", ("HGMMA",)),
                    **sass_ops(lib, "gla_mma_kernel", ("HGMMA",))}
@@ -2251,7 +2288,17 @@ def check_k9(dev, errs: ErrLog) -> None:
              (1, 6, 2, 256, 256, 128, 128, 128, 128, True, bf16),
              (1, 2, 2, 128, 320, 128, 128, 64, 64, False, bf16),
              (1, 2, 1, 96, 160, 18, 10, 32, 32, True, f32),
-             (1, 4, 2, 128, 64, 18, 10, 64, 32, True, f32)]
+             (1, 4, 2, 128, 64, 18, 10, 64, 32, True, f32),
+             # MLA's head (q, k 192 wide, v 128): ragged S = T, S != T
+             # both ways, a GQA group and non-causal
+             (1, 2, 2, 96, 96, 192, 128, 32, 32, True, bf16),
+             (1, 2, 2, 96, 96, 192, 128, 32, 32, True, f32),
+             (1, 4, 2, 128, 192, 192, 128, 64, 64, True, bf16),
+             (1, 4, 2, 192, 128, 192, 128, 64, 64, True, f32),
+             (1, 2, 2, 128, 128, 192, 128, 64, 64, False, bf16),
+             (1, 2, 2, 128, 128, 136, 72, 64, 64, True, bf16),
+             (1, 2, 2, 64, 64, 190, 126, 32, 32, True, bf16),
+             (1, 2, 2, 64, 64, 190, 126, 32, 32, True, f32)]
     # f32 inputs one element into their storage
     offset = [(1, 4, 2, 128, 192, 64, 64, 64, 64, True, f32),
               (1, 2, 1, 96, 160, 18, 10, 32, 32, True, f32)]
@@ -2274,6 +2321,20 @@ def check_k9(dev, errs: ErrLog) -> None:
               f"{' (one element into storage)' if at else ''}: max abs err "
               f"{e:.3g} ({_attn_limit(ok)}; mean |o| "
               f"{float(op.abs().mean()):.3g})")
+    # the wrapper's limits: dh over 192 or dv over 128 raise, naming the
+    # limit, and launch nothing
+    for dh, dv, which in ((200, 128, "dh"), (192, 136, "dv")):
+        q, k, v = _attn_inputs(gen, dev, 1, 2, 2, 64, 64, dh, dv,
+                               torch.bfloat16)
+        before = counts()
+        try:
+            kernel.flash_forward(q, k, v, 64, 64)
+        except ValueError as err:
+            assert f"head dim {which}" in str(err), str(err)
+        else:
+            raise AssertionError(f"K9 took dh = {dh}, dv = {dv}")
+        launched(before)
+        print(f"[K9] dh={dh} dv={dv}: refused ({which} over its limit)")
 
 
 def _attn_limit(o: torch.Tensor) -> str:
@@ -2283,11 +2344,12 @@ def _attn_limit(o: torch.Tensor) -> str:
             f"{ATTN_F32_TOL:g}")
 
 
-def _attn_diff(errs: ErrLog, got, want, what: str) -> float:
+def _attn_diff(errs: ErrLog, got, want, what: str, key=None) -> float:
     """Hold K9's o to the plain version's: float32 within ATTN_F32_TOL;
     bfloat16 within ATTN_BF16_TOL and within one bfloat16 step
-    (BF16_ULP |o| + ATTN_F32_TOL).  Returns the max abs err."""
-    e = errs.diff(_k9_key(got.dtype), got, want)
+    (BF16_ULP |o| + ATTN_F32_TOL).  The error goes to the table row
+    ``key`` (the dtype's K9 row by default).  Returns the max abs err."""
+    e = errs.diff(key or _k9_key(got.dtype), got, want)
     if got.dtype == torch.float32:
         ok = e <= ATTN_F32_TOL
     else:
@@ -3690,6 +3752,148 @@ def _top_str(tr: dict) -> str:
     return "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in tr["top"])
 
 
+class MoeRouting:
+    """While open, records the routing of every MoE block call of
+    ``model`` through forward hooks: (layer, top_e [T, K], the top K + 1
+    probabilities in descending order [T, K + 1], each token's dropped
+    assignments [T]), on the CPU.  The hook recomputes the routing from
+    the block's input with ``models.moe.route`` and ``dispatch``, the
+    block's own functions; it is removed on close, so timed runs carry
+    none of it."""
+
+    def __init__(self, model) -> None:
+        self.model, self.calls, self.handles = model, [], []
+
+    def __enter__(self):
+        for i, layer in enumerate(self.model.layers):
+            if hasattr(layer, "moe"):
+                self.handles.append(
+                    layer.moe.register_forward_hook(self._hook(i)))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for h in self.handles:
+            h.remove()
+
+    def _hook(self, layer: int):
+        def hook(mod, args, out):
+            from repro_torch.models import moe
+            x, cfg = args[0], args[1]
+            x2d = x.reshape(-1, x.shape[-1])
+            probs, _, top_e = moe.route(x2d, mod.router.w, cfg)
+            _, keep = moe.dispatch(top_e, 0, cfg.num_experts,
+                                   moe._capacity(x2d.shape[0], cfg))
+            top = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).values[:, :cfg.top_k + 1]
+            self.calls.append((layer, top_e.cpu(), top.cpu(),
+                               (~keep).reshape(top_e.shape).sum(1).cpu()))
+        return hook
+
+
+def _experts(call, shape, at: int) -> torch.Tensor:
+    """The sorted experts chosen for the tokens at position ``at`` of each
+    row of a recorded MoE call (``MoeRouting``) whose T tokens are
+    ``shape`` (rows, positions)."""
+    return torch.sort(call[1].reshape(*shape, -1)[:, at], 1).values
+
+
+def _trio(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int):
+    """One prefill of ``toks`` [b, s], a greedy decode step at s and
+    ``forward`` over the s + 1 tokens, every count set to 0 just before
+    each and read just after (K9 ``k9`` and K10 ``k10`` times in the
+    prefill and in forward, nothing in the step), the MoE routing of all
+    three recorded.  Returns (prefill logits, step logits, forward
+    logits, forward's aux, the routing calls)."""
+    from repro_torch import models
+    b, s = toks.shape
+    with torch.inference_mode(), MoeRouting(model) as routing:
+        cache = models.make_cache(cfg, b, s + 1, concrete=True, device=dev)
+        reset_counts()
+        last, cache = models.prefill(model, toks, cache, cfg)
+        torch.cuda.synchronize()
+        assert _only(counts(), K9=k9, K10=k10), counts()
+        nxt = last.argmax(-1)
+        reset_counts()
+        step, cache = models.decode_step(model, nxt, cache, s, cfg)
+        torch.cuda.synchronize()
+        assert _only(counts()), counts()
+        del cache
+        reset_counts()
+        full, aux = models.forward(model, torch.cat([toks, nxt[:, None]], 1),
+                                   cfg)
+        torch.cuda.synchronize()
+        assert _only(counts(), K9=k9, K10=k10), counts()
+    assert torch.isfinite(full.float()).all() and torch.isfinite(aux)
+    return last, step, full, aux, routing.calls
+
+
+#: Phase 24: the prompt length of the dropless decode check (its capacity
+#: C = T holds [E, b (s + 1), D] expert inputs: 1.7 GB for deepseek-v2 at
+#: b = 4).
+DROPLESS_S = 256
+
+
+def _moe_checks(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int,
+                last: torch.Tensor, calls: list, n_moe: int) -> dict:
+    """The MoE arch's checks against ``forward`` (phase 24 (b), (c)).
+
+    An MoE layer's capacity C is taken over the call's tokens and drops
+    assignments in flat token order, so a prefill of s tokens, forward
+    over s + 1 and a decode step (T = b, never full) drop differently
+    wherever an expert overflows.  So: the prefill is held to forward over
+    the same s tokens (the same C, order and drops); the decode step is
+    held to forward over s + 1 tokens where no assignment is dropped, at
+    the capacity factor E / top_k (C = T) on the prompts cut to
+    DROPLESS_S, on the rows whose decode token the two route alike in
+    every layer (at least one).  ``calls``: the published config's trio
+    (``_trio``); its drops per layer, the busiest expert's load against
+    the mean, forward's drops of the decode token and the decode
+    step's routing against forward's are returned for the report."""
+    from repro_torch import models
+    b, s = toks.shape
+    E, K = cfg.num_experts, cfg.top_k
+    pre_c, dec_c = calls[:n_moe], calls[n_moe:2 * n_moe]
+    fwd_c = calls[2 * n_moe:]
+    assert sum(int(c[3].sum()) for c in dec_c) == 0, "decode drops"
+    with torch.inference_mode(), MoeRouting(model) as same:
+        reset_counts()
+        full_s, _ = models.forward(model, toks, cfg)
+        torch.cuda.synchronize()
+        assert _only(counts(), K9=k9, K10=k10), counts()
+    e_pre = _rel(last, full_s[:, s - 1])
+    del full_s
+    rec = dict(
+        e_pre=e_pre,
+        same_route=sum(int((c[1] != p[1]).any(1).sum())
+                       for c, p in zip(same.calls, pre_c)),
+        drops=[int(c[3].sum()) for c in pre_c],
+        hot=[round(float(torch.bincount(c[1].reshape(-1), minlength=E).max())
+                   / (b * s * K / E), 2) for c in pre_c],
+        fwd_drops=[int(c[3].sum()) for c in fwd_c],
+        last_drops=sum(int(f[3].reshape(b, s + 1)[:, s].sum())
+                       for f in fwd_c),
+        route_diff=sum(int((_experts(d, (b, 1), 0) != _experts(
+            f, (b, s + 1), s)).any(1).sum()) for d, f in zip(dec_c, fwd_c)))
+    cfg_d = dataclasses.replace(cfg, capacity_factor=E / K)
+    sd = min(DROPLESS_S, s)
+    last_d, step_d, full_d, _, calls_d = _trio(
+        model, cfg_d, toks[:, :sd].contiguous(), dev, k9, k10)
+    assert all(int(c[3].sum()) == 0 for c in calls_d), "dropless drops"
+    flips = torch.zeros(b, dtype=torch.bool)
+    for d, f in zip(calls_d[n_moe:2 * n_moe], calls_d[2 * n_moe:]):
+        flips |= (_experts(d, (b, 1), 0)
+                  != _experts(f, (b, sd + 1), sd)).any(1)
+    rows = (~flips).nonzero()[:, 0].to(dev)
+    assert len(rows), "every row's decode token routed otherwise"
+    rec.update(e_pre_dropless=_rel(last_d, full_d[:, sd - 1]),
+               e_dec_dropless=_rel(step_d[rows], full_d[rows, sd]),
+               rows_dropless=len(rows), dropless_s=sd)
+    del full_d
+    for key in ("e_pre", "e_pre_dropless", "e_dec_dropless"):
+        assert rec[key] <= MODEL_BF16_REL, (cfg.name, key, rec[key])
+    return rec
+
+
 def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
                k9: int, k10: int, k9_ms: float, k10_ms: float,
                **over) -> dict:
@@ -3699,20 +3903,27 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
     to 0 just before and read just after: K9 ``k9`` times and K10 ``k10``
     times (one prefill), nothing in the decode steps.  Then one prefill
     (the same launches) and one decode step (none) are held to
-    ``forward`` over s + 1 tokens within MODEL_BF16_REL; the prefill and
+    ``forward`` over s + 1 tokens within MODEL_BF16_REL (an MoE arch as
+    ``_moe_checks`` says); the prefill and
     the decode step are timed on the host clock around a synchronised
     call (prefill: median of 3, each on a fresh cache; decode: median of
-    16 steps) and one prefill is traced by ``torch.profiler``.  K9's and
-    K10's share of the prefill: their launches times ``k9_ms`` and
-    ``k10_ms``, CUDA-event times of one launch at the same shapes
-    (``check_model_kernels``).  Returns the numbers it prints."""
+    16 steps) and one prefill and one decode step are traced by
+    ``torch.profiler``.  K9's and K10's share of the prefill: their
+    launches times ``k9_ms`` and ``k10_ms``, CUDA-event times of one launch
+    at the same shapes (``check_model_kernels``, ``check_mla_kernels``).
+    An MoE arch's routing is recorded (``MoeRouting``) in the checked
+    prefill, decode step and forward (``_moe_checks``).  Returns the
+    numbers it prints."""
     from repro_torch import models
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import block_kinds
     from repro_torch.serve import ServeEngine
     cfg, model = _model(arch, dev, 23, **over)
     n_par = models.param_count(model)
-    kinds = cfg.layer_kinds()
+    kinds = block_kinds(cfg)
     assert kinds.count("mamba2") == k10
-    assert kinds.count("attn") + kinds.count("shared_attn") == k9
+    assert len(kinds) - kinds.count("mamba2") == k9
+    n_moe = kinds.count("attn_moe")
     prompts = _prompts(cfg, b, s, 23)
     engine = ServeEngine(model, cfg, max_len=s + new)
     torch.cuda.synchronize()
@@ -3728,28 +3939,22 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
     assert out.shape == (b, new) and out.dtype == np.int32
     assert ((out >= 0) & (out < cfg.vocab_size)).all()
     toks = torch.as_tensor(prompts, device=dev)
-    with torch.inference_mode():
-        cache = models.make_cache(cfg, b, s + new, concrete=True, device=dev)
-        reset_counts()
-        last, cache = models.prefill(model, toks, cache, cfg)
-        torch.cuda.synchronize()
-        assert _only(counts(), K9=k9, K10=k10), (arch, counts())
-        nxt = last.argmax(-1)
-        reset_counts()
-        step, cache = models.decode_step(model, nxt, cache, s, cfg)
-        torch.cuda.synchronize()
-        assert _only(counts()), (arch, counts())
-        del cache
-        reset_counts()
-        full, _ = models.forward(model, torch.cat([toks, nxt[:, None]], 1),
-                                 cfg)
-        torch.cuda.synchronize()
-        assert _only(counts(), K9=k9, K10=k10), (arch, counts())
-        assert torch.isfinite(full.float()).all()
-        e_pre, e_dec = _rel(last, full[:, s - 1]), _rel(step, full[:, s])
+    last, step, full, aux, calls = _trio(model, cfg, toks, dev, k9, k10)
+    assert (float(aux) > 0) == (n_moe > 0), (arch, float(aux))
+    e_dec = _rel(step, full[:, s])
+    if not n_moe:
+        e_pre = _rel(last, full[:, s - 1])
         del full
         assert e_pre <= MODEL_BF16_REL and e_dec <= MODEL_BF16_REL, \
             (arch, e_pre, e_dec)
+        moe_rec = {}
+    else:
+        del full
+        moe_rec = _moe_checks(model, cfg, toks, dev, k9, k10, last, calls,
+                              n_moe)
+        e_pre = moe_rec["e_pre"]
+        del step
+    with torch.inference_mode():
 
         def fresh():
             return models.make_cache(cfg, b, s + new, concrete=True,
@@ -3783,7 +3988,7 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
                prefill_tok_s=b * s / (pre / 1e3), decode_ms=dec,
                decode_tok_s=b / (dec / 1e3), peak_gb=peak / 1e9,
                e_prefill=e_pre, e_decode=e_dec, traced=dev_ms,
-               traced_decode=dec_tr,
+               traced_decode=dec_tr, launches=got, **moe_rec,
                k9_share=k9 * k9_ms / pre, k10_share=k10 * k10_ms / pre)
     print(f"[serve {arch}] {cfg.num_layers} layers ({k10} mamba2, {k9} "
           f"attention), {n_par / 1e9:.3f} B params bf16; "
@@ -3803,9 +4008,33 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
           f"{dev_ms['all'] - dev_ms['gemm'] - dev_ms['K9'] - dev_ms['K10']:.1f}"
           f" ms; prefill logits vs forward's at S - 1 "
           f"{e_pre:.3g}, decode step's vs forward's at S {e_dec:.3g} "
-          f"(relative max, limit {MODEL_BF16_REL:g}) [{name}]")
+          f"(relative max, limit {MODEL_BF16_REL:g}"
+          f"{'; MoE: as below' if n_moe else ''}) [{name}]")
     print(f"[serve {arch}] the traced prefill's top kernels: "
           f"{_top_str(dev_ms)}")
+    if n_moe:
+        m = moe_rec
+        print(f"[serve {arch}] MoE routing: assignments dropped by the "
+              f"prefill's capacity C = {moe_lib._capacity(b * s, cfg)} "
+              f"({b * s} tokens x top {cfg.top_k} over {cfg.num_experts} "
+              f"experts) in each of the {n_moe} MoE layers: {m['drops']} "
+              f"(the busiest expert {m['hot']} x the mean load); forward "
+              f"over the same {s} tokens routes {m['same_route']} tokens "
+              f"otherwise and gives the prefill's logits within "
+              f"{m['e_pre']:.3g}; forward over S + 1 (C = "
+              f"{moe_lib._capacity(b * (s + 1), cfg)}) drops {m['fwd_drops']}"
+              f", {m['last_drops']} of them the decode token's, so the "
+              f"decode step (T = {b}, nothing dropped) computes another "
+              f"function there: decode vs forward at S {e_dec:.3g}, not "
+              f"held; (token, layer) routings that differ between them: "
+              f"{m['route_diff']} of {b * n_moe}. Dropless (capacity "
+              f"factor {cfg.num_experts / cfg.top_k:g}) on the prompts cut "
+              f"to {m['dropless_s']}: prefill vs forward "
+              f"{m['e_pre_dropless']:.3g}"
+              f", decode vs forward {m['e_dec_dropless']:.3g} on "
+              f"{m['rows_dropless']} of {b} rows (the others routed the "
+              f"decode token otherwise in some layer) (limit "
+              f"{MODEL_BF16_REL:g}); forward's aux loss {float(aux):.6g}")
     print(f"[serve {arch}] one traced decode step: {dec_tr['wall']:.2f} ms "
           f"wall, kernels {dec_tr['all']:.2f} ms device "
           f"({100 * dec_tr['all'] / dec_tr['wall']:.1f}% busy; GEMMs "
@@ -3848,17 +4077,43 @@ def f32_card_vs_cpu(dev, name: str, arch: str, layers: int, k9: int,
     on the card, then the same weights moved to the CPU fed the same
     tokens (the plain versions, which the CPU tests hold to the JAX
     package): logits and every cache within MODEL_F32_RTOL /
-    MODEL_F32_ATOL."""
+    MODEL_F32_ATOL.  An MoE arch's routing (``MoeRouting``) on the card
+    must equal the CPU's in every MoE call (the prefill and each step),
+    token for token; a token may differ only where the CPU's
+    probabilities at the first differing rank and the next are within
+    ROUTE_TIE of each other, and each such token is printed as a
+    witness."""
     cfg, model = _model(arch, dev, 23, num_layers=layers,
                         param_dtype="float32", dtype="float32")
     toks = torch.as_tensor(_prompts(cfg, 1, s, 23))
     reset_counts()
-    card = _serve_steps(model, cfg, toks, None, dev)
+    with MoeRouting(model) as card_routing:
+        card = _serve_steps(model, cfg, toks, None, dev)
     torch.cuda.synchronize()
-    assert _only(counts(), **{"K9-f32": k9, "K10": k10}), counts()
+    launches = counts()
+    assert _only(launches, **{"K9-f32": k9, "K10": k10}), launches
     model.to("cpu")
     torch.cuda.empty_cache()
-    host = _serve_steps(model, cfg, toks, card[3], torch.device("cpu"))
+    with MoeRouting(model) as host_routing:
+        host = _serve_steps(model, cfg, toks, card[3], torch.device("cpu"))
+    n_routed, witnesses = 0, []
+    assert len(card_routing.calls) == len(host_routing.calls)
+    for (layer, e_card, _, _), (layer_h, e_host, p_host, _) in zip(
+            card_routing.calls, host_routing.calls):
+        assert layer == layer_h and e_card.shape == e_host.shape
+        n_routed += e_card.shape[0]
+        for t in (e_card != e_host).any(1).nonzero()[:, 0].tolist():
+            j = int((e_card[t] != e_host[t]).nonzero()[0, 0])
+            gap = float(p_host[t, j] - p_host[t, j + 1])
+            witnesses.append((layer, t, j, gap))
+            assert gap <= ROUTE_TIE, (arch, layer, t, j, gap)
+    if cfg.is_moe:
+        print(f"[serve f32] {arch}: routing card vs CPU over "
+              f"{len(card_routing.calls)} MoE calls, {n_routed} tokens: "
+              f"{len(witnesses)} differ"
+              + "".join(f"; layer {lay} token {t} rank {j}: the CPU's "
+                        f"probabilities there {gap:.3g} apart"
+                        for lay, t, j, gap in witnesses))
     errs = {}
     for what, got, want in (("logits", card[0], host[0]),
                             ("prefill caches",
@@ -3872,6 +4127,7 @@ def f32_card_vs_cpu(dev, name: str, arch: str, layers: int, k9: int,
         assert all(torch.isfinite(g).all() for g in got), (arch, what)
         assert all(_close(g, w, MODEL_F32_RTOL, MODEL_F32_ATOL)
                    for g, w in zip(got, want)), (arch, what, errs[what])
+    errs["launches"] = launches
     print(f"[serve f32] {arch}, {layers} layers at full width, S={s}: "
           f"card (K9 f32 x {k9}, K10 x {k10}) vs CPU on the same weights: "
           f"max abs err logits (prefill and 3 decode steps) "
@@ -3901,6 +4157,166 @@ def model_phase(dev, errs: ErrLog, name: str) -> dict:
                        "granite-20b f32 prefill (2 layers)": 2},
             "K10": {"zamba2-7b prefill (81 layers)": 68,
                     "zamba2-7b f32 prefill (6 layers)": 5}}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: MoE/MLA serving on the card
+# ---------------------------------------------------------------------------
+
+#: The shapes phase 24's model path gives K9 (configs/deepseek_v2_236b.py:
+#: 128 heads, q and k 128 + 64 wide, v 128, H = KV; configs/
+#: kimi_k2_1t_a32b.py: 64 heads): (B, H, KV, S, dh, dv, dtype, table key,
+#: what).  bf16 at S = 4096, float32 at S = 384 (320 padded to 64).
+MLA_K9 = ((4, 128, 128, 4096, 192, 128, torch.bfloat16, "K9-mla",
+           "deepseek"),
+          (2, 64, 64, 4096, 192, 128, torch.bfloat16, None, "kimi"),
+          (1, 128, 128, 384, 192, 128, torch.float32, "K9-f32-mla",
+           "deepseek f32"))
+
+
+def _sdpa_ms(q, k, v) -> float:
+    """``scaled_dot_product_attention``'s CUDA-event ms on (q, k, v)
+    through its fused backends (the math backend would hold the [S, T]
+    weights: 17 GB at MLA's bf16 shape).  A yardstick only: the port
+    never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    with sdpa_kernel(backends):
+        return cuda_ms(lambda: _sdpa(q, k, v), 5)
+
+
+def check_mla_kernels(dev, errs: ErrLog, name: str):
+    """Phase 24 (a): K9 at MLA's shapes (MLA_K9) against its plain version,
+    one launch each, timed by CUDA events beside the plain version, the
+    bound (2 (dh + dv) FLOPs a causal query-key pair: bf16 at the bf16
+    tensor peak, f32 as three TF32 products at the TF32 peak; each input
+    read and the output written once) and SDPA.  Returns (the two table
+    rows, {what: ms})."""
+    from repro_torch.kernels.attention import kernel as k9
+    gen = torch.Generator(device=dev).manual_seed(24)
+    mem_bps, _, bf16_flops, tf32_flops = card_peaks(name)
+    rows, ms = [], {}
+    for b, h, kv, s, dh, dv, dtype, key, what in MLA_K9:
+        q, k, v = _attn_inputs(gen, dev, b, h, kv, s, s, dh, dv, dtype)
+        before = counts()
+        o = k9.flash_forward(q, k, v, 64, 64)
+        torch.cuda.synchronize()
+        launched(before, **{_k9_key(dtype).replace("-", "_"): 1})
+        assert o.shape == (b, h, s, dv) and torch.isfinite(o.float()).all()
+        op = k9.flash_forward_plain(q, k, v, 64, 64)
+        e = _attn_diff(errs, o, op, f"MLA K9 {what}",
+                       key or "K9-mla")
+        mean = float(op.float().abs().mean())
+        del o, op
+        ms[what] = cuda_ms(lambda: k9.flash_forward(q, k, v, 64, 64), 5)
+        pairs = b * h * s * (s + 1) // 2
+        flops = 2 * (dh + dv) * pairs
+        width = q.element_size()
+        kb = (1e3 * width * (b * h * s * (dh + dv) + b * kv * s * (dh + dv))
+              / mem_bps,
+              1e3 * flops / bf16_flops if dtype == torch.bfloat16
+              else 1e3 * 3 * flops / tf32_flops)
+        line = (f"[MLA K9] {what}: B={b} H={h} KV={kv} S=T={s} dh={dh} "
+                f"dv={dv} {str(dtype)[6:]}, causal: max abs err {e:.3g} "
+                f"({_attn_limit(q)}; mean |o| {mean:.3g}); {ms[what]:.4f} "
+                f"ms")
+        if key:
+            t_plain = cuda_ms(lambda: k9.flash_forward_plain(q, k, v, 64,
+                                                             64), 1)
+            t_lib = _sdpa_ms(q, k, v)
+            row = _row(key, 1, errs, ms[what], t_plain, kb, library_ms=t_lib)
+            rows.append(row)
+            split = (2 * dh + 4 * dv) / (2 * (dh + dv))
+            line += (f" (plain {t_plain:.2f} ms, SDPA {t_lib:.4f} ms, "
+                     f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+                     + (f", {split * row['bound_ms']:.4f} ms with the split "
+                        f"P's second PV product" if dtype == torch.bfloat16
+                        else ": three TF32 products") + ")")
+        print(line + f" [{name}]")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows, ms
+
+
+def moe_layer(dev, name: str, arch: str = "deepseek-v2-236b", b: int = 4,
+              s: int = 4096) -> dict:
+    """Phase 24 (e): one MoE block of ``arch`` at full width (random bf16
+    weights) run twice on the same [b, s] input: the two outputs and aux
+    losses bitwise equal (the combine adds in a fixed order, no
+    atomics).  Also its CUDA-event ms at that token count and at a decode
+    step's b tokens, beside the bytes of its expert weights over the
+    card's memory rate (a decode step reads every expert)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get(arch)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    mod = moe.MoE(cfg, generator=gen, device=dev)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev
+                    ).bfloat16()
+    with torch.inference_mode():
+        out1, aux1 = moe.moe_apply(mod, x, cfg)
+        out2, aux2 = moe.moe_apply(mod, x, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(out1, out2) and torch.equal(aux1, aux2), \
+            "MoE layer not deterministic"
+        assert torch.isfinite(out1.float()).all()
+        _, _, top_e = moe.route(x.reshape(-1, cfg.d_model), mod.router.w,
+                                cfg)
+        _, keep = moe.dispatch(top_e, 0, cfg.num_experts,
+                               moe._capacity(b * s, cfg))
+        del out1, out2
+        t_pre = cuda_ms(lambda: moe.moe_apply(mod, x, cfg), 3)
+        xd = x[:, :1].contiguous()
+        t_dec = cuda_ms(lambda: moe.moe_apply(mod, xd, cfg), 10)
+    routed = sum(p.numel() * p.element_size()
+                 for p in mod.experts.parameters())
+    floor = 1e3 * routed / card_peaks(name)[0]
+    print(f"[MoE layer] {arch}: one MoE block ({cfg.num_experts} experts, "
+          f"top {cfg.top_k}, {cfg.num_shared_experts} shared) on {b} x {s} "
+          f"tokens twice: outputs and aux bitwise equal; dropped "
+          f"{int((~keep).sum())} of {b * s * cfg.top_k} assignments; "
+          f"{t_pre:.2f} ms a call (CUDA events); at a decode step's {b} "
+          f"tokens {t_dec:.3f} ms, its {routed / 1e9:.2f} GB of routed "
+          f"experts {floor:.3f} ms at the memory rate [{name}]")
+    del mod, x
+    torch.cuda.empty_cache()
+    return {"prefill_ms": t_pre, "decode_ms": t_dec, "floor_ms": floor}
+
+
+def _host_free_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+def moe_phase(dev, errs: ErrLog, name: str):
+    """Phase 24: MoE/MLA serving on the card (see the module docstring).
+    Returns (the K9-mla and K9-f32-mla table rows, the MLA path's
+    launches by table key and run)."""
+    t0 = time.perf_counter()
+    rows, k9_ms = check_mla_kernels(dev, errs, name)
+    ds = serve_full(dev, name, "deepseek-v2-236b", 4, 4096, 32, 5, 0,
+                    k9_ms["deepseek"], 0.0, num_layers=5)
+    serve_full(dev, name, "kimi-k2-1t-a32b", 2, 4096, 16, 2, 0,
+               k9_ms["kimi"], 0.0, num_layers=2)
+    free = _host_free_gb()
+    print(f"[serve f32] host memory available: {free:.1f} GB (deepseek-v2 "
+          f"cut to 2 layers holds 21.4 GB of float32 weights)")
+    assert free > 32, "the host lacks memory for the float32 CPU run"
+    f32 = f32_card_vs_cpu(dev, name, "deepseek-v2-236b", 2, 2, 0)
+    moe_layer(dev, name)
+    rows[0]["launches"] = ds["launches"]["K9"]
+    rows[1]["launches"] = f32["launches"]["K9-f32"]
+    print(f"[models] phase 24 in {time.perf_counter() - t0:.1f} s; "
+          f"deepseek peak {ds['peak_gb']:.2f} GB [{name}]")
+    paths = {"deepseek-v2-236b prefill (5 of 60 layers)": 5,
+             "kimi-k2-1t-a32b prefill (2 of 61 layers)": 2}
+    f32_paths = {"deepseek-v2-236b f32 prefill (2 layers)": 2}
+    return rows, {"K9": paths, "K9-mla": paths, "K9-f32": f32_paths,
+                  "K9-f32-mla": f32_paths}
 
 
 def main() -> int:
@@ -3968,7 +4384,13 @@ def main() -> int:
     for key, paths in model_phase(dev, errs, name).items():
         row = rows[KERNELS[key][0]]
         row["model_launches"] = paths
-        row["max_abs_err"] = errs.err[key]
+    mla_rows, mla_paths = moe_phase(dev, errs, name)
+    for row in mla_rows:
+        rows[row["name"]] = row
+    for key, paths in mla_paths.items():
+        rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
+    for key in ("K9", "K9-f32", "K9-mla", "K9-f32-mla", "K10"):
+        rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))
     print(name)

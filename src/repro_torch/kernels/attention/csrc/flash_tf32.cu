@@ -29,20 +29,23 @@
 // (GQA: they share each K and V tile), else one; the tiles with the most
 // kv tiles under the frontier are launched first. Every operand sits in
 // shared memory as its two parts, K-major in the 128-byte swizzled layout
-// of 32-column sub-tiles (wgmma.cuh), zero-padded to the instantiation's
-// head dim D (64 or 128, the least that holds max(dh, dv)): Q once (scaled
-// and split as it is stored), then 32-row kv tiles. TF32 wgmma reads both
-// operands K-major only (there is no transpose bit for TF32), so V is
-// staged transposed, Vt [D, 32], by the threads, from registers: tile
-// kt + 1 is loaded from global memory into registers while tile kt is
-// computed, and split and stored once every warpgroup is done with kt.
+// of 32-column sub-tiles (wgmma.cuh), Q and K zero-padded to the
+// instantiation's DK, V to its DV: DK = DV = 64 or 128 (the least that
+// holds max(dh, dv)), or DK = 192, DV = 128 for MLA's prefill (one query
+// head a block; 181,248 bytes of shared memory, where one D = 192 would
+// need 197,632). Q is stored once (scaled and split as it is stored), then
+// 32-row kv tiles. TF32 wgmma reads both operands K-major only (there is
+// no transpose bit for TF32), so V is staged transposed, Vt [DV, 32], by
+// the threads, from registers: tile kt + 1 is loaded from global memory
+// into registers while tile kt is computed, and split and stored once
+// every warpgroup is done with kt.
 // A tile wholly below the diagonal and inside T skips the mask arithmetic.
 //
 //   S = Q K^T   wgmma m64n32k8, both operands from shared memory,
-//               D / 8 steps a product, three products;
+//               DK / 8 steps a product, three products;
 //   softmax     each thread holds two rows' 8 scores; a row spans the 4
 //               lanes of a quad, reduced with shuffles;
-//   O += P V    wgmma m64nDk8, A = P's parts from registers, B = Vt's
+//   O += P V    wgmma m64nDVk8, A = P's parts from registers, B = Vt's
 //               parts from shared memory, three products.
 //
 // P from registers: the accumulator of m64n32 gives a thread the score
@@ -58,7 +61,8 @@
 // (H = 48, KV = 1, S = T = 4096, dh = dv = 128) needs 206.2 GFLOP (S (S +
 // 1) / 2 query-key pairs, 4 dh FLOPs each), three TF32 products of it
 // 618.6 GFLOP: 1.25 ms at the 494.7 TFLOP/s dense TF32 tensor-core peak;
-// its 201.3 MB of q, k, v and o take 0.060 ms at 3.35 TB/s.
+// its 201.3 MB of q, k, v and o take 0.060 ms at 3.35 TB/s. MLA's
+// layer (dh = 192, dv = 128) needs 2 (dh + dv) FLOPs a query-key pair.
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
@@ -72,16 +76,17 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr float kNeg = -1.0e30f;
 
 // Shared-memory bytes of one part (hi or lo) of each operand tile, for
-// head dim D: Q [64, D], K [32, D], Vt [D, 32].
-template <int D>
+// head dims DK (q, k) and DV (v): Q [64, DK], K [32, DK], Vt [DV, 32].
+template <int DK, int DV>
 struct Tile {
-  static constexpr uint32_t Q = D * 256;
-  static constexpr uint32_t K = D * 128;
-  static constexpr uint32_t V = D * 128;
+  static constexpr uint32_t Q = DK * 256;
+  static constexpr uint32_t K = DK * 128;
+  static constexpr uint32_t V = DV * 128;
 };
-template <int D, int NH>
+template <int DK, int DV, int NH>
 constexpr size_t smem_bytes() {
-  return 1024 + 2 * (NH * Tile<D>::Q + Tile<D>::K + Tile<D>::V);
+  using T = Tile<DK, DV>;
+  return 1024 + 2 * (NH * T::Q + T::K + T::V);
 }
 
 // Byte offset of 16-byte chunk c4 (columns 4 c4 .. 4 c4 + 3) of row r in
@@ -242,20 +247,21 @@ __device__ __forceinline__ void exp_sum(float (&s)[16], const float (&m)[2],
 // warp w = t / 32, g = (t % 32) / 4, qd = t % 4; register 4 j + 2 h + e
 // holds row 16 w + g + 8 h, column 8 j + 2 qd + e. The TF32 A fragment of
 // m64k8: register r holds row 16 w + g + 8 (r % 2), column qd + 4 (r / 2).
-template <int D, int NH>
-__global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
+template <int DK, int DV, int NH>
+__global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
     flash_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int BH, int H, int G, int S, int Tk, int dh, int dv,
                       float scale, int causal, int vec) {
   constexpr int NT = kThreads * NH;
-  constexpr int NQ = D / 8;              // Q chunks a thread: 64 x D / 4 / 128
-  constexpr int NK = 8 * D / NT;         // K chunks a thread: 32 x D / 4 / NT
-  constexpr int VU = 2 * D;              // Vt units: 8 chunks x D / 4 columns
+  constexpr int NQ = DK / 8;             // Q chunks a thread: 64 x DK / 4 / 128
+  constexpr int NK = 8 * DK / NT;        // K chunks a thread: 32 x DK / 4 / NT
+  constexpr int VU = 2 * DV;             // Vt units: 8 chunks x DV / 4 columns
   constexpr int NV = (VU + NT - 1) / NT; // Vt units a thread
-  constexpr int NO = D / 2;              // output accumulators a thread
-  using T = Tile<D>;
+  constexpr int NO = DV / 2;             // output accumulators a thread
+  static_assert(8 * DK % NT == 0, "K chunks a thread");
+  using T = Tile<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
@@ -281,7 +287,7 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
   // the warpgroup's query tile, scaled, then split
 #pragma unroll 4
   for (int n = 0; n < NQ; ++n) {
-    const int u = wt + n * kThreads, r = u / (D / 4), c4 = u % (D / 4);
+    const int u = wt + n * kThreads, r = u / (DK / 4), c4 = u % (DK / 4);
     float4 x = load4(qp, q0 + r, S, 4 * c4, dh, vec);
     x.x = __fmul_rn(x.x, scale);
     x.y = __fmul_rn(x.y, scale);
@@ -290,8 +296,8 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
     store_split(sQhi, sQlo, swz(r, c4, kBQ), x);
   }
 
-  // kv tile registers: thread chunk n of K is row u / (D / 4), columns
-  // 4 (u % (D / 4)) ..; Vt unit n is chunk ch = u % 8 of Vt rows 4 nv ..
+  // kv tile registers: thread chunk n of K is row u / (DK / 4), columns
+  // 4 (u % (DK / 4)) ..; Vt unit n is chunk ch = u % 8 of Vt rows 4 nv ..
   // 4 nv + 3 (u = tid + n NT, nv = u / 8), the kv rows 8 (ch / 2) + ch % 2
   // + 2 m (m = 0..3) that sigma puts at positions 4 ch .. 4 ch + 3
   float4 kr[NK], vr[NV][4];
@@ -299,7 +305,7 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
       const int u = tid + n * NT;
-      kr[n] = load4(kp, t0 + u / (D / 4), Tk, 4 * (u % (D / 4)), dh, vec);
+      kr[n] = load4(kp, t0 + u / (DK / 4), Tk, 4 * (u % (DK / 4)), dh, vec);
     }
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
@@ -315,7 +321,7 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
       const int u = tid + n * NT;
-      store_split(sKhi, sKlo, swz(u / (D / 4), u % (D / 4), kBK), kr[n]);
+      store_split(sKhi, sKlo, swz(u / (DK / 4), u % (DK / 4), kBK), kr[n]);
     }
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
@@ -364,7 +370,7 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
       const uint32_t a = part == 1 ? sQlo : sQhi;
       const uint32_t b = part == 0 ? sKlo : sKhi;
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < DK / 8; ++kk) {
         wgmma_ss_n32(s,
                      wgmma::desc(a + (kk / 4) * (kBQ * 128) + (kk % 4) * 32,
                                  16, 1024),
@@ -425,13 +431,13 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
     // O += P_hi Vt_lo + P_lo Vt_hi + P_hi Vt_hi, the small products first
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      WgmmaRS<D>::run(acc, phi[j], wgmma::desc(sVlo + j * 32, 16, 1024));
+      WgmmaRS<DV>::run(acc, phi[j], wgmma::desc(sVlo + j * 32, 16, 1024));
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      WgmmaRS<D>::run(acc, plo[j], wgmma::desc(sVhi + j * 32, 16, 1024));
+      WgmmaRS<DV>::run(acc, plo[j], wgmma::desc(sVhi + j * 32, 16, 1024));
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      WgmmaRS<D>::run(acc, phi[j], wgmma::desc(sVhi + j * 32, 16, 1024));
+      WgmmaRS<DV>::run(acc, phi[j], wgmma::desc(sVhi + j * 32, 16, 1024));
     wgmma::commit();
     wgmma::wait();
 #pragma unroll
@@ -445,7 +451,7 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
     if (r >= S) continue;
     const float den = fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * qd + e;
@@ -455,45 +461,50 @@ __global__ void __launch_bounds__(kThreads* NH, D == 64 ? 2 : 1)
   }
 }
 
-template <int D, int NH>
+template <int DK, int DV, int NH>
 int launch(const float* q, const float* k, const float* v, float* o, int B,
            int H, int KV, int S, int Tk, int dh, int dv, float scale,
            int causal, int vec, cudaStream_t stream) {
   const int blocks = B * H / NH * ((S + kBQ - 1) / kBQ);
-  return float_io::launch(flash_tf32_kernel<D, NH>, blocks, kThreads * NH,
-                          smem_bytes<D, NH>(), stream, q, k, v, o, B * H, H,
-                          H / KV, S, Tk, dh, dv, scale, causal, vec);
+  return float_io::launch(flash_tf32_kernel<DK, DV, NH>, blocks,
+                          kThreads * NH, smem_bytes<DK, DV, NH>(), stream, q,
+                          k, v, o, B * H, H, H / KV, S, Tk, dh, dv, scale,
+                          causal, vec);
 }
 
 }  // namespace
 
 // K9, float32. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B,
-// H, S, dv], row-major float32; scale is dh^-0.5 rounded to float32; dh,
-// dv <= 128; vec: dh and dv multiples of 4 and q, k, v 16-byte aligned.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head dim over 128.
+// H, S, dv], row-major float32; scale is dh^-0.5 rounded to float32; dh
+// <= 192, dv <= 128; vec: dh and dv multiples of 4 and q, k, v 16-byte
+// aligned. Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for dh over 192 or dv over 128.
 extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
                                         int KV, int S, int Tk, int dh, int dv,
                                         float scale, int causal, int vec,
                                         void* stream) {
   if (B == 0 || H == 0 || S == 0 || dv == 0) return 0;
-  const int d = dh > dv ? dh : dv;
-  if (d > 128) return (int)cudaErrorInvalidValue;
+  if (dh > 192 || dv > 128) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
   float* of = (float*)o;
   cudaStream_t s = (cudaStream_t)stream;
+  // MLA's q and k: 192 wide, one query head a block
+  if (dh > 128)
+    return launch<192, 128, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
+                               scale, causal, vec, s);
+  const int d = dh > dv ? dh : dv;
   // two query heads of one kv head a block when the group size is even
   const bool pair = (H / KV) % 2 == 0;
   if (d <= 64)
-    return pair ? launch<64, 2>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                                scale, causal, vec, s)
-                : launch<64, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                                scale, causal, vec, s);
-  return pair ? launch<128, 2>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv, scale,
-                               causal, vec, s)
-              : launch<128, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv, scale,
-                               causal, vec, s);
+    return pair ? launch<64, 64, 2>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s)
+                : launch<64, 64, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s);
+  return pair ? launch<128, 128, 2>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s)
+              : launch<128, 128, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s);
 }

@@ -28,17 +28,22 @@
 // wholly below the diagonal and inside T skips the mask arithmetic.
 // Every tile is stored as 64-column sub-tiles in the 128-byte swizzled
 // layout (16-byte chunk c of row r at chunk c ^ (r % 8), each sub-tile
-// 1024-byte aligned), zero-padded to the instantiation's head dim D (64
-// or 128, the least that holds max(dh, dv)); a zero column adds exact
-// zeros, so padding changes nothing.
+// 1024-byte aligned), Q and K zero-padded to the instantiation's DK, V
+// and O to its DV; a zero column adds exact zeros, so padding changes
+// nothing. The instantiations: DK = DV = 64 or 128 (the least that holds
+// max(dh, dv)), and DK = 192, DV = 128 for MLA's prefill (q and k 128 +
+// 64 wide, v 128; one query head a block, since MLA's H = KV): three Q
+// and K sub-tiles and two V sub-tiles, 107,520 bytes of shared memory, so
+// two blocks still fit an SM, where one D = 192 would pad V and O to 192
+// (123,904 bytes, one block an SM) and do a third more PV work.
 //
 //   S = Q K^T   wgmma m64n64k16, both operands K-major from shared memory,
-//               D / 16 steps, float32 sums in registers;
+//               DK / 16 steps, float32 sums in registers;
 //   softmax     each thread holds two rows' 16 scores; a row spans the 4
 //               lanes of a quad, reduced with shuffles;
 //   O += P V    P split into bf16 parts, P_hi = bf16(P) and
 //               P_lo = bf16(P - P_hi), and O += P_hi V + P_lo V: wgmma
-//               m64nDk16 with A = P from registers and B = V from shared
+//               m64nDVk16 with A = P from registers and B = V from shared
 //               memory, MN-major (the transpose bit).
 //
 // P rounded to bfloat16 alone is off by up to 2^-9 of each weight, which
@@ -51,7 +56,10 @@
 // (H = 48, KV = 1, S = T = 4096, dh = dv = 128) needs 206.2 GFLOP (S (S +
 // 1) / 2 query-key pairs, 4 dh FLOPs each), 0.209 ms at the 989 TFLOP/s
 // bf16 tensor-core peak (0.313 ms with the split's second PV product);
-// its 102.8 MB of q, k, v and o take 0.031 ms at 3.35 TB/s.
+// its 102.8 MB of q, k, v and o take 0.031 ms at 3.35 TB/s. DeepSeek-V2's
+// MLA prefill layer (B = 4, H = KV = 128, S = T = 4096, dh = 192, dv =
+// 128) needs 2 (dh + dv) = 640 FLOPs a query-key pair: 2.75 TFLOP, 2.78
+// ms at the peak.
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
@@ -70,22 +78,22 @@ __host__ __device__ constexpr uint32_t tile_bytes() {
   return (D / 64) * kAtom;
 }
 
-// Rows [row0, row0 + 64) and columns [0, cols) of the row-major
-// [nrows, cols] bf16 matrix src into the swizzled sub-tiles at dst, zero
-// past nrows and cols, by NT threads (tid < NT). Thread tid moves chunk
-// tid % CH of rows tid / CH + i * RP: RP is a multiple of 8, so a thread's
-// swizzle and columns are the same in every pass. vec: cols % 8 == 0 and
-// src 16-byte aligned, so whole 16-byte chunks go by cp.async; otherwise
-// element by element.
+// Rows [row0, row0 + 64) and columns [col0, col0 + D) (D 64 or 128) of
+// the row-major [nrows, cols] bf16 matrix src into the swizzled sub-tiles
+// at dst, zero past nrows and cols, by NT threads (tid < NT). Thread tid
+// moves chunk tid % CH of rows tid / CH + i * RP: RP is a multiple of 8,
+// so a thread's swizzle and columns are the same in every pass. vec:
+// cols % 8 == 0 and src 16-byte aligned, so whole 16-byte chunks go by
+// cp.async; otherwise element by element.
 template <int D, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst,
+__device__ __forceinline__ void load_part(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
-                                          int nrows, int cols, bool vec,
-                                          int tid) {
+                                          int nrows, int cols, int col0,
+                                          bool vec, int tid) {
   constexpr int CH = D / 8;    // 16-byte chunks a row
   constexpr int RP = NT / CH;  // rows a pass
   static_assert(RP % 8 == 0 && kBK % RP == 0, "tile passes");
-  const int c = tid % CH, r = tid / CH, c0 = c * 8;
+  const int c = tid % CH, r = tid / CH, c0 = col0 + c * 8;
   const uint32_t d0 =
       dst + (c / 8) * kAtom + r * 128 + ((uint32_t)((c % 8) ^ (r & 7)) << 4);
   const bool col_live = c0 < cols;
@@ -114,6 +122,23 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                    "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
                    : "memory");
     }
+  }
+}
+
+// Rows [row0, row0 + 64) and columns [0, D) of src into the D / 64
+// sub-tiles at dst (load_part); a tile wider than 128 columns goes as a
+// 128-column part and the rest.
+template <int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int nrows, int cols, bool vec,
+                                          int tid) {
+  if constexpr (D > 128) {
+    load_part<128, NT>(dst, src, row0, nrows, cols, 0, vec, tid);
+    load_part<D - 128, NT>(dst + 2 * kAtom, src, row0, nrows, cols, 128,
+                           vec, tid);
+  } else {
+    load_part<D, NT>(dst, src, row0, nrows, cols, 0, vec, tid);
   }
 }
 
@@ -242,7 +267,8 @@ __device__ __forceinline__ void exp_sum(float (&s)[32], const float (&m)[2],
 // loaded once for NH heads. Two blocks an SM: for NH = 2 that caps a
 // thread at 128 registers (a few bytes spill), and four warpgroups an SM
 // hide more of each one's serial chain of loads, products and softmax.
-template <int D, int NH>
+// Q and K are DK columns wide in shared memory, V and O DV.
+template <int DK, int DV, int NH>
 __global__ void __launch_bounds__(kThreads* NH, 2)
     flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -251,7 +277,7 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
                        int S, int Tk, int dh, int dv, float scale,
                        int causal, int vec) {
   extern __shared__ uint8_t smem_raw[];
-  constexpr uint32_t TB = tile_bytes<D>();
+  constexpr uint32_t TQ = tile_bytes<DK>(), TV = tile_bytes<DV>();
   const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
   const int wg = tid / kThreads, wt = tid % kThreads;
@@ -269,19 +295,19 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
   const int ntk = (Tk + kBK - 1) / kBK;
   // causal frontier: kv tiles strictly above the diagonal are skipped
   const int last = causal ? min(ntk, (q0 + kBQ + kBK - 1) / kBK) : ntk;
-  const uint32_t sQ = base + wg * TB;
-  auto sK = [&](int st) { return base + (NH + 2 * st) * TB; };
-  auto sV = [&](int st) { return base + (NH + 2 * st + 1) * TB; };
+  const uint32_t sQ = base + wg * TQ;
+  auto sK = [&](int st) { return base + NH * TQ + st * (TQ + TV); };
+  auto sV = [&](int st) { return sK(st) + TQ; };
 
-  load_tile<D, kThreads>(sQ, qp, q0, S, dh, vec, wt);
+  load_tile<DK, kThreads>(sQ, qp, q0, S, dh, vec, wt);
   for (int st = 0; st < 2 && st < last; ++st) {
-    load_tile<D, kThreads * NH>(sK(st), kp, st * kBK, Tk, dh, vec, tid);
-    load_tile<D, kThreads * NH>(sV(st), vp, st * kBK, Tk, dv, vec, tid);
+    load_tile<DK, kThreads * NH>(sK(st), kp, st * kBK, Tk, dh, vec, tid);
+    load_tile<DV, kThreads * NH>(sV(st), vp, st * kBK, Tk, dv, vec, tid);
     wgmma::cp_async_commit();
   }
   if (last == 0) wgmma::cp_async_commit();
 
-  constexpr int NO = D / 2;  // output accumulators a thread: D / 8 x 4
+  constexpr int NO = DV / 2;  // output accumulators a thread: DV / 8 x 4
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
@@ -305,7 +331,7 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma::fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
       wgmma_ss_n64(s, wgmma::desc(sQ + off, 16, 1024),
                    wgmma::desc(sK(st) + off, 16, 1024), kk > 0);
@@ -367,11 +393,11 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     wgmma::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::run(acc, phi[kk],
+      WgmmaRS<DV>::run(acc, phi[kk],
                       wgmma::desc(sV(st) + kk * 2048, kAtom, 1024));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::run(acc, plo[kk],
+      WgmmaRS<DV>::run(acc, plo[kk],
                       wgmma::desc(sV(st) + kk * 2048, kAtom, 1024));
     wgmma::commit();
     wgmma::wait();
@@ -379,10 +405,10 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     for (int i = 0; i < NO; ++i) wgmma::pin(acc[i]);
     __syncthreads();  // every read of stage st is done
     if (kt + 2 < last) {
-      load_tile<D, kThreads * NH>(sK(st), kp, (kt + 2) * kBK, Tk, dh, vec,
-                                  tid);
-      load_tile<D, kThreads * NH>(sV(st), vp, (kt + 2) * kBK, Tk, dv, vec,
-                                  tid);
+      load_tile<DK, kThreads * NH>(sK(st), kp, (kt + 2) * kBK, Tk, dh, vec,
+                                   tid);
+      load_tile<DV, kThreads * NH>(sV(st), vp, (kt + 2) * kBK, Tk, dv, vec,
+                                   tid);
       wgmma::cp_async_commit();
     }
   }
@@ -393,7 +419,7 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     if (r >= S) continue;
     const float den = fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * qd + e;
@@ -404,14 +430,16 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
   }
 }
 
-template <int D, int NH>
+template <int DK, int DV, int NH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int S, int Tk, int dh, int dv, float scale,
            int causal, int vec, cudaStream_t stream) {
   const int blocks = B * H / NH * ((S + kBQ - 1) / kBQ);
   return float_io::launch(
-      flash_wgmma_kernel<D, NH>, blocks, kThreads * NH,
-      1024 + (NH + 4) * (size_t)tile_bytes<D>(), stream,
+      flash_wgmma_kernel<DK, DV, NH>, blocks, kThreads * NH,
+      1024 + NH * (size_t)tile_bytes<DK>() +
+          2 * ((size_t)tile_bytes<DK>() + tile_bytes<DV>()),
+      stream,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B * H, H, H / KV, S, Tk,
       dh, dv, scale, causal, vec);
@@ -421,27 +449,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // K9, bfloat16. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B,
 // H, S, dv], row-major bfloat16; scale is dh^-0.5 rounded to float32;
-// dh, dv <= 128; vec: dh and dv multiples of 8 and q, k, v 16-byte
+// dh <= 192, dv <= 128; vec: dh and dv multiples of 8 and q, k, v 16-byte
 // aligned. Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head dim over 128.
+// cudaErrorInvalidValue for dh over 192 or dv over 128.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
                                         int KV, int S, int Tk, int dh, int dv,
                                         float scale, int causal, int vec,
                                         void* stream) {
   if (B == 0 || H == 0 || S == 0 || dv == 0) return 0;
-  const int d = dh > dv ? dh : dv;
-  if (d > 128) return (int)cudaErrorInvalidValue;
+  if (dh > 192 || dv > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // MLA's q and k: 192 wide, one query head a block
+  if (dh > 128)
+    return launch<192, 128, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale,
+                               causal, vec, s);
+  const int d = dh > dv ? dh : dv;
   // two query heads of one kv head a block when the group size is even
   const bool pair = (H / KV) % 2 == 0;
   if (d <= 64)
-    return pair ? launch<64, 2>(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale,
-                                causal, vec, s)
-                : launch<64, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale,
-                                causal, vec, s);
-  return pair ? launch<128, 2>(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale,
-                               causal, vec, s)
-              : launch<128, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale,
-                               causal, vec, s);
+    return pair ? launch<64, 64, 2>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s)
+                : launch<64, 64, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s);
+  return pair ? launch<128, 128, 2>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s)
+              : launch<128, 128, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+                                    scale, causal, vec, s);
 }

@@ -50,14 +50,17 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_launch, check_tensor)
 
 __all__ = ["flash_forward", "flash_forward_plain", "LIB", "BF16_LIB",
-           "MAX_HEAD_DIM"]
+           "MAX_DH", "MAX_DV"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: Largest head dim (dh and dv) the kernel takes.
-MAX_HEAD_DIM = 128
+#: Largest q and k head dim the kernel takes: 192 for MLA's prefill (128
+#: + 64), whose instantiation holds q and k 192 wide and v 128.
+MAX_DH = 192
+#: Largest v head dim the kernel takes.
+MAX_DV = 128
 #: The masked score of the reference kernel.
 NEG = -1.0e30
 
@@ -102,7 +105,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True) -> torch.Tensor:
     """K9: attention of q [B, H, S, dh] over k [B, KV, T, dh] and v
     [B, KV, T, dv] -> o [B, H, S, dv] in q's dtype.  CUDA tensors launch
-    the kernel of their dtype (dh, dv <= MAX_HEAD_DIM): bfloat16 the
+    the kernel of their dtype (dh <= MAX_DH, dv <= MAX_DV): bfloat16 the
     bf16 one, float32 the split-TF32 one; CPU tensors take the plain
     version."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
@@ -110,9 +113,12 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_forward_plain(q, k, v, bq, bk, causal)
     dev = q.device
     check_kernel_device(q)
-    if max(dh, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"K9 takes head dims up to {MAX_HEAD_DIM}, got "
-                         f"dh = {dh}, dv = {dv}")
+    if dh > MAX_DH:
+        raise ValueError(f"K9 takes a q/k head dim dh up to {MAX_DH}, got "
+                         f"dh = {dh}")
+    if dv > MAX_DV:
+        raise ValueError(f"K9 takes a v head dim dv up to {MAX_DV}, got "
+                         f"dv = {dv}")
     check_tensor(q, "q", FLOAT_DTYPES, (b, h, s, dh), dev)
     check_tensor(k, "k", q.dtype, (b, kv, t, dh), dev)
     check_tensor(v, "v", q.dtype, (b, kv, t, dv), dev)

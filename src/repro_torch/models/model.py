@@ -3,9 +3,11 @@ layer loop over heterogeneous block patterns, KV/SSM caches, the loss,
 prefill and decode.
 
 A :class:`DecoderLM` holds the layers in order: ``layers[i]`` is layer
-i's block (an :class:`AttnBlock`, a :class:`Mamba2Block`, or for zamba2's
-``shared_attn`` a :class:`SharedAttnSlot` without weights, since one
-shared :class:`AttnBlock`, ``shared_attn``, serves every occurrence).
+i's block (an :class:`AttnBlock` for ``attn``, ``attn_dense`` and
+``attn_moe``, with GQA or MLA attention and an MLP or an MoE FFN; a
+:class:`Mamba2Block`; or for zamba2's ``shared_attn`` a
+:class:`SharedAttnSlot` without weights, since one shared
+:class:`AttnBlock`, ``shared_attn``, serves every occurrence).
 ``config.segments`` only fixes that order: the reference scans each
 segment with ``lax.scan``, and a torch loop needs none.  Its parameter
 names are the reference's tree flattened with ``.``, with each
@@ -13,16 +15,17 @@ segment's stacked ``[repeats, ...]`` leaves unstacked to their layers
 (:func:`params_from_reference`).
 
 A cache is ``{"layers": [per-layer dict]}``: ``{"k", "v"}``
-[B, max_len, KV, dh] for attention layers, ``{"conv", "ssm"}`` for
-Mamba2 layers.  :func:`prefill` and :func:`decode_step` update its
-tensors in place (the reference donates its cache to the decode step)
-and return it.
+[B, max_len, KV, dh] for GQA layers, ``{"c_kv", "k_rope"}`` for MLA
+layers, ``{"conv", "ssm"}`` for Mamba2 layers.  :func:`prefill` and
+:func:`decode_step` update its tensors in place (the reference donates
+its cache to the decode step) and return it.
 
-The reference's ``remat`` and ``shard`` callbacks (and ``mesh`` /
-``data_axes``, used by MoE only) have no effect when serving; the
-signatures keep them.  MoE, MLA, mLSTM and sLSTM raise
-``NotImplementedError`` from :func:`init`: they are later slices of the
-port.
+The reference's ``remat`` and ``shard`` callbacks have no effect when
+serving; the signatures keep them.  ``mesh`` and ``data_axes`` go to the
+MoE layers, which run unmapped (a mesh that shards the experts raises,
+``moe.moe_apply``).  ``forward`` and ``loss_fn`` sum the MoE layers' aux
+losses.  mLSTM and sLSTM raise ``NotImplementedError`` from
+:func:`init`: they are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -35,25 +38,26 @@ import torch
 from torch import nn
 
 from ..kernels.common import resolve_device
-from .attention import GQAttention
+from .attention import GQAttention, MLAttention
 from .config import ModelConfig, segments
 from .layers import (Dtypes, Embedding, MLP, RMSNorm, cross_entropy, embed,
                      rmsnorm, unembed)
+from .moe import MoE
 from .ssm import Mamba2
 
 __all__ = ["init", "make_cache", "forward", "loss_fn", "prefill",
            "decode_step", "param_count", "active_param_count",
            "DecoderLM", "AttnBlock", "Mamba2Block", "SharedAttnSlot",
-           "params_from_reference", "unstack_segments"]
+           "params_from_reference", "unstack_segments", "block_kinds"]
 
 ShardFn = Callable[[torch.Tensor, str], torch.Tensor]
 _id_shard: ShardFn = lambda x, kind: x
 
-#: The block kinds this slice serves, and those a later slice ports.
-KINDS = ("attn", "shared_attn", "mamba2")
+#: The block kinds the port serves, and those a later slice ports.
+KINDS = ("attn", "attn_dense", "attn_moe", "shared_attn", "mamba2")
+ATTN_KINDS = ("attn", "attn_dense", "attn_moe")
 _LATER = {"mlstm": "the mLSTM/sLSTM slice",
-          "slstm": "the mLSTM/sLSTM slice",
-          "mla": "the MoE/MLA slice", "moe": "the MoE/MLA slice"}
+          "slstm": "the mLSTM/sLSTM slice"}
 
 
 # ---------------------------------------------------------------------------
@@ -61,23 +65,39 @@ _LATER = {"mlstm": "the mLSTM/sLSTM slice",
 # ---------------------------------------------------------------------------
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + MLP: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """Pre-norm attention + FFN: ``ln1``, ``attn`` (MLA when the config
+    says so, else GQA), ``ln2``, and ``moe`` for an ``attn_moe`` layer,
+    else ``mlp``.  zamba2's shared block is always GQA + MLP."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
-                 device) -> None:
+                 device, kind: str = "attn") -> None:
         super().__init__()
         pd = Dtypes.param(cfg)
+        kw = dict(generator=generator, device=device)
         self.ln1 = RMSNorm(cfg.d_model, pd, device=device)
         self.ln2 = RMSNorm(cfg.d_model, pd, device=device)
-        self.attn = GQAttention(cfg, generator=generator, device=device)
-        self.mlp = MLP(cfg, generator=generator, device=device)
+        mla = cfg.attn_kind == "mla" and kind != "shared_attn"
+        self.attn = (MLAttention if mla else GQAttention)(cfg, **kw)
+        if kind == "attn_moe":
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg, **kw)
 
-    def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos):
+    def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos,
+                mesh=None, data_axes=("data",)):
+        """-> (x, new_cache, aux): aux the MoE router loss, None without
+        experts."""
         h, new_cache = self.attn(self.ln1(x, cfg.norm_eps), cfg, positions,
                                  cache, cache_pos)
         x = x + h
-        x = x + self.mlp(self.ln2(x, cfg.norm_eps), cfg)
-        return x, new_cache
+        h2_in = self.ln2(x, cfg.norm_eps)
+        aux = None
+        if hasattr(self, "moe"):
+            h2, aux = self.moe(h2_in, cfg, mesh=mesh, data_axes=data_axes,
+                               expert_tp=cfg.moe_expert_tp)
+        else:
+            h2 = self.mlp(h2_in, cfg)
+        return x + h2, new_cache, aux
 
 
 class Mamba2Block(nn.Module):
@@ -89,9 +109,10 @@ class Mamba2Block(nn.Module):
         self.ln = RMSNorm(cfg.d_model, Dtypes.param(cfg), device=device)
         self.mix = Mamba2(cfg, generator=generator, device=device)
 
-    def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos):
+    def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos,
+                mesh=None, data_axes=("data",)):
         h, new_cache = self.mix(self.ln(x, cfg.norm_eps), cfg, cache)
-        return x + h, new_cache
+        return x + h, new_cache, None
 
 
 class SharedAttnSlot(nn.Module):
@@ -99,18 +120,24 @@ class SharedAttnSlot(nn.Module):
     attention block and holds no weights of its own."""
 
 
+def block_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's block kind, in depth order, as the reference's
+    segments name them: an MoE model's layers are ``attn_dense`` for the
+    first ``first_dense_layers``, then ``attn_moe`` (``cfg.layer_kinds()``
+    says ``attn`` for both)."""
+    kinds: List[str] = []
+    for seg in segments(cfg):
+        kinds += list(seg.kinds) * seg.repeats
+    return kinds
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    later = [k for k in cfg.layer_kinds() if k not in KINDS]
-    if cfg.attn_kind == "mla":
-        later.append("mla")
-    if cfg.is_moe:
-        later.append("moe")
+    later = [k for k in block_kinds(cfg) if k not in KINDS]
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {later[0]} is not ported yet: it is "
-            f"{_LATER.get(later[0], 'a later slice')} of the port; this "
-            f"slice serves {', '.join(KINDS)} blocks with GQA attention "
-            f"and dense MLPs")
+            f"{_LATER.get(later[0], 'a later slice')} of the port, which "
+            f"serves {', '.join(KINDS)} blocks")
 
 
 class DecoderLM(nn.Module):
@@ -123,44 +150,45 @@ class DecoderLM(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
-        kinds = cfg.layer_kinds()
+        kinds = block_kinds(cfg)
         self.embed = Embedding(cfg, **kw)
         self.final_norm = RMSNorm(cfg.d_model, Dtypes.param(cfg),
                                   device=device)
         if "shared_attn" in kinds:
-            self.shared_attn = AttnBlock(cfg, **kw)
-        block = {"attn": AttnBlock, "mamba2": Mamba2Block}
+            self.shared_attn = AttnBlock(cfg, kind="shared_attn", **kw)
         self.layers = nn.ModuleList(
             SharedAttnSlot() if kind == "shared_attn"
-            else block[kind](cfg, **kw) for kind in kinds)
+            else Mamba2Block(cfg, **kw) if kind == "mamba2"
+            else AttnBlock(cfg, kind=kind, **kw) for kind in kinds)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
     def run_layers(self, x: torch.Tensor, positions: torch.Tensor,
-                   caches: Optional[Dict], cache_pos: Optional[int]
-                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """Every layer in order (the reference's ``_run_segments``);
-        ``caches`` None for a forward pass without a cache."""
-        cfg = self.cfg
+                   caches: Optional[Dict], cache_pos: Optional[int],
+                   mesh=None, data_axes=("data",),
+                   cfg: Optional[ModelConfig] = None
+                   ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+        """Every layer in order (the reference's ``_run_segments``) under
+        ``cfg`` (the model's own when None; the caller's may change what
+        the weights do not fix, such as the MoE capacity factor);
+        ``caches`` None for a forward pass without a cache.  Returns (x,
+        new caches, the MoE layers' aux losses summed in float32)."""
+        cfg = self.cfg if cfg is None else cfg
         new = None if caches is None else []
-        for i, kind in enumerate(cfg.layer_kinds()):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        shared = getattr(self, "shared_attn", None)
+        for i, kind in enumerate(block_kinds(cfg)):
             cache = None if caches is None else caches["layers"][i]
-            x, nc = _apply_block(kind, self.layers[i], x, cfg, positions,
-                                 cache, cache_pos,
-                                 getattr(self, "shared_attn", None))
+            block = shared if kind == "shared_attn" else self.layers[i]
+            x, nc, aux = block(x, cfg, positions, cache, cache_pos, mesh,
+                               data_axes)
+            if aux is not None:
+                aux_total = aux_total + aux
             if new is not None:
                 new.append(nc)
-        return x, None if new is None else {"layers": new}
-
-
-def _apply_block(kind: str, block: nn.Module, x, cfg: ModelConfig,
-                 positions, cache, cache_pos, shared: Optional[AttnBlock]):
-    """-> (x, new_cache)"""
-    if kind == "shared_attn":
-        block = shared
-    return block(x, cfg, positions, cache, cache_pos)
+        return x, None if new is None else {"layers": new}, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +264,9 @@ def params_from_reference(np_params: Mapping, cfg: ModelConfig,
 
 def _block_cache_spec(kind: str, cfg: ModelConfig, batch: int,
                       max_len: int):
-    if kind in ("attn", "shared_attn"):
+    if kind in ATTN_KINDS and cfg.attn_kind == "mla":
+        return MLAttention.cache_spec(cfg, batch, max_len)
+    if kind in ATTN_KINDS + ("shared_attn",):
         return GQAttention.cache_spec(cfg, batch, max_len)
     if kind == "mamba2":
         return Mamba2.state_spec(cfg, batch)
@@ -254,7 +284,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
         {name: torch.zeros(shape, dtype=dt, device=dev)
          for name, (shape, dt) in
          _block_cache_spec(kind, cfg, batch, max_len).items()}
-        for kind in cfg.layer_kinds()]}
+        for kind in block_kinds(cfg)]}
 
 
 # ---------------------------------------------------------------------------
@@ -284,17 +314,18 @@ def forward(model: DecoderLM, tokens, cfg: ModelConfig, *,
             extra_embeds: Optional[torch.Tensor] = None,
             mesh=None, data_axes=("data",), shard: ShardFn = _id_shard
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scoring forward pass -> (logits [B,S,V*nb], aux_loss).  aux is the
-    MoE router loss: 0 for the kinds this slice serves."""
+    """Scoring forward pass -> (logits [B,S,V*nb], aux_loss): aux the
+    MoE layers' router losses summed (0 without experts)."""
     B, S = tokens.shape[:2]
     x = _embed_inputs(model, tokens, cfg, extra_embeds)
     if positions is None:
         positions = _default_positions(cfg, B, S, x.device)
-    x, _ = model.run_layers(x, torch.as_tensor(positions, device=x.device),
-                            None, None)
+    x, _, aux = model.run_layers(
+        x, torch.as_tensor(positions, device=x.device), None, None, mesh,
+        data_axes, cfg)
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = unembed(model.embed, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(model: DecoderLM, batch: Dict, cfg: ModelConfig, *, mesh=None,
@@ -302,7 +333,8 @@ def loss_fn(model: DecoderLM, batch: Dict, cfg: ModelConfig, *, mesh=None,
             ) -> Tuple[torch.Tensor, Dict]:
     logits, aux = forward(model, batch["tokens"], cfg,
                           positions=batch.get("positions"),
-                          extra_embeds=batch.get("extra_embeds"))
+                          extra_embeds=batch.get("extra_embeds"),
+                          mesh=mesh, data_axes=data_axes)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     if labels.dim() == 3:            # musicgen: [B,S,nb] codebook targets
         nb = labels.shape[-1]
@@ -328,8 +360,9 @@ def prefill(model: DecoderLM, tokens, cache: Dict, cfg: ModelConfig, *,
     x = _embed_inputs(model, tokens, cfg, extra_embeds)
     if positions is None:
         positions = _default_positions(cfg, B, S, x.device)
-    x, new_cache = model.run_layers(
-        x, torch.as_tensor(positions, device=x.device), cache, 0)
+    x, new_cache, _ = model.run_layers(
+        x, torch.as_tensor(positions, device=x.device), cache, 0, mesh,
+        data_axes, cfg)
     x = rmsnorm(model.final_norm.scale, x[:, -1:], cfg.norm_eps)
     logits = unembed(model.embed, x, cfg)[:, 0]
     return logits, new_cache
@@ -345,7 +378,8 @@ def decode_step(model: DecoderLM, token, cache: Dict, pos: int,
     B = tok.shape[0]
     x = embed(model.embed, tok, cfg)
     positions = _default_positions(cfg, B, 1, x.device, offset=int(pos))
-    x, new_cache = model.run_layers(x, positions, cache, int(pos))
+    x, new_cache, _ = model.run_layers(x, positions, cache, int(pos),
+                                       mesh, data_axes, cfg)
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = unembed(model.embed, x, cfg)[:, 0]
     return logits, new_cache
@@ -360,8 +394,12 @@ def param_count(model: nn.Module) -> int:
 
 
 def active_param_count(model: nn.Module, cfg: ModelConfig) -> int:
-    """Params touched per token: all of them for the kinds this slice
-    serves (the reference's MoE count waits for the MoE slice)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE is the MoE/MLA slice of the port")
-    return param_count(model)
+    """Params touched per token (MoE: the routed experts count top_k /
+    num_experts of theirs)."""
+    total = param_count(model)
+    if not cfg.is_moe:
+        return total
+    routed = sum(param_count(m.experts) for m in model.modules()
+                 if isinstance(m, MoE))
+    active_frac = cfg.top_k / cfg.num_experts
+    return int(total - routed + routed * active_frac)

@@ -2,9 +2,11 @@
 port of ``repro/serve/engine.py``.
 
 The steps update the KV/SSM cache in place (the reference donates it to
-its decode step).  The prefill runs K9 in every attention layer and K10
-in every Mamba2 layer; a decode step runs neither (plain torch over the
-cache, as the reference's decode is jnp).  ``mesh``, ``data_axes`` and
+its decode step).  The prefill runs K9 in every attention layer (GQA or
+MLA) and K10 in every Mamba2 layer; a decode step runs neither (plain
+torch over the cache, MLA in its absorbed form over the latent cache, as
+the reference's decode is jnp).  Every arch but xLSTM is served, the
+MoE archs (deepseek-v2, kimi-k2) included.  ``mesh``, ``data_axes`` and
 ``shard`` have no effect when serving on one card; the signatures keep
 them.
 

@@ -357,3 +357,130 @@ def test_tf32_p_fragment_and_permuted_v_staging():
         assert not np.isnan(a).any()
         o += a @ vt[:, 8 * j:8 * j + 8].T
     np.testing.assert_array_equal(o, p @ v)
+
+
+# --- MLA's head: dh 192 (q and k), dv 128 -----------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_head_vs_reference(dtype):
+    """K9's plain version at MLA's head, q and k 192 wide and v 128 (H =
+    KV, as MLA gives it), against the reference's interpret-mode kernel:
+    1e-5 in float32, 5e-2 in bfloat16.  The scale is 192^-0.5, the
+    reference's MLA scale (dn + dr)^-0.5."""
+    q, k, v = _qkv(np.random.default_rng(192), 1, 2, 2, 128, 128, 192, 128)
+    if dtype == "float32":
+        want = _ref(q, k, v, bq=64, bk=64)
+        got = _port(q, k, v, bq=64, bk=64)
+        tol = F32_TOL
+    else:
+        want = np.asarray(rattn.flash_attention(
+            *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), bq=64,
+            bk=64), np.float32)
+        got = _port(*(torch.tensor(t).bfloat16() for t in (q, k, v)),
+                    bq=64, bk=64).float()
+        tol = BF16_TOL
+    assert got.shape == (1, 2, 128, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+def test_wgmma_precision_mla_head():
+    """The bfloat16 kernel's precision (split P) at MLA's head, dh 192 /
+    dv 128, on a seeded causal layer (H = KV = 2, S 1024): within one
+    bfloat16 step of the plain version, as on the card."""
+    q, k, v = (torch.tensor(t).bfloat16() for t in
+               _qkv(np.random.default_rng(193), 1, 2, 2, 1024, 1024, 192,
+                    128))
+    want = tkernel.flash_forward_plain(q, k, v).float()
+    got = _emulate_wgmma(q, k, v, True).float()
+    bad = (got - want).abs() > 2.0 ** -7 * want.abs() + F32_TOL
+    assert not bool(bad.any()), f"{int(bad.sum())} elements off"
+
+
+def test_tf32_precision_mla_head():
+    """The float32 kernel's three TF32 products at MLA's head (dh 192, dv
+    128): within F32_TOL of the plain version."""
+    q, k, v = (torch.tensor(t) for t in
+               _qkv(np.random.default_rng(194), 1, 2, 2, 512, 512, 192, 128))
+    want = tkernel.flash_forward_plain(q, k, v)
+    err = float((_emulate_tf32(q, k, v, True) - want).abs().max())
+    assert err <= F32_TOL, err
+
+
+def _bf16_tile_image(d: int, cols: int, nt: int = 128) -> np.ndarray:
+    """flash_wgmma.cu's ``load_tile<d, nt>`` for a whole 64-row tile of a
+    row-major [64, cols] matrix: the column each 2-byte position of the
+    d / 64 swizzled 64-column sub-tiles receives (-1 where none does),
+    every position written at most once.  A tile over 128 columns goes as
+    ``load_part<128>`` at column 0 and ``load_part<d - 128>`` at column
+    128 into the sub-tiles from the third."""
+    atom = 64 * 128
+    img = np.full(d // 64 * atom // 2, -1)
+    parts = [(128, 0), (d - 128, 128)] if d > 128 else [(d, 0)]
+    for width, col0 in parts:
+        dst = (col0 // 64) * atom
+        ch = width // 8
+        rp = nt // ch
+        assert rp % 8 == 0 and 64 % rp == 0
+        for tid in range(nt):
+            c, r = tid % ch, tid // ch
+            c0 = col0 + c * 8
+            d0 = dst + (c // 8) * atom + r * 128 + (((c % 8) ^ (r & 7)) << 4)
+            for i in range(64 // rp):
+                row = r + i * rp
+                for e in range(8):
+                    at = (d0 + i * rp * 128) // 2 + e
+                    assert img[at] == -1
+                    img[at] = row * cols + c0 + e if c0 + e < cols else -2
+    return img
+
+
+@pytest.mark.parametrize("d", [64, 128, 192])
+def test_bf16_tile_loader_layout(d):
+    """Every element of a [64, d] tile lands once where the swizzled
+    layout (16-byte chunk c of row r of sub-tile a at a * 8192 + r * 128 +
+    16 (c ^ (r % 8))) puts it, for the 128-thread loader at d 64, 128 and
+    MLA's 192."""
+    img = _bf16_tile_image(d, d)
+    want = np.empty_like(img)
+    for row in range(64):
+        for col in range(d):
+            a, c = col // 64, (col % 64) // 8
+            at = a * 8192 + row * 128 + ((c ^ (row & 7)) << 4)
+            want[at // 2 + col % 8] = row * d + col
+    np.testing.assert_array_equal(img, want)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (192, 128)])
+def test_tf32_chunk_maps(dk, dv):
+    """flash_tf32.cu's thread maps at one warpgroup a block: Q's NQ = dk /
+    8 chunks a thread (row u / (dk / 4), chunk u % (dk / 4)) cover the
+    [64, dk] tile once, K's NK = 8 dk / 128 the [32, dk] tile once, and
+    Vt's 2 dv units (NV a thread) the [dv, 32] tile once; shared memory
+    stays inside the card's 227 KB."""
+    nt = 128
+    seen = np.zeros((64, dk // 4), int)
+    for n in range(dk // 8):
+        for wt in range(nt):
+            u = wt + n * nt
+            seen[u // (dk // 4), u % (dk // 4)] += 1
+    assert (seen == 1).all()
+    assert 8 * dk % nt == 0
+    seen = np.zeros((32, dk // 4), int)
+    for n in range(8 * dk // nt):
+        for t in range(nt):
+            u = t + n * nt
+            seen[u // (dk // 4), u % (dk // 4)] += 1
+    assert (seen == 1).all()
+    seen = np.zeros((dv, 32), int)
+    for n in range(-(-2 * dv // nt)):
+        for t in range(nt):
+            u = t + n * nt
+            if u >= 2 * dv:
+                continue
+            ch, nv = u % 8, u // 8
+            for m in range(4):
+                for e in range(4):
+                    seen[4 * nv + e, 4 * ch + m] += 1
+    assert (seen == 1).all()
+    smem = 1024 + 2 * (dk * 256 + dk * 128 + dv * 128)
+    assert smem <= 232448

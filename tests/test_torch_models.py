@@ -11,8 +11,9 @@ chunked scan where the reference takes einsums):
 
 * logits and block outputs within LOGIT_TOL = 1e-4 absolute (|logits|
   <= ~1 at these sizes);
-* caches (K/V, the conv window, the float32 SSM state) within
-  CACHE_TOL = 5e-5 absolute;
+* caches (K/V, MLA's latents, the conv window, the float32 SSM state)
+  within CACHE_TOL = 5e-5 absolute;
+* the MoE router's aux loss (summed over the layers) within LAYER_TOL;
 * single layers (norms, rotary embeddings, MLPs, embeddings) within
   LAYER_TOL = 1e-5;
 * the GLA core within the reference's kernel tolerance, rtol 1e-4 and
@@ -46,16 +47,18 @@ CACHE_TOL = 5e-5
 LAYER_TOL = 1e-5
 GLA_RTOL, GLA_ATOL = 1e-4, 1e-5
 
-#: The archs this slice serves; the others wait for later slices.
+#: The archs the port serves; xLSTM waits for a later slice.
 SLICE = ("granite-20b", "minitron-4b", "phi3-mini-3p8b", "starcoder2-15b",
-         "musicgen-large", "qwen2-vl-2b", "zamba2-7b")
-DEFERRED = ("xlstm-1p3b", "deepseek-v2-236b", "kimi-k2-1t-a32b")
+         "musicgen-large", "qwen2-vl-2b", "zamba2-7b", "deepseek-v2-236b",
+         "kimi-k2-1t-a32b")
+DEFERRED = ("xlstm-1p3b",)
 
 _ref_init = jax.jit(rmodel.init, static_argnums=(1,))
 _ref_forward = jax.jit(rmodel.forward, static_argnums=(2,))
 _ref_prefill = jax.jit(rmodel.prefill, static_argnums=(3,))
 _ref_decode = jax.jit(rmodel.decode_step, static_argnums=(4,))
 _ref_gqa = jax.jit(rattn.gqa_apply, static_argnums=(2,))
+_ref_mla = jax.jit(rattn.mla_apply, static_argnums=(2,))
 _ref_mamba2 = jax.jit(rssm.mamba2_apply, static_argnums=(2,))
 _ref_loss = jax.jit(rmodel.loss_fn, static_argnums=(2,))
 
@@ -143,8 +146,8 @@ def test_segments_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", DEFERRED)
 def test_deferred_kinds_raise(arch):
-    """xLSTM's mLSTM/sLSTM and the MoE/MLA archs raise from ``init``,
-    naming the slice that ports them."""
+    """xLSTM's mLSTM/sLSTM raise from ``init``, naming the slice that
+    ports them."""
     with pytest.raises(NotImplementedError, match="slice"):
         tmodels.init(tconfigs.smoke_config(arch), device="cpu")
 
@@ -302,6 +305,61 @@ def test_gqa_with_cache(arch):
         pos0 += S
 
 
+def _mla(arch, **over):
+    cfg = dataclasses.replace(tconfigs.smoke_config(arch), **over)
+    p = rattn.mla_init(jax.random.PRNGKey(10), cfg)
+    mod = _load(tattn.MLAttention(cfg, generator=_gen(), device="cpu"), p)
+    return cfg, p, mod
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("deepseek-v2-236b", {}),
+    ("kimi-k2-1t-a32b", {}),
+    ("deepseek-v2-236b", dict(q_lora_rank=0)),     # wq, no q compression
+])
+def test_mla_without_cache(arch, over):
+    """MLA's prefill without a cache: K9's route (its plain version here,
+    q and k dn + dr = 24 wide, v 16), S ragged against K9's 64."""
+    cfg, p, mod = _mla(arch, **over)
+    assert hasattr(mod, "wq") == (cfg.q_lora_rank == 0)
+    rng = np.random.default_rng(15)
+    x = _x(rng, 2, 37, cfg.d_model)
+    pos = _positions(cfg, rng, 2, 37)
+    before = _unlaunched()
+    out, cache = mod(torch.tensor(x), cfg, torch.tensor(pos))
+    ref, _ = _ref_mla(p, jnp.asarray(x), cfg, jnp.asarray(pos))
+    assert cache is None and _unlaunched() == before
+    _close(out, ref, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_mla_with_cache(arch):
+    """A prefill at cache_pos 0 (K9's route), the absorbed decode (S =
+    1 over the latent cache), a multi-token call at cache_pos > 0 (plain
+    attention over the decompressed prefix) and another decode step:
+    outputs and the latent cache after each."""
+    cfg, p, mod = _mla(arch)
+    rng = np.random.default_rng(16)
+    B, max_len = 2, 56
+    spec = rattn.mla_cache_spec(cfg, B, max_len)
+    tspec = tattn.MLAttention.cache_spec(cfg, B, max_len)
+    assert {n: (tuple(s.shape), str(s.dtype)) for n, s in spec.items()} == \
+        {n: (shape, str(dt)[6:]) for n, (shape, dt) in tspec.items()}
+    rc = {n: jnp.zeros(s.shape, s.dtype) for n, s in spec.items()}
+    tc = {n: torch.zeros(shape, dtype=dt) for n, (shape, dt) in tspec.items()}
+    pos0 = 0
+    for S in (37, 1, 5, 1):
+        x = _x(rng, B, S, cfg.d_model)
+        pos = _positions(cfg, rng, B, S, pos0)
+        ref, rc = _ref_mla(p, jnp.asarray(x), cfg, jnp.asarray(pos), rc,
+                           pos0)
+        out, tc = mod(torch.tensor(x), cfg, torch.tensor(pos), tc, pos0)
+        _close(out, ref, LOGIT_TOL)
+        for n in ("c_kv", "k_rope"):
+            _close(tc[n], rc[n], CACHE_TOL)
+        pos0 += S
+
+
 # ---------------------------------------------------------------------------
 # ssm
 # ---------------------------------------------------------------------------
@@ -402,7 +460,7 @@ def run(request):
     rng = np.random.default_rng(13)
     toks, kw = _inputs(cfg, rng, B, S)
     jkw = {n: jnp.asarray(a) for n, a in kw.items()}
-    logits, _ = _ref_forward(params, jnp.asarray(toks), cfg, **jkw)
+    logits, aux = _ref_forward(params, jnp.asarray(toks), cfg, **jkw)
     cache = rmodel.make_cache(cfg, B, S + STEPS, concrete=True)
     last, cache = _ref_prefill(params, jnp.asarray(toks), cache, cfg, **jkw)
     prefill_cache = jax.tree.map(np.asarray, cache)
@@ -418,7 +476,8 @@ def run(request):
     model = tmodel.params_from_reference(jax.tree.map(np.asarray, params),
                                          tcfg, device="cpu")
     return dict(arch=arch, cfg=tcfg, params=params, model=model, toks=toks,
-                kw=kw, logits=np.asarray(logits), last=np.asarray(last),
+                kw=kw, logits=np.asarray(logits), aux=float(aux),
+                last=np.asarray(last),
                 prefill_cache=prefill_cache, steps=steps,
                 final_cache=jax.tree.map(np.asarray, cache))
 
@@ -457,13 +516,17 @@ def test_weights_carried_across(run):
 
 
 def test_forward(run):
+    """Logits, and the aux loss: the MoE layers' router losses summed (0
+    without experts)."""
     cfg = run["cfg"]
     before = _unlaunched()
     logits, aux = tmodels.forward(run["model"], torch.tensor(run["toks"]),
                                   cfg, **{n: torch.tensor(a) for n, a in
                                           run["kw"].items()})
     assert _unlaunched() == before
-    assert logits.shape == run["logits"].shape and float(aux) == 0.0
+    assert logits.shape == run["logits"].shape and aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (not cfg.is_moe) == (run["aux"] == 0.0)
+    _close(aux, run["aux"], LAYER_TOL)
     _close(logits, run["logits"], LOGIT_TOL)
 
 
@@ -520,9 +583,11 @@ def test_make_cache_spec(run):
         assert dev == {"cpu" if concrete else "meta"}
 
 
-@pytest.mark.parametrize("arch", ["musicgen-large", "granite-20b"])
+@pytest.mark.parametrize("arch", ["musicgen-large", "granite-20b",
+                                  "deepseek-v2-236b", "kimi-k2-1t-a32b"])
 def test_loss_fn(arch):
-    """The scoring loss (one codebook and four, with a mask)."""
+    """The scoring loss (one codebook and four, with a mask; with the MoE
+    router's aux loss weighted in)."""
     cfg = rconfigs.smoke_config(arch)
     params = _ref_init(jax.random.PRNGKey(2), cfg)
     model = tmodel.params_from_reference(jax.tree.map(np.asarray, params),
@@ -540,3 +605,43 @@ def test_loss_fn(arch):
                                tconfigs.smoke_config(arch))
     _close(tl, rl, LAYER_TOL)
     _close(taux["ce"], raux["ce"], LAYER_TOL)
+    _close(taux["aux"], raux["aux"], LAYER_TOL)
+
+
+@pytest.mark.parametrize("capacity_factor", [0.05, 4.0])
+def test_forward_under_the_callers_config(capacity_factor):
+    """``forward`` runs the layers under the config it is given, as the
+    reference does: the weights do not fix the MoE capacity factor, so a
+    tight one (assignments dropped) and a dropless one (C = T) each give
+    the reference's logits and aux on the same weights."""
+    arch = "deepseek-v2-236b"
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch),
+                               capacity_factor=capacity_factor)
+    tcfg = dataclasses.replace(tconfigs.smoke_config(arch),
+                               capacity_factor=capacity_factor)
+    params = _ref_init(jax.random.PRNGKey(1), rconfigs.smoke_config(arch))
+    model = tmodel.params_from_reference(jax.tree.map(np.asarray, params),
+                                         tconfigs.smoke_config(arch),
+                                         device="cpu")
+    toks, _ = _inputs(rcfg, np.random.default_rng(17), 2, 21)
+    want, raux = _ref_forward(params, jnp.asarray(toks), rcfg)
+    got, aux = tmodels.forward(model, torch.tensor(toks), tcfg)
+    _close(got, want, LOGIT_TOL)
+    _close(aux, raux, LAYER_TOL)
+    base, _ = tmodels.forward(model, torch.tensor(toks),
+                              tconfigs.smoke_config(arch))
+    assert not torch.equal(got, base)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_full_configs_build(arch):
+    """The published MoE/MLA configs build (on the meta device: 236 B and
+    1 T parameters), with the reference's parameter and active-parameter
+    counts (its init traced abstractly)."""
+    cfg = tconfigs.get(arch)
+    model = tmodel.DecoderLM(cfg, generator=_gen(), device="meta")
+    shapes = jax.eval_shape(lambda k: rmodel.init(k, rconfigs.get(arch)),
+                            jax.random.PRNGKey(0))
+    assert tmodels.param_count(model) == rmodel.param_count(shapes)
+    assert tmodels.active_param_count(model, cfg) == \
+        rmodel.active_param_count(shapes, rconfigs.get(arch))

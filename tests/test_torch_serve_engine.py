@@ -32,7 +32,8 @@ from repro_torch.serve import (ServeEngine, make_decode_step,
 
 LOGIT_TOL = 1e-4
 SLICE = ("granite-20b", "minitron-4b", "phi3-mini-3p8b", "starcoder2-15b",
-         "musicgen-large", "qwen2-vl-2b", "zamba2-7b")
+         "musicgen-large", "qwen2-vl-2b", "zamba2-7b", "deepseek-v2-236b",
+         "kimi-k2-1t-a32b")
 B, S, NEW = 2, 12, 6
 
 _ref_init = jax.jit(rmodel.init, static_argnums=(1,))
@@ -182,3 +183,14 @@ def test_launch_serve_cli(monkeypatch, capsys):
     serve.main()
     out = capsys.readouterr().out
     assert "musicgen-smoke" in out and "(2, 4, 4)" in out
+
+
+def test_launch_serve_cli_moe(monkeypatch, capsys):
+    """The serving driver serves an MLA + MoE arch (kimi-k2's SMOKE)."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "kimi-k2-1t-a32b", "--batch", "2",
+        "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert "kimi-smoke" in out and "(2, 4)" in out
