@@ -205,12 +205,32 @@ Phases, in order (any failure exits non-zero):
     call but at near-ties within ROUTE_TIE (each witnessed); (e) one
     deepseek MoE layer run twice on the same input on the card, bitwise
     equal, and timed at the prefill's and a decode step's token counts.
+25. xLSTM serving on the card (``models.ssm.MLSTM``, ``SLSTM``): (a) K10
+    on mLSTM's 1024-wide heads at xlstm-1p3b's prefill shape (B 4, H 4,
+    S 4096, chunk 256, bf16) through ``kernels.gla.gla_blocked``: the
+    numerator scan (8 launches on 128-wide blocks, float32 partial
+    outputs summed before one rounding) and the normalizer (dv 1, one
+    launch) against the undivided plain version, and in f32; a state
+    block bitwise one K10 launch on its own blocks; timed beside the
+    plain version and the un-blocked scan's bound; the zero-state term a
+    prefill from an empty cache adds, timed; (b) the sLSTM scan kernel at
+    full width (B 4, S 4096, D 2048; bf16 and f32 zifo) against its plain
+    version (bitwise expected; a difference witnessed, within SLSTM_TOL),
+    timed beside its byte bound; (c) xlstm-1p3b at full width and depth
+    (48 layers, random bf16 weights) serving 4 prompts of 4096 tokens for
+    32 new tokens through ``ServeEngine.generate``: K10 378 times and the
+    sLSTM scan 6 times a prefill, the sLSTM scan 6 times a decode step;
+    prefill and decode held to ``forward`` (MODEL_BF16_REL), timed and
+    traced (GEMMs, K10, the sLSTM scan, the zero-state product, the
+    rest), the peak memory; (d) xlstm cut to one period (7 mLSTM + 1
+    sLSTM) in float32, card against CPU (K10 63, the sLSTM scan 4 times):
+    logits and caches within MODEL_F32_RTOL / _ATOL.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
-rows with their launches on phases 23 and 24's model paths besides, and
-K9's two rows at MLA's head), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  It needs no network and imports
-nothing of JAX.
+rows with their launches on phases 23-25's model paths besides, K9's two
+rows at MLA's head, K10's row on mLSTM's blocked heads and the sLSTM
+scan's), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  It needs no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -377,6 +397,13 @@ KERNELS = {
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
+    "K10-mlstm": ("K10 on mLSTM's 1024-wide heads in 128-wide blocks, bf16 "
+                  "(gla_mma_kernel, float32 partial outputs)",
+                  "src/repro_torch/kernels/gla/csrc/gla.cu",
+                  "src/repro/kernels/gla/kernel.py:22"),
+    "sLSTM": ("sLSTM scan (jnp lax.scan in the reference, not a Pallas "
+              "kernel)", "src/repro_torch/kernels/slstm/csrc/slstm.cu",
+              "src/repro/models/ssm.py:329"),
 }
 
 
@@ -436,21 +463,25 @@ def device_ms(fn, reps: int, kernel: str):
     from ``torch.profiler``'s kernel records: the kernel alone, without
     the host's launch path that back-to-back calls timed by ``cuda_ms``
     include.  Returns (ms, launches recorded), or (None, 0) when the
-    profiler recorded no such kernel."""
+    profiler recorded no such kernel in two tries (a session on the H100
+    has come back without the kernels' records, or short of some)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            t = getattr(ev, "self_device_time_total", None)
-            us += ev.self_cuda_time_total if t is None else t
-            n += ev.count
-    return (us / n / 1e3, n) if n and us > 0 else (None, 0)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                t = getattr(ev, "self_device_time_total", None)
+                us += ev.self_cuda_time_total if t is None else t
+                n += ev.count
+        if n and us > 0:
+            return us / n / 1e3, n
+    return None, 0
 
 
 def _dev_str(dev_ms) -> str:
@@ -461,7 +492,7 @@ def _dev_str(dev_ms) -> str:
 
 def counts() -> dict:
     """Every kernel's launch count, by table key."""
-    from repro_torch.kernels import attention, gla, iir
+    from repro_torch.kernels import attention, gla, iir, slstm
     from repro_torch.kernels.dtw import matrix, score, stream
     return {"K1": stream.LIB.launches, "K2": score.LIB.launches,
             "K3": stream.DIST_LAUNCHES,
@@ -472,16 +503,17 @@ def counts() -> dict:
             "K8": iir.kernel.LIB.launches,
             "K9": attention.kernel.BF16_LIB.launches,
             "K9-f32": attention.kernel.LIB.launches,
-            "K10": gla.kernel.LIB.launches}
+            "K10": gla.kernel.LIB.launches,
+            "sLSTM": slstm.kernel.LIB.launches}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import attention, gla, iir
+    from repro_torch.kernels import attention, gla, iir, slstm
     from repro_torch.kernels.dtw import matrix, score, stream
     stream.LIB.launches = score.LIB.launches = matrix.LIB.launches = 0
     iir.kernel.LIB.launches = attention.kernel.LIB.launches = 0
     attention.kernel.BF16_LIB.launches = 0
-    gla.kernel.LIB.launches = 0
+    gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
         for key in d:
@@ -566,7 +598,8 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
 _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
                         r"flash_tf32_kernel|flash_wgmma_kernel|"
-                        r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel)"
+                        r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
+                        r"slstm_scan_kernel)"
                         r"(?:I(.*?)EE)?")
 
 def kernel_name(mangled: str):
@@ -577,7 +610,7 @@ def kernel_name(mangled: str):
     if not m:
         return None
     targs = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
-    targs = re.sub(r"^f(?=Li)", "f32,", targs)
+    targs = re.sub(r"^f(?=Li|$)", "f32,", targs)
     targs = re.sub(r"Lb([01])", lambda b: ("no band", "band")[
         int(b.group(1))], targs)
     targs = targs.replace("Li", "").replace("E", ",").rstrip(",")
@@ -2481,17 +2514,30 @@ def _gla_inputs(gen, dev, b, h, s, dk, dv, dtype):
             rn(b, h, s, dv).to(dtype), -(0.2 * rn(b, h, s)).abs())
 
 
-def _gla_diff(errs: ErrLog, got, want, bf16: bool) -> int:
+def _gla_diff(errs: ErrLog, got, want, bf16: bool, key: str = "K10") -> int:
     """Hold K10's (o, state) to the plain version's: the state and a
     float32 o within GLA_RTOL / GLA_ATOL; a bf16 o within one bf16 ulp
     besides.  Returns the count of o's elements that differ."""
     (ok, sk), (op, sp) = got, want
-    errs.diff("K10", ok, op)
-    errs.diff("K10", sk, sp)
+    errs.diff(key, ok, op)
+    errs.diff(key, sk, sp)
     assert _close(sk, sp, GLA_RTOL, GLA_ATOL), "K10 state"
     assert _close(ok, op, GLA_RTOL + (BF16_ULP if bf16 else 0.0),
                        GLA_ATOL), "K10 output"
     return int((ok != op).sum())
+
+
+def gla_bound(name: str, b: int, h: int, s: int, dk: int, dv: int,
+              chunk: int):
+    """(bytes ms, operations ms) of a bf16 chunked scan on the card: q, k,
+    v read and o written once in bf16, log a and the state in float32;
+    the causal half of each chunk's scores and their products, the
+    inter-chunk read and the state update at the bf16 tensor peak."""
+    flops = b * h * (s // chunk) * (chunk * (chunk + 1) // 2 * 2 * (dk + dv)
+                                    + 2 * 2 * chunk * dk * dv)
+    nbytes = 2 * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
+    mem_bps, _, bf16_flops, _ = card_peaks(name)
+    return 1e3 * nbytes / mem_bps, 1e3 * flops / bf16_flops
 
 
 def check_k10(dev, errs: ErrLog) -> None:
@@ -2572,11 +2618,7 @@ def full_gla(dev, errs: ErrLog, name: str, s: int = 4096, seed: int = 18):
     nd32 = _gla_diff(errs, kernel.gla_chunks(q32, k32, v32, g, chunk),
                      kernel.gla_chunks_plain(q32, k32, v32, g, chunk), False)
     nc = s // chunk
-    flops = b * h * nc * (chunk * (chunk + 1) // 2 * 2 * (dk + dv)
-                          + 2 * 2 * chunk * dk * dv)
-    nbytes = 2 * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
-    mem_bps, _, bf16_flops, _ = card_peaks(name)
-    kb = (1e3 * nbytes / mem_bps, 1e3 * flops / bf16_flops)
+    kb = gla_bound(name, b, h, s, dk, dv, chunk)
     hgmma = sass_count(kernel.LIB, "HGMMA")
     assert hgmma > 0, "no HGMMA in K10's SASS"
     t_ms = cuda_ms(lambda: kernel.gla_chunks(q, k, v, g, chunk), 10)
@@ -3719,11 +3761,46 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 GEMM_NAMES = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
 
 
-def traced_ms(fn, top: int = 6) -> dict:
+#: K10's kernels (``gla.cu``).
+K10_NAMES = ("gla_ws_kernel", "gla_mma_kernel", "gla_fma_kernel")
+
+
+def _kernel_times(prof) -> list:
+    """[(name, device ms, launches)] of a CUDA-only profile."""
+    out = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        out.append((ev.key, (ev.self_cuda_time_total if t is None else t)
+                    / 1e3, ev.count))
+    return out
+
+
+def gemm_names(fn) -> set:
+    """The names of the cuBLAS kernels (GEMM_NAMES) a call of ``fn``
+    launches (a ``torch.profiler`` trace of three calls), to find them in
+    a larger trace; three tries, as a session may come back without
+    records (``device_ms``; a session's first launch has gone missing)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = {key for key, ms, _ in _kernel_times(prof)
+                 if ms > 0 and any(g in key for g in GEMM_NAMES)}
+        if names:
+            return names
+    return set()
+
+
+def traced_ms(fn, top: int = 6, named=frozenset()) -> dict:
     """Device time of one call of ``fn``, from ``torch.profiler``: "all"
-    (every kernel and copy), "K9" and "K10" (theirs), "gemm" (cuBLAS's,
-    GEMM_NAMES), "wall" (the call's host-clock ms under the profiler) and
-    "top" (the ``top`` kernels by device time: [(name, ms, launches)])."""
+    (every kernel and copy), "K9", "K10" and "sLSTM" (theirs), "gemm"
+    (cuBLAS's, GEMM_NAMES, less "named"), "named" (the kernels whose
+    names are in ``named``), "wall" (the call's host-clock ms under the
+    profiler) and "top" (the ``top`` kernels by device time: [(name, ms,
+    launches)])."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3731,18 +3808,21 @@ def traced_ms(fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    out = {"all": 0.0, "K9": 0.0, "K10": 0.0, "gemm": 0.0, "wall": wall}
+    out = {"all": 0.0, "K9": 0.0, "K10": 0.0, "sLSTM": 0.0, "gemm": 0.0,
+           "named": 0.0, "wall": wall}
     by = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        ms = (ev.self_cuda_time_total if t is None else t) / 1e3
+    for key, ms, count in _kernel_times(prof):
         out["all"] += ms
-        by.append((ev.key[:60], ms, ev.count))
-        if "flash_wgmma_kernel" in ev.key:
+        by.append((key[:60], ms, count))
+        if "flash_wgmma_kernel" in key:
             out["K9"] += ms
-        if "gla_ws_kernel" in ev.key:
+        if any(k in key for k in K10_NAMES):
             out["K10"] += ms
-        if any(g in ev.key for g in GEMM_NAMES):
+        if "slstm_scan_kernel" in key:
+            out["sLSTM"] += ms
+        if key in named:
+            out["named"] += ms
+        elif any(g in key for g in GEMM_NAMES):
             out["gemm"] += ms
     out["top"] = sorted(by, key=lambda e: -e[1])[:top]
     return out
@@ -3797,12 +3877,32 @@ def _experts(call, shape, at: int) -> torch.Tensor:
     return torch.sort(call[1].reshape(*shape, -1)[:, at], 1).values
 
 
-def _trio(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int):
+def model_launches(cfg, decode: bool = False) -> dict:
+    """The kernel launches of one prefill (or ``decode`` step) of ``cfg``
+    by table key, from its block kinds: K9 once an attention layer and
+    K10 once a Mamba2 layer in the prefill; an mLSTM layer's two scans
+    launch K10 once each, or ceil(dh / 128) + 1 times on 128-wide blocks
+    (``kernels.gla.gla_blocked``) when its heads are wider than 128; the
+    sLSTM scan once an sLSTM layer in the prefill and in a decode step."""
+    from repro_torch.models.model import block_kinds
+    kinds = block_kinds(cfg)
+    dh = cfg.ssm_expand * cfg.d_model // cfg.num_heads
+    mlstm = 2 if dh <= 128 else -(-dh // 128) + 1
+    want = {"sLSTM": kinds.count("slstm")}
+    if not decode:
+        want.update(
+            K9=sum(kinds.count(k) for k in ("attn", "attn_dense",
+                                             "attn_moe", "shared_attn")),
+            K10=kinds.count("mamba2") + mlstm * kinds.count("mlstm"))
+    return {key: n for key, n in want.items() if n}
+
+
+def _trio(model, cfg, toks: torch.Tensor, dev, pre: dict, dec: dict):
     """One prefill of ``toks`` [b, s], a greedy decode step at s and
     ``forward`` over the s + 1 tokens, every count set to 0 just before
-    each and read just after (K9 ``k9`` and K10 ``k10`` times in the
-    prefill and in forward, nothing in the step), the MoE routing of all
-    three recorded.  Returns (prefill logits, step logits, forward
+    each and read just after (``pre``: the launches by table key in the
+    prefill and in forward; ``dec``: in the step), the MoE routing of
+    all three recorded.  Returns (prefill logits, step logits, forward
     logits, forward's aux, the routing calls)."""
     from repro_torch import models
     b, s = toks.shape
@@ -3811,18 +3911,18 @@ def _trio(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int):
         reset_counts()
         last, cache = models.prefill(model, toks, cache, cfg)
         torch.cuda.synchronize()
-        assert _only(counts(), K9=k9, K10=k10), counts()
+        assert _only(counts(), **pre), counts()
         nxt = last.argmax(-1)
         reset_counts()
         step, cache = models.decode_step(model, nxt, cache, s, cfg)
         torch.cuda.synchronize()
-        assert _only(counts()), counts()
+        assert _only(counts(), **dec), counts()
         del cache
         reset_counts()
         full, aux = models.forward(model, torch.cat([toks, nxt[:, None]], 1),
                                    cfg)
         torch.cuda.synchronize()
-        assert _only(counts(), K9=k9, K10=k10), counts()
+        assert _only(counts(), **pre), counts()
     assert torch.isfinite(full.float()).all() and torch.isfinite(aux)
     return last, step, full, aux, routing.calls
 
@@ -3833,7 +3933,7 @@ def _trio(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int):
 DROPLESS_S = 256
 
 
-def _moe_checks(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int,
+def _moe_checks(model, cfg, toks: torch.Tensor, dev, pre: dict,
                 last: torch.Tensor, calls: list, n_moe: int) -> dict:
     """The MoE arch's checks against ``forward`` (phase 24 (b), (c)).
 
@@ -3859,7 +3959,7 @@ def _moe_checks(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int,
         reset_counts()
         full_s, _ = models.forward(model, toks, cfg)
         torch.cuda.synchronize()
-        assert _only(counts(), K9=k9, K10=k10), counts()
+        assert _only(counts(), **pre), counts()
     e_pre = _rel(last, full_s[:, s - 1])
     del full_s
     rec = dict(
@@ -3877,7 +3977,7 @@ def _moe_checks(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int,
     cfg_d = dataclasses.replace(cfg, capacity_factor=E / K)
     sd = min(DROPLESS_S, s)
     last_d, step_d, full_d, _, calls_d = _trio(
-        model, cfg_d, toks[:, :sd].contiguous(), dev, k9, k10)
+        model, cfg_d, toks[:, :sd].contiguous(), dev, pre, {})
     assert all(int(c[3].sum()) == 0 for c in calls_d), "dropless drops"
     flips = torch.zeros(b, dtype=torch.bool)
     for d, f in zip(calls_d[n_moe:2 * n_moe], calls_d[2 * n_moe:]):
@@ -3894,26 +3994,35 @@ def _moe_checks(model, cfg, toks: torch.Tensor, dev, k9: int, k10: int,
     return rec
 
 
+def _launch_str(want: dict) -> str:
+    return ", ".join(f"{key} {n}" for key, n in want.items() if n) \
+        or "nothing"
+
+
 def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
-               k9: int, k10: int, k9_ms: float, k10_ms: float,
-               **over) -> dict:
-    """Phase 23 (a) and (b): ``arch`` at full width (``over`` cuts its
-    depth) with random bf16 weights serves ``b`` prompts of ``s`` tokens
-    for ``new`` tokens through ``ServeEngine.generate``, every count set
-    to 0 just before and read just after: K9 ``k9`` times and K10 ``k10``
-    times (one prefill), nothing in the decode steps.  Then one prefill
-    (the same launches) and one decode step (none) are held to
-    ``forward`` over s + 1 tokens within MODEL_BF16_REL (an MoE arch as
-    ``_moe_checks`` says); the prefill and
-    the decode step are timed on the host clock around a synchronised
-    call (prefill: median of 3, each on a fresh cache; decode: median of
-    16 steps) and one prefill and one decode step are traced by
-    ``torch.profiler``.  K9's and K10's share of the prefill: their
-    launches times ``k9_ms`` and ``k10_ms``, CUDA-event times of one launch
-    at the same shapes (``check_model_kernels``, ``check_mla_kernels``).
-    An MoE arch's routing is recorded (``MoeRouting``) in the checked
-    prefill, decode step and forward (``_moe_checks``).  Returns the
-    numbers it prints."""
+               pre: dict, kernel_ms: dict, named=frozenset(),
+               named_what: str = "", **over) -> dict:
+    """Phase 23 (a) and (b), phase 24 (b) and (c), phase 25 (c): ``arch``
+    at full width (``over`` cuts its depth) with random bf16 weights
+    serves ``b`` prompts of ``s`` tokens for ``new`` tokens through
+    ``ServeEngine.generate``, every count set to 0 just before and read
+    just after: ``pre`` (launches by table key, which must be
+    ``model_launches``' count for the arch) in the prefill and
+    ``model_launches(decode=True)`` in each decode step (K9 and K10
+    none).  Then one prefill (the same launches) and one decode step are
+    held to ``forward`` over s + 1 tokens within MODEL_BF16_REL (an MoE
+    arch as ``_moe_checks`` says); the prefill and the decode step are
+    timed on the host clock around a synchronised call (prefill: median
+    of 3, each on a fresh cache; decode: median of 16 steps) and one
+    prefill and one decode step are traced by ``torch.profiler``.  Each
+    kernel's share of the prefill: ``kernel_ms[key]``, the CUDA-event
+    time of its launches in one prefill at the same shapes
+    (``check_model_kernels``, ``check_mla_kernels``,
+    ``check_mlstm_kernels``).  The traced prefill's kernels named in
+    ``named`` are split out of the GEMMs as ``named_what``.  An MoE
+    arch's routing is recorded (``MoeRouting``) in the checked prefill,
+    decode step and forward (``_moe_checks``).  Returns the numbers it
+    prints."""
     from repro_torch import models
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.model import block_kinds
@@ -3921,8 +4030,9 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
     cfg, model = _model(arch, dev, 23, **over)
     n_par = models.param_count(model)
     kinds = block_kinds(cfg)
-    assert kinds.count("mamba2") == k10
-    assert len(kinds) - kinds.count("mamba2") == k9
+    assert pre == model_launches(cfg), (arch, pre, model_launches(cfg))
+    dec = model_launches(cfg, decode=True)
+    gen = {key: n + (new - 1) * dec.get(key, 0) for key, n in pre.items()}
     n_moe = kinds.count("attn_moe")
     prompts = _prompts(cfg, b, s, 23)
     engine = ServeEngine(model, cfg, max_len=s + new)
@@ -3935,11 +4045,11 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
     t_gen = time.perf_counter() - t0
     got = counts()
     peak = torch.cuda.max_memory_allocated()
-    assert _only(got, K9=k9, K10=k10), (arch, got)
+    assert _only(got, **gen), (arch, got, gen)
     assert out.shape == (b, new) and out.dtype == np.int32
     assert ((out >= 0) & (out < cfg.vocab_size)).all()
     toks = torch.as_tensor(prompts, device=dev)
-    last, step, full, aux, calls = _trio(model, cfg, toks, dev, k9, k10)
+    last, step, full, aux, calls = _trio(model, cfg, toks, dev, pre, dec)
     assert (float(aux) > 0) == (n_moe > 0), (arch, float(aux))
     e_dec = _rel(step, full[:, s])
     if not n_moe:
@@ -3950,7 +4060,7 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
         moe_rec = {}
     else:
         del full
-        moe_rec = _moe_checks(model, cfg, toks, dev, k9, k10, last, calls,
+        moe_rec = _moe_checks(model, cfg, toks, dev, pre, last, calls,
                               n_moe)
         e_pre = moe_rec["e_pre"]
         del step
@@ -3960,52 +4070,62 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
             return models.make_cache(cfg, b, s + new, concrete=True,
                                      device=dev)
 
-        pre_ms = []
+        pre_times = []
         for _ in range(3):
             cache = fresh()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             last, cache = models.prefill(model, toks, cache, cfg)
             torch.cuda.synchronize()
-            pre_ms.append(1e3 * (time.perf_counter() - t0))
-        tok, dec_ms = last.argmax(-1), []
+            pre_times.append(1e3 * (time.perf_counter() - t0))
+        tok, dec_times = last.argmax(-1), []
         for i in range(16):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = models.decode_step(model, tok, cache, s + i, cfg)
             tok = logits.argmax(-1)
             torch.cuda.synchronize()
-            dec_ms.append(1e3 * (time.perf_counter() - t0))
+            dec_times.append(1e3 * (time.perf_counter() - t0))
         dec_tr = traced_ms(
             lambda: models.decode_step(model, tok, cache, s + 16, cfg))
         del cache
         cache = fresh()
-        dev_ms = traced_ms(lambda: models.prefill(model, toks, cache, cfg))
+        dev_ms = traced_ms(lambda: models.prefill(model, toks, cache, cfg),
+                           named=named)
         del cache
-    pre, dec = float(np.median(pre_ms)), float(np.median(dec_ms))
+    t_pre, t_dec = float(np.median(pre_times)), float(np.median(dec_times))
     rec = dict(arch=arch, layers=cfg.num_layers, params=n_par, B=b, S=s,
-               new=new, generate_s=t_gen, prefill_ms=pre,
-               prefill_tok_s=b * s / (pre / 1e3), decode_ms=dec,
-               decode_tok_s=b / (dec / 1e3), peak_gb=peak / 1e9,
+               new=new, generate_s=t_gen, prefill_ms=t_pre,
+               prefill_tok_s=b * s / (t_pre / 1e3), decode_ms=t_dec,
+               decode_tok_s=b / (t_dec / 1e3), peak_gb=peak / 1e9,
                e_prefill=e_pre, e_decode=e_dec, traced=dev_ms,
                traced_decode=dec_tr, launches=got, **moe_rec,
-               k9_share=k9 * k9_ms / pre, k10_share=k10 * k10_ms / pre)
-    print(f"[serve {arch}] {cfg.num_layers} layers ({k10} mamba2, {k9} "
-          f"attention), {n_par / 1e9:.3f} B params bf16; "
+               shares={key: ms / t_pre for key, ms in kernel_ms.items()})
+    kinds_str = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(
+        kinds))
+    parts = {"GEMMs": dev_ms["gemm"], "K9": dev_ms["K9"],
+             "K10": dev_ms["K10"], "sLSTM": dev_ms["sLSTM"]}
+    if named_what:
+        parts[named_what] = dev_ms["named"]
+    rest = dev_ms["all"] - sum(parts.values())
+    print(f"[serve {arch}] {cfg.num_layers} layers ({kinds_str}), "
+          f"{n_par / 1e9:.3f} B params bf16; "
           f"ServeEngine.generate {b} x {s} tokens + {new} new: "
-          f"{t_gen:.2f} s, K9 {k9} and K10 {k10} launches, none in decode; "
-          f"prefill {pre:.1f} ms (median of 3; "
-          f"{rec['prefill_tok_s']:.0f} tokens/s), decode {dec:.2f} ms a "
+          f"{t_gen:.2f} s, launches {_launch_str(got)} (a prefill "
+          f"{_launch_str(pre)}, a decode step {_launch_str(dec)}); "
+          f"prefill {t_pre:.1f} ms (median of 3; "
+          f"{rec['prefill_tok_s']:.0f} tokens/s), decode {t_dec:.2f} ms a "
           f"step (median of 16; {rec['decode_tok_s']:.1f} tokens/s), peak "
-          f"memory {rec['peak_gb']:.2f} GB; K9 {k9} x {k9_ms:.4f} ms = "
-          f"{100 * rec['k9_share']:.2f}% and K10 {k10} x {k10_ms:.4f} ms "
-          f"= {100 * rec['k10_share']:.2f}% of the prefill (CUDA events); "
-          f"one traced prefill: kernels "
-          f"{dev_ms['all']:.1f} ms device ({100 * dev_ms['all'] / pre:.1f}% "
-          f"of the median prefill): GEMMs {dev_ms['gemm']:.1f}, K9 "
-          f"{dev_ms['K9']:.2f}, K10 {dev_ms['K10']:.2f}, the rest "
-          f"(elementwise, copies) "
-          f"{dev_ms['all'] - dev_ms['gemm'] - dev_ms['K9'] - dev_ms['K10']:.1f}"
+          f"memory {rec['peak_gb']:.2f} GB; "
+          + "; ".join(f"{key}"
+                      f"{f' ({pre[key]} launches)' if key in pre else ''} "
+                      f"{ms:.4f} ms = {100 * ms / t_pre:.2f}%"
+                      for key, ms in kernel_ms.items())
+          + f" of the prefill (CUDA events); one traced prefill: kernels "
+          f"{dev_ms['all']:.1f} ms device "
+          f"({100 * dev_ms['all'] / t_pre:.1f}% of the median prefill): "
+          + ", ".join(f"{key} {ms:.2f}" for key, ms in parts.items())
+          + f", the rest (elementwise, copies) {rest:.1f}"
           f" ms; prefill logits vs forward's at S - 1 "
           f"{e_pre:.3g}, decode step's vs forward's at S {e_dec:.3g} "
           f"(relative max, limit {MODEL_BF16_REL:g}"
@@ -4069,12 +4189,13 @@ def _serve_steps(model, cfg, toks: torch.Tensor, tokens, dev):
         return logits, pre_cache, _cache_cpu(cache), fed
 
 
-def f32_card_vs_cpu(dev, name: str, arch: str, layers: int, k9: int,
-                    k10: int, s: int = 320) -> dict:
-    """Phase 23 (c): ``arch`` at full width cut to ``layers`` layers in
-    float32, one prompt of ``s`` tokens: the prefill (K9 f32 ``k9``
-    times, K10 ``k10`` times), its caches and three greedy decode steps
-    on the card, then the same weights moved to the CPU fed the same
+def f32_card_vs_cpu(dev, name: str, arch: str, layers: int,
+                    expect: dict, s: int = 320) -> dict:
+    """Phase 23 (c), 24 (d), 25 (d): ``arch`` at full width cut to
+    ``layers`` layers in float32, one prompt of ``s`` tokens: the prefill,
+    its caches and three greedy decode steps on the card (``expect``:
+    their launches by table key), then the same weights moved to the CPU fed the
+    same
     tokens (the plain versions, which the CPU tests hold to the JAX
     package): logits and every cache within MODEL_F32_RTOL /
     MODEL_F32_ATOL.  An MoE arch's routing (``MoeRouting``) on the card
@@ -4091,7 +4212,7 @@ def f32_card_vs_cpu(dev, name: str, arch: str, layers: int, k9: int,
         card = _serve_steps(model, cfg, toks, None, dev)
     torch.cuda.synchronize()
     launches = counts()
-    assert _only(launches, **{"K9-f32": k9, "K10": k10}), launches
+    assert _only(launches, **expect), (launches, expect)
     model.to("cpu")
     torch.cuda.empty_cache()
     with MoeRouting(model) as host_routing:
@@ -4129,7 +4250,7 @@ def f32_card_vs_cpu(dev, name: str, arch: str, layers: int, k9: int,
                    for g, w in zip(got, want)), (arch, what, errs[what])
     errs["launches"] = launches
     print(f"[serve f32] {arch}, {layers} layers at full width, S={s}: "
-          f"card (K9 f32 x {k9}, K10 x {k10}) vs CPU on the same weights: "
+          f"card ({_launch_str(expect)}) vs CPU on the same weights: "
           f"max abs err logits (prefill and 3 decode steps) "
           f"{errs['logits']:.3g}, caches after the prefill "
           f"{errs['prefill caches']:.3g}, after the last step "
@@ -4144,12 +4265,12 @@ def model_phase(dev, errs: ErrLog, name: str) -> dict:
     Returns the model path's launches, by table key and run."""
     t0 = time.perf_counter()
     kernel_ms = check_model_kernels(dev, errs, name)
-    serve_full(dev, name, "zamba2-7b", 4, 4096, 32, 13, 68,
-               kernel_ms["K9"], kernel_ms["K10"])
-    serve_full(dev, name, "granite-20b", 2, 4096, 16, 8, 0,
-               kernel_ms["K9-granite"], 0.0, num_layers=8)
-    f32_card_vs_cpu(dev, name, "zamba2-7b", 6, 1, 5)
-    f32_card_vs_cpu(dev, name, "granite-20b", 2, 2, 0)
+    serve_full(dev, name, "zamba2-7b", 4, 4096, 32, {"K9": 13, "K10": 68},
+               {"K9": 13 * kernel_ms["K9"], "K10": 68 * kernel_ms["K10"]})
+    serve_full(dev, name, "granite-20b", 2, 4096, 16, {"K9": 8},
+               {"K9": 8 * kernel_ms["K9-granite"]}, num_layers=8)
+    f32_card_vs_cpu(dev, name, "zamba2-7b", 6, {"K9-f32": 1, "K10": 5})
+    f32_card_vs_cpu(dev, name, "granite-20b", 2, {"K9-f32": 2})
     print(f"[models] phase 23 in {time.perf_counter() - t0:.1f} s [{name}]")
     return {"K9": {"zamba2-7b prefill (81 layers)": 13,
                    "granite-20b prefill (8 of 52 layers)": 8},
@@ -4298,15 +4419,15 @@ def moe_phase(dev, errs: ErrLog, name: str):
     launches by table key and run)."""
     t0 = time.perf_counter()
     rows, k9_ms = check_mla_kernels(dev, errs, name)
-    ds = serve_full(dev, name, "deepseek-v2-236b", 4, 4096, 32, 5, 0,
-                    k9_ms["deepseek"], 0.0, num_layers=5)
-    serve_full(dev, name, "kimi-k2-1t-a32b", 2, 4096, 16, 2, 0,
-               k9_ms["kimi"], 0.0, num_layers=2)
+    ds = serve_full(dev, name, "deepseek-v2-236b", 4, 4096, 32, {"K9": 5},
+                    {"K9": 5 * k9_ms["deepseek"]}, num_layers=5)
+    serve_full(dev, name, "kimi-k2-1t-a32b", 2, 4096, 16, {"K9": 2},
+               {"K9": 2 * k9_ms["kimi"]}, num_layers=2)
     free = _host_free_gb()
     print(f"[serve f32] host memory available: {free:.1f} GB (deepseek-v2 "
           f"cut to 2 layers holds 21.4 GB of float32 weights)")
     assert free > 32, "the host lacks memory for the float32 CPU run"
-    f32 = f32_card_vs_cpu(dev, name, "deepseek-v2-236b", 2, 2, 0)
+    f32 = f32_card_vs_cpu(dev, name, "deepseek-v2-236b", 2, {"K9-f32": 2})
     moe_layer(dev, name)
     rows[0]["launches"] = ds["launches"]["K9"]
     rows[1]["launches"] = f32["launches"]["K9-f32"]
@@ -4319,18 +4440,260 @@ def moe_phase(dev, errs: ErrLog, name: str):
                   "K9-f32-mla": f32_paths}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: xLSTM serving on the card
+# ---------------------------------------------------------------------------
+
+#: The sLSTM scan against its plain version: both round every operation
+#: alike (-fmad=false; the same exp, tanh and IEEE divisions, in the same
+#: order), so they are expected bitwise.  A difference is witnessed and
+#: held within SLSTM_TOL: hs (a bf16 hs within one bf16 step besides) and
+#: h absolute (|h| <= 1), c, n and m relative besides (they grow with S: m
+#: sums raw forget pre-activations).  Stated before phase 25's first run.
+SLSTM_TOL = 1e-5
+#: f32 operations a channel a step of the sLSTM scan (the kernel's: 8
+#: multiplies, 10 adds and subtracts, a negation, 2 max, 3 exp, a tanh, 2
+#: divisions), each counted as one.
+SLSTM_OPS = 27
+#: xlstm-1p3b's prefill scans (configs/xlstm_1p3b.py: d_model 2048,
+#: ssm_expand 2, 4 heads of dh 1024, gla_chunk 256) at 4 prompts of 4096:
+#: (B, H, S, dh, chunk); and its sLSTM scan: (B, S, D).
+XLSTM_SCAN = (4, 4, 4096, 1024, 256)
+SLSTM_SCAN = (4, 4096, 2048)
+#: Phase 25's launches: an xlstm-1p3b prefill (42 mLSTM layers, each two
+#: scans on 1024-wide heads: 8 + 1 K10 launches; 6 sLSTM layers) and the
+#: float32 run at one period (7 + 1 layers; a prefill and 3 decode steps).
+XLSTM_PREFILL = {"K10": 378, "sLSTM": 6}
+XLSTM_F32 = {"K10": 63, "sLSTM": 4}
+
+
+def check_mlstm_kernels(dev, errs: ErrLog, name: str):
+    """Phase 25 (a): K10 on mLSTM's heads at xlstm-1p3b's prefill shape
+    (XLSTM_SCAN, bf16), through ``kernels.gla.gla_blocked``: the
+    numerator scan (dk = dv = 1024: 8 launches, each over the 8 dk blocks
+    as extra heads, float32 partial outputs) and the normalizer (dv = 1:
+    one launch), held to the undivided plain version (GLA_RTOL /
+    GLA_ATOL, a bf16 o within one bf16 step besides), and the same inputs
+    in float32; state block (7, 3) bitwise one K10 launch on its own
+    k block 7 and v block 3 (the copy-out).  Timed by CUDA events beside the plain
+    version and the bound of the un-blocked scan (``gla_bound``), a
+    launch's device time from the profiler.  Also the zero-state term
+    that ``models.ssm.gla_chunked`` adds to a prefill from an empty cache
+    (a layer's two scans with and without a zero initial state, CUDA
+    events) and the names of its float32 GEMM's kernels.  Returns (the
+    K10-mlstm row, {the prefill's K10 ms, zero-state ms, names})."""
+    from repro_torch.kernels.gla import kernel, ops
+    from repro_torch.models.ssm import gla_chunked
+    b, h, s, dh, chunk = XLSTM_SCAN
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    # the mLSTM's scales: q, k times dh^-0.5, v times the input gate,
+    # log a = log sigmoid(f~)
+    q = (rn(b, h, s, dh) * dh ** -0.5).bfloat16()
+    k = (rn(b, h, s, dh) * dh ** -0.5).bfloat16()
+    i_g = torch.sigmoid(rn(b, h, s))
+    v = (rn(b, h, s, dh) * i_g[..., None]).bfloat16()
+    vd = i_g[..., None].bfloat16()
+    la = torch.nn.functional.logsigmoid(rn(b, h, s))
+    g = kernel.chunk_cumsum(la, chunk)
+    nblk = dh // kernel.MAX_HEAD_DIM
+    before = counts()
+    o, st = ops.gla_blocked(q, k, v, g, chunk)
+    torch.cuda.synchronize()
+    launched(before, K10=nblk)
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    nd = _gla_diff(errs, (o, st), kernel.gla_chunks_plain(q, k, v, g, chunk),
+                   True, "K10-mlstm")
+    n = kernel.MAX_HEAD_DIM
+    bi, bj = nblk - 1, nblk // 2 - 1
+    blk = lambda x, i: x[..., n * i:n * i + n].contiguous()
+    _, st_ij = kernel.gla_chunks(blk(q, bi), blk(k, bi), blk(v, bj), g,
+                                 chunk, out_dtype=torch.float32)
+    assert torch.equal(st_ij, st[:, :, n * bi:n * bi + n,
+                                 n * bj:n * bj + n]), "state copy-out"
+    del o, st, st_ij
+    before = counts()
+    od, sd = ops.gla_blocked(q, k, vd, g, chunk)
+    torch.cuda.synchronize()
+    launched(before, K10=1)
+    ndd = _gla_diff(errs, (od, sd),
+                    kernel.gla_chunks_plain(q, k, vd, g, chunk), True,
+                    "K10-mlstm")
+    del od, sd
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    nd32 = _gla_diff(errs, ops.gla_blocked(q32, k32, v32, g, chunk),
+                     kernel.gla_chunks_plain(q32, k32, v32, g, chunk), False,
+                     "K10-mlstm")
+    del q32, k32, v32
+    torch.cuda.empty_cache()
+    t_num = cuda_ms(lambda: ops.gla_blocked(q, k, v, g, chunk), 5)
+    t_den = cuda_ms(lambda: ops.gla_blocked(q, k, vd, g, chunk), 5)
+    t_dev = device_ms(lambda: ops.gla_blocked(q, k, v, g, chunk), 3,
+                      "gla_mma_kernel")
+    t_plain = cuda_ms(lambda: kernel.gla_chunks_plain(q, k, v, g, chunk), 1)
+    kb = gla_bound(name, b, h, s, dh, dh, chunk)
+    kd = gla_bound(name, b, h, s, dh, 1, chunk)
+    s0 = torch.zeros((b, h, dh, dh + 1), device=dev)
+
+    def layer(zero_state: bool):
+        """A mLSTM layer's two scans, as its prefill runs them."""
+        st = (lambda sl: {"initial_state": s0[..., sl]}) if zero_state \
+            else (lambda sl: {})
+        gla_chunked(q, k, v, la, chunk, **st(slice(0, dh)))
+        gla_chunked(q, k, vd, la, chunk, **st(slice(dh, None)))
+
+    t_with, t_without = cuda_ms(lambda: layer(True), 3), \
+        cuda_ms(lambda: layer(False), 3)
+    q32 = q.float()
+    zs_names = gemm_names(lambda: torch.matmul(q32, s0[..., :dh]))
+    t_zs = cuda_ms(lambda: torch.matmul(q32, s0[..., :dh]), 3)
+    del q32
+    flops_zs = 2 * b * h * s * dh * dh
+    print(f"[mLSTM K10] xlstm-1p3b's prefill scans, B={b} H={h} S={s} dh="
+          f"{dh} chunk={chunk} bf16, on {kernel.MAX_HEAD_DIM}-wide blocks: "
+          f"the numerator ({nblk} launches of {h * nblk} heads) within rtol "
+          f"{GLA_RTOL:g} / atol {GLA_ATOL:g} of the undivided plain version"
+          f" and one bf16 step ({nd} of {b * h * s * dh} output elements "
+          f"differ), the normalizer (dv 1, one launch; {ndd} differ), the "
+          f"same inputs in f32 within the tolerance ({nd32} differ); state "
+          f"block ({bi}, {bj}) bitwise a launch on its own blocks; numerator "
+          f"{t_num:.4f} ms (device {_dev_str(t_dev)} a launch; plain "
+          f"{t_plain:.2f} ms; the un-blocked scan's bound {max(kb):.4f} ms "
+          f"by {'bytes' if kb[0] >= kb[1] else 'operations'}), normalizer "
+          f"{t_den:.4f} ms (bound {max(kd):.4f} ms by "
+          f"{'bytes' if kd[0] >= kd[1] else 'operations'}) [{name}]")
+    print(f"[mLSTM K10] the zero-state term of a prefill from an empty "
+          f"cache: a layer's two scans {t_with:.4f} ms with a zero initial "
+          f"state, {t_without:.4f} ms without; its float32 product "
+          f"[{b}, {h}, {s}, {dh}] x [{dh}, {dh}] ({flops_zs / 1e9:.1f} "
+          f"GFLOP) {t_zs:.4f} ms ({flops_zs / t_zs / 1e9:.1f} TFLOP/s), "
+          f"kernels {sorted(zs_names)} [{name}]")
+    row = _row("K10-mlstm", 0, errs, t_num, t_plain, kb)
+    del q, k, v, vd, la, g, s0
+    torch.cuda.empty_cache()
+    return row, {"K10": t_num + t_den, "zero": t_with - t_without,
+                 "zero_names": frozenset(zs_names)}
+
+
+def _slstm_diff(got, want, bf16: bool, what: str) -> int:
+    """Hold the sLSTM kernel's (hs, (h, c, n, m)) to the plain version's
+    within SLSTM_TOL (module note); print a witness of the first
+    difference.  Returns the count of elements that differ."""
+    (hs, st), (hp, sp) = got, want
+    n_diff = int((hs != hp).sum()) + sum(int((a != b).sum())
+                                         for a, b in zip(st, sp))
+    assert _close(hs, hp, BF16_ULP if bf16 else 0.0, SLSTM_TOL), what
+    for key, a, b_ in zip("hcnm", st, sp):
+        assert _close(a, b_, 0.0 if key == "h" else SLSTM_TOL, SLSTM_TOL), \
+            (what, key)
+    if n_diff:
+        idx = (hs != hp).nonzero()
+        at = tuple(idx[0].tolist()) if len(idx) else None
+        print(f"[sLSTM] {what}: {n_diff} elements differ; the first in hs "
+              f"at (b, t, d) = {at}"
+              + (f": {float(hs[at]):.9g} against {float(hp[at]):.9g}"
+                 if at else ""))
+    return n_diff
+
+
+def check_slstm(dev, errs: ErrLog, name: str):
+    """Phase 25 (b): the sLSTM scan at xlstm-1p3b's prefill (B 4, S 4096,
+    D 2048), zifo in bf16 and in f32, r as ``slstm_init`` draws it (0.02
+    N(0, 1), bf16 values), from the zero state: one launch each, held to
+    the plain version (``_slstm_diff``), timed by CUDA events beside the
+    plain version and its bound (bytes: zifo read, hs written, r and the
+    states once; operations: SLSTM_OPS a channel a step at the non-FMA
+    f32 rate), a launch's device time from the profiler.  Returns (the
+    sLSTM row, the bf16 launch's ms)."""
+    from repro_torch.kernels.slstm import kernel
+    b, s, d = SLSTM_SCAN
+    gen = torch.Generator(device=dev).manual_seed(25)
+    zifo = torch.randn((b, s, 4 * d), generator=gen, device=dev).bfloat16()
+    r = (0.02 * torch.randn((4, d), generator=gen, device=dev)
+         ).bfloat16().float()
+    zeros = [torch.zeros((b, d), device=dev) for _ in range(4)]
+    nd = {}
+    for z in (zifo, zifo.float()):
+        bf = z.dtype == torch.bfloat16
+        before = counts()
+        got = kernel.slstm_scan(z, r, *zeros)
+        torch.cuda.synchronize()
+        launched(before, sLSTM=1)
+        assert got[0].dtype == z.dtype and torch.isfinite(got[0].float()).all()
+        want = kernel.slstm_scan_plain(z, r, *zeros)
+        errs.diff("sLSTM", got[0], want[0])
+        for a, b_ in zip(got[1], want[1]):
+            errs.diff("sLSTM", a, b_)
+        nd[str(z.dtype)[6:]] = _slstm_diff(got, want, bf,
+                                           f"{str(z.dtype)[6:]} zifo")
+        del got, want
+    t_ms = cuda_ms(lambda: kernel.slstm_scan(zifo, r, *zeros), 5)
+    t_dev = device_ms(lambda: kernel.slstm_scan(zifo, r, *zeros), 3,
+                      "slstm_scan_kernel")
+    t_plain = cuda_ms(lambda: kernel.slstm_scan_plain(zifo, r, *zeros), 1)
+    nbytes = 2 * b * s * 5 * d + 4 * 4 * d + 8 * 4 * b * d
+    kb = (1e3 * nbytes / card_peaks(name)[0],
+          1e3 * SLSTM_OPS * b * s * d / dtw_op_rate(name))
+    print(f"[sLSTM] xlstm-1p3b's sLSTM scan, B={b} S={s} D={d}, from the "
+          f"zero state: one launch each; against the plain version "
+          f"elements that differ: {nd} (hs and the final h, c, n, m); "
+          f"{t_ms:.4f} ms bf16 (device {_dev_str(t_dev)}; plain "
+          f"{t_plain:.1f} ms, {s} steps of ~25 PyTorch kernels; bound "
+          f"{max(kb):.4f} ms by {'bytes' if kb[0] >= kb[1] else 'operations'}"
+          f"; {b * d} channels, one thread each, on "
+          f"{-(-b * d // 64)} blocks of 64) [{name}]")
+    row = _row("sLSTM", 0, errs, t_ms, t_plain, kb)
+    del zifo, zeros
+    return row, t_ms
+
+
+def xlstm_phase(dev, errs: ErrLog, name: str):
+    """Phase 25: xLSTM serving on the card (see the module docstring).
+    Returns (the K10-mlstm and sLSTM table rows, the xLSTM path's
+    launches by table key and run)."""
+    from repro_torch import configs
+    from repro_torch.models.model import block_kinds
+    t0 = time.perf_counter()
+    row_k10, ms = check_mlstm_kernels(dev, errs, name)
+    row_slstm, slstm_ms = check_slstm(dev, errs, name)
+    kinds = block_kinds(configs.get("xlstm-1p3b"))
+    n_mlstm, n_slstm = kinds.count("mlstm"), kinds.count("slstm")
+    rec = serve_full(
+        dev, name, "xlstm-1p3b", 4, 4096, 32, XLSTM_PREFILL,
+        {"K10": n_mlstm * ms["K10"], "sLSTM": n_slstm * slstm_ms,
+         "zero-state term": n_mlstm * ms["zero"]},
+        named=ms["zero_names"], named_what="zero-state product")
+    f32 = f32_card_vs_cpu(dev, name, "xlstm-1p3b",
+                          len(configs.get("xlstm-1p3b").block_pattern),
+                          XLSTM_F32)
+    row_k10["launches"] = rec["launches"]["K10"]
+    row_slstm["launches"] = rec["launches"]["sLSTM"]
+    print(f"[models] phase 25 in {time.perf_counter() - t0:.1f} s; xlstm "
+          f"peak {rec['peak_gb']:.2f} GB [{name}]")
+    k10_paths = {"xlstm-1p3b prefill (48 layers, dh 1024 in 128-wide "
+                 "blocks)": XLSTM_PREFILL["K10"],
+                 "xlstm-1p3b f32 prefill (8 layers)": f32["launches"]["K10"]}
+    return [row_k10, row_slstm], {
+        "K10": k10_paths, "K10-mlstm": k10_paths,
+        "sLSTM": {"xlstm-1p3b prefill (48 layers)": n_slstm,
+                  "xlstm-1p3b decode step": n_slstm,
+                  "xlstm-1p3b f32 prefill and 3 decode steps (8 layers)":
+                      f32["launches"]["sLSTM"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    from repro_torch.kernels import attention, common, gla, iir
+    from repro_torch.kernels import attention, common, gla, iir, slstm
     from repro_torch.kernels.dtw import matrix, score, stream
     name = card_line()
     print(f"[card] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
-            attention.kernel.LIB, attention.kernel.BF16_LIB, gla.kernel.LIB]
+            attention.kernel.LIB, attention.kernel.BF16_LIB, gla.kernel.LIB,
+            slstm.kernel.LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4389,7 +4752,13 @@ def main() -> int:
         rows[row["name"]] = row
     for key, paths in mla_paths.items():
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
-    for key in ("K9", "K9-f32", "K9-mla", "K9-f32-mla", "K10"):
+    xl_rows, xl_paths = xlstm_phase(dev, errs, name)
+    for row in xl_rows:
+        rows[row["name"]] = row
+    for key, paths in xl_paths.items():
+        rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
+    for key in ("K9", "K9-f32", "K9-mla", "K9-f32-mla", "K10", "K10-mlstm",
+                "sLSTM"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -7,8 +7,10 @@ subpackage per family of the reference's Pallas kernels:
   (K8)
 * ``attention`` — causal GQA flash attention, online softmax (K9)
 * ``gla``       — chunked gated-linear-attention scan (K10)
+* ``slstm``     — sLSTM's sequential scan (jnp ``lax.scan`` in the
+  reference, no Pallas kernel)
 """
 
-from . import attention, dtw, gla, iir
+from . import attention, dtw, gla, iir, slstm
 
-__all__ = ["dtw", "iir", "attention", "gla"]
+__all__ = ["dtw", "iir", "attention", "gla", "slstm"]

@@ -72,6 +72,15 @@
 // producer's ring: a block a unit, two warpgroups that stage through a
 // 2-slot ring together, block-wide barriers at each tile.
 //
+// Heads wider than 128 (mLSTM's 1024) reach K10 cut into 128-wide blocks
+// (kernels/gla/ops.py::gla_blocked): a launch takes q's and k's dk blocks
+// as extra heads and one block of v, and gla_mma_kernel<128, float> writes
+// its float32 partial outputs, which the wrapper sums over the dk blocks
+// before rounding once to bf16; each state block is exact. QK^T is
+// recomputed for every dv block: at xlstm-1p3b's scan (dk = dv = 1024)
+// each (head, chunk) does 1.78x the un-blocked work, and the split
+// products more.
+//
 // Three parts keep each split operand to ~2^-27 of its value, below f32's
 // own rounding; two parts (~2^-18) move some near-zero outputs past the
 // check's 1e-5 absolute tolerance (tests/test_torch_gla_schedule.py
@@ -403,13 +412,15 @@ __device__ __forceinline__ void store_parts(uint32_t dst, uint32_t part,
 // K10 for bf16 inputs with dk or dv over 64 (D = 128): a block a unit
 // (its ticket); its two warpgroups stage each pass's query rows and a
 // 2-slot key ring together, with block-wide barriers, and warpgroup w
-// takes rows [64 w, 64 w + 64) of dk of dS.
-template <int D>
+// takes rows [64 w, 64 w + 64) of dk of dS. o is OutT: bf16, or float32
+// (the partial outputs of a head cut into 128-wide blocks, which the
+// caller sums before their one rounding to bf16); only the stores differ.
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     gla_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   const float* __restrict__ g, __nv_bfloat16* __restrict__ o,
+                   const float* __restrict__ g, OutT* __restrict__ o,
                    float* __restrict__ state, float* scratch, int* sync,
                    int BH, int S, int L, int dk, int dv, bool vec) {
   static_assert(D == 128, "dk, dv <= 64 take gla_ws_kernel");
@@ -435,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const __nv_bfloat16* kc = k + row0 * dk;
   const __nv_bfloat16* vc = v + row0 * dv;
   const float* gc = g + row0;
-  __nv_bfloat16* oc = o + row0 * dv;
+  OutT* oc = o + row0 * dv;
   const float gl = gc[L - 1];
   const int npass = (L + kQT - 1) / kQT;
   int* flags = sync + 1;
@@ -677,13 +688,22 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float y1 =
               __fadd_rn(acc[4 * j + 2 * h + 1],
                         __fmul_rn(eg[h], in[4 * j + 2 * h + 1]));
-          __nv_bfloat16* op = oc + (long long)i * dv + col;
-          if (dv % 2 == 0 && col + 1 < dv) {
-            *reinterpret_cast<__nv_bfloat162*>(op) =
-                __floats2bfloat162_rn(y0, y1);
+          OutT* op = oc + (long long)i * dv + col;
+          if constexpr (std::is_same<OutT, float>::value) {
+            if (dv % 2 == 0 && col + 1 < dv) {
+              *reinterpret_cast<float2*>(op) = make_float2(y0, y1);
+            } else {
+              if (col < dv) op[0] = y0;
+              if (col + 1 < dv) op[1] = y1;
+            }
           } else {
-            if (col < dv) op[0] = __float2bfloat16_rn(y0);
-            if (col + 1 < dv) op[1] = __float2bfloat16_rn(y1);
+            if (dv % 2 == 0 && col + 1 < dv) {
+              *reinterpret_cast<__nv_bfloat162*>(op) =
+                  __floats2bfloat162_rn(y0, y1);
+            } else {
+              if (col < dv) op[0] = __float2bfloat16_rn(y0);
+              if (col + 1 < dv) op[1] = __float2bfloat16_rn(y1);
+            }
           }
         }
       }
@@ -1314,18 +1334,24 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// K10. q, k [BH, S, dk], v [BH, S, dv], o [BH, S, dv], all float32
-// (bf16 = 0) or all bfloat16 (bf16 = 1), any 2-byte (bf16) or 4-byte
-// (f32) alignment; g [BH, S] and state [BH, dk, dv] float32; scratch
-// float32 [BH, S / L, dk, dv]; sync int32 [1 + BH S / L] (zeroed here, on
-// the stream); S a multiple of L; dk, dv <= 128. One kernel launch of
-// BH S / L blocks after the memset. Returns the CUDA error of the memset
-// or cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head dim over 128.
+// K10. q, k [BH, S, dk], v [BH, S, dv], all float32 (bf16 = 0) or all
+// bfloat16 (bf16 = 1), any 2-byte (bf16) or 4-byte (f32) alignment; o
+// [BH, S, dv] in their dtype, or float32 for bfloat16 inputs when of32 = 1
+// (gla_mma_kernel only: max(dk, dv) over 64); g [BH, S] and state [BH, dk,
+// dv] float32; scratch float32 [BH, S / L, dk, dv]; sync int32 [1 + BH S /
+// L] (zeroed here, on the stream); S a multiple of L; dk, dv <= 128. One
+// kernel launch of BH S / L blocks after the memset. Returns the CUDA error
+// of the memset or cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a head dim over 128 or a float32 output that
+// gla_ws_kernel would have to write.
 extern "C" int gla_scan_fwd(const void* q, const void* k, const void* v,
                             const float* g, void* o, float* state,
                             float* scratch, int* sync, int BH, int S, int L,
-                            int dk, int dv, int bf16, void* stream) {
+                            int dk, int dv, int bf16, int of32,
+                            void* stream) {
+  const int d = dk > dv ? dk : dv;
+  if (bf16 && (d > 128 || (of32 && d <= 64)))
+    return (int)cudaErrorInvalidValue;
   if (BH == 0 || S == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int units = BH * (S / L);
@@ -1335,15 +1361,17 @@ extern "C" int gla_scan_fwd(const void* q, const void* k, const void* v,
   if (bf16) {
     const bool vec = dk % 8 == 0 && dv % 8 == 0 && (uintptr_t)q % 16 == 0 &&
                      (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
-    const int d = dk > dv ? dk : dv;
-    if (d > 128) return (int)cudaErrorInvalidValue;
-    auto run = [&](auto kernel, size_t smem) {
-      return float_io::launch(kernel, units, kThreads, smem, s,
-                              (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                              (const __nv_bfloat16*)v, g, (__nv_bfloat16*)o,
-                              state, scratch, sync, BH, S, L, dk, dv, vec);
+    auto mma = [&](auto kernel, auto* out) {
+      return float_io::launch(kernel, units, kThreads, Smem<128>::bytes, s,
+                              (const __nv_bfloat16*)q,
+                              (const __nv_bfloat16*)k,
+                              (const __nv_bfloat16*)v, g, out, state,
+                              scratch, sync, BH, S, L, dk, dv, vec);
     };
-    if (d > 64) return run(gla_mma_kernel<128>, Smem<128>::bytes);
+    if (d > 64)
+      return of32 ? mma(gla_mma_kernel<128, float>, (float*)o)
+                  : mma(gla_mma_kernel<128, __nv_bfloat16>,
+                        (__nv_bfloat16*)o);
     // persistent: one block an SM
     int dev = 0, sms = 0;
     cudaError_t e = cudaFuncSetAttribute(

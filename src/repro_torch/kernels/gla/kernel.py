@@ -11,12 +11,15 @@ length, each chunk computes
     S  <- e^{g_L} S + sum_j (k_j e^{g_L - g_j})^T v_j
 
 for q, k [B, H, S, dk] and v [B, H, S, dv] in float32 or bfloat16 (one
-dtype for the three), returning o in v's dtype and the final state
-[B, H, dk, dv] in float32.  The cumsum stays a torch op outside the
+dtype for the three), returning o in v's dtype (or in float32 when the
+caller asks: the partial outputs of ``ops.gla_blocked``) and the final
+state [B, H, dk, dv] in float32.  The cumsum stays a torch op outside the
 kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
 
 * :func:`gla_chunks` is the wrapper: CUDA tensors launch ``csrc/gla.cu``
-  (or raise), CPU tensors take :func:`gla_chunks_plain`.
+  (or raise), CPU tensors take :func:`gla_chunks_plain`.  dk and dv are
+  at most MAX_HEAD_DIM; ``ops.gla_blocked`` cuts wider heads into
+  blocks of that width.
   ``LIB.launches`` counts the launches.  The kernel computes each
   (head, chunk) as a unit of its own and hands each chunk's state to the
   next chunk's unit inside the launch (a look-back through a float32
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,7 +58,7 @@ LIB = KernelLib(
     headers=(FLOAT_IO_HEADER,
              os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
                           "attention", "csrc", "wgmma.cuh")),
-    signatures={"gla_scan_fwd": ([_P] * 8 + [_I] * 6 + [_P],
+    signatures={"gla_scan_fwd": ([_P] * 8 + [_I] * 7 + [_P],
                                  ctypes.c_int)})
 
 
@@ -82,27 +85,41 @@ def _shapes(q, k, v, g, chunk: int):
     return b, h, s, dk, v.shape[-1]
 
 
+def _out_dtype(v: torch.Tensor, out_dtype) -> torch.dtype:
+    if out_dtype not in (None, v.dtype, torch.float32):
+        raise ValueError(f"o comes out in v's dtype or float32, not "
+                         f"{out_dtype}")
+    return v.dtype if out_dtype is None else out_dtype
+
+
 def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               g: torch.Tensor, chunk: int
+               g: torch.Tensor, chunk: int,
+               out_dtype: Optional[torch.dtype] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: the chunked scan of q, k [B, H, S, dk], v [B, H, S, dv] with
     the within-chunk cumsum g [B, H, S] (float32) -> (o [B, H, S, dv] in
-    v's dtype, final state [B, H, dk, dv] float32).  CUDA tensors launch
-    the kernel (dk, dv <= MAX_HEAD_DIM); CPU tensors take the plain
-    version."""
+    ``out_dtype``: v's dtype when None, or float32; final state [B, H,
+    dk, dv] float32).  CUDA tensors launch the kernel (dk, dv <=
+    MAX_HEAD_DIM; a float32 o of bfloat16 inputs needs max(dk, dv) > 64,
+    which runs ``gla_mma_kernel``); CPU tensors take the plain version."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    odt = _out_dtype(v, out_dtype)
     if not q.is_cuda:
-        return gla_chunks_plain(q, k, v, g, chunk)
+        return gla_chunks_plain(q, k, v, g, chunk, odt)
     dev = q.device
     check_kernel_device(q)
     if max(dk, dv) > MAX_HEAD_DIM:
         raise ValueError(f"K10 takes dk, dv up to {MAX_HEAD_DIM}, got "
                          f"{dk}, {dv}")
+    of32 = odt != v.dtype
+    if of32 and max(dk, dv) <= 64:
+        raise ValueError(f"a float32 o of bfloat16 inputs needs max(dk, "
+                         f"dv) > 64 (gla_mma_kernel), got {dk}, {dv}")
     check_tensor(q, "q", FLOAT_DTYPES, (b, h, s, dk), dev)
     check_tensor(k, "k", q.dtype, (b, h, s, dk), dev)
     check_tensor(v, "v", q.dtype, (b, h, s, dv), dev)
     check_tensor(g, "g", torch.float32, (b, h, s), dev)
-    o = torch.empty((b, h, s, dv), dtype=v.dtype, device=dev)
+    o = torch.empty((b, h, s, dv), dtype=odt, device=dev)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
     units = b * h * (s // chunk)
     scratch = torch.empty((units * dk * dv,), dtype=torch.float32,
@@ -112,7 +129,7 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         o.data_ptr(), state.data_ptr(), scratch.data_ptr(), sync.data_ptr(),
         b * h, s, chunk, dk, dv,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), int(of32),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("gla_scan_fwd", err)
     LIB.launches += 1
@@ -120,11 +137,14 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     g: torch.Tensor, chunk: int
+                     g: torch.Tensor, chunk: int,
+                     out_dtype: Optional[torch.dtype] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`gla_chunks` (same arguments and
-    results), on whatever device the tensors are on."""
+    results, any head dims), on whatever device the tensors are on.  A
+    float32 o is the float32 sum before its rounding to v's dtype."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    odt = _out_dtype(v, out_dtype)
     dev = q.device
     qf = q.reshape(b * h, s, dk)
     kf = k.reshape(b * h, s, dk)
@@ -133,7 +153,7 @@ def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     idx = torch.arange(chunk, device=dev)
     causal = idx[:, None] >= idx[None, :]
     state = torch.zeros((b * h, dk, dv), dtype=torch.float32, device=dev)
-    out = torch.empty((b * h, s, dv), dtype=v.dtype, device=dev)
+    out = torch.empty((b * h, s, dv), dtype=odt, device=dev)
     for c0 in range(0, s, chunk):
         qb = qf[:, c0:c0 + chunk].float()                 # [BH, L, dk]
         kb = kf[:, c0:c0 + chunk].float()
@@ -144,7 +164,7 @@ def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(causal, scores * decay, 0.0)
         o = torch.matmul(scores, vb)
         o = o + torch.exp(gb)[:, :, None] * torch.matmul(qb, state)
-        out[:, c0:c0 + chunk] = o.to(v.dtype)
+        out[:, c0:c0 + chunk] = o.to(odt)
         w = torch.exp(gb[:, -1:] - gb)                    # [BH, L]
         state = (torch.exp(gb[:, -1])[:, None, None] * state
                  + torch.matmul((kb * w[:, :, None]).transpose(1, 2), vb))

@@ -5,8 +5,9 @@ named).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --batch 4 --prompt-len 64 --max-new 32
 
-Every arch but xlstm-1p3b is served (deepseek-v2-236b and kimi-k2-1t-a32b
-through MLA and the MoE FFN).
+Every arch is served: deepseek-v2-236b and kimi-k2-1t-a32b through MLA
+and the MoE FFN, xlstm-1p3b through mLSTM (K10 on 128-wide blocks of its
+heads) and sLSTM (the sLSTM scan kernel).
 
 ``--smoke`` is kept as the reference has it: ``store_true`` with
 ``default=True``, so it cannot be turned off and the driver always

@@ -1,8 +1,8 @@
 """The model zoo's serving path — the port of ``repro/models``: configs,
 layers, GQA and MLA attention (prefill through K9), the mixture-of-
-experts FFN (``moe``), the GLA core and Mamba2 (prefill through K10), and
-the decoder with its caches.  mLSTM and sLSTM are a later slice of the
-port."""
+experts FFN (``moe``), the GLA core, Mamba2 and mLSTM (prefill through
+K10), sLSTM (through the sLSTM scan kernel), and the decoder with its
+caches."""
 
 from .config import ModelConfig, segments
 from . import layers, attention, moe, ssm, model

@@ -5,7 +5,8 @@ prefill and decode.
 A :class:`DecoderLM` holds the layers in order: ``layers[i]`` is layer
 i's block (an :class:`AttnBlock` for ``attn``, ``attn_dense`` and
 ``attn_moe``, with GQA or MLA attention and an MLP or an MoE FFN; a
-:class:`Mamba2Block`; or for zamba2's ``shared_attn`` a
+:class:`Mamba2Block`, :class:`MLSTMBlock` or :class:`SLSTMBlock`; or
+for zamba2's ``shared_attn`` a
 :class:`SharedAttnSlot` without weights, since one shared
 :class:`AttnBlock`, ``shared_attn``, serves every occurrence).
 ``config.segments`` only fixes that order: the reference scans each
@@ -16,7 +17,8 @@ segment's stacked ``[repeats, ...]`` leaves unstacked to their layers
 
 A cache is ``{"layers": [per-layer dict]}``: ``{"k", "v"}``
 [B, max_len, KV, dh] for GQA layers, ``{"c_kv", "k_rope"}`` for MLA
-layers, ``{"conv", "ssm"}`` for Mamba2 layers.  :func:`prefill` and
+layers, ``{"conv", "ssm"}`` for Mamba2 and mLSTM layers, ``{"h", "c",
+"n", "m"}`` for sLSTM layers.  :func:`prefill` and
 :func:`decode_step` update its tensors in place (the reference donates
 its cache to the decode step) and return it.
 
@@ -24,8 +26,7 @@ The reference's ``remat`` and ``shard`` callbacks have no effect when
 serving; the signatures keep them.  ``mesh`` and ``data_axes`` go to the
 MoE layers, which run unmapped (a mesh that shards the experts raises,
 ``moe.moe_apply``).  ``forward`` and ``loss_fn`` sum the MoE layers' aux
-losses.  mLSTM and sLSTM raise ``NotImplementedError`` from
-:func:`init`: they are a later slice of the port.
+losses.
 """
 
 from __future__ import annotations
@@ -43,21 +44,21 @@ from .config import ModelConfig, segments
 from .layers import (Dtypes, Embedding, MLP, RMSNorm, cross_entropy, embed,
                      rmsnorm, unembed)
 from .moe import MoE
-from .ssm import Mamba2
+from .ssm import MLSTM, SLSTM, Mamba2
 
 __all__ = ["init", "make_cache", "forward", "loss_fn", "prefill",
            "decode_step", "param_count", "active_param_count",
-           "DecoderLM", "AttnBlock", "Mamba2Block", "SharedAttnSlot",
+           "DecoderLM", "AttnBlock", "Mamba2Block", "MLSTMBlock",
+           "SLSTMBlock", "SharedAttnSlot",
            "params_from_reference", "unstack_segments", "block_kinds"]
 
 ShardFn = Callable[[torch.Tensor, str], torch.Tensor]
 _id_shard: ShardFn = lambda x, kind: x
 
-#: The block kinds the port serves, and those a later slice ports.
-KINDS = ("attn", "attn_dense", "attn_moe", "shared_attn", "mamba2")
+#: The block kinds the port serves.
+KINDS = ("attn", "attn_dense", "attn_moe", "shared_attn", "mamba2",
+         "mlstm", "slstm")
 ATTN_KINDS = ("attn", "attn_dense", "attn_moe")
-_LATER = {"mlstm": "the mLSTM/sLSTM slice",
-          "slstm": "the mLSTM/sLSTM slice"}
 
 
 # ---------------------------------------------------------------------------
@@ -100,19 +101,41 @@ class AttnBlock(nn.Module):
         return x + h2, new_cache, aux
 
 
-class Mamba2Block(nn.Module):
-    """Pre-norm Mamba2 mixer: ``ln``, ``mix``."""
+class _MixerBlock(nn.Module):
+    """Pre-norm recurrent mixer: ``ln``, ``mix`` (the subclass's
+    ``MIXER``)."""
+
+    MIXER: type
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device) -> None:
         super().__init__()
         self.ln = RMSNorm(cfg.d_model, Dtypes.param(cfg), device=device)
-        self.mix = Mamba2(cfg, generator=generator, device=device)
+        self.mix = self.MIXER(cfg, generator=generator, device=device)
 
     def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos,
                 mesh=None, data_axes=("data",)):
         h, new_cache = self.mix(self.ln(x, cfg.norm_eps), cfg, cache)
         return x + h, new_cache, None
+
+
+class Mamba2Block(_MixerBlock):
+    """Pre-norm Mamba2 mixer: ``ln``, ``mix``."""
+    MIXER = Mamba2
+
+
+class MLSTMBlock(_MixerBlock):
+    """Pre-norm mLSTM mixer: ``ln``, ``mix``."""
+    MIXER = MLSTM
+
+
+class SLSTMBlock(_MixerBlock):
+    """Pre-norm sLSTM mixer: ``ln``, ``mix``."""
+    MIXER = SLSTM
+
+
+_MIXER_BLOCKS = {"mamba2": Mamba2Block, "mlstm": MLSTMBlock,
+                 "slstm": SLSTMBlock}
 
 
 class SharedAttnSlot(nn.Module):
@@ -131,15 +154,6 @@ def block_kinds(cfg: ModelConfig) -> List[str]:
     return kinds
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    later = [k for k in block_kinds(cfg) if k not in KINDS]
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {later[0]} is not ported yet: it is "
-            f"{_LATER.get(later[0], 'a later slice')} of the port, which "
-            f"serves {', '.join(KINDS)} blocks")
-
-
 class DecoderLM(nn.Module):
     """``embed``, ``final_norm``, ``shared_attn`` (zamba2 only) and
     ``layers`` in depth order."""
@@ -147,10 +161,12 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device) -> None:
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
         kinds = block_kinds(cfg)
+        unknown = sorted(set(kinds) - set(KINDS))
+        if unknown:
+            raise ValueError(f"unknown block kind {unknown[0]}")
         self.embed = Embedding(cfg, **kw)
         self.final_norm = RMSNorm(cfg.d_model, Dtypes.param(cfg),
                                   device=device)
@@ -158,7 +174,7 @@ class DecoderLM(nn.Module):
             self.shared_attn = AttnBlock(cfg, kind="shared_attn", **kw)
         self.layers = nn.ModuleList(
             SharedAttnSlot() if kind == "shared_attn"
-            else Mamba2Block(cfg, **kw) if kind == "mamba2"
+            else _MIXER_BLOCKS[kind](cfg, **kw) if kind in _MIXER_BLOCKS
             else AttnBlock(cfg, kind=kind, **kw) for kind in kinds)
 
     @property
@@ -200,7 +216,7 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     """Random weights for ``cfg`` drawn on ``device`` (CUDA unless the
     caller passes another) from ``generator`` (a fresh one seeded 0 on
     the device when None).  Raises when CUDA is asked for and no card is
-    visible, and ``NotImplementedError`` for kinds of a later slice."""
+    visible."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -268,8 +284,8 @@ def _block_cache_spec(kind: str, cfg: ModelConfig, batch: int,
         return MLAttention.cache_spec(cfg, batch, max_len)
     if kind in ATTN_KINDS + ("shared_attn",):
         return GQAttention.cache_spec(cfg, batch, max_len)
-    if kind == "mamba2":
-        return Mamba2.state_spec(cfg, batch)
+    if kind in _MIXER_BLOCKS:
+        return _MIXER_BLOCKS[kind].MIXER.state_spec(cfg, batch)
     raise ValueError(kind)
 
 

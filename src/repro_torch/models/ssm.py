@@ -1,25 +1,31 @@
-"""The chunked gated-linear-attention (GLA) core and the Mamba2 (SSD)
-block — the port of ``repro/models/ssm.py`` (lines 44-207).
+"""Recurrent blocks — the port of ``repro/models/ssm.py``: the chunked
+gated-linear-attention (GLA) core, Mamba2 (SSD), mLSTM and sLSTM.
 
-Mamba2 is an instance of the per-head recurrence::
+Mamba2 and mLSTM are instances of the per-head recurrence::
 
     S_t = a_t * S_{t-1} + k_t^T v_t          (state  [d_k, d_v])
     o_t = q_t @ S_t
 
-with q = C, k = B, v = dt * x and log a = -dt * exp(A_log) (d_k = N,
-d_v = P), and a per-step scalar decay ``a_t = exp(log_a_t) <= 1``.
+with a per-step scalar decay ``a_t = exp(log_a_t) <= 1``: Mamba2 takes
+q = C, k = B, v = dt * x and log a = -dt * exp(A_log) (d_k = N, d_v =
+P); mLSTM takes its q, k, v projections, log a = log sigmoid(f~) and v
+scaled by the input gate, with the normalizer as a second scan of v =
+the input gate (d_v = 1), h = (q S) / max(|q n|, 1).
 
-The route to K10: :func:`gla_chunked` runs ``kernels.gla.gla_scan``.  It
-pads S at the end to a multiple of the chunk with q = k = v = 0 and
-log_a = 0, which leaves the real rows and the final state exact.  K10
-takes no initial state (as the reference's ``gla_kernel_call`` takes
-none), so an initial state S0 enters here, in float32, by linearity:
-``o_t += exp(sum_{u<=t} log_a_u) q_t S0`` and ``final += exp(sum log_a)
-S0``; at a prefill from an empty cache the term is exactly zero.
-Decode is :func:`gla_step` in plain torch with a float32 state, as in
-the reference.
+The route to K10: :func:`gla_chunked` runs ``kernels.gla.gla_scan``,
+which cuts heads wider than 128 (mLSTM's) into 128-wide blocks.  It pads
+S at the end to a multiple of the chunk with q = k = v = 0 and log_a =
+0, which leaves the real rows and the final state exact.  K10 takes no
+initial state (as the reference's ``gla_kernel_call`` takes none), so an
+initial state S0 enters here, in float32, by linearity: ``o_t +=
+exp(sum_{u<=t} log_a_u) q_t S0`` and ``final += exp(sum log_a) S0``; at
+a prefill from an empty cache the term is exactly zero, and still costs
+its product.  Decode is :func:`gla_step` in plain torch with a float32
+state, as in the reference.
 
-mLSTM and sLSTM (xLSTM) are the next slice but one of the port.
+sLSTM is a true sequential scan (exponential gating with the m
+stabilizer); its recurrence runs in ``kernels.slstm``, one launch a
+call, prefill and decode alike.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.gla import gla_scan
+from ..kernels.slstm import slstm
 from .config import ModelConfig
 from .layers import Dense, Dtypes, RMSNorm, normal, rmsnorm
 
-__all__ = ["gla_chunked", "gla_step", "Mamba2"]
+__all__ = ["gla_chunked", "gla_step", "Mamba2", "MLSTM", "SLSTM"]
 
 
 # ---------------------------------------------------------------------------
@@ -182,3 +189,138 @@ class Mamba2(nn.Module):
         return {"conv": ((batch, cfg.ssm_conv - 1, conv_ch),
                          Dtypes.compute(cfg)),
                 "ssm": ((batch, H, N, P_), torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM)
+# ---------------------------------------------------------------------------
+
+def _mlstm_dims(cfg: ModelConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return d_inner, cfg.num_heads, d_inner // cfg.num_heads
+
+
+class MLSTM(nn.Module):
+    """The mLSTM mixer (the reference's ``mlstm_init``); ``forward`` is
+    its ``mlstm_apply`` and ``state_spec`` its ``mlstm_state_spec``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device) -> None:
+        super().__init__()
+        pd = Dtypes.param(cfg)
+        D = cfg.d_model
+        d_inner, H, _ = _mlstm_dims(cfg)
+        kw = dict(generator=generator, device=device)
+        par = lambda t: nn.Parameter(t, requires_grad=False)
+        self.up_proj = Dense(D, 2 * d_inner, pd, **kw)
+        self.conv_w = par(normal(generator, (cfg.ssm_conv, d_inner), 0.1,
+                                 pd, device))
+        self.conv_b = par(torch.zeros((d_inner,), dtype=pd, device=device))
+        self.wq = Dense(d_inner, d_inner, pd, **kw)
+        self.wk = Dense(d_inner, d_inner, pd, **kw)
+        self.wv = Dense(d_inner, d_inner, pd, **kw)
+        self.w_gates = Dense(d_inner, 2 * H, pd, **kw)   # i~, f~ per head
+        self.norm = RMSNorm(d_inner, pd, device=device)
+        self.down_proj = Dense(d_inner, D, pd, **kw)
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """x: [B,S,D].  ``state`` = {"conv": [B,K-1,d_inner], "ssm":
+        [B,H,dh,dh+1]}: the numerator's state and, in its last column,
+        the normalizer's."""
+        B, S, _ = x.shape
+        d_inner, H, dh = _mlstm_dims(cfg)
+        u, z = torch.chunk(self.up_proj(x), 2, dim=-1)
+        c, conv_state = _causal_conv(u, self.conv_w, self.conv_b,
+                                     None if state is None else state["conv"])
+        c = F.silu(c)
+
+        def heads(t):
+            return t.reshape(B, S, H, dh).transpose(1, 2)
+
+        q = heads(self.wq(c)) * (dh ** -0.5)
+        k = heads(self.wk(c)) * (dh ** -0.5)
+        v = heads(self.wv(u))
+        gates = self.w_gates(u).float()                            # [B,S,2H]
+        i_g = torch.sigmoid(gates[..., :H]).transpose(1, 2)        # [B,H,S]
+        # jax.nn.log_sigmoid(x) = -softplus(-x)
+        log_f = (-_softplus(-gates[..., H:])).transpose(1, 2)
+        # the normalizer as a separate dv = 1 scan, as the reference keeps it
+        v_num = v * i_g[..., None].to(v.dtype)
+        v_den = i_g[..., None].to(v.dtype)
+
+        if state is None:
+            o_num, _ = gla_chunked(q, k, v_num, log_f, cfg.gla_chunk)
+            o_den, _ = gla_chunked(q, k, v_den, log_f, cfg.gla_chunk)
+            new_state = None
+        elif S == 1:
+            ssm = state["ssm"]
+            o_num, fin_n = gla_step(q[:, :, 0], k[:, :, 0], v_num[:, :, 0],
+                                    log_f[..., 0], ssm[..., :dh])
+            o_den, fin_d = gla_step(q[:, :, 0], k[:, :, 0], v_den[:, :, 0],
+                                    log_f[..., 0], ssm[..., dh:])
+            o_num, o_den = o_num[:, :, None], o_den[:, :, None]
+            new_state = {"conv": conv_state,
+                         "ssm": torch.cat([fin_n, fin_d], dim=-1)}
+        else:
+            ssm = state["ssm"]
+            o_num, fin_n = gla_chunked(q, k, v_num, log_f, cfg.gla_chunk,
+                                       initial_state=ssm[..., :dh])
+            o_den, fin_d = gla_chunked(q, k, v_den, log_f, cfg.gla_chunk,
+                                       initial_state=ssm[..., dh:])
+            new_state = {"conv": conv_state,
+                         "ssm": torch.cat([fin_n, fin_d], dim=-1)}
+
+        # in num's dtype, as the reference divides
+        den = torch.clamp(o_den[..., 0].abs(), min=1.0)
+        h = o_num / den[..., None].to(o_num.dtype)
+        h = h.transpose(1, 2).reshape(B, S, d_inner)
+        h = rmsnorm(self.norm.scale, h, cfg.norm_eps) * F.silu(z)
+        return self.down_proj(h), new_state
+
+    @staticmethod
+    def state_spec(cfg: ModelConfig, batch: int
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """{name: (shape, dtype)} of the block's recurrent state."""
+        d_inner, H, dh = _mlstm_dims(cfg)
+        return {"conv": ((batch, cfg.ssm_conv - 1, d_inner),
+                         Dtypes.compute(cfg)),
+                "ssm": ((batch, H, dh, dh + 1), torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (scalar LSTM with exponential gating + stabilizer)
+# ---------------------------------------------------------------------------
+
+class SLSTM(nn.Module):
+    """The sLSTM mixer (the reference's ``slstm_init``); ``forward`` is
+    its ``slstm_apply`` (the scan through ``kernels.slstm``, one launch)
+    and ``state_spec`` its ``slstm_state_spec``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device) -> None:
+        super().__init__()
+        pd = Dtypes.param(cfg)
+        D = cfg.d_model
+        self.w_in = Dense(D, 4 * D, pd, generator=generator, device=device)
+        self.r = nn.Parameter(normal(generator, (4, D), 0.02, pd, device),
+                              requires_grad=False)
+        self.out_norm = RMSNorm(D, pd, device=device)
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """x: [B,S,D].  ``state`` = {"h", "c", "n", "m"}: [B,D] float32
+        each (zeros when None)."""
+        zifo = self.w_in(x)                                        # [B,S,4D]
+        hs, new = slstm(zifo, self.r, state, device=x.device)  # x's dtype
+        y = rmsnorm(self.out_norm.scale, hs, cfg.norm_eps)
+        return y, None if state is None else new
+
+    @staticmethod
+    def state_spec(cfg: ModelConfig, batch: int
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """{name: (shape, dtype)} of the block's recurrent state."""
+        spec = ((batch, cfg.d_model), torch.float32)
+        return {"h": spec, "c": spec, "n": spec, "m": spec}

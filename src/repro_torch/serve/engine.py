@@ -3,12 +3,13 @@ port of ``repro/serve/engine.py``.
 
 The steps update the KV/SSM cache in place (the reference donates it to
 its decode step).  The prefill runs K9 in every attention layer (GQA or
-MLA) and K10 in every Mamba2 layer; a decode step runs neither (plain
-torch over the cache, MLA in its absorbed form over the latent cache, as
-the reference's decode is jnp).  Every arch but xLSTM is served, the
-MoE archs (deepseek-v2, kimi-k2) included.  ``mesh``, ``data_axes`` and
-``shard`` have no effect when serving on one card; the signatures keep
-them.
+MLA) and K10 in every Mamba2 and mLSTM layer; a decode step runs neither
+(plain torch over the cache, MLA in its absorbed form over the latent
+cache, as the reference's decode is jnp).  The sLSTM scan kernel runs
+once an sLSTM layer in the prefill and in each decode step.  Every arch
+is served, the MoE archs (deepseek-v2, kimi-k2) and xLSTM included.
+``mesh``, ``data_axes`` and ``shard`` have no effect when serving on one
+card; the signatures keep them.
 
 One deliberate difference: temperature sampling draws from an explicit
 ``torch.Generator`` that advances with every step, where the reference

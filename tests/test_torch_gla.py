@@ -92,6 +92,88 @@ def test_bf16_output_in_v_dtype():
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("dk,dv", [(256, 256), (256, 1), (1, 256),
+                                   (200, 130)])
+def test_blocked_head_dims(dk, dv, monkeypatch):
+    """Heads wider than K10's 128 (mLSTM's 1024, its normalizer's dv = 1)
+    through ``gla_blocked``: o and the state against the reference's
+    kernel (interpret mode) and its model path within the tolerance; the
+    state bitwise the undivided plain version's (a state block needs only
+    its own k and v blocks; at dk = 1 the undivided state update is a
+    [1, L] x [L, dv] product, which the CPU's BLAS sums in another order
+    than the padded [128, L] x [L, 128] blocks: within the tolerance);
+    ceil(dv / 128) K10 calls, each over the dk blocks as extra heads of
+    width 128."""
+    from repro_torch.kernels.gla import ops as tops
+    B, H, S, chunk = 1, 2, 64, 16
+    q, k, v, log_a = _inputs(np.random.default_rng(dk + dv), B, H, S, dk, dv)
+    q, k = (t / np.float32(np.sqrt(dk)) for t in (q, k))
+    ro, rs = rgla.gla_scan(q, k, v, log_a, chunk=chunk)
+    mo, ms = gla_chunked(*map(jnp.asarray, (q, k, v, log_a)), chunk)
+    calls = []
+    real = tops.gla_chunks
+
+    def spy(qb, kb, vb, gb, c, out_dtype=None):
+        calls.append((tuple(qb.shape), tuple(vb.shape), out_dtype))
+        return real(qb, kb, vb, gb, c, out_dtype=out_dtype)
+
+    monkeypatch.setattr(tops, "gla_chunks", spy)
+    o, st = _port(q, k, v, log_a, chunk)
+    nk = -(-dk // 128)
+    assert calls == [((B, H * nk, S, 128), (B, H * nk, S, min(128, dv - j)),
+                      torch.float32) for j in range(0, dv, 128)]
+    assert o.shape == (B, H, S, dv) and st.shape == (B, H, dk, dv)
+    for want_o, want_s in ((ro, rs), (mo, ms)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_s),
+                                   rtol=RTOL, atol=ATOL)
+    tq, tk, tv = (torch.tensor(t) for t in (q, k, v))
+    g = tkernel.chunk_cumsum(torch.tensor(log_a), chunk)
+    po, ps = tkernel.gla_chunks_plain(tq, tk, tv, g, chunk)
+    assert torch.equal(st, ps) or dk == 1
+    np.testing.assert_allclose(st.numpy(), ps.numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(o.numpy(), po.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_blocked_bf16():
+    """bfloat16 heads of 256: o in bfloat16 (the float32 partials summed,
+    then rounded once) within one bfloat16 step of the undivided plain
+    version and of the reference's kernel on the same bfloat16 inputs;
+    the state bitwise the undivided plain version's."""
+    q, k, v, log_a = _inputs(np.random.default_rng(12), 1, 2, 64, 256, 256)
+    q, k = q / 16.0, k / 16.0
+    jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    tq, tk, tv = (torch.tensor(t).to(torch.bfloat16) for t in (q, k, v))
+    ro, rs = rgla.gla_scan(jq, jk, jv, log_a, chunk=16)
+    o, s = _port(tq, tk, tv, log_a, 16)
+    g = tkernel.chunk_cumsum(torch.tensor(log_a), 16)
+    po, ps = tkernel.gla_chunks_plain(tq, tk, tv, g, 16)
+    assert o.dtype == torch.bfloat16 and torch.equal(s, ps)
+    for want in (po.float().numpy(), np.asarray(ro, np.float32)):
+        np.testing.assert_allclose(o.float().numpy(), want,
+                                   rtol=RTOL + 2 ** -7, atol=ATOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_float32_output_mode():
+    """``out_dtype=torch.float32`` on bfloat16 inputs is the plain
+    version's float32 o before its cast: cast, it is the bfloat16 o
+    bitwise; the state is the same.  Other output dtypes are refused."""
+    q, k, v, log_a = _inputs(np.random.default_rng(13), 1, 2, 64, 128, 96)
+    tq, tk, tv = (torch.tensor(t).to(torch.bfloat16) for t in (q, k, v))
+    g = tkernel.chunk_cumsum(torch.tensor(log_a), 16)
+    o32, s32 = tkernel.gla_chunks(tq, tk, tv, g, 16,
+                                  out_dtype=torch.float32)
+    o16, s16 = tkernel.gla_chunks(tq, tk, tv, g, 16)
+    assert o32.dtype == torch.float32 and o16.dtype == torch.bfloat16
+    assert torch.equal(o32.to(torch.bfloat16), o16) and torch.equal(s32, s16)
+    assert not torch.equal(o32, o16.float())
+    with pytest.raises(ValueError, match="dtype"):
+        tkernel.gla_chunks(tq, tk, tv, g, 16, out_dtype=torch.float16)
+
+
 def test_oracle_copy_bitwise():
     q, k, v, log_a = _inputs(np.random.default_rng(4), 1, 2, 24, 4, 6)
     init = np.random.default_rng(5).normal(size=(1, 2, 4, 6))

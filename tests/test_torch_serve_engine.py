@@ -26,6 +26,7 @@ from repro.serve import ServeEngine as RefEngine
 from repro_torch import configs as tconfigs
 from repro_torch.kernels.attention import kernel as k9
 from repro_torch.kernels.gla import kernel as k10
+from repro_torch.kernels.slstm import kernel as kslstm
 from repro_torch.models import model as tmodel
 from repro_torch.serve import (ServeEngine, make_decode_step,
                                make_prefill_step)
@@ -33,7 +34,7 @@ from repro_torch.serve import (ServeEngine, make_decode_step,
 LOGIT_TOL = 1e-4
 SLICE = ("granite-20b", "minitron-4b", "phi3-mini-3p8b", "starcoder2-15b",
          "musicgen-large", "qwen2-vl-2b", "zamba2-7b", "deepseek-v2-236b",
-         "kimi-k2-1t-a32b")
+         "kimi-k2-1t-a32b", "xlstm-1p3b")
 B, S, NEW = 2, 12, 6
 
 _ref_init = jax.jit(rmodel.init, static_argnums=(1,))
@@ -82,11 +83,12 @@ def test_greedy_tokens_equal_reference(arch):
             break
     else:
         pytest.fail(f"{arch}: every prompt seed ties within {LOGIT_TOL}")
-    before = (k9.LIB.launches, k9.BF16_LIB.launches, k10.LIB.launches)
+    launches = lambda: (k9.LIB.launches, k9.BF16_LIB.launches,
+                        k10.LIB.launches, kslstm.LIB.launches)
+    before = launches()
     got = ServeEngine(model, tconfigs.smoke_config(arch),
                       max_len=S + NEW).generate(prompts, max_new=NEW)
-    assert (k9.LIB.launches, k9.BF16_LIB.launches,
-            k10.LIB.launches) == before
+    assert launches() == before
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
@@ -122,7 +124,8 @@ def test_eos_stops_like_reference():
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("arch", ["musicgen-large", "phi3-mini-3p8b"])
+@pytest.mark.parametrize("arch", ["musicgen-large", "phi3-mini-3p8b",
+                                  "xlstm-1p3b"])
 def test_temperature_sampling(arch):
     """Sampling draws from the caller's generator, which advances every
     step: one seed gives one output, another seed another; tokens stay
@@ -194,3 +197,14 @@ def test_launch_serve_cli_moe(monkeypatch, capsys):
     serve.main()
     out = capsys.readouterr().out
     assert "kimi-smoke" in out and "(2, 4)" in out
+
+
+def test_launch_serve_cli_xlstm(monkeypatch, capsys):
+    """The serving driver serves xLSTM (its SMOKE: 7 mLSTM + 1 sLSTM)."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "xlstm-1p3b", "--batch", "2",
+        "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert "xlstm-smoke" in out and "(2, 4)" in out
