@@ -186,11 +186,13 @@ Phases, in order (any failure exits non-zero):
     of the same weights on the card (K9 f32, K10) and on the CPU (the
     plain versions) within MODEL_F32_RTOL / MODEL_F32_ATOL.
 24. MoE/MLA serving on the card (``models.attention.MLAttention``,
-    ``models.moe``): (a) K9 at MLA's head (q and k 192 wide, v 128; its
-    ``<192, 128>`` instantiations) against its plain version at
+    ``models.moe``): (a) K9 at MLA's head (q and k 192 wide, v 128: bf16
+    on ``flash_mla_kernel``, warp-specialized and persistent, f32 on
+    ``flash_tf32_kernel<192, 128>``) against its plain version at
     deepseek-v2's (B 4, 128 heads, S 4096) and kimi-k2's (B 2, 64 heads)
     bf16 prefill shapes and at deepseek's f32 one (S 384), one launch
-    each, timed beside the plain version, the bound and SDPA;
+    each, timed beside the plain version, the bound and SDPA, with the
+    persistent blocks' share of the causal kv tiles;
     (b) deepseek-v2-236b at full width cut to 5 layers (1 dense + 4 MoE,
     random bf16 weights) serving 4 prompts of 4096 tokens for 32 new
     tokens through ``ServeEngine.generate``: K9 5 times a prefill, 0 a
@@ -207,28 +209,35 @@ Phases, in order (any failure exits non-zero):
     equal, and timed at the prefill's and a decode step's token counts.
 25. xLSTM serving on the card (``models.ssm.MLSTM``, ``SLSTM``): (a) K10
     on mLSTM's 1024-wide heads at xlstm-1p3b's prefill shape (B 4, H 4,
-    S 4096, chunk 256, bf16) through ``kernels.gla.gla_blocked``: the
-    numerator scan (8 launches on 128-wide blocks, float32 partial
-    outputs summed before one rounding) and the normalizer (dv 1, one
-    launch) against the undivided plain version, and in f32; a state
-    block bitwise one K10 launch on its own blocks; timed beside the
-    plain version and the un-blocked scan's bound; the zero-state term a
-    prefill from an empty cache adds, timed; (b) the sLSTM scan kernel at
+    S 4096, chunk 256, bf16) as a layer runs it: the numerator and the
+    normalizer as one scan of 1025 value columns through
+    ``kernels.gla.gla_scan``, which takes them whole on the wide route
+    (``gla_wide_scores_kernel``, then ``gla_wide_kernel``: 2 launches,
+    counted as K10-mlstm) against the undivided plain version; beside it
+    the blocked route it replaces (``gla_blocked``: 8 launches on
+    128-wide blocks with float32 partial outputs, and 1 for the
+    normalizer), held the same way and in f32, a state block bitwise one
+    K10 launch on its own blocks; both timed beside the plain version,
+    the un-blocked scan's bound and the look-back's state-traffic floor;
+    the zero-state term a prefill from an empty cache adds, timed; (b)
+    the sLSTM scan kernel at
     full width (B 4, S 4096, D 2048; bf16 and f32 zifo) against its plain
     version (bitwise expected; a difference witnessed, within SLSTM_TOL),
     timed beside its byte bound; (c) xlstm-1p3b at full width and depth
     (48 layers, random bf16 weights) serving 4 prompts of 4096 tokens for
-    32 new tokens through ``ServeEngine.generate``: K10 378 times and the
-    sLSTM scan 6 times a prefill, the sLSTM scan 6 times a decode step;
+    32 new tokens through ``ServeEngine.generate``: the wide route's two
+    kernels once each an mLSTM layer (K10-mlstm 84) and the sLSTM scan 6
+    times a prefill, the sLSTM scan 6 times a decode step;
     prefill and decode held to ``forward`` (MODEL_BF16_REL), timed and
     traced (GEMMs, K10, the sLSTM scan, the zero-state product, the
     rest), the peak memory; (d) xlstm cut to one period (7 mLSTM + 1
-    sLSTM) in float32, card against CPU (K10 63, the sLSTM scan 4 times):
+    sLSTM) in float32, card against CPU (K10 63 on 128-wide blocks, the
+    sLSTM scan 4 times):
     logits and caches within MODEL_F32_RTOL / _ATOL.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K9's two
-rows at MLA's head, K10's row on mLSTM's blocked heads and the sLSTM
+rows at MLA's head, K10's row on mLSTM's whole heads and the sLSTM
 scan's), the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``.  It needs no network and imports nothing of JAX.
 """
@@ -387,7 +396,8 @@ KERNELS = {
                "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
                "src/repro/kernels/attention/kernel.py:26"),
     "K9-mla": ("K9 causal flash attention at MLA's head (dh 192, dv 128), "
-               "bf16 (wgmma)",
+               "bf16 (flash_mla_kernel: TMA producer, two wgmma consumers, "
+               "persistent)",
                "src/repro_torch/kernels/attention/csrc/flash_wgmma.cu",
                "src/repro/kernels/attention/kernel.py:26"),
     "K9-f32-mla": ("K9 causal flash attention at MLA's head (dh 192, dv "
@@ -397,8 +407,8 @@ KERNELS = {
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
-    "K10-mlstm": ("K10 on mLSTM's 1024-wide heads in 128-wide blocks, bf16 "
-                  "(gla_mma_kernel, float32 partial outputs)",
+    "K10-mlstm": ("K10 on mLSTM's 1024-wide heads, whole, bf16 "
+                  "(gla_wide_scores_kernel, then gla_wide_kernel)",
                   "src/repro_torch/kernels/gla/csrc/gla.cu",
                   "src/repro/kernels/gla/kernel.py:22"),
     "sLSTM": ("sLSTM scan (jnp lax.scan in the reference, not a Pallas "
@@ -504,6 +514,7 @@ def counts() -> dict:
             "K9": attention.kernel.BF16_LIB.launches,
             "K9-f32": attention.kernel.LIB.launches,
             "K10": gla.kernel.LIB.launches,
+            "K10-mlstm": gla.kernel.WIDE_LAUNCHES,
             "sLSTM": slstm.kernel.LIB.launches}
 
 
@@ -514,6 +525,7 @@ def reset_counts() -> None:
     iir.kernel.LIB.launches = attention.kernel.LIB.launches = 0
     attention.kernel.BF16_LIB.launches = 0
     gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
+    gla.kernel.WIDE_LAUNCHES = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
         for key in d:
@@ -598,6 +610,8 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
 _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
                         r"flash_tf32_kernel|flash_wgmma_kernel|"
+                        r"flash_mla_kernel|gla_wide_scores_kernel|"
+                        r"gla_wide_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
                         r"slstm_scan_kernel)"
                         r"(?:I(.*?)EE)?")
@@ -701,10 +715,13 @@ def build_report(libs) -> None:
     of its cell loops; for K7 (``dtw_matrix_kernel``) and K9 f32
     (``flash_tf32_kernel``), its SASS instructions and the count of the
     opcodes that carry its work (K7: FMNMX, three a cell; shuffles;
-    global stores; K9 f32: HGMMA), for K10's bf16 kernel
-    (``gla_ws_kernel``, ``gla_mma_kernel``) its warpgroup-MMA count,
-    HGMMA, and for K8
-    (``iir_kernel``) its asynchronous copies, LDGSTS."""
+    global stores; K9 f32: HGMMA), for K9 at MLA's head
+    (``flash_mla_kernel``) its HGMMA, asynchronous copies (LDGSTS) and
+    TMA loads (UTMALDG), for K10's bf16 kernels (``gla_ws_kernel``,
+    ``gla_mma_kernel``, ``gla_wide_scores_kernel``, ``gla_wide_kernel``)
+    their warpgroup-MMA count, HGMMA, and for K8 (``iir_kernel``) its
+    asynchronous copies, LDGSTS.  Every compiler warning is printed
+    (ptxas says so when it serializes a kernel's wgmma pipeline)."""
     from repro_torch.kernels import gla, iir
     from repro_torch.kernels.attention import kernel as attn
     from repro_torch.kernels.dtw import matrix, stream
@@ -720,14 +737,21 @@ def build_report(libs) -> None:
         elif lib is attn.LIB:
             ops = sass_ops(lib, "flash_tf32_kernel", ("HGMMA",))
         elif lib is attn.BF16_LIB:
-            ops = sass_ops(lib, "flash_wgmma_kernel", ("HGMMA",))
+            ops = {**sass_ops(lib, "flash_wgmma_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "flash_mla_kernel",
+                              ("HGMMA", "LDGSTS", "UTMALDG"))}
         elif lib is gla.kernel.LIB:
             ops = {**sass_ops(lib, "gla_ws_kernel", ("HGMMA",)),
-                   **sass_ops(lib, "gla_mma_kernel", ("HGMMA",))}
+                   **sass_ops(lib, "gla_mma_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "gla_wide_scores_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "gla_wide_kernel", ("HGMMA",))}
         elif lib is iir.kernel.LIB:
             ops = sass_ops(lib, "iir_kernel", ("LDGSTS",))
         for line in lib.build_log.splitlines():
             m = re.search(r"entry function '(.*?)'", line)
+            if "warning" in line.lower():
+                # e.g. ptxas serializing a kernel's wgmma pipeline
+                print(f"[build] {lib.name}: {line.strip()}")
             if m:
                 name = kernel_name(m.group(1)) or "?"
             elif "spill" in line:
@@ -3761,8 +3785,10 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 GEMM_NAMES = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
 
 
-#: K10's kernels (``gla.cu``).
-K10_NAMES = ("gla_ws_kernel", "gla_mma_kernel", "gla_fma_kernel")
+#: K9's bf16 kernels (``flash_wgmma.cu``) and K10's (``gla.cu``).
+K9_NAMES = ("flash_wgmma_kernel", "flash_mla_kernel")
+K10_NAMES = ("gla_ws_kernel", "gla_mma_kernel", "gla_fma_kernel",
+             "gla_wide_scores_kernel", "gla_wide_kernel")
 
 
 def _kernel_times(prof) -> list:
@@ -3814,7 +3840,7 @@ def traced_ms(fn, top: int = 6, named=frozenset()) -> dict:
     for key, ms, count in _kernel_times(prof):
         out["all"] += ms
         by.append((key[:60], ms, count))
-        if "flash_wgmma_kernel" in key:
+        if any(k in key for k in K9_NAMES):
             out["K9"] += ms
         if any(k in key for k in K10_NAMES):
             out["K10"] += ms
@@ -3880,21 +3906,24 @@ def _experts(call, shape, at: int) -> torch.Tensor:
 def model_launches(cfg, decode: bool = False) -> dict:
     """The kernel launches of one prefill (or ``decode`` step) of ``cfg``
     by table key, from its block kinds: K9 once an attention layer and
-    K10 once a Mamba2 layer in the prefill; an mLSTM layer's two scans
-    launch K10 once each, or ceil(dh / 128) + 1 times on 128-wide blocks
-    (``kernels.gla.gla_blocked``) when its heads are wider than 128; the
-    sLSTM scan once an sLSTM layer in the prefill and in a decode step."""
+    K10 once a Mamba2 layer in the prefill; an mLSTM layer's one scan (the
+    numerator and the normalizer as dh + 1 columns of v) launches K10
+    once, or the wide route's two kernels (K10-mlstm) when dh + 1 is over
+    128 (a bf16 model); the sLSTM scan once an sLSTM layer in the prefill
+    and in a decode step."""
     from repro_torch.models.model import block_kinds
     kinds = block_kinds(cfg)
     dh = cfg.ssm_expand * cfg.d_model // cfg.num_heads
-    mlstm = 2 if dh <= 128 else -(-dh // 128) + 1
+    n_mlstm = kinds.count("mlstm")
+    wide = dh + 1 > 128
     want = {"sLSTM": kinds.count("slstm")}
     if not decode:
         want.update(
             K9=sum(kinds.count(k) for k in ("attn", "attn_dense",
                                              "attn_moe", "shared_attn")),
-            K10=kinds.count("mamba2") + mlstm * kinds.count("mlstm"))
-    return {key: n for key, n in want.items() if n}
+            K10=kinds.count("mamba2") + (0 if wide else n_mlstm),
+            K10_mlstm=2 * n_mlstm if wide else 0)
+    return {key.replace("_", "-"): n for key, n in want.items() if n}
 
 
 def _trio(model, cfg, toks: torch.Tensor, dev, pre: dict, dec: dict):
@@ -4309,14 +4338,17 @@ def _sdpa_ms(q, k, v) -> float:
 
 def check_mla_kernels(dev, errs: ErrLog, name: str):
     """Phase 24 (a): K9 at MLA's shapes (MLA_K9) against its plain version,
-    one launch each, timed by CUDA events beside the plain version, the
-    bound (2 (dh + dv) FLOPs a causal query-key pair: bf16 at the bf16
-    tensor peak, f32 as three TF32 products at the TF32 peak; each input
-    read and the output written once) and SDPA.  Returns (the two table
-    rows, {what: ms})."""
+    one launch each (bf16: ``flash_mla_kernel``), timed by CUDA events
+    beside the plain version, the bound (2 (dh + dv) FLOPs a causal
+    query-key pair: bf16 at the bf16 tensor peak, f32 as three TF32
+    products at the TF32 peak; each input read and the output written
+    once) and SDPA; for each bf16 shape, how evenly the persistent
+    blocks' work list (``kernel.mla_tiles``) spreads the causal kv tiles.
+    Returns (the two table rows, {what: ms})."""
     from repro_torch.kernels.attention import kernel as k9
     gen = torch.Generator(device=dev).manual_seed(24)
     mem_bps, _, bf16_flops, tf32_flops = card_peaks(name)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, ms = [], {}
     for b, h, kv, s, dh, dv, dtype, key, what in MLA_K9:
         q, k, v = _attn_inputs(gen, dev, b, h, kv, s, s, dh, dv, dtype)
@@ -4342,6 +4374,15 @@ def check_mla_kernels(dev, errs: ErrLog, name: str):
                 f"dv={dv} {str(dtype)[6:]}, causal: max abs err {e:.3g} "
                 f"({_attn_limit(q)}; mean |o| {mean:.3g}); {ms[what]:.4f} "
                 f"ms")
+        if dtype == torch.bfloat16:
+            ntiles = b * h * -(-s // k9.MLA_BM)
+            per = [sum(min(-(-s // 64), -(-(qt * k9.MLA_BM + k9.MLA_BM)
+                                         // 64)) for _, qt in lst)
+                   for lst in k9.mla_tiles(b * h, s, min(ntiles, sms))]
+            line += (f"; {ntiles} query tiles of {k9.MLA_BM} rows on "
+                     f"{len(per)} persistent blocks, causal kv tiles a "
+                     f"block {min(per)}-{max(per)} (mean "
+                     f"{sum(per) / len(per):.1f})")
         if key:
             t_plain = cuda_ms(lambda: k9.flash_forward_plain(q, k, v, 64,
                                                              64), 1)
@@ -4460,29 +4501,40 @@ SLSTM_OPS = 27
 #: (B, H, S, dh, chunk); and its sLSTM scan: (B, S, D).
 XLSTM_SCAN = (4, 4, 4096, 1024, 256)
 SLSTM_SCAN = (4, 4096, 2048)
-#: Phase 25's launches: an xlstm-1p3b prefill (42 mLSTM layers, each two
-#: scans on 1024-wide heads: 8 + 1 K10 launches; 6 sLSTM layers) and the
-#: float32 run at one period (7 + 1 layers; a prefill and 3 decode steps).
-XLSTM_PREFILL = {"K10": 378, "sLSTM": 6}
+#: Phase 25's launches: an xlstm-1p3b prefill (42 mLSTM layers, each one
+#: scan of dh + 1 = 1025 value columns, the numerator's and the
+#: normalizer's, on the wide route's two kernels; 6 sLSTM layers) and the
+#: float32 run at one period (7 + 1 layers; a prefill and 3 decode steps:
+#: each mLSTM scan on 128-wide blocks, 9 launches).
+XLSTM_PREFILL = {"K10-mlstm": 84, "sLSTM": 6}
 XLSTM_F32 = {"K10": 63, "sLSTM": 4}
+#: The blocked route's time for a layer's two scans at XLSTM_SCAN before
+#: the wide route took them (PERF.md's kernel table: 15.0693 ms the
+#: numerator, 1.6652 ms the normalizer).
+PARENT_MLSTM_MS = 15.0693 + 1.6652
 
 
 def check_mlstm_kernels(dev, errs: ErrLog, name: str):
     """Phase 25 (a): K10 on mLSTM's heads at xlstm-1p3b's prefill shape
-    (XLSTM_SCAN, bf16), through ``kernels.gla.gla_blocked``: the
-    numerator scan (dk = dv = 1024: 8 launches, each over the 8 dk blocks
-    as extra heads, float32 partial outputs) and the normalizer (dv = 1:
-    one launch), held to the undivided plain version (GLA_RTOL /
-    GLA_ATOL, a bf16 o within one bf16 step besides), and the same inputs
-    in float32; state block (7, 3) bitwise one K10 launch on its own
-    k block 7 and v block 3 (the copy-out).  Timed by CUDA events beside the plain
-    version and the bound of the un-blocked scan (``gla_bound``), a
-    launch's device time from the profiler.  Also the zero-state term
-    that ``models.ssm.gla_chunked`` adds to a prefill from an empty cache
-    (a layer's two scans with and without a zero initial state, CUDA
-    events) and the names of its float32 GEMM's kernels.  Returns (the
-    K10-mlstm row, {the prefill's K10 ms, zero-state ms, names})."""
-    from repro_torch.kernels.gla import kernel, ops
+    (XLSTM_SCAN, bf16) as a mLSTM layer runs it: one scan of v = [v_num |
+    v_den] (dv = 1025) through ``kernels.gla.gla_scan``, which takes the
+    wide route (``kernel.gla_wide``: the scores, then the scan; two
+    launches counted under K10-mlstm), held to the undivided plain
+    version (GLA_RTOL / GLA_ATOL, a bf16 o within one bf16 step besides).
+    Beside it the blocked route it replaces (``gla_blocked``, which
+    float32 still takes): the numerator (8 launches) and the normalizer
+    (1) held to the plain version, state block (7, 3) bitwise one K10
+    launch on its own blocks, and the same inputs in float32.  Timed by
+    CUDA events: the wide route, the blocked route's two scans, the plain
+    version; the wide kernels' device times from the profiler; the bound
+    of the un-blocked scan (``gla_bound``) and the floor of the
+    look-back's state traffic (each S_c written and read once at the
+    memory rate).  Also the zero-state term that ``models.ssm.
+    gla_chunked`` adds to a prefill from an empty cache (a layer's scan
+    with and without a zero initial state) and the names of its float32
+    GEMM's kernels.  Returns (the K10-mlstm row, {the prefill's K10 ms,
+    zero-state ms, names})."""
+    from repro_torch.kernels.gla import gla_scan, kernel, ops
     from repro_torch.models.ssm import gla_chunked
     b, h, s, dh, chunk = XLSTM_SCAN
     gen = torch.Generator(device=dev).manual_seed(25)
@@ -4494,16 +4546,27 @@ def check_mlstm_kernels(dev, errs: ErrLog, name: str):
     i_g = torch.sigmoid(rn(b, h, s))
     v = (rn(b, h, s, dh) * i_g[..., None]).bfloat16()
     vd = i_g[..., None].bfloat16()
+    vm = torch.cat([v, vd], dim=-1)
     la = torch.nn.functional.logsigmoid(rn(b, h, s))
     g = kernel.chunk_cumsum(la, chunk)
+    # the wide route, as the layer calls it
+    before = counts()
+    o, st = gla_scan(q, k, vm, la, chunk=chunk, device=dev)
+    torch.cuda.synchronize()
+    launched(before, K10_mlstm=2)
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    assert o.shape == (b, h, s, dh + 1) and st.shape == (b, h, dh, dh + 1)
+    want = kernel.gla_chunks_plain(q, k, vm, g, chunk)
+    ndw = _gla_diff(errs, (o, st), want, True, "K10-mlstm")
+    del o, st, want
+    # the blocked route
     nblk = dh // kernel.MAX_HEAD_DIM
     before = counts()
     o, st = ops.gla_blocked(q, k, v, g, chunk)
     torch.cuda.synchronize()
     launched(before, K10=nblk)
-    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
     nd = _gla_diff(errs, (o, st), kernel.gla_chunks_plain(q, k, v, g, chunk),
-                   True, "K10-mlstm")
+                   True, "K10")
     n = kernel.MAX_HEAD_DIM
     bi, bj = nblk - 1, nblk // 2 - 1
     blk = lambda x, i: x[..., n * i:n * i + n].contiguous()
@@ -4517,61 +4580,66 @@ def check_mlstm_kernels(dev, errs: ErrLog, name: str):
     torch.cuda.synchronize()
     launched(before, K10=1)
     ndd = _gla_diff(errs, (od, sd),
-                    kernel.gla_chunks_plain(q, k, vd, g, chunk), True,
-                    "K10-mlstm")
+                    kernel.gla_chunks_plain(q, k, vd, g, chunk), True, "K10")
     del od, sd
     q32, k32, v32 = q.float(), k.float(), v.float()
     nd32 = _gla_diff(errs, ops.gla_blocked(q32, k32, v32, g, chunk),
                      kernel.gla_chunks_plain(q32, k32, v32, g, chunk), False,
-                     "K10-mlstm")
+                     "K10")
     del q32, k32, v32
     torch.cuda.empty_cache()
-    t_num = cuda_ms(lambda: ops.gla_blocked(q, k, v, g, chunk), 5)
-    t_den = cuda_ms(lambda: ops.gla_blocked(q, k, vd, g, chunk), 5)
-    t_dev = device_ms(lambda: ops.gla_blocked(q, k, v, g, chunk), 3,
-                      "gla_mma_kernel")
-    t_plain = cuda_ms(lambda: kernel.gla_chunks_plain(q, k, v, g, chunk), 1)
-    kb = gla_bound(name, b, h, s, dh, dh, chunk)
-    kd = gla_bound(name, b, h, s, dh, 1, chunk)
+    t_wide = cuda_ms(lambda: kernel.gla_wide(q, k, vm, g, chunk), 5)
+    t_blk = cuda_ms(lambda: (ops.gla_blocked(q, k, v, g, chunk),
+                             ops.gla_blocked(q, k, vd, g, chunk)), 3)
+    t_sc = device_ms(lambda: kernel.gla_wide(q, k, vm, g, chunk), 3,
+                     "gla_wide_scores_kernel")
+    t_scan = device_ms(lambda: kernel.gla_wide(q, k, vm, g, chunk), 3,
+                       "gla_wide_kernel")
+    t_plain = cuda_ms(lambda: kernel.gla_chunks_plain(q, k, vm, g, chunk), 1)
+    kb = gla_bound(name, b, h, s, dh, dh + 1, chunk)
+    nc = s // chunk
+    floor = 1e3 * 2 * 4 * b * h * (nc - 1) * dh * (dh + 1) \
+        / card_peaks(name)[0]
     s0 = torch.zeros((b, h, dh, dh + 1), device=dev)
 
     def layer(zero_state: bool):
-        """A mLSTM layer's two scans, as its prefill runs them."""
-        st = (lambda sl: {"initial_state": s0[..., sl]}) if zero_state \
-            else (lambda sl: {})
-        gla_chunked(q, k, v, la, chunk, **st(slice(0, dh)))
-        gla_chunked(q, k, vd, la, chunk, **st(slice(dh, None)))
+        """A mLSTM layer's scan, as its prefill runs it."""
+        gla_chunked(q, k, vm, la, chunk,
+                    **({"initial_state": s0} if zero_state else {}))
 
     t_with, t_without = cuda_ms(lambda: layer(True), 3), \
         cuda_ms(lambda: layer(False), 3)
     q32 = q.float()
-    zs_names = gemm_names(lambda: torch.matmul(q32, s0[..., :dh]))
-    t_zs = cuda_ms(lambda: torch.matmul(q32, s0[..., :dh]), 3)
+    zs_names = gemm_names(lambda: torch.matmul(q32, s0))
+    t_zs = cuda_ms(lambda: torch.matmul(q32, s0), 3)
     del q32
-    flops_zs = 2 * b * h * s * dh * dh
-    print(f"[mLSTM K10] xlstm-1p3b's prefill scans, B={b} H={h} S={s} dh="
-          f"{dh} chunk={chunk} bf16, on {kernel.MAX_HEAD_DIM}-wide blocks: "
-          f"the numerator ({nblk} launches of {h * nblk} heads) within rtol "
-          f"{GLA_RTOL:g} / atol {GLA_ATOL:g} of the undivided plain version"
-          f" and one bf16 step ({nd} of {b * h * s * dh} output elements "
-          f"differ), the normalizer (dv 1, one launch; {ndd} differ), the "
-          f"same inputs in f32 within the tolerance ({nd32} differ); state "
-          f"block ({bi}, {bj}) bitwise a launch on its own blocks; numerator "
-          f"{t_num:.4f} ms (device {_dev_str(t_dev)} a launch; plain "
-          f"{t_plain:.2f} ms; the un-blocked scan's bound {max(kb):.4f} ms "
-          f"by {'bytes' if kb[0] >= kb[1] else 'operations'}), normalizer "
-          f"{t_den:.4f} ms (bound {max(kd):.4f} ms by "
-          f"{'bytes' if kd[0] >= kd[1] else 'operations'}) [{name}]")
+    flops_zs = 2 * b * h * s * dh * (dh + 1)
+    print(f"[mLSTM K10] xlstm-1p3b's prefill scan, B={b} H={h} S={s} dh="
+          f"{dh} chunk={chunk} bf16, numerator and normalizer as one scan "
+          f"(dv {dh + 1}) on the wide route (2 launches): within rtol "
+          f"{GLA_RTOL:g} / atol {GLA_ATOL:g} of the undivided plain version "
+          f"and one bf16 step ({ndw} of {b * h * s * (dh + 1)} output "
+          f"elements differ); {t_wide:.4f} ms (device: scores "
+          f"{_dev_str(t_sc)}, scan {_dev_str(t_scan)}; plain {t_plain:.2f} "
+          f"ms; bound {max(kb):.4f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}; the look-back's "
+          f"state traffic {floor:.4f} ms at the memory rate). The blocked "
+          f"route it replaces: numerator ({nblk} launches) and normalizer "
+          f"(1) {t_blk:.4f} ms (before the wide route: {PARENT_MLSTM_MS:.4f} "
+          f"ms, PERF.md), "
+          f"within the tolerance ({nd} and {ndd} elements differ; f32 "
+          f"{nd32}); state block ({bi}, {bj}) bitwise a launch on its own "
+          f"blocks [{name}]")
     print(f"[mLSTM K10] the zero-state term of a prefill from an empty "
-          f"cache: a layer's two scans {t_with:.4f} ms with a zero initial "
+          f"cache: a layer's scan {t_with:.4f} ms with a zero initial "
           f"state, {t_without:.4f} ms without; its float32 product "
-          f"[{b}, {h}, {s}, {dh}] x [{dh}, {dh}] ({flops_zs / 1e9:.1f} "
+          f"[{b}, {h}, {s}, {dh}] x [{dh}, {dh + 1}] ({flops_zs / 1e9:.1f} "
           f"GFLOP) {t_zs:.4f} ms ({flops_zs / t_zs / 1e9:.1f} TFLOP/s), "
           f"kernels {sorted(zs_names)} [{name}]")
-    row = _row("K10-mlstm", 0, errs, t_num, t_plain, kb)
-    del q, k, v, vd, la, g, s0
+    row = _row("K10-mlstm", 0, errs, t_wide, t_plain, kb)
+    del q, k, v, vd, vm, la, g, s0
     torch.cuda.empty_cache()
-    return row, {"K10": t_num + t_den, "zero": t_with - t_without,
+    return row, {"K10": t_wide, "zero": t_with - t_without,
                  "zero_names": frozenset(zs_names)}
 
 
@@ -4660,21 +4728,21 @@ def xlstm_phase(dev, errs: ErrLog, name: str):
     n_mlstm, n_slstm = kinds.count("mlstm"), kinds.count("slstm")
     rec = serve_full(
         dev, name, "xlstm-1p3b", 4, 4096, 32, XLSTM_PREFILL,
-        {"K10": n_mlstm * ms["K10"], "sLSTM": n_slstm * slstm_ms,
+        {"K10-mlstm": n_mlstm * ms["K10"], "sLSTM": n_slstm * slstm_ms,
          "zero-state term": n_mlstm * ms["zero"]},
         named=ms["zero_names"], named_what="zero-state product")
     f32 = f32_card_vs_cpu(dev, name, "xlstm-1p3b",
                           len(configs.get("xlstm-1p3b").block_pattern),
                           XLSTM_F32)
-    row_k10["launches"] = rec["launches"]["K10"]
+    row_k10["launches"] = rec["launches"]["K10-mlstm"]
     row_slstm["launches"] = rec["launches"]["sLSTM"]
     print(f"[models] phase 25 in {time.perf_counter() - t0:.1f} s; xlstm "
           f"peak {rec['peak_gb']:.2f} GB [{name}]")
-    k10_paths = {"xlstm-1p3b prefill (48 layers, dh 1024 in 128-wide "
-                 "blocks)": XLSTM_PREFILL["K10"],
-                 "xlstm-1p3b f32 prefill (8 layers)": f32["launches"]["K10"]}
     return [row_k10, row_slstm], {
-        "K10": k10_paths, "K10-mlstm": k10_paths,
+        "K10-mlstm": {"xlstm-1p3b prefill (48 layers, dh 1024 whole)":
+                      XLSTM_PREFILL["K10-mlstm"]},
+        "K10": {"xlstm-1p3b f32 prefill (8 layers, dh 1024 in 128-wide "
+                "blocks)": f32["launches"]["K10"]},
         "sLSTM": {"xlstm-1p3b prefill (48 layers)": n_slstm,
                   "xlstm-1p3b decode step": n_slstm,
                   "xlstm-1p3b f32 prefill and 3 decode steps (8 layers)":

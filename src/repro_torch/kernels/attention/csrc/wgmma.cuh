@@ -1,8 +1,10 @@
 // Hopper warpgroup-MMA helpers shared by K9's tensor-core kernels
-// (flash_wgmma.cu, bfloat16; flash_tf32.cu, float32 as split TF32): the
-// shared-memory matrix descriptor, the wgmma fence / commit / wait and
-// cp.async group calls in PTX, the accumulator pin, and the operand lists
-// of 16, 32 and 64 accumulators.
+// (flash_wgmma.cu, bfloat16; flash_tf32.cu, float32 as split TF32) and
+// K10's (gla/csrc/gla.cu): the shared-memory matrix descriptor, the wgmma
+// fence / commit / wait and cp.async group calls in PTX, the accumulator
+// pin, the mbarrier and named-barrier calls of the warp-specialized
+// kernels, the register hand-over (setmaxnreg), and the operand lists of
+// 16, 32 and 64 accumulators.
 //
 // Operand tiles are K-major in the 128-byte swizzled layout: a row of 128
 // bytes (64 bf16 or 32 f32 values) is 8 chunks of 16 bytes, chunk c of
@@ -42,6 +44,12 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// pending: the older groups are done, the newest N may still run.
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // The generic-proxy shared-memory stores of this thread become visible to
 // wgmma (the async proxy); a barrier then makes every thread's visible.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -51,6 +59,76 @@ __device__ __forceinline__ void fence_proxy_async() {
 // compiler may not move its reads or writes across a wgmma wait or fence.
 __device__ __forceinline__ void pin(float& x) {
   asm volatile("" : "+f"(x)::"memory");
+}
+// The same for an A-operand register of a wgmma fed from registers.
+__device__ __forceinline__ void pin(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+// mbarriers in shared memory: init with the arrival count of a phase,
+// arrive, test and wait on the parity of a phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_test(uint32_t bar, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Waits until the phase of `bar` with this parity has completed; traps
+// after ~2^22 tries (seconds): a fault, never a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  int tries = 0;
+  while (!mbar_test(bar, parity))
+    if (++tries > (1 << 22)) __trap();
+}
+__device__ __forceinline__ void named_bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Arrives on `bar` and adds `bytes` to the transaction count its phase
+// waits for (the bytes of the TMA copies that complete on it).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// TMA: the box at coordinates (c0, c1, c2) of the tensor map at `map` (a
+// __grid_constant__ kernel parameter) into shared memory at dst, its
+// bytes completing on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Hands registers between the warpgroups of a warp-specialized block
+// (sm_90a): every warp of a warpgroup lowers or raises its own limit to N
+// a thread, N a multiple of 8.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace wgmma

@@ -19,7 +19,9 @@ follows the kernel.
   (or raise), chosen by dtype, both on the tensor cores (``wgmma``):
   bfloat16 inputs ``csrc/flash_wgmma.cu`` (the score is scaled after the
   product, since a scaled q is not representable in bfloat16, and P
-  enters the PV product as two bfloat16 parts, P_hi + P_lo); float32
+  enters the PV product as two bfloat16 parts, P_hi + P_lo; at MLA's
+  head, dh over 128, its warp-specialized persistent
+  ``flash_mla_kernel``, whose work list :func:`mla_tiles` gives); float32
   inputs ``csrc/flash_tf32.cu``, every operand split into two TF32
   parts and each product taken as three TF32 products (one would keep
   too few digits for the float32 tolerance).  CPU tensors take
@@ -49,8 +51,8 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_float_dtypes, check_kernel_device,
                       check_launch, check_tensor)
 
-__all__ = ["flash_forward", "flash_forward_plain", "LIB", "BF16_LIB",
-           "MAX_DH", "MAX_DV"]
+__all__ = ["flash_forward", "flash_forward_plain", "mla_tiles", "LIB",
+           "BF16_LIB", "MAX_DH", "MAX_DV", "MLA_BM"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -63,6 +65,9 @@ MAX_DH = 192
 MAX_DV = 128
 #: The masked score of the reference kernel.
 NEG = -1.0e30
+#: Query rows a tile of ``flash_mla_kernel`` (two consumer warpgroups of
+#: 64).
+MLA_BM = 128
 
 _WGMMA_HEADER = os.path.join(_CSRC, "wgmma.cuh")
 #: K9 for float32 inputs, on the tensor cores as split TF32.
@@ -139,6 +144,18 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch(fn, err)
     lib.launches += 1
     return o
+
+
+def mla_tiles(bh: int, s: int, blocks: int):
+    """The work list ``flash_mla_kernel`` walks: for each of ``blocks``
+    persistent blocks, its (head, query tile) pairs in order.  Rank i is
+    query tile nq - 1 - i // bh of head i % bh (nq = ceil(s / MLA_BM)), so
+    the tiles with the most kv tiles under the causal frontier come
+    first; block b takes ranks b, b + blocks, ...  The launch has
+    min(bh nq, SMs) blocks."""
+    nq = -(-s // MLA_BM)
+    return [[(i % bh, nq - 1 - i // bh) for i in range(b, bh * nq, blocks)]
+            for b in range(blocks)]
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -72,14 +72,21 @@
 // producer's ring: a block a unit, two warpgroups that stage through a
 // 2-slot ring together, block-wide barriers at each tile.
 //
-// Heads wider than 128 (mLSTM's 1024) reach K10 cut into 128-wide blocks
+// Heads wider than 128 (mLSTM's 1024) in bf16 take the wide route
+// (kernels/gla/kernel.py::gla_wide), whole: gla_wide_scores_kernel writes
+// each chunk's decayed, masked scores P in float32 once, then
+// gla_wide_kernel runs a unit per (head, chunk, 128-wide block of v): the
+// state phase streams k in 128-column dk slices and writes S_c's block
+// slice by slice through the same look-back; the output phase streams q
+// in 64-column slices for the inter-chunk read, reads P for the
+// intra-chunk sum, and keeps o's block in float32 registers until its one
+// rounding (notes at the kernels). v's last block runs 64 wide when it
+// has at most 64 columns (the mLSTM normalizer's one). Float32 inputs and
+// the CPU cut wide heads into 128-wide blocks instead
 // (kernels/gla/ops.py::gla_blocked): a launch takes q's and k's dk blocks
-// as extra heads and one block of v, and gla_mma_kernel<128, float> writes
-// its float32 partial outputs, which the wrapper sums over the dk blocks
-// before rounding once to bf16; each state block is exact. QK^T is
-// recomputed for every dv block: at xlstm-1p3b's scan (dk = dv = 1024)
-// each (head, chunk) does 1.78x the un-blocked work, and the split
-// products more.
+// as extra heads and one block of v, and gla_mma_kernel<128, float>
+// writes float32 partial outputs, summed over the dk blocks before one
+// rounding.
 //
 // Three parts keep each split operand to ~2^-27 of its value, below f32's
 // own rounding; two parts (~2^-18) move some near-zero outputs past the
@@ -212,9 +219,10 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t (&p)[3]) {
   }
 }
 
-// d[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory, A K-major,
-// B K-major (TB = 0) or MN-major (TB = 1); scale_d = 0 overwrites d.
-template <int TB>
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory, A K-major
+// (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or MN-major (TB = 1);
+// scale_d = 0 overwrites d.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wg_ss(float (&d)[16], uint64_t da,
                                       uint64_t db, int scale_d) {
   asm volatile(
@@ -222,11 +230,11 @@ __device__ __forceinline__ void wg_ss(float (&d)[16], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      "%16, %17, p, 1, 1, %20, %19;\n}\n"
       : WG_D16(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t da,
                                       uint64_t db, int scale_d) {
   asm volatile(
@@ -236,11 +244,11 @@ __device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : WG_D32(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wg_ss(float (&d)[64], uint64_t da,
                                       uint64_t db, int scale_d) {
   asm volatile(
@@ -254,9 +262,9 @@ __device__ __forceinline__ void wg_ss(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : WG_D64(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N], A from registers (four bf16x2 a
@@ -332,25 +340,28 @@ struct Smem {
   static_assert(3 * KW <= PB, "k w parts");
 };
 
-// Rows [row0, row0 + R) of a chunk's row-major [L, cols] bf16 matrix at
-// src into the swizzled R-row tile at dst (R * 128-byte sub-tiles), zero
-// past L and past cols, by NT threads (thread tid). vec (cols % 8 == 0,
-// src 16-byte aligned): whole 16-byte chunks by cp.async; else element by
-// element.
+// Rows [row0, row0 + R) and columns [col0, col0 + D) of a chunk's
+// row-major bf16 matrix at src (row stride ld) into the swizzled R-row
+// tile at dst (R * 128-byte sub-tiles), zero past L rows and past ncols
+// columns, by NT threads (thread tid). vec (ld and col0 multiples of 8,
+// src 16-byte aligned, and every column below ld readable): whole 16-byte
+// chunks by cp.async; else element by element.
 template <int D, int R, int NT = kThreads>
-__device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
-                                      int row0, int L, int cols, bool vec,
-                                      int tid = threadIdx.x) {
+__device__ __forceinline__ void stage_cols(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           int row0, int L, int ld, int col0,
+                                           int ncols, bool vec,
+                                           int tid = threadIdx.x) {
   constexpr int CH = D / 8;
   static_assert(R * CH % NT == 0, "whole passes");
 #pragma unroll
   for (int n = 0; n < R * CH / NT; ++n) {
     const int e = tid + n * NT;
-    const int r = e / CH, c = e % CH, c0 = 8 * c, row = row0 + r;
+    const int r = e / CH, c = e % CH, c0 = col0 + 8 * c, row = row0 + r;
     const uint32_t d =
         dst + (c / 8) * (R * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
-    const bool live = row < L && c0 < cols;
-    const __nv_bfloat16* s = src + (long long)row * cols + c0;
+    const bool live = row < L && c0 < ncols;
+    const __nv_bfloat16* s = src + (long long)row * ld + c0;
     if (vec) {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                    "l"(live ? s : src), "r"(live ? 16 : 0)
@@ -361,8 +372,8 @@ __device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int a = c0 + 2 * i;
-        const uint32_t lo = live && a < cols ? p[2 * i] : 0u;
-        const uint32_t hi = live && a + 1 < cols ? p[2 * i + 1] : 0u;
+        const uint32_t lo = live && a < ncols ? p[2 * i] : 0u;
+        const uint32_t hi = live && a + 1 < ncols ? p[2 * i + 1] : 0u;
         w[i] = lo | (hi << 16);
       }
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
@@ -370,6 +381,15 @@ __device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
                    : "memory");
     }
   }
+}
+
+// Rows [row0, row0 + R) of a chunk's row-major [L, cols] bf16 matrix at
+// src into the swizzled R-row tile at dst: stage_cols of all its columns.
+template <int D, int R, int NT = kThreads>
+__device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
+                                      int row0, int L, int cols, bool vec,
+                                      int tid = threadIdx.x) {
+  stage_cols<D, R, NT>(dst, src, row0, L, cols, 0, cols, vec, tid);
 }
 
 // g of rows [r0, r0 + n) of the chunk into dst, zero past L, by NT
@@ -716,35 +736,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int kWsThreads = 384;  // a producer warpgroup, two consumers
 constexpr int kNS = 4;           // key-tile slots in the ring
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_test(uint32_t bar, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// Waits until the phase of `bar` with this parity has completed; traps
-// after ~2^22 tries (seconds): a fault, never a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  int tries = 0;
-  while (!mbar_test(bar, parity))
-    if (++tries > (1 << 22)) __trap();
-}
-__device__ __forceinline__ void named_bar(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
+using wgmma::mbar_arrive;
+using wgmma::mbar_init;
+using wgmma::mbar_test;
+using wgmma::mbar_wait;
+using wgmma::named_bar;
 
 // Shared memory of gla_ws_kernel (D = 64), byte offsets from a
 // 1024-aligned base; tiles swizzled as gla_mma_kernel's.
@@ -1332,6 +1328,528 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// ---- bf16, heads wider than 128: the scores, then the scan ---------------
+
+constexpr int kWideMaxL = 256;  // chunk rows the scan's value tiles hold
+constexpr int kWideKT = 4;      // key tiles a round of the scores kernel
+
+// Shared memory of gla_wide_scores_kernel, byte offsets from a 1024-aligned
+// base: two slots of a query tile and kWideKT key tiles, 64 dk columns
+// each, then g of the chunk.
+struct WideScoresSmem {
+  static constexpr uint32_t kSlot = (1 + kWideKT) * kAtom;
+  static constexpr uint32_t kG = 2 * kSlot;
+  static constexpr uint32_t bytes = kG + kWideMaxL * 4 + 1024;
+};
+
+// The chunk's scores for heads wider than 128, the first of the wide
+// route's two launches: block (head, chunk, query tile qt) writes
+//
+//   P[i, j] = (q_i . k_j) e^{g_i - g_j}, 0 where j > i or past L,
+//
+// for its 64 rows and every key tile kt <= qt, float32, to the tile
+// (qt, kt) of the [BH nc][nt (nt + 1) / 2][64][64] buffer (lower tiles in
+// row order). q k^T is one exact bf16 product with float32 sums over dk,
+// streamed in 64-column slices through a 2-slot cp.async ring (a query
+// tile and up to four key tiles a slot); warpgroup w takes key tiles w
+// and w + 2 of a round of four. The scan then reads each P once for every
+// 128-wide block of v, where the one-launch alternative recomputes q k^T
+// for each block.
+__global__ void __launch_bounds__(kThreads, 1)
+    gla_wide_scores_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const float* __restrict__ g,
+                           float* __restrict__ P, int S, int L, int dk,
+                           bool vec) {
+  using Sm = WideScoresSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t base = smem_u32(sm);
+  float* gs = reinterpret_cast<float*>(sm + Sm::kG);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, gr = (wt % 32) / 4, qd = wt % 4;
+  const int nt = (L + kTile - 1) / kTile;
+  const int bhc = blockIdx.x / nt, qt = blockIdx.x % nt;
+  const long long row0 = (long long)bhc * L;  // (bh S + c L): S = nc L
+  const __nv_bfloat16* qc = q + row0 * dk;
+  const __nv_bfloat16* kc = k + row0 * dk;
+  const int ns = (dk + 63) / 64;
+  float* pc = P + ((long long)bhc * (nt * (nt + 1) / 2) + qt * (qt + 1) / 2) *
+                      (kTile * kTile);
+  stage_g(gs, g + row0, 0, nt * kTile, L);
+  cp_async_commit();
+  for (int kt0 = 0; kt0 <= qt; kt0 += kWideKT) {
+    const int nk = min(kWideKT, qt + 1 - kt0);
+    auto issue = [&](int sl) {
+      const uint32_t slot = base + (sl & 1) * Sm::kSlot;
+      stage_cols<64, kTile>(slot, qc, qt * kTile, L, dk, 64 * sl, dk, vec);
+      for (int i = 0; i < nk; ++i)
+        stage_cols<64, kTile>(slot + (1 + i) * kAtom, kc, (kt0 + i) * kTile,
+                              L, dk, 64 * sl, dk, vec);
+      cp_async_commit();
+    };
+    float a0[32], a1[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a0[i] = a1[i] = 0.f;
+    issue(0);
+    for (int sl = 0; sl < ns; ++sl) {
+      if (sl + 1 < ns) {
+        issue(sl + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      wgmma::fence_proxy_async();
+      __syncthreads();  // slice sl (and g) is in
+      const uint32_t slot = base + (sl & 1) * Sm::kSlot;
+      pin_all(a0);
+      pin_all(a1);
+      wgmma::fence();
+      if (wg < nk) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wg_ss<0>(a0, kdesc(slot, kk, 0),
+                   kdesc(slot + (1 + wg) * kAtom, kk, 0), 1);
+      }
+      if (wg + 2 < nk) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wg_ss<0>(a1, kdesc(slot, kk, 0),
+                   kdesc(slot + (3 + wg) * kAtom, kk, 0), 1);
+      }
+      wgmma::commit();
+      wgmma::wait();
+      pin_all(a0);
+      pin_all(a1);
+      __syncthreads();  // every warp is done with the slot
+    }
+    // P = S e^{g_i - g_j}, 0 above the diagonal and past the chunk's end
+    auto put = [&](const float (&a)[32], int kt) {
+      float* pt = pc + (long long)kt * (kTile * kTile);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rl = 16 * warp + gr + 8 * h, i = qt * kTile + rl;
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = 8 * j + 2 * qd + e, jj = kt * kTile + jl;
+            p[e] = jj > i || jj >= L || i >= L
+                       ? 0.f
+                       : __fmul_rn(a[4 * j + 2 * h + e],
+                                   expf(__fsub_rn(gs[i], gs[jj])));
+          }
+          *reinterpret_cast<float2*>(pt + rl * kTile + 8 * j + 2 * qd) =
+              make_float2(p[0], p[1]);
+        }
+    };
+    if (wg < nk) put(a0, kt0 + wg);
+    if (wg + 2 < nk) put(a1, kt0 + wg + 2);
+  }
+}
+
+// Shared memory of the scan's unit at a value block NV wide, byte offsets
+// from a 1024-aligned base: a region the two phases share (the state
+// phase: a 2-slot ring of 64-key x 128-dk key tiles, the three parts of
+// k w in the key tiles' own layout, and S's 128-row slice of the block in
+// float32, rows kSW floats apart; the output phase: two buffers of a
+// slice of up to four 64-row query tiles, 64 dk columns, and the three
+// parts of S_{c-1}'s slice, [64 dk][NV]), g and w of the chunk, then its
+// value block, [nt][64 keys][NV].
+constexpr int kSW = 128 + 4;  // the float32 slice's row stride
+template <int NV>
+struct WideSmem {
+  static constexpr uint32_t KT = 2 * kAtom;  // a key tile, a part of k w
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kKW = kK + 2 * KT;
+  static constexpr uint32_t kS = kKW + 3 * KT;
+  static constexpr uint32_t QB = 4 * kAtom;  // a query slice buffer
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t SP = (NV / 64) * kAtom;  // a part of S_{c-1}
+  static constexpr uint32_t kSP = kQ + 2 * QB;
+  static constexpr uint32_t kSEnd = kS + 128 * kSW * 4;
+  static constexpr uint32_t kR = ((kSEnd > kSP + 3 * SP ? kSEnd
+                                                         : kSP + 3 * SP) +
+                                  1023) / 1024 * 1024;
+  static constexpr uint32_t kG = kR;
+  static constexpr uint32_t kW = kG + kWideMaxL * 4;
+  static constexpr uint32_t kV = kW + kWideMaxL * 4;
+  static constexpr uint32_t VT = (NV / 64) * kAtom;  // a value tile
+  static __host__ __device__ constexpr uint32_t bytes(int nt) {
+    return kV + nt * VT + 1024;  // + alignment
+  }
+  static_assert(kV % 1024 == 0, "value tiles 1024-aligned");
+};
+static_assert(WideSmem<128>::bytes(kWideMaxL / 64) <= 232448,
+              "an SM's shared memory");
+
+// Eight float32 values of a row at p (32-byte aligned), those of columns
+// [c, c + 8) that are below n and of a live row, else 0: two 16-byte
+// loads through L2 when all eight are live.
+__device__ __forceinline__ void load8(const float* p, bool row, int c, int n,
+                                      float (&x)[8]) {
+  if (row && c + 8 <= n) {
+    const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = row && c + u < n ? __ldcg(p + u) : 0.f;
+  }
+}
+
+// The scan's unit (head bh, chunk c, value block j of NV columns: nv of
+// them live) on its block's two warpgroups. S's scratch rows are ldv
+// floats apart (a multiple of 8), the final state's dv.
+//
+//   state phase: wait for S_{c-1}[:, j] (the look-back, as gla_mma_kernel);
+//   then for each 128-row dk slice, dS[slice, j] = sum over key tiles of
+//   (k w)^T v_j, k w split in three bf16 parts in the key tile's own
+//   layout (the product reads it MN-major, transposed: warpgroup w takes
+//   the slice's rows [64 w, 64 w + 64)), and S_c[slice, j] = e^{g_L}
+//   S_{c-1} + dS in shared memory, S_{c-1}'s slice copied in by cp.async
+//   a slice ahead and S_c's copied out in 16-byte stores; then publish.
+//
+//   output phase: for up to four 64-row query tiles at a time (warpgroup w
+//   takes tiles w and 3 - w, so the causal work splits evenly), O = q
+//   S_{c-1}[:, j] over 64-row dk slices, S_{c-1}'s slice in three parts
+//   read MN-major (its own row layout), the next slice's query tiles and
+//   S values in flight while a slice is computed; O *= e^{g_i}; then O +=
+//   P v_j over the key tiles up to the diagonal (P read from the scores in
+//   float32 and split in three parts in registers), rounded once to bf16.
+//
+// o's block stays in float32 registers from the inter-chunk read to the
+// rounding: no partial output reaches device memory, no head is copied.
+template <int NV>
+__device__ __forceinline__ void wide_unit(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ P, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ state, float* scratch, int* sync, int t, int BH,
+    int S, int L, int dk, int dv, int ldv, bool vec_qk, bool vec_v) {
+  using Sm = WideSmem<NV>;
+  constexpr int NO = NV / 2;          // accumulators of m64nNV a thread
+  constexpr int NI = 64 * NV / 8 / kThreads;  // 8-value items a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t base = smem_u32(sm);
+  float* gs = reinterpret_cast<float*>(sm + Sm::kG);
+  float* ws = reinterpret_cast<float*>(sm + Sm::kW);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, gr = (wt % 32) / 4, qd = wt % 4;
+  const int nc = S / L, nt = (L + kTile - 1) / kTile;
+  const int nj = (dv + 127) / 128, per = BH * nj;
+  const int c = t / per, bh = (t % per) / nj, j = t % nj;
+  const int col0 = 128 * j, nv = min(128, dv - col0);
+  const long long row0 = (long long)bh * S + (long long)c * L;
+  const __nv_bfloat16* qc = q + row0 * dk;
+  const __nv_bfloat16* kc = k + row0 * dk;
+  int* flags = sync + 1;
+  auto vtile = [&](int kt) { return base + Sm::kV + kt * Sm::VT; };
+
+  // the value block and g, once for both phases
+  for (int kt = 0; kt < nt; ++kt)
+    stage_cols<NV, kTile>(vtile(kt), v + row0 * ldv, kt * kTile, L, ldv,
+                          col0, dv, vec_v);
+  stage_g(gs, g + row0, 0, nt * kTile, L);
+  cp_async_commit();
+  cp_async_wait<0>();
+  wgmma::fence_proxy_async();
+  __syncthreads();
+  const float gl = gs[L - 1], egl = expf(gl);
+  for (int e = tid; e < nt * kTile; e += kThreads)
+    ws[e] = e < L ? expf(__fsub_rn(gl, gs[e])) : 0.f;
+
+  // ---- the state phase
+  if (c > 0) wait_flag(flags + t - per);  // its barrier also orders ws
+  const float* s_in =
+      scratch + (c > 0 ? ((long long)bh * nc + c - 1) * dk * ldv : 0);
+  const bool last = c + 1 == nc;
+  float* s_out = last ? state + (long long)bh * dk * dv
+                      : scratch + ((long long)bh * nc + c) * dk * ldv;
+  const int ld_out = last ? dv : ldv;
+  const int ns = (dk + 127) / 128, total = ns * nt;
+  auto issue_k = [&](int it) {  // key tile it % nt of dk slice it / nt
+    stage_cols<128, kTile>(base + Sm::kK + (it & 1) * Sm::KT, kc,
+                           (it % nt) * kTile, L, dk, 128 * (it / nt), dk,
+                           vec_qk);
+    cp_async_commit();
+  };
+  float* sf = reinterpret_cast<float*>(sm + Sm::kS);
+  // S_{c-1}'s rows [128 sl, 128 sl + 128) of the block's columns (all
+  // 128 of the scratch's padded row: columns past nv are never stored)
+  // into sf, 16-byte copies, one group
+  auto issue_s = [&](int sl) {
+    for (int e = tid; e < 128 * 32; e += kThreads) {
+      const int r = e / 32, ch = e % 32, row = 128 * sl + r;
+      const bool live = row < dk && 4 * ch < nv;
+      const float* src = s_in + (long long)row * ldv + col0 + 4 * ch;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_u32(sf + r * kSW + 4 * ch)),
+                   "l"(live ? src : s_in), "r"(live ? 16 : 0)
+                   : "memory");
+    }
+    cp_async_commit();
+  };
+  float ds[NO];
+  if (c > 0) issue_s(0);
+  issue_k(0);
+  for (int it = 0; it < total; ++it) {
+    const int kt = it % nt, sl = it / nt;
+    if (kt == 0) {
+#pragma unroll
+      for (int e = 0; e < NO; ++e) ds[e] = 0.f;
+    }
+    if (it + 1 < total) {
+      issue_k(it + 1);
+      // a slice's first key tile may leave that slice's S copy, issued
+      // after the last tile of the slice before, in flight
+      if (c > 0 && kt == 0 && sl > 0 && nt > 1)
+        cp_async_wait<2>();
+      else
+        cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // key tile it is in (read by the threads below)
+    const uint32_t kt_sm = Sm::kK + (it & 1) * Sm::KT;
+    // k w in three parts, in the key tile's layout: key row jk, dk
+    // columns 8 ch..
+    for (int e = tid; e < kTile * 16; e += kThreads) {
+      const int jk = e / 16, ch = e % 16;
+      const uint32_t off =
+          (ch / 8) * kAtom + jk * 128 + (((ch % 8) ^ (jk % 8)) << 4);
+      const uint4 kv = *reinterpret_cast<const uint4*>(sm + kt_sm + off);
+      const uint32_t kw4[4] = {kv.x, kv.y, kv.z, kv.w};
+      const float w = ws[kt * kTile + jk];
+      float x[8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        x[2 * u] = __fmul_rn(lo_f32(kw4[u]), w);
+        x[2 * u + 1] = __fmul_rn(hi_f32(kw4[u]), w);
+      }
+      store_parts(base + Sm::kKW + off, Sm::KT, x);
+    }
+    wgmma::fence_proxy_async();
+    __syncthreads();
+    pin_all(ds);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 2; i >= 0; --i)
+        wg_ss<1, 1>(ds, mndesc(base + Sm::kKW + i * Sm::KT + wg * kAtom, kk),
+                    mndesc(vtile(kt), kk), 1);
+    wgmma::commit();
+    wgmma::wait();
+    pin_all(ds);
+    if (kt == nt - 1) {  // S_c = e^{g_L} S_{c-1} + dS in place, then out
+      const int rs = 64 * wg + 16 * warp + gr;  // slice rows rs, rs + 8
+#pragma unroll
+      for (int jj = 0; jj < NV / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float* p = sf + (rs + 8 * h) * kSW + 8 * jj + 2 * qd + e;
+            *p = __fadd_rn(__fmul_rn(egl, c > 0 ? *p : 0.f),
+                           ds[4 * jj + 2 * h + e]);
+          }
+      __syncthreads();
+      for (int e = tid; e < 128 * 32; e += kThreads) {
+        const int r = e / 32, ch = e % 32, row = 128 * sl + r;
+        if (row >= dk || 4 * ch >= nv) continue;
+        const float* src = sf + r * kSW + 4 * ch;
+        float* dst = s_out + (long long)row * ld_out + col0 + 4 * ch;
+        if (ld_out % 4 == 0 && 4 * ch + 4 <= nv) {
+          *reinterpret_cast<float4*>(dst) =
+              *reinterpret_cast<const float4*>(src);
+        } else {
+          for (int u = 0; u < 4 && 4 * ch + u < nv; ++u) dst[u] = src[u];
+        }
+      }
+      __syncthreads();  // sf is read out before the next slice's copy
+      if (c > 0 && sl + 1 < ns) issue_s(sl + 1);
+    } else {
+      __syncthreads();  // the key slot and the parts are free
+    }
+  }
+  if (!last) publish(flags + t);
+  __syncthreads();  // the shared region passes to the output phase
+
+  // ---- the output phase, up to four query tiles a pass
+  const int ns2 = (dk + 63) / 64;
+  const int ntri = nt * (nt + 1) / 2;
+  const float* pc = P + (long long)(bh * nc + c) * ntri * (kTile * kTile);
+  __nv_bfloat16* oc = o + row0 * dv;
+  for (int pb = 0; pb < nt; pb += 4) {
+    const int ta = pb + wg, tb = pb + 3 - wg;
+    const bool la = ta < nt, lb = tb < nt;
+    const int npt = min(4, nt - pb);
+    float oa[NO], ob[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) oa[e] = ob[e] = 0.f;
+    // the query tiles of dk slice sl into buffer sl % 2
+    auto issue_q = [&](int sl) {
+      for (int rt = 0; rt < npt; ++rt)
+        stage_cols<64, kTile>(base + Sm::kQ + (sl & 1) * Sm::QB + rt * kAtom,
+                              qc, (pb + rt) * kTile, L, dk, 64 * sl, dk,
+                              vec_qk);
+      cp_async_commit();
+    };
+    // S_{c-1}'s rows [64 sl, 64 sl + 64) of the block's columns: item n
+    // of this thread is row e / (NV / 8), columns 8 (e % (NV / 8)).., e =
+    // tid + n kThreads
+    float xs[NI][8];
+    auto load_s = [&](int sl) {
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        const int e = tid + n * kThreads, r = e / (NV / 8), ch = e % (NV / 8);
+        load8(s_in + (long long)(64 * sl + r) * ldv + col0 + 8 * ch,
+              64 * sl + r < dk, 8 * ch, nv, xs[n]);
+      }
+    };
+    if (c > 0) {
+      issue_q(0);
+      load_s(0);
+    }
+    for (int sl = 0; c > 0 && sl < ns2; ++sl) {  // O = q S_{c-1}[:, j]
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        const int e = tid + n * kThreads, r = e / (NV / 8), ch = e % (NV / 8);
+        store_parts(base + Sm::kSP + (ch / 8) * kAtom + r * 128 +
+                        (((ch % 8) ^ (r % 8)) << 4),
+                    Sm::SP, xs[n]);
+      }
+      if (sl + 1 < ns2) {  // the next slice flies while this one runs
+        issue_q(sl + 1);
+        load_s(sl + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      wgmma::fence_proxy_async();
+      __syncthreads();
+      const uint32_t qb = base + Sm::kQ + (sl & 1) * Sm::QB;
+      pin_all(oa);
+      pin_all(ob);
+      wgmma::fence();
+      if (la) {
+#pragma unroll
+        for (int i = 2; i >= 0; --i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wg_ss<1>(oa, kdesc(qb + wg * kAtom, kk, 0),
+                     mndesc(base + Sm::kSP + i * Sm::SP, kk), 1);
+      }
+      if (lb) {
+#pragma unroll
+        for (int i = 2; i >= 0; --i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wg_ss<1>(ob, kdesc(qb + (3 - wg) * kAtom, kk, 0),
+                     mndesc(base + Sm::kSP + i * Sm::SP, kk), 1);
+      }
+      wgmma::commit();
+      wgmma::wait();
+      pin_all(oa);
+      pin_all(ob);
+      __syncthreads();  // the slice's tiles and parts are free
+    }
+    // O *= e^{g_i}, then O += P v_j over the key tiles up to the diagonal,
+    // then the one rounding to bf16
+    auto finish = [&](float (&acc)[NO], int rt) {
+      const int rl = 16 * warp + gr;  // this thread's rows rl, rl + 8
+      const float eg[2] = {expf(gs[rt * kTile + rl]),
+                           expf(gs[rt * kTile + rl + 8])};
+#pragma unroll
+      for (int e = 0; e < NO; ++e) acc[e] = __fmul_rn(acc[e], eg[(e / 2) % 2]);
+      const float* pr = pc + (long long)(rt * (rt + 1) / 2) * (kTile * kTile);
+      for (int kt = 0; kt <= rt; ++kt) {
+        // the tile's P in the A-fragment order: k16 step kk, register r =
+        // row rl + 8 (r % 2), keys 16 kk + 8 (r / 2) + 2 qd and the next
+        float2 pf[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            pf[kk][r] = *reinterpret_cast<const float2*>(
+                pr + (long long)kt * (kTile * kTile) +
+                (rl + 8 * (r % 2)) * kTile + 16 * kk + 8 * (r / 2) + 2 * qd);
+#pragma unroll
+        for (int kb = 0; kb < 4; kb += 2) {
+          uint32_t pa[2][3][4], part[3];
+#pragma unroll
+          for (int k2 = 0; k2 < 2; ++k2)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              split3(pf[kb + k2][r].x, pf[kb + k2][r].y, part);
+#pragma unroll
+              for (int i = 0; i < 3; ++i) pa[k2][i][r] = part[i];
+            }
+          pin_all(acc);
+          wgmma::fence();
+#pragma unroll
+          for (int k2 = 0; k2 < 2; ++k2)
+#pragma unroll
+            for (int i = 2; i >= 0; --i)
+              wg_rs(acc, pa[k2][i], mndesc(vtile(kt), kb + k2));
+          wgmma::commit();
+          wgmma::wait();
+          pin_all(acc);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = rt * kTile + rl + 8 * h;
+        if (i >= L) continue;
+#pragma unroll
+        for (int jj = 0; jj < NV / 8; ++jj) {
+          const int cl = 8 * jj + 2 * qd;
+          const float y0 = acc[4 * jj + 2 * h], y1 = acc[4 * jj + 2 * h + 1];
+          __nv_bfloat16* op = oc + (long long)i * dv + col0 + cl;
+          if (dv % 2 == 0 && cl + 1 < nv) {
+            *reinterpret_cast<__nv_bfloat162*>(op) =
+                __floats2bfloat162_rn(y0, y1);
+          } else {
+            if (cl < nv) op[0] = __float2bfloat16_rn(y0);
+            if (cl + 1 < nv) op[1] = __float2bfloat16_rn(y1);
+          }
+        }
+      }
+    };
+    if (la) finish(oa, ta);
+    if (lb) finish(ob, tb);
+    __syncthreads();  // the next pass's query tiles overwrite the region
+  }
+}
+
+// The scan for heads wider than 128, the wide route's second launch: a
+// block a unit (head, chunk, 128-wide block of v), its ticket from the
+// counter sync[0]; ticket t is chunk t / (BH nj), so a unit's predecessor
+// (the same head and block, chunk c - 1) holds an earlier ticket; block
+// j of a v whose last block is 64 columns wide or less runs at NV = 64
+// (the mLSTM normalizer's one column).
+__global__ void __launch_bounds__(kThreads, 1)
+    gla_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const float* __restrict__ g, const float* __restrict__ P,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ state,
+                    float* scratch, int* sync, int BH, int S, int L, int dk,
+                    int dv, int ldv, bool vec_qk, bool vec_v) {
+  const int t = take_ticket(sync);
+  const int nj = (dv + 127) / 128;
+  if (dv - 128 * (t % nj) > 64)
+    wide_unit<128>(q, k, v, g, P, o, state, scratch, sync, t, BH, S, L, dk,
+                   dv, ldv, vec_qk, vec_v);
+  else
+    wide_unit<64>(q, k, v, g, P, o, state, scratch, sync, t, BH, S, L, dk,
+                  dv, ldv, vec_qk, vec_v);
+}
 }  // namespace
 
 // K10. q, k [BH, S, dk], v [BH, S, dv], all float32 (bf16 = 0) or all
@@ -1394,4 +1912,41 @@ extern "C" int gla_scan_fwd(const void* q, const void* k, const void* v,
                             (const float*)k, (const float*)v, g, (float*)o,
                             state, scratch, sync, BH, S, L, dk, dv);
   });
+}
+
+// K10 for bfloat16 heads wider than 128 (max(dk, dv) > 128; any dk, dv):
+// q, k [BH, S, dk], v [BH, S, dv] in rows of ldv elements (ldv >= dv, a
+// multiple of 8: the wrapper pads v), g [BH, S] float32; o [BH, S, dv]
+// bf16 and the final state [BH, dk, dv] float32; P float32 [BH S / L][nt
+// (nt + 1) / 2][64][64] (nt = ceil(L / 64)), scratch float32 [BH, S / L,
+// dk, ldv], sync int32 [1 + BH (S / L) ceil(dv / 128)] (zeroed here, on
+// the stream); S a multiple of L, L <= 256. Two launches after the
+// memset: gla_wide_scores_kernel, then gla_wide_kernel. Returns the CUDA
+// error of the memset or of either launch (0 on success), or
+// cudaErrorInvalidValue for L over 256 or ldv not a multiple of 8.
+extern "C" int gla_wide_fwd(const void* q, const void* k, const void* v,
+                            const float* g, float* P, void* o, float* state,
+                            float* scratch, int* sync, int BH, int S, int L,
+                            int dk, int dv, int ldv, void* stream) {
+  if (L > kWideMaxL || ldv % 8 || ldv < dv) return (int)cudaErrorInvalidValue;
+  if (BH == 0 || S == 0 || dk == 0 || dv == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nc = S / L, nt = (L + kTile - 1) / kTile;
+  const int units = BH * nc * ((dv + 127) / 128);
+  cudaError_t err =
+      cudaMemsetAsync(sync, 0, (size_t)(1 + units) * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_qk = dk % 8 == 0 && (uintptr_t)q % 16 == 0 &&
+                      (uintptr_t)k % 16 == 0;
+  const bool vec_v = (uintptr_t)v % 16 == 0;
+  const int e1 = float_io::launch(
+      gla_wide_scores_kernel, BH * nc * nt, kThreads, WideScoresSmem::bytes,
+      s, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, g, P, S, L, dk,
+      vec_qk);
+  if (e1 != 0) return e1;
+  return float_io::launch(
+      gla_wide_kernel, units, kThreads, WideSmem<128>::bytes(nt), s,
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, g, (const float*)P, (__nv_bfloat16*)o, state,
+      scratch, sync, BH, S, L, dk, dv, ldv, vec_qk, vec_v);
 }

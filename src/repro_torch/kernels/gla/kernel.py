@@ -18,8 +18,9 @@ kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
 
 * :func:`gla_chunks` is the wrapper: CUDA tensors launch ``csrc/gla.cu``
   (or raise), CPU tensors take :func:`gla_chunks_plain`.  dk and dv are
-  at most MAX_HEAD_DIM; ``ops.gla_blocked`` cuts wider heads into
-  blocks of that width.
+  at most MAX_HEAD_DIM; :func:`gla_wide` takes wider bfloat16 heads
+  whole (mLSTM's 1024), and ``ops.gla_blocked`` cuts wider heads into
+  blocks of that width (float32 on the card, and the CPU).
   ``LIB.launches`` counts the launches.  The kernel computes each
   (head, chunk) as a unit of its own and hands each chunk's state to the
   next chunk's unit inside the launch (a look-back through a float32
@@ -28,6 +29,12 @@ kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
 * :func:`gla_chunks_plain` is the reference kernel's chunk loop, batched
   over (batch, head).  Its products go through ``torch.matmul``; the
   CUDA kernel's never do.
+* :func:`gla_wide` is K10 for bfloat16 heads wider than MAX_HEAD_DIM:
+  two launches of ``csrc/gla.cu`` (a chunk's scores P, float32, once;
+  then a unit per (head, chunk, 128-wide block of v) that streams dk in
+  slices, keeps o's block in float32 registers from the inter-chunk read
+  to its one rounding, and hands S_c's block on by the same look-back).
+  ``WIDE_LAUNCHES`` counts them (two a call).
 * :func:`chunk_cumsum` is the within-chunk cumsum both take as ``g``.
 """
 
@@ -43,8 +50,8 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_float_dtypes, check_kernel_device,
                       check_launch, check_tensor)
 
-__all__ = ["gla_chunks", "gla_chunks_plain", "chunk_cumsum", "LIB",
-           "MAX_HEAD_DIM"]
+__all__ = ["gla_chunks", "gla_chunks_plain", "gla_wide", "chunk_cumsum",
+           "LIB", "MAX_HEAD_DIM", "WIDE_MAX_CHUNK"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -52,6 +59,11 @@ _I = ctypes.c_int
 
 #: Largest dk and dv the kernel takes.
 MAX_HEAD_DIM = 128
+#: Largest chunk :func:`gla_wide` takes (its value block stays in shared
+#: memory beside double-buffered query slices).
+WIDE_MAX_CHUNK = 256
+#: Launches of the wide route's two kernels (two a :func:`gla_wide` call).
+WIDE_LAUNCHES = 0
 
 LIB = KernelLib(
     "gla", os.path.join(_CSRC, "gla.cu"),
@@ -59,6 +71,8 @@ LIB = KernelLib(
              os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
                           "attention", "csrc", "wgmma.cuh")),
     signatures={"gla_scan_fwd": ([_P] * 8 + [_I] * 7 + [_P],
+                                 ctypes.c_int),
+                "gla_wide_fwd": ([_P] * 9 + [_I] * 6 + [_P],
                                  ctypes.c_int)})
 
 
@@ -133,6 +147,51 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("gla_scan_fwd", err)
     LIB.launches += 1
+    return o, state
+
+
+def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             g: torch.Tensor, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 for bfloat16 heads of any width, taken whole: the arguments
+    and results of :func:`gla_chunks`.  CUDA tensors launch the wide
+    route's two kernels (bfloat16 only, chunk <= WIDE_MAX_CHUNK; v
+    padded to a multiple of 8 columns when it is not one, so its rows are
+    whole 16-byte chunks); CPU tensors take the plain version."""
+    global WIDE_LAUNCHES
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    if not q.is_cuda:
+        return gla_chunks_plain(q, k, v, g, chunk)
+    dev = q.device
+    check_kernel_device(q)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the wide route takes bfloat16 inputs, got "
+                         f"{q.dtype}")
+    if chunk > WIDE_MAX_CHUNK:
+        raise ValueError(f"the wide route takes chunks up to "
+                         f"{WIDE_MAX_CHUNK}, got {chunk}")
+    check_tensor(q, "q", torch.bfloat16, (b, h, s, dk), dev)
+    check_tensor(k, "k", torch.bfloat16, (b, h, s, dk), dev)
+    check_tensor(v, "v", torch.bfloat16, (b, h, s, dv), dev)
+    check_tensor(g, "g", torch.float32, (b, h, s), dev)
+    ldv = -(-dv // 8) * 8
+    vp = v if ldv == dv else torch.nn.functional.pad(v, (0, ldv - dv))
+    nc, nt = s // chunk, -(-chunk // 64)
+    o = torch.empty((b, h, s, dv), dtype=v.dtype, device=dev)
+    state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
+    scores = torch.empty((b * h * nc * nt * (nt + 1) // 2 * 64 * 64,),
+                         dtype=torch.float32, device=dev)
+    scratch = torch.empty((b * h * nc * dk * ldv,), dtype=torch.float32,
+                          device=dev)
+    sync = torch.empty((1 + b * h * nc * -(-dv // 128),), dtype=torch.int32,
+                       device=dev)
+    err = LIB.get().gla_wide_fwd(
+        q.data_ptr(), k.data_ptr(), vp.data_ptr(), g.data_ptr(),
+        scores.data_ptr(), o.data_ptr(), state.data_ptr(),
+        scratch.data_ptr(), sync.data_ptr(), b * h, s, chunk, dk, dv, ldv,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("gla_wide_fwd", err)
+    WIDE_LAUNCHES += 2
     return o, state
 
 

@@ -3,8 +3,10 @@
 becomes ``device``: CUDA unless the caller passes ``device="cpu"``, which
 runs K10's plain version.
 
-K10 takes head dims up to ``kernel.MAX_HEAD_DIM`` (128); the reference's
-kernel takes any.  :func:`gla_blocked` runs wider heads (mLSTM's 1024)
+K10 takes head dims up to ``kernel.MAX_HEAD_DIM`` (128) in one launch;
+the reference's kernel takes any.  Wider bfloat16 heads on the card
+(mLSTM's 1024) go whole to ``kernel.gla_wide``.  :func:`gla_blocked`
+runs wider heads of float32 on the card, and every wide head on the CPU,
 on 128-wide blocks of them.  The state is exact under the cut: state
 block (i, j) needs only k's column block i and v's column block j.  o's
 column block j needs v's block j and every block of k, since q_i . k_j
@@ -20,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..common import as_float_tensor, as_tensor, resolve_device
-from .kernel import MAX_HEAD_DIM, chunk_cumsum, gla_chunks
+from .kernel import (MAX_HEAD_DIM, WIDE_MAX_CHUNK, chunk_cumsum, gla_chunks,
+                     gla_wide)
 
 __all__ = ["gla_scan", "gla_blocked"]
 
@@ -32,8 +35,10 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
     float32 or bfloat16 tensors, one dtype for the three), log_a [B, H, S]
     (<= 0) -> (o [B, H, S, dv] in v's dtype, final state [B, H, dk, dv]
     float32).  S must be a multiple of ``chunk``.  After the within-chunk
-    cumsum of log_a: one K10 launch when dk, dv <= MAX_HEAD_DIM, else
-    :func:`gla_blocked` (ceil(dv / MAX_HEAD_DIM) launches)."""
+    cumsum of log_a: one K10 launch when dk, dv <= MAX_HEAD_DIM; else,
+    for bfloat16 CUDA tensors and chunk <= WIDE_MAX_CHUNK,
+    ``kernel.gla_wide`` (two launches), and otherwise :func:`gla_blocked`
+    (ceil(dv / MAX_HEAD_DIM) launches)."""
     dev = resolve_device(device)
     q, k, v = (as_float_tensor(t, dev) for t in (q, k, v))
     la = as_tensor(log_a, torch.float32, dev)
@@ -43,6 +48,8 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
     g = chunk_cumsum(la, chunk)
     if max(q.shape[-1], v.shape[-1]) <= MAX_HEAD_DIM:
         return gla_chunks(q, k, v, g, chunk)
+    if q.is_cuda and q.dtype == torch.bfloat16 and chunk <= WIDE_MAX_CHUNK:
+        return gla_wide(q, k, v, g, chunk)
     return gla_blocked(q, k, v, g, chunk)
 
 

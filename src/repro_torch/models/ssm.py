@@ -9,11 +9,14 @@ Mamba2 and mLSTM are instances of the per-head recurrence::
 with a per-step scalar decay ``a_t = exp(log_a_t) <= 1``: Mamba2 takes
 q = C, k = B, v = dt * x and log a = -dt * exp(A_log) (d_k = N, d_v =
 P); mLSTM takes its q, k, v projections, log a = log sigmoid(f~) and v
-scaled by the input gate, with the normalizer as a second scan of v =
-the input gate (d_v = 1), h = (q S) / max(|q n|, 1).
+scaled by the input gate, with the normalizer a second column block of v
+= the input gate (d_v = dh + 1 in one scan, :func:`mlstm_scan`), h = (q
+S) / max(|q n|, 1).
 
 The route to K10: :func:`gla_chunked` runs ``kernels.gla.gla_scan``,
-which cuts heads wider than 128 (mLSTM's) into 128-wide blocks.  It pads
+which takes bfloat16 heads wider than 128 (mLSTM's) whole on the card and
+cuts float32 ones, and every wide head on the CPU, into 128-wide blocks.
+It pads
 S at the end to a multiple of the chunk with q = k = v = 0 and log_a =
 0, which leaves the real rows and the final state exact.  K10 takes no
 initial state (as the reference's ``gla_kernel_call`` takes none), so an
@@ -41,7 +44,8 @@ from ..kernels.slstm import slstm
 from .config import ModelConfig
 from .layers import Dense, Dtypes, RMSNorm, normal, rmsnorm
 
-__all__ = ["gla_chunked", "gla_step", "Mamba2", "MLSTM", "SLSTM"]
+__all__ = ["gla_chunked", "gla_step", "mlstm_scan", "Mamba2", "MLSTM",
+           "SLSTM"]
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +76,36 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q[:, :, :S].float(), s0)).to(o.dtype)
         final = final + torch.exp(g[..., -1])[..., None, None] * s0
     return o, final
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               i_g: torch.Tensor, log_f: torch.Tensor, chunk: int,
+               ssm: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The mLSTM's numerator and normalizer scans as one.  q, k, v
+    [B,H,S,dh]; i_g, log_f [B,H,S] float32; ``ssm`` None (no state) or
+    [B,H,dh,dh+1] float32, the numerator's state and, in its last column,
+    the normalizer's.  Returns (o_num [B,H,S,dh], o_den [B,H,S] in v's
+    dtype, the new ssm, or None without a state).
+
+    The reference scans v_num = v i_g and v_den = i_g apart; here they are
+    the dh + 1 columns of one v: each column of o and of the state depends
+    only on its own column of v, so one scan (one ``gla_chunked``: on the
+    card one K10 call, the wide route's at dh + 1 over 128) gives both, and
+    the state keeps the cache's [num | den] layout.  A decode step (S = 1)
+    is one ``gla_step`` over the same columns."""
+    dh = v.shape[-1]
+    vv = torch.cat([v * i_g[..., None].to(v.dtype),
+                    i_g[..., None].to(v.dtype)], dim=-1)
+    if ssm is None:
+        o, _ = gla_chunked(q, k, vv, log_f, chunk)
+    elif q.shape[2] == 1:
+        o, ssm = gla_step(q[:, :, 0], k[:, :, 0], vv[:, :, 0], log_f[..., 0],
+                          ssm)
+        o = o[:, :, None]
+    else:
+        o, ssm = gla_chunked(q, k, vv, log_f, chunk, initial_state=ssm)
+    return o[..., :dh], o[..., dh], ssm
 
 
 def gla_step(q, k, v, log_a, state):
@@ -246,34 +280,14 @@ class MLSTM(nn.Module):
         i_g = torch.sigmoid(gates[..., :H]).transpose(1, 2)        # [B,H,S]
         # jax.nn.log_sigmoid(x) = -softplus(-x)
         log_f = (-_softplus(-gates[..., H:])).transpose(1, 2)
-        # the normalizer as a separate dv = 1 scan, as the reference keeps it
-        v_num = v * i_g[..., None].to(v.dtype)
-        v_den = i_g[..., None].to(v.dtype)
-
-        if state is None:
-            o_num, _ = gla_chunked(q, k, v_num, log_f, cfg.gla_chunk)
-            o_den, _ = gla_chunked(q, k, v_den, log_f, cfg.gla_chunk)
-            new_state = None
-        elif S == 1:
-            ssm = state["ssm"]
-            o_num, fin_n = gla_step(q[:, :, 0], k[:, :, 0], v_num[:, :, 0],
-                                    log_f[..., 0], ssm[..., :dh])
-            o_den, fin_d = gla_step(q[:, :, 0], k[:, :, 0], v_den[:, :, 0],
-                                    log_f[..., 0], ssm[..., dh:])
-            o_num, o_den = o_num[:, :, None], o_den[:, :, None]
-            new_state = {"conv": conv_state,
-                         "ssm": torch.cat([fin_n, fin_d], dim=-1)}
-        else:
-            ssm = state["ssm"]
-            o_num, fin_n = gla_chunked(q, k, v_num, log_f, cfg.gla_chunk,
-                                       initial_state=ssm[..., :dh])
-            o_den, fin_d = gla_chunked(q, k, v_den, log_f, cfg.gla_chunk,
-                                       initial_state=ssm[..., dh:])
-            new_state = {"conv": conv_state,
-                         "ssm": torch.cat([fin_n, fin_d], dim=-1)}
+        o_num, o_den, ssm = mlstm_scan(
+            q, k, v, i_g, log_f, cfg.gla_chunk,
+            None if state is None else state["ssm"])
+        new_state = None if state is None else {"conv": conv_state,
+                                                "ssm": ssm}
 
         # in num's dtype, as the reference divides
-        den = torch.clamp(o_den[..., 0].abs(), min=1.0)
+        den = torch.clamp(o_den.abs(), min=1.0)
         h = o_num / den[..., None].to(o_num.dtype)
         h = h.transpose(1, 2).reshape(B, S, d_inner)
         h = rmsnorm(self.norm.scale, h, cfg.norm_eps) * F.silu(z)

@@ -484,3 +484,143 @@ def test_tf32_chunk_maps(dk, dv):
     assert (seen == 1).all()
     smem = 1024 + 2 * (dk * 256 + dk * 128 + dv * 128)
     assert smem <= 232448
+
+
+# --- MLA's head on flash_mla_kernel: its schedule, emulated ---------------
+
+def _emulate_mla(q, k, v, causal: bool = True, split: bool = True,
+                 bk: int = 64) -> torch.Tensor:
+    """flash_mla_kernel's arithmetic and order in torch: each head's
+    128-row query tiles as two 64-row online softmaxes over 64-key tiles,
+    each taking the kv tiles under its own frontier in the ring's order;
+    the float32 score scaled by dh^-0.5 after the product, -1e30 where
+    masked (top-left causal) or past T; tile kt's product issued before
+    its softmax, so O_kt = (O_{kt-1} + P_{kt-1} V_{kt-1}) alpha_kt and
+    the last tile's P V after the loop; P as P_hi + P_lo bfloat16 parts
+    (one part when not ``split``); o = O / max(l, 1e-30) in bfloat16."""
+    b, h, s, dh = q.shape
+    t = k.shape[2]
+    g = h // k.shape[1]
+    scale = float(np.float32(dh ** -0.5))
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    ntk = -(-t // bk)
+    out = torch.empty((b, h, s, vf.shape[-1]))
+    for r0 in range(0, s, 64):               # a consumer's 64 rows
+        rows = torch.arange(r0, min(r0 + 64, s))
+        mine = min(ntk, -(-(r0 + 64) // bk)) if causal else ntk
+        m = torch.full((b, h, len(rows)), tkernel.NEG)
+        l = torch.zeros((b, h, len(rows)))
+        o = torch.zeros((b, h, len(rows), vf.shape[-1]))
+        parts = None
+        for kt in range(mine):
+            cols = torch.arange(kt * bk, min(kt * bk + bk, t))
+            sc = torch.matmul(qf[:, :, rows], kf[:, :, cols].transpose(-1, -2))
+            sc = sc * scale
+            if causal:
+                sc = torch.where(cols[None] <= rows[:, None], sc, tkernel.NEG)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            if parts is not None:            # the product issued before
+                for part, vv in parts:
+                    o = o + torch.matmul(part, vv)
+                o = o * alpha[..., None]
+            hi = p.bfloat16().float()
+            parts = [(hi, vf[:, :, cols])]
+            if split:
+                parts.append(((p - hi).bfloat16().float(), vf[:, :, cols]))
+            m = m_new
+        for part, vv in parts or []:
+            o = o + torch.matmul(part, vv)
+        out[:, :, rows] = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("s,t,causal", [(1024, 1024, True),
+                                        (192, 320, True),
+                                        (320, 192, True),
+                                        (256, 256, False)])
+def test_mla_schedule_within_one_bf16_step(s, t, causal):
+    """flash_mla_kernel's schedule (128-row tiles of two 64-row online
+    softmaxes, the rescale after the product of the tile before, split P)
+    at MLA's head, dh 192 / dv 128 (H = KV = 2): within one bfloat16 step
+    (2^-7 |o| + 1e-5) of the plain version, causal with S = T and S != T
+    both ways (top-left mask) and not causal."""
+    q, k, v = (torch.tensor(x).bfloat16() for x in
+               _qkv(np.random.default_rng(s + t), 1, 2, 2, s, t, 192, 128))
+    want = tkernel.flash_forward_plain(q, k, v, 64, 64, causal).float()
+    got = _emulate_mla(q, k, v, causal).float()
+    bad = (got - want).abs() > 2.0 ** -7 * want.abs() + F32_TOL
+    assert not bool(bad.any()), f"{int(bad.sum())} elements off"
+
+
+def test_mla_schedule_single_bf16_p_witnessed():
+    """The same schedule with P rounded to one bfloat16 part moves
+    outputs past one bfloat16 step at S = 1024: the split stays."""
+    q, k, v = (torch.tensor(x).bfloat16() for x in
+               _qkv(np.random.default_rng(2048), 1, 2, 2, 1024, 1024, 192,
+                    128))
+    want = tkernel.flash_forward_plain(q, k, v).float()
+    got = _emulate_mla(q, k, v, split=False).float()
+    bad = (got - want).abs() > 2.0 ** -7 * want.abs() + F32_TOL
+    assert float(bad.float().mean()) > 0.01, int(bad.sum())
+
+
+@pytest.mark.parametrize("bh,s,blocks", [(512, 4096, 132), (128, 4096, 132),
+                                         (3, 256, 132), (5, 896, 4),
+                                         (7, 100, 3)])
+def test_mla_tile_list_once_longest_first(bh, s, blocks):
+    """``mla_tiles`` (flash_mla_kernel's persistent work list) visits
+    every (head, 128-row query tile) exactly once, no block takes more
+    than one tile beyond another, every block's tiles come longest first
+    (causal kv tiles), and at deepseek-v2's and kimi-k2's layers (B H =
+    512 and 128, S 4096, 132 SMs) the blocks' causal kv tiles are within
+    6% of their mean."""
+    blocks = min(blocks, bh * -(-s // tkernel.MLA_BM))
+    lists = tkernel.mla_tiles(bh, s, blocks)
+    seen = [tile for lst in lists for tile in lst]
+    nq = -(-s // tkernel.MLA_BM)
+    assert sorted(seen) == [(h, qt) for h in range(bh) for qt in range(nq)]
+    assert max(map(len, lists)) - min(map(len, lists)) <= 1
+    kv = lambda qt: min(-(-s // 64), -(-(qt * 128 + 128) // 64))
+    for lst in lists:
+        loads = [kv(qt) for _, qt in lst]
+        assert loads == sorted(loads, reverse=True)
+    if s == 4096 and blocks == 132:
+        per = np.array([sum(kv(qt) for _, qt in lst) for lst in lists])
+        assert per.max() <= 1.06 * per.mean(), (per.max(), per.mean())
+
+
+def _cu_constants(path: str) -> dict:
+    """``constexpr int NAME = VALUE;`` integer constants of a source."""
+    import re
+    with open(path) as f:
+        text = f.read()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_mla_shared_memory_and_registers_fit():
+    """flash_mla_kernel's constants, parsed from flash_wgmma.cu: two
+    query buffers of 128 x 192 bf16 and a ring of 64-row K (192) and V
+    (128) tiles, with its mbarriers and the alignment slack, fit the
+    card's 232,448 bytes a block; the producer's registers handed to the
+    consumers balance (128 x 168 given up = 256 x taken), each a
+    multiple of 8, the consumers' at most 255."""
+    import os
+    c = _cu_constants(os.path.join(os.path.dirname(tkernel.__file__),
+                                   "csrc", "flash_wgmma.cu"))
+    nbytes = (c["kMlaQBufs"] * c["kMlaBM"] * c["kMlaDK"] * 2
+              + c["kMlaStages"] * 64 * (c["kMlaDK"] + c["kMlaDV"]) * 2
+              + (2 * c["kMlaQBufs"] + 2 * c["kMlaStages"]) * 8 + 1024)
+    assert c["kMlaStages"] >= 2 and c["kMlaQBufs"] == 2
+    assert nbytes <= 232448, nbytes
+    assert c["kMlaThreads"] == 384 and c["kMlaBM"] == 128
+    start = 65536 // c["kMlaThreads"] // 8 * 8     # 168 a thread
+    assert 128 * (start - c["kProducerRegs"]) == \
+        256 * (c["kConsumerRegs"] - start)
+    assert c["kProducerRegs"] % 8 == 0 and c["kConsumerRegs"] % 8 == 0
+    assert 24 <= c["kProducerRegs"] and c["kConsumerRegs"] <= 255

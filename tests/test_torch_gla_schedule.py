@@ -131,11 +131,14 @@ def _simulate(bh, nc, resident, work):
 
 
 @pytest.mark.parametrize("bh,nc,resident", [(112, 16, 264), (3, 16, 1),
-                                            (5, 64, 2), (7, 4, 9)])
+                                            (5, 64, 2), (7, 4, 9),
+                                            (144, 16, 132)])
 def test_ticket_order_chain_completes(bh, nc, resident):
     """With any number of resident blocks (one included), blocks that
     take tickets as they start never wait on an unstarted unit: the chain
-    of every head completes, each S_c published after S_{c-1}."""
+    of every head completes, each S_c published after S_{c-1}.  (144, 16,
+    132): the wide route at xlstm-1p3b's scan, 16 heads x 9 value blocks a
+    chunk, one block an SM, its predecessor BH nj = 144 tickets back.)"""
     work = np.random.default_rng(bh * nc + resident).integers(
         1, 20, bh * nc).tolist()
     order = _simulate(bh, nc, resident, work)
@@ -247,3 +250,155 @@ def test_three_parts_reassemble_exactly():
     assert bool(((exact - x.double()).abs()
                  <= 2.0 ** -26 * x.double().abs()).all())
     assert torch.equal((hi + mid) + lo, x)
+
+
+# --- heads wider than 128: the wide route's units (kernel.gla_wide) ---
+
+def _emulate_wide(q, k, v, g, chunk, parts: int = 3):
+    """``gla_wide``'s two launches in torch, unit by unit in ticket order.
+    Launch 1: each chunk's P = (q k^T) e^{g_i - g_j}, 0 above the diagonal,
+    float32, kept as 64 x 64 tiles at lower-tile index qt (qt + 1) / 2 +
+    kt.  Launch 2: ticket t is (chunk t // (BH nj), head, 128-wide value
+    block j); the state phase takes S_{c-1}[:, j] from the unit BH nj
+    tickets back and, per 128-row dk slice and 64-key tile, adds (k w)^T
+    v_j with k w in ``parts`` bfloat16 parts (the small part first), then
+    S_c = e^{g_L} S_{c-1} + dS; the output phase sums q S_{c-1}[:, j]
+    over 64-row dk slices (S_{c-1} in parts), scales the rows by e^{g_i},
+    adds P v_j over the key tiles up to the diagonal (P in parts) and
+    rounds once to v's dtype."""
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    bh, nc, L = b * h, s // chunk, chunk
+    nt = -(-L // 64)
+    qf, kf, vf = (x.reshape(bh, s, -1).float() for x in (q, k, v))
+    gf = g.reshape(bh, s)
+    idx = torch.arange(L)
+    causal = idx[:, None] >= idx[None, :]
+    tiles = {}
+    for head in range(bh):
+        for c in range(nc):
+            rows = slice(c * L, (c + 1) * L)
+            gb = gf[head, rows]
+            sc = torch.matmul(qf[head, rows], kf[head, rows].T)
+            p = torch.where(causal, sc * torch.exp(gb[:, None] - gb[None]),
+                            0.0)
+            store = torch.zeros((nt * (nt + 1) // 2, 64, 64))
+            for qt in range(nt):
+                for kt in range(qt + 1):
+                    blk = p[64 * qt:64 * qt + 64, 64 * kt:64 * kt + 64]
+                    store[qt * (qt + 1) // 2 + kt, :blk.shape[0],
+                          :blk.shape[1]] = blk
+            tiles[head, c] = store
+    nj = -(-dv // 128)
+    per = bh * nj
+    published = {}
+    out = torch.empty((bh, s, dv), dtype=v.dtype)
+    state = torch.empty((bh, dk, dv))
+    for t in range(bh * nc * nj):
+        c, r = divmod(t, per)
+        head, j = divmod(r, nj)
+        col0 = 128 * j
+        nv = min(128, dv - col0)
+        rows = slice(c * L, (c + 1) * L)
+        qb, kb, gb = qf[head, rows], kf[head, rows], gf[head, rows]
+        vb = vf[head, rows, col0:col0 + nv]
+        if c == 0:
+            s_prev = torch.zeros((dk, nv))
+        else:
+            assert t - per >= 0 and (head, c - 1, j) in published
+            s_prev = published[head, c - 1, j]
+        w = torch.exp(gb[-1] - gb)
+        s_new = torch.empty((dk, nv))
+        for d0 in range(0, dk, 128):
+            ds = torch.zeros((min(128, dk - d0), nv))
+            for j0 in range(0, L, 64):
+                kw = kb[j0:j0 + 64, d0:d0 + 128] * w[j0:j0 + 64, None]
+                for part in reversed(_parts(kw, parts)):
+                    ds = ds + torch.matmul(part.T, vb[j0:j0 + 64])
+            s_new[d0:d0 + 128] = torch.exp(gb[-1]) * s_prev[d0:d0 + 128] + ds
+        published[head, c, j] = s_new
+        acc = torch.zeros((L, nv))
+        if c > 0:
+            for d0 in range(0, dk, 64):
+                for part in reversed(_parts(s_prev[d0:d0 + 64], parts)):
+                    acc = acc + torch.matmul(qb[:, d0:d0 + 64], part)
+        acc = acc * torch.exp(gb)[:, None]
+        store = tiles[head, c]
+        for qt in range(nt):
+            r0, r1 = 64 * qt, min(64 * qt + 64, L)
+            for kt in range(qt + 1):
+                pt = store[qt * (qt + 1) // 2 + kt, :r1 - r0]
+                vt = vb[64 * kt:64 * kt + 64]
+                for part in reversed(_parts(pt[:, :vt.shape[0]], parts)):
+                    acc[r0:r1] = acc[r0:r1] + torch.matmul(part, vt)
+        out[head, rows, col0:col0 + nv] = acc.to(v.dtype)
+        if c == nc - 1:
+            state[head, :, col0:col0 + nv] = s_new
+    return out.reshape(b, h, s, dv), state.reshape(b, h, dk, dv)
+
+
+@pytest.mark.parametrize("dk,dv,chunk", [(256, 256, 128), (256, 129, 64),
+                                         (200, 136, 24)])
+def test_wide_units_bitwise_on_dyadic_data(dk, dv, chunk):
+    """On dyadic-grid data (q, k, v in {-1, -1/2, 0, 1/2, 1}, log a = 0),
+    where every float32 sum is exact and three bfloat16 parts hold every
+    operand whole, the wide route's units in ticket order (dk slices, the
+    sliced look-back, o's one rounding) are bitwise the plain version,
+    value blocks of 128 and a 1- or 8-column tail, ragged chunks
+    included."""
+    b, h, nc = 1, 2, 3
+    rng = np.random.default_rng(dk + dv + chunk)
+    grid = lambda *shape: torch.tensor(
+        rng.integers(-2, 3, shape).astype(np.float32) / 2).bfloat16()
+    q, k = grid(b, h, nc * chunk, dk), grid(b, h, nc * chunk, dk)
+    v = grid(b, h, nc * chunk, dv)
+    g = tkernel.chunk_cumsum(torch.zeros((b, h, nc * chunk)), chunk)
+    o, st = _emulate_wide(q, k, v, g, chunk)
+    po, pst = tkernel.gla_chunks_plain(q, k, v, g, chunk)
+    assert torch.equal(o, po)
+    assert torch.equal(st, pst)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 512, 256, 256, 256),
+                                   (1, 1, 512, 1024, 129, 256)])
+def test_wide_units_precision_three_parts(shape):
+    """On random data at dk = dv = 256 and at dk = 1024 / dv = 129 (an
+    mLSTM-wide head with the normalizer's column), the wide units with
+    three parts of P, k w and S_{c-1}: the state within rtol 1e-4 / atol
+    1e-5 of the plain version, o within that plus one bf16 step."""
+    q, k, v, g, chunk = _case(shape)
+    want_o, want_s = tkernel.gla_chunks_plain(q, k, v, g, chunk)
+    got_o, got_s = _emulate_wide(q, k, v, g, chunk)
+    assert got_o.dtype == torch.bfloat16
+    assert _outside(got_s, want_s, RTOL) == 0
+    assert _outside(got_o, want_o, RTOL + BF16_STEP) == 0
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+def test_wide_units_fewer_parts_witnessed(parts):
+    """Why three parts at dk = 1024: with one or two bfloat16 parts of P,
+    k w and S_{c-1}, the wide units move outputs past the same tolerance
+    (one part moves the state too)."""
+    q, k, v, g, chunk = _case((1, 1, 512, 1024, 129, 256))
+    want_o, _ = tkernel.gla_chunks_plain(q, k, v, g, chunk)
+    got_o, _ = _emulate_wide(q, k, v, g, chunk, parts)
+    assert _outside(got_o, want_o, RTOL + BF16_STEP) > 0
+
+
+def test_wide_route_on_the_cpu_is_the_plain_version():
+    """``gla_wide`` on CPU tensors runs the undivided plain version
+    (bitwise), launches nothing, and ``gla_scan`` keeps the CPU's wide
+    heads on ``gla_blocked``."""
+    from repro_torch.kernels.gla import ops
+    q, k, v, g, chunk = _case((1, 2, 128, 160, 136, 64))
+    before = tkernel.WIDE_LAUNCHES, tkernel.LIB.launches
+    o, st = tkernel.gla_wide(q, k, v, g, chunk)
+    po, pst = tkernel.gla_chunks_plain(q, k, v, g, chunk)
+    assert torch.equal(o, po) and torch.equal(st, pst)
+    la = torch.diff(g, dim=-1, prepend=torch.zeros_like(g[..., :1]))
+    la[..., ::chunk] = g[..., ::chunk]
+    bo, bst = ops.gla_scan(q, k, v, la, chunk=chunk, device="cpu")
+    wo, wst = ops.gla_blocked(q, k, v, tkernel.chunk_cumsum(la, chunk),
+                              chunk)
+    assert torch.equal(bo, wo) and torch.equal(bst, wst)
+    assert (tkernel.WIDE_LAUNCHES, tkernel.LIB.launches) == before

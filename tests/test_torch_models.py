@@ -502,6 +502,54 @@ def test_mlstm(wide):
     assert _unlaunched() == before
 
 
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("S,with_state", [(37, False), (37, True),
+                                          (1, True)])
+def test_mlstm_one_scan(wide, S, with_state):
+    """``mlstm_scan``, the numerator and normalizer as one scan of dh + 1
+    value columns (at dh 256 on K10's blocked route, 3 value blocks),
+    against the two scans the reference's ``mlstm_apply`` runs: its
+    ``gla_chunked`` (or, at S = 1, ``gla_step``) of v i_g and of i_g,
+    each from its own columns of the state, and against the port's two
+    scans the same way.  Outputs within LOGIT_TOL, the state within
+    CACHE_TOL (the whole layer against ``mlstm_apply``: test_mlstm)."""
+    _, cfg = _xlstm_cfg(wide)
+    H = cfg.num_heads
+    dh = cfg.ssm_expand * cfg.d_model // H
+    rng = np.random.default_rng(20 + S + 2 * wide + with_state)
+    q, k, v = (_x(rng, 2, H, S, dh) * dh ** -0.5 for _ in range(3))
+    i_g = 1.0 / (1.0 + np.exp(-_x(rng, 2, H, S)))
+    log_f = -np.log1p(np.exp(-4.0 * _x(rng, 2, H, S)))
+    log_f = log_f.astype(np.float32)
+    i_g = i_g.astype(np.float32)
+    ssm = _x(rng, 2, H, dh, dh + 1) if with_state else None
+    t = lambda a: None if a is None else torch.tensor(a)
+    o_num, o_den, new = tssm.mlstm_scan(t(q), t(k), t(v), t(i_g), t(log_f),
+                                        cfg.gla_chunk, t(ssm))
+    assert o_num.shape == (2, H, S, dh) and o_den.shape == (2, H, S)
+    assert (new is None) == (ssm is None)
+    v_num, v_den = v * i_g[..., None], i_g[..., None]
+    for lib, arr in ((rssm, jnp.asarray), (tssm, torch.tensor)):
+        outs = []
+        for vv, sl in ((v_num, np.s_[..., :dh]), (v_den, np.s_[..., dh:])):
+            st = None if ssm is None else arr(np.ascontiguousarray(ssm[sl]))
+            if S == 1:
+                o, fin = lib.gla_step(arr(q[:, :, 0]), arr(k[:, :, 0]),
+                                      arr(vv[:, :, 0]), arr(log_f[..., 0]),
+                                      st)
+                o = np.asarray(o)[:, :, None]
+            else:
+                o, fin = lib.gla_chunked(
+                    *map(arr, (q, k, vv, log_f)), cfg.gla_chunk,
+                    **({} if st is None else {"initial_state": st}))
+            outs.append((np.asarray(o), np.asarray(fin)))
+        (on, fn), (od, fd) = outs
+        _close(o_num, on, LOGIT_TOL)
+        _close(o_den, od[..., 0], LOGIT_TOL)
+        if ssm is not None:
+            _close(new, np.concatenate([fn, fd], axis=-1), CACHE_TOL)
+
+
 @pytest.mark.parametrize("S", [1, 37, 256])
 def test_slstm(S):
     """The sLSTM mixer with no state and from a non-zero state (its
