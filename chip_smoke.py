@@ -187,12 +187,15 @@ Phases, in order (any failure exits non-zero):
     plain versions) within MODEL_F32_RTOL / MODEL_F32_ATOL.
 24. MoE/MLA serving on the card (``models.attention.MLAttention``,
     ``models.moe``): (a) K9 at MLA's head (q and k 192 wide, v 128: bf16
-    on ``flash_mla_kernel``, warp-specialized and persistent, f32 on
-    ``flash_tf32_kernel<192, 128>``) against its plain version at
+    on ``flash_mla_kernel``, f32 on ``flash_tf32_mla_kernel``, both
+    warp-specialized and persistent) against its plain version at
     deepseek-v2's (B 4, 128 heads, S 4096) and kimi-k2's (B 2, 64 heads)
     bf16 prefill shapes and at deepseek's f32 one (S 384), one launch
     each, timed beside the plain version, the bound and SDPA, with the
-    persistent blocks' share of the causal kv tiles;
+    persistent blocks' share of the causal kv tiles; the f32 kernel also
+    at MLA_F32_EDGES (S != T both ways, S = T = 96, a GQA group of 2,
+    non-causal, dh 130 / dv 10 on the element-wise loads, q, k and v one
+    element into their storage) within ATTN_F32_TOL, one launch each;
     (b) deepseek-v2-236b at full width cut to 5 layers (1 dense + 4 MoE,
     random bf16 weights) serving 4 prompts of 4096 tokens for 32 new
     tokens through ``ServeEngine.generate``: K9 5 times a prefill, 0 a
@@ -223,7 +226,12 @@ Phases, in order (any failure exits non-zero):
     the sLSTM scan kernel at
     full width (B 4, S 4096, D 2048; bf16 and f32 zifo) against its plain
     version (bitwise expected; a difference witnessed, within SLSTM_TOL),
-    timed beside its byte bound; (c) xlstm-1p3b at full width and depth
+    timed beside its byte bound, then at SLSTM_EDGES from a nonzero state
+    (S 1, 7 and 129, B D off the 64-channel block, blocks that cannot
+    stage their gates), each held the same way with its count of
+    differing elements, and one S = 1 launch at the decode shape timed
+    on the device beside the kernel's before the redesign; (c)
+    xlstm-1p3b at full width and depth
     (48 layers, random bf16 weights) serving 4 prompts of 4096 tokens for
     32 new tokens through ``ServeEngine.generate``: the wide route's two
     kernels once each an mLSTM layer (K10-mlstm 84) and the sLSTM scan 6
@@ -401,7 +409,9 @@ KERNELS = {
                "src/repro_torch/kernels/attention/csrc/flash_wgmma.cu",
                "src/repro/kernels/attention/kernel.py:26"),
     "K9-f32-mla": ("K9 causal flash attention at MLA's head (dh 192, dv "
-                   "128), f32 (split TF32, wgmma)",
+                   "128), f32 (split TF32, wgmma; flash_tf32_mla_kernel: "
+                   "TMA producer splitting the parts, one wgmma consumer, "
+                   "persistent)",
                    "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
                    "src/repro/kernels/attention/kernel.py:26"),
     "K10": ("K10 chunked GLA scan",
@@ -609,7 +619,8 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
 
 _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
-                        r"flash_tf32_kernel|flash_wgmma_kernel|"
+                        r"flash_tf32_kernel|flash_tf32_mla_kernel|"
+                        r"flash_wgmma_kernel|"
                         r"flash_mla_kernel|gla_wide_scores_kernel|"
                         r"gla_wide_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
@@ -717,7 +728,8 @@ def build_report(libs) -> None:
     opcodes that carry its work (K7: FMNMX, three a cell; shuffles;
     global stores; K9 f32: HGMMA), for K9 at MLA's head
     (``flash_mla_kernel``) its HGMMA, asynchronous copies (LDGSTS) and
-    TMA loads (UTMALDG), for K10's bf16 kernels (``gla_ws_kernel``,
+    TMA loads (UTMALDG), for K9 f32 there (``flash_tf32_mla_kernel``)
+    its HGMMA and UTMALDG, for K10's bf16 kernels (``gla_ws_kernel``,
     ``gla_mma_kernel``, ``gla_wide_scores_kernel``, ``gla_wide_kernel``)
     their warpgroup-MMA count, HGMMA, and for K8 (``iir_kernel``) its
     asynchronous copies, LDGSTS.  Every compiler warning is printed
@@ -735,7 +747,9 @@ def build_report(libs) -> None:
             ops = sass_ops(lib, "dtw_matrix_kernel",
                            ("FMNMX", "SHFL", "STG"))
         elif lib is attn.LIB:
-            ops = sass_ops(lib, "flash_tf32_kernel", ("HGMMA",))
+            ops = {**sass_ops(lib, "flash_tf32_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "flash_tf32_mla_kernel",
+                              ("HGMMA", "UTMALDG"))}
         elif lib is attn.BF16_LIB:
             ops = {**sass_ops(lib, "flash_wgmma_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_mla_kernel",
@@ -4324,6 +4338,22 @@ MLA_K9 = ((4, 128, 128, 4096, 192, 128, torch.bfloat16, "K9-mla",
            "deepseek f32"))
 
 
+#: The f32 MLA kernel's edges (``flash_tf32_mla_kernel``): (B, H, KV, S,
+#: T, dh, dv, causal, q, k, v one element into their storage).  S != T
+#: both ways, S = T = 96 (ragged against the 64-row query and 32-row kv
+#: tiles), a GQA group of 2, non-causal, rows that are not whole 16-byte
+#: chunks (dh 130, dv 10: the producer's element-wise loads) and storage
+#: that is not 16-byte aligned.
+MLA_F32_EDGES = ((1, 2, 2, 128, 192, 192, 128, True, False),
+                 (1, 2, 2, 192, 128, 192, 128, True, False),
+                 (1, 2, 2, 96, 96, 192, 128, True, False),
+                 (1, 4, 2, 128, 128, 192, 128, True, False),
+                 (1, 2, 2, 128, 128, 192, 128, False, False),
+                 (1, 2, 2, 128, 96, 130, 10, True, False),
+                 (1, 2, 2, 128, 96, 192, 128, True, True),
+                 (1, 2, 2, 96, 128, 130, 10, False, True))
+
+
 def _sdpa_ms(q, k, v) -> float:
     """``scaled_dot_product_attention``'s CUDA-event ms on (q, k, v)
     through its fused backends (the math backend would hold the [S, T]
@@ -4338,13 +4368,15 @@ def _sdpa_ms(q, k, v) -> float:
 
 def check_mla_kernels(dev, errs: ErrLog, name: str):
     """Phase 24 (a): K9 at MLA's shapes (MLA_K9) against its plain version,
-    one launch each (bf16: ``flash_mla_kernel``), timed by CUDA events
-    beside the plain version, the bound (2 (dh + dv) FLOPs a causal
-    query-key pair: bf16 at the bf16 tensor peak, f32 as three TF32
-    products at the TF32 peak; each input read and the output written
-    once) and SDPA; for each bf16 shape, how evenly the persistent
-    blocks' work list (``kernel.mla_tiles``) spreads the causal kv tiles.
-    Returns (the two table rows, {what: ms})."""
+    one launch each (bf16: ``flash_mla_kernel``, f32:
+    ``flash_tf32_mla_kernel``), timed by CUDA events (and a launch's
+    device time from the profiler) beside the plain version, the bound
+    (2 (dh + dv) FLOPs a causal query-key pair: bf16 at the bf16 tensor
+    peak, f32 as three TF32 products at the TF32 peak; each input read
+    and the output written once) and SDPA; for each shape, how evenly
+    the persistent blocks' work list (``kernel.mla_tiles``) spreads the
+    causal kv tiles.  Then the f32 kernel at MLA_F32_EDGES, one launch
+    each within ATTN_F32_TOL.  Returns (the two table rows, {what: ms})."""
     from repro_torch.kernels.attention import kernel as k9
     gen = torch.Generator(device=dev).manual_seed(24)
     mem_bps, _, bf16_flops, tf32_flops = card_peaks(name)
@@ -4363,6 +4395,9 @@ def check_mla_kernels(dev, errs: ErrLog, name: str):
         mean = float(op.float().abs().mean())
         del o, op
         ms[what] = cuda_ms(lambda: k9.flash_forward(q, k, v, 64, 64), 5)
+        dev_ms = device_ms(lambda: k9.flash_forward(q, k, v, 64, 64), 5,
+                           "flash_tf32_mla_kernel"
+                           if dtype == torch.float32 else "flash_mla_kernel")
         pairs = b * h * s * (s + 1) // 2
         flops = 2 * (dh + dv) * pairs
         width = q.element_size()
@@ -4373,16 +4408,18 @@ def check_mla_kernels(dev, errs: ErrLog, name: str):
         line = (f"[MLA K9] {what}: B={b} H={h} KV={kv} S=T={s} dh={dh} "
                 f"dv={dv} {str(dtype)[6:]}, causal: max abs err {e:.3g} "
                 f"({_attn_limit(q)}; mean |o| {mean:.3g}); {ms[what]:.4f} "
-                f"ms")
-        if dtype == torch.bfloat16:
-            ntiles = b * h * -(-s // k9.MLA_BM)
-            per = [sum(min(-(-s // 64), -(-(qt * k9.MLA_BM + k9.MLA_BM)
-                                         // 64)) for _, qt in lst)
-                   for lst in k9.mla_tiles(b * h, s, min(ntiles, sms))]
-            line += (f"; {ntiles} query tiles of {k9.MLA_BM} rows on "
-                     f"{len(per)} persistent blocks, causal kv tiles a "
-                     f"block {min(per)}-{max(per)} (mean "
-                     f"{sum(per) / len(per):.1f})")
+                f"ms (device {_dev_str(dev_ms)})")
+        # the persistent kernel's work list: bf16 128-row query tiles over
+        # 64-row kv tiles, f32 64-row query tiles over 32-row kv tiles
+        bm, bk = (k9.MLA_BM, 64) if dtype == torch.bfloat16 \
+            else (k9.MLA_F32_BM, 32)
+        ntiles = b * h * -(-s // bm)
+        per = [sum(min(-(-s // bk), -(-(qt * bm + bm) // bk))
+                   for _, qt in lst)
+               for lst in k9.mla_tiles(b * h, s, min(ntiles, sms), bm)]
+        line += (f"; {ntiles} query tiles of {bm} rows on {len(per)} "
+                 f"persistent blocks, causal kv tiles a block "
+                 f"{min(per)}-{max(per)} (mean {sum(per) / len(per):.1f})")
         if key:
             t_plain = cuda_ms(lambda: k9.flash_forward_plain(q, k, v, 64,
                                                              64), 1)
@@ -4397,6 +4434,23 @@ def check_mla_kernels(dev, errs: ErrLog, name: str):
                         else ": three TF32 products") + ")")
         print(line + f" [{name}]")
         del q, k, v
+    for b, h, kv, s, t, dh, dv, causal, at in MLA_F32_EDGES:
+        q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv,
+                               torch.float32)
+        if at:
+            q, k, v = (_at_offset(x) for x in (q, k, v))
+        before = counts()
+        o = k9.flash_forward(q, k, v, 32, 32, causal)
+        torch.cuda.synchronize()
+        launched(before, K9_f32=1)
+        e = _attn_diff(errs, o, k9.flash_forward_plain(q, k, v, 32, 32,
+                                                       causal),
+                       f"MLA K9 f32 edge {(b, h, kv, s, t, dh, dv, causal)}",
+                       "K9-f32-mla")
+        print(f"[MLA K9] f32 edge: B={b} H={h} KV={kv} S={s} T={t} dh={dh} "
+              f"dv={dv} causal={causal!s:5}"
+              f"{' (one element into storage)' if at else ''}: max abs "
+              f"err {e:.3g} ({_attn_limit(o)})")
     torch.cuda.empty_cache()
     return rows, ms
 
@@ -4501,6 +4555,19 @@ SLSTM_OPS = 27
 #: (B, H, S, dh, chunk); and its sLSTM scan: (B, S, D).
 XLSTM_SCAN = (4, 4, 4096, 1024, 256)
 SLSTM_SCAN = (4, 4096, 2048)
+#: The sLSTM scan's edges, each from a nonzero state in bf16 and f32: (B,
+#: S, D, c kept at 0 on half the channels).  S 1 (a decode step), 7 and
+#: 129 (one stage, a stage and a ragged one), B D not a multiple of the
+#: kernel's 64-channel block, blocks that straddle two sequences or whose
+#: rows are not whole 16-byte copies (D 100, 70), and channels whose c
+#: stays 0, so a quotient falls outside the fast division's window.
+SLSTM_EDGES = ((4, 1, 2048, False), (4, 7, 2048, False),
+               (3, 7, 100, False), (2, 129, 70, False),
+               (3, 129, 128, False), (2, 300, 128, True))
+#: One S = 1 launch at the decode shape (B 4, D 2048) on the device before
+#: the redesign of the sLSTM scan, bf16 and f32 gates (ms; PERF.md's
+#: kernel table, NVIDIA H100 80GB HBM3, 700 W).
+PARENT_SLSTM_DECODE_MS = {"bfloat16": 0.0016, "float32": 0.0015}
 #: Phase 25's launches: an xlstm-1p3b prefill (42 mLSTM layers, each one
 #: scan of dh + 1 = 1025 value columns, the numerator's and the
 #: normalizer's, on the wide route's two kernels; 6 sLSTM layers) and the
@@ -4712,6 +4779,40 @@ def check_slstm(dev, errs: ErrLog, name: str):
           f"{-(-b * d // 64)} blocks of 64) [{name}]")
     row = _row("sLSTM", 0, errs, t_ms, t_plain, kb)
     del zifo, zeros
+    for bb, ss, dd, zero_c in SLSTM_EDGES:
+        zf = torch.randn((bb, ss, 4 * dd), generator=gen, device=dev)
+        zf[..., 2 * dd:3 * dd] += 0.5
+        rr = 0.5 * torch.randn((4, dd), generator=gen, device=dev)
+        st = [torch.randn((bb, dd), generator=gen, device=dev)
+              for _ in range(4)]
+        st[2] = st[2].abs() + 0.5
+        if zero_c:
+            zf[..., :dd // 2] = 0
+            rr[0, :dd // 2] = 0
+            st[1][:, :dd // 2] = 0
+        for z in (zf.bfloat16(), zf):
+            bf = z.dtype == torch.bfloat16
+            what = (f"B={bb} S={ss} D={dd}{' c kept 0' if zero_c else ''} "
+                    f"{str(z.dtype)[6:]}")
+            before = counts()
+            got = kernel.slstm_scan(z, rr, *st)
+            torch.cuda.synchronize()
+            launched(before, sLSTM=1)
+            want = kernel.slstm_scan_plain(z, rr, *st)
+            errs.diff("sLSTM", got[0], want[0])
+            n_diff = _slstm_diff(got, want, bf, what)
+            line = (f"[sLSTM] {what}, from a nonzero state: one launch; "
+                    f"elements that differ from the plain version {n_diff}")
+            if ss == 1 and dd == 2048:
+                key = str(z.dtype)[6:]
+                t1 = cuda_ms(lambda: kernel.slstm_scan(z, rr, *st), 200)
+                d1 = device_ms(lambda: kernel.slstm_scan(z, rr, *st), 50,
+                               "slstm_scan_kernel")
+                line += (f"; a decode step's launch {t1:.4f} ms back to back "
+                         f"(the host's launch path), device {_dev_str(d1)} "
+                         f"(before the redesign "
+                         f"{PARENT_SLSTM_DECODE_MS[key]:.4f} ms)")
+            print(line + f" [{name}]")
     return row, t_ms
 
 

@@ -24,22 +24,27 @@
 // exact in the tensor core, which sums in float32. S = Q K^T and O += P V
 // both run so; the softmax stays in float32 on CUDA cores.
 //
-// Design: a block holds one warpgroup (128 threads) per query head of a
-// 64-row query tile, two heads of one kv head when the group size is even
-// (GQA: they share each K and V tile), else one; the tiles with the most
-// kv tiles under the frontier are launched first. Every operand sits in
-// shared memory as its two parts, K-major in the 128-byte swizzled layout
-// of 32-column sub-tiles (wgmma.cuh), Q and K zero-padded to the
-// instantiation's DK, V to its DV: DK = DV = 64 or 128 (the least that
-// holds max(dh, dv)), or DK = 192, DV = 128 for MLA's prefill (one query
-// head a block; 181,248 bytes of shared memory, where one D = 192 would
-// need 197,632). Q is stored once (scaled and split as it is stored), then
-// 32-row kv tiles. TF32 wgmma reads both operands K-major only (there is
-// no transpose bit for TF32), so V is staged transposed, Vt [DV, 32], by
-// the threads, from registers: tile kt + 1 is loaded from global memory
+// Design (dh <= 128): a block holds one warpgroup (128 threads) per query
+// head of a 64-row query tile, two heads of one kv head when the group size
+// is even (GQA: they share each K and V tile), else one; the tiles with the
+// most kv tiles under the frontier are launched first. Every operand sits
+// in shared memory as its two parts, K-major in the 128-byte swizzled
+// layout of 32-column sub-tiles (wgmma.cuh), Q and K zero-padded to the
+// instantiation's DK, V to its DV: DK = DV = 64 or 128, the least that
+// holds max(dh, dv). Q is stored once (scaled and split as it is stored),
+// then 32-row kv tiles. TF32 wgmma reads both operands K-major only (there
+// is no transpose bit for TF32), so V is staged transposed, Vt [DV, 32],
+// by the threads, from registers: tile kt + 1 is loaded from global memory
 // into registers while tile kt is computed, and split and stored once
 // every warpgroup is done with kt.
 // A tile wholly below the diagonal and inside T skips the mask arithmetic.
+//
+// MLA's prefill (dh over 128: q and k 128 + 64 wide, v 128) runs
+// flash_tf32_mla_kernel, warp-specialized and persistent (notes at the
+// kernel): two producer warpgroups bring each raw kv tile in by TMA and
+// split it into the parts while one consumer warpgroup of 64 query rows
+// runs the products and the softmax of the tile before, with the
+// arithmetic above.
 //
 //   S = Q K^T   wgmma m64n32k8, both operands from shared memory,
 //               DK / 8 steps a product, three products;
@@ -62,8 +67,11 @@
 // 1) / 2 query-key pairs, 4 dh FLOPs each), three TF32 products of it
 // 618.6 GFLOP: 1.25 ms at the 494.7 TFLOP/s dense TF32 tensor-core peak;
 // its 201.3 MB of q, k, v and o take 0.060 ms at 3.35 TB/s. MLA's
-// layer (dh = 192, dv = 128) needs 2 (dh + dv) FLOPs a query-key pair.
+// layer (dh = 192, dv = 128) needs 2 (dh + dv) FLOPs a query-key pair;
+// DeepSeek-V2's f32 prefill at S = 384 (H = KV = 128) is bound by its
+// 126 MB of bytes, 0.0376 ms (three TF32 products 0.0367 ms).
 #include <stdint.h>
+#include <string.h>
 
 #include "../../csrc/float_io.cuh"
 #include "wgmma.cuh"
@@ -121,6 +129,31 @@ __device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo,
   split(x.w, h[3], l[3]);
   sts128(hi + off, h);
   sts128(lo + off, l);
+}
+
+// Vt unit (ch, nv): c[m], columns 4 nv .. 4 nv + 3 of kv row 8 (ch / 2) +
+// ch % 2 + 2 m (m = 0..3), transposed into Vt [DV, 32] rows 4 nv + e at
+// positions 4 ch .. 4 ch + 3, where sigma puts those kv rows; both parts.
+__device__ __forceinline__ void store_vt(uint32_t hi, uint32_t lo, int ch,
+                                         int nv, const float4 (&c)[4]) {
+  const float4 cols[4] = {make_float4(c[0].x, c[1].x, c[2].x, c[3].x),
+                          make_float4(c[0].y, c[1].y, c[2].y, c[3].y),
+                          make_float4(c[0].z, c[1].z, c[2].z, c[3].z),
+                          make_float4(c[0].w, c[1].w, c[2].w, c[3].w)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = 4 * nv + e;
+    store_split(hi, lo, row * 128 + ((ch ^ (row & 7)) << 4), cols[e]);
+  }
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
 }
 
 // Columns [c0, c0 + 4) of row `row` of the row-major [nrows, cols] matrix
@@ -247,6 +280,134 @@ __device__ __forceinline__ void exp_sum(float (&s)[16], const float (&m)[2],
 // warp w = t / 32, g = (t % 32) / 4, qd = t % 4; register 4 j + 2 h + e
 // holds row 16 w + g + 8 h, column 8 j + 2 qd + e. The TF32 A fragment of
 // m64k8: register r holds row 16 w + g + 8 (r % 2), column qd + 4 (r / 2).
+//
+// S = Q K^T of a warpgroup's 64-row query tile (Q's parts [64, DK]) and a
+// 32-row kv tile (K's parts [32, DK]) as Q_hi K_lo^T + Q_lo K_hi^T + Q_hi
+// K_hi^T, the small products first, into s; returns once it is done.
+template <int DK>
+__device__ __forceinline__ void scores(float (&s)[16], uint32_t sQhi,
+                                       uint32_t sQlo, uint32_t sKhi,
+                                       uint32_t sKlo) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.f;
+  wgmma::fence();
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    const uint32_t a = part == 1 ? sQlo : sQhi;
+    const uint32_t b = part == 0 ? sKlo : sKhi;
+#pragma unroll
+    for (int kk = 0; kk < DK / 8; ++kk) {
+      wgmma_ss_n32(s,
+                   wgmma::desc(a + (kk / 4) * (kBQ * 128) + (kk % 4) * 32, 16,
+                               1024),
+                   wgmma::desc(b + (kk / 4) * (kBK * 128) + (kk % 4) * 32, 16,
+                               1024),
+                   part > 0 || kk > 0);
+    }
+  }
+  wgmma::commit();
+  wgmma::wait();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) wgmma::pin(s[i]);
+}
+
+// The online softmax of the kv tile at t0 for the query tile at q0: masks
+// the scores (only a tile that crosses the diagonal or the ragged T edge
+// needs it), updates the rows' m and l, rescales acc by exp(m - m_new),
+// and leaves P's parts as the A fragments of the PV product's four k8
+// steps: step j's register r is A's column c = qd + 4 (r / 2) of row g +
+// 8 (r % 2), the score of kv 8 j + sigma(c) = 8 j + 2 qd + r / 2:
+// accumulator 4 j + 2 (r % 2) + r / 2.
+template <int NO>
+__device__ __forceinline__ void softmax(float (&s)[16], float (&acc)[NO],
+                                        float (&m)[2], float (&l)[2],
+                                        uint32_t (&phi)[4][4],
+                                        uint32_t (&plo)[4][4], int t0, int q0,
+                                        int r0, int qd, int Tk, int causal) {
+  const bool mask = (causal && t0 + kBK - 1 > q0) || t0 + kBK > Tk;
+  float mx[2] = {kNeg, kNeg};
+  if (mask)
+    mask_max<true>(s, t0, r0, qd, Tk, causal, mx);
+  else
+    mask_max<false>(s, t0, r0, qd, Tk, causal, mx);
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float mn = fmaxf(m[h], mx[h]);
+    alpha[h] = expf(__fsub_rn(m[h], mn));
+    m[h] = mn;
+  }
+  float rs[2] = {0.f, 0.f};
+  if (mask)
+    exp_sum<true>(s, m, t0, qd, Tk, rs);
+  else
+    exp_sum<false>(s, m, t0, qd, Tk, rs);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rs[h] = __fadd_rn(rs[h], __shfl_xor_sync(0xffffffffu, rs[h], 1));
+    rs[h] = __fadd_rn(rs[h], __shfl_xor_sync(0xffffffffu, rs[h], 2));
+    l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), rs[h]);
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = __fmul_rn(acc[i], alpha[(i / 2) % 2]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split(s[4 * j + 2 * (r % 2) + r / 2], phi[j][r], plo[j][r]);
+}
+
+// O += P_hi Vt_lo + P_lo Vt_hi + P_hi Vt_hi, the small products first, P's
+// parts from registers and Vt's [DV, 32] from shared memory; returns once
+// it is done.
+template <int DV>
+__device__ __forceinline__ void pv(float (&acc)[DV / 2],
+                                   const uint32_t (&phi)[4][4],
+                                   const uint32_t (&plo)[4][4],
+                                   uint32_t sVhi, uint32_t sVlo) {
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) wgmma::pin(acc[i]);
+  wgmma::fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    WgmmaRS<DV>::run(acc, phi[j], wgmma::desc(sVlo + j * 32, 16, 1024));
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    WgmmaRS<DV>::run(acc, plo[j], wgmma::desc(sVhi + j * 32, 16, 1024));
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    WgmmaRS<DV>::run(acc, phi[j], wgmma::desc(sVhi + j * 32, 16, 1024));
+  wgmma::commit();
+  wgmma::wait();
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) wgmma::pin(acc[i]);
+}
+
+// o's rows r0 and r0 + 8 of the thread (those below S), acc / max(l,
+// 1e-30), columns past dv dropped.
+template <int DV>
+__device__ __forceinline__ void store_rows(float* op,
+                                           const float (&acc)[DV / 2],
+                                           const float (&l)[2], int r0,
+                                           int qd, int S, int dv) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= S) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * qd + e;
+        if (col < dv)
+          op[(long long)r * dv + col] = __fdiv_rn(acc[4 * j + 2 * h + e], den);
+      }
+  }
+}
+
 template <int DK, int DV, int NH>
 __global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
     flash_tf32_kernel(const float* __restrict__ q,
@@ -275,7 +436,6 @@ __global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
   const float* qp = q + (long long)bh * S * dh;
   const float* kp = k + (long long)kvh * Tk * dh;
   const float* vp = v + (long long)kvh * Tk * dv;
-  float* op = o + (long long)bh * S * dv;
   const int q0 = qi * kBQ;
   const int ntk = (Tk + kBK - 1) / kBK;
   // causal frontier: kv tiles strictly above the diagonal are skipped
@@ -327,18 +487,7 @@ __global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
     for (int n = 0; n < NV; ++n) {
       const int u = tid + n * NT, ch = u % 8, nv = u / 8;
       if (u >= VU) continue;
-      // the 4 x 4 block transposed: Vt row 4 nv + e holds column e
-      const float4(&c)[4] = vr[n];
-      const float4 cols[4] = {make_float4(c[0].x, c[1].x, c[2].x, c[3].x),
-                              make_float4(c[0].y, c[1].y, c[2].y, c[3].y),
-                              make_float4(c[0].z, c[1].z, c[2].z, c[3].z),
-                              make_float4(c[0].w, c[1].w, c[2].w, c[3].w)};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 4 * nv + e;
-        store_split(sVhi, sVlo, row * 128 + ((ch ^ (row & 7)) << 4),
-                    cols[e]);
-      }
+      store_vt(sVhi, sVlo, ch, nv, vr[n]);
     }
   };
   if (last > 0) {
@@ -359,106 +508,15 @@ __global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
     wgmma::fence_proxy_async();
     __syncthreads();
     if (kt + 1 < last) fetch(t0 + kBK);
-
     float s[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = 0.f;
-    wgmma::fence();
-    // S = Q_hi K_lo^T + Q_lo K_hi^T + Q_hi K_hi^T, the small products first
-#pragma unroll
-    for (int part = 0; part < 3; ++part) {
-      const uint32_t a = part == 1 ? sQlo : sQhi;
-      const uint32_t b = part == 0 ? sKlo : sKhi;
-#pragma unroll
-      for (int kk = 0; kk < DK / 8; ++kk) {
-        wgmma_ss_n32(s,
-                     wgmma::desc(a + (kk / 4) * (kBQ * 128) + (kk % 4) * 32,
-                                 16, 1024),
-                     wgmma::desc(b + (kk / 4) * (kBK * 128) + (kk % 4) * 32,
-                                 16, 1024),
-                     part > 0 || kk > 0);
-      }
-    }
-    wgmma::commit();
-    wgmma::wait();
-#pragma unroll
-    for (int i = 0; i < 16; ++i) wgmma::pin(s[i]);
-
-    // mask (only a tile that crosses the diagonal or the ragged T edge
-    // needs it), online softmax
-    const bool mask = (causal && t0 + kBK - 1 > q0) || t0 + kBK > Tk;
-    float mx[2] = {kNeg, kNeg};
-    if (mask)
-      mask_max<true>(s, t0, r0, qd, Tk, causal, mx);
-    else
-      mask_max<false>(s, t0, r0, qd, Tk, causal, mx);
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float mn = fmaxf(m[h], mx[h]);
-      alpha[h] = expf(__fsub_rn(m[h], mn));
-      m[h] = mn;
-    }
-    float rs[2] = {0.f, 0.f};
-    if (mask)
-      exp_sum<true>(s, m, t0, qd, Tk, rs);
-    else
-      exp_sum<false>(s, m, t0, qd, Tk, rs);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rs[h] = __fadd_rn(rs[h], __shfl_xor_sync(0xffffffffu, rs[h], 1));
-      rs[h] = __fadd_rn(rs[h], __shfl_xor_sync(0xffffffffu, rs[h], 2));
-      l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), rs[h]);
-    }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) acc[i] = __fmul_rn(acc[i], alpha[(i / 2) % 2]);
-
-    // P's parts as the A fragments of the four k8 steps: step j's register
-    // r is A's column c = qd + 4 (r / 2) of row g + 8 (r % 2), the score of
-    // kv 8 j + sigma(c) = 8 j + 2 qd + r / 2: accumulator 4 j + 2 (r % 2)
-    // + r / 2
+    scores<DK>(s, sQhi, sQlo, sKhi, sKlo);
     uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        split(s[4 * j + 2 * (r % 2) + r / 2], phi[j][r], plo[j][r]);
-#pragma unroll
-    for (int i = 0; i < NO; ++i) wgmma::pin(acc[i]);
-    wgmma::fence();
-    // O += P_hi Vt_lo + P_lo Vt_hi + P_hi Vt_hi, the small products first
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      WgmmaRS<DV>::run(acc, phi[j], wgmma::desc(sVlo + j * 32, 16, 1024));
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      WgmmaRS<DV>::run(acc, plo[j], wgmma::desc(sVhi + j * 32, 16, 1024));
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      WgmmaRS<DV>::run(acc, phi[j], wgmma::desc(sVhi + j * 32, 16, 1024));
-    wgmma::commit();
-    wgmma::wait();
-#pragma unroll
-    for (int i = 0; i < NO; ++i) wgmma::pin(acc[i]);
+    softmax(s, acc, m, l, phi, plo, t0, q0, r0, qd, Tk, causal);
+    pv<DV>(acc, phi, plo, sVhi, sVlo);
     __syncthreads();  // every read of tile kt is done
     if (kt + 1 < last) stash();
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
-    if (r >= S) continue;
-    const float den = fmaxf(l[h], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * qd + e;
-        if (col < dv)
-          op[(long long)r * dv + col] = __fdiv_rn(acc[4 * j + 2 * h + e], den);
-      }
-  }
+  store_rows<DV>(o + (long long)bh * S * dv, acc, l, r0, qd, S, dv);
 }
 
 template <int DK, int DV, int NH>
@@ -469,6 +527,304 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   return float_io::launch(flash_tf32_kernel<DK, DV, NH>, blocks,
                           kThreads * NH, smem_bytes<DK, DV, NH>(), stream, q,
                           k, v, o, B * H, H, H / KV, S, Tk, dh, dv, scale,
+                          causal, vec);
+}
+
+
+// ---- MLA's head: DK = 192, DV = 128, warp-specialized and persistent ------
+
+constexpr int kMlaDK = 192;       // q and k columns in shared memory
+constexpr int kMlaDV = 128;       // v and o columns
+constexpr int kMlaProducers = 256;  // two producer warpgroups
+constexpr int kMlaThreads = 384;  // the producers and one consumer
+constexpr int kMlaBars = 8;       // mbarriers
+// registers a thread after the hand-over: the producers give up 16 a
+// thread of their 168, the consumer takes 32 more (256 x 16 = 128 x 32);
+// fewer for the producers spilled their Q prefetch and splits
+constexpr int kProducerRegs = 152;
+constexpr int kConsumerRegs = 200;
+
+// Shared memory of flash_tf32_mla_kernel, byte offsets from a 1024-aligned
+// base: Q's two parts [64, 192], K's two parts [32, 192], Vt's two parts
+// [128, 32] (each as Tile gives it), then the raw float32 tiles the TMA
+// brings in, K [32, 192] in K's own layout and V [32, 128] in 32-column
+// swizzled sub-tiles, then the mbarriers.
+struct MlaSmem {
+  using T = Tile<kMlaDK, kMlaDV>;
+  static constexpr uint32_t kQhi = 0, kQlo = T::Q;
+  static constexpr uint32_t kKhi = 2 * T::Q, kKlo = kKhi + T::K;
+  static constexpr uint32_t kVhi = kKlo + T::K, kVlo = kVhi + T::V;
+  static constexpr uint32_t kRawK = kVlo + T::V;        // 32 x 192 x 4
+  static constexpr uint32_t kRawV = kRawK + T::K;       // 32 x 128 x 4
+  static constexpr uint32_t kBar = kRawV + kBK * kMlaDV * 4;
+  static constexpr uint32_t bytes = kBar + kMlaBars * 8 + 1024;  // + align
+};
+static_assert(MlaSmem::bytes <= 232448, "an SM's shared memory");
+static_assert(2 * kMlaDV == kMlaProducers, "a Vt unit a producer thread");
+static_assert(kMlaProducers * kProducerRegs + kThreads * kConsumerRegs <=
+                  65536,
+              "an SM's registers");
+
+// Vt unit (ch, nv) of the producers' transpose: unit u (producer thread
+// u) in phases of 8 lanes P = u / 8 (a = P % 4, b = P / 4 % 2, c = P / 8)
+// with lane l = u % 8 taking ch = l ^ 2 c and nv = 8 a + 2 (l / 2) + b.
+// Every (ch, nv) once, and in each phase the 8 lanes' raw reads (chunk
+// (nv % 8) ^ (kv row % 8)) and Vt writes (chunk ch ^ (4 (nv % 2) + e))
+// fall in 8 different 16-byte bank groups.
+__device__ __forceinline__ void vt_unit(int u, int& ch, int& nv) {
+  const int P = u / 8, l = u % 8;
+  ch = l ^ (2 * (P / 8));
+  nv = 8 * (P % 4) + 2 * (l / 2) + (P / 4) % 2;
+}
+
+// K9 f32 at MLA's head, warp-specialized and persistent. The work list is
+// every (head, 64-row query tile), rank i being query tile nq - 1 - i / BH
+// of head i % BH, so the tiles with the most kv tiles come first; block b
+// takes ranks b, b + grid, ... (one block an SM: 222,272 bytes of shared
+// memory). Its kv tiles (32 rows, up to the item's causal frontier) run in
+// one sequence over the block's items.
+//
+// Warpgroups 0 and 1 are the producers; they hand registers to the
+// consumer. One thread copies each raw kv tile's K and V into their
+// staging buffers by TMA (32 x 32 float boxes in the 128-byte swizzle,
+// zero past every edge, completing on the buffer's barrier), a tile ahead;
+// rows that are not whole 16-byte chunks or storage not 16-byte aligned
+// are loaded by the 256 producer threads instead. They split raw K into
+// K's parts once the consumer's Q K^T of the tile before is done (the raw
+// tile is already in K's layout, so a chunk keeps its offset), and raw V,
+// transposed, into Vt's parts once the consumer's P V of the tile before
+// is done; each staging buffer then takes the next tile's copy. A work
+// item's Q is read from global memory into registers, then scaled and
+// split into Q's parts once the consumer's last Q K^T of the item before
+// is done.
+//
+// Warpgroup 2 is the consumer, the dh <= 128 kernels' arithmetic on its
+// 64 rows: per kv tile, S = Q K^T (three products, 72 m64n32k8 steps),
+// frees K's parts, the online softmax, then O += P V (three products, 12
+// m64n128k8 steps), frees Vt's parts. So the loads, the splits and the
+// transpose overlap the consumer's products and softmax.
+__global__ void __launch_bounds__(kMlaThreads, 1)
+    flash_tf32_mla_kernel(const __grid_constant__ CUtensorMap tmk,
+                          const __grid_constant__ CUtensorMap tmv,
+                          const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          int BH, int H, int G, int S, int Tk, int dh, int dv,
+                          float scale, int causal, int vec) {
+  using Sm = MlaSmem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid / kThreads, wt = tid % kThreads;
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int ntiles = BH * nq;
+  const int ntk = (Tk + kBK - 1) / kBK;
+  const uint32_t bar = base + Sm::kBar;
+  const uint32_t qfull = bar, qempty = bar + 8, kfull = bar + 16,
+                 kempty = bar + 24, vfull = bar + 32, vempty = bar + 40,
+                 rawk = bar + 48, rawv = bar + 56;
+  const uint32_t sQhi = base + Sm::kQhi, sQlo = base + Sm::kQlo;
+  const uint32_t sKhi = base + Sm::kKhi, sKlo = base + Sm::kKlo;
+  const uint32_t sVhi = base + Sm::kVhi, sVlo = base + Sm::kVlo;
+  const uint32_t sRawK = base + Sm::kRawK, sRawV = base + Sm::kRawV;
+  // kv tiles under the causal frontier of the query tile at q0
+  auto kv_tiles = [&](int q0) {
+    return causal ? min(ntk, (q0 + kBQ + kBK - 1) / kBK) : ntk;
+  };
+  if (tid == 0) {
+    wgmma::mbar_init(qfull, kMlaProducers);
+    wgmma::mbar_init(qempty, kThreads);
+    wgmma::mbar_init(kfull, kMlaProducers);
+    wgmma::mbar_init(kempty, kThreads);
+    wgmma::mbar_init(vfull, kMlaProducers);
+    wgmma::mbar_init(vempty, kThreads);
+    // by TMA one thread arrives (with the copies' bytes), else all
+    wgmma::mbar_init(rawk, vec ? 1 : kMlaProducers);
+    wgmma::mbar_init(rawv, vec ? 1 : kMlaProducers);
+  }
+  __syncthreads();
+
+  if (wg < 2) {  // ---- the producers, thread tid of 256
+    wgmma::reg_dealloc<kProducerRegs>();
+    // tile kt of item i into the raw K (or V) buffer
+    auto kv_head = [&](int i) {
+      const int bh = i % BH;
+      return (bh / H) * (H / G) + (bh % H) / G;  // b * KV + h / G
+    };
+    auto fetch_k = [&](int i, int kt) {
+      const int kvh = kv_head(i);
+      if (vec) {
+        if (tid == 0) {
+          wgmma::mbar_expect_tx(rawk, Sm::T::K);
+#pragma unroll
+          for (int cb = 0; cb < kMlaDK / 32; ++cb)
+            wgmma::tma_load_3d(sRawK + cb * (kBK * 128), &tmk, 32 * cb,
+                               kt * kBK, kvh, rawk);
+        }
+        return;
+      }
+      const float* kp = k + (long long)kvh * Tk * dh;
+#pragma unroll
+      for (int n = 0; n < kBK * kMlaDK / 4 / kMlaProducers; ++n) {
+        const int u = tid + n * kMlaProducers, r = u / (kMlaDK / 4),
+                  c4 = u % (kMlaDK / 4);
+        const float4 x = load4(kp, kt * kBK + r, Tk, 4 * c4, dh, false);
+        const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y),
+                               __float_as_uint(x.z), __float_as_uint(x.w)};
+        sts128(sRawK + swz(r, c4, kBK), w);
+      }
+      wgmma::mbar_arrive(rawk);
+    };
+    auto fetch_v = [&](int i, int kt) {
+      const int kvh = kv_head(i);
+      if (vec) {
+        if (tid == 0) {
+          wgmma::mbar_expect_tx(rawv, kBK * kMlaDV * 4);
+#pragma unroll
+          for (int cb = 0; cb < kMlaDV / 32; ++cb)
+            wgmma::tma_load_3d(sRawV + cb * (kBK * 128), &tmv, 32 * cb,
+                               kt * kBK, kvh, rawv);
+        }
+        return;
+      }
+      const float* vp = v + (long long)kvh * Tk * dv;
+#pragma unroll
+      for (int n = 0; n < kBK * kMlaDV / 4 / kMlaProducers; ++n) {
+        const int u = tid + n * kMlaProducers, r = u / (kMlaDV / 4),
+                  c4 = u % (kMlaDV / 4);
+        const float4 x = load4(vp, kt * kBK + r, Tk, 4 * c4, dv, false);
+        const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y),
+                               __float_as_uint(x.z), __float_as_uint(x.w)};
+        sts128(sRawV + swz(r, c4, kBK), w);
+      }
+      wgmma::mbar_arrive(rawv);
+    };
+    if (ntk > 0 && (int)blockIdx.x < ntiles) {
+      fetch_k(blockIdx.x, 0);
+      fetch_v(blockIdx.x, 0);
+    }
+    constexpr int NQ = kBQ * kMlaDK / 4 / kMlaProducers;  // Q chunks a thread
+    int j = 0, qi = 0;
+    for (int i = blockIdx.x; i < ntiles; i += gridDim.x, ++qi) {
+      const int q0 = (nq - 1 - i / BH) * kBQ;
+      const float* qp = q + (long long)(i % BH) * S * dh;
+      float4 xq[NQ];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int u = tid + n * kMlaProducers;
+        xq[n] = load4(qp, q0 + u / (kMlaDK / 4), S, 4 * (u % (kMlaDK / 4)),
+                      dh, vec);
+      }
+      wgmma::mbar_wait(qempty, (qi & 1) ^ 1);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int u = tid + n * kMlaProducers;
+        float4 x = xq[n];
+        x.x = __fmul_rn(x.x, scale);
+        x.y = __fmul_rn(x.y, scale);
+        x.z = __fmul_rn(x.z, scale);
+        x.w = __fmul_rn(x.w, scale);
+        store_split(sQhi, sQlo, swz(u / (kMlaDK / 4), u % (kMlaDK / 4), kBQ),
+                    x);
+      }
+      wgmma::fence_proxy_async();
+      wgmma::mbar_arrive(qfull);
+      const int nkv = kv_tiles(q0);
+      for (int kt = 0; kt < nkv; ++kt, ++j) {
+        // the tile after this one in the block's sequence
+        int ni = i, nkt = kt + 1;
+        if (nkt == nkv) {
+          ni = i + gridDim.x;
+          nkt = 0;
+        }
+        const bool more = ni < ntiles;
+        wgmma::mbar_wait(rawk, j & 1);
+        wgmma::mbar_wait(kempty, (j & 1) ^ 1);
+#pragma unroll
+        for (int n = 0; n < kBK * kMlaDK / 4 / kMlaProducers; ++n) {
+          const uint32_t off = (tid + n * kMlaProducers) * 16;
+          store_split(sKhi, sKlo, off, lds128(sRawK + off));
+        }
+        // K's parts to the consumer's wgmma; raw K read (before its next
+        // copy by the async proxy)
+        wgmma::fence_proxy_async();
+        wgmma::mbar_arrive(kfull);
+        wgmma::named_bar(1, kMlaProducers);
+        if (more) fetch_k(ni, nkt);
+        wgmma::mbar_wait(rawv, j & 1);
+        wgmma::mbar_wait(vempty, (j & 1) ^ 1);
+        {  // Vt unit tid: kv rows 8 (ch / 2) + ch % 2 + 2 mm of columns nv
+          int ch, nv;
+          vt_unit(tid, ch, nv);
+          float4 c[4];
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm)
+            c[mm] = lds128(sRawV + swz(8 * (ch / 2) + ch % 2 + 2 * mm, nv,
+                                       kBK));
+          store_vt(sVhi, sVlo, ch, nv, c);
+        }
+        wgmma::fence_proxy_async();
+        wgmma::mbar_arrive(vfull);
+        wgmma::named_bar(1, kMlaProducers);
+        if (more) fetch_v(ni, nkt);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer: warpgroup 2, the item's 64 rows
+  wgmma::reg_alloc<kConsumerRegs>();
+  const int warp = wt / 32, g = (wt % 32) / 4, qd = wt % 4;
+  constexpr int NO = kMlaDV / 2;  // output accumulators a thread
+  int j = 0, qi = 0;
+  for (int i = blockIdx.x; i < ntiles; i += gridDim.x, ++qi) {
+    const int bh = i % BH;
+    const int q0 = (nq - 1 - i / BH) * kBQ;
+    const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+    const int nkv = kv_tiles(q0);
+    float acc[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) acc[e] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    wgmma::mbar_wait(qfull, qi & 1);
+    if (nkv == 0) wgmma::mbar_arrive(qempty);
+    for (int kt = 0; kt < nkv; ++kt, ++j) {
+      const int t0 = kt * kBK;
+      wgmma::mbar_wait(kfull, j & 1);
+      float s[16];
+      scores<kMlaDK>(s, sQhi, sQlo, sKhi, sKlo);
+      wgmma::mbar_arrive(kempty);
+      if (kt + 1 == nkv) wgmma::mbar_arrive(qempty);
+      uint32_t phi[4][4], plo[4][4];
+      softmax(s, acc, m, l, phi, plo, t0, q0, r0, qd, Tk, causal);
+      wgmma::mbar_wait(vfull, j & 1);
+      pv<kMlaDV>(acc, phi, plo, sVhi, sVlo);
+      wgmma::mbar_arrive(vempty);
+    }
+    store_rows<kMlaDV>(o + (long long)bh * S * dv, acc, l, r0, qd, S, dv);
+  }
+}
+
+int launch_mla(const float* q, const float* k, const float* v, float* o,
+               int B, int H, int KV, int S, int Tk, int dh, int dv,
+               float scale, int causal, int vec, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tk, tv;
+  memset(&tk, 0, sizeof tk);
+  memset(&tv, 0, sizeof tv);
+  vec = vec && Tk > 0;
+  if (vec && !(wgmma::tile_map(&tk, k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                               dh, Tk, B * KV, 32, kBK) &&
+               wgmma::tile_map(&tv, v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                               dv, Tk, B * KV, 32, kBK)))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = B * H * ((S + kBQ - 1) / kBQ);
+  return float_io::launch(flash_tf32_mla_kernel, tiles < sms ? tiles : sms,
+                          kMlaThreads, MlaSmem::bytes, stream, tk, tv, q, k,
+                          v, o, B * H, H, H / KV, S, Tk, dh, dv, scale,
                           causal, vec);
 }
 
@@ -491,10 +847,10 @@ extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
   const float* vf = (const float*)v;
   float* of = (float*)o;
   cudaStream_t s = (cudaStream_t)stream;
-  // MLA's q and k: 192 wide, one query head a block
+  // MLA's q and k: 192 wide, the warp-specialized persistent kernel
   if (dh > 128)
-    return launch<192, 128, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                               scale, causal, vec, s);
+    return launch_mla(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv, scale, causal,
+                      vec, s);
   const int d = dh > dv ? dh : dv;
   // two query heads of one kv head a block when the group size is even
   const bool pair = (H / KV) % 2 == 0;

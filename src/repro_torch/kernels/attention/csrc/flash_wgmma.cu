@@ -68,8 +68,6 @@
 // ms at the peak (3.89 ms with the split's second PV product); its 64-row
 // query tiles loaded each K and V tile under their frontier again, 43.6 GB
 // of tile loads from L2, which the 128-row tiles halve.
-#include <cuda.h>  // CUtensorMap; the driver's encoder is fetched at run
-                   // time (cudaGetDriverEntryPoint), so no -lcuda
 #include <stdint.h>
 #include <string.h>
 
@@ -799,48 +797,12 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (null when the
-// driver does not give it).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The bf16 tensor [n, rows, cols] at p (cols % 8 == 0, p 16-byte
 // aligned) as 64-column x 64-row boxes in the 128-byte swizzle, zero past
 // every edge.
 bool tile_map(CUtensorMap* map, const void* p, int cols, int rows, int n) {
-  const EncodeTiled f = encode_tiled();
-  if (!f) return false;
-  const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                             (cuuint64_t)n};
-  const cuuint64_t stride[2] = {(cuuint64_t)cols * 2,
-                                (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
-  return f(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-           dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return wgmma::tile_map(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, cols,
+                         rows, n, 64, 64);
 }
 
 int launch_mla(const void* q, const void* k, const void* v, void* o, int B,

@@ -3,8 +3,9 @@
 // K10's (gla/csrc/gla.cu): the shared-memory matrix descriptor, the wgmma
 // fence / commit / wait and cp.async group calls in PTX, the accumulator
 // pin, the mbarrier and named-barrier calls of the warp-specialized
-// kernels, the register hand-over (setmaxnreg), and the operand lists of
-// 16, 32 and 64 accumulators.
+// kernels, the TMA load and its host-side tensor map, the register
+// hand-over (setmaxnreg), and the operand lists of 16, 32 and 64
+// accumulators.
 //
 // Operand tiles are K-major in the 128-byte swizzled layout: a row of 128
 // bytes (64 bf16 or 32 f32 values) is 8 chunks of 16 bytes, chunk c of
@@ -12,6 +13,9 @@
 // sub-tile 1024-byte aligned.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the driver's encoder is fetched at run
+                   // time (cudaGetDriverEntryPoint), so no -lcuda
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wgmma {
@@ -129,6 +133,54 @@ __device__ __forceinline__ void reg_dealloc() {
 template <int N>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (null when the
+// driver does not give it).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The row-major tensor [n, rows, cols] of `elem`-byte elements at p
+// (cols * elem a multiple of 16, p 16-byte aligned) as boxes of
+// box_cols x box_rows (box_cols * elem = 128 bytes) in the 128-byte
+// swizzle, zero past every edge.
+inline bool tile_map(CUtensorMap* map, const void* p, CUtensorMapDataType type,
+                     int elem, int cols, int rows, int n, int box_cols,
+                     int box_rows) {
+  const EncodeTiled f = encode_tiled();
+  if (!f) return false;
+  const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                             (cuuint64_t)n};
+  const cuuint64_t stride[2] = {(cuuint64_t)cols * elem,
+                                (cuuint64_t)rows * cols * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return f(map, type, 3, const_cast<void*>(p), dim, stride, box, step,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wgmma

@@ -24,7 +24,9 @@ follows the kernel.
   ``flash_mla_kernel``, whose work list :func:`mla_tiles` gives); float32
   inputs ``csrc/flash_tf32.cu``, every operand split into two TF32
   parts and each product taken as three TF32 products (one would keep
-  too few digits for the float32 tolerance).  CPU tensors take
+  too few digits for the float32 tolerance; at MLA's head its
+  warp-specialized persistent ``flash_tf32_mla_kernel``, whose work list
+  is ``mla_tiles(..., bm=MLA_F32_BM)``).  CPU tensors take
   :func:`flash_forward_plain`.  ``BF16_LIB.launches`` and
   ``LIB.launches`` count the two kernels' launches.
 * :func:`flash_forward_plain` is the reference kernel's block loop: for
@@ -52,7 +54,7 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_launch, check_tensor)
 
 __all__ = ["flash_forward", "flash_forward_plain", "mla_tiles", "LIB",
-           "BF16_LIB", "MAX_DH", "MAX_DV", "MLA_BM"]
+           "BF16_LIB", "MAX_DH", "MAX_DV", "MLA_BM", "MLA_F32_BM"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -68,6 +70,9 @@ NEG = -1.0e30
 #: Query rows a tile of ``flash_mla_kernel`` (two consumer warpgroups of
 #: 64).
 MLA_BM = 128
+#: Query rows a tile of ``flash_tf32_mla_kernel`` (one consumer
+#: warpgroup: a tile's query parts fill 96 KB of shared memory).
+MLA_F32_BM = 64
 
 _WGMMA_HEADER = os.path.join(_CSRC, "wgmma.cuh")
 #: K9 for float32 inputs, on the tensor cores as split TF32.
@@ -146,14 +151,15 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def mla_tiles(bh: int, s: int, blocks: int):
-    """The work list ``flash_mla_kernel`` walks: for each of ``blocks``
-    persistent blocks, its (head, query tile) pairs in order.  Rank i is
-    query tile nq - 1 - i // bh of head i % bh (nq = ceil(s / MLA_BM)), so
-    the tiles with the most kv tiles under the causal frontier come
-    first; block b takes ranks b, b + blocks, ...  The launch has
+def mla_tiles(bh: int, s: int, blocks: int, bm: int = MLA_BM):
+    """The work list ``flash_mla_kernel`` (``bm`` = MLA_BM) and
+    ``flash_tf32_mla_kernel`` (``bm`` = MLA_F32_BM) walk: for each of
+    ``blocks`` persistent blocks, its (head, query tile) pairs in order.
+    Rank i is query tile nq - 1 - i // bh of head i % bh (nq = ceil(s /
+    bm)), so the tiles with the most kv tiles under the causal frontier
+    come first; block b takes ranks b, b + blocks, ...  The launch has
     min(bh nq, SMs) blocks."""
-    nq = -(-s // MLA_BM)
+    nq = -(-s // bm)
     return [[(i % bh, nq - 1 - i // bh) for i in range(b, bh * nq, blocks)]
             for b in range(blocks)]
 

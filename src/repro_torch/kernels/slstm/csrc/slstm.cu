@@ -19,31 +19,67 @@
 // slstm_apply), which XLA compiles into one device loop. In PyTorch a
 // Python loop over the steps would issue ~25 kernels a step.
 //
-// Design: the recurrence is diagonal (r enters element-wise), so the B D
-// channels are independent and each runs its S steps in order: one thread
-// a channel, h, c, n, m in registers, the step loop inside the kernel. A
-// step's four gate loads are coalesced across d. Each thread keeps the
-// next kAhead steps' gate values in flight in a register ring, loaded
-// kAhead steps before they are used, so the loads overlap the dependent
-// chain of the steps before. Every operation rounds on its own in the
-// plain version's order (the library is built with -fmad=false; IEEE
-// division), so the kernel can match the plain version bitwise.
-//
 // Bound on this card: bytes. xlstm-1p3b's prefill (B 4, S 4096, D 2048,
 // bf16) reads 268 MB of zifo and writes 67 MB of hs: 0.10 ms at 3.35 TB/s;
-// its ~1 GFLOP of f32 work takes 0.015 ms at 67 TFLOP/s. What holds the
-// kernel above the bound is the chain: 4096 steps, each waiting on the
-// last step's h through three exponentials, a tanh and two divisions,
-// with only B D = 8192 threads (128 two-warp blocks, about one an SM) to
-// overlap.
+// its ~1 GFLOP of f32 work takes 0.015 ms at 67 TFLOP/s. Neither is in
+// reach: the recurrence is diagonal (r enters element-wise), so the B D
+// channels are independent, but each runs its S steps in order, and h_t
+// enters every gate of step t + 1 through r, then the exponentials, tanh
+// and two IEEE divisions, so no associative scan exists. The floor is S
+// times one step's dependent chain; a thread issues a step's
+// instructions in order, so whatever else the loop does stretches it.
+//
+// Design: one thread a channel, h, c, n, m in registers, the step loop
+// inside the kernel, a block of kThreads channels. A block whose channels
+// lie in one sequence, with rows of whole 16-byte copies, stages its gates
+// in shared memory kChunk steps at a time, kStages - 1 stages ahead: its
+// threads copy the block's contiguous gate rows by cp.async, so a step
+// reads its four gates from shared memory and the loop over a stage's
+// steps is unrolled, free of global loads and their addresses. Any other
+// block, and a scan of one step (a decode step, where staging adds a
+// barrier), reads each gate straight from global memory. Every operation
+// rounds on its own in the plain version's order (the library is built
+// with -fmad=false; IEEE division), so the kernel matches the plain
+// version bitwise.
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // a block: two warps of channels
-constexpr int kAhead = 8;     // steps whose gate loads are in flight
+constexpr int kThreads = 64;  // channels a block: two warps
+constexpr int kChunk = 16;    // steps a stage
+constexpr int kStages = 3;    // stages in shared memory
+
+struct State {
+  float h, c, n, m, r0, r1, r2, r3;
+};
+
+// One step of channel s on its gate pre-activations; returns h_t.
+__device__ __forceinline__ float step(State& s, float zt, float it, float ft,
+                                      float ot) {
+  const float z = __fadd_rn(zt, __fmul_rn(s.r0, s.h));
+  const float i = __fadd_rn(it, __fmul_rn(s.r1, s.h));
+  const float f = __fadd_rn(ft, __fmul_rn(s.r2, s.h));
+  const float o = __fadd_rn(ot, __fmul_rn(s.r3, s.h));
+  const float fm = __fadd_rn(f, s.m);
+  const float mn = fmaxf(fm, i);
+  const float ig = expf(__fsub_rn(i, mn));
+  const float fg = expf(__fsub_rn(fm, mn));
+  s.c = __fadd_rn(__fmul_rn(fg, s.c), __fmul_rn(ig, tanhf(z)));
+  s.n = __fadd_rn(__fmul_rn(fg, s.n), ig);
+  const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-o)));
+  s.h = __fdiv_rn(__fmul_rn(sg, s.c), fmaxf(s.n, 1.0f));
+  s.m = mn;
+  return s.h;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -55,59 +91,97 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ h1, float* __restrict__ c1,
                       float* __restrict__ n1, float* __restrict__ m1, int B,
                       int S, int D) {
-  const int ch = blockIdx.x * kThreads + threadIdx.x;  // b D + d
-  if (ch >= B * D) return;
-  const int b = ch / D, d = ch % D;
-  const float r0 = r[d], r1 = r[D + d], r2 = r[2 * D + d], r3 = r[3 * D + d];
-  float h = h0[ch], c = c0[ch], n = n0[ch], m = m0[ch];
-  const long long step = 4LL * D;
-  // step t's gate k at zp[t step + k D]
-  const T* zp = zifo + (long long)b * S * step + d;
+  // stage k's gates in slot k % kStages: [step][gate][channel]
+  __shared__ __align__(16) T gates[kStages][kChunk][4][kThreads];
+  constexpr int kPer = 16 / sizeof(T);  // elements a 16-byte copy
+  const int tid = threadIdx.x;
+  const int ch0 = blockIdx.x * kThreads, ch = ch0 + tid;  // b D + d
+  const bool live = ch < B * D;
+  const int d0 = ch0 % D;
+  const long long row = 4LL * D;  // a step's gates
+  const int b = live ? ch / D : 0, d = live ? ch % D : 0;
+  State s{};
+  if (live) {
+    s.r0 = r[d];
+    s.r1 = r[D + d];
+    s.r2 = r[2 * D + d];
+    s.r3 = r[3 * D + d];
+    s.h = h0[ch];
+    s.c = c0[ch];
+    s.n = n0[ch];
+    s.m = m0[ch];
+  }
+  const T* zp = zifo + (long long)b * S * row + d;
   T* hp = hs + (long long)b * S * D + d;
-
-  T ring[kAhead][4];
-#pragma unroll
-  for (int u = 0; u < kAhead; ++u) {
-    if (u < S) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) ring[u][k] = zp[u * step + k * D];
-    }
-  }
-
-  for (int t0 = 0; t0 < S; t0 += kAhead) {
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      const int t = t0 + u;
-      if (t >= S) break;
-      const float zt = float_io::to_f32(ring[u][0]);
-      const float it = float_io::to_f32(ring[u][1]);
-      const float ft = float_io::to_f32(ring[u][2]);
-      const float ot = float_io::to_f32(ring[u][3]);
-      if (t + kAhead < S) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          ring[u][k] = zp[(long long)(t + kAhead) * step + k * D];
+  // uniform over the block
+  const bool staged = S > 1 && d0 + kThreads <= D && D % kPer == 0 &&
+                      ((uintptr_t)zifo & 15) == 0;
+  if (!staged) {
+    if (live) {
+      for (int t = 0; t < S; ++t) {
+        const T* g = zp + t * row;
+        const float h = step(s, float_io::to_f32(g[0]),
+                             float_io::to_f32(g[D]),
+                             float_io::to_f32(g[2 * D]),
+                             float_io::to_f32(g[3 * D]));
+        float_io::store(hp + (long long)t * D, h);
       }
-      const float z = __fadd_rn(zt, __fmul_rn(r0, h));
-      const float i = __fadd_rn(it, __fmul_rn(r1, h));
-      const float f = __fadd_rn(ft, __fmul_rn(r2, h));
-      const float o = __fadd_rn(ot, __fmul_rn(r3, h));
-      const float fm = __fadd_rn(f, m);
-      const float mn = fmaxf(fm, i);
-      const float ig = expf(__fsub_rn(i, mn));
-      const float fg = expf(__fsub_rn(fm, mn));
-      c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, tanhf(z)));
-      n = __fadd_rn(__fmul_rn(fg, n), ig);
-      const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-o)));
-      h = __fdiv_rn(__fmul_rn(sg, c), fmaxf(n, 1.0f));
-      m = mn;
-      float_io::store(hp + (long long)t * D, h);
+    }
+  } else {
+    // the block's gate rows: copy x of a stage is 16 bytes of columns
+    // [d0 + c kPer, d0 + (c + 1) kPer) of gate g at step u (c = x % CPR,
+    // g = x / CPR % 4, u = x / (4 CPR)), the stage's live steps only
+    constexpr int CPR = kThreads / kPer;
+    const T* zb = zifo + (long long)(ch0 / D) * S * row + d0;
+    const int nstages = (S + kChunk - 1) / kChunk;
+    auto fill = [&](int k) {
+      if (k >= nstages) return;
+      const int t0 = k * kChunk, n = min(kChunk, S - t0) * 4 * CPR;
+#pragma unroll
+      for (int x = tid; x < kChunk * 4 * CPR; x += kThreads) {
+        if (x >= n) break;
+        const int c = x % CPR, g = x / CPR % 4, u = x / (4 * CPR);
+        cp_async16(&gates[k % kStages][u][g][c * kPer],
+                   zb + (t0 + u) * row + g * D + c * kPer);
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < kStages - 1; ++k) {
+      fill(k);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    for (int k = 0; k < nstages; ++k) {
+      // stage k has landed (its group and every older one), and every
+      // thread is done with stage k - 1, whose slot takes stage k +
+      // kStages - 1
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+      __syncthreads();
+      fill(k + kStages - 1);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      if (!live) continue;
+      const T(*g)[4][kThreads] = gates[k % kStages];
+      const int t0 = k * kChunk;
+      auto run = [&](int u) {
+        const float h = step(s, float_io::to_f32(g[u][0][tid]),
+                             float_io::to_f32(g[u][1][tid]),
+                             float_io::to_f32(g[u][2][tid]),
+                             float_io::to_f32(g[u][3][tid]));
+        float_io::store(hp + (long long)(t0 + u) * D, h);
+      };
+      if (t0 + kChunk <= S) {
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) run(u);
+      } else {
+        for (int u = 0; u < S - t0; ++u) run(u);
+      }
     }
   }
-  h1[ch] = h;
-  c1[ch] = c;
-  n1[ch] = n;
-  m1[ch] = m;
+  if (live) {
+    h1[ch] = s.h;
+    c1[ch] = s.c;
+    n1[ch] = s.n;
+    m1[ch] = s.m;
+  }
 }
 
 }  // namespace

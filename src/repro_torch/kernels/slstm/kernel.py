@@ -20,10 +20,14 @@ and emits h_t, cast to zifo's dtype; the final state stays float32.
 
 * :func:`slstm_scan` is the wrapper: CUDA tensors launch ``csrc/slstm.cu``
   (or raise), CPU tensors take :func:`slstm_scan_plain`.
-  ``LIB.launches`` counts the launches.
-* :func:`slstm_scan_plain` loops the step over S in plain torch, with the
-  kernel's operations in the kernel's order (sigmoid as the reciprocal
-  of 1 + e^-o, IEEE division), so on the card the two can agree bitwise.
+  ``LIB.launches`` counts the launches.  The kernel runs a thread a
+  channel; a block of 64 channels stages its gates in shared memory 16
+  steps at a time by ``cp.async`` when it can (the schedule is emulated
+  in ``tests/test_torch_slstm.py``), else reads them from global memory.
+* :func:`slstm_scan_plain` loops :func:`slstm_step_plain` over S in
+  plain torch, with the kernel's operations in the kernel's order
+  (sigmoid as the reciprocal of 1 + e^-o, IEEE division), so on the card
+  the two can agree bitwise.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_kernel_device, check_launch, check_tensor)
 
-__all__ = ["slstm_scan", "slstm_scan_plain", "LIB"]
+__all__ = ["slstm_scan", "slstm_scan_plain", "slstm_step_plain", "LIB"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -106,21 +110,33 @@ def slstm_scan_plain(zifo: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
     results), on whatever device the tensors are on: the reference's
     ``_slstm_cell`` looped over S."""
     b, s, d = _shapes(zifo, r, (h, c, n, m))
-    r0, r1, r2, r3 = r
     hs = torch.empty((b, s, d), dtype=zifo.dtype, device=zifo.device)
     for t in range(s):
-        zt, it, ft, ot = zifo[:, t].float().split(d, dim=-1)
-        z = zt + r0 * h
-        i = it + r1 * h
-        f = ft + r2 * h
-        o = ot + r3 * h
-        fm = f + m
-        m = torch.maximum(fm, i)
-        ig = torch.exp(i - m)
-        fg = torch.exp(fm - m)
-        c = fg * c + ig * torch.tanh(z)
-        n = fg * n + ig
-        sg = torch.reciprocal(1.0 + torch.exp(-o))
-        h = (sg * c) / torch.clamp(n, min=1.0)
+        h, c, n, m = slstm_step_plain(zifo[:, t].float().split(d, dim=-1),
+                                      r, h, c, n, m)
         hs[:, t] = h.to(zifo.dtype)
     return hs, (h, c, n, m)
+
+
+def slstm_step_plain(gates, r: torch.Tensor, h: torch.Tensor,
+                     c: torch.Tensor, n: torch.Tensor, m: torch.Tensor
+                     ) -> State:
+    """One step of the scan on float32 tensors: gates (z_t, i_t, f_t,
+    o_t) and r (r0, r1, r2, r3) of one shape [..., D'], the state (h, c,
+    n, m) -> the next state.  Every operation is element-wise, so a
+    subset of the channels steps bitwise as the whole does."""
+    zt, it, ft, ot = gates
+    r0, r1, r2, r3 = r
+    z = zt + r0 * h
+    i = it + r1 * h
+    f = ft + r2 * h
+    o = ot + r3 * h
+    fm = f + m
+    m = torch.maximum(fm, i)
+    ig = torch.exp(i - m)
+    fg = torch.exp(fm - m)
+    c = fg * c + ig * torch.tanh(z)
+    n = fg * n + ig
+    sg = torch.reciprocal(1.0 + torch.exp(-o))
+    h = (sg * c) / torch.clamp(n, min=1.0)
+    return h, c, n, m

@@ -236,19 +236,28 @@ def _split(x: torch.Tensor):
     return hi, _tf32(x - hi)
 
 
-def _emulate_tf32(q, k, v, three: bool) -> torch.Tensor:
-    """The float32 tensor-core kernel's precision in torch, causal, over
-    its 32-key tiles: q scaled (rounded to float32), then each operand
-    split into TF32 parts and every product taken as hi lo + lo hi + hi hi,
-    the small products first (``three``), or as one TF32 product; the
-    online softmax in float32.  Tiles past a row's frontier add exact
-    zeros, so every row runs every tile."""
+def _emulate_tf32(q, k, v, three: bool, causal: bool = True
+                  ) -> torch.Tensor:
+    """The float32 tensor-core kernels' precision and order in torch over
+    their 32-key tiles (``flash_tf32_kernel`` and
+    ``flash_tf32_mla_kernel`` alike): q scaled (rounded to float32), then each
+    operand split into TF32 parts and every product taken as hi lo + lo hi
+    + hi hi, the small products first (``three``), or as one TF32 product;
+    the online softmax in float32, O rescaled before each tile's P V; -1e30
+    where masked (top-left causal when ``causal``) or past T (the ragged
+    last tile zero-padded, as TMA fills it).  Tiles past a row's frontier
+    add exact zeros, so every row runs every tile."""
     b, h, s, dh = q.shape
+    t = k.shape[2]
     g = h // k.shape[1]
     scale = float(np.float32(dh ** -0.5))
     qh, ql = _split(q * scale)
-    kf = k.repeat_interleave(g, dim=1)
-    vf = v.repeat_interleave(g, dim=1)
+    bk = 32
+    pad = -t % bk
+    kf = torch.nn.functional.pad(k.repeat_interleave(g, dim=1),
+                                 (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.repeat_interleave(g, dim=1),
+                                 (0, 0, 0, pad))
     m = torch.full((b, h, s), tkernel.NEG)
     l = torch.zeros((b, h, s))
     o = torch.zeros((b, h, s, vf.shape[-1]))
@@ -260,12 +269,13 @@ def _emulate_tf32(q, k, v, three: bool) -> torch.Tensor:
         return (torch.matmul(ah, bl) + torch.matmul(al, bh)) \
             + torch.matmul(ah, bh)
 
-    for t0 in range(0, kf.shape[2], 32):
-        kh, kl = _split(kf[:, :, t0:t0 + 32])
-        vh, vl = _split(vf[:, :, t0:t0 + 32])
+    for t0 in range(0, kf.shape[2], bk):
+        kh, kl = _split(kf[:, :, t0:t0 + bk])
+        vh, vl = _split(vf[:, :, t0:t0 + bk])
         sc = dot(qh, ql, kh.transpose(-1, -2), kl.transpose(-1, -2))
-        sc = torch.where(t0 + torch.arange(32)[None] <= rows, sc,
-                         tkernel.NEG)
+        cols = t0 + torch.arange(bk)[None]
+        live = (cols <= rows) & (cols < t) if causal else cols < t
+        sc = torch.where(live, sc, tkernel.NEG)
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new[..., None])
@@ -624,3 +634,181 @@ def test_mla_shared_memory_and_registers_fit():
         256 * (c["kConsumerRegs"] - start)
     assert c["kProducerRegs"] % 8 == 0 and c["kConsumerRegs"] % 8 == 0
     assert 24 <= c["kProducerRegs"] and c["kConsumerRegs"] <= 255
+
+
+
+# --- MLA's head on flash_tf32_mla_kernel (float32): its plan, checked ------
+
+def _tf32_src() -> str:
+    import os
+    return os.path.join(os.path.dirname(tkernel.__file__), "csrc",
+                        "flash_tf32.cu")
+
+
+def test_tf32_mla_shared_memory_and_registers_fit():
+    """flash_tf32_mla_kernel's constants, parsed from flash_tf32.cu: Q's
+    two TF32 parts (64 x 192), K's (32 x 192), Vt's (128 x 32), the raw
+    float32 staging of one kv tile (K 32 x 192 and V 32 x 128) and its
+    mbarriers, with the alignment slack, fit the card's 232,448 bytes a
+    block.  Its 384 threads (two producer warpgroups, one consumer)
+    start at 168 registers; the registers the producers hand over
+    balance what the consumer takes (256 x 16 = 128 x 32), each count a
+    multiple of 8, the consumer's at most 255, and the kernel makes the
+    hand-over (setmaxnreg) on both sides."""
+    c = _cu_constants(_tf32_src())
+    bq, bk, dk, dv = c["kBQ"], c["kBK"], c["kMlaDK"], c["kMlaDV"]
+    assert (bq, bk, dk, dv) == (64, 32, 192, 128)
+    parts = 2 * 4 * (bq * dk + bk * dk + dv * bk)
+    raw = 4 * (bk * dk + bk * dv)
+    nbytes = parts + raw + c["kMlaBars"] * 8 + 1024
+    assert nbytes == 222272 and nbytes <= 232448, nbytes
+    # one more raw K buffer would not fit: the staging is one kv tile
+    assert nbytes + 4 * bk * dk > 232448
+    nt, prod = c["kMlaThreads"], c["kMlaProducers"]
+    assert prod == 2 * c["kThreads"] == 256 and nt == prod + c["kThreads"]
+    start = 65536 // nt // 8 * 8                     # 168 a thread
+    assert prod * (start - c["kProducerRegs"]) == \
+        c["kThreads"] * (c["kConsumerRegs"] - start)
+    assert c["kProducerRegs"] % 8 == 0 and c["kConsumerRegs"] % 8 == 0
+    assert 24 <= c["kProducerRegs"] and c["kConsumerRegs"] <= 255
+    with open(_tf32_src()) as f:
+        text = f.read()
+    body = text[text.index("flash_tf32_mla_kernel(const"):
+                text.index("int launch_mla(")]
+    assert "reg_dealloc<kProducerRegs>" in body
+    assert "reg_alloc<kConsumerRegs>" in body
+    assert "__launch_bounds__(kMlaThreads, 1)" in text
+
+
+@pytest.mark.parametrize("bh,s,blocks", [(128, 384, 132), (128, 4096, 132),
+                                         (3, 256, 132), (5, 896, 4),
+                                         (7, 100, 3)])
+def test_tf32_mla_tile_list_once_longest_first(bh, s, blocks):
+    """``mla_tiles(..., bm=MLA_F32_BM)``, flash_tf32_mla_kernel's
+    persistent work list, visits every (head, 64-row query tile) exactly
+    once, no block takes more than one tile beyond another, every block's
+    tiles come longest first (causal 32-row kv tiles), and at deepseek-v2's
+    f32 check (B H = 128, S 384, 132 SMs) and at S 4096 the blocks' causal
+    kv tiles are within 6% of their mean."""
+    bm = tkernel.MLA_F32_BM
+    assert bm == _cu_constants(_tf32_src())["kBQ"]
+    blocks = min(blocks, bh * -(-s // bm))
+    lists = tkernel.mla_tiles(bh, s, blocks, bm=bm)
+    seen = [tile for lst in lists for tile in lst]
+    nq = -(-s // bm)
+    assert sorted(seen) == [(h, qt) for h in range(bh) for qt in range(nq)]
+    assert max(map(len, lists)) - min(map(len, lists)) <= 1
+    kv = lambda qt: min(-(-s // 32), -(-(qt * bm + bm) // 32))  # noqa: E731
+    for lst in lists:
+        loads = [kv(qt) for _, qt in lst]
+        assert loads == sorted(loads, reverse=True)
+    if blocks == 132 and bh == 128:
+        per = np.array([sum(kv(qt) for _, qt in lst) for lst in lists])
+        assert per.max() <= 1.06 * per.mean(), (per.max(), per.mean())
+
+
+def _vt_unit(u: int):
+    """flash_tf32.cu's ``vt_unit``: the (ch, nv) of producer unit u."""
+    p, lane = u // 8, u % 8
+    return lane ^ (2 * (p // 8)), 8 * (p % 4) + 2 * (lane // 2) + (p // 4) % 2
+
+
+def _swz(r: int, c4: int, rows: int) -> int:
+    """flash_tf32.cu's ``swz``: the byte offset of 16-byte chunk c4 of row
+    r in a tile of ``rows`` rows in 32-column swizzled sub-tiles."""
+    return (c4 // 8) * (rows * 128) + r * 128 + (((c4 % 8) ^ (r & 7)) << 4)
+
+
+def _tma_box_offset(r: int, c: int, rows: int) -> int:
+    """Where a TMA copy in the 128-byte swizzle puts float (r, c) of a
+    tile copied as 32-column x ``rows``-row boxes, box cb at cb x rows x
+    128 bytes: within each 1024-byte span the 16-byte chunk index is XORed
+    with the row's index mod 8."""
+    lin = (c // 32) * rows * 128 + r * 128 + (c % 32) * 4
+    return lin ^ (((lin >> 7) & 7) << 4)
+
+
+def test_tf32_mla_producer_maps():
+    """flash_tf32_mla_kernel's producers: the TMA's raw tiles land in the
+    kernel's swizzled layout (so raw K's chunks split in place into K's
+    parts); their 256 threads' Q map (u = tid + 256 n, n < 12), K split
+    (6 chunks a thread) and the elementwise raw fills cover every chunk
+    once; the Vt transpose's 256 units, one a thread (``vt_unit``), cover
+    Vt once, in the staging that the P fragments read (kv row 8 j +
+    sigma(c) at position 8 j + c,
+    ``test_tf32_p_fragment_and_permuted_v_staging``), and each 8-lane
+    phase's raw reads and Vt writes fall in 8 distinct 16-byte bank groups
+    (no bank conflict)."""
+    bq, bk, dk, dv = 64, 32, 192, 128
+    nt = _cu_constants(_tf32_src())["kMlaProducers"]
+    assert nt == 2 * dv
+    for rows, cols in ((bk, dk), (bk, dv), (bq, dk)):
+        for r in range(rows):
+            for c in range(0, cols, 4):
+                assert _tma_box_offset(r, c, rows) == _swz(r, c // 4, rows)
+    for rows, cols, per in ((bq, dk, 12), (bk, dk, 6), (bk, dv, 4)):
+        seen = np.zeros(rows * cols // 4, int)
+        for n in range(per):
+            for wt in range(nt):
+                u = wt + n * nt
+                seen[_swz(u // (cols // 4), u % (cols // 4), rows) // 16] += 1
+        assert (seen == 1).all()
+    rng = np.random.default_rng(26)
+    vraw = rng.integers(-99, 99, (bk, dv)).astype(np.float64)
+    flat = np.full(bk * dv, np.nan)                # raw V as TMA puts it
+    for r in range(bk):
+        for c in range(dv):
+            flat[_tma_box_offset(r, c, bk) // 4] = vraw[r, c]
+    vt = np.full((dv, bk), np.nan)
+    units = set()
+    for n in range(2 * dv // nt):
+        for wt in range(nt):
+            ch, nv = _vt_unit(wt + n * nt)
+            units.add((ch, nv))
+            for m in range(4):
+                kr = 8 * (ch // 2) + ch % 2 + 2 * m
+                chunk = flat[_swz(kr, nv, bk) // 4:][:4]
+                for e in range(4):
+                    assert np.isnan(vt[4 * nv + e, 4 * ch + m])
+                    vt[4 * nv + e, 4 * ch + m] = chunk[e]
+    assert units == {(ch, nv) for ch in range(8) for nv in range(dv // 4)}
+    want = np.empty((dv, bk))
+    for row in range(dv):
+        for pos in range(bk):
+            ch, m = pos // 4, pos % 4
+            want[row, pos] = vraw[8 * (ch // 2) + ch % 2 + 2 * m, row]
+    np.testing.assert_array_equal(vt, want)
+    for p in range(2 * dv // 8):
+        lanes = [_vt_unit(8 * p + lane) for lane in range(8)]
+        for m in range(4):
+            groups = {(_swz(8 * (ch // 2) + ch % 2 + 2 * m, nv, bk) // 16)
+                      % 8 for ch, nv in lanes}
+            assert len(groups) == 8, (p, m)
+        for e in range(4):
+            groups = {(ch ^ ((4 * nv + e) & 7)) for ch, nv in lanes}
+            assert len(groups) == 8, (p, e)
+
+
+@pytest.mark.parametrize("s,t,dh,dv,h,kv,causal", [
+    (512, 512, 192, 128, 2, 2, True),
+    (192, 320, 192, 128, 4, 2, True),
+    (320, 200, 192, 128, 2, 2, True),
+    (256, 256, 192, 128, 2, 2, False),
+    (384, 384, 136, 64, 2, 2, True),
+    (200, 136, 136, 64, 2, 1, False)])
+def test_tf32_mla_schedule_within_tolerance(s, t, dh, dv, h, kv, causal):
+    """flash_tf32_mla_kernel's arithmetic, emulated by ``_emulate_tf32``
+    over its 32-key tiles (the dh <= 128 kernels' order: each tile's Q
+    K^T, the softmax, O rescaled, then P V, every product three TF32
+    products), within F32_TOL of the plain version at MLA's head (dh 192
+    / dv 128) and at dh 136 / dv 64: causal with S = T and S != T both
+    ways (the top-left mask; T ragged against the tiles, zero-filled),
+    a GQA group, and not causal."""
+    q, k, v = (torch.tensor(x) for x in _qkv(
+        np.random.default_rng(s + t + dh), 1, h, kv, s, t, dh, dv))
+    bq = 64 if s % 64 == 0 else 8
+    bk = 8 if t % 64 else 64
+    want = tkernel.flash_forward_plain(q, k, v, bq, bk, causal)
+    got = _emulate_tf32(q, k, v, True, causal)
+    err = float((got - want).abs().max())
+    assert err <= F32_TOL, err

@@ -22,6 +22,7 @@ from repro import configs as rconfigs
 from repro.models import ssm as rssm
 from repro_torch.kernels import slstm as tslstm
 from repro_torch.kernels.slstm import kernel as tkernel
+from repro_torch.kernels.slstm.kernel import slstm_step_plain
 from repro_torch.models import layers as tlayers
 
 SCAN_TOL = 1e-5
@@ -146,3 +147,118 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tslstm.slstm(zifo, r)
     assert tkernel.LIB.launches == before
+
+
+# --- the kernel's schedule (csrc/slstm.cu), emulated -------------------------
+
+def _slstm_constants() -> dict:
+    """``constexpr int NAME = VALUE;`` constants of ``csrc/slstm.cu``."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(tkernel.__file__), "csrc",
+                        "slstm.cu")
+    with open(path) as f:
+        text = f.read()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", text)}
+
+
+def _emulate_staged(zifo, r, h, c, n, m):
+    """slstm.cu's schedule in torch: a block of kThreads channels (b D +
+    d).  A block whose channels lie in one sequence and whose rows hold
+    whole 16-byte copies, in a scan of more than one step, runs the S
+    steps in stages of kChunk, each stage's gates staged into slot k %
+    kStages of shared memory kStages - 1 stages ahead by the copy map
+    (copy x: column chunk x % CPR, gate x / CPR % 4, step x / (4 CPR),
+    CPR = kThreads / (16 / element size), the stage's live steps only);
+    each live thread then steps its channel through the stage
+    (``slstm_step_plain`` on its gates, read from the slot) and stores
+    h_t.  Any other block reads each step's gates straight from zifo.
+    Returns (hs, state, how often each zifo element was read into a step,
+    how often each hs element was stored); asserts that no slot is
+    refilled before its stage was read."""
+    k = _slstm_constants()
+    nt, chunk, stages = k["kThreads"], k["kChunk"], k["kStages"]
+    b, s, d4 = zifo.shape
+    d = d4 // 4
+    epc = 16 // zifo.element_size()
+    flat = zifo.reshape(-1)
+    staged = torch.zeros(flat.numel(), dtype=torch.int64)
+    hs = torch.zeros((b, s, d), dtype=zifo.dtype)
+    stored = torch.zeros((b, s, d), dtype=torch.int64)
+    h, c, n, m = (x.clone() for x in (h, c, n, m))
+    nchunks = -(-s // chunk)
+    for ch0 in range(0, b * d, nt):
+        chs = torch.arange(ch0, min(ch0 + nt, b * d))
+        bb, dd = chs // d, chs % d
+        d0 = ch0 % d
+        if not (s > 1 and d0 + nt <= d and d % epc == 0):
+            for t in range(s):          # straight from zifo
+                at = (bb * s + t) * d4 + dd
+                gates = torch.stack([flat[at + g * d] for g in range(4)])
+                staged[torch.cat([at + g * d for g in range(4)])] += 1
+                st = slstm_step_plain(gates.float(), r[:, dd], h[bb, dd],
+                                      c[bb, dd], n[bb, dd], m[bb, dd])
+                h[bb, dd], c[bb, dd], n[bb, dd], m[bb, dd] = st
+                hs[bb, t, dd] = st[0].to(zifo.dtype)
+                stored[bb, t, dd] += 1
+            continue
+        slots = [None] * stages
+        reading = [-1]
+
+        def fill(kk):
+            if kk >= nchunks:
+                return
+            old = slots[kk % stages]
+            assert old is None or old[0] < reading[0], "slot refilled early"
+            buf = torch.zeros((chunk, 4, nt), dtype=zifo.dtype)
+            t0 = kk * chunk
+            cpr = nt // epc
+            for x in range(min(chunk, s - t0) * 4 * cpr):
+                cc, g, u = x % cpr, x // cpr % 4, x // (4 * cpr)
+                at = ((ch0 // d) * s + t0 + u) * d4 + g * d + d0 + cc * epc
+                buf[u, g, cc * epc:(cc + 1) * epc] = flat[at:at + epc]
+                staged[at:at + epc] += 1
+            slots[kk % stages] = (kk, buf)
+
+        for kk in range(stages - 1):
+            fill(kk)
+        for kk in range(nchunks):
+            # after the barrier: stage kk has landed; the slot of stage kk
+            # - 1, read before the barrier, takes stage kk + kStages - 1
+            reading[0] = kk
+            got, buf = slots[kk % stages]
+            assert got == kk
+            fill(kk + stages - 1)
+            for u in range(min(chunk, s - kk * chunk)):
+                t = kk * chunk + u
+                gates = buf[u, :, :len(chs)].float()
+                st = slstm_step_plain(gates, r[:, dd], h[bb, dd], c[bb, dd],
+                                      n[bb, dd], m[bb, dd])
+                h[bb, dd], c[bb, dd], n[bb, dd], m[bb, dd] = st
+                hs[bb, t, dd] = st[0].to(zifo.dtype)
+                stored[bb, t, dd] += 1
+    return hs, (h, c, n, m), staged, stored
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 1, 128), (3, 7, 100), (2, 129, 96),
+                                   (1, 129, 64), (3, 40, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_schedule_is_the_scan(b, s, d, dtype):
+    """The kernel's schedule (``_emulate_staged``) feeds every channel
+    every step's gates once and in order, and stores every h_t once: the
+    emulated scan is bitwise the plain version's from a nonzero state, at
+    S 1 (straight from zifo), 7, 129 and 40, with staged blocks (D 128,
+    64, 96's first block, 100 in f32), blocks that straddle two sequences
+    or whose rows are not whole 16-byte copies (D 100 in bf16, 70), and
+    B D not a multiple of the block."""
+    zifo, r, hcnm = _inputs(np.random.default_rng(b * s + d), b, s, d, True)
+    z = torch.tensor(zifo).to(dtype)
+    r, hcnm = torch.tensor(r), [torch.tensor(a) for a in hcnm]
+    hs, st, staged, stored = _emulate_staged(z, r, *hcnm)
+    assert bool((staged == 1).all()), "a gate staged twice or never"
+    assert bool((stored == 1).all()), "an h_t stored twice or never"
+    want_hs, want = tkernel.slstm_scan_plain(z, r, *hcnm)
+    assert torch.equal(hs, want_hs)
+    for g, w in zip(st, want):
+        assert torch.equal(g, w)
