@@ -209,7 +209,8 @@ Phases, in order (any failure exits non-zero):
     caches within MODEL_F32_RTOL / _ATOL, the routing equal in every MoE
     call but at near-ties within ROUTE_TIE (each witnessed); (e) one
     deepseek MoE layer run twice on the same input on the card, bitwise
-    equal, and timed at the prefill's and a decode step's token counts.
+    equal, timed at the prefill's and a decode step's token counts, and
+    at each making no host sync (``host_syncs``).
 25. xLSTM serving on the card (``models.ssm.MLSTM``, ``SLSTM``): (a) K10
     on mLSTM's 1024-wide heads at xlstm-1p3b's prefill shape (B 4, H 4,
     S 4096, chunk 256, bf16) as a layer runs it: the numerator and the
@@ -242,16 +243,38 @@ Phases, in order (any failure exits non-zero):
     sLSTM) in float32, card against CPU (K10 63 on 128-wide blocks, the
     sLSTM scan 4 times):
     logits and caches within MODEL_F32_RTOL / _ATOL.
+26. workload signatures (``core.signatures``, ``core.tuner``), the path
+    of ``benchmarks/bench_autotune.py`` on the port: (a) all ten archs
+    built on the ``meta`` device at their published configs, each
+    one's ``loss_fn`` at 4 x 512 tokens walked by ``OpWalker`` (op
+    count, seconds, total flops and bytes printed), every count set to
+    0 just before and read just after: no kernel launched, no plain
+    version called, each K9, K10 and sLSTM-scan call one operation;
+    (b) at the reference's chip spec and at the H100's, the six
+    profiled archs' 2048-sample series in a ``ReferenceDB`` and
+    kimi-k2 matched by ``AutoTuner(device="cuda")`` at band 32,
+    threshold 0.85: one K2 launch a match, the decision and config the
+    CPU tuner's on the same series, every score within SIG_TOL; at the
+    reference's spec the reference's decision (bench_autotune's golden
+    assertions): deepseek-v2 matched at corr >= 0.85, phi3 more than 0.1
+    below it, deepseek-v2's config transferred; (c) K2
+    against its plain version at the match's length (references of
+    1-2049 samples, queries of 0-2048, band 32 and None, dyadic and
+    smooth data), then timed at the match's shape (2048 x 2048, 6
+    references, band 32) beside the plain version and its bound, and
+    the match timed.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
-rows with their launches on phases 23-25's model paths besides, K9's two
-rows at MLA's head, K10's row on mLSTM's whole heads and the sLSTM
-scan's), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.  It needs no network and imports nothing of JAX.
+rows with their launches on phases 23-25's model paths besides, K2's
+with its launches on phase 26's matches, K9's two rows at MLA's head,
+K10's row on mLSTM's whole heads and the sLSTM scan's), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.  It needs
+no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -260,6 +283,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from fractions import Fraction
 
 import numpy as np
@@ -4460,7 +4484,9 @@ def moe_layer(dev, name: str, arch: str = "deepseek-v2-236b", b: int = 4,
     """Phase 24 (e): one MoE block of ``arch`` at full width (random bf16
     weights) run twice on the same [b, s] input: the two outputs and aux
     losses bitwise equal (the combine adds in a fixed order, no
-    atomics).  Also its CUDA-event ms at that token count and at a decode
+    atomics); a call at that token count and at a decode step's makes
+    no host sync (static shapes: no ``bincount``, no boolean-mask
+    indexing, no host-to-device copy).  Also its CUDA-event ms at that token count and at a decode
     step's b tokens, beside the bytes of its expert weights over the
     card's memory rate (a decode step reads every expert)."""
     from repro_torch import configs
@@ -4485,6 +4511,10 @@ def moe_layer(dev, name: str, arch: str = "deepseek-v2-236b", b: int = 4,
         t_pre = cuda_ms(lambda: moe.moe_apply(mod, x, cfg), 3)
         xd = x[:, :1].contiguous()
         t_dec = cuda_ms(lambda: moe.moe_apply(mod, xd, cfg), 10)
+        syncs = {what: host_syncs(lambda: moe.moe_apply(mod, xin, cfg))
+                 for what, xin in (("prefill", x), ("decode", xd))}
+    assert syncs == {"prefill": 0, "decode": 0}, \
+        f"host syncs in a MoE layer call: {syncs}"
     routed = sum(p.numel() * p.element_size()
                  for p in mod.experts.parameters())
     floor = 1e3 * routed / card_peaks(name)[0]
@@ -4494,10 +4524,26 @@ def moe_layer(dev, name: str, arch: str = "deepseek-v2-236b", b: int = 4,
           f"{int((~keep).sum())} of {b * s * cfg.top_k} assignments; "
           f"{t_pre:.2f} ms a call (CUDA events); at a decode step's {b} "
           f"tokens {t_dec:.3f} ms, its {routed / 1e9:.2f} GB of routed "
-          f"experts {floor:.3f} ms at the memory rate [{name}]")
+          f"experts {floor:.3f} ms at the memory rate; host syncs a call "
+          f"(CUDA sync debug mode): {syncs} [{name}]")
     del mod, x
     torch.cuda.empty_cache()
     return {"prefill_ms": t_pre, "decode_ms": t_dec, "floor_ms": floor}
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA operations one call of ``fn`` makes, as
+    ``torch.cuda``'s sync debug mode reports them."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def _host_free_gb() -> float:
@@ -4546,10 +4592,6 @@ def moe_phase(dev, errs: ErrLog, name: str):
 #: h absolute (|h| <= 1), c, n and m relative besides (they grow with S: m
 #: sums raw forget pre-activations).  Stated before phase 25's first run.
 SLSTM_TOL = 1e-5
-#: f32 operations a channel a step of the sLSTM scan (the kernel's: 8
-#: multiplies, 10 adds and subtracts, a negation, 2 max, 3 exp, a tanh, 2
-#: divisions), each counted as one.
-SLSTM_OPS = 27
 #: xlstm-1p3b's prefill scans (configs/xlstm_1p3b.py: d_model 2048,
 #: ssm_expand 2, 4 heads of dh 1024, gla_chunk 256) at 4 prompts of 4096:
 #: (B, H, S, dh, chunk); and its sLSTM scan: (B, S, D).
@@ -4737,9 +4779,9 @@ def check_slstm(dev, errs: ErrLog, name: str):
     N(0, 1), bf16 values), from the zero state: one launch each, held to
     the plain version (``_slstm_diff``), timed by CUDA events beside the
     plain version and its bound (bytes: zifo read, hs written, r and the
-    states once; operations: SLSTM_OPS a channel a step at the non-FMA
-    f32 rate), a launch's device time from the profiler.  Returns (the
-    sLSTM row, the bf16 launch's ms)."""
+    states once; operations: ``kernel.OPS_PER_STEP`` a channel a step at
+    the non-FMA f32 rate), a launch's device time from the profiler.
+    Returns (the sLSTM row, the bf16 launch's ms)."""
     from repro_torch.kernels.slstm import kernel
     b, s, d = SLSTM_SCAN
     gen = torch.Generator(device=dev).manual_seed(25)
@@ -4768,7 +4810,7 @@ def check_slstm(dev, errs: ErrLog, name: str):
     t_plain = cuda_ms(lambda: kernel.slstm_scan_plain(zifo, r, *zeros), 1)
     nbytes = 2 * b * s * 5 * d + 4 * 4 * d + 8 * 4 * b * d
     kb = (1e3 * nbytes / card_peaks(name)[0],
-          1e3 * SLSTM_OPS * b * s * d / dtw_op_rate(name))
+          1e3 * kernel.OPS_PER_STEP * b * s * d / dtw_op_rate(name))
     print(f"[sLSTM] xlstm-1p3b's sLSTM scan, B={b} S={s} D={d}, from the "
           f"zero state: one launch each; against the plain version "
           f"elements that differ: {nd} (hs and the final h, c, n, m); "
@@ -4850,6 +4892,219 @@ def xlstm_phase(dev, errs: ErrLog, name: str):
                       f32["launches"]["sLSTM"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: workload signatures
+# ---------------------------------------------------------------------------
+
+#: bench_autotune's experiment (benchmarks/bench_autotune.py:20-46): the
+#: profiled archs, the query, the profiling shape, the series' samples,
+#: the DTW band and the match threshold.
+SIG_PROFILE = ("deepseek-v2-236b", "phi3-mini-3p8b", "starcoder2-15b",
+               "granite-20b", "minitron-4b", "zamba2-7b")
+SIG_QUERY = "kimi-k2-1t-a32b"
+SIG_B, SIG_S, SIG_SAMPLES, SIG_BAND, SIG_THRESHOLD = 4, 512, 2048, 32, 0.85
+#: The card's match scores against the CPU tuner's on the same series:
+#: the same float32 DTW and float64 correlation (the port's CPU test
+#: holds the CPU tuner to the reference's within the same).  Stated
+#: before phase 26's first run.
+SIG_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Within the block, every call of the model path's plain versions
+    (K9's, K10's and its blocked route, the sLSTM scan's) is counted in
+    the dict yielded, under "calls"."""
+    from repro_torch.kernels.attention import kernel as k9
+    from repro_torch.kernels.gla import kernel as k10
+    from repro_torch.kernels.gla import ops as gla_ops
+    from repro_torch.kernels.slstm import kernel as k_slstm
+    seen = {"calls": 0}
+    saved = [(mod, fn, getattr(mod, fn)) for mod, fn in (
+        (k9, "flash_forward_plain"), (k10, "gla_chunks_plain"),
+        (gla_ops, "gla_blocked"), (k_slstm, "slstm_scan_plain"))]
+
+    def counted(orig):
+        def call(*args, **kwargs):
+            seen["calls"] += 1
+            return orig(*args, **kwargs)
+        return call
+
+    for mod, fn, orig in saved:
+        setattr(mod, fn, counted(orig))
+    try:
+        yield seen
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def walk_arch(arch: str):
+    """``arch`` built on ``meta`` at its published config, its loss at
+    SIG_B x SIG_S tokens walked: (the walker, seconds, model build
+    included)."""
+    from repro_torch import configs
+    from repro_torch.core.signatures import OpWalker
+    from repro_torch.models import model as tmodel
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    model = tmodel.DecoderLM(cfg, generator=torch.Generator().manual_seed(0),
+                             device="meta").eval()
+    shape = (SIG_B, SIG_S) if cfg.num_codebooks == 1 \
+        else (SIG_B, SIG_S, cfg.num_codebooks)
+    batch = {key: torch.zeros(shape, dtype=torch.int32, device="meta")
+             for key in ("tokens", "labels")}
+    walker = OpWalker()
+    with torch.no_grad(), walker:
+        loss, _ = tmodel.loss_fn(model, batch, cfg)
+    assert (loss.shape, loss.device.type) == ((), "meta"), arch
+    kinds = tmodel.block_kinds(cfg)
+    want = {"K9": sum(k in tmodel.ATTN_KINDS + ("shared_attn",)
+                      for k in kinds),
+            "K10": sum(k in ("mamba2", "mlstm") for k in kinds),
+            "sLSTM": kinds.count("slstm")}
+    assert walker.kernels == {k: n for k, n in want.items() if n}, \
+        (arch, walker.kernels, want)
+    return walker, time.perf_counter() - t0
+
+
+def _sig_tuner(series: dict, device: str):
+    from repro_torch.core import AutoTuner, ReferenceDB
+    db = ReferenceDB()
+    tuner = AutoTuner(db, band=SIG_BAND, threshold=SIG_THRESHOLD,
+                      device=device)
+    for arch in SIG_PROFILE:
+        tuner.profile(arch, {"B": SIG_B, "S": SIG_S}, series[arch])
+        db.set_best_config(arch, {"arch": arch}, 1.0)
+    return tuner
+
+
+def _k2_args(dev, queries, xlens, bank):
+    from repro_torch.core import dtw
+    xs = np.zeros((len(queries), max(1, int(max(xlens)))), np.float32)
+    for i, (q, n) in enumerate(zip(queries, xlens)):
+        xs[i, :n] = q[:n]
+    folds = [dtw.query_moments(xs[i, :n]) for i, n in enumerate(xlens)]
+    return (torch.tensor(xs, device=dev),
+            torch.tensor(np.asarray(xlens, np.int32), device=dev),
+            torch.tensor(bank.series.T.copy(), device=dev),
+            torch.tensor(bank.lengths, device=dev),
+            torch.tensor([f[0] for f in folds], device=dev),
+            torch.tensor([f[1] for f in folds], device=dev))
+
+
+def check_k2_long(dev, errs: ErrLog, name: str) -> None:
+    """K2 against its plain version at the signatures' length: references
+    of 2049, 2048, 2047, 1000, 5 and 1 samples, queries of 2048, 2047, 1
+    and 0, band SIG_BAND and None, dyadic data bitwise and smooth data
+    within SMOOTH_TOL; one launch each."""
+    from repro_torch.core.database import pack_series
+    from repro_torch.kernels.dtw import score
+    for i, (dyadic, band) in enumerate([(d, b) for d in (True, False)
+                                        for b in (SIG_BAND, None)]):
+        rng = np.random.default_rng(260 + i)
+        bank = pack_series([_series(rng, n, dyadic)
+                            for n in (2049, 2048, 2047, 1000, 5, 1)])
+        xlens = [2048, 2047, 1, 0]
+        queries = [_series(rng, 2048, dyadic) for _ in xlens]
+        args = _k2_args(dev, queries, xlens, bank)
+        before = counts()
+        sk, dk = score.score_bank_offline(*args, band=band)
+        torch.cuda.synchronize()
+        launched(before, K2=1)
+        sp, dp = score.score_bank_offline_plain(*args, band=band)
+        e = max(errs.diff("K2", sk, sp), errs.diff("K2", dk, dp))
+        tol = DYADIC_TOL if dyadic else SMOOTH_TOL
+        assert e <= tol, (f"K2 at 2048 (dyadic={dyadic}, band={band}): max "
+                          f"abs err {e}")
+        print(f"[signatures K2] dyadic={dyadic!s:5} band={band!s:4} "
+              f"N<=2048 M<=2049: scores and distances agree (max abs err "
+              f"{e:.3g}, tol {tol:g}) [{name}]")
+
+
+def signature_phase(dev, errs: ErrLog, name: str) -> dict:
+    """Phase 26: workload signatures (see the module docstring).  Returns
+    the matches' K2 launches by path."""
+    from repro_torch import configs
+    from repro_torch.core import signatures as sig
+    from repro_torch.kernels.dtw import score
+    t0 = time.perf_counter()
+    costs = {}
+    reset_counts()
+    with counting_plain() as plain:
+        for arch in configs.ARCHS:
+            walker, secs = walk_arch(arch)
+            costs[arch] = walker.costs
+            print(f"[signatures] {arch}: {len(walker.costs)} ops (kernel "
+                  f"calls {walker.kernels}), walked in {secs:.2f} s; "
+                  f"{sum(c.flops for c in walker.costs):.6g} flops, "
+                  f"{sum(c.bytes for c in walker.costs):.6g} bytes")
+    got = counts()
+    assert _only(got), f"launches during the walks: {got}"
+    assert plain["calls"] == 0, f"{plain['calls']} plain-version calls"
+    print(f"[signatures] ten archs walked on meta at {SIG_B} x {SIG_S} "
+          f"tokens: no kernel launched, no plain version called")
+    paths, tuners = {}, {}
+    for chip in (sig.TPU_V5E, sig.H100):
+        series = {a: sig.utilization_series(costs[a], SIG_SAMPLES, chip)
+                  for a in SIG_PROFILE + (SIG_QUERY,)}
+        tuner = _sig_tuner(series, "cuda")
+        reset_counts()
+        d = tuner.match(SIG_QUERY, series[SIG_QUERY])
+        torch.cuda.synchronize()
+        got = counts()
+        assert _only(got, K2=1), f"launches in a match: {got}"
+        paths[f"kimi-k2 match, {chip.name} spec (phase 26)"] = got["K2"]
+        want = _sig_tuner(series, "cpu").match(SIG_QUERY, series[SIG_QUERY])
+        assert (d.matched, d.config) == (want.matched, want.config), \
+            (chip.name, d, want)
+        assert d.scores.keys() == want.scores.keys()
+        e = max(abs(d.scores[a] - want.scores[a]) for a in want.scores)
+        assert e <= SIG_TOL and abs(d.corr - want.corr) <= SIG_TOL, \
+            (chip.name, d.scores, want.scores)
+        if chip is sig.TPU_V5E:
+            golden = SIG_PROFILE[0]
+            assert (d.matched, d.config) == (golden, {"arch": golden}) \
+                and d.corr >= SIG_THRESHOLD, d
+            assert d.scores["phi3-mini-3p8b"] < d.corr - 0.1, d.scores
+        ranked = sorted(d.scores.items(), key=lambda kv: -kv[1])
+        print(f"[signatures] {chip.name} spec: kimi-k2 -> matched "
+              f"{d.matched} (corr {d.corr:.4f}, threshold "
+              f"{SIG_THRESHOLD}; config {d.config}); scores "
+              + ", ".join(f"{a} {v:.4f}" for a, v in ranked)
+              + f"; one K2 launch; the CPU tuner's decision, scores within "
+              f"{e:.3g} (tol {SIG_TOL:g}) [{name}]")
+        tuners[chip.name] = (tuner, series[SIG_QUERY])
+    check_k2_long(dev, errs, name)
+    tuner, query = tuners[sig.H100.name]
+    match_ms = cuda_ms(lambda: tuner.match(SIG_QUERY, query), 5)
+    t1 = time.perf_counter()
+    for _ in range(5):
+        tuner.preprocess(query)
+    denoise_ms = (time.perf_counter() - t1) / 5 * 1e3
+    bank = tuner.db.bank(workloads=list(SIG_PROFILE))
+    q = tuner.preprocess(query)
+    args = _k2_args(dev, [q], [len(q)], bank)
+    t_ms = cuda_ms(lambda: score.score_bank_offline(*args, band=SIG_BAND),
+                   20)
+    t_plain = cuda_ms(
+        lambda: score.score_bank_offline_plain(*args, band=SIG_BAND), 1)
+    cells = band_cells([len(q)] * len(bank), bank.lengths, SIG_BAND)
+    m, k = bank.series.shape[1], len(bank)
+    kb = (1e3 * 4 * (len(q) + 3 + m * k + k + 2 * k) / card_peaks(name)[0],
+          1e3 * ops_per_cell(3) * cells / dtw_op_rate(name))
+    print(f"[signatures] a match (host de-noise, bank upload, one K2 "
+          f"launch) {match_ms:.4f} ms, the query's host de-noise alone "
+          f"{denoise_ms:.4f} ms (host clock); K2 at 1 x {len(q)} against "
+          f"{k} x {m}, band {SIG_BAND}: {t_ms:.4f} ms (plain "
+          f"{t_plain:.2f} ms, bound {max(kb):.6f} ms by "
+          f"{'bytes' if kb[0] >= kb[1] else 'operations'}, {cells} cells) "
+          f"[{name}]")
+    print(f"[signatures] phase 26 in {time.perf_counter() - t0:.1f} s "
+          f"[{name}]")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4926,8 +5181,10 @@ def main() -> int:
         rows[row["name"]] = row
     for key, paths in xl_paths.items():
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
-    for key in ("K9", "K9-f32", "K9-mla", "K9-f32-mla", "K10", "K10-mlstm",
-                "sLSTM"):
+    rows[KERNELS["K2"][0]].setdefault("model_launches", {}).update(
+        signature_phase(dev, errs, name))
+    for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K10",
+                "K10-mlstm", "sLSTM"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

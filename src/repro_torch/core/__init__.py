@@ -4,8 +4,10 @@ Pipeline (paper Fig. 3/4): profile -> Chebyshev de-noise -> [0,1]
 normalize -> store in ReferenceDB; match new workloads with DTW +
 correlation (>= 0.9) and transfer the matched workload's best-known
 configuration parameters (AutoTuner).  The names are ``repro.core``'s,
-less those of modules not ported yet (``signatures``, ``hloparse``:
-ROADMAP.md).
+less ``hloparse`` (not ported yet: ROADMAP.md) and ``jaxpr_costs``,
+whose counterpart is ``signatures.op_costs`` (a walk of the aten
+operators on ``meta`` tensors).  The port's own chip spec is
+``signatures.H100``.
 """
 
 from .filters import (cheby1_design, lfilter, filtfilt, denoise, normalize01,
@@ -26,6 +28,8 @@ from .wavelet import (haar_dwt, haar_idwt, compress, reconstruct,
                       match_series_wavelet, haar_dwt_bank, compress_bank,
                       wavelet_similarity_bank, coeff_similarity_bank,
                       StreamingHaar)
+from .signatures import (ChipSpec, TPU_V5E, OpCost, utilization_series,
+                         signature_of)
 from .tuner import AutoTuner, TuneDecision, OnlineMatcher
 
 __all__ = [
@@ -45,5 +49,6 @@ __all__ = [
     "wavelet_similarity", "match_series_wavelet", "haar_dwt_bank",
     "compress_bank", "wavelet_similarity_bank", "coeff_similarity_bank",
     "StreamingHaar",
+    "ChipSpec", "TPU_V5E", "OpCost", "utilization_series", "signature_of",
     "AutoTuner", "TuneDecision", "OnlineMatcher",
 ]

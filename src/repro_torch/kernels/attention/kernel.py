@@ -28,7 +28,10 @@ follows the kernel.
   warp-specialized persistent ``flash_tf32_mla_kernel``, whose work list
   is ``mla_tiles(..., bm=MLA_F32_BM)``).  CPU tensors take
   :func:`flash_forward_plain`.  ``BF16_LIB.launches`` and
-  ``LIB.launches`` count the two kernels' launches.
+  ``LIB.launches`` count the two kernels' launches.  Meta tensors take
+  neither: o comes back empty, and the call is reported as one
+  operation "K9" of ``2 (dh + dv)`` flops a query-key pair under the
+  mask (:func:`causal_pairs`) through ``common.meta_kernel``.
 * :func:`flash_forward_plain` is the reference kernel's block loop: for
   each ``bq`` query block, an online softmax over the ``bk`` kv blocks up
   to the causal frontier, in float32.  Its products go through
@@ -51,9 +54,10 @@ import torch
 
 from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_float_dtypes, check_kernel_device,
-                      check_launch, check_tensor)
+                      check_launch, check_tensor, meta_kernel)
 
-__all__ = ["flash_forward", "flash_forward_plain", "mla_tiles", "LIB",
+__all__ = ["flash_forward", "flash_forward_plain", "mla_tiles",
+           "causal_pairs", "LIB",
            "BF16_LIB", "MAX_DH", "MAX_DV", "MLA_BM", "MLA_F32_BM"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -117,8 +121,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, KV, T, dv] -> o [B, H, S, dv] in q's dtype.  CUDA tensors launch
     the kernel of their dtype (dh <= MAX_DH, dv <= MAX_DV): bfloat16 the
     bf16 one, float32 the split-TF32 one; CPU tensors take the plain
-    version."""
+    version; meta tensors an empty o, reported as one operation."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
+    if q.is_meta:
+        o = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
+        meta_kernel("K9", 2 * (dh + dv) * b * h * causal_pairs(s, t, causal),
+                    (q, k, v), (o,))
+        return o
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, bq, bk, causal)
     dev = q.device
@@ -149,6 +158,16 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch(fn, err)
     lib.launches += 1
     return o
+
+
+def causal_pairs(s: int, t: int, causal: bool = True) -> int:
+    """The query-key pairs one (batch, head) of K9 computes: under the
+    top-left causal mask (key j <= query i, both from 0) query i takes
+    min(i + 1, T) keys; without the mask S T."""
+    if not causal:
+        return s * t
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
 
 
 def mla_tiles(bh: int, s: int, blocks: int, bm: int = MLA_BM):

@@ -11,16 +11,25 @@ interface and loaded with :mod:`ctypes`.  Libraries go to
 and flags, so an edit rebuilds and an unchanged tree reuses the build.
 :func:`build` starts one ``nvcc`` per library, all at once, and waits for
 all of them; a failed build raises with the compiler's output.
+
+A kernel wrapper given ``meta`` tensors (shapes and dtypes, no data)
+runs neither its kernel nor its plain version: it returns empty outputs
+of the right shapes and reports its work through :func:`meta_kernel`
+to the recorder :func:`meta_recorder` installs (``core.signatures``'
+op walker), so a model traced on ``meta`` prices each kernel call as
+one operation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -30,7 +39,8 @@ __all__ = ["resolve_device", "as_tensor", "as_float_tensor",
            "check_kernel_device",
            "check_tensor",
            "KernelLaunchError", "check_launch",
-           "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR"]
+           "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR",
+           "meta_kernel", "meta_recorder"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -144,6 +154,31 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape,
 
 
 _NP = {torch.float32: np.float32, torch.int32: np.int32}
+
+#: The recorders :func:`meta_recorder` installed, innermost last.
+_META_RECORDERS: List[Callable[[str, float, float], None]] = []
+
+
+def meta_kernel(name: str, flops: float, inputs: Sequence[torch.Tensor],
+                outputs: Sequence[torch.Tensor]) -> None:
+    """Report one shape-only kernel call: ``name``, its ``flops`` and its
+    bytes, every input read once and every output written once, to the
+    innermost recorder (none installed: nothing)."""
+    if _META_RECORDERS:
+        _META_RECORDERS[-1](name, float(flops), float(sum(
+            t.numel() * t.element_size() for t in (*inputs, *outputs))))
+
+
+@contextlib.contextmanager
+def meta_recorder(record: Callable[[str, float, float], None]
+                  ) -> Iterator[None]:
+    """Within the block, each kernel call on ``meta`` tensors calls
+    ``record(name, flops, bytes)`` once."""
+    _META_RECORDERS.append(record)
+    try:
+        yield
+    finally:
+        _META_RECORDERS.pop()
 
 
 def _nvcc() -> str:

@@ -36,6 +36,10 @@ kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
   to its one rounding, and hands S_c's block on by the same look-back).
   ``WIDE_LAUNCHES`` counts them (two a call).
 * :func:`chunk_cumsum` is the within-chunk cumsum both take as ``g``.
+* :func:`gla_meta` is what ``ops.gla_scan`` does with meta tensors:
+  empty outputs, the call reported as one operation "K10" through
+  ``common.meta_kernel`` with the undivided scan's work, whatever route
+  the card would take.
 """
 
 from __future__ import annotations
@@ -48,9 +52,10 @@ import torch
 
 from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_float_dtypes, check_kernel_device,
-                      check_launch, check_tensor)
+                      check_launch, check_tensor, meta_kernel)
 
-__all__ = ["gla_chunks", "gla_chunks_plain", "gla_wide", "chunk_cumsum",
+__all__ = ["gla_chunks", "gla_chunks_plain", "gla_wide", "gla_meta",
+           "chunk_cumsum",
            "LIB", "MAX_HEAD_DIM", "WIDE_MAX_CHUNK"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -192,6 +197,25 @@ def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("gla_wide_fwd", err)
     WIDE_LAUNCHES += 2
+    return o, state
+
+
+def gla_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             g: torch.Tensor, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 on meta tensors (the arguments and results of
+    :func:`gla_chunks`, o in v's dtype, any dk and dv): empty o and
+    state, and one operation "K10" reported with the undivided scan's
+    flops, a chunk's causal half of the scores and their products with
+    v, 2 L (L + 1) / 2 (dk + dv), and its inter-chunk read and state
+    update, 4 L dk dv."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    o = torch.empty((b, h, s, dv), dtype=v.dtype, device=q.device)
+    state = torch.empty((b, h, dk, dv), dtype=torch.float32,
+                        device=q.device)
+    flops = b * h * (s // chunk) * (chunk * (chunk + 1) * (dk + dv)
+                                    + 4 * chunk * dk * dv)
+    meta_kernel("K10", flops, (q, k, v, g), (o, state))
     return o, state
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..common import as_float_tensor, as_tensor, resolve_device
 from .kernel import (MAX_HEAD_DIM, WIDE_MAX_CHUNK, chunk_cumsum, gla_chunks,
-                     gla_wide)
+                     gla_meta, gla_wide)
 
 __all__ = ["gla_scan", "gla_blocked"]
 
@@ -38,7 +38,9 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
     cumsum of log_a: one K10 launch when dk, dv <= MAX_HEAD_DIM; else,
     for bfloat16 CUDA tensors and chunk <= WIDE_MAX_CHUNK,
     ``kernel.gla_wide`` (two launches), and otherwise :func:`gla_blocked`
-    (ceil(dv / MAX_HEAD_DIM) launches)."""
+    (ceil(dv / MAX_HEAD_DIM) launches).  Meta tensors take
+    ``kernel.gla_meta`` at any width: one operation, the undivided
+    scan."""
     dev = resolve_device(device)
     q, k, v = (as_float_tensor(t, dev) for t in (q, k, v))
     la = as_tensor(log_a, torch.float32, dev)
@@ -46,6 +48,8 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
         raise ValueError(f"log_a: want [B, H, S] with S a multiple of "
                          f"chunk = {chunk}, got {tuple(la.shape)}")
     g = chunk_cumsum(la, chunk)
+    if q.is_meta:
+        return gla_meta(q, k, v, g, chunk)
     if max(q.shape[-1], v.shape[-1]) <= MAX_HEAD_DIM:
         return gla_chunks(q, k, v, g, chunk)
     if q.is_cuda and q.dtype == torch.bfloat16 and chunk <= WIDE_MAX_CHUNK:

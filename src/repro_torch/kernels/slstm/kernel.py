@@ -24,6 +24,9 @@ and emits h_t, cast to zifo's dtype; the final state stays float32.
   channel; a block of 64 channels stages its gates in shared memory 16
   steps at a time by ``cp.async`` when it can (the schedule is emulated
   in ``tests/test_torch_slstm.py``), else reads them from global memory.
+* Meta tensors take neither: empty outputs, and the call reported as
+  one operation "sLSTM" through ``common.meta_kernel``, OPS_PER_STEP
+  operations a channel a step.
 * :func:`slstm_scan_plain` loops :func:`slstm_step_plain` over S in
   plain torch, with the kernel's operations in the kernel's order
   (sigmoid as the reciprocal of 1 + e^-o, IEEE division), so on the card
@@ -39,9 +42,11 @@ from typing import Tuple
 import torch
 
 from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
-                      check_kernel_device, check_launch, check_tensor)
+                      check_kernel_device, check_launch, check_tensor,
+                      meta_kernel)
 
-__all__ = ["slstm_scan", "slstm_scan_plain", "slstm_step_plain", "LIB"]
+__all__ = ["slstm_scan", "slstm_scan_plain", "slstm_step_plain", "LIB",
+           "OPS_PER_STEP"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -53,6 +58,11 @@ LIB = KernelLib(
                                    ctypes.c_int)})
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+#: float32 operations a channel a step of :func:`slstm_step_plain` (8
+#: multiplies, 10 adds and subtracts, a negation, 2 max, 3 exp, a tanh,
+#: 2 divisions), each counted as one.
+OPS_PER_STEP = 27
 
 
 def _shapes(zifo: torch.Tensor, r: torch.Tensor, state: State):
@@ -79,8 +89,16 @@ def slstm_scan(zifo: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
     """The sLSTM scan of zifo [B, S, 4D] (float32 or bfloat16) with r [4,
     D] and the state h, c, n, m [B, D] (float32) -> (hs [B, S, D] in
     zifo's dtype, the final (h, c, n, m) float32).  CUDA tensors launch
-    the kernel (one launch); CPU tensors take the plain version."""
+    the kernel (one launch); CPU tensors take the plain version; meta
+    tensors come back empty, reported as one operation."""
     b, s, d = _shapes(zifo, r, (h, c, n, m))
+    if zifo.is_meta:
+        hs = torch.empty((b, s, d), dtype=zifo.dtype, device=zifo.device)
+        out = tuple(torch.empty((b, d), dtype=torch.float32,
+                                device=zifo.device) for _ in range(4))
+        meta_kernel("sLSTM", OPS_PER_STEP * b * s * d, (zifo, r, h, c, n, m),
+                    (hs,) + out)
+        return hs, out
     if not zifo.is_cuda:
         return slstm_scan_plain(zifo, r, h, c, n, m)
     dev = zifo.device

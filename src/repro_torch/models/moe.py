@@ -27,6 +27,13 @@ Deliberate choices, each to compute the reference's function:
   order of the reference's scatter-add over its [E * C] slots
   (``.at[slot_to_tok].add``).  ``index_add_`` would sum with atomics on
   the card, in an order that changes from run to run.
+* Every shape is static: counts are a scatter-add of ones, and slots
+  are filled by a scatter into a buffer with one sentinel entry that
+  dropped assignments write, where ``bincount`` and boolean-mask
+  indexing size their results by the data, and the aux loss's divisor
+  is filled on the device, not copied from the host.  So the layer runs
+  on ``meta`` tensors (``core.signatures``), and on the card without a
+  host sync.
 
 :func:`_moe_local` keeps the reference's expert-shard contract: it
 serves the experts ``[e_offset, e_offset + E_loc)`` of the ``E_loc``
@@ -136,6 +143,14 @@ def route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
     return probs, top_p[:, :cfg.top_k], top_e[:, :cfg.top_k]
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` for idx in [0, n), as a
+    scatter-add of ones: its shape is known without reading idx, so it
+    runs on ``meta`` tensors too."""
+    return torch.zeros((n,), dtype=torch.long, device=idx.device
+                       ).scatter_add_(0, idx, torch.ones_like(idx))
+
+
 def dispatch(top_e: torch.Tensor, e_offset: int, e_loc: int, capacity: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each (token, k) assignment's slot ``local expert * C + position in
@@ -148,7 +163,7 @@ def dispatch(top_e: torch.Tensor, e_offset: int, e_loc: int, capacity: int
     # order inside each expert's run, which starts where the counts of
     # the lower experts end
     order = torch.sort(le, stable=True).indices
-    counts = torch.bincount(le, minlength=e_loc + 1)
+    counts = _counts(le, e_loc + 1)
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(le.numel(), device=le.device) - starts[le[order]]
     pos = torch.empty_like(le)
@@ -175,17 +190,19 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
 
     # aux load-balancing loss (global statistics, the same on every shard)
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() \
-        / torch.tensor(float(T * K), device=dev)
+    ce = _counts(top_e.reshape(-1), E).float() \
+        / torch.full((), float(T * K), device=dev)
     aux = E * torch.sum(me * ce)
 
     slot, keep = dispatch(top_e, e_offset, E_loc, C)
     tok_idx = torch.arange(T, device=dev).repeat_interleave(K)
-    # slot -> token (the sentinel T: a zero row)
-    slot_to_tok = torch.full((E_loc * C,), T, dtype=torch.long, device=dev)
-    slot_to_tok[slot[keep]] = tok_idx[keep]
+    # slot -> token (the sentinel T: a zero row); dropped assignments
+    # write T to the sentinel slot E_loc * C, which is cut off
+    slot_to_tok = torch.full((E_loc * C + 1,), T, dtype=torch.long,
+                             device=dev)
+    slot_to_tok.scatter_(0, slot, torch.where(keep, tok_idx, T))
     xpad = torch.cat([x2d, x2d.new_zeros((1, D))], dim=0)
-    xe = xpad[slot_to_tok].reshape(E_loc, C, D)
+    xe = xpad[slot_to_tok[:-1]].reshape(E_loc, C, D)
 
     # expert GEMMs
     if cfg.act == "swiglu":
@@ -199,7 +216,7 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     # order, one add at a time in x's dtype; dropped ones read the zero
     # row at the sentinel slot
     w_slot = torch.zeros((E_loc * C + 1,), dtype=torch.float32, device=dev)
-    w_slot[slot[keep]] = top_p.reshape(-1)[keep]
+    w_slot.scatter_(0, slot, torch.where(keep, top_p.reshape(-1), 0.0))
     contrib = ye.reshape(E_loc * C, D) * w_slot[:-1, None].to(ye.dtype)
     contrib = torch.cat([contrib, contrib.new_zeros((1, D))], dim=0)
     order = slot.reshape(T, K).sort(dim=1).values

@@ -259,3 +259,29 @@ def test_combine_is_in_rising_expert_order():
                 want[t] = want[t] + ye[slot[i]] * top_p[t, k].bfloat16()
     assert (~keep).sum() > 0
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("e_offset,e_loc,capacity_factor",
+                         [(0, 8, 1.25), (2, 4, 0.05)])
+def test_dispatch_and_moe_local_on_meta(e_offset, e_loc, capacity_factor):
+    """Every shape of the dispatch is static (no ``bincount``, no
+    boolean-mask indexing): ``dispatch`` and ``_moe_local`` run on meta
+    tensors, with the CPU run's output shapes and dtypes."""
+    cfg, rcfg = _cfgs(capacity_factor=capacity_factor)
+    p = rmoe.moe_init(jax.random.PRNGKey(0), rcfg)
+    x = torch.tensor(_normal(1, (64, 32)))
+    mod = _port(p, cfg)
+    ex = mod.experts
+    args = (mod.router.w, ex.w_gate[e_offset:e_offset + e_loc],
+            ex.w_up[e_offset:e_offset + e_loc],
+            ex.w_down[e_offset:e_offset + e_loc])
+    C = tmoe._capacity(x.shape[0], cfg)
+    _, _, top_e = tmoe.route(x, mod.router.w, cfg)
+    for fn, cpu_args in ((tmoe.dispatch, (top_e, e_offset, e_loc, C)),
+                         (tmoe._moe_local, (x,) + args + (cfg, e_offset))):
+        want = fn(*cpu_args)
+        got = fn(*[a.to("meta") if isinstance(a, torch.Tensor) else a
+                   for a in cpu_args])
+        for g, w in zip(got, want):
+            assert (g.shape, g.dtype, g.device.type) == \
+                (w.shape, w.dtype, "meta")
