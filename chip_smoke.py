@@ -263,11 +263,36 @@ Phases, in order (any failure exits non-zero):
     smooth data), then timed at the match's shape (2048 x 2048, 6
     references, band 32) beside the plain version and its bound, and
     the match timed.
+27. training on the card (``train.step``, ``launch.train``): (a) K9
+    f32's backward kernel (``flash_f32_bwd.cu``) against
+    ``flash_backward_plain`` on K9_BWD_CASES (minitron-4b's layer, B 1,
+    H 24, KV 8, S 4096, dh 128; the 100M LM's, B 8, H 12, KV 6, S 256,
+    dh 64; S != T both ways, non-causal, dh 96, dh 18 / dv 10 on the
+    element-wise loads, inputs one element into their storage) within
+    K9_BWD_REL of max |plain|, two launches bitwise; the forward's o
+    bitwise with and without its lse, the lse within K9_LSE_TOL of the
+    plain version's; S = 200 through ``models.attention._flash`` (padded
+    to 256) card against CPU; the two layers timed beside the plain
+    version, SDPA's backward and the bound; (b) minitron-4b at full
+    width in float32 cut to 8 layers (remat "full", its ``train_4k``
+    exec) trained 4 steps on 1 x 4096 tokens: K9 f32 16 and its backward
+    8 launches a step, ms a step, tokens/s, peak memory, losses and grad
+    norms, one step traced (GEMMs, K9 forward, K9 backward, the rest);
+    (c) the 100M LM cut to 2 layers, card against CPU from the same
+    weights (first gradients, two steps: TRAIN_LOSS_REL, TRAIN_GRAD_REL,
+    TRAIN_PARAM_ATOL); (d) ``python -m repro_torch.launch.train --steps
+    60 --ckpt-every 30 --tuner-db ...``: exit 0 with a falling loss, a
+    ``--resume`` from step 30 on the same parameters within 1e-6 (bitwise
+    or not, printed), the DB holding the run's signature; (e) a bf16 and
+    an xlstm SMOKE train step raise NotImplementedError, launching
+    nothing and calling no plain version.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
 with its launches on phase 26's matches, K9's two rows at MLA's head,
-K10's row on mLSTM's whole heads and the sLSTM scan's), the card's name
+K10's row on mLSTM's whole heads, the sLSTM scan's and K9 f32's
+backward's, with its launches on phase 27's minitron-4b step), the
+card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  It needs
 no network and imports nothing of JAX.
 """
@@ -438,6 +463,12 @@ KERNELS = {
                    "persistent)",
                    "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
                    "src/repro/kernels/attention/kernel.py:26"),
+    "K9-f32-bwd": ("K9 f32 backward (dq, dk, dv; CUDA cores, f32 FMA; "
+                   "not a TPU kernel: the reference differentiates jnp "
+                   "attention)",
+                   "src/repro_torch/kernels/attention/csrc/flash_f32_bwd.cu",
+                   "src/repro/models/attention.py:121 (jax.grad of jnp "
+                   "attention; no Pallas kernel)"),
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
@@ -547,6 +578,7 @@ def counts() -> dict:
             "K8": iir.kernel.LIB.launches,
             "K9": attention.kernel.BF16_LIB.launches,
             "K9-f32": attention.kernel.LIB.launches,
+            "K9-f32-bwd": attention.kernel.BWD_LIB.launches,
             "K10": gla.kernel.LIB.launches,
             "K10-mlstm": gla.kernel.WIDE_LAUNCHES,
             "sLSTM": slstm.kernel.LIB.launches}
@@ -558,6 +590,7 @@ def reset_counts() -> None:
     stream.LIB.launches = score.LIB.launches = matrix.LIB.launches = 0
     iir.kernel.LIB.launches = attention.kernel.LIB.launches = 0
     attention.kernel.BF16_LIB.launches = 0
+    attention.kernel.BWD_LIB.launches = 0
     gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
     gla.kernel.WIDE_LAUNCHES = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
@@ -644,6 +677,8 @@ def _bank_shapes(rng, k: int, dyadic: bool, panels: bool):
 _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
                         r"flash_tf32_kernel|flash_tf32_mla_kernel|"
+                        r"flash_bwd_dot_kernel|flash_bwd_dkdv_kernel|"
+                        r"flash_bwd_dq_kernel|"
                         r"flash_wgmma_kernel|"
                         r"flash_mla_kernel|gla_wide_scores_kernel|"
                         r"gla_wide_kernel|"
@@ -5105,6 +5140,471 @@ def signature_phase(dev, errs: ErrLog, name: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 27: training on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 27 (a): K9 f32's backward against ``flash_backward_plain`` on the
+#: same inputs (the kernel's own o and lse): max |kernel - plain| <=
+#: K9_BWD_REL max |plain|, for each of dq, dk and dv.  Both sum in float32,
+#: in other orders (the kernel by fused multiply-adds over 64-row tiles,
+#: the plain version through torch.matmul), a kv row's dk and dv over up
+#: to G S = 12,288 query rows at minitron-4b's layer: relative errors of
+#: ~1e-6 expected.  Stated before the first run.
+K9_BWD_REL = 1e-4
+#: The forward's lse against the plain version's, absolute (|lse| up to
+#: ~15 at S = 4096: a float32 step there is ~1e-6; the kernel's scores are
+#: split-TF32 products).  Stated before the first run.
+K9_LSE_TOL = 1e-4
+#: (a)'s shapes: (what, B, H, KV, S, T, dh, dv, causal, unaligned).
+K9_BWD_CASES = (
+    ("minitron-4b layer", 1, 24, 8, 4096, 4096, 128, 128, True, False),
+    ("lm-768x12 layer", 8, 12, 6, 256, 256, 64, 64, True, False),
+    ("dh 96 (phi3-mini's head)", 2, 4, 4, 256, 256, 96, 96, True, False),
+    ("S 128 < T 256", 1, 4, 2, 128, 256, 64, 64, True, False),
+    ("S 256 > T 128", 1, 4, 2, 256, 128, 128, 64, True, False),
+    ("non-causal, dv 32 < dh", 2, 4, 1, 128, 192, 64, 32, False, False),
+    ("dh 18 / dv 10, element-wise loads", 1, 2, 1, 128, 128, 18, 10, True,
+     False),
+    ("one element into storage", 1, 4, 2, 128, 128, 64, 64, True, True),
+)
+
+
+def k9_bwd_case(dev, errs: ErrLog, what: str, b, h, kv, s, t, dh, dv,
+                causal: bool, unaligned: bool, seed: int):
+    """One shape of (a): o bitwise with and without the lse, the lse
+    within K9_LSE_TOL of the plain version's, the backward within
+    K9_BWD_REL of the plain version and bitwise across two launches.
+    Returns (q, k, v, o, do, lse) for timing."""
+    from repro_torch.kernels.attention import kernel as k9
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, torch.float32)
+    do = torch.randn((b, h, s, dv), generator=gen, device=dev)
+    if unaligned:
+        q, k, v, do = (_at_offset(x) for x in (q, k, v, do))
+    reset_counts()
+    o0, none = k9._launch_forward(q, k, v, causal, with_lse=False)
+    o, lse = k9._launch_forward(q, k, v, causal, with_lse=True)
+    dq, dk, dv_ = k9.flash_backward(q, k, v, o, do, lse, 64, 64, causal)
+    again = k9.flash_backward(q, k, v, o, do, lse, 64, 64, causal)
+    torch.cuda.synchronize()
+    launched_now = counts()
+    assert launched_now["K9-f32"] == 2 and launched_now["K9-f32-bwd"] == 2
+    assert none is None and torch.equal(o0, o), \
+        f"{what}: o with the lse is not bitwise o without it"
+    assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv_), again)), \
+        f"{what}: two backward launches differ"
+    _, lse_p = k9.flash_forward_plain(q, k, v, 64, 64, causal,
+                                      with_lse=True)
+    e_lse = float((lse - lse_p).abs().max())
+    plain = k9.flash_backward_plain(q, k, v, o, do, lse, 64, 64, causal)
+    rel = [_rel(x, y) for x, y in zip((dq, dk, dv_), plain)]
+    for x, y in zip((dq, dk, dv_), plain):
+        errs.diff("K9-f32-bwd", x, y)
+        assert torch.isfinite(x).all()
+    assert e_lse <= K9_LSE_TOL, f"{what}: lse err {e_lse} > {K9_LSE_TOL}"
+    assert max(rel) <= K9_BWD_REL, \
+        f"{what}: rel err dq, dk, dv {rel} beyond {K9_BWD_REL}"
+    print(f"[K9 bwd] {what} (B {b}, H {h}, KV {kv}, S {s}, T {t}, dh {dh}, "
+          f"dv {dv}{', causal' if causal else ''}): rel err dq "
+          f"{rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g} (tol "
+          f"{K9_BWD_REL:g} of max |plain|); lse max abs err {e_lse:.3g} "
+          f"(tol {K9_LSE_TOL:g}); o bitwise with and without the lse; "
+          f"two backward launches bitwise")
+    return q, k, v, o, do, lse
+
+
+def k9_bwd_padded(dev, errs: ErrLog, s: int = 200, seed: int = 271) -> None:
+    """(a) through ``models.attention._flash`` at an S that is not a
+    multiple of 64 (padded to 256, the output sliced): autograd's dq,
+    dk, dv on the card (K9 f32 with the lse, then the backward kernel:
+    nothing non-contiguous reaches it, or its checks raise) against the
+    same call on the CPU (the plain versions), within K9_BWD_REL."""
+    from repro_torch.models import attention as mattn
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, kv, dh = 2, 6, 2, 64
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    do = torch.randn((b, s, h, dh), generator=gen, device=dev)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = [x.detach().to(d).requires_grad_() for x in (q, k, v)]
+        reset_counts()
+        o = mattn._flash(*xs)
+        grads.append(torch.autograd.grad(o, xs, do.to(d)))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            got = counts()
+            assert got == {**{n: 0 for n in got}, "K9-f32": 1,
+                           "K9-f32-bwd": 1}, got
+    rel = [_rel(x.cpu(), y) for x, y in zip(*grads)]
+    for x, y in zip(*grads):
+        errs.diff("K9-f32-bwd", x.cpu(), y)
+    assert max(rel) <= K9_BWD_REL, rel
+    print(f"[K9 bwd] models.attention._flash at S {s} (padded to "
+          f"{s + (-s) % 64}; B {b}, H {h}, KV {kv}, dh {dh}): card vs CPU "
+          f"rel err dq {rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g}; one "
+          f"forward and one backward launch")
+
+
+def k9_bwd_bound(name: str, b, h, kv, s, t, dh, dv, causal=True):
+    """(bytes ms, operations ms) of K9's backward: q, k, v, o, do, lse,
+    dq, dk, dv once each at the card's memory rate; 2 (3 dh + 2 dv)
+    FLOPs a query-key pair under the mask at its f32 CUDA-core peak."""
+    from repro_torch.kernels.attention.kernel import causal_pairs
+    mem, f32, _, _ = card_peaks(name)
+    nbytes = 4 * (2 * b * h * s * (dh + dv) + 2 * b * kv * t * (dh + dv)
+                  + b * h * s)
+    flops = 2 * (3 * dh + 2 * dv) * b * h * causal_pairs(s, t, causal)
+    return nbytes / mem * 1e3, flops / f32 * 1e3
+
+
+def _sdpa_bwd_ms(q, k, v, do) -> float:
+    """The library yardstick: autograd of scaled_dot_product_attention
+    (causal, GQA) in float32, its backward alone."""
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = _sdpa(*xs)
+    return cuda_ms(lambda: torch.autograd.grad(o, xs, do,
+                                               retain_graph=True), 3)
+
+
+def check_k9_bwd(dev, errs: ErrLog, name: str):
+    """Phase 27 (a): every K9_BWD_CASES shape and the padded model call
+    held as above; the first two (the two training paths' layers) timed
+    beside the plain version, SDPA's backward and the bound.  Returns
+    {what: (ms, plain ms, library ms, bounds)}."""
+    from repro_torch.kernels.attention import kernel as k9
+    times = {}
+    for i, case in enumerate(K9_BWD_CASES):
+        what, b, h, kv, s, t, dh, dv, causal, unaligned = case
+        q, k, v, o, do, lse = k9_bwd_case(dev, errs, *case, seed=270 + i)
+        if i >= 2:
+            continue
+        args = (q, k, v, o, do, lse, 64, 64, causal)
+        ms = cuda_ms(lambda: k9.flash_backward(*args), 3)
+        plain_ms = cuda_ms(lambda: k9.flash_backward_plain(*args), 1)
+        lib_ms = _sdpa_bwd_ms(q, k, v, do)
+        bounds = k9_bwd_bound(name, b, h, kv, s, t, dh, dv, causal)
+        fwd_ms = cuda_ms(lambda: k9._launch_forward(q, k, v, causal,
+                                                    with_lse=True), 3)
+        times[what] = (ms, plain_ms, lib_ms, bounds)
+        print(f"[K9 bwd] {what}: {ms:.3f} ms a launch (plain {plain_ms:.1f} "
+              f"ms, SDPA's backward {lib_ms:.3f} ms, bound "
+              f"{max(bounds):.3f} ms by "
+              f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
+              f"bytes {bounds[0]:.3f}, f32 operations {bounds[1]:.3f}; "
+              f"the forward with the lse {fwd_ms:.3f} ms) [{name}]")
+        del q, k, v, o, do, lse, args
+        torch.cuda.empty_cache()
+    k9_bwd_padded(dev, errs)
+    return times
+
+
+#: Phase 27 (c): the card's two train steps against the CPU's from the
+#: same weights.  The losses within TRAIN_LOSS_REL relative (float32 sums
+#: in other orders through two layers: ~1e-6 expected).  The first
+#: batch's gradients, each leaf within TRAIN_GRAD_REL of its largest
+#: element (both sides differentiate the same function; K9's backward
+#: kernel and cuBLAS against the plain versions and the CPU's GEMMs).  The
+#: parameters after the two steps within rtol 1e-4 / atol TRAIN_PARAM_ATOL
+#: = 2 lr: AdamW moves a weight by lr g / (|g| + eps), whose size does not
+#: shrink with |g|, so where a gradient element is float32 noise the two
+#: sides may step it in opposite directions, by up to lr a step.  Stated
+#: before the first run.
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_PARAM_ATOL = 2 * 3e-4
+
+
+def _train_cfg(arch: str, layers: int, remat: str = "none"):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), num_layers=layers,
+                               param_dtype="float32", dtype="float32",
+                               remat=remat)
+
+
+def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
+               b: int = 1, s: int = 4096, steps: int = 4) -> dict:
+    """Phase 27 (b): ``arch`` at full width in float32, depth cut to
+    ``layers``, its ``train_4k`` exec (remat "full"), trained ``steps``
+    steps on B x S tokens of the port's SyntheticCorpus through
+    ``train.step.make_train_step``, each step's counts set to 0 just
+    before it and read just after (K9 f32 forward 2 a layer, the forward
+    and remat's recompute; its backward 1 a layer); ms a step (median),
+    tokens/s, peak memory, each step's loss and grad norm (finite); then
+    one more step traced.  Returns {"launches": per step, "ms": ...}."""
+    from repro_torch import configs, models
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.train import (AdamWConfig, adamw_init, cosine_schedule,
+                                   make_train_step)
+    ex = configs.exec_default(arch, "train_4k")
+    cfg = _train_cfg(arch, layers, ex.remat)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(27), device=dev)
+    opt_cfg = AdamWConfig(lr=3e-4)
+    opt = adamw_init(model, opt_cfg)
+    n_params = models.param_count(model)
+    # the train driver's schedule: cosine, warmup 20
+    step = make_train_step(cfg, ex, opt_cfg, lr_schedule=lambda c: (
+        cosine_schedule(c, peak_lr=3e-4, warmup=20, total=100)))
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=27), s, b)
+    print(f"[train full] {arch} at full width, {layers} of "
+          f"{configs.get(arch).num_layers} layers, float32, remat "
+          f"{cfg.remat}: {n_params / 1e9:.3f} B parameters, weights and "
+          f"AdamW state {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    want = {"K9_f32": 2 * layers, "K9_f32_bwd": layers}
+    times, rows = [], []
+    for i in range(steps):
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        opt, met = step(model, opt, batch)
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+        launched({k: 0 for k in counts()}, **want)
+        assert math.isfinite(loss) and math.isfinite(gn), (loss, gn)
+        rows.append((loss, gn))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = float(np.median(times))
+    print(f"[train full] {steps} steps of {b} x {s} tokens: "
+          + "; ".join(f"step {i} loss {l:.4f} grad norm {g:.4f}"
+                      for i, (l, g) in enumerate(rows)))
+    print(f"[train full] ms a step (median of {steps}) {ms:.1f} (each "
+          + ", ".join(f"{t:.1f}" for t in times) + f"); {b * s / ms * 1e3:.0f}"
+          f" tokens/s; peak memory {peak:.1f} GiB; launches a step: K9 f32 "
+          f"forward {2 * layers}, K9 f32 backward {layers} [{name}]")
+    from torch.profiler import ProfilerActivity, profile
+    batch = pipe.batch_at(steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t1)
+    split = {"gemm": 0.0, "K9 forward": 0.0, "K9 backward": 0.0,
+             "rest": 0.0}
+    by = []
+    for key, kms, n in _kernel_times(prof):
+        by.append((key[:60], kms, n))
+        if "flash_tf32_kernel" in key:
+            split["K9 forward"] += kms
+        elif "flash_bwd_" in key:
+            split["K9 backward"] += kms
+        elif any(g in key for g in GEMM_NAMES):
+            split["gemm"] += kms
+        else:
+            split["rest"] += kms
+    total = sum(split.values())
+    top = sorted(by, key=lambda e: -e[1])[:6]
+    print(f"[train full] traced step: device {total:.1f} ms of {wall:.1f} "
+          f"ms wall, "
+          + ", ".join(f"{k} {v:.1f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+                      for k, v in split.items())
+          + "; top kernels: " + "; ".join(f"{k} {v:.1f} ms x {n}"
+                                          for k, v, n in top))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {"launches": want["K9_f32_bwd"], "ms": ms, "split": split}
+
+
+def _state_of(model) -> dict:
+    return {k: p.detach().clone().cpu() for k, p in model.named_parameters()}
+
+
+def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
+                      s: int = 128, steps: int = 2) -> None:
+    """Phase 27 (c): the driver's default LM (lm-768x12) cut to
+    ``layers`` layers, weights drawn once on the CPU from a seeded
+    generator and copied to the card; the first batch's gradients, then
+    ``steps`` train steps (AdamW lr 3e-4) on each device: losses,
+    gradients and parameters held as TRAIN_* say."""
+    from repro_torch import models
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.sharding.rules import ExecConfig
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    cfg = tlaunch.build_config(tlaunch.parse_args(
+        ["--layers", str(layers)]))
+    cpu = models.init(cfg, generator=torch.Generator().manual_seed(270),
+                      device="cpu")
+    card = models.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    card.load_state_dict(cpu.state_dict())
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=270), s, b)
+    grads = []
+    for m in (card, cpu):
+        m.requires_grad_(True)
+        loss, _ = models.loss_fn(m, pipe.batch_at(0), cfg)
+        grads.append(dict(zip([n for n, _ in m.named_parameters()],
+                              torch.autograd.grad(loss, list(
+                                  m.parameters())))))
+    g_err = max(_rel(grads[0][k].cpu(), grads[1][k]) for k in grads[1]
+                if grads[1][k].abs().max() > 0)
+    del grads
+    losses, opt_cfg = [], AdamWConfig(lr=3e-4)
+    reset_counts()
+    for m in (card, cpu):
+        step, opt = make_train_step(cfg, ExecConfig(), opt_cfg), \
+            adamw_init(m, opt_cfg)
+        run = []
+        for i in range(steps):
+            opt, met = step(m, opt, pipe.batch_at(i))
+            run.append(float(met["loss"]))
+        losses.append(run)
+    torch.cuda.synchronize()
+    launched({k: 0 for k in counts()}, K9_f32=layers * steps,
+             K9_f32_bwd=layers * steps)
+    l_err = max(abs(a - c) / abs(c) for a, c in zip(*losses))
+    got, want = _state_of(card), _state_of(cpu)
+    p_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
+    beyond = sum(int(((got[k] - want[k]).abs() > 1e-5 + 1e-4 * want[k].abs()
+                      ).sum()) for k in want)
+    n = sum(v.numel() for v in want.values())
+    ok = all(bool(((got[k] - want[k]).abs()
+                   <= TRAIN_PARAM_ATOL + 1e-4 * want[k].abs()).all())
+             for k in want)
+    print(f"[train card vs cpu] {cfg.name} cut to {layers} layers, {b} x "
+          f"{s} tokens, {steps} steps: losses card {losses[0]} CPU "
+          f"{losses[1]} (rel err {l_err:.3g}, tol {TRAIN_LOSS_REL:g}); first "
+          f"batch's gradients rel err {g_err:.3g} of a leaf's max (tol "
+          f"{TRAIN_GRAD_REL:g}); parameters max abs diff {p_abs:.3g} (tol "
+          f"{TRAIN_PARAM_ATOL:g} + 1e-4 |p|), {beyond} of {n} beyond 1e-5 "
+          f"+ 1e-4 |p|; K9 f32 {layers * steps} and its backward "
+          f"{layers * steps} launches on the card")
+    assert l_err <= TRAIN_LOSS_REL and g_err <= TRAIN_GRAD_REL and ok
+
+
+def _copy_step(src: str, dst: str, step: int) -> None:
+    """A checkpoint directory holding only ``src``'s step ``step``."""
+    import shutil
+    os.makedirs(dst)
+    shutil.copytree(os.path.join(src, f"step_{step:06d}"),
+                    os.path.join(dst, f"step_{step:06d}"))
+    with open(os.path.join(dst, "LATEST"), "w") as f:
+        f.write(f"step_{step:06d}")
+
+
+def _run_driver(args, what: str) -> str:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = [l for l in out.stdout.splitlines() if l.startswith("[train]")]
+    for l in lines[-3:]:
+        print(f"[train driver] {what}: {l}")
+    assert out.returncode == 0, (what, out.returncode, out.stdout[-2000:],
+                                 out.stderr[-4000:])
+    print(f"[train driver] {what}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def train_driver(steps: int = 60, every: int = 30) -> None:
+    """Phase 27 (d): ``python -m repro_torch.launch.train`` at its
+    defaults (lm-768x12, seq 256, batch 8) for ``steps`` steps on the
+    card, checkpointing every ``every``, recording into a tuner DB: exits
+    0 (its own assert: the last loss below the first); a ``--resume``
+    from step ``every`` ends on the same parameters and optimizer state
+    within 1e-6 (bitwise or not, printed); the DB holds the workload's
+    signature."""
+    import tempfile
+    from repro_torch.core.database import ReferenceDB
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, db = (os.path.join(tmp, n) for n in ("a", "b", "db"))
+        base = ["--steps", str(steps), "--ckpt-every", str(every),
+                "--log-every", "10"]
+        out = _run_driver(base + ["--ckpt-dir", a, "--tuner-db", db],
+                          "uninterrupted")
+        first = re.search(r"loss ([\d.]+) -> ([\d.]+)", out)
+        _copy_step(a, b, every)
+        _run_driver(base + ["--ckpt-dir", b, "--resume"],
+                    f"resumed from step {every}")
+        worst, bitwise = 0.0, True
+        za = np.load(os.path.join(a, f"step_{steps:06d}", "arrays.npz"))
+        zb = np.load(os.path.join(b, f"step_{steps:06d}", "arrays.npz"))
+        assert sorted(za.files) == sorted(zb.files)
+        for key in za.files:
+            x, y = za[key], zb[key]
+            bitwise &= np.array_equal(x, y)
+            if x.dtype.kind == "f":
+                worst = max(worst, float(np.abs(x.astype(np.float64)
+                                                - y).max()))
+        assert worst <= 1e-6, worst
+        rdb = ReferenceDB.load(db)
+        (entry,) = rdb.series_for("lm-768x12/train_256x8")
+        assert rdb.workloads() == ["lm-768x12/train_256x8"]
+        assert entry.series.shape == (512,) and np.isfinite(
+            entry.series).all()
+        print(f"[train driver] loss {first.group(1)} -> {first.group(2)} "
+              f"over {steps} steps; the resumed run's step-{steps} "
+              f"parameters and AdamW state "
+              f"{'bitwise' if bitwise else 'not bitwise'} the "
+              f"uninterrupted run's (max abs diff {worst:.3g}, tol 1e-6); "
+              f"the tuner DB holds lm-768x12/train_256x8 with its "
+              f"{entry.series.shape[0]}-sample signature")
+
+
+def train_no_fallback(dev) -> None:
+    """Phase 27 (e): a bf16 train step (minitron-4b's SMOKE config in
+    bfloat16) and an xlstm-1p3b SMOKE train step on the card raise
+    NotImplementedError naming the missing backward, launching no kernel
+    and calling no plain version."""
+    from repro_torch import configs, models
+    from repro_torch.sharding.rules import ExecConfig
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    for arch, dt, want in (("minitron-4b", "bfloat16", "K9 backward"),
+                           ("xlstm-1p3b", "float32", "K10 backward")):
+        cfg = dataclasses.replace(configs.smoke_config(arch),
+                                  param_dtype=dt, dtype=dt)
+        m = models.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        step = make_train_step(cfg, ExecConfig(), AdamWConfig())
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        reset_counts()
+        with counting_plain() as seen:
+            try:
+                step(m, adamw_init(m, AdamWConfig()),
+                     {"tokens": toks, "labels": toks})
+            except NotImplementedError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"{arch} {dt} trained on the card")
+        torch.cuda.synchronize()
+        launched({k: 0 for k in counts()})
+        assert want in msg and seen["calls"] == 0, (msg, seen)
+        print(f"[train no fallback] {arch} SMOKE in {dt}: "
+              f"NotImplementedError ({msg}); no kernel launched, no plain "
+              f"version called")
+
+
+def train_phase(dev, errs: ErrLog, name: str):
+    """Phase 27: (a) K9 f32's backward kernel, (b) minitron-4b trained at
+    full width, (c) the card against the CPU, (d) the train driver, (e)
+    no fallback.  Returns the K9 f32 backward's table row."""
+    t0 = time.perf_counter()
+    times = check_k9_bwd(dev, errs, name)
+    full = train_full(dev, name)
+    train_card_vs_cpu(dev, name)
+    train_driver()
+    train_no_fallback(dev)
+    ms, plain_ms, lib_ms, bounds = times["minitron-4b layer"]
+    row = _row("K9-f32-bwd", full["launches"], errs, ms, plain_ms, bounds,
+               lib_ms)
+    row["model_launches"] = {"minitron-4b train step (8 layers)":
+                             full["launches"]}
+    print(f"[train] phase 27 in {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5116,8 +5616,8 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
-            attention.kernel.LIB, attention.kernel.BF16_LIB, gla.kernel.LIB,
-            slstm.kernel.LIB]
+            attention.kernel.LIB, attention.kernel.BF16_LIB,
+            attention.kernel.BWD_LIB, gla.kernel.LIB, slstm.kernel.LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -5183,8 +5683,15 @@ def main() -> int:
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     rows[KERNELS["K2"][0]].setdefault("model_launches", {}).update(
         signature_phase(dev, errs, name))
-    for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K10",
-                "K10-mlstm", "sLSTM"):
+    row = train_phase(dev, errs, name)
+    rows[row["name"]] = row
+    for key in ("K9", "K9-f32"):
+        # the serving phases assert these counts; phase 27 changed no
+        # forward launch of theirs
+        print(f"[train] {key} forward launches on the serving paths, as "
+              f"before: {rows[KERNELS[key][0]]['model_launches']}")
+    for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K9-f32-bwd",
+                "K10", "K10-mlstm", "sLSTM"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -13,7 +13,8 @@ kernel entry points, each on its own CUDA kernel: the batched IIR filter
 scan (``kernels.gla``); and the model zoo's serving path for the
 archs without experts (``configs``, ``models``: GQA attention whose
 prefill runs K9, Mamba2 whose prefill runs K10; ``serve.engine``,
-``launch.serve``).  Entry points run on the
+``launch.serve``); and training on one device (``data``, ``train``,
+``launch.train``; K9 f32's backward kernel).  Entry points run on the
 GPU unless ``device="cpu"`` is passed, which runs the kernels' plain
 PyTorch versions.  The package imports neither ``jax`` nor ``repro``.
 """

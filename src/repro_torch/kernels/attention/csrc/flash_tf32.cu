@@ -14,7 +14,10 @@
 // -1e30, not -inf; the causal mask is t <= s, both counted from 0 (top-left
 // aligned); the online softmax keeps (m, l, o) per row, m starting at
 // -1e30, and rescales by exp(m - m_new) once per kv tile; the row sum is
-// clamped at 1e-30; kv tiles past the causal frontier are skipped.
+// clamped at 1e-30; kv tiles past the causal frontier are skipped. When
+// asked (a non-null lse, dh <= 128), it also writes each row's
+// log-sum-exp, m + log(max(l, 1e-30)), for the backward
+// (flash_f32_bwd.cu); o is the same either way.
 //
 // Numerics ("3xTF32"). One TF32 product keeps 10 mantissa bits, too few
 // for the float32 check (1e-5). So each operand splits into two TF32
@@ -386,17 +389,22 @@ __device__ __forceinline__ void pv(float (&acc)[DV / 2],
 }
 
 // o's rows r0 and r0 + 8 of the thread (those below S), acc / max(l,
-// 1e-30), columns past dv dropped.
+// 1e-30), columns past dv dropped; and, when lp is not null, each row's
+// log-sum-exp m + log(max(l, 1e-30)) (in the units of the scaled scores)
+// at lp[r], by the quad's first lane.
 template <int DV>
 __device__ __forceinline__ void store_rows(float* op,
                                            const float (&acc)[DV / 2],
+                                           const float (&m)[2],
                                            const float (&l)[2], int r0,
-                                           int qd, int S, int dv) {
+                                           int qd, int S, int dv,
+                                           float* lp) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
     if (r >= S) continue;
     const float den = fmaxf(l[h], 1e-30f);
+    if (lp != nullptr && qd == 0) lp[r] = __fadd_rn(m[h], logf(den));
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
@@ -413,8 +421,9 @@ __global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
     flash_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      int BH, int H, int G, int S, int Tk, int dh, int dv,
-                      float scale, int causal, int vec) {
+                      float* __restrict__ lse, int BH, int H, int G, int S,
+                      int Tk, int dh, int dv, float scale, int causal,
+                      int vec) {
   constexpr int NT = kThreads * NH;
   constexpr int NQ = DK / 8;             // Q chunks a thread: 64 x DK / 4 / 128
   constexpr int NK = 8 * DK / NT;        // K chunks a thread: 32 x DK / 4 / NT
@@ -516,18 +525,19 @@ __global__ void __launch_bounds__(kThreads* NH, DK == 64 && DV == 64 ? 2 : 1)
     __syncthreads();  // every read of tile kt is done
     if (kt + 1 < last) stash();
   }
-  store_rows<DV>(o + (long long)bh * S * dv, acc, l, r0, qd, S, dv);
+  store_rows<DV>(o + (long long)bh * S * dv, acc, m, l, r0, qd, S, dv,
+                 lse == nullptr ? nullptr : lse + (long long)bh * S);
 }
 
 template <int DK, int DV, int NH>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int H, int KV, int S, int Tk, int dh, int dv, float scale,
-           int causal, int vec, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int H, int KV, int S, int Tk, int dh, int dv,
+           float scale, int causal, int vec, cudaStream_t stream) {
   const int blocks = B * H / NH * ((S + kBQ - 1) / kBQ);
   return float_io::launch(flash_tf32_kernel<DK, DV, NH>, blocks,
                           kThreads * NH, smem_bytes<DK, DV, NH>(), stream, q,
-                          k, v, o, B * H, H, H / KV, S, Tk, dh, dv, scale,
-                          causal, vec);
+                          k, v, o, lse, B * H, H, H / KV, S, Tk, dh, dv,
+                          scale, causal, vec);
 }
 
 
@@ -800,7 +810,8 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
       pv<kMlaDV>(acc, phi, plo, sVhi, sVlo);
       wgmma::mbar_arrive(vempty);
     }
-    store_rows<kMlaDV>(o + (long long)bh * S * dv, acc, l, r0, qd, S, dv);
+    store_rows<kMlaDV>(o + (long long)bh * S * dv, acc, m, l, r0, qd, S, dv,
+                       nullptr);
   }
 }
 
@@ -831,21 +842,26 @@ int launch_mla(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // K9, float32. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B,
-// H, S, dv], row-major float32; scale is dh^-0.5 rounded to float32; dh
-// <= 192, dv <= 128; vec: dh and dv multiples of 4 and q, k, v 16-byte
-// aligned. Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for dh over 192 or dv over 128.
+// H, S, dv], row-major float32; lse [B, H, S] float32, or null: each row's
+// log-sum-exp of its scaled, masked scores (the backward's row statistic),
+// written only when not null and only by the dh <= 128 kernels; scale is
+// dh^-0.5 rounded to float32; dh <= 192, dv <= 128; vec: dh and dv
+// multiples of 4 and q, k, v 16-byte aligned. Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for dh over
+// 192, dv over 128, or an lse asked for at dh over 128.
 extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
-                                        const void* v, void* o, int B, int H,
-                                        int KV, int S, int Tk, int dh, int dv,
-                                        float scale, int causal, int vec,
-                                        void* stream) {
+                                        const void* v, void* o, void* lse,
+                                        int B, int H, int KV, int S, int Tk,
+                                        int dh, int dv, float scale,
+                                        int causal, int vec, void* stream) {
   if (B == 0 || H == 0 || S == 0 || dv == 0) return 0;
   if (dh > 192 || dv > 128) return (int)cudaErrorInvalidValue;
+  if (dh > 128 && lse != nullptr) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
   float* of = (float*)o;
+  float* lf = (float*)lse;
   cudaStream_t s = (cudaStream_t)stream;
   // MLA's q and k: 192 wide, the warp-specialized persistent kernel
   if (dh > 128)
@@ -855,12 +871,12 @@ extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
   // two query heads of one kv head a block when the group size is even
   const bool pair = (H / KV) % 2 == 0;
   if (d <= 64)
-    return pair ? launch<64, 64, 2>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                                    scale, causal, vec, s)
-                : launch<64, 64, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                                    scale, causal, vec, s);
-  return pair ? launch<128, 128, 2>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                                    scale, causal, vec, s)
-              : launch<128, 128, 1>(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv,
-                                    scale, causal, vec, s);
+    return pair ? launch<64, 64, 2>(qf, kf, vf, of, lf, B, H, KV, S, Tk, dh,
+                                    dv, scale, causal, vec, s)
+                : launch<64, 64, 1>(qf, kf, vf, of, lf, B, H, KV, S, Tk, dh,
+                                    dv, scale, causal, vec, s);
+  return pair ? launch<128, 128, 2>(qf, kf, vf, of, lf, B, H, KV, S, Tk, dh,
+                                    dv, scale, causal, vec, s)
+              : launch<128, 128, 1>(qf, kf, vf, of, lf, B, H, KV, S, Tk, dh,
+                                    dv, scale, causal, vec, s);
 }

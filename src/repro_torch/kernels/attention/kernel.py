@@ -37,6 +37,24 @@ follows the kernel.
   to the causal frontier, in float32.  Its products go through
   ``torch.matmul``; the CUDA kernels' never do.
 
+The backward (float32, dh and dv <= 128): when q, k or v requires grad
+and grad mode is on, :func:`flash_forward` goes through
+:class:`FlashAttention`, an ``autograd.Function``.  On CUDA its forward
+launches ``csrc/flash_tf32.cu`` with the rows' log-sum-exp ``lse`` [B, H,
+S] written beside o (o itself is the lse-free launch's, bitwise), and its
+backward launches ``csrc/flash_f32_bwd.cu`` (:func:`flash_backward`;
+``BWD_LIB.launches`` counts those calls, ``LIB.launches`` stays the
+forward's count).  On the CPU it takes :func:`flash_forward_plain` with
+the lse and :func:`flash_backward_plain`.  CUDA bfloat16 inputs, and dh
+over 128 (MLA's head), raise ``NotImplementedError`` when a gradient is
+asked for: their backward kernels do not exist yet, and no plain version
+runs on the card.  The reference has no backward kernel (jax.grad
+differentiates its jnp attention), so the backward replaces no TPU
+kernel.  It follows the standard flash backward: D = rowsum(do o), P
+recomputed from q k^T and the lse, dP = do v^T, dS = P (dP - D), dq =
+scale dS k, dk = dS^T (q scale), dv = P^T do, with the forward's scale,
+mask and tiling.
+
 ``bq`` and ``bk`` are the reference's tiling: S and T must be multiples
 of them, as there.  The CUDA kernels tile by 64 query rows and 64 (bf16)
 or 32 (f32) kv rows whatever they are; a kv block past the frontier
@@ -56,9 +74,10 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_float_dtypes, check_kernel_device,
                       check_launch, check_tensor, meta_kernel)
 
-__all__ = ["flash_forward", "flash_forward_plain", "mla_tiles",
-           "causal_pairs", "LIB",
-           "BF16_LIB", "MAX_DH", "MAX_DV", "MLA_BM", "MLA_F32_BM"]
+__all__ = ["flash_forward", "flash_forward_plain", "flash_backward",
+           "flash_backward_plain", "FlashAttention", "mla_tiles",
+           "causal_pairs", "LIB", "BF16_LIB", "BWD_LIB", "MAX_DH", "MAX_DV",
+           "MAX_BWD_D", "MLA_BM", "MLA_F32_BM"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -84,7 +103,15 @@ LIB = KernelLib(
     "flash_tf32", os.path.join(_CSRC, "flash_tf32.cu"),
     headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
     signatures={"flash_attention_fwd_tf32": (
-        [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
+        [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
+#: The backward of K9 for float32 inputs, on CUDA cores.
+BWD_LIB = KernelLib(
+    "flash_f32_bwd", os.path.join(_CSRC, "flash_f32_bwd.cu"),
+    headers=(FLOAT_IO_HEADER,),
+    signatures={"flash_attention_bwd_f32": (
+        [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
+#: Largest head dim (dh and dv) the backward takes.
+MAX_BWD_D = 128
 #: K9 for bfloat16 inputs, on the tensor cores.
 BF16_LIB = KernelLib(
     "flash_wgmma", os.path.join(_CSRC, "flash_wgmma.cu"),
@@ -121,15 +148,44 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, KV, T, dv] -> o [B, H, S, dv] in q's dtype.  CUDA tensors launch
     the kernel of their dtype (dh <= MAX_DH, dv <= MAX_DV): bfloat16 the
     bf16 one, float32 the split-TF32 one; CPU tensors take the plain
-    version; meta tensors an empty o, reported as one operation."""
+    version; meta tensors an empty o, reported as one operation.  When a
+    gradient is asked for (grad mode on, an input requiring grad), the
+    call goes through :class:`FlashAttention`."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
     if q.is_meta:
         o = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
         meta_kernel("K9", 2 * (dh + dv) * b * h * causal_pairs(s, t, causal),
                     (q, k, v), (o,))
         return o
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.is_cuda:
+            _check_backward(q, dh, dv)
+        return FlashAttention.apply(q, k, v, bq, bk, causal)
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, bq, bk, causal)
+    return _launch_forward(q, k, v, causal, with_lse=False)[0]
+
+
+def _check_backward(q: torch.Tensor, dh: int, dv: int) -> None:
+    """Raise NotImplementedError unless K9's backward kernel takes these
+    CUDA inputs (float32, dh and dv <= MAX_BWD_D)."""
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"K9 backward: no backward kernel for {q.dtype} inputs on the "
+            f"card yet (float32 only); train in float32 or on the CPU")
+    if max(dh, dv) > MAX_BWD_D:
+        raise NotImplementedError(
+            f"K9 backward: no backward kernel for head dims dh = {dh}, dv "
+            f"= {dv} on the card yet (MLA's head; at most {MAX_BWD_D})")
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, with_lse: bool):
+    """One launch of the kernel of q's dtype -> (o, lse or None); the lse
+    [B, H, S] float32 only from the float32 kernel at dh <= 128."""
+    b, h, s, dh = q.shape
+    kv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
     check_kernel_device(q)
     if dh > MAX_DH:
@@ -150,14 +206,19 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per = 16 // q.element_size()
     vec = dh % per == 0 and dv % per == 0 and all(p % 16 == 0
                                                   for p in ptrs[:3])
-    lib = BF16_LIB if q.dtype == torch.bfloat16 else LIB
-    fn = "flash_attention_fwd_bf16" if lib is BF16_LIB \
-        else "flash_attention_fwd_tf32"
-    err = getattr(lib.get(), fn)(*ptrs, b, h, kv, s, t, dh, dv, scale,
+    lse = None
+    if q.dtype == torch.bfloat16:
+        lib, fn, args = BF16_LIB, "flash_attention_fwd_bf16", ptrs
+    else:
+        if with_lse:
+            lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        lib, fn = LIB, "flash_attention_fwd_tf32"
+        args = ptrs + (None if lse is None else lse.data_ptr(),)
+    err = getattr(lib.get(), fn)(*args, b, h, kv, s, t, dh, dv, scale,
                                  int(causal), int(vec), stream)
     check_launch(fn, err)
     lib.launches += 1
-    return o
+    return o, lse
 
 
 def causal_pairs(s: int, t: int, causal: bool = True) -> int:
@@ -184,10 +245,11 @@ def mla_tiles(bh: int, s: int, blocks: int, bm: int = MLA_BM):
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bq: int = 128, bk: int = 128,
-                        causal: bool = True) -> torch.Tensor:
+                        bq: int = 128, bk: int = 128, causal: bool = True,
+                        with_lse: bool = False):
     """Plain PyTorch version of :func:`flash_forward` (same arguments and
-    result), on whatever device the tensors are on."""
+    result), on whatever device the tensors are on.  With ``with_lse``,
+    (o, lse): lse [B, H, S] float32, each row's m + log(max(l, 1e-30))."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
     g = h // kv
     dev = q.device
@@ -196,6 +258,7 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float()[:, :, None]                          # [B, KV, 1, T, dh]
     vf = v.float()[:, :, None]
     out = torch.empty((b, kv, g, s, dv), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, kv, g, s), dtype=torch.float32, device=dev)
     nk = t // bk
     rows = torch.arange(bq, device=dev)[:, None]
     cols = torch.arange(bk, device=dev)[None, :]
@@ -219,5 +282,117 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l = l * alpha + p.sum(dim=-1)
             o = o * alpha[..., None] + torch.matmul(p, vb)
             m = m_new
-        out[:, :, :, q0:q0 + bq] = o / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, h, s, dv).to(q.dtype)
+        den = torch.clamp_min(l, 1e-30)
+        out[:, :, :, q0:q0 + bq] = o / den[..., None]
+        lse[:, :, :, q0:q0 + bq] = m + torch.log(den)
+    o = out.reshape(b, h, s, dv).to(q.dtype)
+    return (o, lse.reshape(b, h, s)) if with_lse else o
+
+
+class FlashAttention(torch.autograd.Function):
+    """K9 with its backward: ``apply(q, k, v, bq, bk, causal) -> o``.
+    CUDA (float32, dh, dv <= 128): the forward kernel writing the lse,
+    then the backward kernel; CPU: the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bq: int, bk: int, causal: bool):
+        if q.is_cuda:
+            o, lse = _launch_forward(q, k, v, causal, with_lse=True)
+        else:
+            o, lse = flash_forward_plain(q, k, v, bq, bk, causal,
+                                         with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.tiles = (bq, bk, causal)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, do.contiguous(), lse,
+                                    *ctx.tiles)
+        return dq, dk, dv, None, None, None
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                   bq: int = 64, bk: int = 64, causal: bool = True):
+    """The gradients (dq, dk, dv) of K9 at q, k, v, given its output o,
+    the output's gradient do [B, H, S, dv] and the forward's lse [B, H,
+    S].  CUDA tensors (float32, dh, dv <= MAX_BWD_D) launch the backward
+    kernel (``BWD_LIB``: three kernels on the stream, counted as one
+    launch); CPU tensors take :func:`flash_backward_plain`."""
+    b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
+    if not q.is_cuda:
+        return flash_backward_plain(q, k, v, o, do, lse, bq, bk, causal)
+    dev = q.device
+    check_kernel_device(q)
+    _check_backward(q, dh, dv)
+    check_tensor(q, "q", torch.float32, (b, h, s, dh), dev)
+    check_tensor(k, "k", torch.float32, (b, kv, t, dh), dev)
+    check_tensor(v, "v", torch.float32, (b, kv, t, dv), dev)
+    check_tensor(o, "o", torch.float32, (b, h, s, dv), dev)
+    check_tensor(do, "do", torch.float32, (b, h, s, dv), dev)
+    check_tensor(lse, "lse", torch.float32, (b, h, s), dev)
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    scale = float(np.float32(dh ** -0.5))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vec = dh % 4 == 0 and dv % 4 == 0 and all(
+        x.data_ptr() % 16 == 0 for x in (q, k, v, do))
+    fn = "flash_attention_bwd_f32"
+    err = getattr(BWD_LIB.get(), fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dvv.data_ptr(), b, h, kv, s, t, dh, dv, scale,
+        int(causal), int(vec), stream)
+    check_launch(fn, err)
+    BWD_LIB.launches += 1
+    return dq, dk, dvv
+
+
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor,
+                         lse: torch.Tensor, bq: int = 64, bk: int = 64,
+                         causal: bool = True):
+    """Plain PyTorch version of :func:`flash_backward` (same arguments
+    and result, the gradients in their inputs' dtypes), tiled as the
+    kernel tiles: for each ``bk`` kv block, the ``bq`` query blocks from
+    the causal frontier on, each pair's P recomputed from the lse, dk and
+    dv summed over the pairs (and a kv head's query heads) in float32;
+    dq summed over its kv blocks in order, scaled at the end."""
+    b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
+    g = h // kv
+    dev = q.device
+    scale = float(np.float32(dh ** -0.5))
+    qs = q.reshape(b, kv, g, s, dh).float() * scale
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    dof = do.reshape(b, kv, g, s, dv).float()
+    lsef = lse.reshape(b, kv, g, s).float()
+    delta = (dof * o.reshape(b, kv, g, s, dv).float()).sum(dim=-1)
+    dq = torch.zeros((b, kv, g, s, dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, kv, t, dh), dtype=torch.float32, device=dev)
+    dvv = torch.zeros((b, kv, t, dv), dtype=torch.float32, device=dev)
+    rows = torch.arange(bq, device=dev)[:, None]
+    cols = torch.arange(bk, device=dev)[None, :]
+    for ki in range(t // bk):
+        t0 = ki * bk
+        kb = kf[:, :, :, t0:t0 + bk]
+        vb = vf[:, :, :, t0:t0 + bk]
+        for qi in range(t0 // bq if causal else 0, s // bq):
+            q0 = qi * bq
+            qb = qs[:, :, :, q0:q0 + bq]
+            gb = dof[:, :, :, q0:q0 + bq]
+            sc = torch.matmul(qb, kb.transpose(-1, -2))   # [B,KV,G,bq,bk]
+            if causal:
+                sc = torch.where(t0 + cols <= q0 + rows, sc, NEG)
+            p = torch.exp(sc - lsef[:, :, :, q0:q0 + bq, None])
+            dp = torch.matmul(gb, vb.transpose(-1, -2))
+            ds = p * (dp - delta[:, :, :, q0:q0 + bq, None])
+            dvv[:, :, t0:t0 + bk] += torch.matmul(
+                p.transpose(-1, -2), gb).sum(dim=2)
+            dk[:, :, t0:t0 + bk] += torch.matmul(
+                ds.transpose(-1, -2), qb).sum(dim=2)
+            dq[:, :, :, q0:q0 + bq] += torch.matmul(ds, kb)
+    return ((dq * scale).reshape(b, h, s, dh).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))

@@ -37,7 +37,7 @@ import torch
 __all__ = ["resolve_device", "as_tensor", "as_float_tensor",
            "FLOAT_DTYPES", "FLOAT_IO_HEADER", "check_float_dtypes",
            "check_kernel_device",
-           "check_tensor",
+           "check_tensor", "check_no_backward",
            "KernelLaunchError", "check_launch",
            "KernelLib", "build", "NVCC_FLAGS", "BUILD_DIR",
            "meta_kernel", "meta_recorder"]
@@ -151,6 +151,16 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape,
             f"{tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def check_no_backward(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when a gradient is asked for (grad
+    mode on, one of ``tensors`` requiring grad) from a CUDA kernel that
+    has no backward kernel yet: on the card no plain version stands in."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} backward: no backward kernel on the card yet; train "
+            f"this arch on the CPU (device='cpu')")
 
 
 _NP = {torch.float32: np.float32, torch.int32: np.int32}

@@ -52,7 +52,8 @@ import torch
 
 from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       check_float_dtypes, check_kernel_device,
-                      check_launch, check_tensor, meta_kernel)
+                      check_launch, check_no_backward, check_tensor,
+                      meta_kernel)
 
 __all__ = ["gla_chunks", "gla_chunks_plain", "gla_wide", "gla_meta",
            "chunk_cumsum",
@@ -125,6 +126,7 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     odt = _out_dtype(v, out_dtype)
     if not q.is_cuda:
         return gla_chunks_plain(q, k, v, g, chunk, odt)
+    check_no_backward("K10", q, k, v, g)
     dev = q.device
     check_kernel_device(q)
     if max(dk, dv) > MAX_HEAD_DIM:
@@ -167,6 +169,7 @@ def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
     if not q.is_cuda:
         return gla_chunks_plain(q, k, v, g, chunk)
+    check_no_backward("K10", q, k, v, g)
     dev = q.device
     check_kernel_device(q)
     if q.dtype != torch.bfloat16:

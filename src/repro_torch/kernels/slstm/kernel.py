@@ -42,8 +42,8 @@ from typing import Tuple
 import torch
 
 from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
-                      check_kernel_device, check_launch, check_tensor,
-                      meta_kernel)
+                      check_kernel_device, check_launch, check_no_backward,
+                      check_tensor, meta_kernel)
 
 __all__ = ["slstm_scan", "slstm_scan_plain", "slstm_step_plain", "LIB",
            "OPS_PER_STEP"]
@@ -101,6 +101,7 @@ def slstm_scan(zifo: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
         return hs, out
     if not zifo.is_cuda:
         return slstm_scan_plain(zifo, r, h, c, n, m)
+    check_no_backward("the sLSTM scan", zifo, r, h, c, n, m)
     dev = zifo.device
     check_kernel_device(zifo)
     check_tensor(zifo, "zifo", FLOAT_DTYPES, (b, s, 4 * d), dev)

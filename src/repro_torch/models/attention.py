@@ -12,6 +12,12 @@ Above ``blockwise_attn_threshold`` the reference switches to its
 blockwise online softmax (``_blockwise_attention``), which computes the
 same function K9 does at any length, so it has no counterpart here.
 
+A forward pass that builds an autograd graph (training) takes the same
+route: ``flash_attention`` then runs K9 through its ``FlashAttention``
+function, whose backward on the card is K9 f32's backward kernel (dh,
+dv <= 128; bf16 or MLA's 192-wide head raise there), and the pad's rows
+get exact zero gradients.
+
 Decode (S = 1 over the cache) and a chunked prefill at ``cache_pos`` > 0
 stay plain torch (:func:`_plain_attention`), as the reference computes
 them in jnp, not in its Pallas kernel; K9 takes no query offset.  The

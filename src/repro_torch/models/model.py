@@ -22,10 +22,16 @@ layers, ``{"conv", "ssm"}`` for Mamba2 and mLSTM layers, ``{"h", "c",
 :func:`decode_step` update its tensors in place (the reference donates
 its cache to the decode step) and return it.
 
-The reference's ``remat`` and ``shard`` callbacks have no effect when
-serving; the signatures keep them.  ``mesh`` and ``data_axes`` go to the
-MoE layers, which run unmapped (a mesh that shards the experts raises,
-``moe.moe_apply``).  ``forward`` and ``loss_fn`` sum the MoE layers' aux
+``cfg.remat`` is the reference's ``_remat_wrap`` applied to each layer
+of a forward pass that builds an autograd graph (training, no cache):
+``"full"`` recomputes the whole layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
+outputs of its matrix products (``mm``, ``bmm``, ``addmm``) and
+recomputes the rest (selective checkpointing).  It changes when values
+are computed, never what they are, and has no effect when serving.  The
+reference's ``shard`` callback has no effect; the signatures keep it.
+``mesh`` and ``data_axes`` go to the MoE layers, which run unmapped (a
+mesh that shards the experts raises, ``moe.moe_apply``).  ``forward`` and ``loss_fn`` sum the MoE layers' aux
 losses.
 """
 
@@ -50,7 +56,8 @@ __all__ = ["init", "make_cache", "forward", "loss_fn", "prefill",
            "decode_step", "param_count", "active_param_count",
            "DecoderLM", "AttnBlock", "Mamba2Block", "MLSTMBlock",
            "SLSTMBlock", "SharedAttnSlot",
-           "params_from_reference", "unstack_segments", "block_kinds"]
+           "params_from_reference", "flat_from_reference",
+           "unstack_segments", "block_kinds"]
 
 ShardFn = Callable[[torch.Tensor, str], torch.Tensor]
 _id_shard: ShardFn = lambda x, kind: x
@@ -154,6 +161,37 @@ def block_kinds(cfg: ModelConfig) -> List[str]:
     return kinds
 
 
+#: The ops whose outputs ``remat="dots"`` keeps.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat_call(remat: str, block: nn.Module, *args):
+    """``block(*args)`` under the remat policy ``remat`` (the reference's
+    ``_remat_wrap``): "none" as it is, "full" recomputed whole in the
+    backward, "dots" recomputed but for its matrix products."""
+    if remat == "none":
+        return block(*args)
+    from torch.utils.checkpoint import checkpoint
+    if remat == "full":
+        return checkpoint(block, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    raise ValueError(f"remat must be none, full or dots; got {remat!r}")
+
+
 class DecoderLM(nn.Module):
     """``embed``, ``final_norm``, ``shared_attn`` (zamba2 only) and
     ``layers`` in depth order."""
@@ -195,11 +233,13 @@ class DecoderLM(nn.Module):
         new = None if caches is None else []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         shared = getattr(self, "shared_attn", None)
+        remat = cfg.remat if caches is None and torch.is_grad_enabled() \
+            else "none"
         for i, kind in enumerate(block_kinds(cfg)):
             cache = None if caches is None else caches["layers"][i]
             block = shared if kind == "shared_attn" else self.layers[i]
-            x, nc, aux = block(x, cfg, positions, cache, cache_pos, mesh,
-                               data_axes)
+            x, nc, aux = _remat_call(remat, block, x, cfg, positions, cache,
+                                     cache_pos, mesh, data_axes)
             if aux is not None:
                 aux_total = aux_total + aux
             if new is not None:
@@ -252,6 +292,19 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, Any]) -> None:
             out[f"{prefix}{k}"] = v
 
 
+def flat_from_reference(np_tree: Mapping, cfg: ModelConfig
+                        ) -> Dict[str, Any]:
+    """A tree shaped as the reference's parameters (the parameters, or an
+    optimizer moment of them) as ``{port parameter name: leaf}``: the
+    segments unstacked to their layers, names joined with ``.``."""
+    flat: Dict[str, Any] = {}
+    _flatten({k: v for k, v in np_tree.items() if k != "segments"}, "",
+             flat)
+    for i, layer in enumerate(unstack_segments(np_tree["segments"], cfg)):
+        _flatten(layer, f"layers.{i}.", flat)
+    return flat
+
+
 def params_from_reference(np_params: Mapping, cfg: ModelConfig,
                           device: Union[str, torch.device, None] = None
                           ) -> DecoderLM:
@@ -259,11 +312,7 @@ def params_from_reference(np_params: Mapping, cfg: ModelConfig,
     ``np_params`` (``jax.tree.map(np.asarray, params)``), each cast to the
     port's parameter dtype.  Every parameter must be matched."""
     dev = resolve_device(device)
-    flat: Dict[str, Any] = {}
-    _flatten({k: v for k, v in np_params.items() if k != "segments"}, "",
-             flat)
-    for i, layer in enumerate(unstack_segments(np_params["segments"], cfg)):
-        _flatten(layer, f"layers.{i}.", flat)
+    flat = flat_from_reference(np_params, cfg)
     model = DecoderLM(cfg, generator=torch.Generator().manual_seed(0),
                       device="meta")
     want = model.state_dict()
@@ -367,11 +416,13 @@ def loss_fn(model: DecoderLM, batch: Dict, cfg: ModelConfig, *, mesh=None,
 # serving
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def prefill(model: DecoderLM, tokens, cache: Dict, cfg: ModelConfig, *,
             positions=None, extra_embeds=None, mesh=None,
             data_axes=("data",), shard: ShardFn = _id_shard):
     """Process the prompt from position 0, fill the cache.  Returns
-    (last_logits [B, V*nb], cache)."""
+    (last_logits [B, V*nb], cache).  Builds no autograd graph, whether
+    or not the weights require grad."""
     B, S = tokens.shape[:2]
     x = _embed_inputs(model, tokens, cfg, extra_embeds)
     if positions is None:
@@ -384,6 +435,7 @@ def prefill(model: DecoderLM, tokens, cache: Dict, cfg: ModelConfig, *,
     return logits, new_cache
 
 
+@torch.no_grad()
 def decode_step(model: DecoderLM, token, cache: Dict, pos: int,
                 cfg: ModelConfig, *, mesh=None, data_axes=("data",),
                 shard: ShardFn = _id_shard):

@@ -10,6 +10,9 @@ another order), 5e-2 for bfloat16 inputs (the output is rounded to
 bfloat16).
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -812,3 +815,316 @@ def test_tf32_mla_schedule_within_tolerance(s, t, dh, dv, h, kv, causal):
     got = _emulate_tf32(q, k, v, True, causal)
     err = float((got - want).abs().max())
     assert err <= F32_TOL, err
+
+
+# ---------------------------------------------------------------------------
+# the backward (K9 f32's backward kernel and its plain version)
+# ---------------------------------------------------------------------------
+
+BWD_TOL = 1e-5
+
+
+def _bwd_inputs(seed, b, h, kv, s, dh, dv=None):
+    dv = dh if dv is None else dv
+    rng = np.random.default_rng(seed)
+    q, k, v = _qkv(rng, b, h, kv, s, s, dh, dv)
+    do = rng.normal(size=(b, h, s, dv)).astype(np.float32)
+    return q, k, v, do
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _plain_grads(q, k, v, do, bq=64, bk=64, causal=True):
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = tkernel.flash_forward_plain(tq, tk, tv, bq, bk, causal,
+                                         with_lse=True)
+    return tkernel.flash_backward_plain(tq, tk, tv, o, tdo, lse, bq, bk,
+                                        causal)
+
+
+@pytest.mark.parametrize("b,h,kv,s,dh", [
+    (2, 4, 2, 128, 64),      # GQA
+    (1, 4, 4, 128, 64),      # MHA
+    (1, 6, 2, 192, 96),      # GQA, phi3-mini's head dim
+    (1, 2, 1, 128, 128),     # MQA, minitron-4b's head dim
+])
+def test_bwd_plain_vs_jax_grad(b, h, kv, s, dh):
+    """``flash_backward_plain`` (S == T, causal) within 1e-5 of jax.grad
+    of ``repro.models.attention.attention``, the jnp function the
+    reference differentiates, at the same scale dh ** -0.5."""
+    import jax
+    from repro.models import ModelConfig as RefConfig
+    from repro.models.attention import attention as ref_attention
+    q, k, v, do = _bwd_inputs(s + dh, b, h, kv, s, dh)
+    cfg = RefConfig(name="t", num_layers=1, d_model=h * dh, num_heads=h,
+                    num_kv_heads=kv, d_ff=4, vocab_size=8,
+                    param_dtype="float32", dtype="float32")
+    tr = lambda x: jnp.asarray(x.transpose(0, 2, 1, 3))   # [B, S, H, d]
+
+    def loss(q_, k_, v_):
+        return jnp.sum(ref_attention(q_, k_, v_, cfg) * tr(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(tr(q), tr(k), tr(v))
+    got = _plain_grads(q, k, v, do)
+    for g, w in zip(got, want):
+        w = np.asarray(w).transpose(0, 2, 1, 3)
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=BWD_TOL, atol=BWD_TOL)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 2, 128, 128, 64, 64, 64, 64, True),
+    (2, 2, 1, 64, 128, 32, 48, 32, 64, True),    # S < T, dv != dh
+    (1, 3, 3, 128, 64, 16, 16, 32, 32, True),    # S > T
+    (1, 2, 2, 128, 64, 16, 16, 64, 32, False),
+])
+def test_bwd_plain_equals_autograd_of_forward(case):
+    """The plain backward against autograd of ``flash_forward_plain``
+    (the same function differentiated op by op) within 1e-5 of the
+    largest gradient, and ``flash_forward`` on grad-requiring CPU
+    tensors (the ``FlashAttention`` function) gives the plain version's
+    o and gradients, launching nothing."""
+    b, h, kv, s, t, dh, dv, bq, bk, causal = case
+    rng = np.random.default_rng(sum(case[:8]))
+    q, k, v = _qkv(rng, b, h, kv, s, t, dh, dv)
+    do = torch.tensor(rng.normal(size=(b, h, s, dv)).astype(np.float32))
+    xs = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    o = tkernel.flash_forward_plain(*xs, bq, bk, causal)
+    want = torch.autograd.grad(o, xs, do)
+    before = (tkernel.LIB.launches, tkernel.BWD_LIB.launches)
+    o2 = tkernel.flash_forward(*xs, bq, bk, causal)
+    assert o2.grad_fn is not None and torch.equal(o2, o)
+    got = torch.autograd.grad(o2, xs, do)
+    assert (tkernel.LIB.launches, tkernel.BWD_LIB.launches) == before
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= BWD_TOL
+
+
+def test_bwd_lse_is_the_rows_log_sum_exp():
+    """The plain forward's lse is each row's m + log(l): logsumexp of the
+    scaled, masked scores, within float32 rounding."""
+    q, k, v, _ = _bwd_inputs(5, 1, 4, 2, 128, 32)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    o, lse = tkernel.flash_forward_plain(tq, tk, tv, 64, 64, with_lse=True)
+    assert torch.equal(o, tkernel.flash_forward_plain(tq, tk, tv, 64, 64))
+    scale = float(np.float32(32 ** -0.5))
+    sc = torch.einsum("bhsd,bhtd->bhst", tq * scale,
+                      tk.repeat_interleave(2, dim=1)).double()
+    mask = torch.ones(128, 128, dtype=torch.bool).tril()
+    want = torch.logsumexp(sc.masked_fill(~mask, -np.inf), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [100, 64, 129])
+def test_bwd_padded_rows_get_exact_zeros(s):
+    """``models.attention._flash``'s padding (S to a multiple of 64, the
+    output sliced): the padded query rows' and keys' gradients are exact
+    zeros, and the real rows' equal the unpadded plain attention's."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as mattn
+    rng = np.random.default_rng(s)
+    b, h, kv, dh = 2, 4, 2, 32
+    q = torch.tensor(rng.normal(size=(b, s, h, dh)).astype(np.float32))
+    k = torch.tensor(rng.normal(size=(b, s, kv, dh)).astype(np.float32))
+    v = torch.tensor(rng.normal(size=(b, s, kv, dh)).astype(np.float32))
+    do = torch.tensor(rng.normal(size=(b, s, h, dh)).astype(np.float32))
+    pad = -s % mattn.K9_TILE
+    padded = [F.pad(x.transpose(1, 2), (0, 0, 0, pad)).requires_grad_()
+              for x in (q, k, v)]
+    o = tkernel.flash_forward(*padded, mattn.K9_TILE, mattn.K9_TILE)
+    grads = torch.autograd.grad(o[:, :, :s].transpose(1, 2), padded, do)
+    for g in grads:
+        assert g.is_contiguous()
+        assert torch.count_nonzero(g[:, :, s:]) == 0
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(mattn._plain_attention(*xs, q_offset=0), xs,
+                               do)
+    for g, w in zip(grads, want):
+        assert _rel(g[:, :, :s].transpose(1, 2), w) <= BWD_TOL
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(mattn._flash(*xs), xs, do)
+    for g, w in zip(got, grads):
+        assert torch.equal(g, w[:, :, :s].transpose(1, 2))
+
+
+def test_bwd_raises_on_the_card_without_a_kernel(monkeypatch):
+    """CUDA bf16 inputs, or dh over 128, with a gradient asked for raise
+    NotImplementedError naming K9's backward, before any launch; the
+    float32 check passes at dh 128."""
+    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K9 backward"):
+        tkernel._check_backward(q, 64, 64)
+    with pytest.raises(NotImplementedError, match="K9 backward"):
+        tkernel._check_backward(q.float(), 192, 128)
+    tkernel._check_backward(q.float(), 128, 128)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    xs = [torch.zeros(1, 2, 64, d, requires_grad=True)
+          for d in (192, 192, 128)]
+    with pytest.raises(NotImplementedError, match="K9 backward"):
+        tkernel.flash_forward(xs[0], xs[1][:, :1], xs[2][:, :1], 64, 64)
+
+
+# ---- the backward kernel's schedule (csrc/flash_f32_bwd.cu), emulated ----
+
+_BWD_SRC = os.path.join(os.path.dirname(tkernel.__file__), "csrc",
+                        "flash_f32_bwd.cu")
+
+
+def _bwd_consts():
+    src = open(_BWD_SRC).read()
+    kb = int(re.search(r"constexpr int kB = (\d+);", src).group(1))
+    threads = int(re.search(r"constexpr int kThreads = (\d+);",
+                            src).group(1))
+    ps = int(re.search(r"constexpr int kPS = kB \+ (\d+);", src).group(1))
+    return kb, threads, kb + ps
+
+
+def _emulate_bwd(q, k, v, o, do, lse, causal=True):
+    """The kernel's three launches in torch: D = rowsum(do o); one dkdv
+    block per (b, kv head, 64-row kv tile), which walks its G query heads
+    in order and, for each, the query tiles from the causal frontier on,
+    summing each pair's P^T dO and dS^T (q scale) into its accumulators
+    in that order; one dq block per (b, head, query tile), which walks
+    the kv tiles up to the frontier.  Every tile pair masks past S, past
+    T and above the diagonal.  Returns (dq, dk, dv, visits): visits
+    counts each (block, g, tile) pair the dkdv blocks took."""
+    kb, _, _ = _bwd_consts()
+    b, h, s, dh = q.shape
+    kv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g_ = h // kv
+    scale = float(np.float32(dh ** -0.5))
+    nq, nk = -(-s // kb), -(-t // kb)
+
+    def tile(x, r0, n):             # rows [r0, r0 + kb) zero past n
+        out = torch.zeros((kb,) + x.shape[1:], dtype=x.dtype)
+        out[:max(0, min(kb, n - r0))] = x[r0:r0 + kb]
+        return out
+
+    delta = (do * o).sum(-1)
+    dq, dk, dvv = (torch.zeros_like(x) for x in (q, k, v))
+    visits = {}
+
+    def pair(bi, hh, q0, t0):
+        qt = tile(q[bi, hh] * scale, q0, s)
+        kt, vt = tile(k[bi, hh // g_], t0, t), tile(v[bi, hh // g_], t0, t)
+        gt = tile(do[bi, hh], q0, s)
+        lt, dt = tile(lse[bi, hh], q0, s), tile(delta[bi, hh], q0, s)
+        rows = q0 + torch.arange(kb)[:, None]
+        cols = t0 + torch.arange(kb)[None, :]
+        live = (rows < s) & (cols < t) & ((cols <= rows) | (not causal))
+        p = torch.where(live, torch.exp(qt @ kt.T - lt[:, None]), 0.0)
+        ds = p * (gt @ vt.T - dt[:, None])
+        return qt, kt, gt, p, ds
+
+    for blk in range(b * kv * nk):              # the longest tiles first
+        kt_i, bkv = blk // (b * kv), blk % (b * kv)
+        bi, kvh = bkv // kv, bkv % kv
+        t0 = kt_i * kb
+        adk = torch.zeros((kb, dh))
+        adv = torch.zeros((kb, dv))
+        for gg in range(g_):
+            hh = kvh * g_ + gg
+            for qi in range(t0 // kb if causal else 0, nq):
+                qt, _, gt, p, ds = pair(bi, hh, qi * kb, t0)
+                adv += p.T @ gt
+                adk += ds.T @ qt
+                key = (bi, hh, qi, kt_i)
+                visits[key] = visits.get(key, 0) + 1
+        n = max(0, min(kb, t - t0))
+        dk[bi, kvh, t0:t0 + n], dvv[bi, kvh, t0:t0 + n] = adk[:n], adv[:n]
+    for blk in range(b * h * nq):
+        qi, bh = nq - 1 - blk // (b * h), blk % (b * h)
+        bi, hh = bh // h, bh % h
+        q0 = qi * kb
+        last = min(nk, (q0 + 2 * kb - 1) // kb) if causal else nk
+        adq = torch.zeros((kb, dh))
+        for kt_i in range(last):
+            _, kt, _, _, ds = pair(bi, hh, q0, kt_i * kb)
+            adq += ds @ kt
+        n = max(0, min(kb, s - q0))
+        dq[bi, hh, q0:q0 + n] = adq[:n] * scale
+    return dq, dk, dvv, visits
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,dh,dv,causal", [
+    (1, 4, 2, 192, 192, 64, 64, True),
+    (2, 3, 1, 100, 100, 18, 10, True),       # ragged S and T, odd dims
+    (1, 2, 2, 128, 256, 32, 48, True),       # S < T
+    (1, 4, 2, 192, 128, 64, 32, True),       # S > T
+    (1, 2, 1, 128, 192, 16, 16, False),
+])
+def test_bwd_schedule_within_tolerance(b, h, kv, s, t, dh, dv, causal):
+    """The emulated schedule against ``flash_backward_plain`` (padded to
+    the plain version's tiles) within BWD_TOL of the largest gradient;
+    every (head, query tile, kv tile) pair under the causal frontier
+    visited exactly once by the dkdv blocks; a kv head's G query heads
+    summed in one block in a fixed order (the emulation is
+    deterministic: two runs bitwise)."""
+    rng = np.random.default_rng(s * 7 + t)
+    q, k, v = (torch.tensor(x) for x in _qkv(rng, b, h, kv, s, t, dh, dv))
+    do = torch.tensor(rng.normal(size=(b, h, s, dv)).astype(np.float32))
+    sp, tp = s + -s % 64, t + -t % 64
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[2]))
+    # padding is exact here: a real causal query never reads a padded key
+    o, lse = tkernel.flash_forward_plain(pad(q, sp), pad(k, tp), pad(v, tp),
+                                         64, 64, causal, with_lse=True)
+    o, lse = o[:, :, :s], lse[:, :, :s]
+    want = tkernel.flash_backward_plain(pad(q, sp), pad(k, tp), pad(v, tp),
+                                        pad(o, sp), pad(do, sp),
+                                        pad(lse[..., None], sp)[..., 0],
+                                        64, 64, causal)
+    want = (want[0][:, :, :s], want[1][:, :, :t], want[2][:, :, :t])
+    *got, visits = _emulate_bwd(q, k, v, o, do, lse, causal)
+    *again, _ = _emulate_bwd(q, k, v, o, do, lse, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= BWD_TOL
+    nq, nk = -(-s // 64), -(-t // 64)
+    want_pairs = {(bi, hh, qi, ki) for bi in range(b) for hh in range(h)
+                  for qi in range(nq) for ki in range(nk)
+                  if not causal or ki * 64 <= qi * 64 + 63}
+    assert set(visits) == want_pairs and set(visits.values()) == {1}
+
+
+def test_bwd_thread_maps_and_shared_memory():
+    """The kernel's 256 threads cover each element of a 64 x 64 score
+    tile once (rows tx + 16 a, ty + 16 b) and each element of a [64, D]
+    accumulator once (rows 4 jg + r, columns 4 cg + 64 k + e); every
+    16-byte shared-memory load phase (8 consecutive lanes) falls in 8
+    distinct bank groups or is a broadcast; the dkdv and dq blocks'
+    shared memory fits an SM's 232,448 bytes."""
+    kb, threads, ps = _bwd_consts()
+    assert (kb, threads, ps) == (64, 256, 68)
+    for d in (64, 128):
+        ld = d + 4
+        seen = np.zeros((kb, kb), int)
+        acc = np.zeros((kb, d), int)
+        for tid in range(threads):
+            tx, ty = tid % 16, tid // 16
+            for a in range(4):
+                for bb in range(4):
+                    seen[tx + 16 * a, ty + 16 * bb] += 1
+            jg, cg = tid % 16, tid // 16
+            for r in range(4):
+                for kk in range(d // 64):
+                    acc[4 * jg + r, 4 * cg + 64 * kk:4 * cg + 64 * kk + 4] += 1
+        assert (seen == 1).all() and (acc == 1).all()
+        for phase in range(threads // 8):
+            lanes = range(8 * phase, 8 * phase + 8)
+            for c in (0, 4, d - 4):
+                # scores: A rows tx + 16 a (distinct), B rows ty + 16 b
+                # (one row: a broadcast)
+                units = {((t % 16) * ld + c) // 4 % 8 for t in lanes}
+                assert len(units) == 8
+                assert len({t // 16 for t in lanes}) == 1
+            for i in (0, 5):
+                # accumulators: X[i][4 jg ..] (distinct), Y[i][4 cg ..]
+                units = {(i * ps + 4 * (t % 16)) // 4 % 8 for t in lanes}
+                assert len(units) == 8
+        dkdv = 4 * (4 * kb * ld + 2 * kb * ps + 2 * kb)
+        dq = 4 * (4 * kb * ld + kb * ps + 2 * kb)
+        assert dkdv <= 232448 and dq <= 232448

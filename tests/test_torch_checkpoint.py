@@ -2,9 +2,10 @@
 hash verify, gc, torn steps, target-free trees; and the files of either
 package loading in the other.
 
-The reference's checkpoint tests run against the port, less the two
-that need a device mesh or the trainer (ROADMAP.md queue 1 items 10 and
-12).  Leaves restore as tensors on ``device="cpu"``."""
+The reference's checkpoint tests run against the port (the mesh restore
+is ``tests/test_torch_sharding.py::test_elastic_restore_onto_mesh``),
+the exact resume through the port's trainer.  Leaves restore as tensors
+on ``device="cpu"``."""
 import json
 import os
 
@@ -129,6 +130,54 @@ def test_shape_mismatch_rejected(tmp_path):
            "b": {"c": torch.zeros(6, dtype=torch.int32)}}
     with pytest.raises(ValueError):
         restore_checkpoint(str(tmp_path), bad, device="cpu")
+
+
+def test_exact_resume_equivalence(tmp_path):
+    """train 6 steps == train 3, checkpoint, restore, train 3 more."""
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.models import ModelConfig, model
+    from repro_torch.sharding.rules import ExecConfig
+    from repro_torch.train.optim import AdamWConfig, AdamWState, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cfg = ModelConfig(name="t", num_layers=2, d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=64,
+                      param_dtype="float32", dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, ExecConfig(), opt_cfg)
+    pipe = DataPipeline(SyntheticCorpus(64), seq_len=16, global_batch=2)
+
+    def fresh():
+        m = model.init(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+        return m, adamw_init(m, opt_cfg)
+
+    def run(m, opt, s0, s1):
+        for s in range(s0, s1):
+            opt, _ = step(m, opt, pipe.batch_at(s))
+        return opt
+
+    def tree(m, opt):
+        return ({k: p.detach() for k, p in m.named_parameters()},
+                (opt.count, opt.m, opt.v))
+
+    mA, oA = fresh()
+    oA = run(mA, oA, 0, 6)
+    mB, oB = fresh()
+    oB = run(mB, oB, 0, 3)
+    save_checkpoint(str(tmp_path), 3, tree(mB, oB))
+    mB, oB = fresh()
+    (params, (count, m, v)), _ = restore_checkpoint(
+        str(tmp_path), tree(mB, oB), device="cpu")
+    with torch.no_grad():
+        for k, p in mB.named_parameters():
+            p.copy_(params[k])
+    oB = run(mB, AdamWState(count=count, m=m, v=v), 3, 6)
+    assert int(oA.count) == int(oB.count) == 6
+    for k, p in mA.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   mB.get_parameter(k).detach().numpy(),
+                                   rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
