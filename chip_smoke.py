@@ -11,7 +11,7 @@ Phases, in order (any failure exits non-zero):
    (``nvcc``, ``sm_90a``, one process per source, started together),
    with each kernel's registers and spills, for the ticks' sweep its
    resident warps an SM and SASS instructions a cell, for K7 its SASS
-   and store counts and for K9 f32 its HGMMA count;
+   and store counts and for K9 f32 and its backward their HGMMA counts;
 2. hold K1, the scored streaming tick, against its plain PyTorch version
    on the card: bitwise on dyadic-grid data, and on smooth data within
    the stated tolerance, at chunk widths 1-32 and banks of 1, 7 and 133
@@ -264,7 +264,8 @@ Phases, in order (any failure exits non-zero):
     references, band 32) beside the plain version and its bound, and
     the match timed.
 27. training on the card (``train.step``, ``launch.train``): (a) K9
-    f32's backward kernel (``flash_f32_bwd.cu``) against
+    f32's backward kernel (``flash_f32_bwd.cu``: split TF32 on ``wgmma``,
+    HGMMA counted in its SASS) against
     ``flash_backward_plain`` on K9_BWD_CASES (minitron-4b's layer, B 1,
     H 24, KV 8, S 4096, dh 128; the 100M LM's, B 8, H 12, KV 6, S 256,
     dh 64; S != T both ways, non-causal, dh 96, dh 18 / dv 10 on the
@@ -463,7 +464,7 @@ KERNELS = {
                    "persistent)",
                    "src/repro_torch/kernels/attention/csrc/flash_tf32.cu",
                    "src/repro/kernels/attention/kernel.py:26"),
-    "K9-f32-bwd": ("K9 f32 backward (dq, dk, dv; CUDA cores, f32 FMA; "
+    "K9-f32-bwd": ("K9 f32 backward (dq, dk, dv; split TF32, wgmma; "
                    "not a TPU kernel: the reference differentiates jnp "
                    "attention)",
                    "src/repro_torch/kernels/attention/csrc/flash_f32_bwd.cu",
@@ -788,7 +789,9 @@ def build_report(libs) -> None:
     global stores; K9 f32: HGMMA), for K9 at MLA's head
     (``flash_mla_kernel``) its HGMMA, asynchronous copies (LDGSTS) and
     TMA loads (UTMALDG), for K9 f32 there (``flash_tf32_mla_kernel``)
-    its HGMMA and UTMALDG, for K10's bf16 kernels (``gla_ws_kernel``,
+    its HGMMA and UTMALDG, for K9 f32's backward
+    (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) their HGMMA, for
+    K10's bf16 kernels (``gla_ws_kernel``,
     ``gla_mma_kernel``, ``gla_wide_scores_kernel``, ``gla_wide_kernel``)
     their warpgroup-MMA count, HGMMA, and for K8 (``iir_kernel``) its
     asynchronous copies, LDGSTS.  Every compiler warning is printed
@@ -809,6 +812,9 @@ def build_report(libs) -> None:
             ops = {**sass_ops(lib, "flash_tf32_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_tf32_mla_kernel",
                               ("HGMMA", "UTMALDG"))}
+        elif lib is attn.BWD_LIB:
+            ops = {**sass_ops(lib, "flash_bwd_dkdv_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "flash_bwd_dq_kernel", ("HGMMA",))}
         elif lib is attn.BF16_LIB:
             ops = {**sass_ops(lib, "flash_wgmma_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_mla_kernel",
@@ -5147,10 +5153,11 @@ def signature_phase(dev, errs: ErrLog, name: str) -> dict:
 #: Phase 27 (a): K9 f32's backward against ``flash_backward_plain`` on the
 #: same inputs (the kernel's own o and lse): max |kernel - plain| <=
 #: K9_BWD_REL max |plain|, for each of dq, dk and dv.  Both sum in float32,
-#: in other orders (the kernel by fused multiply-adds over 64-row tiles,
-#: the plain version through torch.matmul), a kv row's dk and dv over up
-#: to G S = 12,288 query rows at minitron-4b's layer: relative errors of
-#: ~1e-6 expected.  Stated before the first run.
+#: in other orders (the kernel as three TF32 products a product on the
+#: tensor cores, each 32-row step's sum added in float32; the plain version
+#: through torch.matmul), a kv row's dk and dv over up to G S = 12,288
+#: query rows at minitron-4b's layer: relative errors of ~1e-6 expected.
+#: Stated before the first run.
 K9_BWD_REL = 1e-4
 #: The forward's lse against the plain version's, absolute (|lse| up to
 #: ~15 at S = 4096: a float32 step there is ~1e-6; the kernel's scores are
@@ -5249,15 +5256,18 @@ def k9_bwd_padded(dev, errs: ErrLog, s: int = 200, seed: int = 271) -> None:
 
 
 def k9_bwd_bound(name: str, b, h, kv, s, t, dh, dv, causal=True):
-    """(bytes ms, operations ms) of K9's backward: q, k, v, o, do, lse,
-    dq, dk, dv once each at the card's memory rate; 2 (3 dh + 2 dv)
-    FLOPs a query-key pair under the mask at its f32 CUDA-core peak."""
+    """(bytes ms, operations ms, f32 CUDA-core operations ms) of K9's
+    backward: q, k, v, o, do, lse, dq, dk, dv once each at the card's
+    memory rate; the least work, 2 (3 dh + 2 dv) FLOPs a query-key pair
+    under the mask, taken as the kernel takes it, three TF32 products, at
+    the dense TF32 tensor-core peak (the row's bound), and once at the f32
+    CUDA-core peak (printed beside it)."""
     from repro_torch.kernels.attention.kernel import causal_pairs
-    mem, f32, _, _ = card_peaks(name)
+    mem, f32, _, tf32 = card_peaks(name)
     nbytes = 4 * (2 * b * h * s * (dh + dv) + 2 * b * kv * t * (dh + dv)
                   + b * h * s)
     flops = 2 * (3 * dh + 2 * dv) * b * h * causal_pairs(s, t, causal)
-    return nbytes / mem * 1e3, flops / f32 * 1e3
+    return nbytes / mem * 1e3, 3 * flops / tf32 * 1e3, flops / f32 * 1e3
 
 
 def _sdpa_bwd_ms(q, k, v, do) -> float:
@@ -5270,11 +5280,16 @@ def _sdpa_bwd_ms(q, k, v, do) -> float:
 
 
 def check_k9_bwd(dev, errs: ErrLog, name: str):
-    """Phase 27 (a): every K9_BWD_CASES shape and the padded model call
+    """Phase 27 (a): the backward's SASS holds HGMMA (its products on the
+    tensor cores); every K9_BWD_CASES shape and the padded model call
     held as above; the first two (the two training paths' layers) timed
     beside the plain version, SDPA's backward and the bound.  Returns
-    {what: (ms, plain ms, library ms, bounds)}."""
+    {what: (ms, plain ms, library ms, (bytes ms, operations ms))}."""
     from repro_torch.kernels.attention import kernel as k9
+    for kern in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        ops = sass_ops(k9.BWD_LIB, kern, ("HGMMA",))
+        assert ops and all(not o.endswith(" 0 HGMMA") for o in ops.values()), \
+            f"no HGMMA in {kern}'s SASS: {ops}"
     times = {}
     for i, case in enumerate(K9_BWD_CASES):
         what, b, h, kv, s, t, dh, dv, causal, unaligned = case
@@ -5285,15 +5300,16 @@ def check_k9_bwd(dev, errs: ErrLog, name: str):
         ms = cuda_ms(lambda: k9.flash_backward(*args), 3)
         plain_ms = cuda_ms(lambda: k9.flash_backward_plain(*args), 1)
         lib_ms = _sdpa_bwd_ms(q, k, v, do)
-        bounds = k9_bwd_bound(name, b, h, kv, s, t, dh, dv, causal)
+        *bounds, f32_ms = k9_bwd_bound(name, b, h, kv, s, t, dh, dv, causal)
         fwd_ms = cuda_ms(lambda: k9._launch_forward(q, k, v, causal,
                                                     with_lse=True), 3)
-        times[what] = (ms, plain_ms, lib_ms, bounds)
+        times[what] = (ms, plain_ms, lib_ms, tuple(bounds))
         print(f"[K9 bwd] {what}: {ms:.3f} ms a launch (plain {plain_ms:.1f} "
               f"ms, SDPA's backward {lib_ms:.3f} ms, bound "
               f"{max(bounds):.3f} ms by "
               f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
-              f"bytes {bounds[0]:.3f}, f32 operations {bounds[1]:.3f}; "
+              f"bytes {bounds[0]:.3f}, three TF32 products "
+              f"{bounds[1]:.3f}, f32 CUDA-core operations {f32_ms:.3f}; "
               f"the forward with the lse {fwd_ms:.3f} ms) [{name}]")
         del q, k, v, o, do, lse, args
         torch.cuda.empty_cache()

@@ -18,52 +18,171 @@
 // jnp attention (repro/models/attention.py). The port's forward runs K9
 // on the card, so its backward is a kernel too.
 //
-// Design (simple first: CUDA cores, float32 fused multiply-adds). Three
-// launches on the stream, one entry point:
+// Numerics: split TF32 on the tensor cores, as the forward (flash_tf32.cu).
+// Every operand of every product splits into two TF32 parts, a_hi =
+// tf32_rna(a) and a_lo = tf32_rna(a - a_hi), and a product is taken as
+// a_hi b_lo + a_lo b_hi + a_hi b_hi, the small products first, each exact
+// in the tensor core, which sums in float32. P and dS stay in float32 on
+// CUDA cores (mask, exp, P (dP - D)), then split in registers and enter
+// the next product as its A operand from registers.
+//
+// Design. Three launches on the stream, one entry point, no atomics:
 //
 //   flash_bwd_dot_kernel   D = rowsum(do * o), a warp a row;
-//   flash_bwd_dkdv_kernel  a block per (b, kv head, 64-row kv tile), the
-//                          tiles with the most query tiles under the
-//                          causal frontier first; K and V stay in shared
-//                          memory while the block walks its G query heads
-//                          in order and, for each, the 64-row query tiles
-//                          from the diagonal on: P and dS of the tile pair
-//                          into shared memory, then dV += P^T dO and dK +=
-//                          dS^T Q in registers. So each kv head's dk and dv
-//                          sum over its query heads in one fixed order, in
-//                          one block: no atomics, two runs bitwise equal;
-//   flash_bwd_dq_kernel    a block per (b, head, 64-row query tile); Q and
-//                          dO stay in shared memory while the block walks
-//                          the kv tiles up to the frontier: dS (P
-//                          recomputed) into shared memory transposed, then
-//                          dQ += dS K in registers.
+//   flash_bwd_dkdv_kernel  a block of two warpgroups per (b, kv head,
+//                          64-row kv tile), the tiles with the most query
+//                          tiles under the causal frontier first. K and V
+//                          stay in shared memory as their parts while the
+//                          block walks its G query heads in order and, for
+//                          each, the 32-row query tiles from the frontier
+//                          on. A step:
+//                            S^T  = K Q^T    warpgroup 0, wgmma, A K, B Q
+//                            dP^T = V dO^T   warpgroup 1, A V, B dO
+//                            P^T             warpgroup 0, handed to 1
+//                            dS^T            warpgroup 1
+//                            dV  += P^T dO   warpgroup 0, A P^T from
+//                                            registers, B dO^T
+//                            dK  += dS^T Q   warpgroup 1, A dS^T, B Q^T
+//                          so each kv head's dk and dv sum over its query
+//                          heads and tiles in one fixed order, in one block;
+//   flash_bwd_dq_kernel    a block of two warpgroups per (b, head, 64-row
+//                          query tile), the longest first. Q and dO stay in
+//                          shared memory as their parts while the block
+//                          walks the 32-row kv tiles up to the frontier:
+//                          S = Q K^T and P in warpgroup 0, dP = dO V^T in
+//                          1, each handed to the other, dS in both (the
+//                          same), and dQ += dS K, columns 0 .. D / 2 - 1 in
+//                          warpgroup 0, the rest in 1 (A dS, B K^T).
 //
-// dq recomputes P and dP rather than sum partial dq over kv tiles, which
-// would need atomics or a [kv tiles, B, H, S, dh] scratch. Every product
-// is a 64 x 64 x D tile product on 256 threads, each holding a 4 x 4 block
-// of the tile's scores or 4 rows x D / 16 columns of an accumulator, its
-// operands read as 16-byte vectors from rows padded to D + 4 floats (no
-// bank conflict between the 8 lanes of a vector load's phase).
+// Each product runs in its own warpgroup so that two warpgroups' wgmma
+// chains share the tensor cores: one warpgroup's chain of dependent
+// products alone kept them mostly idle. A step's product is taken on the
+// tensor cores into fresh registers and added to the float32 sums on CUDA
+// cores: the tensor cores' float32 sums truncate, and a kv row's sum over
+// thousands of query rows (a few large P terms, then many small ones)
+// drifted past chip_smoke.py's K9_BWD_REL at minitron-4b's layer.
+//
+// TF32 wgmma reads both operands K-major only (no transpose bit for 32-bit
+// types), and both parts of an operand must be resident: a [R, D] operand
+// takes 8 R D bytes. The 32-row tile of a step (Q and dO in dkdv, K and V
+// in dq) comes in raw by cp.async (vec) into a raw buffer, one step ahead;
+// the threads split it into its parts as it lies (the B operand of the
+// score products), then, once those products are done, move the parts
+// into the same buffers transposed (dO^T, Q^T, or K^T, [D, 32]: the B
+// operand of the products that contract over the 32 rows), with the rows
+// permuted by sigma to match the A fragments taken from the accumulator
+// (flash_tf32.cu notes sigma at its PV product). The two parts of a step
+// tile are stacked in one [64, D] tile, so that A_hi B_lo and A_hi B_hi
+// are one m64n64 product. So at D = 128 a block takes 229,888 bytes
+// (230,912 with the alignment slack) of an SM's 232,448: 4 parts of
+// 64-row tiles (131,072), the step's two stacked tiles (65,536), the raw
+// tiles (32,768), two steps' lse and D (512). One block an SM: nothing is
+// double-buffered but the raw tiles, and a block's products wait on its
+// own staging.
 //
 // Bound on this card: operations. The least work is 2 (3 dh + 2 dv) FLOPs
 // a query-key pair under the mask (s, dP, dV, dK, dQ; P recomputed once);
-// at minitron-4b's layer (H 24, S 4096, dh = dv = 128) 258 GFLOP, 3.85 ms
-// at the 67 TFLOP/s float32 CUDA-core peak; this design does 2 (4 dh + 3
-// dv) a pair (s and dP twice). Its bytes (q, k, v, o, do, lse, dq, dk, dv
-// once) take 0.13 ms at 3.35 TB/s.
+// at minitron-4b's layer (H 24, S 4096, dh = dv = 128) 257.8 GFLOP, three
+// TF32 products of it 773.3 GFLOP: 1.563 ms at the 494.7 TFLOP/s dense
+// TF32 tensor-core peak (3.85 ms at the 67 TFLOP/s float32 CUDA-core
+// peak). This design does 2 (4 dh + 3 dv) a pair (s and dP twice). Its
+// bytes (q, k, v, o, do, lse, dq, dk, dv once) take 0.13 ms at 3.35 TB/s.
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kB = 64;          // rows of a query or kv tile
-constexpr int kThreads = 256;
-constexpr int kPS = kB + 4;     // padded row of a [64, 64] score tile
+constexpr int kBM = 64;          // rows of the resident tile (the wgmma M)
+constexpr int kBN = 32;          // rows of a step's tile
+constexpr int kWG = 128;         // threads of a warpgroup
+constexpr int kThreads = 256;    // a block: two warpgroups
 
-// Shared-memory floats of one [64, D] operand tile (rows padded to D + 4).
+// Shared memory of both kernels at head dims up to D, byte offsets from a
+// 1024-aligned base: the two parts of two resident [64, D] tiles (K and V
+// in dkdv, Q and dO in dq), a step's two [32, D] tiles each as its two
+// parts stacked into one [64, D] tile (Q and dO, then their transposes; K
+// and V, then K^T), the two raw [32, D] tiles, two steps' 32 lse and D
+// (dkdv), then the alignment slack.
 template <int D>
-__host__ __device__ constexpr int tile_floats() { return kB * (D + 4); }
+struct Smem {
+  static constexpr uint32_t kPart = kBM * D * 4;  // one [64, D] tile
+  static constexpr uint32_t kRaw = kBN * D * 4;   // one [32, D] tile
+  static constexpr uint32_t kAhi = 0;
+  static constexpr uint32_t kAlo = kAhi + kPart;
+  static constexpr uint32_t kBhi = kAlo + kPart;
+  static constexpr uint32_t kBlo = kBhi + kPart;
+  static constexpr uint32_t kX = kBlo + kPart;
+  static constexpr uint32_t kY = kX + kPart;
+  static constexpr uint32_t kRawX = kY + kPart;
+  static constexpr uint32_t kRawY = kRawX + kRaw;
+  static constexpr uint32_t kLse = kRawY + kRaw;       // two steps'
+  static constexpr uint32_t kDelta = kLse + 2 * kBN * 4;
+  static constexpr uint32_t kBytes = kDelta + 2 * kBN * 4 + 1024;
+};
+static_assert(Smem<128>::kBytes <= 232448, "an SM's shared memory");
+
+// Byte offset of 16-byte chunk c4 (columns 4 c4 .. 4 c4 + 3) of row r in
+// a swizzled tile of R rows in 32-column sub-tiles (wgmma.cuh).
+__device__ __forceinline__ uint32_t swz(int r, int c4, int R) {
+  return (c4 / 8) * (R * 128) + r * 128 + (((c4 % 8) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+// The two TF32 parts of a: a = hi + lo to ~2^-22 of a.
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(a);
+  lo = tf32(__fsub_rn(a, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+__device__ __forceinline__ float lds32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// exp's argument where the mask drops a score: exp(-inf) = 0 exactly,
+// without a branch.
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000u);
+}
+
+__device__ __forceinline__ float4 mul4(float4 x, float a) {
+  return make_float4(__fmul_rn(x.x, a), __fmul_rn(x.y, a), __fmul_rn(x.z, a),
+                     __fmul_rn(x.w, a));
+}
+
+// The parts of (x.x .. x.w) times `scale` to shared memory at hi and lo
+// (times 1 is exact: dO, K and V go through it unchanged).
+__device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo,
+                                            float4 x, float scale) {
+  x = mul4(x, scale);
+  uint32_t h[4], l[4];
+  split(x.x, h[0], l[0]);
+  split(x.y, h[1], l[1]);
+  split(x.z, h[2], l[2]);
+  split(x.w, h[3], l[3]);
+  sts128(hi, h);
+  sts128(lo, l);
+}
 
 // Columns [c0, c0 + 4) of row `row` of the row-major [nrows, cols] matrix
 // src, zero past nrows and cols: one 16-byte load when vec.
@@ -80,150 +199,363 @@ __device__ __forceinline__ float4 load4(const float* src, int row, int nrows,
   return x;
 }
 
-__device__ __forceinline__ float4 mul4(float4 x, float a) {
-  return make_float4(__fmul_rn(x.x, a), __fmul_rn(x.y, a), __fmul_rn(x.z, a),
-                     __fmul_rn(x.w, a));
-}
-
-// Rows [r0, r0 + 64) of the [nrows, cols] matrix src into the padded tile
-// dst [64, D + 4], times `scale` unless it is 1, zero past the edges.
+// Rows [r0, r0 + 64) of the [nrows, cols] matrix src, times `scale`, as
+// the parts of a resident [64, D] tile, zero past the edges, by the
+// block's threads.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int nrows, int cols,
-                                          bool vec, float scale) {
+__device__ __forceinline__ void stage_resident(uint32_t hi, uint32_t lo,
+                                               const float* src, int r0,
+                                               int nrows, int cols, bool vec,
+                                               float scale, int tid) {
   constexpr int C4 = D / 4;
-  for (int u = threadIdx.x; u < kB * C4; u += kThreads) {
-    const int r = u / C4, c4 = u % C4;
-    float4 x = load4(src, r0 + r, nrows, 4 * c4, cols, vec);
-    if (scale != 1.f) x = mul4(x, scale);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + 4 * c4) = x;
-  }
-}
-
-// Rows [r0, r0 + 64) of a [nrows] vector into dst[64], zero past nrows.
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int r0,
-                                         int nrows) {
-  for (int u = threadIdx.x; u < kB; u += kThreads)
-    dst[u] = r0 + u < nrows ? src[r0 + u] : 0.f;
-}
-
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = __fmaf_rn(a.x, b.x, acc);
-  acc = __fmaf_rn(a.y, b.y, acc);
-  acc = __fmaf_rn(a.z, b.z, acc);
-  return __fmaf_rn(a.w, b.w, acc);
-}
-
-// s[a][b] = A[i_a] . Bm[j_b] over D columns and dp[a][b] = A2[i_a] .
-// B2[j_b], for the thread's rows i_a = tx + 16 a of A, A2 and j_b = ty +
-// 16 b of Bm, B2 (tiles [64, D + 4]).
-template <int D>
-__device__ __forceinline__ void scores2(float (&s)[4][4], float (&dp)[4][4],
-                                        const float* A, const float* Bm,
-                                        const float* A2, const float* B2,
-                                        int tx, int ty) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
 #pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      x[a] = *reinterpret_cast<const float4*>(A + (tx + 16 * a) * LD + c);
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      y[b] = *reinterpret_cast<const float4*>(Bm + (ty + 16 * b) * LD + c);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = dot4(s[a][b], x[a], y[b]);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      x[a] = *reinterpret_cast<const float4*>(A2 + (tx + 16 * a) * LD + c);
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      y[b] = *reinterpret_cast<const float4*>(B2 + (ty + 16 * b) * LD + c);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) dp[a][b] = dot4(dp[a][b], x[a], y[b]);
+  for (int n = 0; n < kBM * C4 / kThreads; ++n) {
+    const int u = tid + n * kThreads, r = u / C4, c4 = u % C4;
+    const uint32_t off = swz(r, c4, kBM);
+    store_split(hi + off, lo + off,
+                load4(src, r0 + r, nrows, 4 * c4, cols, vec), scale);
   }
 }
 
-// p = exp(s - lse) under the mask (query q0 + i_a below S, key t0 + j_b
-// below T and, causal, t <= s), else 0; ds = p (dp - D). In place: s
-// becomes p, dp becomes ds.
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
-                                      const float* sL, const float* sD,
-                                      int q0, int t0, int S, int Tk,
-                                      int causal, int tx, int ty) {
+// Rows [r0, r0 + 32) of the [nrows, cols] matrix src into the raw tile at
+// dst (swizzled as a [32, D] operand tile), zero past the edges, by the
+// block's threads, each one 16-byte chunk of every 256 / (D / 4)-th row:
+// by cp.async when vec (cols % 4 == 0, src 16-byte aligned; the caller
+// commits the group; a chunk past an edge copies 0 bytes from a valid
+// address, so the loop has no branch), else element by element.
+template <int D>
+__device__ __forceinline__ void fill_raw(uint32_t dst, const float* src,
+                                         int r0, int nrows, int cols,
+                                         bool vec, int tid) {
+  constexpr int C4 = D / 4;
+  constexpr int RP = kThreads / C4;  // rows a pass
+  static_assert(kThreads % C4 == 0 && kBN % RP == 0, "raw tile passes");
+  const int c4 = tid % C4, rt = tid / C4;
+  if (vec) {
+    const bool col_live = 4 * c4 < cols;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = tx + 16 * a, row = q0 + i;
-    const float lse = sL[i], d = sD[i];
+    for (int n = 0; n < kBN / RP; ++n) {
+      const int r = rt + n * RP, row = r0 + r;
+      const bool live = col_live && row < nrows;
+      const float* p = src + (long long)(live ? row : 0) * cols +
+                       (col_live ? 4 * c4 : 0);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst + swz(r, c4, kBN)),
+                   "l"(p), "r"(live ? 16 : 0)
+                   : "memory");
+    }
+    return;
+  }
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int t = t0 + ty + 16 * b;
-      const bool live = row < S && t < Tk && !(causal && t > row);
-      const float p = live ? expf(__fsub_rn(s[a][b], lse)) : 0.f;
-      s[a][b] = p;
-      dp[a][b] = __fmul_rn(p, __fsub_rn(dp[a][b], d));
+  for (int n = 0; n < kBN / RP; ++n) {
+    const int r = rt + n * RP;
+    const float4 x = load4(src, r0 + r, nrows, 4 * c4, cols, false);
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     dst + swz(r, c4, kBN)),
+                 "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+                 : "memory");
+  }
+}
+
+// Entries [r0, r0 + 32) of a [nrows] vector into dst[32] by cp.async,
+// zero past nrows (threads tid < 32).
+__device__ __forceinline__ void fill_vec(uint32_t dst, const float* src,
+                                         int r0, int nrows, int tid) {
+  if (tid >= kBN) return;
+  const bool live = r0 + tid < nrows;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   dst + 4 * tid),
+               "l"(live ? src + r0 + tid : src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// A step's raw tile [32, D], times `scale`, as its two parts stacked into
+// the [64, D] operand tile at dst as it lies, by the block's threads: row
+// r's lo part at row r, its hi part at row 32 + r (so one n64 product
+// takes A_hi against both, and an n32 one A_lo against the hi rows).
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t dst, uint32_t raw,
+                                           float scale, int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int n = 0; n < kBN * C4 / kThreads; ++n) {
+    const int u = tid + n * kThreads, r = u / C4, c4 = u % C4;
+    store_split(dst + swz(r + kBN, c4, kBM), dst + swz(r, c4, kBM),
+                lds128(raw + swz(r, c4, kBN)), scale);
+  }
+}
+
+// Transposed unit u of 2 D (D / 4 column chunks nv x 8 chunks ch): u in
+// phases of 8 lanes P = u / 8 (A = D / 32, a = P % A, b = P / A % 2, c =
+// P / 2 A) with lane l = u % 8 taking ch = l ^ 2 c and nv = 8 a + 2 (l /
+// 2) + b. Every (ch, nv) once, and in each phase the 8 lanes' reads
+// (chunk (nv % 8) ^ (row % 8)) and transposed writes (chunk ch ^ (4 (nv %
+// 2) + e)) fall in 8 different 16-byte bank groups.
+template <int D>
+__device__ __forceinline__ void t_unit(int u, int& ch, int& nv) {
+  constexpr int A = D / 32;
+  const int P = u / 8, l = u % 8;
+  ch = l ^ (2 * (P / (2 * A)));
+  nv = 8 * (P % A) + 2 * (l / 2) + (P / A) % 2;
+}
+
+// The transpose [D, 32] of a step's tile, in place: its parts as
+// stage_rows stacked them at `tile` become the transpose's parts (hi at
+// tile, lo D 128 bytes on; a row of 32 floats is one 128-byte swizzled
+// row), by the block's threads over the 2 D units, one a thread: unit (ch,
+// nv) moves columns 4 nv .. 4 nv + 3 of the rows 8 (ch / 2) + ch % 2 + 2 m
+// (m = 0..3) to positions 4 ch .. 4 ch + 3 of rows 4 nv + e, where sigma
+// puts those rows. The parts move unchanged. Every thread reads its unit,
+// the block waits, then every thread writes.
+template <int D>
+__device__ __forceinline__ void stage_cols(uint32_t tile, int tid) {
+  static_assert(2 * D <= kThreads, "a unit a thread");
+  const bool live = tid < 2 * D;
+  int ch = 0, nv = 0;
+  float4 c[2][4];  // [lo, hi][m]
+  if (live) {
+    t_unit<D>(tid, ch, nv);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = 8 * (ch / 2) + ch % 2 + 2 * m;
+      c[0][m] = lds128(tile + swz(r, nv, kBM));
+      c[1][m] = lds128(tile + swz(r + kBN, nv, kBM));
+    }
+  }
+  __syncthreads();  // every read of the tile is done
+  if (!live) return;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = 4 * nv + e;
+    const uint32_t off = row * 128 + ((ch ^ (row & 7)) << 4);
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const float4* x = c[part];
+      const float4 col =
+          e == 0 ? make_float4(x[0].x, x[1].x, x[2].x, x[3].x)
+          : e == 1 ? make_float4(x[0].y, x[1].y, x[2].y, x[3].y)
+          : e == 2 ? make_float4(x[0].z, x[1].z, x[2].z, x[3].z)
+                   : make_float4(x[0].w, x[1].w, x[2].w, x[3].w);
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       tile + (part == 0 ? D * 128 : 0) + off),
+                   "f"(col.x), "f"(col.y), "f"(col.z), "f"(col.w)
+                   : "memory");
     }
   }
 }
 
-// acc[r][k] (+)= sum_i X[i][4 jg + r] * Y[i][4 cg + 64 k ..] over the 64
-// rows i: X a [64, kPS] score tile, Y a [64, D + 4] operand tile; the
-// thread's 4 rows and D / 16 columns of a [64, D] product X^T Y.
+// The descriptor of a tile at shared-memory address a (wgmma::desc, 16 /
+// 1024), made opaque to the compiler so that it is formed where it is used
+// rather than hoisted out of the step loop and kept in registers; a
+// product's k8 steps add their byte offset / 16 to it (the 14-bit start
+// field does not carry: shared addresses are below 2^18).
+__device__ __forceinline__ uint64_t tile_desc(uint32_t a) {
+  uint64_t d = wgmma::desc(a, 16, 1024);
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// d[64 x 32] (+)= A[64 x 8] B[32 x 8]^T, TF32, A and B K-major in shared
+// memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : WG_D16(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T, TF32, A and B K-major in shared
+// memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T, TF32, A from registers (four a
+// thread), B K-major in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[128 x 8]^T, TF32, A from registers, B
+// K-major in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_D64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= A[64 x 8] B[32 x 8]^T, TF32, A from registers, B
+// K-major in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_D16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32)
+    wgmma_rs_n32(d, a, db, scale_d);
+  else if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db, scale_d);
+  else
+    wgmma_rs_n128(d, a, db, scale_d);
+}
+
+// The products of a score tile, d[64 x 32] = A B^T over D columns, A [64,
+// D] as its parts, B [32, D] as its parts stacked (stage_rows), in two
+// independent accumulator chains: w = A_hi [B_lo; B_hi]^T (one n64
+// product a k8 step: columns 0..31 A_hi B_lo^T, 32..63 A_hi B_hi^T) and
+// x = A_lo B_hi^T (n32); then d = (w's columns 0..31 + x) + w's columns
+// 32..63 on CUDA cores, the small products first.
 template <int D>
-__device__ __forceinline__ void accum_t(float4 (&acc)[4][D / 64],
-                                        const float* X, const float* Y,
-                                        int jg, int cg) {
-  constexpr int LD = D + 4;
-#pragma unroll 4
-  for (int i = 0; i < kB; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(X + i * kPS + 4 * jg);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
+struct Scores {
+  float w[32], x[16];
+  __device__ __forceinline__ void issue(uint32_t ahi, uint32_t alo,
+                                        uint32_t b) {
 #pragma unroll
-    for (int k = 0; k < D / 64; ++k) {
-      const float4 y =
-          *reinterpret_cast<const float4*>(Y + i * LD + 4 * cg + 64 * k);
+    for (int i = 0; i < 32; ++i) w[i] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[r][k].x = __fmaf_rn(xs[r], y.x, acc[r][k].x);
-        acc[r][k].y = __fmaf_rn(xs[r], y.y, acc[r][k].y);
-        acc[r][k].z = __fmaf_rn(xs[r], y.z, acc[r][k].z);
-        acc[r][k].w = __fmaf_rn(xs[r], y.w, acc[r][k].w);
-      }
+    for (int i = 0; i < 16; ++i) x[i] = 0.f;
+    const uint64_t dah = tile_desc(ahi), dal = tile_desc(alo),
+                   db = tile_desc(b), dbh = tile_desc(b + kBN * 128);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t ka = ((kk / 4) * (kBM * 128) + (kk % 4) * 32) >> 4;
+      wgmma_ss_n64(w, dah + ka, db + ka, kk > 0);
+      wgmma_ss_n32(x, dal + ka, dbh + ka, kk > 0);
     }
+  }
+  __device__ __forceinline__ void take(float (&d)[16]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) wgmma::pin(w[i]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      wgmma::pin(x[i]);
+      d[i] = __fadd_rn(__fadd_rn(w[i], x[i]), w[16 + i]);
+    }
+  }
+};
+
+// acc[64 x W] += X Bt^T over the step's 32 rows, X's parts as the A
+// fragments of four k8 steps from registers, W rows of Bt [., 32] as its
+// parts (at bhi and blo): X_hi Bt_lo + X_lo Bt_hi + X_hi Bt_hi on the
+// tensor cores into fresh registers (W = 32, 64 or 128: one m64nW chain),
+// then added to acc on CUDA cores. The tensor cores' float32 sums
+// truncate, so a long sum over query rows or kv rows is kept out of them.
+template <int W>
+__device__ __forceinline__ void accumulate(float (&acc)[W / 2],
+                                           const uint32_t (&xhi)[4][4],
+                                           const uint32_t (&xlo)[4][4],
+                                           uint32_t bhi, uint32_t blo) {
+  float part[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) part[i] = 0.f;
+  const uint64_t dhi = tile_desc(bhi), dlo = tile_desc(blo);
+  wgmma::fence();
+#pragma unroll
+  for (int prod = 0; prod < 3; ++prod)  // hi lo, lo hi, hi hi
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs<W>(part, prod == 1 ? xlo[j] : xhi[j],
+                  (prod == 0 ? dlo : dhi) + ((j * 32) >> 4), prod > 0 || j > 0);
+  wgmma::commit();
+  wgmma::wait();
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    wgmma::pin(part[i]);
+    acc[i] = __fadd_rn(acc[i], part[i]);
   }
 }
 
-// Rows 4 jg + r of acc (times `scale` unless it is 1) to the [nrows, cols]
-// matrix dst from row r0, columns 4 cg + 64 k .., dropping what lies past
-// the edges.
-template <int D>
-__device__ __forceinline__ void store_acc(float* dst,
-                                          const float4 (&acc)[4][D / 64],
-                                          int r0, int nrows, int cols, int jg,
-                                          int cg, float scale) {
+// Accumulator layout of wgmma m64nN (f32) for thread t of a warpgroup:
+// warp w = t / 32, g = (t % 32) / 4, qd = t % 4; register 4 j + 2 h + e
+// holds row 16 w + g + 8 h, column 8 j + 2 qd + e. The TF32 A fragment of
+// m64k8: register r holds row 16 w + g + 8 (r % 2), column qd + 4 (r / 2).
+// A score tile's registers become A's columns c = qd + 4 (r / 2) of k8
+// step j, which hold the tile's column 8 j + sigma(c), sigma(c) = 2 (c %
+// 4) + c / 4: accumulator 4 j + 2 (r % 2) + r / 2 (the transposed staging
+// puts row 8 j + sigma(c) at position 8 j + c to match).
+__device__ __forceinline__ void fragments(const float (&x)[16],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + 4 * jg + r;
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split(x[4 * j + 2 * (r % 2) + r / 2], hi[j][r], lo[j][r]);
+}
+
+// Rows r0 + 16 w + g + 8 h (those below nrows) of the [64 x W]
+// accumulator of warpgroup thread wt, times `scale`, to columns c0 .. of
+// the [nrows, cols] matrix dst, columns past cols dropped.
+template <int W>
+__device__ __forceinline__ void store_acc(float* dst, const float (&acc)[W / 2],
+                                          int r0, int nrows, int c0,
+                                          int cols, float scale, int wt) {
+  const int w = wt / 32, g = (wt % 32) / 4, qd = wt % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * w + g + 8 * h;
     if (row >= nrows) continue;
 #pragma unroll
-    for (int k = 0; k < D / 64; ++k) {
-      float4 x = acc[r][k];
-      if (scale != 1.f) x = mul4(x, scale);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      const int c0 = 4 * cg + 64 * k;
+    for (int j = 0; j < W / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (c0 + e < cols) dst[(long long)row * cols + c0 + e] = xs[e];
-    }
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + 2 * qd + e;
+        if (col < cols)
+          dst[(long long)row * cols + col] =
+              __fmul_rn(acc[4 * j + 2 * h + e], scale);
+      }
   }
 }
 
@@ -233,8 +565,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_dot_kernel(const float* __restrict__ o,
                          const float* __restrict__ dO,
                          float* __restrict__ delta, long long BHS, int dv) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) +
-                        threadIdx.x / 32;
+  const long long row =
+      (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= BHS) return;
   float acc = 0.f;
@@ -246,11 +578,12 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) delta[row] = acc;
 }
 
-template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * tile_floats<D>() + 2 * kB * kPS + 2 * kB);
-}
-
+// dK and dV of one 64-row kv tile (blockIdx.x: kv tile kt = blockIdx.x /
+// BKV of kv head blockIdx.x % BKV, so the tiles with the most query tiles
+// come first); the notes at the top. Both warpgroups stage each step;
+// warpgroup 0 takes S^T and P^T and sums dV, warpgroup 1 takes dP^T and,
+// with P^T handed over through the raw dO tile (free once staged, until
+// the next step's dO is fetched), dS^T, and sums dK.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_kernel(const float* __restrict__ q,
@@ -262,70 +595,141 @@ __global__ void __launch_bounds__(kThreads, 1)
                           float* __restrict__ dk, float* __restrict__ dv_out,
                           int BKV, int H, int G, int S, int Tk, int dh,
                           int dv, float scale, int causal, int vec) {
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + tile_floats<D>();
-  float* sQ = sV + tile_floats<D>();
-  float* sO = sQ + tile_floats<D>();  // dO
-  float* sP = sO + tile_floats<D>();
-  float* sS = sP + kB * kPS;          // dS
-  float* sL = sS + kB * kPS;
-  float* sD = sL + kB;
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sKhi = base + L::kAhi, sKlo = base + L::kAlo;
+  const uint32_t sVhi = base + L::kBhi, sVlo = base + L::kBlo;
+  const uint32_t sQ = base + L::kX;  // Q's parts, then Q^T's
+  const uint32_t sO = base + L::kY;  // dO's, then dO^T's
+  const uint32_t rawQ = base + L::kRawX, rawO = base + L::kRawY;
+  const uint32_t sL = base + L::kLse, sD = base + L::kDelta;
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // scores: rows tx + 16 a, ty + 16 b
-  const int jg = tid % 16, cg = tid / 16;  // accumulators: rows 4 jg + r
-  const int kt = (int)(blockIdx.x / BKV);  // the longest tiles first
+  const bool dk_wg = tid >= kWG;  // warpgroup 1 sums dK
+  const int wt = tid % kWG;
+  const int w = wt / 32, g = (wt % 32) / 4, qd = wt % 4;
+  const int kt = (int)(blockIdx.x / BKV);
   const int bkv = (int)(blockIdx.x % BKV);
   const int KV = H / G, b = bkv / KV, kvh = bkv % KV;
-  const int t0 = kt * kB;
-  const int nq = (S + kB - 1) / kB;
-  load_tile<D>(sK, k + (long long)bkv * Tk * dh, t0, Tk, dh, vec, 1.f);
-  load_tile<D>(sV, v + (long long)bkv * Tk * dv, t0, Tk, dv, vec, 1.f);
-  float4 adk[4][D / 64], adv[4][D / 64];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-      adk[r][c] = adv[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int t0 = kt * kBM;
+  const int nq = (S + kBN - 1) / kBN;
   // query tiles from the one holding row t0 (the causal frontier)
-  const int qstart = causal ? t0 / kB : 0;
-  for (int g = 0; g < G; ++g) {
-    const long long bh = (long long)b * H + kvh * G + g;
-    const float* qp = q + bh * S * dh;
-    const float* op = dO + bh * S * dv;
-    for (int qi = qstart; qi < nq; ++qi) {
-      const int q0 = qi * kB;
-      __syncthreads();  // the tile pair before is done with sQ .. sS
-      load_tile<D>(sQ, qp, q0, S, dh, vec, scale);
-      load_tile<D>(sO, op, q0, S, dv, vec, 1.f);
-      load_vec(sL, lse + bh * S, q0, S);
-      load_vec(sD, delta + bh * S, q0, S);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      scores2<D>(s, dp, sQ, sK, sO, sV, tx, ty);
-      probs(s, dp, sL, sD, q0, t0, S, Tk, causal, tx, ty);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          sP[(tx + 16 * a) * kPS + ty + 16 * bb] = s[a][bb];
-          sS[(tx + 16 * a) * kPS + ty + 16 * bb] = dp[a][bb];
-        }
-      __syncthreads();
-      accum_t<D>(adv, sP, sO, jg, cg);
-      accum_t<D>(adk, sS, sQ, jg, cg);
-    }
+  const int qstart = causal ? min(nq, t0 / kBN) : 0;
+  const int per = nq - qstart;  // query tiles a head
+  const int steps = G * per;
+  // step i: query head kvh G + i / per, query tile qstart + i % per; its
+  // Q, lse and D, then its dO
+  auto fetch_q = [&](int i) {
+    const long long bh = (long long)b * H + kvh * G + i / per;
+    const int q0 = (qstart + i % per) * kBN;
+    fill_raw<D>(rawQ, q + bh * S * dh, q0, S, dh, vec, tid);
+    fill_vec(sL + (i % 2) * kBN * 4, lse + bh * S, q0, S, tid);
+    fill_vec(sD + (i % 2) * kBN * 4, delta + bh * S, q0, S, tid);
+    wgmma::cp_async_commit();
+  };
+  auto fetch_o = [&](int i) {
+    const long long bh = (long long)b * H + kvh * G + i / per;
+    const int q0 = (qstart + i % per) * kBN;
+    fill_raw<D>(rawO, dO + bh * S * dv, q0, S, dv, vec, tid);
+    wgmma::cp_async_commit();
+  };
+  if (steps > 0) {
+    fetch_q(0);
+    fetch_o(0);
   }
-  store_acc<D>(dk + (long long)bkv * Tk * dh, adk, t0, Tk, dh, jg, cg, 1.f);
-  store_acc<D>(dv_out + (long long)bkv * Tk * dv, adv, t0, Tk, dv, jg, cg,
-               1.f);
+  stage_resident<D>(sKhi, sKlo, k + (long long)bkv * Tk * dh, t0, Tk, dh,
+                        vec, 1.f, tid);
+  stage_resident<D>(sVhi, sVlo, v + (long long)bkv * Tk * dv, t0, Tk,
+                        dv, vec, 1.f, tid);
+  float acc[D / 2];  // warpgroup 0: dV; 1: dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int kr = t0 + 16 * w + g;  // this thread's kv rows: kr, kr + 8
+  for (int i = 0; i < steps; ++i) {
+    const int q0 = (qstart + i % per) * kBN;
+    // the step's raw tiles have landed, and every warp is done with the
+    // step before's products
+    wgmma::cp_async_wait<0>();
+    __syncthreads();
+    stage_rows<D>(sQ, rawQ, scale, tid);
+    stage_rows<D>(sO, rawO, 1.f, tid);
+    wgmma::fence_proxy_async();
+    __syncthreads();
+    if (i + 1 < steps) fetch_q(i + 1);
+    // warpgroup 0: S^T = K Q^T; 1: dP^T = V dO^T (the operands chosen, the
+    // products issued outside any branch: a wgmma on a divergent path
+    // makes ptxas serialize them all)
+    Scores<D> sc;
+    sc.issue(dk_wg ? sVhi : sKhi, dk_wg ? sVlo : sKlo, dk_wg ? sO : sQ);
+    wgmma::commit();
+    wgmma::wait();
+    float x[16];
+    sc.take(x);
+    // P^T = exp(S^T - lse[query]) under the mask, to warpgroup 1 through
+    // the raw dO tile (thread wt's 16 as 4 chunks, conflict-free)
+    const uint32_t sLi = sL + (i % 2) * kBN * 4, sDi = sD + (i % 2) * kBN * 4;
+    if (!dk_wg) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * qd + e, row = q0 + c;
+          const float l = lds32(sLi + 4 * c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int xi = 4 * j + 2 * h + e, t = kr + 8 * h;
+            const bool live = row < S && t < Tk && !(causal && t > row);
+            x[xi] = expf(live ? __fsub_rn(x[xi], l) : neg_inf());
+          }
+        }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         rawO + (c * kWG + wt) * 16),
+                     "f"(x[4 * c]), "f"(x[4 * c + 1]), "f"(x[4 * c + 2]),
+                     "f"(x[4 * c + 3])
+                     : "memory");
+    }
+    __syncthreads();  // P^T handed over; every warp's products are done
+    if (dk_wg) {
+      // dS^T = P^T (dP^T - D[query])
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 pt = lds128(rawO + (c * kWG + wt) * 16);
+        const float ps[4] = {pt.x, pt.y, pt.z, pt.w};
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int xi = 4 * c + m;  // = 4 j + 2 h + e
+          const float d = lds32(sDi + 4 * (8 * (xi / 4) + 2 * qd + xi % 2));
+          x[xi] = __fmul_rn(ps[m], __fsub_rn(x[xi], d));
+        }
+      }
+    }
+    uint32_t xhi[4][4], xlo[4][4];
+    fragments(x, xhi, xlo);
+    // Q^T and dO^T over Q and dO, one after the other (both at once
+    // spilled)
+    stage_cols<D>(sQ, tid);
+    stage_cols<D>(sO, tid);
+    wgmma::fence_proxy_async();
+    __syncthreads();
+    if (i + 1 < steps) fetch_o(i + 1);
+    const uint32_t bt = dk_wg ? sQ : sO;
+    accumulate<D>(acc, xhi, xlo, bt, bt + D * 128);
+  }
+  if (dk_wg)
+    store_acc<D>(dk + (long long)bkv * Tk * dh, acc, t0, Tk, 0, dh, 1.f, wt);
+  else
+    store_acc<D>(dv_out + (long long)bkv * Tk * dv, acc, t0, Tk, 0, dv, 1.f,
+                 wt);
 }
 
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * tile_floats<D>() + kB * kPS + 2 * kB);
-}
-
+// dQ of one 64-row query tile (blockIdx.x: query tile nq - 1 -
+// blockIdx.x / BH of head blockIdx.x % BH, the longest first); the notes
+// at the top. Both warpgroups stage each step; warpgroup 0 takes S and P,
+// warpgroup 1 dP, and they hand them over through the raw tiles (free
+// once staged, until the next step's are fetched); each takes dS and sums
+// half of dQ's columns.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const float* __restrict__ q,
@@ -337,54 +741,115 @@ __global__ void __launch_bounds__(kThreads, 1)
                         float* __restrict__ dq, int BH, int H, int G, int S,
                         int Tk, int dh, int dv, float scale, int causal,
                         int vec) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + tile_floats<D>();  // dO
-  float* sK = sO + tile_floats<D>();
-  float* sV = sK + tile_floats<D>();
-  float* sT = sV + tile_floats<D>();  // dS transposed, [kv row][query row]
-  float* sL = sT + kB * kPS;
-  float* sD = sL + kB;
+  using L = Smem<D>;
+  constexpr int W = D / 2;  // dQ columns a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQhi = base + L::kAhi, sQlo = base + L::kAlo;
+  const uint32_t sOhi = base + L::kBhi, sOlo = base + L::kBlo;  // dO
+  const uint32_t sK = base + L::kX;  // K's parts, then K^T's
+  const uint32_t sV = base + L::kY;
+  const uint32_t rawK = base + L::kRawX, rawV = base + L::kRawY;
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int ig = tid % 16, cg = tid / 16;
-  const int nq = (S + kB - 1) / kB;
-  const int qi = nq - 1 - (int)(blockIdx.x / BH);  // the longest tiles first
+  const int wg = tid / kWG, wt = tid % kWG;
+  const int w = wt / 32, g = (wt % 32) / 4, qd = wt % 4;
+  const int nq = (S + kBM - 1) / kBM;
+  const int qi = nq - 1 - (int)(blockIdx.x / BH);
   const long long bh = blockIdx.x % BH;
   const int b = (int)(bh / H), h = (int)(bh % H);
   const long long bkv = (long long)b * (H / G) + h / G;
-  const int q0 = qi * kB;
-  const int ntk = (Tk + kB - 1) / kB;
-  const int last = causal ? min(ntk, (q0 + kB + kB - 1) / kB) : ntk;
-  load_tile<D>(sQ, q + bh * S * dh, q0, S, dh, vec, scale);
-  load_tile<D>(sO, dO + bh * S * dv, q0, S, dv, vec, 1.f);
-  load_vec(sL, lse + bh * S, q0, S);
-  load_vec(sD, delta + bh * S, q0, S);
-  float4 adq[4][D / 64];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) adq[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int q0 = qi * kBM;
+  const int ntk = (Tk + kBN - 1) / kBN;
+  // causal frontier: kv tiles strictly above the diagonal are skipped
+  const int last = causal ? min(ntk, (q0 + kBM + kBN - 1) / kBN) : ntk;
   const float* kp = k + bkv * Tk * dh;
   const float* vp = v + bkv * Tk * dv;
-  for (int kt = 0; kt < last; ++kt) {
-    const int t0 = kt * kB;
-    __syncthreads();  // the tile before is done with sK, sV, sT
-    load_tile<D>(sK, kp, t0, Tk, dh, vec, 1.f);
-    load_tile<D>(sV, vp, t0, Tk, dv, vec, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores2<D>(s, dp, sQ, sK, sO, sV, tx, ty);
-    probs(s, dp, sL, sD, q0, t0, S, Tk, causal, tx, ty);
+  auto fetch = [&](int kt) {
+    fill_raw<D>(rawK, kp, kt * kBN, Tk, dh, vec, tid);
+    fill_raw<D>(rawV, vp, kt * kBN, Tk, dv, vec, tid);
+    wgmma::cp_async_commit();
+  };
+  if (last > 0) fetch(0);
+  stage_resident<D>(sQhi, sQlo, q + bh * S * dh, q0, S, dh, vec, scale,
+                        tid);
+  stage_resident<D>(sOhi, sOlo, dO + bh * S * dv, q0, S, dv, vec, 1.f,
+                        tid);
+  const int r0 = q0 + 16 * w + g;  // this thread's rows: r0, r0 + 8
+  float lr[2], dr[2];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        sT[(ty + 16 * bb) * kPS + tx + 16 * a] = dp[a][bb];
-    __syncthreads();
-    accum_t<D>(adq, sT, sK, ig, cg);
+  for (int hh = 0; hh < 2; ++hh) {
+    const bool live = r0 + 8 * hh < S;
+    lr[hh] = live ? lse[bh * S + r0 + 8 * hh] : 0.f;
+    dr[hh] = live ? delta[bh * S + r0 + 8 * hh] : 0.f;
   }
-  store_acc<D>(dq + bh * S * dh, adq, q0, S, dh, ig, cg, scale);
+  float adq[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) adq[i] = 0.f;
+  // a warpgroup's P (0) or dP (1) to the other, thread wt's 16 as 4 chunks
+  const uint32_t mine = (wg == 0 ? rawK : rawV) + wt * 16;
+  const uint32_t theirs = (wg == 0 ? rawV : rawK) + wt * 16;
+  for (int kt = 0; kt < last; ++kt) {
+    const int t0 = kt * kBN;
+    // the step's raw tiles have landed, and every warp is done with the
+    // step before's products
+    wgmma::cp_async_wait<0>();
+    __syncthreads();
+    stage_rows<D>(sK, rawK, 1.f, tid);
+    stage_rows<D>(sV, rawV, 1.f, tid);
+    wgmma::fence_proxy_async();
+    __syncthreads();
+    // warpgroup 0: S = Q K^T; 1: dP = dO V^T (outside any branch)
+    Scores<D> sc;
+    sc.issue(wg == 0 ? sQhi : sOhi, wg == 0 ? sQlo : sOlo, wg == 0 ? sK : sV);
+    wgmma::commit();
+    wgmma::wait();
+    float x[16];
+    sc.take(x);
+    if (wg == 0) {  // P = exp(S - lse[row]) under the mask
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int xi = 4 * j + 2 * hh + e, row = r0 + 8 * hh;
+            const int t = t0 + 8 * j + 2 * qd + e;
+            const bool live = row < S && t < Tk && !(causal && t > row);
+            x[xi] = expf(live ? __fsub_rn(x[xi], lr[hh]) : neg_inf());
+          }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       mine + c * kWG * 16),
+                   "f"(x[4 * c]), "f"(x[4 * c + 1]), "f"(x[4 * c + 2]),
+                   "f"(x[4 * c + 3])
+                   : "memory");
+    __syncthreads();  // P and dP handed over; every warp's products done
+    // dS = P (dP - D[row]), the same in both warpgroups
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 y = lds128(theirs + c * kWG * 16);
+      const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int xi = 4 * c + m;  // = 4 j + 2 h + e
+        const float p = wg == 0 ? x[xi] : ys[m];
+        const float dp = wg == 0 ? ys[m] : x[xi];
+        x[xi] = __fmul_rn(p, __fsub_rn(dp, dr[(xi / 2) % 2]));
+      }
+    }
+    uint32_t xhi[4][4], xlo[4][4];
+    fragments(x, xhi, xlo);
+    // K^T over K
+    stage_cols<D>(sK, tid);
+    wgmma::fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < last) fetch(kt + 1);
+    accumulate<W>(adq, xhi, xlo, sK + wg * W * 128,
+                  sK + D * 128 + wg * W * 128);
+  }
+  store_acc<W>(dq + bh * S * dh, adq, q0, S, wg * W, dh, scale, wt);
 }
 
 template <int D>
@@ -394,25 +859,25 @@ int launch_bwd(const float* q, const float* k, const float* v,
                int H, int KV, int S, int Tk, int dh, int dv, float scale,
                int causal, int vec, cudaStream_t stream) {
   const long long bhs = (long long)B * H * S;
-  const int wpb = kThreads / 32;
   int err = 0;
   if (bhs > 0) {
+    const int wpb = kThreads / 32;
     flash_bwd_dot_kernel<<<(int)((bhs + wpb - 1) / wpb), kThreads, 0,
                            stream>>>(o, dO, delta, bhs, dv);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  const int ntk = (Tk + kB - 1) / kB, nq = (S + kB - 1) / kB;
+  const int ntk = (Tk + kBM - 1) / kBM, nq = (S + kBM - 1) / kBM;
   if (ntk > 0) {
-    err = float_io::launch(flash_bwd_dkdv_kernel<D>, B * KV * ntk, kThreads,
-                           dkdv_smem<D>(), stream, q, k, v, dO, lse,
-                           (const float*)delta, dk, dv_out, B * KV, H, H / KV,
-                           S, Tk, dh, dv, scale, causal, vec);
+    err = float_io::launch(flash_bwd_dkdv_kernel<D>, B * KV * ntk,
+                           kThreads, Smem<D>::kBytes, stream, q, k, v, dO,
+                           lse, (const float*)delta, dk, dv_out, B * KV, H,
+                           H / KV, S, Tk, dh, dv, scale, causal, vec);
     if (err) return err;
   }
   if (nq == 0) return 0;
   return float_io::launch(flash_bwd_dq_kernel<D>, B * H * nq, kThreads,
-                          dq_smem<D>(), stream, q, k, v, dO, lse,
+                          Smem<D>::kBytes, stream, q, k, v, dO, lse,
                           (const float*)delta, dq, B * H, H, H / KV, S, Tk, dh,
                           dv, scale, causal, vec);
 }

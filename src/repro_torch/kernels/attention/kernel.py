@@ -43,8 +43,9 @@ and grad mode is on, :func:`flash_forward` goes through
 launches ``csrc/flash_tf32.cu`` with the rows' log-sum-exp ``lse`` [B, H,
 S] written beside o (o itself is the lse-free launch's, bitwise), and its
 backward launches ``csrc/flash_f32_bwd.cu`` (:func:`flash_backward`;
-``BWD_LIB.launches`` counts those calls, ``LIB.launches`` stays the
-forward's count).  On the CPU it takes :func:`flash_forward_plain` with
+every product as three TF32 products on the tensor cores, as the
+forward's; ``BWD_LIB.launches`` counts those calls, ``LIB.launches``
+stays the forward's count).  On the CPU it takes :func:`flash_forward_plain` with
 the lse and :func:`flash_backward_plain`.  CUDA bfloat16 inputs, and dh
 over 128 (MLA's head), raise ``NotImplementedError`` when a gradient is
 asked for: their backward kernels do not exist yet, and no plain version
@@ -104,10 +105,11 @@ LIB = KernelLib(
     headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
     signatures={"flash_attention_fwd_tf32": (
         [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
-#: The backward of K9 for float32 inputs, on CUDA cores.
+#: The backward of K9 for float32 inputs, on the tensor cores as split
+#: TF32.
 BWD_LIB = KernelLib(
     "flash_f32_bwd", os.path.join(_CSRC, "flash_f32_bwd.cu"),
-    headers=(FLOAT_IO_HEADER,),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
     signatures={"flash_attention_bwd_f32": (
         [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 #: Largest head dim (dh and dv) the backward takes.
@@ -319,8 +321,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of K9 at q, k, v, given its output o,
     the output's gradient do [B, H, S, dv] and the forward's lse [B, H,
     S].  CUDA tensors (float32, dh, dv <= MAX_BWD_D) launch the backward
-    kernel (``BWD_LIB``: three kernels on the stream, counted as one
-    launch); CPU tensors take :func:`flash_backward_plain`."""
+    kernel (``BWD_LIB``: three kernels on the stream, split TF32 on the
+    tensor cores, counted as one launch); CPU tensors take
+    :func:`flash_backward_plain`."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, do, lse, bq, bk, causal)
