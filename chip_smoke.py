@@ -285,14 +285,40 @@ Phases, in order (any failure exits non-zero):
     60 --ckpt-every 30 --tuner-db ...``: exit 0 with a falling loss, a
     ``--resume`` from step 30 on the same parameters within 1e-6 (bitwise
     or not, printed), the DB holding the run's signature; (e) a bf16 and
-    an xlstm SMOKE train step raise NotImplementedError, launching
-    nothing and calling no plain version.
+    an xlstm SMOKE train step raise NotImplementedError (the bf16 step
+    launching nothing, the xlstm step only K10's forward for its mLSTM
+    layers before its sLSTM layer raises), calling no plain version.
+    Besides, for the Mamba2 and MLA archs: (a) K9 f32's backward at
+    MLA's head (``flash_f32_bwd_mla.cu``, CUDA cores) against
+    ``flash_backward_plain`` on K9_MLA_BWD_CASES (deepseek-v2's layer, B
+    1, H = KV = 128, S 4096, dh 192 / dv 128; kimi-k2's, 64 heads; S
+    328, not whole tiles; non-causal with S < T and G 2; dh 130 / dv 66
+    on element-wise loads; one element into storage) and K10 f32's
+    backward (``gla_bwd.cu``, CUDA cores) against
+    ``gla_chunks_backward_plain`` on K10_BWD_CASES (zamba2-7b's layer, B
+    1, 112 heads, S 4096, dk = dv = 64, chunk 256; dk = dv = 128 at chunk
+    64; chunk 24; one chunk; gradients of the final state), each within
+    K9_BWD_REL / K10_BWD_REL of max |plain| per gradient and bitwise
+    across two launches (the MLA forward's o bitwise with and without
+    its lse), S = 1000 through ``models.ssm.gla_chunked`` card against
+    CPU, zamba2's shared attention (dh 112) in K9_BWD_CASES, the two
+    layers timed beside the plain version and the bound (K9's beside
+    SDPA's backward); (b) zamba2-7b (12 of 81 layers: the pattern
+    twice) and deepseek-v2 (its first, dense layer) at full width in
+    float32 trained 4 steps on 1 x 4096 tokens (their ``train_4k``
+    execs, remat "full"), each step's launches asserted (K10 2 and its
+    backward 1 a Mamba2 layer, K9 f32 2 and a backward 1 an attention
+    layer or shared-attention occurrence), one step traced; (c) both at
+    full width cut to 6 and 1 layers, card against CPU on 1 x 512 and 1
+    x 128 tokens, one step (TRAIN_*).
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
 with its launches on phase 26's matches, K9's two rows at MLA's head,
 K10's row on mLSTM's whole heads, the sLSTM scan's and K9 f32's
-backward's, with its launches on phase 27's minitron-4b step), the
+backward's, with its launches on phase 27's minitron-4b step, and the
+backwards of K9 f32 at MLA's head and of K10 f32 with theirs on phase
+27's deepseek-v2 and zamba2-7b steps), the
 card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  It needs
 no network and imports nothing of JAX.
@@ -301,6 +327,7 @@ no network and imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -470,6 +497,13 @@ KERNELS = {
                    "src/repro_torch/kernels/attention/csrc/flash_f32_bwd.cu",
                    "src/repro/models/attention.py:121 (jax.grad of jnp "
                    "attention; no Pallas kernel)"),
+    "K9-f32-mla-bwd": ("K9 f32 backward at MLA's head (dh 192, dv 128; "
+                       "dq, dk, dv on CUDA cores; not a TPU kernel: the "
+                       "reference differentiates jnp attention under MLA)",
+                       "src/repro_torch/kernels/attention/csrc/"
+                       "flash_f32_bwd_mla.cu",
+                       "src/repro/models/attention.py:229 (jax.grad of jnp "
+                       "attention in mla_apply; no Pallas kernel)"),
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
@@ -477,6 +511,12 @@ KERNELS = {
                   "(gla_wide_scores_kernel, then gla_wide_kernel)",
                   "src/repro_torch/kernels/gla/csrc/gla.cu",
                   "src/repro/kernels/gla/kernel.py:22"),
+    "K10-f32-bwd": ("K10 f32 backward (dq, dk, dv, dg on CUDA cores; not a "
+                    "TPU kernel: the reference differentiates its jnp "
+                    "chunked scan)",
+                    "src/repro_torch/kernels/gla/csrc/gla_bwd.cu",
+                    "src/repro/models/ssm.py:44 (jax.grad of jnp "
+                    "gla_chunked; no Pallas kernel)"),
     "sLSTM": ("sLSTM scan (jnp lax.scan in the reference, not a Pallas "
               "kernel)", "src/repro_torch/kernels/slstm/csrc/slstm.cu",
               "src/repro/models/ssm.py:329"),
@@ -580,7 +620,9 @@ def counts() -> dict:
             "K9": attention.kernel.BF16_LIB.launches,
             "K9-f32": attention.kernel.LIB.launches,
             "K9-f32-bwd": attention.kernel.BWD_LIB.launches,
+            "K9-f32-mla-bwd": attention.kernel.BWD_MLA_LIB.launches,
             "K10": gla.kernel.LIB.launches,
+            "K10-f32-bwd": gla.kernel.BWD_LIB.launches,
             "K10-mlstm": gla.kernel.WIDE_LAUNCHES,
             "sLSTM": slstm.kernel.LIB.launches}
 
@@ -592,7 +634,9 @@ def reset_counts() -> None:
     iir.kernel.LIB.launches = attention.kernel.LIB.launches = 0
     attention.kernel.BF16_LIB.launches = 0
     attention.kernel.BWD_LIB.launches = 0
+    attention.kernel.BWD_MLA_LIB.launches = 0
     gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
+    gla.kernel.BWD_LIB.launches = 0
     gla.kernel.WIDE_LAUNCHES = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
@@ -679,12 +723,14 @@ _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"score_kernel|dtw_matrix_kernel|iir_kernel|"
                         r"flash_tf32_kernel|flash_tf32_mla_kernel|"
                         r"flash_bwd_dot_kernel|flash_bwd_dkdv_kernel|"
-                        r"flash_bwd_dq_kernel|"
+                        r"flash_bwd_dq_kernel|flash_bwd_mla_dot_kernel|"
+                        r"flash_bwd_mla_dkdv_kernel|flash_bwd_mla_dq_kernel|"
                         r"flash_wgmma_kernel|"
                         r"flash_mla_kernel|gla_wide_scores_kernel|"
                         r"gla_wide_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
-                        r"slstm_scan_kernel)"
+                        r"gla_bwd_u_kernel|gla_bwd_scan_kernel|"
+                        r"gla_bwd_chunk_kernel|slstm_scan_kernel)"
                         r"(?:I(.*?)EE)?")
 
 def kernel_name(mangled: str):
@@ -4954,15 +5000,17 @@ SIG_TOL = 1e-5
 @contextlib.contextmanager
 def counting_plain():
     """Within the block, every call of the model path's plain versions
-    (K9's, K10's and its blocked route, the sLSTM scan's) is counted in
-    the dict yielded, under "calls"."""
+    (K9's and its backward's, K10's, its backward's and its blocked
+    route, the sLSTM scan's) is counted in the dict yielded, under
+    "calls"."""
     from repro_torch.kernels.attention import kernel as k9
     from repro_torch.kernels.gla import kernel as k10
     from repro_torch.kernels.gla import ops as gla_ops
     from repro_torch.kernels.slstm import kernel as k_slstm
     seen = {"calls": 0}
     saved = [(mod, fn, getattr(mod, fn)) for mod, fn in (
-        (k9, "flash_forward_plain"), (k10, "gla_chunks_plain"),
+        (k9, "flash_forward_plain"), (k9, "flash_backward_plain"),
+        (k10, "gla_chunks_plain"), (k10, "gla_chunks_backward_plain"),
         (gla_ops, "gla_blocked"), (k_slstm, "slstm_scan_plain"))]
 
     def counted(orig):
@@ -5167,6 +5215,8 @@ K9_LSE_TOL = 1e-4
 K9_BWD_CASES = (
     ("minitron-4b layer", 1, 24, 8, 4096, 4096, 128, 128, True, False),
     ("lm-768x12 layer", 8, 12, 6, 256, 256, 64, 64, True, False),
+    ("zamba2-7b shared attention", 1, 32, 32, 4096, 4096, 112, 112, True,
+     False),
     ("dh 96 (phi3-mini's head)", 2, 4, 4, 256, 256, 96, 96, True, False),
     ("S 128 < T 256", 1, 4, 2, 128, 256, 64, 64, True, False),
     ("S 256 > T 128", 1, 4, 2, 256, 128, 128, 64, True, False),
@@ -5178,12 +5228,15 @@ K9_BWD_CASES = (
 
 
 def k9_bwd_case(dev, errs: ErrLog, what: str, b, h, kv, s, t, dh, dv,
-                causal: bool, unaligned: bool, seed: int):
+                causal: bool, unaligned: bool, seed: int, tile: int = 64):
     """One shape of (a): o bitwise with and without the lse, the lse
     within K9_LSE_TOL of the plain version's, the backward within
-    K9_BWD_REL of the plain version and bitwise across two launches.
-    Returns (q, k, v, o, do, lse) for timing."""
+    K9_BWD_REL of the plain version and bitwise across two launches (at
+    MLA's head, dh over 128, its own backward kernel).  ``tile`` is the
+    wrappers' bq = bk (S and T multiples of it; the kernels tile by 64
+    whatever it is).  Returns (q, k, v, o, do, lse) for timing."""
     from repro_torch.kernels.attention import kernel as k9
+    key = "K9-f32-mla-bwd" if dh > k9.MAX_BWD_D else "K9-f32-bwd"
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, torch.float32)
     do = torch.randn((b, h, s, dv), generator=gen, device=dev)
@@ -5192,27 +5245,27 @@ def k9_bwd_case(dev, errs: ErrLog, what: str, b, h, kv, s, t, dh, dv,
     reset_counts()
     o0, none = k9._launch_forward(q, k, v, causal, with_lse=False)
     o, lse = k9._launch_forward(q, k, v, causal, with_lse=True)
-    dq, dk, dv_ = k9.flash_backward(q, k, v, o, do, lse, 64, 64, causal)
-    again = k9.flash_backward(q, k, v, o, do, lse, 64, 64, causal)
+    dq, dk, dv_ = k9.flash_backward(q, k, v, o, do, lse, tile, tile, causal)
+    again = k9.flash_backward(q, k, v, o, do, lse, tile, tile, causal)
     torch.cuda.synchronize()
-    launched_now = counts()
-    assert launched_now["K9-f32"] == 2 and launched_now["K9-f32-bwd"] == 2
+    launched({k: 0 for k in counts()}, K9_f32=2, **{key.replace("-", "_"): 2})
     assert none is None and torch.equal(o0, o), \
         f"{what}: o with the lse is not bitwise o without it"
     assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv_), again)), \
         f"{what}: two backward launches differ"
-    _, lse_p = k9.flash_forward_plain(q, k, v, 64, 64, causal,
+    _, lse_p = k9.flash_forward_plain(q, k, v, tile, tile, causal,
                                       with_lse=True)
     e_lse = float((lse - lse_p).abs().max())
-    plain = k9.flash_backward_plain(q, k, v, o, do, lse, 64, 64, causal)
+    plain = k9.flash_backward_plain(q, k, v, o, do, lse, tile, tile, causal)
     rel = [_rel(x, y) for x, y in zip((dq, dk, dv_), plain)]
     for x, y in zip((dq, dk, dv_), plain):
-        errs.diff("K9-f32-bwd", x, y)
+        errs.diff(key, x, y)
         assert torch.isfinite(x).all()
     assert e_lse <= K9_LSE_TOL, f"{what}: lse err {e_lse} > {K9_LSE_TOL}"
     assert max(rel) <= K9_BWD_REL, \
         f"{what}: rel err dq, dk, dv {rel} beyond {K9_BWD_REL}"
-    print(f"[K9 bwd] {what} (B {b}, H {h}, KV {kv}, S {s}, T {t}, dh {dh}, "
+    print(f"[{'MLA K9' if dh > k9.MAX_BWD_D else 'K9'} bwd] {what} (B {b}, "
+          f"H {h}, KV {kv}, S {s}, T {t}, dh {dh}, "
           f"dv {dv}{', causal' if causal else ''}): rel err dq "
           f"{rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g} (tol "
           f"{K9_BWD_REL:g} of max |plain|); lse max abs err {e_lse:.3g} "
@@ -5294,7 +5347,7 @@ def check_k9_bwd(dev, errs: ErrLog, name: str):
     for i, case in enumerate(K9_BWD_CASES):
         what, b, h, kv, s, t, dh, dv, causal, unaligned = case
         q, k, v, o, do, lse = k9_bwd_case(dev, errs, *case, seed=270 + i)
-        if i >= 2:
+        if i >= 3:
             continue
         args = (q, k, v, o, do, lse, 64, 64, causal)
         ms = cuda_ms(lambda: k9.flash_backward(*args), 3)
@@ -5315,6 +5368,214 @@ def check_k9_bwd(dev, errs: ErrLog, name: str):
         torch.cuda.empty_cache()
     k9_bwd_padded(dev, errs)
     return times
+
+
+#: Phase 27 (a): K9 f32's backward at MLA's head (``flash_f32_bwd_mla.cu``,
+#: float32 fused multiply-adds on CUDA cores, every product added straight
+#: into float32 sums) held as K9_BWD_CASES are, within K9_BWD_REL: a kv
+#: row's dk and dv sum over G S = 4096 query rows at deepseek-v2's layer,
+#: dq over up to 4096 keys; relative errors of ~1e-6 expected.  Stated
+#: before the first run.  (what, B, H, KV, S, T, dh, dv, causal,
+#: unaligned, the wrappers' tile).
+K9_MLA_BWD_CASES = (
+    ("deepseek-v2 layer", 1, 128, 128, 4096, 4096, 192, 128, True, False,
+     64),
+    ("kimi-k2 layer (64 heads)", 1, 64, 64, 4096, 4096, 192, 128, True,
+     False, 64),
+    ("S = T = 328, not whole 64-row tiles", 1, 4, 2, 328, 328, 192, 128,
+     True, False, 8),
+    ("non-causal, S 128 < T 256, G 2", 2, 4, 2, 128, 256, 192, 128, False,
+     False, 64),
+    ("dh 130 / dv 66, element-wise loads", 1, 2, 1, 128, 128, 130, 66, True,
+     False, 64),
+    ("one element into storage", 1, 4, 2, 128, 128, 192, 128, True, True,
+     64),
+)
+
+
+def check_k9_mla_bwd(dev, errs: ErrLog, name: str):
+    """Phase 27 (a) at MLA's head: every K9_MLA_BWD_CASES shape held as
+    ``k9_bwd_case`` holds it; deepseek-v2's layer timed beside the plain
+    version, SDPA's backward and the bound.  Returns (ms, plain ms,
+    library ms, (bytes ms, operations ms)) of that layer."""
+    from repro_torch.kernels.attention import kernel as k9
+    out = None
+    for i, case in enumerate(K9_MLA_BWD_CASES):
+        what, b, h, kv, s, t, dh, dv, causal, unaligned, tile = case
+        q, k, v, o, do, lse = k9_bwd_case(dev, errs, *case[:-1],
+                                          seed=2700 + i, tile=tile)
+        if i == 0:
+            args = (q, k, v, o, do, lse, 64, 64, causal)
+            ms = cuda_ms(lambda: k9.flash_backward(*args), 3)
+            plain_ms = cuda_ms(lambda: k9.flash_backward_plain(*args), 1)
+            lib_ms = _sdpa_bwd_ms(q, k, v, do)
+            *bounds, f32_ms = k9_bwd_bound(name, b, h, kv, s, t, dh, dv,
+                                           causal)
+            fwd_ms = cuda_ms(lambda: k9._launch_forward(
+                q, k, v, causal, with_lse=True), 3)
+            out = (ms, plain_ms, lib_ms, tuple(bounds))
+            print(f"[MLA K9 bwd] {what}: {ms:.3f} ms a launch (plain "
+                  f"{plain_ms:.1f} ms, SDPA's backward {lib_ms:.3f} ms, bound "
+                  f"{max(bounds):.3f} ms by "
+                  f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
+                  f"bytes {bounds[0]:.3f}, three TF32 products "
+                  f"{bounds[1]:.3f}, f32 CUDA-core operations {f32_ms:.3f}; "
+                  f"the forward with the lse {fwd_ms:.3f} ms) [{name}]")
+            del args
+        del q, k, v, o, do, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+#: Phase 27 (a): K10 f32's backward (``gla_bwd.cu``, float32 fused
+#: multiply-adds on CUDA cores) against ``gla_chunks_backward_plain`` on
+#: the same inputs (the forward kernel's chunk states): max |kernel -
+#: plain| <= K10_BWD_REL max |plain| for each of dq, dk, dv and dg.  Both
+#: sum in float32 in other orders over a chunk's rows, the state's gradient
+#: over up to 64 chunks; dg = q . dq - k . dk differences terms of the
+#: gradients' size: relative errors of ~1e-6 expected.  Stated before the
+#: first run.
+K10_BWD_REL = 1e-4
+#: (a)'s shapes: (what, B, H, S, dk, dv, chunk, a final-state gradient).
+K10_BWD_CASES = (
+    ("zamba2-7b layer", 1, 112, 4096, 64, 64, 256, False),
+    ("dk = dv = 128, chunk 64", 1, 8, 1024, 128, 128, 64, True),
+    ("64 chunks of 64, a final-state gradient", 2, 4, 4096, 64, 64, 64,
+     True),
+    ("dk 64 / dv 32, chunk 24 (not whole 64-row tiles)", 1, 3, 240, 64, 32,
+     24, True),
+    ("dk 16 / dv 8, one chunk", 2, 2, 128, 16, 8, 128, False),
+)
+
+
+def _gla_bwd_inputs(gen, dev, b, h, s, dk, dv):
+    """q, k, v, log_a (<= 0), do as ``tests/test_torch_gla.py`` draws
+    them, on the card."""
+    q = torch.randn((b, h, s, dk), generator=gen, device=dev)
+    k = 0.3 * torch.randn((b, h, s, dk), generator=gen, device=dev)
+    v = torch.randn((b, h, s, dv), generator=gen, device=dev)
+    la = -0.2 * torch.randn((b, h, s), generator=gen, device=dev).abs()
+    do = torch.randn((b, h, s, dv), generator=gen, device=dev)
+    return q, k, v, la, do
+
+
+def k10_bwd_bound(name: str, b, h, s, dk, dv, chunk):
+    """(bytes ms, operations ms) of K10's backward: q, k, v, g, the chunk
+    states, do, dq, dk, dv and dg once each at the card's memory rate;
+    the least work at the f32 CUDA-core peak: a chunk's causal pairs, L
+    (L + 1) / 2, take 2 (3 dk + 2 dv) FLOPs (A = do v^T, B = q k^T and
+    their products with q, do and k), and 8 L dk dv more (U, the two
+    state terms, the inter-chunk term)."""
+    mem, f32, _, _ = card_peaks(name)
+    nc = s // chunk
+    nbytes = 4 * b * h * (s * (4 * dk + 3 * dv + 2) + nc * dk * dv)
+    flops = b * h * nc * (chunk * (chunk + 1) * (3 * dk + 2 * dv)
+                          + 8 * chunk * dk * dv)
+    return nbytes / mem * 1e3, flops / f32 * 1e3
+
+
+def k10_bwd_case(dev, errs: ErrLog, what: str, b, h, s, dk, dv, chunk,
+                 with_dstate: bool, seed: int):
+    """One shape of (a): the forward kernel's chunk states within
+    GLA_RTOL / GLA_ATOL of the plain forward's, the backward within
+    K10_BWD_REL of the plain version per gradient and bitwise across two
+    launches.  Returns the backward's arguments for timing."""
+    from repro_torch.kernels.gla import kernel as k10
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, la, do = _gla_bwd_inputs(gen, dev, b, h, s, dk, dv)
+    dst = torch.randn((b, h, dk, dv), generator=gen, device=dev) \
+        if with_dstate else None
+    g = k10.chunk_cumsum(la, chunk)
+    reset_counts()
+    o, state, states = k10._launch_forward(q, k, v, g, chunk, torch.float32)
+    states[:, :, -1] = state
+    args = (q, k, v, g, states, do, dst, chunk)
+    grads = k10.gla_chunks_backward(*args)
+    again = k10.gla_chunks_backward(*args)
+    torch.cuda.synchronize()
+    launched({n: 0 for n in counts()}, K10=1, K10_f32_bwd=2)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
+        f"{what}: two backward launches differ"
+    _, _, st_p = k10.gla_chunks_plain(q, k, v, g, chunk, with_states=True)
+    assert torch.allclose(states, st_p, rtol=GLA_RTOL, atol=GLA_ATOL), \
+        f"{what}: chunk states"
+    plain = k10.gla_chunks_backward_plain(*args)
+    rel = [_rel(x, y) for x, y in zip(grads, plain)]
+    for x, y in zip(grads, plain):
+        errs.diff("K10-f32-bwd", x, y)
+        assert torch.isfinite(x).all()
+    assert max(rel) <= K10_BWD_REL, \
+        f"{what}: rel err dq, dk, dv, dg {rel} beyond {K10_BWD_REL}"
+    print(f"[K10 bwd] {what} (B {b}, H {h}, S {s}, dk {dk}, dv {dv}, chunk "
+          f"{chunk}{', final-state gradient' if with_dstate else ''}): rel "
+          f"err dq {rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g}, dg "
+          f"{rel[3]:.3g} (tol {K10_BWD_REL:g} of max |plain|); chunk states "
+          f"within rtol {GLA_RTOL:g} / atol {GLA_ATOL:g} of the plain "
+          f"forward's; two backward launches bitwise")
+    return args
+
+
+def gla_bwd_padded(dev, errs: ErrLog, s: int = 1000, seed: int = 2750):
+    """(a) through ``models.ssm.gla_chunked`` at an S that is not a
+    multiple of the chunk (1000, padded to 1024 at chunk 256), with a
+    final-state gradient: autograd's dq, dk, dv and d log_a on the card
+    (K10 f32, then the backward kernel, through ``GlaChunks``) against
+    the same call on the CPU (the plain versions), within K10_BWD_REL."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, dk, dv, chunk = 1, 8, 64, 64, 256
+    q, k, v, la, do = _gla_bwd_inputs(gen, dev, b, h, s, dk, dv)
+    dst = torch.randn((b, h, dk, dv), generator=gen, device=dev)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = [x.detach().to(d).requires_grad_() for x in (q, k, v, la)]
+        reset_counts()
+        o, st = ssm.gla_chunked(*xs, chunk)
+        grads.append(torch.autograd.grad(
+            (o * do.to(d)).sum() + (st * dst.to(d)).sum(), xs))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            launched({n: 0 for n in counts()}, K10=1, K10_f32_bwd=1)
+    rel = [_rel(x.cpu(), y) for x, y in zip(*grads)]
+    for x, y in zip(grads[0][:3], grads[1][:3]):
+        errs.diff("K10-f32-bwd", x.cpu(), y)
+    assert max(rel) <= K10_BWD_REL, rel
+    print(f"[K10 bwd] models.ssm.gla_chunked at S {s} (padded to "
+          f"{s + (-s) % chunk}; B {b}, H {h}, dk {dk}, dv {dv}, chunk "
+          f"{chunk}, final-state gradient): card vs CPU rel err dq "
+          f"{rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g}, dlog_a "
+          f"{rel[3]:.3g}; one forward and one backward launch")
+
+
+def check_k10_bwd(dev, errs: ErrLog, name: str):
+    """Phase 27 (a) for K10: every K10_BWD_CASES shape and the padded
+    model call held as above; zamba2-7b's layer timed beside the plain
+    version and the bound.  Returns (ms, plain ms, None, (bytes ms,
+    operations ms)) of that layer."""
+    from repro_torch.kernels.gla import kernel as k10
+    out = None
+    for i, case in enumerate(K10_BWD_CASES):
+        what, b, h, s, dk, dv, chunk, with_dstate = case
+        args = k10_bwd_case(dev, errs, *case, seed=2760 + i)
+        if i == 0:
+            ms = cuda_ms(lambda: k10.gla_chunks_backward(*args), 3)
+            plain_ms = cuda_ms(lambda: k10.gla_chunks_backward_plain(*args),
+                               1)
+            fwd_ms = cuda_ms(lambda: k10._launch_forward(
+                *args[:4], chunk, torch.float32), 3)
+            bounds = k10_bwd_bound(name, b, h, s, dk, dv, chunk)
+            out = (ms, plain_ms, None, bounds)
+            print(f"[K10 bwd] {what}: {ms:.3f} ms a launch (plain "
+                  f"{plain_ms:.1f} ms, no library call, bound "
+                  f"{max(bounds):.3f} ms by "
+                  f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
+                  f"bytes {bounds[0]:.3f}, f32 CUDA-core operations "
+                  f"{bounds[1]:.3f}; the f32 forward {fwd_ms:.3f} ms) "
+                  f"[{name}]")
+        del args
+        torch.cuda.empty_cache()
+    gla_bwd_padded(dev, errs)
+    return out
 
 
 #: Phase 27 (c): the card's two train steps against the CPU's from the
@@ -5340,22 +5601,46 @@ def _train_cfg(arch: str, layers: int, remat: str = "none"):
                                remat=remat)
 
 
+def _train_launches(cfg, remat: int) -> dict:
+    """The kernel launches one train step of ``cfg`` makes (``remat``
+    forwards a layer: 2 under remat "full", the forward and its
+    recompute, else 1): K9 f32 a forward and a backward an attention
+    layer or shared-attention occurrence (the backward at MLA's head its
+    own kernel), K10 a forward and a backward a Mamba2 layer."""
+    want: dict = {}
+
+    def add(key, n):
+        want[key] = want.get(key, 0) + n
+    for kind in cfg.layer_kinds():
+        if kind == "mamba2":
+            add("K10", remat)
+            add("K10_f32_bwd", 1)
+        else:
+            add("K9_f32", remat)
+            mla = cfg.attn_kind == "mla" and kind != "shared_attn"
+            add("K9_f32_mla_bwd" if mla else "K9_f32_bwd", 1)
+    return want
+
+
 def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
                b: int = 1, s: int = 4096, steps: int = 4) -> dict:
     """Phase 27 (b): ``arch`` at full width in float32, depth cut to
     ``layers``, its ``train_4k`` exec (remat "full"), trained ``steps``
     steps on B x S tokens of the port's SyntheticCorpus through
     ``train.step.make_train_step``, each step's counts set to 0 just
-    before it and read just after (K9 f32 forward 2 a layer, the forward
-    and remat's recompute; its backward 1 a layer); ms a step (median),
-    tokens/s, peak memory, each step's loss and grad norm (finite); then
-    one more step traced.  Returns {"launches": per step, "ms": ...}."""
+    before it and read just after (``_train_launches``: K9 f32 forward 2
+    an attention layer, the forward and remat's recompute, its backward
+    1; K10 2 and its backward 1 a Mamba2 layer), no plain version
+    called; ms a step (median), tokens/s, peak memory, each step's loss
+    and grad norm (finite); then one more step traced.  Returns
+    {"launches": per step by key, "ms": ...}."""
     from repro_torch import configs, models
     from repro_torch.data import DataPipeline, SyntheticCorpus
     from repro_torch.train import (AdamWConfig, adamw_init, cosine_schedule,
                                    make_train_step)
     ex = configs.exec_default(arch, "train_4k")
     cfg = _train_cfg(arch, layers, ex.remat)
+    assert cfg.remat == "full", cfg.remat
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5373,29 +5658,33 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
           f"{cfg.remat}: {n_params / 1e9:.3f} B parameters, weights and "
           f"AdamW state {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
           f"built in {time.perf_counter() - t0:.1f} s")
-    want = {"K9_f32": 2 * layers, "K9_f32_bwd": layers}
+    want = _train_launches(cfg, 2)
     times, rows = [], []
     for i in range(steps):
         batch = pipe.batch_at(i)
         torch.cuda.synchronize()
         reset_counts()
-        t1 = time.perf_counter()
-        opt, met = step(model, opt, batch)
-        loss, gn = float(met["loss"]), float(met["grad_norm"])
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t1))
+        with counting_plain() as seen:
+            t1 = time.perf_counter()
+            opt, met = step(model, opt, batch)
+            loss, gn = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t1))
         launched({k: 0 for k in counts()}, **want)
+        assert seen["calls"] == 0, seen
         assert math.isfinite(loss) and math.isfinite(gn), (loss, gn)
         rows.append((loss, gn))
     peak = torch.cuda.max_memory_allocated() / 2**30
     ms = float(np.median(times))
-    print(f"[train full] {steps} steps of {b} x {s} tokens: "
+    print(f"[train full] {arch}: {steps} steps of {b} x {s} tokens: "
           + "; ".join(f"step {i} loss {l:.4f} grad norm {g:.4f}"
                       for i, (l, g) in enumerate(rows)))
-    print(f"[train full] ms a step (median of {steps}) {ms:.1f} (each "
-          + ", ".join(f"{t:.1f}" for t in times) + f"); {b * s / ms * 1e3:.0f}"
-          f" tokens/s; peak memory {peak:.1f} GiB; launches a step: K9 f32 "
-          f"forward {2 * layers}, K9 f32 backward {layers} [{name}]")
+    print(f"[train full] {arch}: ms a step (median of {steps}) {ms:.1f} "
+          f"(each " + ", ".join(f"{t:.1f}" for t in times)
+          + f"); {b * s / ms * 1e3:.0f} tokens/s; peak memory {peak:.1f} "
+          f"GiB; launches a step: "
+          + ", ".join(f"{k} {n}" for k, n in want.items())
+          + f"; no plain version called [{name}]")
     from torch.profiler import ProfilerActivity, profile
     batch = pipe.batch_at(steps)
     torch.cuda.synchronize()
@@ -5405,68 +5694,88 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t1)
     split = {"gemm": 0.0, "K9 forward": 0.0, "K9 backward": 0.0,
-             "rest": 0.0}
+             "K10 forward": 0.0, "K10 backward": 0.0, "rest": 0.0}
     by = []
     for key, kms, n in _kernel_times(prof):
         by.append((key[:60], kms, n))
-        if "flash_tf32_kernel" in key:
+        if "flash_tf32" in key:
             split["K9 forward"] += kms
         elif "flash_bwd_" in key:
             split["K9 backward"] += kms
+        elif "gla_fma_kernel" in key:
+            split["K10 forward"] += kms
+        elif "gla_bwd_" in key:
+            split["K10 backward"] += kms
         elif any(g in key for g in GEMM_NAMES):
             split["gemm"] += kms
         else:
             split["rest"] += kms
     total = sum(split.values())
     top = sorted(by, key=lambda e: -e[1])[:6]
-    print(f"[train full] traced step: device {total:.1f} ms of {wall:.1f} "
-          f"ms wall, "
+    print(f"[train full] {arch} traced step: device {total:.1f} ms of "
+          f"{wall:.1f} ms wall, "
           + ", ".join(f"{k} {v:.1f} ms ({100 * v / max(total, 1e-9):.1f}%)"
                       for k, v in split.items())
           + "; top kernels: " + "; ".join(f"{k} {v:.1f} ms x {n}"
                                           for k, v, n in top))
     del model, opt, step
     torch.cuda.empty_cache()
-    return {"launches": want["K9_f32_bwd"], "ms": ms, "split": split}
-
-
-def _state_of(model) -> dict:
-    return {k: p.detach().clone().cpu() for k, p in model.named_parameters()}
+    return {"launches": want, "ms": ms, "split": split}
 
 
 def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
-                      s: int = 128, steps: int = 2) -> None:
-    """Phase 27 (c): the driver's default LM (lm-768x12) cut to
-    ``layers`` layers, weights drawn once on the CPU from a seeded
-    generator and copied to the card; the first batch's gradients, then
-    ``steps`` train steps (AdamW lr 3e-4) on each device: losses,
-    gradients and parameters held as TRAIN_* say."""
+                      s: int = 128, steps: int = 2,
+                      arch: str = "") -> None:
+    """Phase 27 (c): the driver's default LM (lm-768x12), or ``arch`` at
+    full width in float32, cut to ``layers`` layers, weights drawn once
+    from a seeded generator (the LM's on the CPU, copied to the card; an
+    arch's on the card, copied to the host, whose generator is slow at a
+    billion weights); the first batch's gradients, then ``steps`` train
+    steps (AdamW lr 3e-4) on each device: losses, gradients and
+    parameters held as TRAIN_* say; the card's steps launch what
+    ``_train_launches`` says (remat "none").  The host's seconds are
+    printed apart."""
     from repro_torch import models
     from repro_torch.data import DataPipeline, SyntheticCorpus
     from repro_torch.launch import train as tlaunch
     from repro_torch.sharding.rules import ExecConfig
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
-    cfg = tlaunch.build_config(tlaunch.parse_args(
-        ["--layers", str(layers)]))
-    cpu = models.init(cfg, generator=torch.Generator().manual_seed(270),
-                      device="cpu")
-    card = models.init(cfg, generator=torch.Generator(
-        device=dev).manual_seed(0), device=dev)
-    card.load_state_dict(cpu.state_dict())
+    t0 = time.perf_counter()
+    cfg = _train_cfg(arch, layers) if arch else tlaunch.build_config(
+        tlaunch.parse_args(["--layers", str(layers)]))
+    if arch:
+        card = models.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(270), device=dev)
+        cpu = copy.deepcopy(card).to("cpu")
+    else:
+        cpu = models.init(cfg, generator=torch.Generator().manual_seed(270),
+                          device="cpu")
+        card = models.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        card.load_state_dict(cpu.state_dict())
     pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=270), s, b)
-    grads = []
+    grads, host_s = [], 0.0
     for m in (card, cpu):
+        t1 = time.perf_counter()
         m.requires_grad_(True)
         loss, _ = models.loss_fn(m, pipe.batch_at(0), cfg)
         grads.append(dict(zip([n for n, _ in m.named_parameters()],
                               torch.autograd.grad(loss, list(
                                   m.parameters())))))
-    g_err = max(_rel(grads[0][k].cpu(), grads[1][k]) for k in grads[1]
-                if grads[1][k].abs().max() > 0)
+        if m is cpu:
+            host_s += time.perf_counter() - t1
+    # compared on the card: the host's elementwise passes over a billion
+    # weights take tens of seconds
+    g_err = 0.0
+    for k, w in grads[1].items():
+        w = w.to(dev)
+        if w.abs().max() > 0:
+            g_err = max(g_err, _rel(grads[0][k], w))
     del grads
     losses, opt_cfg = [], AdamWConfig(lr=3e-4)
     reset_counts()
     for m in (card, cpu):
+        t1 = time.perf_counter()
         step, opt = make_train_step(cfg, ExecConfig(), opt_cfg), \
             adamw_init(m, opt_cfg)
         run = []
@@ -5474,11 +5783,14 @@ def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
             opt, met = step(m, opt, pipe.batch_at(i))
             run.append(float(met["loss"]))
         losses.append(run)
+        if m is cpu:
+            host_s += time.perf_counter() - t1
     torch.cuda.synchronize()
-    launched({k: 0 for k in counts()}, K9_f32=layers * steps,
-             K9_f32_bwd=layers * steps)
+    want_n = {k: n * steps for k, n in _train_launches(cfg, 1).items()}
+    launched({k: 0 for k in counts()}, **want_n)
     l_err = max(abs(a - c) / abs(c) for a, c in zip(*losses))
-    got, want = _state_of(card), _state_of(cpu)
+    got = {k: p.detach() for k, p in card.named_parameters()}
+    want = {k: p.detach().to(dev) for k, p in cpu.named_parameters()}
     p_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
     beyond = sum(int(((got[k] - want[k]).abs() > 1e-5 + 1e-4 * want[k].abs()
                       ).sum()) for k in want)
@@ -5492,8 +5804,10 @@ def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
           f"batch's gradients rel err {g_err:.3g} of a leaf's max (tol "
           f"{TRAIN_GRAD_REL:g}); parameters max abs diff {p_abs:.3g} (tol "
           f"{TRAIN_PARAM_ATOL:g} + 1e-4 |p|), {beyond} of {n} beyond 1e-5 "
-          f"+ 1e-4 |p|; K9 f32 {layers * steps} and its backward "
-          f"{layers * steps} launches on the card")
+          f"+ 1e-4 |p|; launches on the card "
+          + ", ".join(f"{k} {n}" for k, n in want_n.items())
+          + f"; {time.perf_counter() - t0:.1f} s, the host's steps "
+          f"{host_s:.1f} s")
     assert l_err <= TRAIN_LOSS_REL and g_err <= TRAIN_GRAD_REL and ok
 
 
@@ -5570,14 +5884,17 @@ def train_driver(steps: int = 60, every: int = 30) -> None:
 
 def train_no_fallback(dev) -> None:
     """Phase 27 (e): a bf16 train step (minitron-4b's SMOKE config in
-    bfloat16) and an xlstm-1p3b SMOKE train step on the card raise
-    NotImplementedError naming the missing backward, launching no kernel
-    and calling no plain version."""
+    bfloat16) and an xlstm-1p3b SMOKE train step (float32) on the card
+    raise NotImplementedError naming the missing backward (K9's in bf16;
+    the sLSTM scan's), calling no plain version; the bf16 step launches
+    no kernel, the xlstm step only K10's forward, once for each mLSTM
+    layer before its sLSTM layer."""
     from repro_torch import configs, models
     from repro_torch.sharding.rules import ExecConfig
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
     for arch, dt, want in (("minitron-4b", "bfloat16", "K9 backward"),
-                           ("xlstm-1p3b", "float32", "K10 backward")):
+                           ("xlstm-1p3b", "float32",
+                            "the sLSTM scan backward")):
         cfg = dataclasses.replace(configs.smoke_config(arch),
                                   param_dtype=dt, dtype=dt)
         m = models.init(cfg, generator=torch.Generator(
@@ -5595,30 +5912,52 @@ def train_no_fallback(dev) -> None:
             else:
                 raise AssertionError(f"{arch} {dt} trained on the card")
         torch.cuda.synchronize()
-        launched({k: 0 for k in counts()})
+        kinds = cfg.layer_kinds()
+        k10 = kinds.index("slstm") if "slstm" in kinds else 0
+        launched({k: 0 for k in counts()}, K10=k10)
         assert want in msg and seen["calls"] == 0, (msg, seen)
         print(f"[train no fallback] {arch} SMOKE in {dt}: "
-              f"NotImplementedError ({msg}); no kernel launched, no plain "
-              f"version called")
+              f"NotImplementedError ({msg}); "
+              f"{f'K10 forward {k10} launches' if k10 else 'no kernel'} "
+              f"launched, no plain version called")
 
 
 def train_phase(dev, errs: ErrLog, name: str):
-    """Phase 27: (a) K9 f32's backward kernel, (b) minitron-4b trained at
+    """Phase 27: (a) K9 f32's backward kernels (dh <= 128 and MLA's head)
+    and K10 f32's, (b) minitron-4b, zamba2-7b and deepseek-v2 trained at
     full width, (c) the card against the CPU, (d) the train driver, (e)
-    no fallback.  Returns the K9 f32 backward's table row."""
+    no fallback.  Returns the three backward kernels' table rows."""
     t0 = time.perf_counter()
     times = check_k9_bwd(dev, errs, name)
-    full = train_full(dev, name)
+    mla = check_k9_mla_bwd(dev, errs, name)
+    gla = check_k10_bwd(dev, errs, name)
+    print(f"[train] phase 27 (a) in {time.perf_counter() - t0:.1f} s")
+    full = {arch: train_full(dev, name, arch, layers) for arch, layers in (
+        ("minitron-4b", 8), ("zamba2-7b", 12), ("deepseek-v2-236b", 1))}
     train_card_vs_cpu(dev, name)
+    train_card_vs_cpu(dev, name, layers=6, b=1, s=512, steps=1,
+                      arch="zamba2-7b")
+    train_card_vs_cpu(dev, name, layers=1, b=1, s=128, steps=1,
+                      arch="deepseek-v2-236b")
     train_driver()
     train_no_fallback(dev)
-    ms, plain_ms, lib_ms, bounds = times["minitron-4b layer"]
-    row = _row("K9-f32-bwd", full["launches"], errs, ms, plain_ms, bounds,
-               lib_ms)
-    row["model_launches"] = {"minitron-4b train step (8 layers)":
-                             full["launches"]}
+    paths = {"minitron-4b": "minitron-4b train step (8 layers)",
+             "zamba2-7b": "zamba2-7b train step (12 layers)",
+             "deepseek-v2-236b": "deepseek-v2 train step (1 dense layer)"}
+    rows = []
+    for key, count, (ms, plain_ms, lib_ms, bounds), main in (
+            ("K9-f32-bwd", "K9_f32_bwd", times["minitron-4b layer"],
+             "minitron-4b"),
+            ("K9-f32-mla-bwd", "K9_f32_mla_bwd", mla, "deepseek-v2-236b"),
+            ("K10-f32-bwd", "K10_f32_bwd", gla, "zamba2-7b")):
+        row = _row(key, full[main]["launches"][count], errs, ms, plain_ms,
+                   bounds, lib_ms)
+        row["model_launches"] = {paths[a]: f["launches"][count]
+                                 for a, f in full.items()
+                                 if count in f["launches"]}
+        rows.append(row)
     print(f"[train] phase 27 in {time.perf_counter() - t0:.1f} s")
-    return row
+    return rows
 
 
 def main() -> int:
@@ -5633,7 +5972,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
             attention.kernel.LIB, attention.kernel.BF16_LIB,
-            attention.kernel.BWD_LIB, gla.kernel.LIB, slstm.kernel.LIB]
+            attention.kernel.BWD_LIB, attention.kernel.BWD_MLA_LIB,
+            gla.kernel.LIB, gla.kernel.BWD_LIB, slstm.kernel.LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -5699,15 +6039,16 @@ def main() -> int:
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     rows[KERNELS["K2"][0]].setdefault("model_launches", {}).update(
         signature_phase(dev, errs, name))
-    row = train_phase(dev, errs, name)
-    rows[row["name"]] = row
+    for row in train_phase(dev, errs, name):
+        rows[row["name"]] = row
     for key in ("K9", "K9-f32"):
         # the serving phases assert these counts; phase 27 changed no
         # forward launch of theirs
         print(f"[train] {key} forward launches on the serving paths, as "
               f"before: {rows[KERNELS[key][0]]['model_launches']}")
     for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K9-f32-bwd",
-                "K10", "K10-mlstm", "sLSTM"):
+                "K9-f32-mla-bwd", "K10", "K10-mlstm", "K10-f32-bwd",
+                "sLSTM"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -15,9 +15,9 @@
 // aligned); the online softmax keeps (m, l, o) per row, m starting at
 // -1e30, and rescales by exp(m - m_new) once per kv tile; the row sum is
 // clamped at 1e-30; kv tiles past the causal frontier are skipped. When
-// asked (a non-null lse, dh <= 128), it also writes each row's
-// log-sum-exp, m + log(max(l, 1e-30)), for the backward
-// (flash_f32_bwd.cu); o is the same either way.
+// asked (a non-null lse), it also writes each row's log-sum-exp, m +
+// log(max(l, 1e-30)), for the backward (flash_f32_bwd.cu; at MLA's head
+// flash_f32_bwd_mla.cu); o is the same either way.
 //
 // Numerics ("3xTF32"). One TF32 product keeps 10 mantissa bits, too few
 // for the float32 check (1e-5). So each operand splits into two TF32
@@ -619,8 +619,9 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
                           const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
-                          int BH, int H, int G, int S, int Tk, int dh, int dv,
-                          float scale, int causal, int vec) {
+                          float* __restrict__ lse, int BH, int H, int G,
+                          int S, int Tk, int dh, int dv, float scale,
+                          int causal, int vec) {
   using Sm = MlaSmem;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -811,13 +812,14 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
       wgmma::mbar_arrive(vempty);
     }
     store_rows<kMlaDV>(o + (long long)bh * S * dv, acc, m, l, r0, qd, S, dv,
-                       nullptr);
+                       lse == nullptr ? nullptr : lse + (long long)bh * S);
   }
 }
 
 int launch_mla(const float* q, const float* k, const float* v, float* o,
-               int B, int H, int KV, int S, int Tk, int dh, int dv,
-               float scale, int causal, int vec, cudaStream_t stream) {
+               float* lse, int B, int H, int KV, int S, int Tk, int dh,
+               int dv, float scale, int causal, int vec,
+               cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -835,7 +837,7 @@ int launch_mla(const float* q, const float* k, const float* v, float* o,
   const int tiles = B * H * ((S + kBQ - 1) / kBQ);
   return float_io::launch(flash_tf32_mla_kernel, tiles < sms ? tiles : sms,
                           kMlaThreads, MlaSmem::bytes, stream, tk, tv, q, k,
-                          v, o, B * H, H, H / KV, S, Tk, dh, dv, scale,
+                          v, o, lse, B * H, H, H / KV, S, Tk, dh, dv, scale,
                           causal, vec);
 }
 
@@ -844,11 +846,10 @@ int launch_mla(const float* q, const float* k, const float* v, float* o,
 // K9, float32. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B,
 // H, S, dv], row-major float32; lse [B, H, S] float32, or null: each row's
 // log-sum-exp of its scaled, masked scores (the backward's row statistic),
-// written only when not null and only by the dh <= 128 kernels; scale is
-// dh^-0.5 rounded to float32; dh <= 192, dv <= 128; vec: dh and dv
-// multiples of 4 and q, k, v 16-byte aligned. Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for dh over
-// 192, dv over 128, or an lse asked for at dh over 128.
+// written only when not null; scale is dh^-0.5 rounded to float32; dh <=
+// 192, dv <= 128; vec: dh and dv multiples of 4 and q, k, v 16-byte
+// aligned. Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for dh over 192 or dv over 128.
 extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int H, int KV, int S, int Tk,
@@ -856,7 +857,6 @@ extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
                                         int causal, int vec, void* stream) {
   if (B == 0 || H == 0 || S == 0 || dv == 0) return 0;
   if (dh > 192 || dv > 128) return (int)cudaErrorInvalidValue;
-  if (dh > 128 && lse != nullptr) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
@@ -865,8 +865,8 @@ extern "C" int flash_attention_fwd_tf32(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   // MLA's q and k: 192 wide, the warp-specialized persistent kernel
   if (dh > 128)
-    return launch_mla(qf, kf, vf, of, B, H, KV, S, Tk, dh, dv, scale, causal,
-                      vec, s);
+    return launch_mla(qf, kf, vf, of, lf, B, H, KV, S, Tk, dh, dv, scale,
+                      causal, vec, s);
   const int d = dh > dv ? dh : dv;
   // two query heads of one kv head a block when the group size is even
   const bool pair = (H / KV) % 2 == 0;

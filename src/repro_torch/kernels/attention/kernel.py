@@ -37,19 +37,21 @@ follows the kernel.
   to the causal frontier, in float32.  Its products go through
   ``torch.matmul``; the CUDA kernels' never do.
 
-The backward (float32, dh and dv <= 128): when q, k or v requires grad
-and grad mode is on, :func:`flash_forward` goes through
+The backward (float32, dh <= MAX_DH, dv <= MAX_DV): when q, k or v
+requires grad and grad mode is on, :func:`flash_forward` goes through
 :class:`FlashAttention`, an ``autograd.Function``.  On CUDA its forward
 launches ``csrc/flash_tf32.cu`` with the rows' log-sum-exp ``lse`` [B, H,
 S] written beside o (o itself is the lse-free launch's, bitwise), and its
-backward launches ``csrc/flash_f32_bwd.cu`` (:func:`flash_backward`;
-every product as three TF32 products on the tensor cores, as the
-forward's; ``BWD_LIB.launches`` counts those calls, ``LIB.launches``
-stays the forward's count).  On the CPU it takes :func:`flash_forward_plain` with
-the lse and :func:`flash_backward_plain`.  CUDA bfloat16 inputs, and dh
-over 128 (MLA's head), raise ``NotImplementedError`` when a gradient is
-asked for: their backward kernels do not exist yet, and no plain version
-runs on the card.  The reference has no backward kernel (jax.grad
+backward launches, at dh and dv <= 128, ``csrc/flash_f32_bwd.cu``
+(:func:`flash_backward`; every product as three TF32 products on the
+tensor cores, as the forward's; ``BWD_LIB.launches`` counts those calls),
+and at MLA's head (dh over 128) ``csrc/flash_f32_bwd_mla.cu`` (float32
+fused multiply-adds on CUDA cores; ``BWD_MLA_LIB.launches``);
+``LIB.launches`` stays the forward's count.  On the CPU it takes
+:func:`flash_forward_plain` with the lse and :func:`flash_backward_plain`.
+CUDA bfloat16 inputs (at MLA's head too) raise ``NotImplementedError``
+when a gradient is asked for: their backward kernels do not exist yet,
+and no plain version runs on the card.  The reference has no backward kernel (jax.grad
 differentiates its jnp attention), so the backward replaces no TPU
 kernel.  It follows the standard flash backward: D = rowsum(do o), P
 recomputed from q k^T and the lse, dP = do v^T, dS = P (dP - D), dq =
@@ -77,8 +79,8 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
 
 __all__ = ["flash_forward", "flash_forward_plain", "flash_backward",
            "flash_backward_plain", "FlashAttention", "mla_tiles",
-           "causal_pairs", "LIB", "BF16_LIB", "BWD_LIB", "MAX_DH", "MAX_DV",
-           "MAX_BWD_D", "MLA_BM", "MLA_F32_BM"]
+           "causal_pairs", "LIB", "BF16_LIB", "BWD_LIB", "BWD_MLA_LIB",
+           "MAX_DH", "MAX_DV", "MAX_BWD_D", "MLA_BM", "MLA_F32_BM"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -112,8 +114,16 @@ BWD_LIB = KernelLib(
     headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
     signatures={"flash_attention_bwd_f32": (
         [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
-#: Largest head dim (dh and dv) the backward takes.
+#: Largest head dim (dh and dv) the tensor-core backward takes; MLA's
+#: head (dh over it, up to MAX_DH) takes ``BWD_MLA_LIB``.
 MAX_BWD_D = 128
+#: The backward of K9 for float32 inputs at MLA's head (128 < dh <=
+#: MAX_DH, dv <= MAX_DV), on CUDA cores.
+BWD_MLA_LIB = KernelLib(
+    "flash_f32_bwd_mla", os.path.join(_CSRC, "flash_f32_bwd_mla.cu"),
+    headers=(FLOAT_IO_HEADER,),
+    signatures={"flash_attention_bwd_f32_mla": (
+        [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 #: K9 for bfloat16 inputs, on the tensor cores.
 BF16_LIB = KernelLib(
     "flash_wgmma", os.path.join(_CSRC, "flash_wgmma.cu"),
@@ -170,22 +180,22 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_backward(q: torch.Tensor, dh: int, dv: int) -> None:
-    """Raise NotImplementedError unless K9's backward kernel takes these
-    CUDA inputs (float32, dh and dv <= MAX_BWD_D)."""
+    """Raise NotImplementedError unless a backward kernel of K9 takes
+    these CUDA inputs (float32; dh <= MAX_DH, dv <= MAX_DV)."""
     if q.dtype != torch.float32:
         raise NotImplementedError(
             f"K9 backward: no backward kernel for {q.dtype} inputs on the "
             f"card yet (float32 only); train in float32 or on the CPU")
-    if max(dh, dv) > MAX_BWD_D:
+    if dh > MAX_DH or dv > MAX_DV:
         raise NotImplementedError(
             f"K9 backward: no backward kernel for head dims dh = {dh}, dv "
-            f"= {dv} on the card yet (MLA's head; at most {MAX_BWD_D})")
+            f"= {dv} (at most {MAX_DH} and {MAX_DV})")
 
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, with_lse: bool):
     """One launch of the kernel of q's dtype -> (o, lse or None); the lse
-    [B, H, S] float32 only from the float32 kernel at dh <= 128."""
+    [B, H, S] float32 only from the float32 kernels."""
     b, h, s, dh = q.shape
     kv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
@@ -293,8 +303,9 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """K9 with its backward: ``apply(q, k, v, bq, bk, causal) -> o``.
-    CUDA (float32, dh, dv <= 128): the forward kernel writing the lse,
-    then the backward kernel; CPU: the two plain versions."""
+    CUDA (float32, dh <= MAX_DH, dv <= MAX_DV): the forward kernel
+    writing the lse, then the backward kernel of the head; CPU: the two
+    plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, bq: int, bk: int, causal: bool):
@@ -320,10 +331,11 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bq: int = 64, bk: int = 64, causal: bool = True):
     """The gradients (dq, dk, dv) of K9 at q, k, v, given its output o,
     the output's gradient do [B, H, S, dv] and the forward's lse [B, H,
-    S].  CUDA tensors (float32, dh, dv <= MAX_BWD_D) launch the backward
-    kernel (``BWD_LIB``: three kernels on the stream, split TF32 on the
-    tensor cores, counted as one launch); CPU tensors take
-    :func:`flash_backward_plain`."""
+    S].  CUDA tensors (float32) launch a backward kernel, three kernels
+    on the stream counted as one launch: at dh, dv <= MAX_BWD_D
+    ``BWD_LIB`` (split TF32 on the tensor cores), at MLA's head (dh up
+    to MAX_DH, dv up to MAX_DV) ``BWD_MLA_LIB`` (CUDA cores); CPU
+    tensors take :func:`flash_backward_plain`."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, do, lse, bq, bk, causal)
@@ -343,14 +355,15 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     vec = dh % 4 == 0 and dv % 4 == 0 and all(
         x.data_ptr() % 16 == 0 for x in (q, k, v, do))
-    fn = "flash_attention_bwd_f32"
-    err = getattr(BWD_LIB.get(), fn)(
+    lib, fn = (BWD_LIB, "flash_attention_bwd_f32") if dh <= MAX_BWD_D \
+        else (BWD_MLA_LIB, "flash_attention_bwd_f32_mla")
+    err = getattr(lib.get(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dvv.data_ptr(), b, h, kv, s, t, dh, dv, scale,
         int(causal), int(vec), stream)
     check_launch(fn, err)
-    BWD_LIB.launches += 1
+    lib.launches += 1
     return dq, dk, dvv
 
 

@@ -40,6 +40,31 @@ kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
   empty outputs, the call reported as one operation "K10" through
   ``common.meta_kernel`` with the undivided scan's work, whatever route
   the card would take.
+
+The backward (float32, dk and dv <= MAX_HEAD_DIM): when q, k, v or g
+requires grad and grad mode is on, :func:`gla_chunks` on float32 inputs
+goes through :class:`GlaChunks`, an ``autograd.Function``.  Its forward
+keeps every chunk's state S_c [B, H, nc, dk, dv] (on the card the
+look-back scratch the kernel writes anyway, its last slot filled with the
+final state; on the CPU :func:`gla_chunks_plain`'s), and its backward is
+:func:`gla_chunks_backward`: on CUDA ``csrc/gla_bwd.cu`` (three kernels
+on the stream, counted as one launch by ``BWD_LIB.launches``), on the
+CPU :func:`gla_chunks_backward_plain`.  With dS_c the gradient of S_c
+(the final state's gradient for the last chunk, zero when none flows),
+chunk c's rows take
+
+    dq_t = sum_{s <= t} (do_t . v_s) e^{g_t - g_s} k_s + e^{g_t} do_t S_{c-1}^T
+    dk_s = sum_{t >= s} (do_t . v_s) e^{g_t - g_s} q_t + e^{g_L - g_s} v_s dS_c^T
+    dv_s = sum_{t >= s} (q_t . k_s) e^{g_t - g_s} do_t + e^{g_L - g_s} k_s dS_c
+    dg_t = q_t . dq_t - k_t . dk_t   (+ <dS_c, S_c> at the chunk's last row)
+    dS_{c-1} = e^{g_L} dS_c + sum_t e^{g_t} q_t^T do_t
+
+and autograd takes dg back through :func:`chunk_cumsum` to log_a.  The
+reference has no backward kernel (jax.grad differentiates its jnp
+``gla_chunked``), so the backward replaces no TPU kernel.  bfloat16 CUDA
+inputs and :func:`gla_wide` raise ``NotImplementedError`` when a
+gradient is asked for: their backward kernels do not exist yet, and no
+plain version runs on the card.
 """
 
 from __future__ import annotations
@@ -56,8 +81,9 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       meta_kernel)
 
 __all__ = ["gla_chunks", "gla_chunks_plain", "gla_wide", "gla_meta",
-           "chunk_cumsum",
-           "LIB", "MAX_HEAD_DIM", "WIDE_MAX_CHUNK"]
+           "chunk_cumsum", "GlaChunks", "gla_chunks_backward",
+           "gla_chunks_backward_plain",
+           "LIB", "BWD_LIB", "MAX_HEAD_DIM", "WIDE_MAX_CHUNK"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -80,6 +106,11 @@ LIB = KernelLib(
                                  ctypes.c_int),
                 "gla_wide_fwd": ([_P] * 9 + [_I] * 6 + [_P],
                                  ctypes.c_int)})
+#: The backward of K10 for float32 inputs, on CUDA cores.
+BWD_LIB = KernelLib(
+    "gla_bwd", os.path.join(_CSRC, "gla_bwd.cu"),
+    signatures={"gla_scan_bwd_f32": ([_P] * 13 + [_I] * 5 + [_P],
+                                     ctypes.c_int)})
 
 
 def chunk_cumsum(log_a: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -121,12 +152,27 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out_dtype``: v's dtype when None, or float32; final state [B, H,
     dk, dv] float32).  CUDA tensors launch the kernel (dk, dv <=
     MAX_HEAD_DIM; a float32 o of bfloat16 inputs needs max(dk, dv) > 64,
-    which runs ``gla_mma_kernel``); CPU tensors take the plain version."""
+    which runs ``gla_mma_kernel``); CPU tensors take the plain version.
+    When a gradient is asked for (grad mode on, an input requiring grad),
+    float32 inputs go through :class:`GlaChunks`; bfloat16 CUDA inputs
+    raise ``NotImplementedError``."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
     odt = _out_dtype(v, out_dtype)
+    if torch.is_grad_enabled() and q.dtype == torch.float32 and any(
+            t.requires_grad for t in (q, k, v, g)):
+        return GlaChunks.apply(q, k, v, g, chunk)
     if not q.is_cuda:
         return gla_chunks_plain(q, k, v, g, chunk, odt)
     check_no_backward("K10", q, k, v, g)
+    return _launch_forward(q, k, v, g, chunk, odt)[:2]
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, chunk: int, odt: torch.dtype):
+    """One launch of ``gla_scan_fwd`` -> (o, final state, the look-back
+    scratch [B, H, nc, dk, dv]: S_c in slot c for every chunk but the
+    last, whose slot the kernel leaves unwritten)."""
+    b, h, s, dk, dv = q.shape + (v.shape[-1],)
     dev = q.device
     check_kernel_device(q)
     if max(dk, dv) > MAX_HEAD_DIM:
@@ -143,7 +189,7 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((b, h, s, dv), dtype=odt, device=dev)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
     units = b * h * (s // chunk)
-    scratch = torch.empty((units * dk * dv,), dtype=torch.float32,
+    scratch = torch.empty((b, h, s // chunk, dk, dv), dtype=torch.float32,
                           device=dev)
     sync = torch.empty((1 + units,), dtype=torch.int32, device=dev)
     err = LIB.get().gla_scan_fwd(
@@ -154,7 +200,7 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("gla_scan_fwd", err)
     LIB.launches += 1
-    return o, state
+    return o, state, scratch
 
 
 def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,11 +270,13 @@ def gla_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      g: torch.Tensor, chunk: int,
-                     out_dtype: Optional[torch.dtype] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     out_dtype: Optional[torch.dtype] = None,
+                     with_states: bool = False):
     """Plain PyTorch version of :func:`gla_chunks` (same arguments and
     results, any head dims), on whatever device the tensors are on.  A
-    float32 o is the float32 sum before its rounding to v's dtype."""
+    float32 o is the float32 sum before its rounding to v's dtype.  With
+    ``with_states``, (o, final state, states): states [B, H, nc, dk, dv]
+    float32, S_c after each chunk c (the last the final state)."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
     odt = _out_dtype(v, out_dtype)
     dev = q.device
@@ -240,6 +288,7 @@ def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal = idx[:, None] >= idx[None, :]
     state = torch.zeros((b * h, dk, dv), dtype=torch.float32, device=dev)
     out = torch.empty((b * h, s, dv), dtype=odt, device=dev)
+    states = []
     for c0 in range(0, s, chunk):
         qb = qf[:, c0:c0 + chunk].float()                 # [BH, L, dk]
         kb = kf[:, c0:c0 + chunk].float()
@@ -254,4 +303,144 @@ def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         w = torch.exp(gb[:, -1:] - gb)                    # [BH, L]
         state = (torch.exp(gb[:, -1])[:, None, None] * state
                  + torch.matmul((kb * w[:, :, None]).transpose(1, 2), vb))
-    return out.reshape(b, h, s, dv), state.reshape(b, h, dk, dv)
+        if with_states:
+            states.append(state)
+    o, state = out.reshape(b, h, s, dv), state.reshape(b, h, dk, dv)
+    if with_states:
+        return o, state, torch.stack(states, dim=1).reshape(
+            b, h, s // chunk, dk, dv)
+    return o, state
+
+
+class GlaChunks(torch.autograd.Function):
+    """K10 with its backward, float32: ``apply(q, k, v, g, chunk) -> (o,
+    final state)``.  CUDA (dk, dv <= MAX_HEAD_DIM): the forward kernel,
+    its chunk states kept, then the backward kernel; CPU: the two plain
+    versions.  The gradient of the final state is taken when one flows
+    (None otherwise: zero)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, chunk: int):
+        if q.is_cuda:
+            o, state, states = _launch_forward(q, k, v, g, chunk,
+                                               torch.float32)
+            states[:, :, -1] = state
+        else:
+            o, state, states = gla_chunks_plain(q, k, v, g, chunk,
+                                                with_states=True)
+        ctx.save_for_backward(q, k, v, g, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return o, state
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        q, k, v, g, states = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+        dq, dk, dv, dg = gla_chunks_backward(
+            q, k, v, g, states, do.contiguous(),
+            None if dstate is None else dstate.contiguous(), ctx.chunk)
+        return dq, dk, dv, dg, None
+
+
+def gla_chunks_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, states: torch.Tensor,
+                        do: torch.Tensor, dstate: Optional[torch.Tensor],
+                        chunk: int):
+    """The gradients (dq, dk, dv, dg) of K10 at float32 q, k, v, g, given
+    the forward's chunk states [B, H, nc, dk, dv] (S_c after chunk c),
+    o's gradient do [B, H, S, dv] and the final state's gradient dstate
+    [B, H, dk, dv] (None: zero).  CUDA tensors (dk, dv <= MAX_HEAD_DIM)
+    launch the backward kernel (``BWD_LIB``: three kernels on the stream,
+    counted as one launch); CPU tensors take
+    :func:`gla_chunks_backward_plain`."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    if not q.is_cuda:
+        return gla_chunks_backward_plain(q, k, v, g, states, do, dstate,
+                                         chunk)
+    dev = q.device
+    check_kernel_device(q)
+    if max(dk, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"K10's backward takes dk, dv up to "
+                         f"{MAX_HEAD_DIM}, got {dk}, {dv}")
+    nc = s // chunk
+    for t, name, shape in ((q, "q", (b, h, s, dk)), (k, "k", (b, h, s, dk)),
+                           (v, "v", (b, h, s, dv)), (g, "g", (b, h, s)),
+                           (states, "states", (b, h, nc, dk, dv)),
+                           (do, "do", (b, h, s, dv))):
+        check_tensor(t, name, torch.float32, shape, dev)
+    if dstate is not None:
+        check_tensor(dstate, "dstate", torch.float32, (b, h, dk, dv), dev)
+    dq, dk_, dv_ = (torch.empty_like(x) for x in (q, k, v))
+    dg = torch.empty_like(g)
+    # U_c = sum_t e^{g_t} q_t^T do_t, then dS_c, a chunk each
+    u = torch.empty_like(states)
+    ds = torch.empty_like(states)
+    err = BWD_LIB.get().gla_scan_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        states.data_ptr(), do.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), u.data_ptr(),
+        ds.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+        dg.data_ptr(), b * h, s, chunk, dk, dv,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("gla_scan_bwd_f32", err)
+    BWD_LIB.launches += 1
+    return dq, dk_, dv_, dg
+
+
+def gla_chunks_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor,
+                              states: torch.Tensor, do: torch.Tensor,
+                              dstate: Optional[torch.Tensor], chunk: int):
+    """Plain PyTorch version of :func:`gla_chunks_backward` (same
+    arguments and results, any head dims), on whatever device the tensors
+    are on: the chunks in reverse order, dS carried in float32, each
+    chunk's gradients from the formulas of the module docstring in the
+    kernel's order of operations (the intra-chunk sum, then the decayed
+    state term; dg as q . dq - k . dk)."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    nc = s // chunk
+    bh = b * h
+    dev = q.device
+    qf = q.reshape(bh, s, dk).float()
+    kf = k.reshape(bh, s, dk).float()
+    vf = v.reshape(bh, s, dv).float()
+    gf = g.reshape(bh, s).float()
+    dof = do.reshape(bh, s, dv).float()
+    st = states.reshape(bh, nc, dk, dv).float()
+    ds = (torch.zeros((bh, dk, dv), dtype=torch.float32, device=dev)
+          if dstate is None else dstate.reshape(bh, dk, dv).float())
+    idx = torch.arange(chunk, device=dev)
+    causal = idx[:, None] >= idx[None, :]
+    dq = torch.empty((bh, s, dk), dtype=torch.float32, device=dev)
+    dkk = torch.empty((bh, s, dk), dtype=torch.float32, device=dev)
+    dvv = torch.empty((bh, s, dv), dtype=torch.float32, device=dev)
+    dg = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    for c in reversed(range(nc)):
+        c0 = c * chunk
+        sl = slice(c0, c0 + chunk)
+        qb, kb, vb, gb, gob = qf[:, sl], kf[:, sl], vf[:, sl], gf[:, sl], \
+            dof[:, sl]
+        prev = st[:, c - 1] if c > 0 else torch.zeros_like(ds)
+        decay = torch.exp(gb[:, :, None] - gb[:, None, :])
+        a = torch.where(causal, torch.matmul(gob, vb.transpose(1, 2))
+                        * decay, 0.0)                      # [BH, t, s]
+        p = torch.where(causal, torch.matmul(qb, kb.transpose(1, 2))
+                        * decay, 0.0)
+        eg = torch.exp(gb)
+        w = torch.exp(gb[:, -1:] - gb)
+        dqb = torch.matmul(a, kb) + eg[:, :, None] * torch.matmul(
+            gob, prev.transpose(1, 2))
+        dkb = torch.matmul(a.transpose(1, 2), qb) + w[:, :, None] * \
+            torch.matmul(vb, ds.transpose(1, 2))
+        dvb = torch.matmul(p.transpose(1, 2), gob) + w[:, :, None] * \
+            torch.matmul(kb, ds)
+        dgb = (qb * dqb).sum(dim=-1) - (kb * dkb).sum(dim=-1)
+        dgb[:, -1] = dgb[:, -1] + (ds * st[:, c]).sum(dim=(1, 2))
+        dq[:, sl], dkk[:, sl], dvv[:, sl], dg[:, sl] = dqb, dkb, dvb, dgb
+        ds = (torch.exp(gb[:, -1])[:, None, None] * ds
+              + torch.matmul((qb * eg[:, :, None]).transpose(1, 2), gob))
+    return (dq.reshape(b, h, s, dk).to(q.dtype),
+            dkk.reshape(b, h, s, dk).to(k.dtype),
+            dvv.reshape(b, h, s, dv).to(v.dtype), dg.reshape(b, h, s))

@@ -40,7 +40,9 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
     ``kernel.gla_wide`` (two launches), and otherwise :func:`gla_blocked`
     (ceil(dv / MAX_HEAD_DIM) launches).  Meta tensors take
     ``kernel.gla_meta`` at any width: one operation, the undivided
-    scan."""
+    scan.  When a gradient is asked for, float32 launches go through
+    ``kernel.GlaChunks`` (its backward kernel on the card, the plain
+    backward on the CPU); bfloat16 ones on the card raise."""
     dev = resolve_device(device)
     q, k, v = (as_float_tensor(t, dev) for t in (q, k, v))
     la = as_tensor(log_a, torch.float32, dev)

@@ -16,12 +16,12 @@ run's utilization signature (``core.signatures.signature_of`` over
 so later runs can inherit tuned settings by DTW matching.
 
 Every config is trained in float32, as the reference's driver forces.
-On the card the attention runs K9 f32 and its backward kernel, so the
-archs whose layers are GQA attention with heads of at most 128 train
-there (minitron-4b, granite-20b, phi3-mini, starcoder2-15b, qwen2-vl,
-musicgen-large and the default LM); deepseek-v2 and kimi-k2 (MLA's
-192-wide head), zamba2 (K10) and xlstm (K10, the sLSTM scan) raise
-``NotImplementedError`` naming the missing backward kernel.
+On the card the attention runs K9 f32 and its backward kernels (at
+MLA's 192-wide head too) and Mamba2's scan K10 f32 and its backward
+kernel, so every arch but xlstm trains there (minitron-4b, granite-20b,
+phi3-mini, starcoder2-15b, qwen2-vl, musicgen-large, deepseek-v2,
+kimi-k2, zamba2 and the default LM); xlstm raises
+``NotImplementedError`` naming the sLSTM scan's missing backward kernel.
 """
 
 from __future__ import annotations

@@ -952,17 +952,22 @@ def test_bwd_padded_rows_get_exact_zeros(s):
 
 
 def test_bwd_raises_on_the_card_without_a_kernel(monkeypatch):
-    """CUDA bf16 inputs, or dh over 128, with a gradient asked for raise
-    NotImplementedError naming K9's backward, before any launch; the
-    float32 check passes at dh 128."""
+    """CUDA bf16 inputs with a gradient asked for raise
+    NotImplementedError naming K9's backward, before any launch, at dh 64
+    and at MLA's head (dh 192, dv 128), and so do head dims past MAX_DH /
+    MAX_DV; the float32 check passes at dh 128 and at MLA's head, which
+    has its own backward kernel."""
     q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="K9 backward"):
         tkernel._check_backward(q, 64, 64)
     with pytest.raises(NotImplementedError, match="K9 backward"):
-        tkernel._check_backward(q.float(), 192, 128)
+        tkernel._check_backward(q, 192, 128)
+    with pytest.raises(NotImplementedError, match="K9 backward"):
+        tkernel._check_backward(q.float(), 256, 128)
     tkernel._check_backward(q.float(), 128, 128)
+    tkernel._check_backward(q.float(), 192, 128)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    xs = [torch.zeros(1, 2, 64, d, requires_grad=True)
+    xs = [torch.zeros(1, 2, 64, d, dtype=torch.bfloat16, requires_grad=True)
           for d in (192, 192, 128)]
     with pytest.raises(NotImplementedError, match="K9 backward"):
         tkernel.flash_forward(xs[0], xs[1][:, :1], xs[2][:, :1], 64, 64)
