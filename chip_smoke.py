@@ -289,12 +289,14 @@ Phases, in order (any failure exits non-zero):
     launching nothing, the xlstm step only K10's forward for its mLSTM
     layers before its sLSTM layer raises), calling no plain version.
     Besides, for the Mamba2 and MLA archs: (a) K9 f32's backward at
-    MLA's head (``flash_f32_bwd_mla.cu``, CUDA cores) against
+    MLA's head (``flash_f32_bwd_mla.cu``, split TF32 on ``wgmma`` at
+    16-row steps, HGMMA asserted in its SASS) against
     ``flash_backward_plain`` on K9_MLA_BWD_CASES (deepseek-v2's layer, B
     1, H = KV = 128, S 4096, dh 192 / dv 128; kimi-k2's, 64 heads; S
     328, not whole tiles; non-causal with S < T and G 2; dh 130 / dv 66
     on element-wise loads; one element into storage) and K10 f32's
-    backward (``gla_bwd.cu``, CUDA cores) against
+    backward (``gla_bwd.cu``, split TF32 on ``wgmma``, HGMMA asserted)
+    against
     ``gla_chunks_backward_plain`` on K10_BWD_CASES (zamba2-7b's layer, B
     1, 112 heads, S 4096, dk = dv = 64, chunk 256; dk = dv = 128 at chunk
     64; chunk 24; one chunk; gradients of the final state), each within
@@ -303,7 +305,10 @@ Phases, in order (any failure exits non-zero):
     its lse), S = 1000 through ``models.ssm.gla_chunked`` card against
     CPU, zamba2's shared attention (dh 112) in K9_BWD_CASES, the two
     layers timed beside the plain version and the bound (K9's beside
-    SDPA's backward); (b) zamba2-7b (12 of 81 layers: the pattern
+    SDPA's backward), and K9 f32's forward with its lse at the three
+    training layers (minitron-4b's, zamba2-7b's shared attention,
+    deepseek-v2's) and K10 f32's forward at zamba2's, beside their bounds
+    (and SDPA's f32 forward for K9); (b) zamba2-7b (12 of 81 layers: the pattern
     twice) and deepseek-v2 (its first, dense layer) at full width in
     float32 trained 4 steps on 1 x 4096 tokens (their ``train_4k``
     execs, remat "full"), each step's launches asserted (K10 2 and its
@@ -498,8 +503,9 @@ KERNELS = {
                    "src/repro/models/attention.py:121 (jax.grad of jnp "
                    "attention; no Pallas kernel)"),
     "K9-f32-mla-bwd": ("K9 f32 backward at MLA's head (dh 192, dv 128; "
-                       "dq, dk, dv on CUDA cores; not a TPU kernel: the "
-                       "reference differentiates jnp attention under MLA)",
+                       "dq, dk, dv; split TF32, wgmma, 16-row steps; not a "
+                       "TPU kernel: the reference differentiates jnp "
+                       "attention under MLA)",
                        "src/repro_torch/kernels/attention/csrc/"
                        "flash_f32_bwd_mla.cu",
                        "src/repro/models/attention.py:229 (jax.grad of jnp "
@@ -511,9 +517,9 @@ KERNELS = {
                   "(gla_wide_scores_kernel, then gla_wide_kernel)",
                   "src/repro_torch/kernels/gla/csrc/gla.cu",
                   "src/repro/kernels/gla/kernel.py:22"),
-    "K10-f32-bwd": ("K10 f32 backward (dq, dk, dv, dg on CUDA cores; not a "
-                    "TPU kernel: the reference differentiates its jnp "
-                    "chunked scan)",
+    "K10-f32-bwd": ("K10 f32 backward (dq, dk, dv, dg; split TF32, "
+                    "wgmma; not a TPU kernel: the reference differentiates "
+                    "its jnp chunked scan)",
                     "src/repro_torch/kernels/gla/csrc/gla_bwd.cu",
                     "src/repro/models/ssm.py:44 (jax.grad of jnp "
                     "gla_chunked; no Pallas kernel)"),
@@ -730,7 +736,8 @@ _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"gla_wide_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
                         r"gla_bwd_u_kernel|gla_bwd_scan_kernel|"
-                        r"gla_bwd_chunk_kernel|slstm_scan_kernel)"
+                        r"gla_bwd_dkdv_kernel|gla_bwd_dq_kernel|"
+                        r"slstm_scan_kernel)"
                         r"(?:I(.*?)EE)?")
 
 def kernel_name(mangled: str):
@@ -836,7 +843,10 @@ def build_report(libs) -> None:
     (``flash_mla_kernel``) its HGMMA, asynchronous copies (LDGSTS) and
     TMA loads (UTMALDG), for K9 f32 there (``flash_tf32_mla_kernel``)
     its HGMMA and UTMALDG, for K9 f32's backward
-    (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) their HGMMA, for
+    (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) and at MLA's
+    head (``flash_bwd_mla_dkdv_kernel``, ``flash_bwd_mla_dq_kernel``)
+    their HGMMA, for K10 f32's backward (``gla_bwd_u_kernel``,
+    ``gla_bwd_dkdv_kernel``, ``gla_bwd_dq_kernel``) theirs, for
     K10's bf16 kernels (``gla_ws_kernel``,
     ``gla_mma_kernel``, ``gla_wide_scores_kernel``, ``gla_wide_kernel``)
     their warpgroup-MMA count, HGMMA, and for K8 (``iir_kernel``) its
@@ -861,6 +871,13 @@ def build_report(libs) -> None:
         elif lib is attn.BWD_LIB:
             ops = {**sass_ops(lib, "flash_bwd_dkdv_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_bwd_dq_kernel", ("HGMMA",))}
+        elif lib is attn.BWD_MLA_LIB:
+            ops = {**sass_ops(lib, "flash_bwd_mla_dkdv_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "flash_bwd_mla_dq_kernel", ("HGMMA",))}
+        elif lib is gla.kernel.BWD_LIB:
+            ops = {**sass_ops(lib, "gla_bwd_u_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "gla_bwd_dkdv_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "gla_bwd_dq_kernel", ("HGMMA",))}
         elif lib is attn.BF16_LIB:
             ops = {**sass_ops(lib, "flash_wgmma_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_mla_kernel",
@@ -2677,16 +2694,20 @@ def _gla_diff(errs: ErrLog, got, want, bf16: bool, key: str = "K10") -> int:
 
 
 def gla_bound(name: str, b: int, h: int, s: int, dk: int, dv: int,
-              chunk: int):
+              chunk: int, f32: bool = False):
     """(bytes ms, operations ms) of a bf16 chunked scan on the card: q, k,
     v read and o written once in bf16, log a and the state in float32;
     the causal half of each chunk's scores and their products, the
-    inter-chunk read and the state update at the bf16 tensor peak."""
+    inter-chunk read and the state update at the bf16 tensor peak.  With
+    ``f32``, of the float32 scan: q, k, v and o in float32, the work at
+    the f32 CUDA-core peak its kernel runs on."""
     flops = b * h * (s // chunk) * (chunk * (chunk + 1) // 2 * 2 * (dk + dv)
                                     + 2 * 2 * chunk * dk * dv)
-    nbytes = 2 * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
-    mem_bps, _, bf16_flops, _ = card_peaks(name)
-    return 1e3 * nbytes / mem_bps, 1e3 * flops / bf16_flops
+    width = 4 if f32 else 2
+    nbytes = width * b * h * s * (2 * dk + 2 * dv) + 4 * b * h * (s + dk * dv)
+    mem_bps, f32_flops, bf16_flops, _ = card_peaks(name)
+    return (1e3 * nbytes / mem_bps,
+            1e3 * flops / (f32_flops if f32 else bf16_flops))
 
 
 def check_k10(dev, errs: ErrLog) -> None:
@@ -5323,6 +5344,37 @@ def k9_bwd_bound(name: str, b, h, kv, s, t, dh, dv, causal=True):
     return nbytes / mem * 1e3, 3 * flops / tf32 * 1e3, flops / f32 * 1e3
 
 
+def k9_fwd_bound(name: str, b, h, kv, s, t, dh, dv, causal=True):
+    """(bytes ms, operations ms) of K9 f32's forward with its lse, by the
+    K9 f32 row's rule: q, k, v read and o and the lse written once at the
+    card's memory rate; 2 (dh + dv) FLOPs a query-key pair under the mask
+    as three TF32 products at the dense TF32 tensor-core peak."""
+    from repro_torch.kernels.attention.kernel import causal_pairs
+    mem, _, _, tf32 = card_peaks(name)
+    nbytes = 4 * (b * h * s * (dh + dv + 1) + b * kv * t * (dh + dv))
+    flops = 2 * (dh + dv) * b * h * causal_pairs(s, t, causal)
+    return nbytes / mem * 1e3, 3 * flops / tf32 * 1e3
+
+
+def k9_fwd_line(name: str, what: str, q, k, v, causal, fwd_ms) -> str:
+    """The ``[K9 f32 fwd]`` line of a training layer: the forward with its
+    lse (``fwd_ms``) beside its bound, its plain version and SDPA's
+    float32 forward on the same inputs, timed now."""
+    from repro_torch.kernels.attention import kernel as k9
+    b, h, s, dh = q.shape
+    kv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
+    bounds = k9_fwd_bound(name, b, h, kv, s, t, dh, dv, causal)
+    plain_ms = cuda_ms(lambda: k9.flash_forward_plain(
+        q, k, v, 64, 64, causal, with_lse=True), 1)
+    lib_ms = cuda_ms(lambda: _sdpa(q, k, v), 3)
+    return (f"[K9 f32 fwd] {what} (B {b}, H {h}, KV {kv}, S {s}, dh {dh}, "
+            f"dv {dv}): the forward with its lse {fwd_ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, SDPA's "
+            f"f32 forward {lib_ms:.3f} ms, bound {max(bounds):.3f} ms by "
+            f"{'bytes' if bounds[0] >= bounds[1] else 'operations'} (bytes "
+            f"{bounds[0]:.3f}, three TF32 products {bounds[1]:.3f}) [{name}]")
+
+
 def _sdpa_bwd_ms(q, k, v, do) -> float:
     """The library yardstick: autograd of scaled_dot_product_attention
     (causal, GQA) in float32, its backward alone."""
@@ -5364,6 +5416,7 @@ def check_k9_bwd(dev, errs: ErrLog, name: str):
               f"bytes {bounds[0]:.3f}, three TF32 products "
               f"{bounds[1]:.3f}, f32 CUDA-core operations {f32_ms:.3f}; "
               f"the forward with the lse {fwd_ms:.3f} ms) [{name}]")
+        print(k9_fwd_line(name, what, q, k, v, causal, fwd_ms))
         del q, k, v, o, do, lse, args
         torch.cuda.empty_cache()
     k9_bwd_padded(dev, errs)
@@ -5371,12 +5424,14 @@ def check_k9_bwd(dev, errs: ErrLog, name: str):
 
 
 #: Phase 27 (a): K9 f32's backward at MLA's head (``flash_f32_bwd_mla.cu``,
-#: float32 fused multiply-adds on CUDA cores, every product added straight
-#: into float32 sums) held as K9_BWD_CASES are, within K9_BWD_REL: a kv
-#: row's dk and dv sum over G S = 4096 query rows at deepseek-v2's layer,
-#: dq over up to 4096 keys; relative errors of ~1e-6 expected.  Stated
-#: before the first run.  (what, B, H, KV, S, T, dh, dv, causal,
-#: unaligned, the wrappers' tile).
+#: split TF32 on the tensor cores at 16-row steps: three TF32 products a
+#: product, each step's product added to float32 sums on CUDA cores, S
+#: summed from three partial chains) held as K9_BWD_CASES are, within
+#: K9_BWD_REL: a kv row's dk and dv sum over G S = 4096 query rows at
+#: deepseek-v2's layer, dq over up to 4096 keys; relative errors of ~1e-6
+#: to 2e-6 expected, as K9 f32's backward at minitron's layer.  The
+#: tolerance was stated before the first run of the CUDA-core kernel.
+#: (what, B, H, KV, S, T, dh, dv, causal, unaligned, the wrappers' tile).
 K9_MLA_BWD_CASES = (
     ("deepseek-v2 layer", 1, 128, 128, 4096, 4096, 192, 128, True, False,
      64),
@@ -5397,8 +5452,13 @@ def check_k9_mla_bwd(dev, errs: ErrLog, name: str):
     """Phase 27 (a) at MLA's head: every K9_MLA_BWD_CASES shape held as
     ``k9_bwd_case`` holds it; deepseek-v2's layer timed beside the plain
     version, SDPA's backward and the bound.  Returns (ms, plain ms,
-    library ms, (bytes ms, operations ms)) of that layer."""
+    library ms, (bytes ms, operations ms)) of that layer.  Its SASS must
+    hold HGMMA (its products on the tensor cores)."""
     from repro_torch.kernels.attention import kernel as k9
+    for kern in ("flash_bwd_mla_dkdv_kernel", "flash_bwd_mla_dq_kernel"):
+        ops = sass_ops(k9.BWD_MLA_LIB, kern, ("HGMMA",))
+        assert ops and all(not o.endswith(" 0 HGMMA") for o in ops.values()), \
+            f"no HGMMA in {kern}'s SASS: {ops}"
     out = None
     for i, case in enumerate(K9_MLA_BWD_CASES):
         what, b, h, kv, s, t, dh, dv, causal, unaligned, tile = case
@@ -5421,20 +5481,24 @@ def check_k9_mla_bwd(dev, errs: ErrLog, name: str):
                   f"bytes {bounds[0]:.3f}, three TF32 products "
                   f"{bounds[1]:.3f}, f32 CUDA-core operations {f32_ms:.3f}; "
                   f"the forward with the lse {fwd_ms:.3f} ms) [{name}]")
+            print(k9_fwd_line(name, what, q, k, v, causal, fwd_ms))
             del args
         del q, k, v, o, do, lse
         torch.cuda.empty_cache()
     return out
 
 
-#: Phase 27 (a): K10 f32's backward (``gla_bwd.cu``, float32 fused
-#: multiply-adds on CUDA cores) against ``gla_chunks_backward_plain`` on
+#: Phase 27 (a): K10 f32's backward (``gla_bwd.cu``, split TF32 on the
+#: tensor cores: three TF32 products a product, each step's product added
+#: to float32 sums on CUDA cores) against ``gla_chunks_backward_plain`` on
 #: the same inputs (the forward kernel's chunk states): max |kernel -
 #: plain| <= K10_BWD_REL max |plain| for each of dq, dk, dv and dg.  Both
 #: sum in float32 in other orders over a chunk's rows, the state's gradient
 #: over up to 64 chunks; dg = q . dq - k . dk differences terms of the
-#: gradients' size: relative errors of ~1e-6 expected.  Stated before the
-#: first run.
+#: gradients' size: relative errors of ~1e-6 expected (the emulation in
+#: tests/test_torch_train_bwd.py: 2e-7 to 9e-7), no longer bitwise the
+#: plain version as the CUDA-core kernel was.  The tolerance was stated
+#: before the first run of the CUDA-core kernel.
 K10_BWD_REL = 1e-4
 #: (a)'s shapes: (what, B, H, S, dk, dv, chunk, a final-state gradient).
 K10_BWD_CASES = (
@@ -5460,18 +5524,20 @@ def _gla_bwd_inputs(gen, dev, b, h, s, dk, dv):
 
 
 def k10_bwd_bound(name: str, b, h, s, dk, dv, chunk):
-    """(bytes ms, operations ms) of K10's backward: q, k, v, g, the chunk
-    states, do, dq, dk, dv and dg once each at the card's memory rate;
-    the least work at the f32 CUDA-core peak: a chunk's causal pairs, L
-    (L + 1) / 2, take 2 (3 dk + 2 dv) FLOPs (A = do v^T, B = q k^T and
-    their products with q, do and k), and 8 L dk dv more (U, the two
-    state terms, the inter-chunk term)."""
-    mem, f32, _, _ = card_peaks(name)
+    """(bytes ms, operations ms, f32 CUDA-core operations ms) of K10's
+    backward: q, k, v, g, the chunk states, do, dq, dk, dv and dg once
+    each at the card's memory rate; the least work, a chunk's causal
+    pairs, L (L + 1) / 2, at 2 (3 dk + 2 dv) FLOPs (A = do v^T, B = q k^T
+    and their products with q, do and k) and 8 L dk dv more (U, the two
+    state terms, the inter-chunk term), taken as the kernel takes it,
+    three TF32 products, at the dense TF32 tensor-core peak (the row's
+    bound), and once at the f32 CUDA-core peak (printed beside it)."""
+    mem, f32, _, tf32 = card_peaks(name)
     nc = s // chunk
     nbytes = 4 * b * h * (s * (4 * dk + 3 * dv + 2) + nc * dk * dv)
     flops = b * h * nc * (chunk * (chunk + 1) * (3 * dk + 2 * dv)
                           + 8 * chunk * dk * dv)
-    return nbytes / mem * 1e3, flops / f32 * 1e3
+    return nbytes / mem * 1e3, 3 * flops / tf32 * 1e3, flops / f32 * 1e3
 
 
 def k10_bwd_case(dev, errs: ErrLog, what: str, b, h, s, dk, dv, chunk,
@@ -5550,9 +5616,15 @@ def gla_bwd_padded(dev, errs: ErrLog, s: int = 1000, seed: int = 2750):
 def check_k10_bwd(dev, errs: ErrLog, name: str):
     """Phase 27 (a) for K10: every K10_BWD_CASES shape and the padded
     model call held as above; zamba2-7b's layer timed beside the plain
-    version and the bound.  Returns (ms, plain ms, None, (bytes ms,
-    operations ms)) of that layer."""
+    version and the bound, and the f32 forward there beside its bound.
+    Its SASS must hold HGMMA (its products on the tensor cores).  Returns
+    (ms, plain ms, None, (bytes ms, operations ms)) of that layer."""
     from repro_torch.kernels.gla import kernel as k10
+    for kern in ("gla_bwd_u_kernel", "gla_bwd_dkdv_kernel",
+                 "gla_bwd_dq_kernel"):
+        ops = sass_ops(k10.BWD_LIB, kern, ("HGMMA",))
+        assert ops and all(not o.endswith(" 0 HGMMA") for o in ops.values()), \
+            f"no HGMMA in {kern}'s SASS: {ops}"
     out = None
     for i, case in enumerate(K10_BWD_CASES):
         what, b, h, s, dk, dv, chunk, with_dstate = case
@@ -5563,14 +5635,19 @@ def check_k10_bwd(dev, errs: ErrLog, name: str):
                                1)
             fwd_ms = cuda_ms(lambda: k10._launch_forward(
                 *args[:4], chunk, torch.float32), 3)
-            bounds = k10_bwd_bound(name, b, h, s, dk, dv, chunk)
-            out = (ms, plain_ms, None, bounds)
+            *bounds, f32_ms = k10_bwd_bound(name, b, h, s, dk, dv, chunk)
+            out = (ms, plain_ms, None, tuple(bounds))
+            fb = gla_bound(name, b, h, s, dk, dv, chunk, f32=True)
             print(f"[K10 bwd] {what}: {ms:.3f} ms a launch (plain "
                   f"{plain_ms:.1f} ms, no library call, bound "
                   f"{max(bounds):.3f} ms by "
                   f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
-                  f"bytes {bounds[0]:.3f}, f32 CUDA-core operations "
-                  f"{bounds[1]:.3f}; the f32 forward {fwd_ms:.3f} ms) "
+                  f"bytes {bounds[0]:.3f}, three TF32 products "
+                  f"{bounds[1]:.3f}, f32 CUDA-core operations "
+                  f"{f32_ms:.3f}; the f32 forward {fwd_ms:.3f} ms, its "
+                  f"bound {max(fb):.3f} ms by "
+                  f"{'bytes' if fb[0] >= fb[1] else 'operations'}: bytes "
+                  f"{fb[0]:.3f}, f32 CUDA-core operations {fb[1]:.3f}) "
                   f"[{name}]")
         del args
         torch.cuda.empty_cache()

@@ -90,14 +90,12 @@
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
-#include "wgmma.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
-constexpr int kBM = 64;          // rows of the resident tile (the wgmma M)
-constexpr int kBN = 32;          // rows of a step's tile
-constexpr int kWG = 128;         // threads of a warpgroup
-constexpr int kThreads = 256;    // a block: two warpgroups
+using namespace split_tf32;
+using namespace split_tf32::rows32;  // kBM 64, kBN 32, two warpgroups
 
 // Shared memory of both kernels at head dims up to D, byte offsets from a
 // 1024-aligned base: the two parts of two resident [64, D] tiles (K and V
@@ -122,442 +120,6 @@ struct Smem {
   static constexpr uint32_t kBytes = kDelta + 2 * kBN * 4 + 1024;
 };
 static_assert(Smem<128>::kBytes <= 232448, "an SM's shared memory");
-
-// Byte offset of 16-byte chunk c4 (columns 4 c4 .. 4 c4 + 3) of row r in
-// a swizzled tile of R rows in 32-column sub-tiles (wgmma.cuh).
-__device__ __forceinline__ uint32_t swz(int r, int c4, int R) {
-  return (c4 / 8) * (R * 128) + r * 128 + (((c4 % 8) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
-}
-// The two TF32 parts of a: a = hi + lo to ~2^-22 of a.
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(a);
-  lo = tf32(__fsub_rn(a, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void sts128(uint32_t addr, const uint32_t (&v)[4]) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
-               : "memory");
-}
-__device__ __forceinline__ float4 lds128(uint32_t addr) {
-  float4 x;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr)
-               : "memory");
-  return x;
-}
-__device__ __forceinline__ float lds32(uint32_t addr) {
-  float x;
-  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
-  return x;
-}
-
-// exp's argument where the mask drops a score: exp(-inf) = 0 exactly,
-// without a branch.
-__device__ __forceinline__ float neg_inf() {
-  return __int_as_float(0xff800000u);
-}
-
-__device__ __forceinline__ float4 mul4(float4 x, float a) {
-  return make_float4(__fmul_rn(x.x, a), __fmul_rn(x.y, a), __fmul_rn(x.z, a),
-                     __fmul_rn(x.w, a));
-}
-
-// The parts of (x.x .. x.w) times `scale` to shared memory at hi and lo
-// (times 1 is exact: dO, K and V go through it unchanged).
-__device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo,
-                                            float4 x, float scale) {
-  x = mul4(x, scale);
-  uint32_t h[4], l[4];
-  split(x.x, h[0], l[0]);
-  split(x.y, h[1], l[1]);
-  split(x.z, h[2], l[2]);
-  split(x.w, h[3], l[3]);
-  sts128(hi, h);
-  sts128(lo, l);
-}
-
-// Columns [c0, c0 + 4) of row `row` of the row-major [nrows, cols] matrix
-// src, zero past nrows and cols: one 16-byte load when vec.
-__device__ __forceinline__ float4 load4(const float* src, int row, int nrows,
-                                        int c0, int cols, bool vec) {
-  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= nrows || c0 >= cols) return x;
-  const float* p = src + (long long)row * cols + c0;
-  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
-  x.x = p[0];
-  if (c0 + 1 < cols) x.y = p[1];
-  if (c0 + 2 < cols) x.z = p[2];
-  if (c0 + 3 < cols) x.w = p[3];
-  return x;
-}
-
-// Rows [r0, r0 + 64) of the [nrows, cols] matrix src, times `scale`, as
-// the parts of a resident [64, D] tile, zero past the edges, by the
-// block's threads.
-template <int D>
-__device__ __forceinline__ void stage_resident(uint32_t hi, uint32_t lo,
-                                               const float* src, int r0,
-                                               int nrows, int cols, bool vec,
-                                               float scale, int tid) {
-  constexpr int C4 = D / 4;
-#pragma unroll 4
-  for (int n = 0; n < kBM * C4 / kThreads; ++n) {
-    const int u = tid + n * kThreads, r = u / C4, c4 = u % C4;
-    const uint32_t off = swz(r, c4, kBM);
-    store_split(hi + off, lo + off,
-                load4(src, r0 + r, nrows, 4 * c4, cols, vec), scale);
-  }
-}
-
-// Rows [r0, r0 + 32) of the [nrows, cols] matrix src into the raw tile at
-// dst (swizzled as a [32, D] operand tile), zero past the edges, by the
-// block's threads, each one 16-byte chunk of every 256 / (D / 4)-th row:
-// by cp.async when vec (cols % 4 == 0, src 16-byte aligned; the caller
-// commits the group; a chunk past an edge copies 0 bytes from a valid
-// address, so the loop has no branch), else element by element.
-template <int D>
-__device__ __forceinline__ void fill_raw(uint32_t dst, const float* src,
-                                         int r0, int nrows, int cols,
-                                         bool vec, int tid) {
-  constexpr int C4 = D / 4;
-  constexpr int RP = kThreads / C4;  // rows a pass
-  static_assert(kThreads % C4 == 0 && kBN % RP == 0, "raw tile passes");
-  const int c4 = tid % C4, rt = tid / C4;
-  if (vec) {
-    const bool col_live = 4 * c4 < cols;
-#pragma unroll
-    for (int n = 0; n < kBN / RP; ++n) {
-      const int r = rt + n * RP, row = r0 + r;
-      const bool live = col_live && row < nrows;
-      const float* p = src + (long long)(live ? row : 0) * cols +
-                       (col_live ? 4 * c4 : 0);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       dst + swz(r, c4, kBN)),
-                   "l"(p), "r"(live ? 16 : 0)
-                   : "memory");
-    }
-    return;
-  }
-#pragma unroll
-  for (int n = 0; n < kBN / RP; ++n) {
-    const int r = rt + n * RP;
-    const float4 x = load4(src, r0 + r, nrows, 4 * c4, cols, false);
-    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                     dst + swz(r, c4, kBN)),
-                 "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
-                 : "memory");
-  }
-}
-
-// Entries [r0, r0 + 32) of a [nrows] vector into dst[32] by cp.async,
-// zero past nrows (threads tid < 32).
-__device__ __forceinline__ void fill_vec(uint32_t dst, const float* src,
-                                         int r0, int nrows, int tid) {
-  if (tid >= kBN) return;
-  const bool live = r0 + tid < nrows;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   dst + 4 * tid),
-               "l"(live ? src + r0 + tid : src), "r"(live ? 4 : 0)
-               : "memory");
-}
-
-// A step's raw tile [32, D], times `scale`, as its two parts stacked into
-// the [64, D] operand tile at dst as it lies, by the block's threads: row
-// r's lo part at row r, its hi part at row 32 + r (so one n64 product
-// takes A_hi against both, and an n32 one A_lo against the hi rows).
-template <int D>
-__device__ __forceinline__ void stage_rows(uint32_t dst, uint32_t raw,
-                                           float scale, int tid) {
-  constexpr int C4 = D / 4;
-#pragma unroll
-  for (int n = 0; n < kBN * C4 / kThreads; ++n) {
-    const int u = tid + n * kThreads, r = u / C4, c4 = u % C4;
-    store_split(dst + swz(r + kBN, c4, kBM), dst + swz(r, c4, kBM),
-                lds128(raw + swz(r, c4, kBN)), scale);
-  }
-}
-
-// Transposed unit u of 2 D (D / 4 column chunks nv x 8 chunks ch): u in
-// phases of 8 lanes P = u / 8 (A = D / 32, a = P % A, b = P / A % 2, c =
-// P / 2 A) with lane l = u % 8 taking ch = l ^ 2 c and nv = 8 a + 2 (l /
-// 2) + b. Every (ch, nv) once, and in each phase the 8 lanes' reads
-// (chunk (nv % 8) ^ (row % 8)) and transposed writes (chunk ch ^ (4 (nv %
-// 2) + e)) fall in 8 different 16-byte bank groups.
-template <int D>
-__device__ __forceinline__ void t_unit(int u, int& ch, int& nv) {
-  constexpr int A = D / 32;
-  const int P = u / 8, l = u % 8;
-  ch = l ^ (2 * (P / (2 * A)));
-  nv = 8 * (P % A) + 2 * (l / 2) + (P / A) % 2;
-}
-
-// The transpose [D, 32] of a step's tile, in place: its parts as
-// stage_rows stacked them at `tile` become the transpose's parts (hi at
-// tile, lo D 128 bytes on; a row of 32 floats is one 128-byte swizzled
-// row), by the block's threads over the 2 D units, one a thread: unit (ch,
-// nv) moves columns 4 nv .. 4 nv + 3 of the rows 8 (ch / 2) + ch % 2 + 2 m
-// (m = 0..3) to positions 4 ch .. 4 ch + 3 of rows 4 nv + e, where sigma
-// puts those rows. The parts move unchanged. Every thread reads its unit,
-// the block waits, then every thread writes.
-template <int D>
-__device__ __forceinline__ void stage_cols(uint32_t tile, int tid) {
-  static_assert(2 * D <= kThreads, "a unit a thread");
-  const bool live = tid < 2 * D;
-  int ch = 0, nv = 0;
-  float4 c[2][4];  // [lo, hi][m]
-  if (live) {
-    t_unit<D>(tid, ch, nv);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int r = 8 * (ch / 2) + ch % 2 + 2 * m;
-      c[0][m] = lds128(tile + swz(r, nv, kBM));
-      c[1][m] = lds128(tile + swz(r + kBN, nv, kBM));
-    }
-  }
-  __syncthreads();  // every read of the tile is done
-  if (!live) return;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int row = 4 * nv + e;
-    const uint32_t off = row * 128 + ((ch ^ (row & 7)) << 4);
-#pragma unroll
-    for (int part = 0; part < 2; ++part) {
-      const float4* x = c[part];
-      const float4 col =
-          e == 0 ? make_float4(x[0].x, x[1].x, x[2].x, x[3].x)
-          : e == 1 ? make_float4(x[0].y, x[1].y, x[2].y, x[3].y)
-          : e == 2 ? make_float4(x[0].z, x[1].z, x[2].z, x[3].z)
-                   : make_float4(x[0].w, x[1].w, x[2].w, x[3].w);
-      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       tile + (part == 0 ? D * 128 : 0) + off),
-                   "f"(col.x), "f"(col.y), "f"(col.z), "f"(col.w)
-                   : "memory");
-    }
-  }
-}
-
-// The descriptor of a tile at shared-memory address a (wgmma::desc, 16 /
-// 1024), made opaque to the compiler so that it is formed where it is used
-// rather than hoisted out of the step loop and kept in registers; a
-// product's k8 steps add their byte offset / 16 to it (the 14-bit start
-// field does not carry: shared addresses are below 2^18).
-__device__ __forceinline__ uint64_t tile_desc(uint32_t a) {
-  uint64_t d = wgmma::desc(a, 16, 1024);
-  asm volatile("" : "+l"(d));
-  return d;
-}
-
-// d[64 x 32] (+)= A[64 x 8] B[32 x 8]^T, TF32, A and B K-major in shared
-// memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1;\n}\n"
-      : WG_D16(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T, TF32, A and B K-major in shared
-// memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : WG_D32(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T, TF32, A from registers (four a
-// thread), B K-major in shared memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : WG_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d[64 x 128] (+)= A[64 x 8] B[128 x 8]^T, TF32, A from registers, B
-// K-major in shared memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : WG_D64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d[64 x 32] (+)= A[64 x 8] B[32 x 8]^T, TF32, A from registers, B
-// K-major in shared memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : WG_D16(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  if constexpr (N == 32)
-    wgmma_rs_n32(d, a, db, scale_d);
-  else if constexpr (N == 64)
-    wgmma_rs_n64(d, a, db, scale_d);
-  else
-    wgmma_rs_n128(d, a, db, scale_d);
-}
-
-// The products of a score tile, d[64 x 32] = A B^T over D columns, A [64,
-// D] as its parts, B [32, D] as its parts stacked (stage_rows), in two
-// independent accumulator chains: w = A_hi [B_lo; B_hi]^T (one n64
-// product a k8 step: columns 0..31 A_hi B_lo^T, 32..63 A_hi B_hi^T) and
-// x = A_lo B_hi^T (n32); then d = (w's columns 0..31 + x) + w's columns
-// 32..63 on CUDA cores, the small products first.
-template <int D>
-struct Scores {
-  float w[32], x[16];
-  __device__ __forceinline__ void issue(uint32_t ahi, uint32_t alo,
-                                        uint32_t b) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) w[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] = 0.f;
-    const uint64_t dah = tile_desc(ahi), dal = tile_desc(alo),
-                   db = tile_desc(b), dbh = tile_desc(b + kBN * 128);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const uint32_t ka = ((kk / 4) * (kBM * 128) + (kk % 4) * 32) >> 4;
-      wgmma_ss_n64(w, dah + ka, db + ka, kk > 0);
-      wgmma_ss_n32(x, dal + ka, dbh + ka, kk > 0);
-    }
-  }
-  __device__ __forceinline__ void take(float (&d)[16]) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) wgmma::pin(w[i]);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      wgmma::pin(x[i]);
-      d[i] = __fadd_rn(__fadd_rn(w[i], x[i]), w[16 + i]);
-    }
-  }
-};
-
-// acc[64 x W] += X Bt^T over the step's 32 rows, X's parts as the A
-// fragments of four k8 steps from registers, W rows of Bt [., 32] as its
-// parts (at bhi and blo): X_hi Bt_lo + X_lo Bt_hi + X_hi Bt_hi on the
-// tensor cores into fresh registers (W = 32, 64 or 128: one m64nW chain),
-// then added to acc on CUDA cores. The tensor cores' float32 sums
-// truncate, so a long sum over query rows or kv rows is kept out of them.
-template <int W>
-__device__ __forceinline__ void accumulate(float (&acc)[W / 2],
-                                           const uint32_t (&xhi)[4][4],
-                                           const uint32_t (&xlo)[4][4],
-                                           uint32_t bhi, uint32_t blo) {
-  float part[W / 2];
-#pragma unroll
-  for (int i = 0; i < W / 2; ++i) part[i] = 0.f;
-  const uint64_t dhi = tile_desc(bhi), dlo = tile_desc(blo);
-  wgmma::fence();
-#pragma unroll
-  for (int prod = 0; prod < 3; ++prod)  // hi lo, lo hi, hi hi
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wgmma_rs<W>(part, prod == 1 ? xlo[j] : xhi[j],
-                  (prod == 0 ? dlo : dhi) + ((j * 32) >> 4), prod > 0 || j > 0);
-  wgmma::commit();
-  wgmma::wait();
-#pragma unroll
-  for (int i = 0; i < W / 2; ++i) {
-    wgmma::pin(part[i]);
-    acc[i] = __fadd_rn(acc[i], part[i]);
-  }
-}
-
-// Accumulator layout of wgmma m64nN (f32) for thread t of a warpgroup:
-// warp w = t / 32, g = (t % 32) / 4, qd = t % 4; register 4 j + 2 h + e
-// holds row 16 w + g + 8 h, column 8 j + 2 qd + e. The TF32 A fragment of
-// m64k8: register r holds row 16 w + g + 8 (r % 2), column qd + 4 (r / 2).
-// A score tile's registers become A's columns c = qd + 4 (r / 2) of k8
-// step j, which hold the tile's column 8 j + sigma(c), sigma(c) = 2 (c %
-// 4) + c / 4: accumulator 4 j + 2 (r % 2) + r / 2 (the transposed staging
-// puts row 8 j + sigma(c) at position 8 j + c to match).
-__device__ __forceinline__ void fragments(const float (&x)[16],
-                                          uint32_t (&hi)[4][4],
-                                          uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split(x[4 * j + 2 * (r % 2) + r / 2], hi[j][r], lo[j][r]);
-}
-
-// Rows r0 + 16 w + g + 8 h (those below nrows) of the [64 x W]
-// accumulator of warpgroup thread wt, times `scale`, to columns c0 .. of
-// the [nrows, cols] matrix dst, columns past cols dropped.
-template <int W>
-__device__ __forceinline__ void store_acc(float* dst, const float (&acc)[W / 2],
-                                          int r0, int nrows, int c0,
-                                          int cols, float scale, int wt) {
-  const int w = wt / 32, g = (wt % 32) / 4, qd = wt % 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 16 * w + g + 8 * h;
-    if (row >= nrows) continue;
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + 8 * j + 2 * qd + e;
-        if (col < cols)
-          dst[(long long)row * cols + col] =
-              __fmul_rn(acc[4 * j + 2 * h + e], scale);
-      }
-  }
-}
 
 // D[row] = sum_c do[row, c] o[row, c], a warp a row of BHS rows: lane l
 // sums columns l, l + 32, .., then a butterfly over the warp.
@@ -623,8 +185,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const long long bh = (long long)b * H + kvh * G + i / per;
     const int q0 = (qstart + i % per) * kBN;
     fill_raw<D>(rawQ, q + bh * S * dh, q0, S, dh, vec, tid);
-    fill_vec(sL + (i % 2) * kBN * 4, lse + bh * S, q0, S, tid);
-    fill_vec(sD + (i % 2) * kBN * 4, delta + bh * S, q0, S, tid);
+    fill_vec(sL + (i % 2) * kBN * 4, lse + bh * S, q0, S, kBN, tid);
+    fill_vec(sD + (i % 2) * kBN * 4, delta + bh * S, q0, S, kBN, tid);
     wgmma::cp_async_commit();
   };
   auto fetch_o = [&](int i) {
@@ -651,20 +213,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     // step before's products
     wgmma::cp_async_wait<0>();
     __syncthreads();
-    stage_rows<D>(sQ, rawQ, scale, tid);
-    stage_rows<D>(sO, rawO, 1.f, tid);
+    stage_rows<D>(sQ, rawQ, scale, 0, tid);
+    stage_rows<D>(sO, rawO, 1.f, 0, tid);
     wgmma::fence_proxy_async();
     __syncthreads();
     if (i + 1 < steps) fetch_q(i + 1);
     // warpgroup 0: S^T = K Q^T; 1: dP^T = V dO^T (the operands chosen, the
     // products issued outside any branch: a wgmma on a divergent path
     // makes ptxas serialize them all)
-    Scores<D> sc;
-    sc.issue(dk_wg ? sVhi : sKhi, dk_wg ? sVlo : sKlo, dk_wg ? sO : sQ);
-    wgmma::commit();
-    wgmma::wait();
     float x[16];
-    sc.take(x);
+    scores<D, 64>(x, dk_wg ? sVhi : sKhi, dk_wg ? sVlo : sKlo,
+                  dk_wg ? sO : sQ);
     // P^T = exp(S^T - lse[query]) under the mask, to warpgroup 1 through
     // the raw dO tile (thread wt's 16 as 4 chunks, conflict-free)
     const uint32_t sLi = sL + (i % 2) * kBN * 4, sDi = sD + (i % 2) * kBN * 4;
@@ -706,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     uint32_t xhi[4][4], xlo[4][4];
-    fragments(x, xhi, xlo);
+    fragments<4>(x, xhi, xlo);
     // Q^T and dO^T over Q and dO, one after the other (both at once
     // spilled)
     stage_cols<D>(sQ, tid);
@@ -715,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     if (i + 1 < steps) fetch_o(i + 1);
     const uint32_t bt = dk_wg ? sQ : sO;
-    accumulate<D>(acc, xhi, xlo, bt, bt + D * 128);
+    accumulate<D, 4>(acc, xhi, xlo, bt, bt + D * 128);
   }
   if (dk_wg)
     store_acc<D>(dk + (long long)bkv * Tk * dh, acc, t0, Tk, 0, dh, 1.f, wt);
@@ -794,17 +353,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // step before's products
     wgmma::cp_async_wait<0>();
     __syncthreads();
-    stage_rows<D>(sK, rawK, 1.f, tid);
-    stage_rows<D>(sV, rawV, 1.f, tid);
+    stage_rows<D>(sK, rawK, 1.f, 0, tid);
+    stage_rows<D>(sV, rawV, 1.f, 0, tid);
     wgmma::fence_proxy_async();
     __syncthreads();
     // warpgroup 0: S = Q K^T; 1: dP = dO V^T (outside any branch)
-    Scores<D> sc;
-    sc.issue(wg == 0 ? sQhi : sOhi, wg == 0 ? sQlo : sOlo, wg == 0 ? sK : sV);
-    wgmma::commit();
-    wgmma::wait();
     float x[16];
-    sc.take(x);
+    scores<D, 64>(x, wg == 0 ? sQhi : sOhi, wg == 0 ? sQlo : sOlo,
+                  wg == 0 ? sK : sV);
     if (wg == 0) {  // P = exp(S - lse[row]) under the mask
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -840,13 +396,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     uint32_t xhi[4][4], xlo[4][4];
-    fragments(x, xhi, xlo);
+    fragments<4>(x, xhi, xlo);
     // K^T over K
     stage_cols<D>(sK, tid);
     wgmma::fence_proxy_async();
     __syncthreads();
     if (kt + 1 < last) fetch(kt + 1);
-    accumulate<W>(adq, xhi, xlo, sK + wg * W * 128,
+    accumulate<W, 4>(adq, xhi, xlo, sK + wg * W * 128,
                   sK + D * 128 + wg * W * 128);
   }
   store_acc<W>(dq + bh * S * dh, adq, q0, S, wg * W, dh, scale, wt);

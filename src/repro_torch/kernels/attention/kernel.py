@@ -45,8 +45,8 @@ S] written beside o (o itself is the lse-free launch's, bitwise), and its
 backward launches, at dh and dv <= 128, ``csrc/flash_f32_bwd.cu``
 (:func:`flash_backward`; every product as three TF32 products on the
 tensor cores, as the forward's; ``BWD_LIB.launches`` counts those calls),
-and at MLA's head (dh over 128) ``csrc/flash_f32_bwd_mla.cu`` (float32
-fused multiply-adds on CUDA cores; ``BWD_MLA_LIB.launches``);
+and at MLA's head (dh over 128) ``csrc/flash_f32_bwd_mla.cu`` (split
+TF32 on the tensor cores too, at 16-row steps; ``BWD_MLA_LIB.launches``);
 ``LIB.launches`` stays the forward's count.  On the CPU it takes
 :func:`flash_forward_plain` with the lse and :func:`flash_backward_plain`.
 CUDA bfloat16 inputs (at MLA's head too) raise ``NotImplementedError``
@@ -101,6 +101,8 @@ MLA_BM = 128
 MLA_F32_BM = 64
 
 _WGMMA_HEADER = os.path.join(_CSRC, "wgmma.cuh")
+#: The split-TF32 pieces of the float32 backward kernels (K9's and K10's).
+TF32_SPLIT_HEADER = os.path.join(_CSRC, "tf32_split.cuh")
 #: K9 for float32 inputs, on the tensor cores as split TF32.
 LIB = KernelLib(
     "flash_tf32", os.path.join(_CSRC, "flash_tf32.cu"),
@@ -111,17 +113,17 @@ LIB = KernelLib(
 #: TF32.
 BWD_LIB = KernelLib(
     "flash_f32_bwd", os.path.join(_CSRC, "flash_f32_bwd.cu"),
-    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER, TF32_SPLIT_HEADER),
     signatures={"flash_attention_bwd_f32": (
         [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 #: Largest head dim (dh and dv) the tensor-core backward takes; MLA's
 #: head (dh over it, up to MAX_DH) takes ``BWD_MLA_LIB``.
 MAX_BWD_D = 128
 #: The backward of K9 for float32 inputs at MLA's head (128 < dh <=
-#: MAX_DH, dv <= MAX_DV), on CUDA cores.
+#: MAX_DH, dv <= MAX_DV), on the tensor cores as split TF32.
 BWD_MLA_LIB = KernelLib(
     "flash_f32_bwd_mla", os.path.join(_CSRC, "flash_f32_bwd_mla.cu"),
-    headers=(FLOAT_IO_HEADER,),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER, TF32_SPLIT_HEADER),
     signatures={"flash_attention_bwd_f32_mla": (
         [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 #: K9 for bfloat16 inputs, on the tensor cores.
@@ -332,10 +334,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of K9 at q, k, v, given its output o,
     the output's gradient do [B, H, S, dv] and the forward's lse [B, H,
     S].  CUDA tensors (float32) launch a backward kernel, three kernels
-    on the stream counted as one launch: at dh, dv <= MAX_BWD_D
-    ``BWD_LIB`` (split TF32 on the tensor cores), at MLA's head (dh up
-    to MAX_DH, dv up to MAX_DV) ``BWD_MLA_LIB`` (CUDA cores); CPU
-    tensors take :func:`flash_backward_plain`."""
+    on the stream counted as one launch, both split TF32 on the tensor
+    cores: at dh, dv <= MAX_BWD_D ``BWD_LIB``, at MLA's head (dh up to
+    MAX_DH, dv up to MAX_DV) ``BWD_MLA_LIB``; CPU tensors take
+    :func:`flash_backward_plain`."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, do, lse, bq, bk, causal)

@@ -97,18 +97,23 @@ WIDE_MAX_CHUNK = 256
 #: Launches of the wide route's two kernels (two a :func:`gla_wide` call).
 WIDE_LAUNCHES = 0
 
+_ATTN_CSRC = os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
+                          "attention", "csrc")
+_WGMMA_HEADER = os.path.join(_ATTN_CSRC, "wgmma.cuh")
+TF32_SPLIT_HEADER = os.path.join(_ATTN_CSRC, "tf32_split.cuh")
+
 LIB = KernelLib(
     "gla", os.path.join(_CSRC, "gla.cu"),
-    headers=(FLOAT_IO_HEADER,
-             os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
-                          "attention", "csrc", "wgmma.cuh")),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
     signatures={"gla_scan_fwd": ([_P] * 8 + [_I] * 7 + [_P],
                                  ctypes.c_int),
                 "gla_wide_fwd": ([_P] * 9 + [_I] * 6 + [_P],
                                  ctypes.c_int)})
-#: The backward of K10 for float32 inputs, on CUDA cores.
+#: The backward of K10 for float32 inputs, on the tensor cores as split
+#: TF32.
 BWD_LIB = KernelLib(
     "gla_bwd", os.path.join(_CSRC, "gla_bwd.cu"),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER, TF32_SPLIT_HEADER),
     signatures={"gla_scan_bwd_f32": ([_P] * 13 + [_I] * 5 + [_P],
                                      ctypes.c_int)})
 
@@ -374,9 +379,11 @@ def gla_chunks_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_tensor(dstate, "dstate", torch.float32, (b, h, dk, dv), dev)
     dq, dk_, dv_ = (torch.empty_like(x) for x in (q, k, v))
     dg = torch.empty_like(g)
-    # U_c = sum_t e^{g_t} q_t^T do_t, then dS_c, a chunk each
+    # U_c = sum_t e^{g_t} q_t^T do_t, then dS_c, a chunk each, and dS_c
+    # transposed
     u = torch.empty_like(states)
-    ds = torch.empty_like(states)
+    ds = torch.empty((2,) + tuple(states.shape), dtype=torch.float32,
+                     device=dev)
     err = BWD_LIB.get().gla_scan_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         states.data_ptr(), do.data_ptr(),

@@ -980,9 +980,10 @@ _BWD_SRC = os.path.join(os.path.dirname(tkernel.__file__), "csrc",
 
 
 def _bwd_consts():
-    """The kernel's tiling from its source: (kBM, kBN, a block's
-    threads)."""
-    src = open(_BWD_SRC).read()
+    """The kernel's tiling from its sources (``tf32_split.cuh``'s 32-row
+    steps): (kBM, kBN, a block's threads)."""
+    src = open(_BWD_SRC).read() + open(os.path.join(
+        os.path.dirname(_BWD_SRC), "tf32_split.cuh")).read()
 
     def get(name):
         return int(re.search(rf"constexpr int {name} = (\d+);",

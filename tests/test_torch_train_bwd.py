@@ -29,6 +29,7 @@ from repro.models.ssm import gla_chunked as ref_gla_chunked
 from repro_torch.kernels.attention import kernel as k9
 from repro_torch.kernels.gla import kernel as k10
 from repro_torch.models import ssm as tssm
+from test_torch_attention import _split
 
 GRAD_REL = 1e-5
 
@@ -172,26 +173,77 @@ def test_gla_backward_raises_on_the_card_without_a_kernel(monkeypatch):
             k10.WIDE_LAUNCHES) == before
 
 
-def _emulate_gla_bwd(q, k, v, g, states, do, dstate, chunk, tile=64):
-    """``csrc/gla_bwd.cu``'s schedule in float64 torch: U_c a chunk, the
-    dS chain, then a unit per (head, chunk): dk, dv a 64-row key tile
-    over the query tiles from the diagonal on (A, B masked by s <= t < L
-    in 64 x 64 tiles, then the state terms), dq a query tile over the key
-    tiles up to the diagonal, dg from the written dq and dk."""
+def _gla_src():
+    """``csrc/gla_bwd.cu`` and the shared header whose 32-row steps it
+    takes (``attention/csrc/tf32_split.cuh``)."""
+    src = _cu_src(os.path.join(os.path.dirname(k10.__file__), "gla_bwd.cu"))
+    return src + open(k9.TF32_SPLIT_HEADER).read()
+
+
+def _gla_consts():
+    """The K10 backward's tiling: (kBM, kBN), the resident tiles' and the
+    steps' rows."""
+    get = lambda n: int(re.search(rf"constexpr int {n} = (\d+);",
+                                  _gla_src()).group(1))
+    return get("kBM"), get("kBN")
+
+
+def _mm_exact(a, b):
+    return a @ b
+
+
+def _mm_tf32(three):
+    """A product as the kernels take it on the tensor cores: the two
+    operands split into TF32 parts (``_split``, the emulated
+    ``cvt.rna.tf32.f32``), (a_hi b_lo + a_lo b_hi) + a_hi b_hi in float32,
+    or, with ``three`` False, one product a_hi b_hi."""
+    def mm(a, b):
+        ah, al = _split(a)
+        bh, bl = _split(b)
+        if not three:
+            return ah @ bh
+        return (ah @ bl + al @ bh) + ah @ bh
+    return mm
+
+
+def _emulate_gla_bwd(q, k, v, g, states, do, dstate, chunk,
+                     mm=_mm_exact, dtype=torch.float64):
+    """``csrc/gla_bwd.cu``'s schedule in torch, in ``dtype`` with its
+    products through ``mm``: U_c over 32-row steps of (q e^g)^T do, the dS
+    chain; the dk, dv kernel: a 64-row key tile over the 32-row query
+    steps from the diagonal on (B^T = K Q^T and A^T = V dO^T masked by s
+    <= t < L and decayed by e^{g_t - g_s}, then dV += B^T dO, dK += A^T Q,
+    each step's product added to the sums), then the state terms
+    e^{g_L - g_s} K dS_c and e^{g_L - g_s} V dS_c^T; the dq kernel: a
+    64-row query tile over the 32-row key steps up to the diagonal (A =
+    dO V^T masked and decayed, dQ += A K), then e^{g_t} dO S_{c-1}^T; dg =
+    q . dq - k . dk, <dS_c, S_c> added at the chunk's last row.  Rows past
+    the chunk are zero in every tile."""
+    bm, bn = _gla_consts()
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     nc, bh = s // chunk, b * h
-    f = lambda x, *shape: x.reshape(*shape).double()
+    f = lambda x, *shape: x.reshape(*shape).to(dtype)
     qf, kf, vf = f(q, bh, s, dk), f(k, bh, s, dk), f(v, bh, s, dv)
     gf, dof = f(g, bh, s), f(do, bh, s, dv)
     st = f(states, bh, nc, dk, dv)
+
+    def rows(x, c0, r0, n):         # rows [r0, r0 + n) of chunk c0, zero
+        out = torch.zeros((bh, n) + x.shape[2:], dtype=dtype)  # past it
+        m = max(0, min(n, chunk - r0))
+        out[:, :m] = x[:, c0 + r0:c0 + r0 + m]
+        return out
+
+    ns = -(-chunk // bn)
     u = torch.zeros_like(st)
     for c in range(1, nc):
-        r = slice(c * chunk, (c + 1) * chunk)
-        u[:, c] = (qf[:, r] * torch.exp(gf[:, r])[..., None]).transpose(
-            1, 2) @ dof[:, r]
+        c0 = c * chunk
+        for i in range(ns):
+            qe = rows(qf, c0, i * bn, bn) * torch.exp(
+                rows(gf, c0, i * bn, bn))[..., None]
+            u[:, c] += mm(qe.transpose(1, 2), rows(dof, c0, i * bn, bn))
     ds = torch.empty_like(st)
-    x = (torch.zeros((bh, dk, dv), dtype=torch.float64) if dstate is None
+    x = (torch.zeros((bh, dk, dv), dtype=dtype) if dstate is None
          else f(dstate, bh, dk, dv))
     for c in reversed(range(nc)):
         ds[:, c] = x
@@ -202,57 +254,43 @@ def _emulate_gla_bwd(q, k, v, g, states, do, dstate, chunk, tile=64):
     for c in range(nc):
         c0 = c * chunk
         gl = gf[:, c0 + chunk - 1]
-        for j0 in range(0, chunk, tile):
-            rs = torch.arange(j0, j0 + tile)
-            live_s = rs < chunk
-            ks = torch.where(live_s[:, None], kf[:, c0 + rs.clamp(
-                max=chunk - 1)], 0.0)
-            vs = torch.where(live_s[:, None], vf[:, c0 + rs.clamp(
-                max=chunk - 1)], 0.0)
-            gs = torch.where(live_s, gf[:, c0 + rs.clamp(max=chunk - 1)],
-                             0.0)
-            adk = torch.zeros((bh, tile, dk), dtype=torch.float64)
-            adv = torch.zeros((bh, tile, dv), dtype=torch.float64)
-            for i0 in range(j0, chunk, tile):
-                rt = torch.arange(i0, i0 + tile)
-                live_t = rt < chunk
-                ix = c0 + rt.clamp(max=chunk - 1)
-                qt = torch.where(live_t[:, None], qf[:, ix], 0.0)
-                ot = torch.where(live_t[:, None], dof[:, ix], 0.0)
-                gt = torch.where(live_t, gf[:, ix], 0.0)
-                mask = (rs[None, :] <= rt[:, None]) & live_t[:, None]
-                dec = torch.exp(gt[:, :, None] - gs[:, None, :])
-                a = torch.where(mask, (ot @ vs.transpose(1, 2)) * dec, 0.0)
-                bb = torch.where(mask, (qt @ ks.transpose(1, 2)) * dec, 0.0)
-                adk += a.transpose(1, 2) @ qt
-                adv += bb.transpose(1, 2) @ ot
+        for j0 in range(0, chunk, bm):
+            ks, vs = rows(kf, c0, j0, bm), rows(vf, c0, j0, bm)
+            gs, sr = rows(gf, c0, j0, bm), torch.arange(j0, j0 + bm)
+            adk = torch.zeros((bh, bm, dk), dtype=dtype)
+            adv = torch.zeros((bh, bm, dv), dtype=dtype)
+            for i in range(j0 // bn, ns):
+                qt, ot = rows(qf, c0, i * bn, bn), rows(dof, c0, i * bn, bn)
+                gt, tr = rows(gf, c0, i * bn, bn), torch.arange(i * bn,
+                                                                (i + 1) * bn)
+                live = (sr[:, None] <= tr[None, :]) & (tr[None, :] < chunk)
+                dec = torch.exp(gt[:, None, :] - gs[:, :, None])
+                bt = torch.where(live, mm(ks, qt.transpose(1, 2)) * dec, 0.0)
+                at = torch.where(live, mm(vs, ot.transpose(1, 2)) * dec, 0.0)
+                adv = adv + mm(bt, ot)
+                adk = adk + mm(at, qt)
             w = torch.exp(gl[:, None] - gs)[..., None]
-            adk += w * (vs @ ds[:, c].transpose(1, 2))
-            adv += w * (ks @ ds[:, c])
-            n = min(tile, chunk - j0)
+            adk = adk + w * mm(vs, ds[:, c].transpose(1, 2))
+            adv = adv + w * mm(ks, ds[:, c])
+            n = min(bm, chunk - j0)
             out[1][:, c0 + j0:c0 + j0 + n] = adk[:, :n]
             out[2][:, c0 + j0:c0 + j0 + n] = adv[:, :n]
-        prev = st[:, c - 1] if c > 0 else torch.zeros_like(st[:, 0])
-        for i0 in range(0, chunk, tile):
-            rt = torch.arange(i0, i0 + tile)
-            live_t = rt < chunk
-            ix = c0 + rt.clamp(max=chunk - 1)
-            ot = torch.where(live_t[:, None], dof[:, ix], 0.0)
-            gt = torch.where(live_t, gf[:, ix], 0.0)
-            adq = torch.zeros((bh, tile, dk), dtype=torch.float64)
-            for j0 in range(0, i0 + 1, tile):
-                rs = torch.arange(j0, j0 + tile)
-                live_s = rs < chunk
-                jx = c0 + rs.clamp(max=chunk - 1)
-                ks = torch.where(live_s[:, None], kf[:, jx], 0.0)
-                vs = torch.where(live_s[:, None], vf[:, jx], 0.0)
-                gs = torch.where(live_s, gf[:, jx], 0.0)
-                mask = (rs[None, :] <= rt[:, None]) & live_t[:, None]
-                a = torch.where(mask, (ot @ vs.transpose(1, 2)) * torch.exp(
+        for i0 in range(0, chunk, bm):
+            ot, gt = rows(dof, c0, i0, bm), rows(gf, c0, i0, bm)
+            tr = torch.arange(i0, i0 + bm)
+            adq = torch.zeros((bh, bm, dk), dtype=dtype)
+            for j in range(min(ns, (i0 + bm + bn - 1) // bn)):
+                ks, vs = rows(kf, c0, j * bn, bn), rows(vf, c0, j * bn, bn)
+                gs, sr = rows(gf, c0, j * bn, bn), torch.arange(j * bn,
+                                                                (j + 1) * bn)
+                live = (sr[None, :] <= tr[:, None]) & (tr[:, None] < chunk)
+                a = torch.where(live, mm(ot, vs.transpose(1, 2)) * torch.exp(
                     gt[:, :, None] - gs[:, None, :]), 0.0)
-                adq += a @ ks
-            adq += torch.exp(gt)[..., None] * (ot @ prev.transpose(1, 2))
-            n = min(tile, chunk - i0)
+                adq = adq + mm(a, ks)
+            if c > 0:
+                adq = adq + torch.exp(gt)[..., None] * mm(
+                    ot, st[:, c - 1].transpose(1, 2))
+            n = min(bm, chunk - i0)
             out[0][:, c0 + i0:c0 + i0 + n] = adq[:, :n]
         r = slice(c0, c0 + chunk)
         out[3][:, r] = (qf[:, r] * out[0][:, r]).sum(-1) - (
@@ -261,22 +299,54 @@ def _emulate_gla_bwd(q, k, v, g, states, do, dstate, chunk, tile=64):
     return [o.reshape(t.shape) for o, t in zip(out, (q, k, v, g))]
 
 
-@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
-    (1, 2, 512, 64, 64, 256),    # zamba2's chunk, four 64-row tiles
+#: The backward kernel's test shapes (B, H, S, dk, dv, chunk).
+GLA_SCHEDULE_CASES = [
+    (1, 2, 512, 64, 64, 256),    # zamba2's chunk and heads, four key tiles
     (1, 2, 260, 16, 24, 130),    # a chunk that is not whole tiles
-    (2, 1, 96, 128, 32, 24),     # a chunk shorter than one tile
-    (1, 1, 64, 8, 8, 64)])       # one chunk: no U, no chain
-def test_gla_backward_kernel_schedule(b, h, s, dk, dv, chunk):
-    """The backward kernel's tiles, masks and chain, emulated in float64
-    (``_emulate_gla_bwd``), within GRAD_REL of the plain backward."""
+    (2, 1, 96, 128, 32, 24),     # a chunk shorter than one step
+    (1, 1, 64, 8, 8, 64)]        # one chunk: no U, no chain
+
+
+def _gla_schedule_inputs(b, h, s, dk, dv, chunk):
     q, k, v, la, do, dst = _gla_inputs(s + chunk, b, h, s, dk, dv)
     q, k, v, do, dst = (torch.tensor(x) for x in (q, k, v, do, dst))
     g = k10.chunk_cumsum(torch.tensor(la), chunk)
     _, _, states = k10.gla_chunks_plain(q, k, v, g, chunk, with_states=True)
-    want = k10.gla_chunks_backward_plain(q, k, v, g, states, do, dst, chunk)
-    got = _emulate_gla_bwd(q, k, v, g, states, do, dst, chunk)
+    return q, k, v, g, states, do, dst
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", GLA_SCHEDULE_CASES)
+def test_gla_backward_kernel_schedule(b, h, s, dk, dv, chunk):
+    """The backward kernel's tiles, steps, masks and chain, emulated in
+    float64 (``_emulate_gla_bwd``), within GRAD_REL of the plain
+    backward."""
+    args = _gla_schedule_inputs(b, h, s, dk, dv, chunk)
+    want = k10.gla_chunks_backward_plain(*args, chunk)
+    got = _emulate_gla_bwd(*args, chunk)
     for g_, w in zip(got, want):
         assert _rel(g_, w.numpy()) <= GRAD_REL
+
+
+@pytest.mark.parametrize("case", GLA_SCHEDULE_CASES + [
+    pytest.param(GLA_SCHEDULE_CASES[0] + ("one",), id="one-product")])
+def test_gla_backward_tf32_precision(case):
+    """Why the backward takes three TF32 products: its schedule emulated
+    at its precision (float32 sums, every product three TF32 products of
+    split operands, each step's product added in float32) holds dq, dk,
+    dv and dg within GRAD_REL of ``gla_chunks_backward_plain``, dg (a
+    difference of dots of the gradients) included; one TF32 product a
+    product, at zamba2's chunk, is witnessed outside it."""
+    *shape, chunk = case[:6]
+    three = len(case) == 6
+    args = _gla_schedule_inputs(*shape, chunk)
+    want = k10.gla_chunks_backward_plain(*args, chunk)
+    got = _emulate_gla_bwd(*args, chunk, mm=_mm_tf32(three),
+                           dtype=torch.float32)
+    err = max(_rel(g_, w.numpy()) for g_, w in zip(got, want))
+    if three:
+        assert err <= GRAD_REL, err
+    else:
+        assert err > GRAD_REL, err
 
 
 def _cu_src(path):
@@ -284,21 +354,62 @@ def _cu_src(path):
                              os.path.basename(path))).read()
 
 
+def _smem_struct(src, name, d, consts):
+    """The members of the source's ``struct name`` (templated on D or
+    not), each evaluated from its definition."""
+    body = re.search(rf"struct {name} {{(.*?)\n}};", src, re.S).group(1)
+    env = dict(consts, D=d)
+    for member, expr in re.findall(
+            r"static constexpr uint32_t (\w+) = ([^;]+);", body):
+        env[member] = eval(" ".join(expr.split()).replace("/", "//"), {},
+                           env)
+    return env
+
+
+def _check_layout(m, tiles, end_name):
+    """Each named operand tile of the layout m starts on a 1024-byte
+    boundary (the 128-byte swizzle's 8-row atom) where the one before
+    ends, and the block, alignment slack included, fits an SM's 232,448
+    bytes."""
+    end = 0
+    for name, size in tiles:
+        assert m[name] == end and m[name] % 1024 == 0, name
+        end += size
+    assert m[end_name] >= end
+    assert m["kBytes"] <= 232448
+    return end
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_gla_backward_shared_memory_fits(d):
-    """``gla_bwd_chunk_kernel<D>``'s shared memory, evaluated from its
-    definition in the source, fits a block's 232,448 bytes at every
-    instantiation, and D = 64 (zamba2's heads) leaves room for two
-    blocks an SM."""
-    src = _cu_src(os.path.join(os.path.dirname(k10.__file__), "gla_bwd.cu"))
-    body = re.search(r"chunk_smem_bytes\(\) \{\s*return \(size_t\)\((.*?)\)"
-                     r" \*\s*sizeof\(float\);", src, re.S).group(1)
+    """The backward kernels' shared memory at head dims up to d, evaluated
+    from ``Smem<D>`` (the dk, dv kernel), ``QSmem<D>`` (the dq kernel) and
+    ``USmem<D>`` (U_c) in the source, D the instantiation d takes (64 at
+    d <= 64): every operand tile on a 1024-byte boundary, each block
+    within 232,448 bytes, and at D 64 (zamba2's heads) each within half of
+    an SM's 233,472 less a block's reserved 1,024, so two blocks an SM fit
+    (the dq and U kernels run two; the dk, dv kernel's registers hold it to
+    one)."""
+    src = _gla_src()
     consts = {n: int(x) for n, x in re.findall(
         r"constexpr int (\w+) = (\d+);", src)}
-    floats = eval(" ".join(body.split()), {}, dict(consts, D=d))
-    assert 4 * floats <= 232448
-    if d <= 64:
-        assert 2 * 4 * floats <= 232448
+    big = 64 if d <= 64 else 128
+    part, raw = consts["kBM"] * big * 4, consts["kBN"] * big * 4
+    assert consts["kBN"] * big // 4 % consts["kThreads"] == 0
+    m = _smem_struct(src, "Smem", big, consts)
+    end = _check_layout(m, [("kAhi", part), ("kAlo", part), ("kBhi", part),
+                            ("kBlo", part), ("kX", part), ("kY", part),
+                            ("kRawX", raw), ("kRawY", raw)], "kBytes")
+    assert m["kBytes"] == end + 1024
+    q = _smem_struct(src, "QSmem", big, consts)
+    _check_layout(q, [("kAhi", part), ("kAlo", part), ("kX", part),
+                      ("kY", part), ("kRawX", raw), ("kRawY", raw)], "kG")
+    u = _smem_struct(src, "USmem", big, consts)
+    _check_layout(u, [("kX", part), ("kY", part), ("kRawX", raw),
+                      ("kRawY", raw)], "kG")
+    if big == 64:
+        for lay in (m, q, u):
+            assert 2 * (lay["kBytes"] + 1024) <= 233472
 
 
 # ---------------------------------------------------------------------------
@@ -362,22 +473,183 @@ def test_mla_flash_attention_function_on_the_cpu(causal):
         assert _rel(g, w.numpy()) <= GRAD_REL
 
 
+def _mla_src():
+    return _cu_src(os.path.join(os.path.dirname(k9.__file__),
+                                "flash_f32_bwd_mla.cu"))
+
+
+def _mla_consts():
+    return {n: int(x) for n, x in re.findall(
+        r"constexpr int (\w+) = (\d+);", _mla_src())}
+
+
 def test_mla_backward_shared_memory_fits():
     """``flash_bwd_mla_dkdv_kernel``'s and ``flash_bwd_mla_dq_kernel``'s
-    shared memory, evaluated from their definitions in the source, fit a
-    block's 232,448 bytes."""
-    src = _cu_src(os.path.join(os.path.dirname(k9.__file__),
-                               "flash_f32_bwd_mla.cu"))
-    consts = {n: int(x) for n, x in re.findall(
-        r"constexpr int (\w+) = (\w+);", src) if x.isdigit()}
-    consts["kPS"] = consts["kB"] + 4
-    tile = lambda d: consts["kB"] * (d + 4)
-    for fn in ("dkdv_smem", "dq_smem"):
-        body = re.search(rf"{fn}\(\) \{{\s*return sizeof\(float\) \* \((.*?)\);",
-                         src, re.S).group(1)
-        body = re.sub(r"tile_floats<(\w+)>\(\)", r"tile(\1)", body)
-        floats = eval(" ".join(body.split()), {"tile": tile}, consts)
-        assert 4 * floats <= 232448, fn
+    shared memory, ``Smem`` evaluated from its definition in the source:
+    the two parts of the resident [64, 192] and [64, 128] tiles, the
+    step's two tiles [16, d] each as its parts stacked into [32, d], their
+    raw [16, d] tiles and warpgroup 0's 4,096-byte hand-over lie one after
+    another from a 1024-aligned base, each operand tile on a 1024-byte
+    boundary (the 128-byte swizzle's 8-row atom); two steps' 16 lse and D
+    follow, and the block, alignment slack included, fits an SM's 232,448
+    bytes.  Warpgroup 1's 8,192 hand-over bytes fit the raw [16, 128] tile
+    (dkdv) and the stacked [32, 128] one (dq), and the staging loops'
+    chunk counts divide by the threads."""
+    c = _mla_consts()
+    bm, bn, nt, dh, dv = (c[n] for n in ("kBM", "kBN", "kThreads", "kDH",
+                                         "kDV"))
+    assert (bm, bn, nt, dh, dv) == (64, 16, 256, 192, 128)
+    m = _smem_struct(_mla_src(), "Smem", None, c)
+    end = _check_layout(m, [
+        ("kAhi", bm * dh * 4), ("kAlo", bm * dh * 4), ("kBhi", bm * dv * 4),
+        ("kBlo", bm * dv * 4), ("kX", 2 * bn * dh * 4),
+        ("kY", 2 * bn * dv * 4), ("kRawX", bn * dh * 4),
+        ("kRawY", bn * dv * 4), ("kXchg", 4096)], "kLse")
+    assert m["kLse"] == end and m["kDelta"] == end + 2 * bn * 4
+    assert m["kBytes"] == end + 4 * bn * 4 + 1024
+    half = c["kWG"] * 8 * 4                  # a warpgroup's 8 floats a thread
+    assert half == 4096 and bn * dv * 4 >= 2 * half
+    for d in (dh, dv):
+        assert bn * d // 4 % nt == 0 and bm * d // 4 % nt == 0
+        assert d <= nt                       # stage_cols: a unit a thread
+
+
+def _emulate_mla_bwd(q, k, v, o, do, lse, causal=True, three=True):
+    """``csrc/flash_f32_bwd_mla.cu``'s three launches in torch, with its
+    tiles, order and precision: D = rowsum(do o); one dkdv block per (b,
+    kv head, 64-row kv tile), which walks its G query heads in order and,
+    for each, the 16-row query steps from the causal frontier on; one dq
+    block per (b, head, 64-row query tile) over the 16-row kv steps up to
+    the frontier.  The scores split as the warpgroups take them: S over
+    dh's columns 0-127 and 128-159 (warpgroup 0, summed), plus 160-191
+    (warpgroup 1), dP over dv's 128; each a chain of three TF32 products
+    (``_mm_tf32``; one with ``three`` False), P and dS in float32, every
+    step's dV, dK, dQ product added to the float32 sums.  Returns (dq,
+    dk, dv, visits), visits counting each (b, head, 16-row query step,
+    64-row kv tile) the dkdv blocks took."""
+    c = _mla_consts()
+    bm, bn, dh_k, dv_k = c["kBM"], c["kBN"], c["kDH"], c["kDV"]
+    mm = _mm_tf32(three)
+    b, h, s, dh = q.shape
+    kv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g_ = h // kv
+    scale = float(np.float32(dh ** -0.5))
+    padc = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    qp, kp = padc(q, dh_k), padc(k, dh_k)
+    vp, dop = padc(v, dv_k), padc(do, dv_k)
+
+    def score(a, bt):              # a [M, 192], bt [N, 192]: S's three parts
+        cut = lambda x, lo, hi: x[:, lo:hi]
+        s0 = mm(cut(a, 0, 128), cut(bt, 0, 128).T) + mm(
+            cut(a, 128, 160), cut(bt, 128, 160).T)
+        return s0 + mm(cut(a, 160, 192), cut(bt, 160, 192).T)
+
+    def tile(x, r0, rows, n):      # rows [r0, r0 + rows) zero past n
+        out = torch.zeros((rows,) + x.shape[1:], dtype=x.dtype)
+        m_ = max(0, min(rows, n - r0))
+        out[:m_] = x[r0:r0 + m_]
+        return out
+
+    delta = (do * o).sum(-1)
+    dq, dk, dvv = (torch.zeros_like(x) for x in (q, k, v))
+    visits = {}
+    nk, nq = -(-t // bm), -(-s // bn)
+    for blk in range(b * kv * nk):              # the longest tiles first
+        kt_i, bkv = blk // (b * kv), blk % (b * kv)
+        bi, kvh = bkv // kv, bkv % kv
+        t0 = kt_i * bm
+        kt, vt = tile(kp[bi, kvh], t0, bm, t), tile(vp[bi, kvh], t0, bm, t)
+        adk = torch.zeros((bm, dh_k))
+        adv = torch.zeros((bm, dv_k))
+        rows = t0 + torch.arange(bm)[:, None]
+        for gg in range(g_):
+            hh = kvh * g_ + gg
+            for qi in range(min(nq, t0 // bn) if causal else 0, nq):
+                q0 = qi * bn
+                qs = tile(qp[bi, hh] * scale, q0, bn, s)
+                os_ = tile(dop[bi, hh], q0, bn, s)
+                lt, dt = tile(lse[bi, hh], q0, bn, s), tile(delta[bi, hh], q0,
+                                                            bn, s)
+                cols = q0 + torch.arange(bn)[None, :]
+                live = (cols < s) & (rows < t) & ((rows <= cols) | (not causal))
+                pt = torch.where(live, torch.exp(score(kt, qs) - lt), 0.0)
+                dst = pt * (mm(vt, os_.T) - dt)
+                adv = adv + mm(pt, os_)
+                adk = adk + mm(dst, qs)
+                key = (bi, hh, qi, kt_i)
+                visits[key] = visits.get(key, 0) + 1
+        n = max(0, min(bm, t - t0))
+        dk[bi, kvh, t0:t0 + n] = adk[:n, :dh]
+        dvv[bi, kvh, t0:t0 + n] = adv[:n, :dv]
+    nq, nk = -(-s // bm), -(-t // bn)
+    for blk in range(b * h * nq):
+        qi, bh = nq - 1 - blk // (b * h), blk % (b * h)
+        bi, hh = bh // h, bh % h
+        q0 = qi * bm
+        qs = tile(qp[bi, hh] * scale, q0, bm, s)
+        os_ = tile(dop[bi, hh], q0, bm, s)
+        lt = tile(lse[bi, hh], q0, bm, s)[:, None]
+        dt = tile(delta[bi, hh], q0, bm, s)[:, None]
+        rows = q0 + torch.arange(bm)[:, None]
+        last = min(nk, (q0 + bm + bn - 1) // bn) if causal else nk
+        adq = torch.zeros((bm, dh_k))
+        for kt_i in range(last):
+            t0 = kt_i * bn
+            kt = tile(kp[bi, hh // g_], t0, bn, t)
+            vt = tile(vp[bi, hh // g_], t0, bn, t)
+            cols = t0 + torch.arange(bn)[None, :]
+            live = (rows < s) & (cols < t) & ((cols <= rows) | (not causal))
+            p = torch.where(live, torch.exp(score(qs, kt) - lt), 0.0)
+            ds = p * (mm(os_, vt.T) - dt)
+            adq = adq + mm(ds, kt)
+        n = max(0, min(bm, s - q0))
+        dq[bi, hh, q0:q0 + n] = adq[:n, :dh] * scale
+    return dq, dk, dvv, visits
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,causal", [
+    (1, 4, 2, 200, 200, True),       # S not whole tiles, G 2
+    (2, 4, 2, 128, 256, False),      # non-causal, S < T, G 2
+    (1, 2, 2, 96, 96, True)])        # MHA, S = 1.5 kv tiles
+def test_mla_backward_schedule_within_tolerance(b, h, kv, s, t, causal):
+    """The MLA backward kernel's schedule and precision emulated
+    (``_emulate_mla_bwd``) at dh 192 / dv 128, against
+    ``flash_backward_plain`` (padded to the plain version's tiles) within
+    GRAD_REL of the largest gradient; every (head, 16-row query step,
+    64-row kv tile) pair under the causal frontier visited once by the
+    dkdv blocks; two runs bitwise.  One TF32 product a product is
+    witnessed outside GRAD_REL at the first shape."""
+    c = _mla_consts()
+    bm, bn = c["kBM"], c["kBN"]
+    rng = np.random.default_rng(s * 5 + t + h)
+    q = torch.tensor(rng.normal(size=(b, h, s, 192)).astype(np.float32))
+    k = torch.tensor(rng.normal(size=(b, kv, t, 192)).astype(np.float32))
+    v = torch.tensor(rng.normal(size=(b, kv, t, 128)).astype(np.float32))
+    do = torch.tensor(rng.normal(size=(b, h, s, 128)).astype(np.float32))
+    sp, tp = s + -s % 64, t + -t % 64
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[2]))
+    # padding is exact here: a real causal query never reads a padded key
+    o, lse = k9.flash_forward_plain(pad(q, sp), pad(k, tp), pad(v, tp), 64,
+                                    64, causal, with_lse=True)
+    o, lse = o[:, :, :s], lse[:, :, :s]
+    want = k9.flash_backward_plain(pad(q, sp), pad(k, tp), pad(v, tp),
+                                   pad(o, sp), pad(do, sp),
+                                   pad(lse[..., None], sp)[..., 0], 64, 64,
+                                   causal)
+    want = (want[0][:, :, :s], want[1][:, :, :t], want[2][:, :, :t])
+    *got, visits = _emulate_mla_bwd(q, k, v, o, do, lse, causal)
+    *again, _ = _emulate_mla_bwd(q, k, v, o, do, lse, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for g_, w in zip(got, want):
+        assert _rel(g_, w) <= GRAD_REL
+    nq, nk = -(-s // bn), -(-t // bm)
+    want_pairs = {(bi, hh, qi, ki) for bi in range(b) for hh in range(h)
+                  for qi in range(nq) for ki in range(nk)
+                  if not causal or ki * bm <= qi * bn + bn - 1}
+    assert set(visits) == want_pairs and set(visits.values()) == {1}
+    if s == 200:
+        *one, _ = _emulate_mla_bwd(q, k, v, o, do, lse, causal, three=False)
+        assert max(_rel(g_, w) for g_, w in zip(one, want)) > GRAD_REL
 
 
 # ---------------------------------------------------------------------------
