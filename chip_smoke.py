@@ -284,10 +284,9 @@ Phases, in order (any failure exits non-zero):
     TRAIN_PARAM_ATOL); (d) ``python -m repro_torch.launch.train --steps
     60 --ckpt-every 30 --tuner-db ...``: exit 0 with a falling loss, a
     ``--resume`` from step 30 on the same parameters within 1e-6 (bitwise
-    or not, printed), the DB holding the run's signature; (e) a bf16 and
-    an xlstm SMOKE train step raise NotImplementedError (the bf16 step
-    launching nothing, the xlstm step only K10's forward for its mLSTM
-    layers before its sLSTM layer raises), calling no plain version.
+    or not, printed), the DB holding the run's signature; (e) a bf16
+    SMOKE train step and a bf16 sLSTM scan with a gradient raise
+    NotImplementedError, launching nothing and calling no plain version.
     Besides, for the Mamba2 and MLA archs: (a) K9 f32's backward at
     MLA's head (``flash_f32_bwd_mla.cu``, split TF32 on ``wgmma`` at
     16-row steps, HGMMA asserted in its SASS) against
@@ -316,6 +315,26 @@ Phases, in order (any failure exits non-zero):
     layer or shared-attention occurrence), one step traced; (c) both at
     full width cut to 6 and 1 layers, card against CPU on 1 x 512 and 1
     x 128 tokens, one step (TRAIN_*).
+    Besides, for xlstm-1p3b: (a) the sLSTM scan's backward kernel
+    (``slstm_bwd.cu``: a thread a channel walking the steps in reverse
+    from the forward's records) against ``slstm_scan_backward_plain`` on
+    SLSTM_BWD_CASES (xlstm's training layer, B 1, S 4096, D 2048; its
+    prefill shape, B 4; S 1, 7 and 129; B D off the 64-channel block; a
+    nonzero initial state; the final state's gradients; dyadic ties at
+    n == 1 and f + m == i), bitwise expected, any difference witnessed and
+    within SLSTM_BWD_REL, two launches bitwise, the forward's hs and
+    final state bitwise with and without its records; the training
+    layer timed beside the plain backward and the bound; K10 f32's
+    backward at xlstm's blocked shapes in K10_BWD_CASES (32 heads of 128,
+    chunk 256, dv 128 and 1); (b) xlstm-1p3b at full width cut to 8
+    layers (one period: 7 mLSTM, 1 sLSTM) trained 4 f32 steps on 1 x 4096
+    tokens (``train_4k``, remat "full"): K10 18 and its backward 9 an
+    mLSTM layer (9 value blocks), the sLSTM scan 2 and its backward 1 an
+    sLSTM layer, one step traced; (c) the same 8 layers card against CPU
+    on 1 x 512 tokens, one step (TRAIN_*; a leaf's first gradients within
+    TRAIN_NOISE_X times the two sides' own change under a one-rounding
+    weight perturbation where that exceeds TRAIN_GRAD_REL); (d) ``--arch
+    xlstm-1p3b --smoke --steps 10`` exits 0 with finite losses.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
@@ -323,7 +342,8 @@ with its launches on phase 26's matches, K9's two rows at MLA's head,
 K10's row on mLSTM's whole heads, the sLSTM scan's and K9 f32's
 backward's, with its launches on phase 27's minitron-4b step, and the
 backwards of K9 f32 at MLA's head and of K10 f32 with theirs on phase
-27's deepseek-v2 and zamba2-7b steps), the
+27's deepseek-v2 and zamba2-7b steps, and the sLSTM scan's backward
+with its launches on phase 27's xlstm-1p3b step), the
 card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  It needs
 no network and imports nothing of JAX.
@@ -526,6 +546,12 @@ KERNELS = {
     "sLSTM": ("sLSTM scan (jnp lax.scan in the reference, not a Pallas "
               "kernel)", "src/repro_torch/kernels/slstm/csrc/slstm.cu",
               "src/repro/models/ssm.py:329"),
+    "sLSTM-bwd": ("sLSTM scan backward, f32 (dzifo, dr, the initial "
+                  "state's gradients; not a TPU kernel: the reference "
+                  "differentiates its jnp scan)",
+                  "src/repro_torch/kernels/slstm/csrc/slstm_bwd.cu",
+                  "src/repro/models/ssm.py:329 (jax.grad of slstm_apply's "
+                  "jnp lax.scan; no Pallas kernel)"),
 }
 
 
@@ -630,7 +656,8 @@ def counts() -> dict:
             "K10": gla.kernel.LIB.launches,
             "K10-f32-bwd": gla.kernel.BWD_LIB.launches,
             "K10-mlstm": gla.kernel.WIDE_LAUNCHES,
-            "sLSTM": slstm.kernel.LIB.launches}
+            "sLSTM": slstm.kernel.LIB.launches,
+            "sLSTM-bwd": slstm.kernel.BWD_LIB.launches}
 
 
 def reset_counts() -> None:
@@ -642,7 +669,7 @@ def reset_counts() -> None:
     attention.kernel.BWD_LIB.launches = 0
     attention.kernel.BWD_MLA_LIB.launches = 0
     gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
-    gla.kernel.BWD_LIB.launches = 0
+    gla.kernel.BWD_LIB.launches = slstm.kernel.BWD_LIB.launches = 0
     gla.kernel.WIDE_LAUNCHES = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
@@ -737,7 +764,8 @@ _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
                         r"gla_bwd_u_kernel|gla_bwd_scan_kernel|"
                         r"gla_bwd_dkdv_kernel|gla_bwd_dq_kernel|"
-                        r"slstm_scan_kernel)"
+                        r"slstm_scan_kernel|slstm_bwd_kernel|"
+                        r"slstm_bwd_dr_kernel)"
                         r"(?:I(.*?)EE)?")
 
 def kernel_name(mangled: str):
@@ -5019,11 +5047,13 @@ SIG_TOL = 1e-5
 
 
 @contextlib.contextmanager
-def counting_plain():
+def counting_plain(blocked: bool = True):
     """Within the block, every call of the model path's plain versions
-    (K9's and its backward's, K10's, its backward's and its blocked
-    route, the sLSTM scan's) is counted in the dict yielded, under
-    "calls"."""
+    (K9's and its backward's, K10's, its backward's and, with
+    ``blocked``, its blocked route, the sLSTM scan's and its backward's)
+    is counted in the dict yielded, under "calls".  The blocked route
+    runs K10's kernel on 128-wide blocks: a float32 mLSTM takes it on the
+    card, the serving path's bfloat16 one never does."""
     from repro_torch.kernels.attention import kernel as k9
     from repro_torch.kernels.gla import kernel as k10
     from repro_torch.kernels.gla import ops as gla_ops
@@ -5032,7 +5062,9 @@ def counting_plain():
     saved = [(mod, fn, getattr(mod, fn)) for mod, fn in (
         (k9, "flash_forward_plain"), (k9, "flash_backward_plain"),
         (k10, "gla_chunks_plain"), (k10, "gla_chunks_backward_plain"),
-        (gla_ops, "gla_blocked"), (k_slstm, "slstm_scan_plain"))]
+        (k_slstm, "slstm_scan_plain"),
+        (k_slstm, "slstm_scan_backward_plain"))
+        + ((gla_ops, "gla_blocked"),) * blocked]
 
     def counted(orig):
         def call(*args, **kwargs):
@@ -5509,6 +5541,10 @@ K10_BWD_CASES = (
     ("dk 64 / dv 32, chunk 24 (not whole 64-row tiles)", 1, 3, 240, 64, 32,
      24, True),
     ("dk 16 / dv 8, one chunk", 2, 2, 128, 16, 8, 128, False),
+    ("xlstm-1p3b mLSTM layer, a 128-wide value block (gla_blocked: dk 1024 "
+     "as 8 heads of 128)", 1, 32, 4096, 128, 128, 256, False),
+    ("xlstm-1p3b mLSTM layer, the 1-wide value block (the normalizer)", 1,
+     32, 4096, 128, 1, 256, False),
 )
 
 
@@ -5615,10 +5651,11 @@ def gla_bwd_padded(dev, errs: ErrLog, s: int = 1000, seed: int = 2750):
 
 def check_k10_bwd(dev, errs: ErrLog, name: str):
     """Phase 27 (a) for K10: every K10_BWD_CASES shape and the padded
-    model call held as above; zamba2-7b's layer timed beside the plain
-    version and the bound, and the f32 forward there beside its bound.
-    Its SASS must hold HGMMA (its products on the tensor cores).  Returns
-    (ms, plain ms, None, (bytes ms, operations ms)) of that layer."""
+    model call held as above; zamba2-7b's layer and xlstm-1p3b's two
+    blocked shapes timed beside the plain version and the bound, and the
+    f32 forward there beside its bound.  Its SASS must hold HGMMA (its
+    products on the tensor cores).  Returns (ms, plain ms, None, (bytes
+    ms, operations ms)) of zamba2's layer."""
     from repro_torch.kernels.gla import kernel as k10
     for kern in ("gla_bwd_u_kernel", "gla_bwd_dkdv_kernel",
                  "gla_bwd_dq_kernel"):
@@ -5629,14 +5666,15 @@ def check_k10_bwd(dev, errs: ErrLog, name: str):
     for i, case in enumerate(K10_BWD_CASES):
         what, b, h, s, dk, dv, chunk, with_dstate = case
         args = k10_bwd_case(dev, errs, *case, seed=2760 + i)
-        if i == 0:
+        if i == 0 or what.startswith("xlstm"):
             ms = cuda_ms(lambda: k10.gla_chunks_backward(*args), 3)
             plain_ms = cuda_ms(lambda: k10.gla_chunks_backward_plain(*args),
                                1)
             fwd_ms = cuda_ms(lambda: k10._launch_forward(
                 *args[:4], chunk, torch.float32), 3)
             *bounds, f32_ms = k10_bwd_bound(name, b, h, s, dk, dv, chunk)
-            out = (ms, plain_ms, None, tuple(bounds))
+            if i == 0:
+                out = (ms, plain_ms, None, tuple(bounds))
             fb = gla_bound(name, b, h, s, dk, dv, chunk, f32=True)
             print(f"[K10 bwd] {what}: {ms:.3f} ms a launch (plain "
                   f"{plain_ms:.1f} ms, no library call, bound "
@@ -5655,6 +5693,167 @@ def check_k10_bwd(dev, errs: ErrLog, name: str):
     return out
 
 
+#: Phase 27 (a) for the sLSTM scan's backward: the kernel against
+#: ``slstm_scan_backward_plain`` on the same inputs (the kernel's own
+#: records).  Both take the same operations in the same order, each rounded
+#: on its own (-fmad=false, IEEE division, the forward's step recomputed by
+#: the same code), so bitwise is expected; a difference is witnessed
+#: (counted, the first printed) and must stay within SLSTM_BWD_REL of max
+#: |plain| for each gradient, the initial state's within SLSTM_BWD_REL
+#: relative besides.  Stated before the first run.
+SLSTM_BWD_REL = 1e-5
+#: (what, B, S, D, a nonzero initial state, the final state's gradients,
+#: the dyadic ties of ``tests/test_torch_slstm_bwd.py``).
+SLSTM_BWD_CASES = (
+    ("xlstm-1p3b training layer", 1, 4096, 2048, False, False, False),
+    ("xlstm-1p3b prefill shape", 4, 4096, 2048, False, False, False),
+    ("S 1 (a decode step)", 4, 1, 2048, True, True, False),
+    ("S 7", 2, 7, 2048, True, True, False),
+    ("S 129, B D = 300 off the 64-channel block", 3, 129, 100, True, True,
+     False),
+    ("dyadic ties at step 0 (n == 1; f + m == i in one channel)", 2, 6, 8,
+     False, False, True),
+)
+#: float32 operations a channel a step of the backward, each counted as
+#: one: the forward's step recomputed (``slstm.kernel.OPS_PER_STEP``) and
+#: its adjoint (``slstm_bwd.cu``'s ``step_back``: 6 compares for the tie
+#: weights, 1 division, 22 multiplies and 15 adds, subtracts and
+#: negations, r's 4 sums of a multiply and an add).
+SLSTM_BWD_OPS = 27 + 6 + 1 + 22 + 15 + 8
+
+
+def _slstm_bwd_inputs(gen, dev, b, s, d, state, final, tie):
+    """zifo, r, the initial state, dhs and the final state's gradients
+    (None when not asked for) on the card: as ``tests/test_torch_slstm.py``
+    draws them (forget pre-activations 0.5 up), r 0.02 N(0, 1) at the
+    model's shapes (``slstm_init``'s) and 0.5 N(0, 1) at the edges; with
+    ``tie``, ``tests/test_torch_slstm_bwd.py``'s dyadic construction from
+    the zero state (i >= f at step 0, so n == 1 there; f == i in channel 3
+    of sequence 0)."""
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if tie:
+        dy = lambda *shape: torch.randint(-8, 9, shape, generator=gen,
+                                          device=dev).float() / 8
+        zifo, r, dhs = dy(b, s, 4 * d), dy(4, d) / 2, dy(b, s, d)
+        zifo[:, 0, d:2 * d] = zifo[:, 0, d:2 * d].abs()
+        zifo[:, 0, 2 * d:3 * d] = -zifo[:, 0, 2 * d:3 * d].abs()
+        zifo[0, 0, 2 * d + 3] = zifo[0, 0, d + 3] = 0.25
+        zifo[0, 0, 3] = dhs[0, 0, 3] = 0.5
+    else:
+        zifo, dhs = rn(b, s, 4 * d), rn(b, s, d)
+        zifo[..., 2 * d:3 * d] += 0.5
+        r = (0.02 if s >= 4096 else 0.5) * rn(4, d)
+    st = [torch.zeros((b, d), device=dev) for _ in range(4)]
+    if state:
+        st = [rn(b, d) for _ in range(4)]
+        st[2] = st[2].abs() + 0.5
+    fin = [rn(b, d) for _ in range(4)] if final else [None] * 4
+    return zifo, r, st, dhs, fin
+
+
+def slstm_bwd_bound(name: str, b, s, d):
+    """(bytes ms, operations ms) of the sLSTM scan's backward: zifo, hs,
+    the three records and dhs read once, dzifo written once (the [B, D]
+    states and r besides), at the card's memory rate; SLSTM_BWD_OPS
+    float32 operations a channel a step at the non-FMA rate."""
+    nbytes = 4 * (b * s * (8 * d + 5 * d) + 9 * b * d + 8 * d)
+    return (nbytes / card_peaks(name)[0] * 1e3,
+            SLSTM_BWD_OPS * b * s * d / dtw_op_rate(name) * 1e3)
+
+
+def slstm_bwd_case(dev, errs: ErrLog, what: str, b, s, d, state, final, tie,
+                   seed: int):
+    """One shape of (a): the forward's hs and final state bitwise with and
+    without its records (and at S <= 129 the records bitwise
+    ``slstm_scan_plain``'s), the backward held to
+    ``slstm_scan_backward_plain`` as SLSTM_BWD_REL says and bitwise across
+    two launches.  Returns the backward's arguments for timing."""
+    from repro_torch.kernels.slstm import kernel as ks
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zifo, r, st, dhs, fin = _slstm_bwd_inputs(gen, dev, b, s, d, state,
+                                              final, tie)
+    reset_counts()
+    hs0, fin0, _ = ks._launch_forward(zifo, r, *st, False)
+    hs, out, recs = ks._launch_forward(zifo, r, *st, True)
+    args = (zifo, r, *st, hs, *recs, dhs, *fin)
+    grads = ks.slstm_scan_backward(*args)
+    again = ks.slstm_scan_backward(*args)
+    torch.cuda.synchronize()
+    launched({n: 0 for n in counts()}, sLSTM=2, sLSTM_bwd=2)
+    assert torch.equal(hs, hs0) and all(
+        torch.equal(x, y) for x, y in zip(out, fin0)), \
+        f"{what}: the forward differs with its records"
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
+        f"{what}: two backward launches differ"
+    if s <= 129:
+        _, _, precs = ks.slstm_scan_plain(zifo, r, *st, with_states=True)
+        assert all(torch.equal(x, y) for x, y in zip(recs, precs)), \
+            f"{what}: records differ from the plain forward's"
+    plain = ks.slstm_scan_backward_plain(*args)
+    names = ("dzifo", "dr", "dh0", "dc0", "dn0", "dm0")
+    rel, n_diff, first = [], 0, ""
+    for nm, x, y in zip(names, grads, plain):
+        assert torch.isfinite(x).all(), f"{what}: {nm} not finite"
+        errs.diff("sLSTM-bwd", x, y)
+        rel.append(_rel(x, y) if y.abs().max() > 0 else 0.0)
+        bad = x != y
+        if bad.any():
+            n_diff += int(bad.sum())
+            if not first:
+                at = tuple(int(i) for i in bad.nonzero()[0])
+                first = (f"; the first in {nm} at {at}: {float(x[at])!r} "
+                         f"against {float(y[at])!r}")
+        if nm in names[2:]:
+            assert bool(((x - y).abs() <= SLSTM_BWD_REL * (
+                y.abs().max() + y.abs())).all()), (what, nm)
+    assert max(rel) <= SLSTM_BWD_REL, \
+        f"{what}: rel err {dict(zip(names, rel))} beyond {SLSTM_BWD_REL}"
+    print(f"[sLSTM bwd] {what} (B {b}, S {s}, D {d}"
+          f"{', a nonzero initial state' if state else ''}"
+          f"{', final-state gradients' if final else ''}): "
+          + ("bitwise the plain backward" if n_diff == 0 else
+             f"{n_diff} elements differ from the plain backward{first}")
+          + f"; rel err " + ", ".join(f"{nm} {e:.3g}"
+                                      for nm, e in zip(names, rel))
+          + f" (tol {SLSTM_BWD_REL:g} of max |plain|); two launches "
+          f"bitwise; the forward's hs and final state bitwise with and "
+          f"without its records")
+    return args
+
+
+def check_slstm_bwd(dev, errs: ErrLog, name: str):
+    """Phase 27 (a) for the sLSTM scan: every SLSTM_BWD_CASES shape held
+    as above; the training layer's backward timed beside the plain
+    backward (once: ~60 kernels a step) and the bound, and the forward
+    with its records beside the forward without.  Returns (ms, plain ms,
+    None, (bytes ms, operations ms)) of that layer."""
+    from repro_torch.kernels.slstm import kernel as ks
+    out = None
+    for i, case in enumerate(SLSTM_BWD_CASES):
+        what, b, s, d = case[:4]
+        args = slstm_bwd_case(dev, errs, *case, seed=2790 + i)
+        if i == 0:
+            ms = cuda_ms(lambda: ks.slstm_scan_backward(*args), 5)
+            dev_ms = device_ms(lambda: ks.slstm_scan_backward(*args), 3,
+                               "slstm_bwd_kernel")
+            plain_ms = cuda_ms(lambda: ks.slstm_scan_backward_plain(*args),
+                               1)
+            fwd = [cuda_ms(lambda: ks._launch_forward(*args[:6], rec), 5)
+                   for rec in (False, True)]
+            bounds = slstm_bwd_bound(name, b, s, d)
+            out = (ms, plain_ms, None, bounds)
+            print(f"[sLSTM bwd] {what}: {ms:.4f} ms a launch (device "
+                  f"{_dev_str(dev_ms)}; plain {plain_ms:.1f} ms, no library "
+                  f"call, bound {max(bounds):.4f} ms by "
+                  f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
+                  f"bytes {bounds[0]:.4f}, f32 operations {bounds[1]:.4f}); "
+                  f"the f32 forward {fwd[0]:.4f} ms, with its records "
+                  f"{fwd[1]:.4f} ms [{name}]")
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
 #: Phase 27 (c): the card's two train steps against the CPU's from the
 #: same weights.  The losses within TRAIN_LOSS_REL relative (float32 sums
 #: in other orders through two layers: ~1e-6 expected).  The first
@@ -5669,6 +5868,32 @@ def check_k10_bwd(dev, errs: ErrLog, name: str):
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-4
 TRAIN_PARAM_ATOL = 2 * 3e-4
+#: xlstm-1p3b's first gradients (8 layers at full width, 1 x 512 tokens)
+#: carry more float32 noise than TRAIN_GRAD_REL: weights moved by one
+#: rounding (TRAIN_NOISE_EPS) move some leaves' gradients past it on the
+#: card alone, and the CPU's as far as the card's differ from them (the
+#: sLSTM layer's input projection first; PERF.md §6).  So where asked
+#: (``self_noise``), each leaf is held within max(TRAIN_GRAD_REL,
+#: TRAIN_NOISE_X (the card's own change + the CPU's own change)) under
+#: such a perturbation, measured in the same run: two float32 evaluations
+#: of one function differ by about the sum of their rounding noise, and
+#: the factor 2 covers the spread of a maximum over a leaf.
+TRAIN_NOISE_EPS = 2.0 ** -24
+TRAIN_NOISE_X = 2.0
+
+
+def _rounding_perturbed(model, seed: int):
+    """A copy of ``model`` with every weight w moved to w (1 +
+    TRAIN_NOISE_EPS N(0, 1)), rounded: each weight stays or moves to a
+    neighbouring float32."""
+    out = copy.deepcopy(model)
+    dev = next(out.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.mul_(1 + TRAIN_NOISE_EPS * torch.randn(
+                p.shape, generator=gen, device=dev))
+    return out
 
 
 def _train_cfg(arch: str, layers: int, remat: str = "none"):
@@ -5683,7 +5908,10 @@ def _train_launches(cfg, remat: int) -> dict:
     forwards a layer: 2 under remat "full", the forward and its
     recompute, else 1): K9 f32 a forward and a backward an attention
     layer or shared-attention occurrence (the backward at MLA's head its
-    own kernel), K10 a forward and a backward a Mamba2 layer."""
+    own kernel), K10 a forward and a backward a Mamba2 layer, and a
+    forward and a backward a 128-wide value block of an mLSTM layer's dh
+    + 1 (``gla_blocked``; dh 1024: 9 blocks), the sLSTM scan and its
+    backward an sLSTM layer."""
     want: dict = {}
 
     def add(key, n):
@@ -5692,6 +5920,14 @@ def _train_launches(cfg, remat: int) -> dict:
         if kind == "mamba2":
             add("K10", remat)
             add("K10_f32_bwd", 1)
+        elif kind == "mlstm":
+            dh = cfg.ssm_expand * cfg.d_model // cfg.num_heads
+            blocks = -(-(dh + 1) // 128)
+            add("K10", remat * blocks)
+            add("K10_f32_bwd", blocks)
+        elif kind == "slstm":
+            add("sLSTM", remat)
+            add("sLSTM_bwd", 1)
         else:
             add("K9_f32", remat)
             mla = cfg.attn_kind == "mla" and kind != "shared_attn"
@@ -5737,11 +5973,12 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
           f"built in {time.perf_counter() - t0:.1f} s")
     want = _train_launches(cfg, 2)
     times, rows = [], []
+    blocked = "mlstm" not in cfg.layer_kinds()
     for i in range(steps):
         batch = pipe.batch_at(i)
         torch.cuda.synchronize()
         reset_counts()
-        with counting_plain() as seen:
+        with counting_plain(blocked) as seen:
             t1 = time.perf_counter()
             opt, met = step(model, opt, batch)
             loss, gn = float(met["loss"]), float(met["grad_norm"])
@@ -5771,11 +6008,16 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t1)
     split = {"gemm": 0.0, "K9 forward": 0.0, "K9 backward": 0.0,
-             "K10 forward": 0.0, "K10 backward": 0.0, "rest": 0.0}
+             "K10 forward": 0.0, "K10 backward": 0.0, "sLSTM forward": 0.0,
+             "sLSTM backward": 0.0, "rest": 0.0}
     by = []
     for key, kms, n in _kernel_times(prof):
         by.append((key[:60], kms, n))
-        if "flash_tf32" in key:
+        if "slstm_scan_kernel" in key:
+            split["sLSTM forward"] += kms
+        elif "slstm_bwd_" in key:
+            split["sLSTM backward"] += kms
+        elif "flash_tf32" in key:
             split["K9 forward"] += kms
         elif "flash_bwd_" in key:
             split["K9 backward"] += kms
@@ -5802,7 +6044,7 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
 
 def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
                       s: int = 128, steps: int = 2,
-                      arch: str = "") -> None:
+                      arch: str = "", self_noise: bool = False) -> None:
     """Phase 27 (c): the driver's default LM (lm-768x12), or ``arch`` at
     full width in float32, cut to ``layers`` layers, weights drawn once
     from a seeded generator (the LM's on the CPU, copied to the card; an
@@ -5810,8 +6052,10 @@ def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
     billion weights); the first batch's gradients, then ``steps`` train
     steps (AdamW lr 3e-4) on each device: losses, gradients and
     parameters held as TRAIN_* say; the card's steps launch what
-    ``_train_launches`` says (remat "none").  The host's seconds are
-    printed apart."""
+    ``_train_launches`` says (remat "none").  With ``self_noise``, each
+    side's first gradients are taken again from weights moved by one
+    rounding (``_rounding_perturbed``), and a leaf's gradients are held
+    as TRAIN_NOISE_X says.  The host's seconds are printed apart."""
     from repro_torch import models
     from repro_torch.data import DataPipeline, SyntheticCorpus
     from repro_torch.launch import train as tlaunch
@@ -5832,22 +6076,46 @@ def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
         card.load_state_dict(cpu.state_dict())
     pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=270), s, b)
     grads, host_s = [], 0.0
-    for m in (card, cpu):
-        t1 = time.perf_counter()
+
+    def first_grads(m):
         m.requires_grad_(True)
         loss, _ = models.loss_fn(m, pipe.batch_at(0), cfg)
-        grads.append(dict(zip([n for n, _ in m.named_parameters()],
-                              torch.autograd.grad(loss, list(
-                                  m.parameters())))))
+        return dict(zip([n for n, _ in m.named_parameters()],
+                        torch.autograd.grad(loss, list(m.parameters()))))
+    for m in (card, cpu):
+        t1 = time.perf_counter()
+        grads.append(first_grads(m))
         if m is cpu:
             host_s += time.perf_counter() - t1
     # compared on the card: the host's elementwise passes over a billion
     # weights take tens of seconds
-    g_err = 0.0
-    for k, w in grads[1].items():
-        w = w.to(dev)
-        if w.abs().max() > 0:
-            g_err = max(g_err, _rel(grads[0][k], w))
+    leaf = {k: _rel(grads[0][k], w.to(dev))
+            for k, w in grads[1].items() if w.abs().max() > 0}
+    g_err = max(leaf.values())
+    bound = dict.fromkeys(leaf, TRAIN_GRAD_REL)
+    noise_str = ""
+    if self_noise:
+        own = []
+        for i, m in enumerate((card, cpu)):
+            t1 = time.perf_counter()
+            again = first_grads(_rounding_perturbed(m, 271 + i))
+            own.append({k: _rel(again[k].to(dev), grads[i][k].to(dev))
+                        for k in leaf})
+            del again
+            if m is cpu:
+                host_s += time.perf_counter() - t1
+        bound = {k: max(TRAIN_GRAD_REL, TRAIN_NOISE_X * (own[0][k]
+                                                         + own[1][k]))
+                 for k in leaf}
+        worst = sorted(leaf, key=lambda k: -leaf[k] / bound[k])[:3]
+        noise_str = (f"; with weights moved by one rounding the card's own "
+                     f"gradients move by up to {max(own[0].values()):.3g}, "
+                     f"the CPU's by {max(own[1].values()):.3g}; tightest "
+                     f"leaves " + ", ".join(
+                         f"{k} {leaf[k]:.3g} (bound {bound[k]:.3g}: card "
+                         f"{own[0][k]:.3g}, CPU {own[1][k]:.3g})"
+                         for k in worst))
+    g_ok = all(leaf[k] <= bound[k] for k in leaf)
     del grads
     losses, opt_cfg = [], AdamWConfig(lr=3e-4)
     reset_counts()
@@ -5879,13 +6147,16 @@ def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
           f"{s} tokens, {steps} steps: losses card {losses[0]} CPU "
           f"{losses[1]} (rel err {l_err:.3g}, tol {TRAIN_LOSS_REL:g}); first "
           f"batch's gradients rel err {g_err:.3g} of a leaf's max (tol "
-          f"{TRAIN_GRAD_REL:g}); parameters max abs diff {p_abs:.3g} (tol "
+          f"{TRAIN_GRAD_REL:g}"
+          + (f" or {TRAIN_NOISE_X:g} x the two sides' own noise"
+             if self_noise else "") + f"{noise_str}); parameters max abs "
+          f"diff {p_abs:.3g} (tol "
           f"{TRAIN_PARAM_ATOL:g} + 1e-4 |p|), {beyond} of {n} beyond 1e-5 "
           f"+ 1e-4 |p|; launches on the card "
           + ", ".join(f"{k} {n}" for k, n in want_n.items())
           + f"; {time.perf_counter() - t0:.1f} s, the host's steps "
           f"{host_s:.1f} s")
-    assert l_err <= TRAIN_LOSS_REL and g_err <= TRAIN_GRAD_REL and ok
+    assert l_err <= TRAIN_LOSS_REL and g_ok and ok
 
 
 def _copy_step(src: str, dst: str, step: int) -> None:
@@ -5961,72 +6232,97 @@ def train_driver(steps: int = 60, every: int = 30) -> None:
 
 def train_no_fallback(dev) -> None:
     """Phase 27 (e): a bf16 train step (minitron-4b's SMOKE config in
-    bfloat16) and an xlstm-1p3b SMOKE train step (float32) on the card
-    raise NotImplementedError naming the missing backward (K9's in bf16;
-    the sLSTM scan's), calling no plain version; the bf16 step launches
-    no kernel, the xlstm step only K10's forward, once for each mLSTM
-    layer before its sLSTM layer."""
+    bfloat16) raises NotImplementedError naming K9's missing backward,
+    launching no kernel; a bf16 sLSTM scan with a gradient asked for
+    (xlstm-1p3b's width, 64 steps) raises naming the sLSTM scan's,
+    launching nothing.  Neither calls a plain version."""
     from repro_torch import configs, models
+    from repro_torch.kernels.slstm import kernel as ks
     from repro_torch.sharding.rules import ExecConfig
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
-    for arch, dt, want in (("minitron-4b", "bfloat16", "K9 backward"),
-                           ("xlstm-1p3b", "float32",
-                            "the sLSTM scan backward")):
-        cfg = dataclasses.replace(configs.smoke_config(arch),
-                                  param_dtype=dt, dtype=dt)
-        m = models.init(cfg, generator=torch.Generator(
-            device=dev).manual_seed(1), device=dev)
-        step = make_train_step(cfg, ExecConfig(), AdamWConfig())
-        toks = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    cfg = dataclasses.replace(configs.smoke_config("minitron-4b"),
+                              param_dtype="bfloat16", dtype="bfloat16")
+    m = models.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    step = make_train_step(cfg, ExecConfig(), AdamWConfig())
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    d = configs.get("xlstm-1p3b").d_model
+    zifo = torch.zeros((1, 64, 4 * d), dtype=torch.bfloat16, device=dev,
+                       requires_grad=True)
+    st = [torch.zeros((1, d), device=dev) for _ in range(4)]
+    cases = (("minitron-4b SMOKE train step in bfloat16", "K9 backward",
+              lambda: step(m, adamw_init(m, AdamWConfig()),
+                           {"tokens": toks, "labels": toks})),
+             ("xlstm-1p3b's sLSTM scan in bfloat16 with a gradient",
+              "the sLSTM scan backward",
+              lambda: ks.slstm_scan(zifo, torch.zeros((4, d), device=dev),
+                                    *st)))
+    for what, want, call in cases:
         reset_counts()
         with counting_plain() as seen:
             try:
-                step(m, adamw_init(m, AdamWConfig()),
-                     {"tokens": toks, "labels": toks})
+                call()
             except NotImplementedError as e:
                 msg = str(e)
             else:
-                raise AssertionError(f"{arch} {dt} trained on the card")
+                raise AssertionError(f"{what} ran on the card")
         torch.cuda.synchronize()
-        kinds = cfg.layer_kinds()
-        k10 = kinds.index("slstm") if "slstm" in kinds else 0
-        launched({k: 0 for k in counts()}, K10=k10)
+        launched({k: 0 for k in counts()})
         assert want in msg and seen["calls"] == 0, (msg, seen)
-        print(f"[train no fallback] {arch} SMOKE in {dt}: "
-              f"NotImplementedError ({msg}); "
-              f"{f'K10 forward {k10} launches' if k10 else 'no kernel'} "
-              f"launched, no plain version called")
+        print(f"[train no fallback] {what}: NotImplementedError ({msg}); "
+              f"no kernel launched, no plain version called")
+
+
+def train_driver_xlstm(steps: int = 10) -> None:
+    """Phase 27 (d) for xlstm-1p3b: ``python -m repro_torch.launch.train
+    --arch xlstm-1p3b --smoke --steps 10`` on the card exits 0 (its own
+    assert: the last loss below the first), every loss it prints
+    finite."""
+    out = _run_driver(["--arch", "xlstm-1p3b", "--smoke", "--steps",
+                       str(steps), "--log-every", "1"], "xlstm-1p3b SMOKE")
+    losses = [float(x) for x in re.findall(r"step +\d+ loss (\S+)", out)]
+    assert len(losses) == steps and all(map(math.isfinite, losses)), losses
+    print(f"[train driver] xlstm-1p3b SMOKE on the card: {steps} finite "
+          f"losses, {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 
 def train_phase(dev, errs: ErrLog, name: str):
-    """Phase 27: (a) K9 f32's backward kernels (dh <= 128 and MLA's head)
-    and K10 f32's, (b) minitron-4b, zamba2-7b and deepseek-v2 trained at
-    full width, (c) the card against the CPU, (d) the train driver, (e)
-    no fallback.  Returns the three backward kernels' table rows."""
+    """Phase 27: (a) K9 f32's backward kernels (dh <= 128 and MLA's head),
+    K10 f32's and the sLSTM scan's, (b) minitron-4b, zamba2-7b,
+    deepseek-v2 and xlstm-1p3b trained at full width, (c) the card
+    against the CPU, (d) the train driver, (e) no fallback.  Returns the
+    four backward kernels' table rows."""
     t0 = time.perf_counter()
     times = check_k9_bwd(dev, errs, name)
     mla = check_k9_mla_bwd(dev, errs, name)
     gla = check_k10_bwd(dev, errs, name)
+    slstm = check_slstm_bwd(dev, errs, name)
     print(f"[train] phase 27 (a) in {time.perf_counter() - t0:.1f} s")
     full = {arch: train_full(dev, name, arch, layers) for arch, layers in (
-        ("minitron-4b", 8), ("zamba2-7b", 12), ("deepseek-v2-236b", 1))}
+        ("minitron-4b", 8), ("zamba2-7b", 12), ("deepseek-v2-236b", 1),
+        ("xlstm-1p3b", 8))}
     train_card_vs_cpu(dev, name)
     train_card_vs_cpu(dev, name, layers=6, b=1, s=512, steps=1,
                       arch="zamba2-7b")
     train_card_vs_cpu(dev, name, layers=1, b=1, s=128, steps=1,
                       arch="deepseek-v2-236b")
+    train_card_vs_cpu(dev, name, layers=8, b=1, s=512, steps=1,
+                      arch="xlstm-1p3b", self_noise=True)
     train_driver()
+    train_driver_xlstm()
     train_no_fallback(dev)
     paths = {"minitron-4b": "minitron-4b train step (8 layers)",
              "zamba2-7b": "zamba2-7b train step (12 layers)",
-             "deepseek-v2-236b": "deepseek-v2 train step (1 dense layer)"}
+             "deepseek-v2-236b": "deepseek-v2 train step (1 dense layer)",
+             "xlstm-1p3b": "xlstm-1p3b train step (8 layers)"}
     rows = []
     for key, count, (ms, plain_ms, lib_ms, bounds), main in (
             ("K9-f32-bwd", "K9_f32_bwd", times["minitron-4b layer"],
              "minitron-4b"),
             ("K9-f32-mla-bwd", "K9_f32_mla_bwd", mla, "deepseek-v2-236b"),
-            ("K10-f32-bwd", "K10_f32_bwd", gla, "zamba2-7b")):
+            ("K10-f32-bwd", "K10_f32_bwd", gla, "zamba2-7b"),
+            ("sLSTM-bwd", "sLSTM_bwd", slstm, "xlstm-1p3b")):
         row = _row(key, full[main]["launches"][count], errs, ms, plain_ms,
                    bounds, lib_ms)
         row["model_launches"] = {paths[a]: f["launches"][count]
@@ -6050,7 +6346,8 @@ def main() -> int:
     libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
             attention.kernel.LIB, attention.kernel.BF16_LIB,
             attention.kernel.BWD_LIB, attention.kernel.BWD_MLA_LIB,
-            gla.kernel.LIB, gla.kernel.BWD_LIB, slstm.kernel.LIB]
+            gla.kernel.LIB, gla.kernel.BWD_LIB, slstm.kernel.LIB,
+            slstm.kernel.BWD_LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -6125,7 +6422,7 @@ def main() -> int:
               f"before: {rows[KERNELS[key][0]]['model_launches']}")
     for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K9-f32-bwd",
                 "K9-f32-mla-bwd", "K10", "K10-mlstm", "K10-f32-bwd",
-                "sLSTM"):
+                "sLSTM", "sLSTM-bwd"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -40,10 +40,18 @@
 // barrier), reads each gate straight from global memory. Every operation
 // rounds on its own in the plain version's order (the library is built
 // with -fmad=false; IEEE division), so the kernel matches the plain
-// version bitwise.
+// version bitwise. The step itself is slstm_step.cuh's, which the
+// backward (slstm_bwd.cu) recomputes.
+//
+// Training: given cs, ns, ms [B, S, D] float32, the kernel also writes each
+// step's c, n and m after the step (its h is hs itself in float32), so the
+// backward can walk the steps in reverse from the recorded states. Without
+// them it writes nothing more; hs and the final state are the same either
+// way.
 #include <stdint.h>
 
 #include "../../csrc/float_io.cuh"
+#include "slstm_step.cuh"
 
 namespace {
 
@@ -58,20 +66,25 @@ struct State {
 // One step of channel s on its gate pre-activations; returns h_t.
 __device__ __forceinline__ float step(State& s, float zt, float it, float ft,
                                       float ot) {
-  const float z = __fadd_rn(zt, __fmul_rn(s.r0, s.h));
-  const float i = __fadd_rn(it, __fmul_rn(s.r1, s.h));
-  const float f = __fadd_rn(ft, __fmul_rn(s.r2, s.h));
-  const float o = __fadd_rn(ot, __fmul_rn(s.r3, s.h));
-  const float fm = __fadd_rn(f, s.m);
-  const float mn = fmaxf(fm, i);
-  const float ig = expf(__fsub_rn(i, mn));
-  const float fg = expf(__fsub_rn(fm, mn));
-  s.c = __fadd_rn(__fmul_rn(fg, s.c), __fmul_rn(ig, tanhf(z)));
-  s.n = __fadd_rn(__fmul_rn(fg, s.n), ig);
-  const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-o)));
-  s.h = __fdiv_rn(__fmul_rn(sg, s.c), fmaxf(s.n, 1.0f));
-  s.m = mn;
+  const slstm::Step q = slstm::forward_step(s.r0, s.r1, s.r2, s.r3, s.h, s.c,
+                                            s.n, s.m, zt, it, ft, ot);
+  s.h = q.h;
+  s.c = q.c;
+  s.n = q.n;
+  s.m = q.m;
   return s.h;
+}
+
+// Channel s's state after step t into the records at offset `at` (when
+// kRec is 1).
+template <int kRec>
+__device__ __forceinline__ void record(const State& s, float* cs, float* ns,
+                                       float* ms, long long at) {
+  if (kRec) {
+    cs[at] = s.c;
+    ns[at] = s.n;
+    ms[at] = s.m;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -81,13 +94,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-template <typename T>
+template <typename T, int kRec>
 __global__ void __launch_bounds__(kThreads)
     slstm_scan_kernel(const T* __restrict__ zifo, const float* __restrict__ r,
                       const float* __restrict__ h0,
                       const float* __restrict__ c0,
                       const float* __restrict__ n0,
                       const float* __restrict__ m0, T* __restrict__ hs,
+                      float* __restrict__ cs, float* __restrict__ ns,
+                      float* __restrict__ ms,
                       float* __restrict__ h1, float* __restrict__ c1,
                       float* __restrict__ n1, float* __restrict__ m1, int B,
                       int S, int D) {
@@ -112,7 +127,8 @@ __global__ void __launch_bounds__(kThreads)
     s.m = m0[ch];
   }
   const T* zp = zifo + (long long)b * S * row + d;
-  T* hp = hs + (long long)b * S * D + d;
+  const long long rec = (long long)b * S * D + d;  // (b, 0, d) of hs
+  T* hp = hs + rec;
   // uniform over the block
   const bool staged = S > 1 && d0 + kThreads <= D && D % kPer == 0 &&
                       ((uintptr_t)zifo & 15) == 0;
@@ -125,6 +141,7 @@ __global__ void __launch_bounds__(kThreads)
                              float_io::to_f32(g[2 * D]),
                              float_io::to_f32(g[3 * D]));
         float_io::store(hp + (long long)t * D, h);
+        record<kRec>(s, cs, ns, ms, rec + (long long)t * D);
       }
     }
   } else {
@@ -167,6 +184,7 @@ __global__ void __launch_bounds__(kThreads)
                              float_io::to_f32(g[u][2][tid]),
                              float_io::to_f32(g[u][3][tid]));
         float_io::store(hp + (long long)(t0 + u) * D, h);
+        record<kRec>(s, cs, ns, ms, rec + (long long)(t0 + u) * D);
       };
       if (t0 + kChunk <= S) {
 #pragma unroll
@@ -184,29 +202,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+void launch(const void* zifo, const float* r, const float* h0,
+            const float* c0, const float* n0, const float* m0, void* hs,
+            float* cs, float* ns, float* ms, float* h1, float* c1, float* n1,
+            float* m1, int B, int S, int D, cudaStream_t s) {
+  const int blocks = (B * D + kThreads - 1) / kThreads;
+  if (cs)
+    slstm_scan_kernel<T, 1><<<blocks, kThreads, 0, s>>>(
+        (const T*)zifo, r, h0, c0, n0, m0, (T*)hs, cs, ns, ms, h1, c1, n1,
+        m1, B, S, D);
+  else
+    slstm_scan_kernel<T, 0><<<blocks, kThreads, 0, s>>>(
+        (const T*)zifo, r, h0, c0, n0, m0, (T*)hs, cs, ns, ms, h1, c1, n1,
+        m1, B, S, D);
+}
+
 }  // namespace
 
 // The sLSTM scan. zifo [B, S, 4D] and hs [B, S, D] both float32 (bf16 = 0)
 // or both bfloat16 (bf16 = 1); r [4, D] and the states h0, c0, n0, m0 and
 // h1, c1, n1, m1 [B, D] float32 (the outputs distinct from the inputs);
+// the records cs, ns, ms [B, S, D] float32, all three or none (null);
 // every tensor contiguous. One launch of ceil(B D / 64) blocks of 64
 // threads on `stream`. Returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int slstm_scan_fwd(const void* zifo, const float* r,
                               const float* h0, const float* c0,
                               const float* n0, const float* m0, void* hs,
-                              float* h1, float* c1, float* n1, float* m1,
-                              int B, int S, int D, int bf16, void* stream) {
+                              float* cs, float* ns, float* ms, float* h1,
+                              float* c1, float* n1, float* m1, int B, int S,
+                              int D, int bf16, void* stream) {
   if (B == 0 || D == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (B * D + kThreads - 1) / kThreads;
   if (bf16)
-    slstm_scan_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)zifo, r, h0, c0, n0, m0, (__nv_bfloat16*)hs,
-        h1, c1, n1, m1, B, S, D);
+    launch<__nv_bfloat16>(zifo, r, h0, c0, n0, m0, hs, cs, ns, ms, h1, c1,
+                          n1, m1, B, S, D, s);
   else
-    slstm_scan_kernel<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)zifo, r, h0, c0, n0, m0, (float*)hs, h1, c1, n1, m1, B,
-        S, D);
+    launch<float>(zifo, r, h0, c0, n0, m0, hs, cs, ns, ms, h1, c1, n1, m1, B,
+                  S, D, s);
   return (int)cudaGetLastError();
 }

@@ -17,11 +17,12 @@ so later runs can inherit tuned settings by DTW matching.
 
 Every config is trained in float32, as the reference's driver forces.
 On the card the attention runs K9 f32 and its backward kernels (at
-MLA's 192-wide head too) and Mamba2's scan K10 f32 and its backward
-kernel, so every arch but xlstm trains there (minitron-4b, granite-20b,
-phi3-mini, starcoder2-15b, qwen2-vl, musicgen-large, deepseek-v2,
-kimi-k2, zamba2 and the default LM); xlstm raises
-``NotImplementedError`` naming the sLSTM scan's missing backward kernel.
+MLA's 192-wide head too), Mamba2's and mLSTM's scans K10 f32 and its
+backward kernel (mLSTM's 1024-wide heads on 128-wide blocks), and
+sLSTM's scan its kernel and its backward kernel, so every arch trains
+there: minitron-4b, granite-20b, phi3-mini, starcoder2-15b, qwen2-vl,
+musicgen-large, deepseek-v2, kimi-k2, zamba2, xlstm-1p3b and the
+default LM.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ import torch
 from repro.models.ssm import gla_chunked as ref_gla_chunked
 from repro_torch.kernels.attention import kernel as k9
 from repro_torch.kernels.gla import kernel as k10
+from repro_torch.kernels.slstm import kernel as k_slstm
 from repro_torch.models import ssm as tssm
 from test_torch_attention import _split
 
@@ -154,6 +155,40 @@ def test_gla_chunks_function_on_the_cpu():
     xb = [x.detach().bfloat16().requires_grad_() for x in xs]
     ob, _ = k10.gla_chunks(*xb, g, 16)
     assert "GlaChunks" not in type(ob.grad_fn).__name__
+
+
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_gla_blocked_backward_vs_jax_grad(with_dstate, monkeypatch):
+    """K10 on heads wider than MAX_HEAD_DIM (``ops.gla_blocked``: mLSTM's
+    route in float32) at dk 256 / dv 129: two 128-wide key blocks taken
+    as extra heads, value blocks of 128 and 1.  Through
+    ``models.ssm.gla_chunked``, the gradients go through ``GlaChunks``
+    (the plain backward called once a value block, the last 1 wide)
+    within GRAD_REL of jax.grad of the reference's ``gla_chunked``, with
+    and without a final-state gradient."""
+    b, h, s, dk, dv, chunk = 1, 2, 64, 256, 129, 32
+    q, k, v, la, do, dst = _gla_inputs(dk + dv, b, h, s, dk, dv)
+
+    def loss(q_, k_, v_, la_):
+        o, st = ref_gla_chunked(q_, k_, v_, la_, chunk)
+        out = jnp.sum(o * do)
+        return out + jnp.sum(st * dst) if with_dstate else out
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(x) for x in (q, k, v, la)))
+    xs = [torch.tensor(x, requires_grad=True) for x in (q, k, v, la)]
+    spy = _Spy(monkeypatch, k10, "gla_chunks_backward_plain")
+    o, st = tssm.gla_chunked(*xs, chunk)
+    out = (o * torch.tensor(do)).sum()
+    if with_dstate:
+        out = out + (st * torch.tensor(dst)).sum()
+    got = torch.autograd.grad(out, xs)
+    assert spy.calls == 2
+    assert sorted(a[2].shape[-1] for a in spy.args) == [1, 128]
+    assert all(a[0].shape == (b, 2 * h, s, 128) for a in spy.args)
+    for name, g, w in zip(("dq", "dk", "dv", "dlog_a"), got, want):
+        assert tuple(g.shape) == np.shape(w)
+        assert _rel(g, w) <= GRAD_REL, name
 
 
 def test_gla_backward_raises_on_the_card_without_a_kernel(monkeypatch):
@@ -658,15 +693,17 @@ def test_mla_backward_schedule_within_tolerance(b, h, kv, s, t, causal):
 
 @pytest.mark.parametrize("arch,spied", [
     ("zamba2-7b", ("gla_chunks_backward_plain", "flash_backward_plain")),
-    ("deepseek-v2-236b", ("flash_backward_plain",))])
+    ("deepseek-v2-236b", ("flash_backward_plain",)),
+    ("xlstm-1p3b", ("slstm_scan_backward_plain",))])
 def test_smoke_train_step_through_the_backward_routes(arch, spied,
                                                       monkeypatch):
     """The SMOKE train step of ``tests/test_torch_train_archs.py`` for
-    zamba2 (Mamba2 and the shared attention) and deepseek-v2 (MLA) on the
-    CPU, its gradients through ``GlaChunks`` and ``FlashAttention``
-    (their plain backwards called, a Mamba2 layer's once and an attention
-    layer's once), held to the reference's step within that file's
-    tolerances."""
+    zamba2 (Mamba2 and the shared attention), deepseek-v2 (MLA) and
+    xlstm (sLSTM; its mLSTM layers through ``GlaChunks`` too) on the
+    CPU, its gradients through ``GlaChunks``, ``FlashAttention`` and
+    ``SlstmScan`` (their plain backwards called, a Mamba2 layer's once,
+    an attention layer's once and an sLSTM layer's once), held to the
+    reference's step within that file's tolerances."""
     from repro import configs as rconfigs
     from repro.models import model as rmodel
     from repro.sharding.rules import ExecConfig as RefExec
@@ -690,16 +727,21 @@ def test_smoke_train_step_through_the_backward_routes(arch, spied,
                         {k: jnp.asarray(v) for k, v in batch.items()})
     cfg = tconfigs.smoke_config(arch)
     m = model.params_from_reference(_np_tree(params), cfg, device="cpu")
-    spies = {fn: _Spy(monkeypatch, k10 if fn.startswith("gla") else k9, fn)
+    mods = {"gla": k10, "flash": k9, "slstm": k_slstm}
+    spies = {fn: _Spy(monkeypatch, mods[fn.split("_")[0]], fn)
              for fn in spied}
     step = make_train_step(cfg, ExecConfig(), AdamWConfig(lr=1e-3))
     _, got = step(m, adamw_init(m, AdamWConfig()), batch)
     kinds = cfg.layer_kinds()
     n_gla = kinds.count("mamba2")
-    n_attn = len(kinds) - n_gla
+    n_slstm = kinds.count("slstm")
+    n_attn = len(kinds) - n_gla - n_slstm - kinds.count("mlstm")
     if arch.startswith("zamba2"):
         assert spies["gla_chunks_backward_plain"].calls == n_gla
-    assert spies["flash_backward_plain"].calls == n_attn
+    if n_slstm:
+        assert spies["slstm_scan_backward_plain"].calls == n_slstm
+    else:
+        assert spies["flash_backward_plain"].calls == n_attn
     for key in ("loss", "grad_norm", "ce"):
         assert float(got[key]) == pytest.approx(float(want[key]),
                                                 rel=LOSS_REL), key
