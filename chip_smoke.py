@@ -315,26 +315,31 @@ Phases, in order (any failure exits non-zero):
     layer or shared-attention occurrence), one step traced; (c) both at
     full width cut to 6 and 1 layers, card against CPU on 1 x 512 and 1
     x 128 tokens, one step (TRAIN_*).
-    Besides, for xlstm-1p3b: (a) the sLSTM scan's backward kernel
-    (``slstm_bwd.cu``: a thread a channel walking the steps in reverse
-    from the forward's records) against ``slstm_scan_backward_plain`` on
-    SLSTM_BWD_CASES (xlstm's training layer, B 1, S 4096, D 2048; its
-    prefill shape, B 4; S 1, 7 and 129; B D off the 64-channel block; a
-    nonzero initial state; the final state's gradients; dyadic ties at
-    n == 1 and f + m == i), bitwise expected, any difference witnessed and
-    within SLSTM_BWD_REL, two launches bitwise, the forward's hs and
-    final state bitwise with and without its records; the training
-    layer timed beside the plain backward and the bound; K10 f32's
-    backward at xlstm's blocked shapes in K10_BWD_CASES (32 heads of 128,
-    chunk 256, dv 128 and 1); (b) xlstm-1p3b at full width cut to 8
-    layers (one period: 7 mLSTM, 1 sLSTM) trained 4 f32 steps on 1 x 4096
-    tokens (``train_4k``, remat "full"): K10 18 and its backward 9 an
-    mLSTM layer (9 value blocks), the sLSTM scan 2 and its backward 1 an
-    sLSTM layer, one step traced; (c) the same 8 layers card against CPU
-    on 1 x 512 tokens, one step (TRAIN_*; a leaf's first gradients within
-    TRAIN_NOISE_X times the two sides' own change under a one-rounding
-    weight perturbation where that exceeds TRAIN_GRAD_REL); (d) ``--arch
-    xlstm-1p3b --smoke --steps 10`` exits 0 with finite losses.
+    Besides, for xlstm-1p3b: (a) the sLSTM scan's backward
+    (``slstm_bwd.cu``: a scan over chunks of 64 steps of its affine
+    adjoint, from the forward's records: the chunks' maps, their carries,
+    the replay, r's gradient; four kernels a call, counted as one launch)
+    against ``slstm_scan_backward_plain`` on SLSTM_BWD_CASES (xlstm's
+    training layer, B 1, S 4096, D 2048; its prefill shape, B 4, from the
+    zero state and from a nonzero one with final-state gradients; S 1, 7,
+    65 and 129; D off the 128-channel block; a nonzero initial state;
+    the final state's gradients; dyadic ties at n == 1 and f + m == i),
+    bitwise expected, any difference witnessed and within SLSTM_BWD_REL,
+    two launches bitwise, the forward's hs and final state bitwise with
+    and without its records; the training layer and the prefill shape
+    timed beside the plain backward and the bound, each phase alone
+    besides; K10 f32's backward at xlstm's blocked shapes in
+    K10_BWD_CASES (32 heads of 128, chunk 256, dv 128 and 1); (b)
+    xlstm-1p3b at full width cut to 8 layers (one period: 7 mLSTM, 1
+    sLSTM) trained 4 f32 steps on 1 x 4096 tokens (``train_4k``, remat
+    "full"): K10 18 and its backward 9 an mLSTM layer (9 value blocks),
+    the sLSTM scan 2 and its backward 1 an sLSTM layer (one call of its
+    four kernels), one step traced; (c) the same 8 layers card against
+    CPU on 1 x 512 tokens, one step (TRAIN_*; a leaf's first gradients
+    within TRAIN_NOISE_X times the two sides' own change under a
+    one-rounding weight perturbation where that exceeds TRAIN_GRAD_REL);
+    (d) ``--arch xlstm-1p3b --smoke --steps 10`` exits 0 with finite
+    losses.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
@@ -605,6 +610,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` without the host's launch path:
+    ``reps`` calls captured in one CUDA graph (after one warm-up call),
+    a replay timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def device_ms(fn, reps: int, kernel: str):
     """Mean device time of one launch of the CUDA kernel whose name holds
     ``kernel`` over ``reps`` calls of ``fn`` (after one warm-up call),
@@ -764,7 +790,8 @@ _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
                         r"gla_bwd_u_kernel|gla_bwd_scan_kernel|"
                         r"gla_bwd_dkdv_kernel|gla_bwd_dq_kernel|"
-                        r"slstm_scan_kernel|slstm_bwd_kernel|"
+                        r"slstm_scan_kernel|slstm_bwd_map_kernel|"
+                        r"slstm_bwd_carry_kernel|slstm_bwd_replay_kernel|"
                         r"slstm_bwd_dr_kernel)"
                         r"(?:I(.*?)EE)?")
 
@@ -5693,33 +5720,46 @@ def check_k10_bwd(dev, errs: ErrLog, name: str):
     return out
 
 
-#: Phase 27 (a) for the sLSTM scan's backward: the kernel against
-#: ``slstm_scan_backward_plain`` on the same inputs (the kernel's own
-#: records).  Both take the same operations in the same order, each rounded
-#: on its own (-fmad=false, IEEE division, the forward's step recomputed by
-#: the same code), so bitwise is expected; a difference is witnessed
-#: (counted, the first printed) and must stay within SLSTM_BWD_REL of max
-#: |plain| for each gradient, the initial state's within SLSTM_BWD_REL
-#: relative besides.  Stated before the first run.
+#: Phase 27 (a) for the sLSTM scan's backward: the kernels against
+#: ``slstm_scan_backward_plain`` on the same inputs (the forward kernel's
+#: own records).  Both take the same operations in the same order, each
+#: rounded on its own (-fmad=false, IEEE division, the forward's step
+#: recomputed by the same code, the chunks' maps composed and applied in
+#: one order), so bitwise is expected; a difference is witnessed (counted,
+#: the first printed) and must stay within SLSTM_BWD_REL of max |plain|
+#: for each gradient, the initial state's within SLSTM_BWD_REL relative
+#: besides.  Stated before the first run.
 SLSTM_BWD_REL = 1e-5
 #: (what, B, S, D, a nonzero initial state, the final state's gradients,
-#: the dyadic ties of ``tests/test_torch_slstm_bwd.py``).
+#: the dyadic ties of ``tests/test_torch_slstm_bwd.py``).  The chunk is
+#: ``slstm.kernel.K_CHUNK`` = 64 steps; the phases' blocks are 128
+#: channels of d, the carries' 32 channels of (b, d).
 SLSTM_BWD_CASES = (
     ("xlstm-1p3b training layer", 1, 4096, 2048, False, False, False),
     ("xlstm-1p3b prefill shape", 4, 4096, 2048, False, False, False),
+    ("xlstm-1p3b prefill shape from a nonzero state", 4, 4096, 2048, True,
+     True, False),
     ("S 1 (a decode step)", 4, 1, 2048, True, True, False),
     ("S 7", 2, 7, 2048, True, True, False),
-    ("S 129, B D = 300 off the 64-channel block", 3, 129, 100, True, True,
-     False),
+    ("S 129 (two chunks and a step), D 100 off the 128-channel block, B "
+     "D 300 off the 32-channel one", 3, 129, 100, True, True, False),
+    ("S 65 (a chunk and a step)", 3, 65, 2048, True, True, False),
     ("dyadic ties at step 0 (n == 1; f + m == i in one channel)", 2, 6, 8,
      False, False, True),
 )
-#: float32 operations a channel a step of the backward, each counted as
-#: one: the forward's step recomputed (``slstm.kernel.OPS_PER_STEP``) and
-#: its adjoint (``slstm_bwd.cu``'s ``step_back``: 6 compares for the tie
-#: weights, 1 division, 22 multiplies and 15 adds, subtracts and
-#: negations, r's 4 sums of a multiply and an add).
+#: float32 operations a channel a step of the backward as a function, each
+#: counted as one, what its bound counts: the forward's step recomputed
+#: (``slstm.kernel.OPS_PER_STEP``) and its adjoint (``slstm_bwd.cu``'s
+#: ``recompute``'s 6 compares for the tie weights; ``adjoint``'s 1
+#: division, 22 multiplies and 15 adds, subtracts and negations; r's 4
+#: sums of a multiply and an add).
 SLSTM_BWD_OPS = 27 + 6 + 1 + 22 + 15 + 8
+#: The chunked scan's own operations: a step of a mapped chunk (phase 1:
+#: the recompute, the tie weights and five adjoints), a step of the replay
+#: (phase 3: SLSTM_BWD_OPS) and a chunk's carry (phase 2: 16 multiplies
+#: and 16 adds a channel).
+SLSTM_MAP_OPS = 27 + 6 + 5 * (1 + 22 + 15)
+SLSTM_CARRY_OPS = 32
 
 
 def _slstm_bwd_inputs(gen, dev, b, s, d, state, final, tie):
@@ -5752,13 +5792,33 @@ def _slstm_bwd_inputs(gen, dev, b, s, d, state, final, tie):
 
 
 def slstm_bwd_bound(name: str, b, s, d):
-    """(bytes ms, operations ms) of the sLSTM scan's backward: zifo, hs,
-    the three records and dhs read once, dzifo written once (the [B, D]
-    states and r besides), at the card's memory rate; SLSTM_BWD_OPS
-    float32 operations a channel a step at the non-FMA rate."""
+    """(bytes ms, operations ms) of the sLSTM scan's backward as a
+    function: zifo, hs, the three records and dhs read once, dzifo written
+    once (the [B, D] states and r besides), at the card's memory rate;
+    SLSTM_BWD_OPS float32 operations a channel a step at the non-FMA
+    rate."""
     nbytes = 4 * (b * s * (8 * d + 5 * d) + 9 * b * d + 8 * d)
     return (nbytes / card_peaks(name)[0] * 1e3,
             SLSTM_BWD_OPS * b * s * d / dtw_op_rate(name) * 1e3)
+
+
+def slstm_bwd_floor(name: str, b, s, d, chunk: int):
+    """(bytes ms, operations ms) of the chunked scan's own work: phase 1
+    reads the inputs of chunks 1 .. nc - 1 and writes their maps (20
+    floats a channel), phase 2 reads them and writes the carries (4),
+    phase 3 reads every input and the carries and writes dzifo and r's
+    chunk sums (4), phase 4 reads those; SLSTM_MAP_OPS a mapped step,
+    SLSTM_CARRY_OPS a carry and SLSTM_BWD_OPS a replayed step."""
+    nc = -(-s // chunk)
+    mapped = s - min(s, chunk)
+    inputs = 4 * b * d * 9  # a step's gates, previous state and dhs
+    nbytes = (inputs * (mapped + s) + 4 * b * s * 4 * d
+              + 4 * b * (nc - 1) * d * (20 + 20 + 4 + 4)
+              + 4 * b * nc * d * (4 + 4))
+    ops = b * d * (SLSTM_MAP_OPS * mapped + SLSTM_CARRY_OPS * (nc - 1)
+                   + SLSTM_BWD_OPS * s)
+    return (nbytes / card_peaks(name)[0] * 1e3,
+            ops / dtw_op_rate(name) * 1e3)
 
 
 def slstm_bwd_case(dev, errs: ErrLog, what: str, b, s, d, state, final, tie,
@@ -5779,6 +5839,8 @@ def slstm_bwd_case(dev, errs: ErrLog, what: str, b, s, d, state, final, tie,
     grads = ks.slstm_scan_backward(*args)
     again = ks.slstm_scan_backward(*args)
     torch.cuda.synchronize()
+    # BWD_LIB.launches counts calls of the backward, each of up to four
+    # kernels (the maps, the carries, the replay, r's gradient)
     launched({n: 0 for n in counts()}, sLSTM=2, sLSTM_bwd=2)
     assert torch.equal(hs, hs0) and all(
         torch.equal(x, y) for x, y in zip(out, fin0)), \
@@ -5823,32 +5885,52 @@ def slstm_bwd_case(dev, errs: ErrLog, what: str, b, s, d, state, final, tie,
 
 def check_slstm_bwd(dev, errs: ErrLog, name: str):
     """Phase 27 (a) for the sLSTM scan: every SLSTM_BWD_CASES shape held
-    as above; the training layer's backward timed beside the plain
-    backward (once: ~60 kernels a step) and the bound, and the forward
-    with its records beside the forward without.  Returns (ms, plain ms,
-    None, (bytes ms, operations ms)) of that layer."""
+    as above; at the training layer and the prefill shape the backward
+    timed (CUDA events; on the device alone by ``graph_ms``) beside the
+    bound and the chunked scan's own floor (``slstm_bwd_floor``), each
+    phase alone on the device on what the phases before it left in the
+    scratch, and at the training layer beside the plain
+    backward (once) and the forward with its records and without.
+    Returns (ms, plain ms, None, (bytes ms, operations ms)) of the
+    training layer."""
     from repro_torch.kernels.slstm import kernel as ks
+    assert {c[2] for c in SLSTM_BWD_CASES} >= {ks.K_CHUNK + 1,
+                                               2 * ks.K_CHUNK + 1}
     out = None
+    phases = ("maps", "carries", "replay", "dr")
     for i, case in enumerate(SLSTM_BWD_CASES):
         what, b, s, d = case[:4]
         args = slstm_bwd_case(dev, errs, *case, seed=2790 + i)
-        if i == 0:
-            ms = cuda_ms(lambda: ks.slstm_scan_backward(*args), 5)
-            dev_ms = device_ms(lambda: ks.slstm_scan_backward(*args), 3,
-                               "slstm_bwd_kernel")
-            plain_ms = cuda_ms(lambda: ks.slstm_scan_backward_plain(*args),
-                               1)
-            fwd = [cuda_ms(lambda: ks._launch_forward(*args[:6], rec), 5)
-                   for rec in (False, True)]
+        if i < 2:
+            ms = cuda_ms(lambda: ks.slstm_scan_backward(*args), 20)
+            res = ks._launch_backward(ks.BWD_LIB, ks.K_CHUNK, *args)
+            run = lambda p: ks._launch_backward(
+                ks.BWD_LIB, ks.K_CHUNK, *args, phases=p, out=res)
+            dev_ms = graph_ms(lambda: run(ks.BWD_PHASES), 20)
+            alone = [graph_ms(lambda: run(1 << p), 20) for p in range(4)]
             bounds = slstm_bwd_bound(name, b, s, d)
-            out = (ms, plain_ms, None, bounds)
-            print(f"[sLSTM bwd] {what}: {ms:.4f} ms a launch (device "
-                  f"{_dev_str(dev_ms)}; plain {plain_ms:.1f} ms, no library "
-                  f"call, bound {max(bounds):.4f} ms by "
-                  f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
-                  f"bytes {bounds[0]:.4f}, f32 operations {bounds[1]:.4f}); "
-                  f"the f32 forward {fwd[0]:.4f} ms, with its records "
-                  f"{fwd[1]:.4f} ms [{name}]")
+            floor = slstm_bwd_floor(name, b, s, d, ks.K_CHUNK)
+            line = (f"[sLSTM bwd] {what}: {ms:.4f} ms a launch (device "
+                    f"{dev_ms:.4f}; each phase alone on the device: "
+                    + ", ".join(
+                        f"{n} {t:.4f}" for n, t in zip(phases, alone))
+                    + f" ms); bound {max(bounds):.4f} ms by "
+                    f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}"
+                    f" (bytes {bounds[0]:.4f}, f32 operations "
+                    f"{bounds[1]:.4f}); the chunked scan's own floor "
+                    f"{max(floor):.4f} ms (bytes {floor[0]:.4f}: the inputs "
+                    f"read twice; f32 operations {floor[1]:.4f})")
+            if i == 0:
+                plain_ms = cuda_ms(
+                    lambda: ks.slstm_scan_backward_plain(*args), 1)
+                fwd = [cuda_ms(lambda: ks._launch_forward(*args[:6], rec), 5)
+                       for rec in (False, True)]
+                out = (ms, plain_ms, None, bounds)
+                line += (f"; plain {plain_ms:.1f} ms, no library call; the "
+                         f"f32 forward {fwd[0]:.4f} ms, with its records "
+                         f"{fwd[1]:.4f} ms")
+            print(line + f" [{name}]")
+            del res
         del args
     torch.cuda.empty_cache()
     return out
@@ -5911,7 +5993,8 @@ def _train_launches(cfg, remat: int) -> dict:
     own kernel), K10 a forward and a backward a Mamba2 layer, and a
     forward and a backward a 128-wide value block of an mLSTM layer's dh
     + 1 (``gla_blocked``; dh 1024: 9 blocks), the sLSTM scan and its
-    backward an sLSTM layer."""
+    backward an sLSTM layer (``BWD_LIB.launches`` counts the backward's
+    calls: one a layer, of four kernels at S 4096)."""
     want: dict = {}
 
     def add(key, n):

@@ -38,18 +38,29 @@ an ``autograd.Function``.  Its forward keeps each step's state: on the
 card the kernel writes c, n and m after every step into records [B, S,
 D] (h is hs itself), on the CPU :func:`slstm_scan_plain` returns them.
 Its backward is :func:`slstm_scan_backward`: on CUDA
-``csrc/slstm_bwd.cu`` (a thread a channel walking t = S-1 .. 0, each
+``csrc/slstm_bwd.cu``, on the CPU :func:`slstm_scan_backward_plain`, the
+same operations in the same order.  Given the forward's records the
+adjoint is affine in the gradients it carries (dh, dc, dn, dm), so both
+cut time into chunks of K_CHUNK steps and scan the chunks: (1) each
+chunk but the first pushes the zero carry with hs's gradient and the four
+unit carries without it through its steps, which gives the chunk's
+affine map; (2) a walk over the chunks from the last to the first
+applies the maps to the final state's gradients, which gives each
+chunk's carry; (3) each chunk replays its steps from its carry, each
 step's intermediates recomputed from the recorded previous state by the
-forward's own step, ``csrc/slstm_step.cuh``; ``BWD_LIB.launches`` counts
-its calls), on the CPU :func:`slstm_scan_backward_plain`, the same
-adjoint in the same order.  The reference has no backward kernel
-(jax.grad differentiates its jnp scan, recomputing 128-step chunks under
-``jax.checkpoint``), so this one replaces no TPU kernel.  Its tie rule is
-jax's: ``max`` gives half of the gradient to each side on a tie, at
-m' = max(f + m, i) and at max(n, 1) (where the plain forward's
-``torch.clamp`` would pass all of it).  bfloat16 CUDA inputs raise
-``NotImplementedError`` when a gradient is asked for: their backward
-kernel does not exist, and no plain version runs on the card.
+forward's own step (``csrc/slstm_step.cuh``), and writes dzifo; (4) r's
+gradient is the chunks' sums.  ``BWD_LIB.launches`` counts calls of the
+backward (its four kernels, fewer at one chunk, count as one launch).
+At S <= K_CHUNK the result is bitwise the sequential walk's
+(:func:`step_back_plain` over t = S-1 .. 0); beyond it the chunks'
+maps round their own way, within 1e-5 of it.  The reference has no
+backward kernel (jax.grad differentiates its jnp scan, recomputing
+128-step chunks under ``jax.checkpoint``), so this one replaces no TPU
+kernel.  Its tie rule is jax's: ``max`` gives half of the gradient to
+each side on a tie, at m' = max(f + m, i) and at max(n, 1) (where the
+plain forward's ``torch.clamp`` would pass all of it).  bfloat16 CUDA
+inputs raise ``NotImplementedError`` when a gradient is asked for: their
+backward kernel does not exist, and no plain version runs on the card.
 """
 
 from __future__ import annotations
@@ -67,7 +78,7 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
 __all__ = ["slstm_scan", "slstm_scan_plain", "slstm_step_plain",
            "SlstmScan", "slstm_scan_backward", "slstm_scan_backward_plain",
            "step_back_plain",
-           "LIB", "BWD_LIB", "OPS_PER_STEP"]
+           "LIB", "BWD_LIB", "OPS_PER_STEP", "K_CHUNK"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -84,8 +95,18 @@ LIB = KernelLib(
 BWD_LIB = KernelLib(
     "slstm_bwd", os.path.join(_CSRC, "slstm_bwd.cu"),
     headers=(_STEP_HEADER,),
-    signatures={"slstm_scan_bwd_f32": ([_P] * 22 + [_I] * 3 + [_P],
+    signatures={"slstm_scan_bwd_f32": ([_P] * 22 + [_I] * 4 + [_P],
                                        ctypes.c_int)})
+#: Steps a chunk of the backward's time-chunked scan: ``kChunk`` of
+#: ``csrc/slstm_bwd.cu``.  Part of the function's definition (the chunks'
+#: maps round their own way).  Chosen by timing the kernel built at 32 to
+#: 512 on the H100 (``slstm_bwd_ab.py``): at xlstm's training layer (B 1,
+#: S 4096) 64 chunks of 64 steps keep ~31 warps an SM on the maps, 13%
+#: faster than 128; at B 4 the lengths 64-256 tie.
+K_CHUNK = 64
+#: The backward's four phases, as bits of ``slstm_scan_bwd_f32``'s
+#: ``phases``: the chunks' maps, their carries, the replay, r's gradient.
+BWD_PHASES = 0xF
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -280,30 +301,49 @@ def slstm_scan_backward(zifo: torch.Tensor, r: torch.Tensor,
     D] of the initial state) of the float32 scan of zifo with r from the
     initial state (h, c, n, m), given the forward's hs and records cs,
     ns, ms [B, S, D], hs's gradient dhs and the final state's dh, dc, dn,
-    dm (each None: zero).  CUDA tensors launch the backward kernel
-    (``BWD_LIB``: one launch, with a second kernel summing r's gradient
-    over B when B > 1); CPU tensors take
-    :func:`slstm_scan_backward_plain`."""
+    dm (each None: zero).  CUDA tensors launch the backward kernels
+    (``BWD_LIB``: the chunked scan's phases, counted as one launch); CPU
+    tensors take :func:`slstm_scan_backward_plain`."""
     if not zifo.is_cuda:
         return slstm_scan_backward_plain(zifo, r, h, c, n, m, hs, cs, ns, ms,
                                          dhs, dh, dc, dn, dm)
+    return _launch_backward(BWD_LIB, K_CHUNK, zifo, r, h, c, n, m, hs, cs,
+                            ns, ms, dhs, dh, dc, dn, dm)[:6]
+
+
+def _bwd_scratch(b: int, s: int, d: int, chunk: int = K_CHUNK) -> int:
+    """float32 elements of the backward kernel's scratch: each (b, chunk)'s
+    map (20 [D] rows), carry (4) and r's partial sums (4)."""
+    return b * -(-s // chunk) * 28 * d
+
+
+def _launch_backward(lib: KernelLib, chunk: int, zifo, r, h, c, n, m, hs,
+                     cs, ns, ms, dhs, dh, dc, dn, dm, phases: int = BWD_PHASES,
+                     out=None):
+    """One call of ``lib``'s ``slstm_scan_bwd_f32`` (``chunk`` its
+    kChunk), launching the phases ``phases`` names (a phase alone reads
+    what the phases before it left in ``out``'s scratch); ``lib.launches``
+    counts the call.  ``out``: the results and the scratch of an earlier
+    call, written again.  Returns (dzifo, dr, dh0, dc0, dn0, dm0,
+    scratch)."""
     check_kernel_device(zifo)
     b, s, d = _check_backward_args(zifo, r, (h, c, n, m), hs, (cs, ns, ms),
                                    dhs, (dh, dc, dn, dm))
     dev = zifo.device
-    dzifo = torch.empty_like(zifo)
-    dr = torch.empty_like(r)
-    dstate = tuple(torch.empty_like(h) for _ in range(4))
-    part = torch.empty((4, b, d), dtype=torch.float32, device=dev) \
-        if b > 1 else None
+    if out is None:
+        out = (torch.empty_like(zifo), torch.empty_like(r)) + tuple(
+            torch.empty_like(h) for _ in range(4)) + (torch.empty(
+                _bwd_scratch(b, s, d, chunk), dtype=torch.float32,
+                device=dev),)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = BWD_LIB.get().slstm_scan_bwd_f32(
+    dzifo, dr, dh0, dc0, dn0, dm0, scratch = out
+    err = lib.get().slstm_scan_bwd_f32(
         *(ptr(t) for t in (zifo, r, h, c, n, m, hs, cs, ns, ms, dhs, dh, dc,
-                           dn, dm, dzifo, part, dr) + dstate),
-        b, s, d, torch.cuda.current_stream(dev).cuda_stream)
+                           dn, dm, dzifo, scratch, dr, dh0, dc0, dn0, dm0)),
+        b, s, d, phases, torch.cuda.current_stream(dev).cuda_stream)
     check_launch("slstm_scan_bwd_f32", err)
-    BWD_LIB.launches += 1
-    return (dzifo, dr) + dstate
+    lib.launches += 1
+    return out
 
 
 def _max_weight(a: torch.Tensor, b) -> torch.Tensor:
@@ -321,43 +361,129 @@ def slstm_scan_backward_plain(zifo: torch.Tensor, r: torch.Tensor,
                               dh: Optional[torch.Tensor],
                               dc: Optional[torch.Tensor],
                               dn: Optional[torch.Tensor],
-                              dm: Optional[torch.Tensor]):
+                              dm: Optional[torch.Tensor],
+                              chunk: int = K_CHUNK):
     """Plain PyTorch version of :func:`slstm_scan_backward` (same
-    arguments and results), on whatever device the tensors are on: the
-    steps in reverse through :func:`step_back_plain` (each step's
-    intermediates recomputed from the recorded previous state, then the
-    adjoint in the kernel's order), r's gradient summed over t a channel,
-    then over b in rising order."""
+    arguments and results), on whatever device the tensors are on, in
+    ``csrc/slstm_bwd.cu``'s order.  Time is cut into nc chunks of
+    ``chunk`` steps from t = 0 (the last one partial), and every (b,
+    chunk, d) is one element of a tensor; each phase loops over a chunk's
+    steps in falling t, never over S:
+
+    1. maps: each chunk j >= 1 pushes five carries through its steps by
+       :func:`step_back_plain`'s operations: the zero carry with hs's
+       gradient (its map's affine part ``aff``) and the unit carries dh,
+       dc, dn, dm with a zero gradient (its columns ``a0`` .. ``a3``);
+    2. carries: from the final state's gradients x into chunk nc - 1,
+       for j = nc - 1 .. 1 the carry into chunk j - 1 is, per component,
+       (((aff + x0 a0) + x1 a1) + x2 a2) + x3 a3, each operation rounded;
+    3. replay: each chunk steps back from its carry by
+       :func:`step_back_plain`, writing its gate gradients and summing r's
+       products from 0 in falling t; chunk 0's carry out is the initial
+       state's gradient;
+    4. dr: each b's chunk sums added in falling t (from chunk nc - 1),
+       then the b's in rising order.
+
+    ``chunk`` other than K_CHUNK is another function, for measuring the
+    kernel built with that kChunk."""
     b, s, d = _check_backward_args(zifo, r, (h, c, n, m), hs, (cs, ns, ms),
                                    dhs, (dh, dc, dn, dm))
-    zero = torch.zeros((b, d), dtype=torch.float32, device=zifo.device)
-    carry = tuple(zero if t is None else t for t in (dh, dc, dn, dm))
-    part = (zero,) * 4
-    dzifo = torch.empty_like(zifo)
-    for t in reversed(range(s)):
-        prev = (hs[:, t - 1], cs[:, t - 1], ns[:, t - 1],
-                ms[:, t - 1]) if t else (h, c, n, m)
-        carry, part, gates = step_back_plain(
-            r, zifo[:, t].split(d, dim=-1), prev,
-            zero if dhs is None else dhs[:, t], carry, part)
-        dzifo[:, t] = torch.cat(gates, dim=-1)
-    dr = torch.stack([p[0] for p in part])
+    dev = zifo.device
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def blocks(x):
+        # [B, S, W] -> [B, nc, chunk, W], zero past S
+        return torch.nn.functional.pad(x, (0, 0, 0, pad)).view(
+            b, nc, chunk, x.shape[-1])
+
+    gates = blocks(zifo)
+    prev = tuple(blocks(torch.cat([x0[:, None], x[:, :-1]], dim=1))
+                 for x0, x in zip((h, c, n, m), (hs, cs, ns, ms)))
+    grad_hs = blocks(dhs) if dhs is not None else torch.zeros(
+        (b, nc, chunk, d), dtype=torch.float32, device=dev)
+    valid = (torch.arange(nc * chunk, device=dev) < s).view(nc, chunk)
+    zero = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    fin = tuple(zero if t is None else t for t in (dh, dc, dn, dm))
+
+    def step(u, lo, carry, grad):
+        # step u of chunks lo .. nc - 1, masked past S: (carry, gates' grads)
+        new, out = _adjoint(r, gates[:, lo:, u].split(d, dim=-1),
+                            tuple(p[:, lo:, u] for p in prev), grad, carry)
+        keep = valid[lo:, u].view(nc - lo, 1)
+        return tuple(torch.where(keep, x, y) for x, y in zip(new, carry)), \
+            out, keep
+
+    # 1. maps of chunks 1 .. nc - 1: push 0 the affine part, push k + 1
+    # column k
+    pushes = torch.zeros((5, 4, b, nc - 1, d), dtype=torch.float32,
+                         device=dev)
+    for k in range(4):
+        pushes[k + 1, k] = 1.0
+    carry = tuple(pushes[:, k] for k in range(4))
+    for u in reversed(range(chunk if nc > 1 else 0)):
+        g = grad_hs[:, 1:, u]
+        carry, _, _ = step(u, 1, carry, torch.stack(
+            [g] + [torch.zeros_like(g)] * 4))
+    maps = torch.stack(carry, dim=1)  # [5, 4, B, nc - 1, D]
+    # 2. the carry into each chunk
+    x = fin
+    into = [None] * (nc - 1) + [fin]
+    for j in reversed(range(1, nc)):
+        mj = maps[:, :, :, j - 1]
+        x = tuple(mj[0, i] + x[0] * mj[1, i] + x[1] * mj[2, i]
+                  + x[2] * mj[3, i] + x[3] * mj[4, i] for i in range(4))
+        into[j - 1] = x
+    # 3. replay
+    carry = tuple(torch.stack([cj[k] for cj in into], dim=1)
+                  for k in range(4))
+    part = (torch.zeros((b, nc, d), dtype=torch.float32, device=dev),) * 4
+    dz = torch.empty((b, nc, chunk, 4 * d), dtype=torch.float32, device=dev)
+    for u in reversed(range(chunk)):
+        hp = prev[0][:, :, u]
+        carry, out, keep = step(u, 0, carry, grad_hs[:, :, u])
+        part = tuple(torch.where(keep, p + gk * hp, p)
+                     for p, gk in zip(part, out))
+        dz[:, :, u] = torch.cat(out, dim=-1)
+    dzifo = dz.view(b, nc * chunk, 4 * d)[:, :s]
+    # 4. dr
+    sums = []
+    for p in part:
+        acc = p[:, nc - 1]
+        for j in reversed(range(nc - 1)):
+            acc = acc + p[:, j]
+        sums.append(acc)
+    dr = torch.stack([p[0] for p in sums])
     for bi in range(1, b):
-        dr = dr + torch.stack([p[bi] for p in part])
-    return (dzifo, dr) + carry
+        dr = dr + torch.stack([p[bi] for p in sums])
+    return (dzifo.contiguous(), dr) + tuple(x[:, 0].contiguous()
+                                            for x in carry)
 
 
 def step_back_plain(r: torch.Tensor, gates, prev: State, dhs: torch.Tensor,
                     carry: State, part):
-    """One step of :func:`slstm_scan_backward_plain` on float32 tensors of
-    one shape [..., D'] (element-wise, so a subset of the channels steps
-    bitwise as the whole does): r (r0, r1, r2, r3), the step's gates (z_t,
-    i_t, f_t, o_t), the state before it (h, c, n, m), hs's gradient at the
-    step, the carried gradients (dh, dc, dn, dm) of the state after it,
-    and r's running sums (the gate gradients times h, added a step at a
-    time) -> (the carried gradients of the state before the step, the
-    running sums, the gate gradients (dz, di, df, do)).  The operations of
-    ``csrc/slstm_bwd.cu``'s ``step_back`` in its order."""
+    """One step of the sequential backward on float32 tensors of one shape
+    [..., D'] (element-wise, so a subset of the channels steps bitwise as
+    the whole does): r (r0, r1, r2, r3), the step's gates (z_t, i_t, f_t,
+    o_t), the state before it (h, c, n, m), hs's gradient at the step, the
+    carried gradients (dh, dc, dn, dm) of the state after it, and r's
+    running sums (the gate gradients times h, added a step at a time) ->
+    (the carried gradients of the state before the step, the running sums,
+    the gate gradients (dz, di, df, do)).  The operations of
+    ``csrc/slstm_bwd.cu``'s ``adjoint`` and ``replay`` in their order;
+    :func:`slstm_scan_backward_plain` replays a chunk with them."""
+    carry, out = _adjoint(r, gates, prev, dhs, carry)
+    part = tuple(p + gk * prev[0] for p, gk in zip(part, out))
+    return carry, part, out
+
+
+def _adjoint(r: torch.Tensor, gates, prev: State, dhs: torch.Tensor,
+             carry: State):
+    """Step t's adjoint (``csrc/slstm_bwd.cu``'s ``adjoint``): the step's
+    intermediates recomputed from its gates and the state before it, then
+    the carried gradients of the state after it (and hs's gradient at the
+    step) -> those of the state before it, and the gate gradients.  Affine
+    in (carry, dhs); the carry may hold pushes stacked in front."""
     hp, cp, np_, mp = prev
     dh, dc, dn, dm = carry
     r0, r1, r2, r3 = r
@@ -376,9 +502,7 @@ def step_back_plain(r: torch.Tensor, gates, prev: State, dhs: torch.Tensor,
     d_f = af + wf * dmn
     d_i = ai + wi * dmn
     dh = ((r0 * d_z + r1 * d_i) + r2 * d_f) + r3 * d_o
-    out = (d_z, d_i, d_f, d_o)
-    part = tuple(p + gk * hp for p, gk in zip(part, out))
-    return (dh, dc * q["fg"], dn * q["fg"], d_f), part, out
+    return (dh, dc * q["fg"], dn * q["fg"], d_f), (d_z, d_i, d_f, d_o)
 
 
 def _step_parts(gates, r: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

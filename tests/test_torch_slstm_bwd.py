@@ -2,7 +2,9 @@
 ``SlstmScan`` and ``slstm_scan_backward_plain`` on the CPU) against
 ``jax.grad`` of the reference's recurrence (``_slstm_cell`` under
 ``jax.lax.scan``, and at S = 256 ``slstm_apply``'s chunked form: two
-checkpointed scans of 128 steps), on the same numpy-seeded inputs.
+checkpointed scans of 128 steps), on the same numpy-seeded inputs; the
+plain backward, a scan over chunks of K_CHUNK steps, against the
+sequential walk it replaced and against the kernel's schedule, emulated.
 
 Tolerances: dzifo and dr within GRAD_REL = 1e-5 of each gradient's
 largest |g| (both sides differentiate the same float32 recurrence, rounding
@@ -265,6 +267,80 @@ def test_backward_rejects_what_the_kernel_does_not_take(bad):
         tkernel.slstm_scan_backward(z, rr, *st, hs, *recs, d_hs, *dfin_t)
 
 
+# --- the chunked scan against the sequential walk ---------------------------
+
+def _sequential(zifo, r, h, c, n, m, hs, cs, ns, ms, dhs, dfin):
+    """The backward as one walk a channel: ``step_back_plain`` over t = S-1
+    .. 0 from the final state's gradients, r's sums over t, then over b in
+    rising order (the backward's order before it was chunked)."""
+    b, s, d4 = zifo.shape
+    d = d4 // 4
+    zero = torch.zeros((b, d))
+    carry = tuple(zero if t is None else t for t in dfin)
+    part = (zero,) * 4
+    dz = torch.empty_like(zifo)
+    for t in reversed(range(s)):
+        prev = (hs[:, t - 1], cs[:, t - 1], ns[:, t - 1],
+                ms[:, t - 1]) if t else (h, c, n, m)
+        carry, part, out = tkernel.step_back_plain(
+            r, zifo[:, t].split(d, dim=-1), prev, dhs[:, t], carry, part)
+        dz[:, t] = torch.cat(out, dim=-1)
+    dr = torch.stack([p[0] for p in part])
+    for bi in range(1, b):
+        dr = dr + torch.stack([p[bi] for p in part])
+    return (dz, dr) + carry
+
+
+def _plain_args(s, seed, b=3, d=8):
+    """The backward's arguments on the plain forward's records, from a
+    nonzero state with the final state's gradients."""
+    zifo, r, hcnm, dhs, dfin = _inputs(np.random.default_rng(seed), b, s, d,
+                                       True)
+    z, rr = torch.tensor(zifo), torch.tensor(r)
+    st = [torch.tensor(a) for a in hcnm]
+    hs, _, recs = tkernel.slstm_scan_plain(z, rr, *st, with_states=True)
+    return (z, rr, *st, hs, *recs, torch.tensor(dhs),
+            [torch.tensor(a) for a in dfin])
+
+
+K = tkernel.K_CHUNK
+
+
+@pytest.mark.parametrize("s", [1, 16, K - 1, K])
+def test_one_chunk_is_the_sequential_walk(s):
+    """At S <= K_CHUNK (one chunk: no map, no carry) the chunked plain
+    backward is bitwise the sequential walk."""
+    args = _plain_args(s, s + 60)
+    want = _sequential(*args)
+    got = tkernel.slstm_scan_backward_plain(*args[:-1], *args[-1])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("s", [K + 1, 2 * K + 7, 4 * K + 3])
+def test_chunks_stay_near_the_sequential_walk(s):
+    """Beyond one chunk the maps round their own way: every gradient within
+    the tolerances that hold it to jax.grad (GRAD_REL of max(its own
+    largest |g|, dzifo's), the initial state's STATE_RTOL relative
+    besides; stated before the first run)."""
+    args = _plain_args(s, s + 70)
+    want = [w.numpy() for w in _sequential(*args)]
+    _assert_grads(tkernel.slstm_scan_backward_plain(*args[:-1], *args[-1]),
+                  want)
+
+
+@pytest.mark.parametrize("with_final", [False, True])
+def test_backward_plain_vs_jax_grad_over_chunks(with_final):
+    """S = 4 K_CHUNK + 3 (five chunks, the last of three steps; one
+    ``lax.scan`` in the reference): the chunked plain backward within
+    GRAD_REL (STATE_RTOL) of jax.grad, from a nonzero state."""
+    s = 4 * K + 3
+    zifo, r, hcnm, dhs, dfin = _inputs(
+        np.random.default_rng(s + with_final), 2, s, 8, True)
+    dfin = dfin if with_final else None
+    want = _ref_grads(zifo, r, hcnm, dhs, dfin)
+    _assert_grads(_plain_backward(zifo, r, hcnm, dhs, dfin), want)
+
+
 # --- the backward kernel's schedule (csrc/slstm_bwd.cu), emulated ------------
 
 def _bwd_constants() -> dict:
@@ -277,64 +353,98 @@ def _bwd_constants() -> dict:
         r"constexpr int (\w+) = (\d+);", text)}
 
 
-def _emulate_groups(zifo, r, h, c, n, m, hs, cs, ns, ms, dhs, dfin):
-    """slstm_bwd.cu's schedule in torch, every channel at once (its steps
-    are element-wise): the inputs of steps t .. t - kGroup + 1 (gates,
-    the state before the step, dhs) loaded a group ahead into ``buf``, the
-    group before copied to ``cur`` and stepped back by ``step_back_plain``
-    in falling t, the last group partial; then r's channel sums over b in
-    rising order.  Returns (the gradients, how often each step's inputs
-    were loaded, how often each step was computed, in computing order)."""
-    kg = _bwd_constants()["kGroup"]
+def _emulate_chunks(zifo, r, h, c, n, m, hs, cs, ns, ms, dhs, dfin):
+    """slstm_bwd.cu's four phases in torch, a chunk at a time with every
+    (b, d) of it at once (a step is element-wise), as its threads of a
+    (b, chunk, d) run them: (1) chunks 1 .. nc - 1 push the zero carry
+    with dhs and the four unit carries with a zero dhs through
+    ``step_back_plain`` in falling t; (2) the carries from the final
+    state's gradients, chunk nc - 1 down to 1, each component
+    (((aff + x0 a0) + x1 a1) + x2 a2) + x3 a3; (3) each chunk replayed
+    from its carry, r's sums from 0; (4) dr: b's chunk sums in falling
+    chunk order, the b's in rising order.  Returns (the gradients, how
+    often each step's inputs were loaded in each phase, the steps each
+    phase computed, in computing order)."""
+    kc = _bwd_constants()["kChunk"]
     b, s, d4 = zifo.shape
     d = d4 // 4
+    nc = -(-s // kc)
     zero = torch.zeros((b, d))
-    carry = tuple(zero if t is None else t for t in dfin)
-    part = (zero,) * 4
-    dz = torch.full_like(zifo, float("nan"))
-    loads, order = [0] * s, []
+    fin = tuple(zero if t is None else t for t in dfin)
+    loads = {p: [0] * s for p in (1, 3)}
+    order = {p: [] for p in (1, 3)}
 
-    def load(t):
-        loads[t] += 1
+    def load(phase, t):
+        loads[phase][t] += 1
+        order[phase].append(t)
         prev = (hs[:, t - 1], cs[:, t - 1], ns[:, t - 1],
                 ms[:, t - 1]) if t > 0 else (h, c, n, m)
         return zifo[:, t].split(d, dim=-1), prev, dhs[:, t]
 
-    t = s - 1
-    buf = [load(t - u) if t - u >= 0 else None for u in range(kg)]
-    while t >= 0:
-        cur = list(buf)
-        tn = t - kg
-        buf = [load(tn - u) if tn - u >= 0 else None for u in range(kg)]
-        for u in range(kg):
-            if t - u >= 0:
-                gates, prev, dh_t = cur[u]
-                carry, part, out = tkernel.step_back_plain(
-                    r, gates, prev, dh_t, carry, part)
-                dz[:, t - u] = torch.cat(out, dim=-1)
-                order.append(t - u)
-        t = tn
-    dr = torch.stack([p[0] for p in part])
-    for bi in range(1, b):
-        dr = dr + torch.stack([p[bi] for p in part])
-    return (dz, dr) + carry, loads, order
+    def steps(j):
+        return reversed(range(j * kc, min(s, (j + 1) * kc)))
+
+    maps = {}
+    for j in range(1, nc):
+        pushes = [(zero,) * 4] + [
+            tuple(torch.ones((b, d)) if i == k else zero for i in range(4))
+            for k in range(4)]
+        for t in steps(j):
+            gates, prev, grad = load(1, t)
+            pushes = [tkernel.step_back_plain(
+                r, gates, prev, grad if p == 0 else zero, v, (zero,) * 4)[0]
+                for p, v in enumerate(pushes)]
+        maps[j] = pushes
+    carries = {nc - 1: fin}
+    x = fin
+    for j in reversed(range(1, nc)):
+        aff, *cols = maps[j]
+        x = tuple(aff[i] + x[0] * cols[0][i] + x[1] * cols[1][i]
+                  + x[2] * cols[2][i] + x[3] * cols[3][i] for i in range(4))
+        carries[j - 1] = x
+    dz = torch.full_like(zifo, float("nan"))
+    sums = {}
+    for j in range(nc):
+        carry, part = carries[j], (zero,) * 4
+        for t in steps(j):
+            gates, prev, grad = load(3, t)
+            carry, part, out = tkernel.step_back_plain(r, gates, prev, grad,
+                                                       carry, part)
+            dz[:, t] = torch.cat(out, dim=-1)
+        sums[j] = part
+        if j == 0:
+            d0 = carry
+    dr = None
+    for bi in range(b):
+        acc = torch.stack([p[bi] for p in sums[nc - 1]])
+        for j in reversed(range(nc - 1)):
+            acc = acc + torch.stack([p[bi] for p in sums[j]])
+        dr = acc if dr is None else dr + acc
+    return (dz, dr) + d0, loads, order
 
 
-@pytest.mark.parametrize("s", [1, 7, 8, 9, 16, 129])
-def test_group_schedule_is_the_backward(s):
-    """The kernel's group walk (``_emulate_groups``) loads every step's
-    inputs once, computes every step once in falling t, including a
-    partial last group (S 1, 7, 9, 129) and whole ones only (8, 16), and
-    is bitwise the plain backward, from a nonzero state with the final
-    state's gradients."""
-    zifo, r, hcnm, dhs, dfin = _inputs(np.random.default_rng(s + 40), 3, s,
-                                       8, True)
-    z, rr = torch.tensor(zifo), torch.tensor(r)
-    st = [torch.tensor(a) for a in hcnm]
-    hs, _, recs = tkernel.slstm_scan_plain(z, rr, *st, with_states=True)
-    args = (z, rr, *st, hs, *recs, torch.tensor(dhs),
-            [torch.tensor(a) for a in dfin])
-    got, loads, order = _emulate_groups(*args)
-    assert loads == [1] * s and order == list(reversed(range(s)))
+@pytest.mark.parametrize("s_of_k", [(0, 1), (1, -1), (1, 0), (1, 1), (2, 0),
+                                    (3, 5)])
+def test_chunk_schedule_is_the_backward(s_of_k):
+    """The kernel's chunked scan (``_emulate_chunks``, kChunk read from
+    ``csrc/slstm_bwd.cu`` and equal to ``K_CHUNK``) at S = a kChunk + c:
+    S 1, kChunk - 1, kChunk, kChunk + 1, 2 kChunk and 3 kChunk + 5 (one
+    partial chunk, whole chunks only, a partial last chunk), B 3, from a
+    nonzero state with the final state's gradients.  Phase 1 loads the
+    inputs of every step past the first chunk once, phase 3 every step's
+    once, each chunk in falling t; and the result is bitwise
+    ``slstm_scan_backward_plain``'s."""
+    kc = _bwd_constants()["kChunk"]
+    assert kc == tkernel.K_CHUNK
+    s = max(1, s_of_k[0] * kc + s_of_k[1])
+    args = _plain_args(s, s + 40)
+    got, loads, order = _emulate_chunks(*args)
+    assert loads[1] == [int(t >= kc) for t in range(s)]
+    assert loads[3] == [1] * s
+    nc = -(-s // kc)
+    chunks = [list(reversed(range(j * kc, min(s, (j + 1) * kc))))
+              for j in range(nc)]
+    assert order[1] == sum(chunks[1:], [])
+    assert order[3] == sum(chunks, [])
     want = tkernel.slstm_scan_backward_plain(*args[:-1], *args[-1])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
