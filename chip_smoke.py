@@ -210,7 +210,19 @@ Phases, in order (any failure exits non-zero):
     call but at near-ties within ROUTE_TIE (each witnessed); (e) one
     deepseek MoE layer run twice on the same input on the card, bitwise
     equal, timed at the prefill's and a decode step's token counts, and
-    at each making no host sync (``host_syncs``).
+    at each making no host sync (``host_syncs``); (f) that block's
+    experts mapped over a (2, 4) (data, model) mesh of cuda:0 by EP and
+    by expert-TP, bf16 and f32, at the dropless capacity factor 8.0:
+    each expert shard's routing the unmapped block's (near-ties
+    witnessed), no drop on either path, outputs within MOE_MAPPED_REL of
+    the unmapped block's, two calls bitwise, no host sync, timed beside
+    the unmapped block with the memory each allocates; (g) (b)'s model
+    served on that mesh: the 4 x 4096 prefill through
+    ``make_prefill_step(mesh=)`` in EP (K9 5) and 32 decode steps
+    through ``make_decode_step(mesh=)`` under expert-TP, timed with the
+    peak memory beside (b)'s; then mapped against unmapped at capacity
+    factor 8.0 on 4 x 1024 tokens, no drop on either path, prefill and
+    two decode steps' logits within MODEL_BF16_REL.
 25. xLSTM serving on the card (``models.ssm.MLSTM``, ``SLSTM``): (a) K10
     on mLSTM's 1024-wide heads at xlstm-1p3b's prefill shape (B 4, H 4,
     S 4096, chunk 256, bf16) as a layer runs it: the numerator and the
@@ -447,6 +459,35 @@ MODEL_F32_RTOL, MODEL_F32_ATOL = 1e-3, 1e-3
 #: two sides' summation orders may break either way).  Stated before
 #: phase 24's first run.
 ROUTE_TIE = 1e-6
+#: Phase 24 (f), (g): the (data, model) mesh the MoE layers' experts are
+#: mapped over (the reference's test mesh), every shard on the one card.
+MOE_MESH = (2, 4)
+#: Phase 24 (f), (g): the capacity factor at which the mapped and the
+#: unmapped MoE are compared: the reference's own dropless EP test's
+#: (tests/test_multidevice.py).  An EP shard takes its capacity from its
+#: own tokens, so where an expert overflows the two paths would drop
+#: different assignments; both paths' drops are counted and must be 0.
+MOE_DROPLESS_CF = 8.0
+#: Phase 24 (f): the mapped block's output against the unmapped block's,
+#: max |mapped - unmapped| <= REL x max |unmapped| by dtype.  The mapped
+#: combine rounds each shard's partial sum (and under expert-TP each
+#: FFN half's) before the sum over shards, so at top 6 the two differ by
+#: a few roundings in x's dtype (a CPU run of the same block at d_model
+#: 1024: bf16 0.0045, f32 1.4e-7).  Stated before (f)'s first run.
+MOE_MAPPED_REL = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-5}
+#: Phase 24 (f): an EP shard routes its own rows (a router product of
+#: another row count, which cuBLAS may sum in another order), so a
+#: token's experts may differ from the unmapped block's only at a
+#: near-tie: the unmapped probabilities at the first differing rank and
+#: the next within ROUTE_TIE (f32) or within this share of the larger
+#: (bf16: a bf16 logit's rounding step at |logit| ~4).  Each such token
+#: is printed and left out of the output check.  Stated before (f)'s
+#: first run.
+MOE_ROUTE_TIE_BF16 = 2.0 ** -5
+#: Phase 24 (g): the prompt length of the mapped-against-unmapped check
+#: at MOE_DROPLESS_CF (the unmapped expert buffer there holds [160, C,
+#: D] with C = 0.3 T: 2 GB at 4 x 1024 tokens).
+MOE_MAPPED_S = 1024
 
 #: The earlier designs' times of K7, K9 f32, K8 and K10 (ms; PERF.md's
 #: kernel table, NVIDIA H100 80GB HBM3, 700.00 W; CUDA-event means): K7's
@@ -4231,7 +4272,7 @@ def _launch_str(want: dict) -> str:
 
 def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
                pre: dict, kernel_ms: dict, named=frozenset(),
-               named_what: str = "", **over) -> dict:
+               named_what: str = "", after=None, **over) -> dict:
     """Phase 23 (a) and (b), phase 24 (b) and (c), phase 25 (c): ``arch``
     at full width (``over`` cuts its depth) with random bf16 weights
     serves ``b`` prompts of ``s`` tokens for ``new`` tokens through
@@ -4251,8 +4292,9 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
     ``check_mlstm_kernels``).  The traced prefill's kernels named in
     ``named`` are split out of the GEMMs as ``named_what``.  An MoE
     arch's routing is recorded (``MoeRouting``) in the checked prefill,
-    decode step and forward (``_moe_checks``).  Returns the numbers it
-    prints."""
+    decode step and forward (``_moe_checks``).  ``after(model, cfg,
+    toks, rec)``, when given, runs on the same model last and adds its
+    numbers.  Returns the numbers it prints."""
     from repro_torch import models
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.model import block_kinds
@@ -4390,7 +4432,10 @@ def serve_full(dev, name: str, arch: str, b: int, s: int, new: int,
           f"({100 * dec_tr['all'] / dec_tr['wall']:.1f}% busy; GEMMs "
           f"{dec_tr['gemm']:.2f} ms); top: "
           f"{_top_str(dec_tr)}")
-    del model, engine
+    del engine
+    if after is not None:
+        rec.update(after(model, cfg, toks, rec))
+    del model
     torch.cuda.empty_cache()
     return rec
 
@@ -4651,7 +4696,8 @@ def moe_layer(dev, name: str, arch: str = "deepseek-v2-236b", b: int = 4,
     no host sync (static shapes: no ``bincount``, no boolean-mask
     indexing, no host-to-device copy).  Also its CUDA-event ms at that token count and at a decode
     step's b tokens, beside the bytes of its expert weights over the
-    card's memory rate (a decode step reads every expert)."""
+    card's memory rate (a decode step reads every expert).  Then phase
+    24 (f) on the same block (``mapped_block``)."""
     from repro_torch import configs
     from repro_torch.models import moe
     cfg = configs.get(arch)
@@ -4689,9 +4735,288 @@ def moe_layer(dev, name: str, arch: str = "deepseek-v2-236b", b: int = 4,
           f"tokens {t_dec:.3f} ms, its {routed / 1e9:.2f} GB of routed "
           f"experts {floor:.3f} ms at the memory rate; host syncs a call "
           f"(CUDA sync debug mode): {syncs} [{name}]")
-    del mod, x
+    del x
+    mapped = mapped_block(dev, name, mod, cfg)
+    del mod
     torch.cuda.empty_cache()
-    return {"prefill_ms": t_pre, "decode_ms": t_dec, "floor_ms": floor}
+    return {"prefill_ms": t_pre, "decode_ms": t_dec, "floor_ms": floor,
+            "mapped": mapped}
+
+
+def moe_mesh():
+    """MOE_MESH's (data, model) mesh, every shard on the one card."""
+    from repro_torch.sharding import make_mesh
+    return make_mesh(MOE_MESH, ("data", "model"),
+                     devices=["cuda:0"] * math.prod(MOE_MESH))
+
+
+class DispatchSpy:
+    """While open, records every ``models.moe.dispatch`` call (one an
+    expert shard and MoE call) as (top_e, e_offset, e_loc, keep), on
+    the device: no host sync.  ``drops()`` counts the assignments to a
+    call's own experts that it did not keep."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe.dispatch, []
+
+        def spy(top_e, e_offset, e_loc, capacity):
+            slot, keep = self.real(top_e, e_offset, e_loc, capacity)
+            self.calls.append((top_e, e_offset, e_loc, keep))
+            return slot, keep
+
+        moe.dispatch = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.moe.dispatch = self.real
+
+    def drops(self) -> int:
+        total = 0
+        for top_e, off, e_loc, keep in self.calls:
+            mine = ((top_e >= off) & (top_e < off + e_loc)).reshape(-1)
+            total += int((mine & ~keep).sum())
+        return total
+
+
+def _peak_extra(fn) -> float:
+    """GB allocated above what is held before, at the peak of one call
+    of ``fn``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def mapped_block(dev, name: str, mod, cfg) -> dict:
+    """Phase 24 (f): the full-width MoE block ``mod`` (deepseek-v2's,
+    random weights) mapped over MOE_MESH of the one card by EP and by
+    expert-TP, in bf16 on 4 x 1024 tokens and then, the block cast in
+    place, in float32 on 4 x 512, at MOE_DROPLESS_CF, against the
+    unmapped block on the same input: every expert shard's routing
+    (``DispatchSpy``: dp x ep dispatches a call) the unmapped block's on
+    its rows but at witnessed near-ties (MOE_ROUTE_TIE_BF16, ROUTE_TIE),
+    no assignment dropped on either path, the outputs on the other
+    tokens within MOE_MAPPED_REL, two mapped calls bitwise equal and no
+    host sync in a mapped call (``host_syncs``).  Each call timed by
+    CUDA events at that shape and at a decode step's 4 tokens, beside
+    the unmapped block, with the memory it allocates above the weights
+    at its peak.  Returns {(dtype, mode): numbers}."""
+    from repro_torch.models import moe
+    mesh = moe_mesh()
+    dp, ep = MOE_MESH
+    cfg = dataclasses.replace(cfg, capacity_factor=MOE_DROPLESS_CF)
+    gen = torch.Generator(device=dev).manual_seed(241)
+    out = {}
+    for dtype, (b, s) in ((torch.bfloat16, (4, 1024)),
+                          (torch.float32, (4, 512))):
+        if dtype == torch.float32:
+            mod.float()
+        T = b * s
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device=dev).to(dtype)
+        xd = x[:, :1].contiguous()
+        with torch.inference_mode():
+            with DispatchSpy() as plain_spy:
+                want, want_aux = moe.moe_apply(mod, x, cfg)
+            top_e = plain_spy.calls[0][0]
+            probs = torch.sort(moe.route(x.reshape(T, -1), mod.router.w,
+                                         cfg)[0], dim=-1,
+                               descending=True, stable=True).values
+            t_plain = cuda_ms(lambda: moe.moe_apply(mod, x, cfg), 3)
+            t_plain_dec = cuda_ms(lambda: moe.moe_apply(mod, xd, cfg), 10)
+            mem_plain = _peak_extra(lambda: moe.moe_apply(mod, x, cfg))
+            mem_plain_dec = _peak_extra(lambda: moe.moe_apply(mod, xd, cfg))
+            for tp in (False, True):
+                mode = "expert-TP" if tp else "EP"
+
+                def call(xin=x, tp=tp):
+                    return moe.moe_apply(mod, xin, cfg, mesh=mesh,
+                                         expert_tp=tp)
+
+                with DispatchSpy() as spy:
+                    got, aux = call()
+                got2, aux2 = call()
+                torch.cuda.synchronize()
+                assert torch.equal(got, got2) and torch.equal(aux, aux2), \
+                    f"mapped MoE ({mode}) not deterministic"
+                assert len(spy.calls) == dp * ep, len(spy.calls)
+                drops = (spy.drops(), plain_spy.drops())
+                assert drops == (0, 0), (mode, drops)
+                ties = []
+                for i, (te, _, _, _) in enumerate(spy.calls):
+                    lo = 0 if tp else (i // ep) * T // dp
+                    diff = (te != top_e[lo:lo + te.shape[0]]).any(1)
+                    for t in (diff.nonzero()[:, 0] + lo).tolist():
+                        row = te[t - lo]
+                        j = int((row != top_e[t]).nonzero()[0, 0])
+                        gap = float(probs[t, j] - probs[t, j + 1])
+                        bound = ROUTE_TIE if dtype == torch.float32 \
+                            else MOE_ROUTE_TIE_BF16 * float(probs[t, j])
+                        assert gap <= bound, (mode, t, j, gap, bound)
+                        ties.append((t, j, gap))
+                rows = torch.ones(T, dtype=torch.bool, device=dev)
+                for t, _, _ in ties:
+                    rows[t] = False
+                g2, w2 = got.reshape(T, -1)[rows], want.reshape(T, -1)[rows]
+                e_abs = float((g2.double() - w2.double()).abs().max())
+                e_rel = e_abs / float(w2.double().abs().max())
+                assert e_rel <= MOE_MAPPED_REL[dtype], (mode, dtype, e_rel)
+                syncs = {what: host_syncs(lambda xin=xin: call(xin))
+                         for what, xin in (("check", x), ("decode", xd))}
+                assert syncs == {"check": 0, "decode": 0}, (mode, syncs)
+                t_map = cuda_ms(call, 3)
+                t_map_dec = cuda_ms(lambda: call(xd), 10)
+                mem = _peak_extra(call)
+                mem_dec = _peak_extra(lambda: call(xd))
+                rec = dict(e_rel=e_rel, e_abs=e_abs, ties=len(ties),
+                           aux=float(aux), aux_plain=float(want_aux),
+                           ms=t_map, plain_ms=t_plain, dec_ms=t_map_dec,
+                           plain_dec_ms=t_plain_dec, mem_gb=mem,
+                           plain_mem_gb=mem_plain, dec_mem_gb=mem_dec,
+                           plain_dec_mem_gb=mem_plain_dec)
+                out[(str(dtype)[6:], mode)] = rec
+                print(f"[MoE mapped] deepseek-v2-236b block, {mode} on a "
+                      f"{MOE_MESH} (data, model) mesh of cuda:0, "
+                      f"{str(dtype)[6:]}, {b} x {s} tokens, capacity factor "
+                      f"{MOE_DROPLESS_CF:g}: {dp * ep} expert shards a call, "
+                      f"drops mapped / unmapped {drops[0]} / {drops[1]}; "
+                      f"routing the unmapped block's but {len(ties)} "
+                      f"witnessed near-ties"
+                      + "".join(f" (token {t} rank {j} gap {gap:.3g})"
+                                for t, j, gap in ties[:4])
+                      + f"; out vs unmapped max abs {e_abs:.3g} = "
+                      f"{e_rel:.3g} of max |out| (limit "
+                      f"{MOE_MAPPED_REL[dtype]:g}); aux {float(aux):.7g} "
+                      f"(unmapped {float(want_aux):.7g}: each shard's "
+                      f"statistics over its own tokens); two calls bitwise "
+                      f"equal; host syncs a call {syncs}; {t_map:.3f} ms a "
+                      f"call (unmapped {t_plain:.3f}), at a decode step's "
+                      f"{b} tokens {t_map_dec:.3f} ms (unmapped "
+                      f"{t_plain_dec:.3f}) (CUDA events); memory above the "
+                      f"weights at the peak {mem:.3f} GB (unmapped "
+                      f"{mem_plain:.3f}), at the decode shape "
+                      f"{mem_dec:.4f} GB (unmapped {mem_plain_dec:.4f}) "
+                      f"[{name}]")
+                del got, got2
+        del x, xd, want
+    return out
+
+
+def mapped_serving(dev, name: str, model, cfg, toks, rec: dict) -> dict:
+    """Phase 24 (g), on phase 24 (b)'s model (deepseek-v2 cut to 5
+    layers, 4 MoE): a prefill of the 4 x 4096 prompts through
+    ``make_prefill_step(cfg, mesh=)`` in EP on MOE_MESH (median of 3, each
+    on a fresh cache; K9 5 launches a prefill, every count set to 0 just
+    before and read just after) and 32 decode steps through
+    ``make_decode_step`` under ``moe_expert_tp=True`` (decode_32k's
+    setting; median of 32; no launch), at the config's capacity, with
+    the peak memory, beside (b)'s unmapped numbers.  Then the mapped and
+    the unmapped path at MOE_DROPLESS_CF on the prompts cut to
+    MOE_MAPPED_S: the prefill and two decode steps fed the unmapped
+    path's greedy tokens, no drop on either path (``DispatchSpy``: one
+    dispatch a MoE layer and call unmapped, dp x ep mapped), logits
+    within MODEL_BF16_REL of the unmapped path's."""
+    from repro_torch import models
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    mesh = moe_mesh()
+    dp, ep = MOE_MESH
+    b, s = toks.shape
+    new = 32
+    n_moe = sum(hasattr(layer, "moe") for layer in model.layers)
+    tp = dataclasses.replace(cfg, moe_expert_tp=True)
+    pre_step = make_prefill_step(cfg, mesh=mesh)
+    dec_step = make_decode_step(tp, mesh=mesh)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pre_times = []
+        for _ in range(3):
+            cache = models.make_cache(cfg, b, s + new, concrete=True,
+                                      device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            last, cache = pre_step(model, toks, cache)
+            torch.cuda.synchronize()
+            pre_times.append(1e3 * (time.perf_counter() - t0))
+            assert _only(counts(), K9=5), counts()
+        tok, dec_times = last.argmax(-1), []
+        reset_counts()
+        for i in range(new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = dec_step(model, tok, cache, s + i)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            dec_times.append(1e3 * (time.perf_counter() - t0))
+        assert _only(counts()), counts()
+        assert torch.isfinite(logits.float()).all()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del cache, logits, last
+
+        # the mapped path against the unmapped at a dropless capacity
+        sd = MOE_MAPPED_S
+        cfg_d = dataclasses.replace(cfg, capacity_factor=MOE_DROPLESS_CF)
+        tp_d = dataclasses.replace(cfg_d, moe_expert_tp=True)
+        part = toks[:, :sd].contiguous()
+        runs, fed = {}, []
+        for mapped in (False, True):
+            if mapped:
+                prefill = make_prefill_step(cfg_d, mesh=mesh)
+                step = make_decode_step(tp_d, mesh=mesh)
+            else:
+                prefill = lambda m, t, c: models.prefill(m, t, c, cfg_d)
+                step = lambda m, t, c, pos: models.decode_step(m, t, c, pos,
+                                                              cfg_d)
+            with DispatchSpy() as spy:
+                cache = models.make_cache(cfg, b, sd + 2, concrete=True,
+                                          device=dev)
+                reset_counts()
+                last, cache = prefill(model, part, cache)
+                torch.cuda.synchronize()
+                assert _only(counts(), K9=5), counts()
+                logits = [last]
+                for i in range(2):
+                    if not mapped:
+                        fed.append(logits[-1].argmax(-1))
+                    lg, cache = step(model, fed[i], cache, sd + i)
+                    logits.append(lg)
+                torch.cuda.synchronize()
+            runs[mapped] = (logits, spy.drops(), len(spy.calls))
+            del cache
+    calls = {m: r[2] for m, r in runs.items()}
+    assert calls == {False: 3 * n_moe, True: 3 * n_moe * dp * ep}, calls
+    drops = {m: r[1] for m, r in runs.items()}
+    assert drops == {False: 0, True: 0}, drops
+    errs = [_rel(g, w) for g, w in zip(runs[True][0], runs[False][0])]
+    e_abs = max(float((g.double() - w.double()).abs().max())
+                for g, w in zip(runs[True][0], runs[False][0]))
+    assert all(e <= MODEL_BF16_REL for e in errs), errs
+    t_pre, t_dec = float(np.median(pre_times)), float(np.median(dec_times))
+    out = dict(mapped_prefill_ms=t_pre, mapped_prefill_tok_s=b * s
+               / (t_pre / 1e3), mapped_decode_ms=t_dec,
+               mapped_peak_gb=peak, mapped_errs=errs, mapped_abs=e_abs)
+    print(f"[serve mapped] deepseek-v2-236b, {cfg.num_layers} layers "
+          f"({n_moe} MoE), on a {MOE_MESH} (data, model) mesh of cuda:0: "
+          f"make_prefill_step(mesh=) in EP on {b} x {s} tokens "
+          f"{t_pre:.1f} ms (median of 3; {out['mapped_prefill_tok_s']:.0f} "
+          f"tokens/s; unmapped {rec['prefill_ms']:.1f}, "
+          f"{rec['prefill_tok_s']:.0f} tokens/s), K9 5 launches a prefill; "
+          f"{new} decode steps by make_decode_step(mesh=) under expert-TP "
+          f"{t_dec:.2f} ms a step (median of {new}; unmapped "
+          f"{rec['decode_ms']:.2f}, median of 16), no launch; peak memory "
+          f"{peak:.2f} GB (unmapped generate {rec['peak_gb']:.2f}); at "
+          f"capacity factor {MOE_DROPLESS_CF:g} on {b} x {sd} tokens, "
+          f"drops mapped / unmapped {drops[True]} / {drops[False]} "
+          f"({calls[True]} / {calls[False]} expert-shard dispatches in a "
+          f"prefill and 2 decode steps), mapped vs unmapped logits "
+          f"(prefill, step 1, step 2) "
+          + ", ".join(f"{e:.3g}" for e in errs)
+          + f" relative max (limit {MODEL_BF16_REL:g}), largest absolute "
+          f"difference {e_abs:.3g} [{name}]")
+    return out
 
 
 def host_syncs(fn) -> int:
@@ -4724,7 +5049,8 @@ def moe_phase(dev, errs: ErrLog, name: str):
     t0 = time.perf_counter()
     rows, k9_ms = check_mla_kernels(dev, errs, name)
     ds = serve_full(dev, name, "deepseek-v2-236b", 4, 4096, 32, {"K9": 5},
-                    {"K9": 5 * k9_ms["deepseek"]}, num_layers=5)
+                    {"K9": 5 * k9_ms["deepseek"]}, num_layers=5,
+                    after=lambda *a: mapped_serving(dev, name, *a))
     serve_full(dev, name, "kimi-k2-1t-a32b", 2, 4096, 16, {"K9": 2},
                {"K9": 2 * k9_ms["kimi"]}, num_layers=2)
     free = _host_free_gb()
@@ -4738,6 +5064,8 @@ def moe_phase(dev, errs: ErrLog, name: str):
     print(f"[models] phase 24 in {time.perf_counter() - t0:.1f} s; "
           f"deepseek peak {ds['peak_gb']:.2f} GB [{name}]")
     paths = {"deepseek-v2-236b prefill (5 of 60 layers)": 5,
+             "deepseek-v2-236b mapped prefill (5 of 60 layers, EP on a "
+             "(2, 4) mesh)": 5,
              "kimi-k2-1t-a32b prefill (2 of 61 layers)": 2}
     f32_paths = {"deepseek-v2-236b f32 prefill (2 layers)": 2}
     return rows, {"K9": paths, "K9-mla": paths, "K9-f32": f32_paths,

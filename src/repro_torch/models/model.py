@@ -30,9 +30,11 @@ outputs of its matrix products (``mm``, ``bmm``, ``addmm``) and
 recomputes the rest (selective checkpointing).  It changes when values
 are computed, never what they are, and has no effect when serving.  The
 reference's ``shard`` callback has no effect; the signatures keep it.
-``mesh`` and ``data_axes`` go to the MoE layers, which run unmapped (a
-mesh that shards the experts raises, ``moe.moe_apply``).  ``forward`` and ``loss_fn`` sum the MoE layers' aux
-losses.
+``mesh`` and ``data_axes`` go to the MoE layers: a mesh whose ``model``
+axis divides the experts maps them over its devices, by EP, or by
+expert-TP under ``cfg.moe_expert_tp`` (``moe.moe_apply``); every other
+layer runs on the model's device.  ``forward`` and ``loss_fn`` sum the
+MoE layers' aux losses.
 """
 
 from __future__ import annotations

@@ -38,16 +38,41 @@ Deliberate choices, each to compute the reference's function:
 :func:`_moe_local` keeps the reference's expert-shard contract: it
 serves the experts ``[e_offset, e_offset + E_loc)`` of the ``E_loc``
 weight slices it is given, and the outputs of the shards sum to the
-whole (the reference's ``psum``).  :func:`moe_apply` runs the unmapped
-path; a mesh whose ``model`` axis shards the experts raises
-``NotImplementedError``: expert parallelism is a later slice of the
-port.
+whole (the reference's ``psum``).
+
+:func:`moe_apply` runs unmapped without a mesh, or with one whose
+``model`` axis is 1 or does not divide the experts, as the reference
+does; otherwise it runs one of the reference's two mapped modes over
+the mesh's [data shards, model shards] grid of devices
+(``BankMesh.device_grid``), single-controller: one ``_moe_local`` call a
+(d, m) shard on its device, in row-major (d, m) order, the reference's
+collectives as sums in a fixed order.
+
+* EP: data shard d takes x's batch rows ``[d B/dp, (d+1) B/dp)`` and
+  model shard m the experts ``[m E/ep, (m+1) E/ep)`` (views of the
+  stacked weights: nothing is copied), with the capacity of its own
+  T/dp tokens.  A row's model shards are added in rising m on the row's
+  first device (the ``psum`` over ``model``), the rows concatenated in
+  rising d.
+* expert-TP (serving): every shard takes all tokens; shard (d, m) holds
+  its experts' FFN columns ``[d F/dp, (d+1) F/dp)`` (``w_gate``,
+  ``w_up`` on dim 2, ``w_down`` on dim 1: the slices of
+  ``sharding.rules.expert_spec``).  All dp x ep partial outputs are
+  added in row-major order (the ``psum`` over every axis); the
+  reference's batch slice and re-gather give back the whole sum.
+
+In both, aux is the mean of the dp x ep shards' auxes, added in
+row-major order (the ``pmean``): each shard's router statistics over its
+own tokens.  Shared experts run once, on the whole x.  The mapped
+combine rounds each shard's partial sum before the sum over shards, so
+with more than two experts a token it is not bitwise the unmapped
+path's; at top 2 it is.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +80,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import Dense, Dtypes, normal
+from ..sharding.rules import expert_spec
 
 __all__ = ["MoE", "moe_apply", "route", "dispatch"]
 
@@ -226,6 +252,68 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     return out, aux
 
 
+def _sum(parts: List[torch.Tensor], device) -> torch.Tensor:
+    """``parts`` added one at a time in list order on ``device``."""
+    total = parts[0].to(device)
+    for t in parts[1:]:
+        total = total + t.to(device)
+    return total
+
+
+def _moe_mapped(p: MoE, x: torch.Tensor, cfg: ModelConfig, mesh,
+                data_axes: Tuple[str, ...], model_axis: str,
+                expert_tp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts over ``mesh``'s [data, model] grid (the module
+    docstring): (out [B, S, D] on x's device, aux)."""
+    B, S, D = x.shape
+    grid = mesh.device_grid(data_axes, model_axis)
+    dp, ep = grid.shape
+    e_loc = cfg.num_experts // ep
+    if expert_tp:
+        xs = [x] * dp
+    elif B % dp:
+        raise ValueError(
+            f"moe_apply: x of shape {tuple(x.shape)} has B = {B} rows, "
+            f"which do not split over the {dp} data shards of mesh "
+            f"{mesh.shape} (axes {data_axes})")
+    else:
+        xs = mesh.parts(x, 0, data_axes)
+    # slices[w][d][m]: shard (d, m)'s view of weight w, cut by its spec:
+    # dim 0 over the model shards, under expert-TP the FFN dim (dim 2 of
+    # w_gate and w_up, 1 of w_down) over the data shards
+    tp_axes = data_axes if expert_tp else None
+    slices = []
+    for name in ("w_gate", "w_up", "w_down"):
+        spec = expert_spec(name, None, tp_axes)
+        by_m = mesh.parts(getattr(p.experts, name), 0, model_axis)
+        if spec[1] is None and spec[2] is None:
+            slices.append([by_m] * dp)
+            continue
+        dim = 1 if spec[1] is not None else 2
+        by_md = [mesh.parts(w, dim, spec[dim]) for w in by_m]
+        slices.append([[by_md[m][d] for m in range(ep)] for d in range(dp)])
+    rows, auxes = [], []
+    for d in range(dp):
+        outs = []
+        for m in range(ep):
+            dev = grid[d, m]
+            out, aux = _moe_local(
+                xs[d].to(dev).reshape(-1, D), p.router.w.to(dev),
+                *(w[d][m].to(dev) for w in slices), cfg,
+                e_offset=m * e_loc)
+            outs.append(out)
+            auxes.append(aux)
+        rows.append(outs)
+    if expert_tp:
+        out = _sum([o for row in rows for o in row], grid[0, 0])
+        out = out.reshape(B, S, D).to(x.device)
+    else:
+        out = torch.cat([_sum(row, grid[d, 0]).reshape(B // dp, S, D)
+                         .to(x.device) for d, row in enumerate(rows)])
+    aux = _sum(auxes, x.device) / len(auxes)
+    return out, aux
+
+
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None,
               data_axes=("data",), model_axis: str = "model",
               expert_tp: bool = False
@@ -233,18 +321,20 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     """x: [B, S, D] -> (out [B, S, D], aux_loss scalar).  Without a mesh
     (or with one whose ``model`` axis is 1, or does not divide the
     experts, where the reference runs unmapped too) every expert runs
-    here; a mesh that would shard the experts raises."""
+    here; otherwise the experts are mapped over the mesh, by expert-TP
+    when ``expert_tp`` and else by EP (the module docstring).  EP raises
+    ``ValueError`` where x's batch does not split over the data
+    shards."""
     B, S, D = x.shape
     ep = 1 if mesh is None else int(mesh.shape.get(model_axis, 1))
-    if ep > 1 and cfg.num_experts % ep == 0:
-        raise NotImplementedError(
-            f"moe_apply over a mesh with {model_axis}={ep} shards the "
-            f"experts (expert_tp={expert_tp}): expert parallelism is a "
-            f"later slice of the port; pass mesh=None")
-    ex = p.experts
-    out, aux = _moe_local(x.reshape(-1, D), p.router.w, ex.w_gate, ex.w_up,
-                          ex.w_down, cfg)
-    out = out.reshape(B, S, D)
+    if ep == 1 or cfg.num_experts % ep:
+        ex = p.experts
+        out, aux = _moe_local(x.reshape(-1, D), p.router.w, ex.w_gate,
+                              ex.w_up, ex.w_down, cfg)
+        out = out.reshape(B, S, D)
+    else:
+        out, aux = _moe_mapped(p, x, cfg, mesh, tuple(data_axes),
+                               model_axis, expert_tp)
     if cfg.num_shared_experts:
         out = out + p.shared(x)
     return out, aux

@@ -8,8 +8,11 @@ MLA) and K10 in every Mamba2 and mLSTM layer; a decode step runs neither
 cache, as the reference's decode is jnp).  The sLSTM scan kernel runs
 once an sLSTM layer in the prefill and in each decode step.  Every arch
 is served, the MoE archs (deepseek-v2, kimi-k2) and xLSTM included.
-``mesh``, ``data_axes`` and ``shard`` have no effect when serving on one
-card; the signatures keep them.
+The steps' ``mesh`` and ``data_axes`` reach the MoE layers, which map
+their experts over the mesh (``models.moe.moe_apply``: EP, or expert-TP
+under ``cfg.moe_expert_tp``, as the reference's ``decode_32k`` configs
+set it); ``shard`` has no effect.  ``ServeEngine`` takes no mesh, as
+the reference's does not.
 
 One deliberate difference: temperature sampling draws from an explicit
 ``torch.Generator`` that advances with every step, where the reference

@@ -1,5 +1,8 @@
-"""Bank sharding: a 1-D device mesh over the reference bank's K axis and
-the tensors split over it (see :mod:`repro_torch.sharding.mesh`)."""
+"""Device meshes, the tensors split over them, and the sharding rules:
+a 1-D mesh over the reference bank's K axis, a (data, model) mesh for
+the MoE layer's experts (see :mod:`repro_torch.sharding.mesh`), and the
+parameter, optimizer-moment and batch spec maps
+(:mod:`repro_torch.sharding.rules`)."""
 
 from .mesh import (BankMesh, NamedSharding, PartitionSpec, ShardedTensor,
                    canonical_device, make_mesh, mesh_layout, shard_tensor)

@@ -1,22 +1,30 @@
-"""A 1-D device mesh over the reference bank's K axis, and the tensors
-split over it; the port's counterpart of ``jax.sharding.Mesh``,
-``PartitionSpec`` and ``NamedSharding`` as the tuning service and the
-checkpoint manager use them.
+"""Device meshes and the tensors split over them; the port's counterpart
+of ``jax.sharding.Mesh``, ``PartitionSpec`` and ``NamedSharding`` as the
+tuning service, the checkpoint manager and the MoE layer use them.
 
-The port is single-controller, as the reference is: one process and one
-:class:`~repro_torch.serve.tuning.TuningService` drive every device of
-the mesh.  Each K shard of the service's state is a separate contiguous
-tensor on its own ``torch.device``, and each shard's kernel is launched
-on that device.  A mesh may name one device more than once, the
-counterpart of the reference's forced host devices: ``["cpu"] * 8`` on a
-host without a card, or ``["cuda:0"] * 4`` on a machine with one card.
+The port is single-controller, as the reference is: one process drives
+every device of the mesh.  A mesh may name one device more than once,
+the counterpart of the reference's forced host devices: ``["cpu"] * 8``
+on a host without a card, or ``["cuda:0"] * 8`` on a machine with one
+card.
+
+* A 1-D mesh over the reference bank's K axis serves
+  :class:`~repro_torch.serve.tuning.TuningService`: each K shard of its
+  state is a separate contiguous tensor on its own ``torch.device``
+  (:meth:`BankMesh.split`), and each shard's kernel is launched on that
+  device.
+* A (``data``, ``model``) mesh, or (``pod``, ``data``, ``model``),
+  serves the MoE layer's expert parallelism (``models.moe.moe_apply``):
+  :meth:`BankMesh.device_grid` lays the devices out as [data shards,
+  model shards] and :meth:`BankMesh.parts` cuts a tensor along one named
+  axis or a tuple of them into views, so a dim-0 slice of a stacked
+  expert weight copies nothing.
 
 The reference's ``sharding/compat.py`` has no counterpart here: it is a
-shim over jax's moving ``shard_map`` API, and the port launches one
-kernel a shard instead.  Of its ``sharding/rules.py`` the port has
-``ExecConfig`` (:mod:`repro_torch.sharding.rules`); the rules that map
-model pytrees onto a mesh, and ``launch/mesh.py``, wait for the model
-zoo's dry-run.
+shim over jax's moving ``shard_map`` API, and the port runs one call a
+shard instead.  Its ``sharding/rules.py`` is ported as
+:mod:`repro_torch.sharding.rules`; ``launch/mesh.py`` waits for the
+model zoo's dry-run.
 """
 
 from __future__ import annotations
@@ -33,6 +41,14 @@ __all__ = ["BankMesh", "make_mesh", "mesh_layout", "canonical_device",
            "shard_tensor"]
 
 DeviceLike = Union[str, torch.device]
+#: A mesh axis name, a tuple of them, or None.
+Axes = Union[None, str, Tuple[str, ...]]
+
+
+def _axis_tuple(axes: Axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def canonical_device(device: DeviceLike) -> torch.device:
@@ -56,8 +72,9 @@ class BankMesh:
 
     ``devices`` is a sequence of devices (a 1-D mesh) or a numpy object
     array of them whose ``ndim`` equals ``len(axis_names)``.  The tuning
-    service shards its bank axis over a 1-D mesh only; a mesh of more
-    axes exists so that it can be refused with the reference's error.
+    service shards its bank axis over a 1-D mesh only, and refuses a
+    mesh of more axes with the reference's error; the MoE layer maps
+    its experts over a mesh of ``data`` and ``model`` axes.
     ``devices`` is kept as a numpy object array, so ``mesh.devices.size``
     reads as the reference's tests read it."""
 
@@ -111,6 +128,44 @@ class BankMesh:
         return [p.to(d, memory_format=torch.contiguous_format, copy=True)
                 for p, d in zip(t.split(t.shape[dim] // n, dim),
                                 self.device_list)]
+
+    def axis_size(self, axes: Axes) -> int:
+        """The devices along ``axes``: one axis name, a tuple of them (the
+        product of their sizes) or None (1)."""
+        return math.prod(self.shape[a] for a in _axis_tuple(axes))
+
+    def device_grid(self, *groups: Axes) -> np.ndarray:
+        """The devices as an array with one dim per group of axes, in
+        ``groups``' order: dim i runs over the row-major index of the
+        axes of ``groups[i]`` (a name or a tuple of names), so
+        ``mesh.device_grid(("data",), "model")[d, m]`` is the device of
+        data shard d and model shard m.  An axis no group names is a
+        replica axis: the grid takes its index 0."""
+        names = [a for g in groups for a in _axis_tuple(g)]
+        unknown = [a for a in names if a not in self.axis_names]
+        if unknown or len(set(names)) != len(names):
+            raise ValueError(f"axis groups {groups} over mesh axes "
+                             f"{self.axis_names}")
+        grid = self.devices
+        for i in reversed(range(grid.ndim)):
+            if self.axis_names[i] not in names:
+                grid = np.take(grid, 0, axis=i)
+        kept = [a for a in self.axis_names if a in names]
+        grid = grid.transpose([kept.index(a) for a in names])
+        return grid.reshape([self.axis_size(g) for g in groups])
+
+    def parts(self, t: torch.Tensor, dim: int, axes: Axes
+              ) -> List[torch.Tensor]:
+        """``t`` cut evenly along ``dim`` into ``axis_size(axes)`` parts,
+        part j for the row-major index j over ``axes`` (the order of
+        :meth:`device_grid`).  Each part is a view of ``t`` on ``t``'s
+        device (contiguous where the cut is along dim 0 of a contiguous
+        tensor); the caller moves it where it runs."""
+        n = self.axis_size(axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} tensor does "
+                             f"not split over {axes!r} ({n} shards)")
+        return list(t.split(t.shape[dim] // n, dim))
 
     def replicate(self, t: torch.Tensor) -> List[torch.Tensor]:
         """One copy of ``t`` a device (each its own tensor)."""
@@ -174,11 +229,12 @@ def mesh_layout(mesh: Optional[BankMesh]
 
 
 class PartitionSpec(tuple):
-    """Per tensor dim, the mesh axis it is split along, or None:
-    ``PartitionSpec(None, "bank")`` splits dim 1.  ``PartitionSpec()``
-    (or all None) replicates."""
+    """Per tensor dim, the mesh axis it is split along, a tuple of axes
+    (split over their devices in row-major order, as ``("pod",
+    "data")``), or None: ``PartitionSpec(None, "bank")`` splits dim 1.
+    ``PartitionSpec()`` (or all None) replicates."""
 
-    def __new__(cls, *parts: Optional[str]) -> "PartitionSpec":
+    def __new__(cls, *parts: Axes) -> "PartitionSpec":
         return super().__new__(cls, parts)
 
     def __repr__(self) -> str:

@@ -208,22 +208,24 @@ def test_expert_halves_sum_to_the_whole():
 
 
 def test_moe_apply_mesh():
-    """A mesh whose ``model`` axis shards the experts raises (expert
-    parallelism is a later slice); a ``model`` axis of 1, or one that
-    does not divide the experts, runs unmapped as the reference does."""
+    """A ``model`` axis of 1, or one that does not divide the experts,
+    runs unmapped as the reference does; a (1, 2) mesh shards the
+    experts in two, and at top 2 the mapped run (EP and expert-TP) is
+    bitwise the unmapped one: a token's two contributions are added in
+    rising expert id either way, once each half is summed on its own.
+    ``tests/test_torch_moe_ep.py`` holds the mapped modes to the
+    reference's."""
     p = rmoe.moe_init(jax.random.PRNGKey(0), RCFG)
     mod = _port(p, CFG)
     x = torch.tensor(_normal(1, (2, 8, 32)))
-    want, _ = tmoe.moe_apply(mod, x, CFG)
-    for shape, ok in (((2, 1), True), ((1, 3), True), ((1, 2), False)):
+    want, want_aux = tmoe.moe_apply(mod, x, CFG)
+    for shape in ((2, 1), (1, 3), (1, 2)):
         mesh = make_mesh(shape, ("data", "model"),
                          devices=["cpu"] * math.prod(shape))
-        if ok:
-            got, _ = tmoe.moe_apply(mod, x, CFG, mesh=mesh)
-            assert torch.equal(got, want)
-        else:
-            with pytest.raises(NotImplementedError, match="expert"):
-                tmoe.moe_apply(mod, x, CFG, mesh=mesh)
+        for expert_tp in (False, True):
+            got, aux = tmoe.moe_apply(mod, x, CFG, mesh=mesh,
+                                      expert_tp=expert_tp)
+            assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 def test_combine_is_in_rising_expert_order():
