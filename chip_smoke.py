@@ -298,7 +298,21 @@ Phases, in order (any failure exits non-zero):
     ``--resume`` from step 30 on the same parameters within 1e-6 (bitwise
     or not, printed), the DB holding the run's signature; (e) a bf16
     SMOKE train step and a bf16 sLSTM scan with a gradient raise
-    NotImplementedError, launching nothing and calling no plain version.
+    NotImplementedError, launching nothing and calling no plain version;
+    (f) sharded training on SHARD_MESH of the one card
+    (``make_train_step(mesh=, shard=make_shard_fn(...))``): minitron-4b
+    (8 layers, full width, float32, remat "full") on 2 x 4096 tokens, a
+    data shard 1 x 4096, against the one-device step with ``microbatch``
+    2 from the same weights (loss and ce SHARD_LOSS_REL, each gradient
+    leaf SHARD_GRAD_REL of its largest, every parameter within
+    SHARD_RTOL / SHARD_ATOL), K9 f32 32
+    and its backward 16 launches a step on both, no plain call, no host
+    sync, peak memory within SHARD_PEAK_GB of the one-device step's, ms
+    a step (median of 4) beside it; then deepseek-v2's MoE block at full
+    width in float32, forward and backward mapped over SHARD_MESH by EP
+    against the unmapped block at MOE_DROPLESS_CF on SHARD_MOE_TOKENS
+    (every gradient within SHARD_MOE_GRAD_REL of its largest, no drop on
+    either path, two mapped runs bitwise, ms and peak memory of each).
     Besides, for the Mamba2 and MLA archs: (a) K9 f32's backward at
     MLA's head (``flash_f32_bwd_mla.cu``, split TF32 on ``wgmma`` at
     16-row steps, HGMMA asserted in its SASS) against
@@ -357,7 +371,8 @@ It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
 with its launches on phase 26's matches, K9's two rows at MLA's head,
 K10's row on mLSTM's whole heads, the sLSTM scan's and K9 f32's
-backward's, with its launches on phase 27's minitron-4b step, and the
+backward's, with its launches on phase 27's minitron-4b step and its
+sharded step (K9 f32's forward row too), and the
 backwards of K9 f32 at MLA's head and of K10 f32 with theirs on phase
 27's deepseek-v2 and zamba2-7b steps, and the sLSTM scan's backward
 with its launches on phase 27's xlstm-1p3b step), the
@@ -6685,6 +6700,264 @@ def train_no_fallback(dev) -> None:
               f"no kernel launched, no plain version called")
 
 
+#: Phase 27 (f): the sharded train step on SHARD_MESH of the one card
+#: against the one-device step with microbatch 2 on the same 2 x 4096
+#: batch from the same weights.  Loss and ce within SHARD_LOSS_REL
+#: relative; each gradient leaf (caught before AdamW) within
+#: SHARD_GRAD_REL of its largest element (the same function, its sums
+#: split at the data shards instead of the microbatches); parameters
+#: after one step at SHARD_LR within tests/test_torch_train_archs.py's
+#: rtol / atol, every element.  Peak memory within SHARD_PEAK_GB
+#: of the one-device step's (the shards are views).  Stated before the
+#: first run.
+SHARD_MESH = (2, 4)
+SHARD_LR = 1e-3
+SHARD_LOSS_REL = 1e-5
+SHARD_GRAD_REL = 1e-4
+SHARD_RTOL, SHARD_ATOL = 1e-4, 2e-4
+SHARD_PEAK_GB = 1.0
+#: Phase 27 (f): deepseek-v2's MoE block, forward and backward, mapped
+#: by EP against unmapped at MOE_DROPLESS_CF on B x S tokens sized so
+#: that the float32 weights (15.3 GB), two sets of their gradients and a
+#: run's dispatch buffers (48 T slots of ~86 KB) fit the card.  Every
+#: gradient (the input's, each weight's) within SHARD_MOE_GRAD_REL of
+#: its largest element: the mapped path sums an expert's weight gradient
+#: over its two data shards' slots, the unmapped over one buffer, and
+#: combines each token's outputs per shard first.  Stated before the
+#: first run.
+SHARD_MOE_TOKENS = (2, 1024)
+SHARD_MOE_GRAD_REL = 1e-5
+
+
+class GradCatch:
+    """While open, every AdamW update of ``repro_torch.train.step`` (the
+    one-device step's and the sharded step's) hands its gradients to
+    ``fn(grads)`` first."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.train import step
+        self.step = step
+        self.real = real = step.adamw_update
+
+        def update(grads, *args, **kwargs):
+            self.fn(grads)
+            return real(grads, *args, **kwargs)
+
+        step.adamw_update = update
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.step.adamw_update = self.real
+
+
+def _leaf_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float32 (one temporary the
+    size of a leaf)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def train_sharded(dev, name: str, layers: int = 8, b: int = 2,
+                  s: int = 4096, steps: int = 4) -> dict:
+    """Phase 27 (f), its first half: minitron-4b (``layers`` layers at
+    full width, float32, its ``train_4k`` exec) on SHARD_MESH (``cuda:0``
+    eight times), one step of the sharded step and one of the one-device
+    step with microbatch 2 from the same weights on the same B x S
+    SyntheticCorpus batch (the weights kept on the host between them),
+    held to each other (SHARD_*); then ``steps`` steps of each, timed,
+    their launches (K9 f32 2 x 2 ``layers``, its backward 2 ``layers``)
+    and peak memory, and one sharded step's host syncs.  Returns
+    {"launches", "ms", "plain_ms", ...}."""
+    from repro_torch import configs, models
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.sharding import make_mesh
+    from repro_torch.sharding.rules import make_shard_fn
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    ex = configs.exec_default("minitron-4b", "train_4k")
+    cfg = _train_cfg("minitron-4b", layers, ex.remat)
+    mesh = make_mesh(SHARD_MESH, ("data", "model"),
+                     devices=["cuda:0"] * math.prod(SHARD_MESH))
+    ex_one = dataclasses.replace(ex, microbatch=2)
+    ex_shd = dataclasses.replace(ex, microbatch=1)
+    opt_cfg = AdamWConfig(lr=SHARD_LR)
+    one = make_train_step(cfg, ex_one, opt_cfg)
+    shd = make_train_step(cfg, ex_shd, opt_cfg, mesh=mesh,
+                          shard=make_shard_fn(mesh, ex_shd, b))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = models.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(27), device=dev)
+    params = dict(model.named_parameters())
+    w0 = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=27), s, b)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(steps + 1)]
+    # the one-device step: its gradients and its parameters after, on
+    # the host
+    g_one: dict = {}
+    with GradCatch(lambda g: g_one.update(
+            {k: t.detach().to("cpu", copy=True) for k, t in g.items()})):
+        opt, m_one = one(model, adamw_init(model, opt_cfg), batches[0])
+    del opt
+    p_one = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(w0[k])
+    del w0
+    # the sharded step from the same weights, held to it
+    errs: dict = {}
+
+    def check(grads):
+        for k, g in grads.items():
+            errs[k] = _leaf_rel(g, g_one[k].to(dev))
+    with GradCatch(check):
+        opt, m_shd = shd(model, adamw_init(model, opt_cfg), batches[0])
+    del opt
+    rel = {k: abs(float(m_shd[k]) - float(m_one[k])) / abs(float(m_one[k]))
+           for k in ("loss", "ce")}
+    assert max(rel.values()) <= SHARD_LOSS_REL, rel
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= SHARD_GRAD_REL, (worst, errs[worst])
+    p_err = 0.0
+    with torch.no_grad():
+        for k, p in params.items():
+            want = p_one[k].to(dev)
+            diff = (p - want).abs()
+            p_err = max(p_err, float(diff.max()))
+            bad = diff > SHARD_ATOL + SHARD_RTOL * want.abs()
+            assert not bool(bad.any()), (k, float(diff.max()))
+            del want, diff, bad
+    del g_one, p_one
+    print(f"[train sharded] minitron-4b, {layers} layers at full width, "
+          f"f32, remat {cfg.remat}, on a {SHARD_MESH} (data, model) mesh of "
+          f"cuda:0, {b} x {s} tokens (a data shard {b // SHARD_MESH[0]} x "
+          f"{s}) against the one-device step with microbatch 2 from the "
+          f"same weights (built in {time.perf_counter() - t0:.1f} s): loss "
+          f"{float(m_shd['loss']):.7f} / {float(m_one['loss']):.7f}, "
+          f"relative {rel['loss']:.3g}, ce {rel['ce']:.3g} (limit "
+          f"{SHARD_LOSS_REL:g}); grad norm {float(m_shd['grad_norm']):.7g} "
+          f"/ {float(m_one['grad_norm']):.7g}; gradients within "
+          f"{errs[worst]:.3g} of a leaf's largest (worst {worst}; limit "
+          f"{SHARD_GRAD_REL:g}); parameters after the step within "
+          f"{p_err:.3g} (rtol {SHARD_RTOL:g}, atol {SHARD_ATOL:g}, every "
+          f"element) [{name}]")
+    want = {k: 2 * n for k, n in _train_launches(cfg, 2).items()}
+    times: dict = {"one": [], "sharded": []}
+    peaks: dict = {"one": 0.0, "sharded": 0.0}
+    for key, fn in (("one", one), ("sharded", shd)):
+        # each from a fresh optimizer state, one state on the card at a
+        # time
+        opt = adamw_init(model, opt_cfg)
+        for i in range(steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with counting_plain() as seen:
+                t1 = time.perf_counter()
+                opt, met = fn(model, opt, batches[i + 1])
+                torch.cuda.synchronize()
+                times[key].append(1e3 * (time.perf_counter() - t1))
+            peaks[key] = max(peaks[key],
+                             torch.cuda.max_memory_allocated() / 1e9)
+            launched({k: 0 for k in counts()}, **want)
+            assert seen["calls"] == 0, seen
+            assert math.isfinite(float(met["loss"])), met
+        if key == "sharded":
+            syncs = host_syncs(lambda: shd(model, opt, batches[0]))
+        del opt, met
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    assert peaks["sharded"] <= peaks["one"] + SHARD_PEAK_GB, peaks
+    assert syncs == 0, f"host syncs in a sharded step: {syncs}"
+    print(f"[train sharded] minitron-4b: ms a step (median of {steps}) "
+          f"sharded {ms['sharded']:.1f} (each "
+          + ", ".join(f"{t:.1f}" for t in times["sharded"])
+          + f"), one-device microbatch 2 {ms['one']:.1f} (each "
+          + ", ".join(f"{t:.1f}" for t in times["one"])
+          + f"); {b * s / ms['sharded'] * 1e3:.0f} tokens/s sharded; peak "
+          f"memory {peaks['sharded']:.2f} GB sharded, {peaks['one']:.2f} "
+          f"GB one-device (limit +{SHARD_PEAK_GB:g}); launches a step on "
+          f"both: " + ", ".join(f"{k} {n}" for k, n in want.items())
+          + f"; no plain version called; host syncs in a sharded step "
+          f"{syncs} [{name}]")
+    del model, params, one, shd, batches
+    torch.cuda.empty_cache()
+    return {"launches": want, "ms": ms["sharded"], "plain_ms": ms["one"],
+            "peak_gb": peaks}
+
+
+def moe_block_backward(dev, name: str) -> dict:
+    """Phase 27 (f), its second half: deepseek-v2's MoE block at full
+    width in float32 (random weights), forward and backward of ``sum(out
+    * cot)`` on SHARD_MOE_TOKENS: unmapped, then mapped over SHARD_MESH
+    by EP, twice, at MOE_DROPLESS_CF.  Every gradient within
+    SHARD_MOE_GRAD_REL of the unmapped one's largest element, no drop on
+    either path (``DispatchSpy``), the two mapped runs bitwise equal;
+    each path's ms (CUDA events, a forward and a backward) and the
+    memory it allocates above the weights at its peak."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get("deepseek-v2-236b"),
+                              param_dtype="float32", dtype="float32",
+                              capacity_factor=MOE_DROPLESS_CF)
+    mesh = moe_mesh()
+    gen = torch.Generator(device=dev).manual_seed(275)
+    mod = moe.MoE(cfg, generator=gen, device=dev).requires_grad_(True)
+    names = [n for n, _ in mod.named_parameters()]
+    b, s = SHARD_MOE_TOKENS
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+
+    def run(mapped: bool):
+        xr = x.detach().requires_grad_(True)
+        out, aux = moe.moe_apply(mod, xr, cfg,
+                                 mesh=mesh if mapped else None)
+        grads = torch.autograd.grad(
+            torch.sum(out * cot), [xr] + [mod.get_parameter(n)
+                                          for n in names])
+        return out.detach(), aux.detach(), dict(zip(["x"] + names, grads))
+
+    with DispatchSpy() as plain_spy:
+        want_out, want_aux, want = run(False)
+    with DispatchSpy() as spy:
+        out, aux, got = run(True)
+    drops = (spy.drops(), plain_spy.drops())
+    assert drops == (0, 0), drops
+    errs = {k: _leaf_rel(got[k], want[k]) for k in want}
+    out_rel = _leaf_rel(out, want_out)
+    del want, want_out
+    _, _, again = run(True)
+    bitwise = all(torch.equal(got[k], again[k]) for k in got)
+    assert bitwise, "mapped MoE backward not deterministic"
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= SHARD_MOE_GRAD_REL, (worst, errs[worst])
+    del got, again
+    t_plain = cuda_ms(lambda: run(False), 2)
+    t_map = cuda_ms(lambda: run(True), 2)
+    mem_plain = _peak_extra(lambda: run(False))
+    mem_map = _peak_extra(lambda: run(True))
+    weights = sum(p.numel() * p.element_size() for p in mod.parameters())
+    print(f"[train sharded] deepseek-v2-236b MoE block at full width, f32 "
+          f"({weights / 1e9:.2f} GB of weights), forward and backward on "
+          f"{b} x {s} tokens, EP on a {SHARD_MESH} mesh of cuda:0 against "
+          f"unmapped at capacity factor {MOE_DROPLESS_CF:g}: drops mapped / "
+          f"unmapped {drops[0]} / {drops[1]}; aux {float(aux):.7g} / "
+          f"{float(want_aux):.7g}; out within {out_rel:.3g} of max |out|; "
+          f"gradients within {errs[worst]:.3g} of a leaf's largest (worst "
+          f"{worst}; x {errs['x']:.3g}, router {errs['router.w']:.3g}; limit "
+          f"{SHARD_MOE_GRAD_REL:g}); two mapped runs bitwise; {t_map:.2f} "
+          f"ms mapped, {t_plain:.2f} unmapped (CUDA events, forward and "
+          f"backward); memory above the weights at the peak {mem_map:.2f} "
+          f"GB mapped, {mem_plain:.2f} unmapped [{name}]")
+    del mod, x, cot
+    torch.cuda.empty_cache()
+    return {"ms": t_map, "plain_ms": t_plain, "mem_gb": mem_map,
+            "plain_mem_gb": mem_plain, "grad_rel": errs[worst]}
+
+
 def train_driver_xlstm(steps: int = 10) -> None:
     """Phase 27 (d) for xlstm-1p3b: ``python -m repro_torch.launch.train
     --arch xlstm-1p3b --smoke --steps 10`` on the card exits 0 (its own
@@ -6698,12 +6971,18 @@ def train_driver_xlstm(steps: int = 10) -> None:
           f"losses, {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 
+#: The sharded step's path in the kernel table's launch counts.
+SHARDED_PATH = "minitron-4b sharded train step (8 layers, (2, 4) mesh, " \
+    "2 x 4096)"
+
+
 def train_phase(dev, errs: ErrLog, name: str):
     """Phase 27: (a) K9 f32's backward kernels (dh <= 128 and MLA's head),
     K10 f32's and the sLSTM scan's, (b) minitron-4b, zamba2-7b,
     deepseek-v2 and xlstm-1p3b trained at full width, (c) the card
-    against the CPU, (d) the train driver, (e) no fallback.  Returns the
-    four backward kernels' table rows."""
+    against the CPU, (d) the train driver, (e) no fallback, (f) sharded
+    training.  Returns the four backward kernels' table rows and the
+    forward kernels' launches on the sharded step ({key: {path: n}})."""
     t0 = time.perf_counter()
     times = check_k9_bwd(dev, errs, name)
     mla = check_k9_mla_bwd(dev, errs, name)
@@ -6723,6 +7002,10 @@ def train_phase(dev, errs: ErrLog, name: str):
     train_driver()
     train_driver_xlstm()
     train_no_fallback(dev)
+    t1 = time.perf_counter()
+    sharded = train_sharded(dev, name)
+    moe_block_backward(dev, name)
+    print(f"[train] phase 27 (f) in {time.perf_counter() - t1:.1f} s")
     paths = {"minitron-4b": "minitron-4b train step (8 layers)",
              "zamba2-7b": "zamba2-7b train step (12 layers)",
              "deepseek-v2-236b": "deepseek-v2 train step (1 dense layer)",
@@ -6739,9 +7022,12 @@ def train_phase(dev, errs: ErrLog, name: str):
         row["model_launches"] = {paths[a]: f["launches"][count]
                                  for a, f in full.items()
                                  if count in f["launches"]}
+        if count in sharded["launches"]:
+            row["model_launches"][SHARDED_PATH] = \
+                sharded["launches"][count]
         rows.append(row)
     print(f"[train] phase 27 in {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, {"K9-f32": {SHARDED_PATH: sharded["launches"]["K9_f32"]}}
 
 
 def main() -> int:
@@ -6824,13 +7110,16 @@ def main() -> int:
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     rows[KERNELS["K2"][0]].setdefault("model_launches", {}).update(
         signature_phase(dev, errs, name))
-    for row in train_phase(dev, errs, name):
+    train_rows, train_paths = train_phase(dev, errs, name)
+    for row in train_rows:
         rows[row["name"]] = row
     for key in ("K9", "K9-f32"):
         # the serving phases assert these counts; phase 27 changed no
         # forward launch of theirs
         print(f"[train] {key} forward launches on the serving paths, as "
               f"before: {rows[KERNELS[key][0]]['model_launches']}")
+    for key, paths in train_paths.items():
+        rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K9-f32-bwd",
                 "K9-f32-mla-bwd", "K10", "K10-mlstm", "K10-f32-bwd",
                 "sLSTM", "sLSTM-bwd"):

@@ -48,7 +48,7 @@ from torch import nn
 
 from ..kernels.attention import flash_attention
 from .config import ModelConfig
-from .layers import Dense, Dtypes, RMSNorm, mrope, rope
+from .layers import Dense, Dtypes, RMSNorm, _id_shard, mrope, rope
 
 __all__ = ["GQAttention", "MLAttention", "attention"]
 
@@ -136,16 +136,16 @@ class GQAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
-                cache_pos: Optional[int] = None
+                cache_pos: Optional[int] = None, shard=_id_shard
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B, S, D].  With a cache: write K/V at ``cache_pos`` (in
         place) and attend over the filled prefix (decode /
         prefill-with-cache); returns (out, cache)."""
         B, S, D = x.shape
         H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = self.wq(x).reshape(B, S, H, dh)
-        k = self.wk(x).reshape(B, S, KV, dh)
-        v = self.wv(x).reshape(B, S, KV, dh)
+        q = shard(self.wq(x).reshape(B, S, H, dh), "heads")
+        k = shard(self.wk(x).reshape(B, S, KV, dh), "heads")
+        v = shard(self.wv(x).reshape(B, S, KV, dh), "heads")
         q = _apply_rope(cfg, q, positions)
         k = _apply_rope(cfg, k, positions)
 
@@ -227,7 +227,7 @@ class MLAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
-                cache_pos: Optional[int] = None
+                cache_pos: Optional[int] = None, shard=_id_shard
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B, S, D].  With a cache: write the latents at
         ``cache_pos`` (in place) and attend over the filled prefix; a
@@ -238,6 +238,7 @@ class MLAttention(nn.Module):
             cfg.v_head_dim
         kl = cfg.kv_lora_rank
         q_nope, q_rope, c_kv, k_rope = self._qkv(x, cfg, positions)
+        q_nope = shard(q_nope, "heads")
         pos = 0 if cache is None else int(cache_pos)
         if cache is not None:
             cache["c_kv"][:, pos:pos + S] = c_kv.to(cache["c_kv"].dtype)
@@ -266,8 +267,9 @@ class MLAttention(nn.Module):
                 cc = cache["c_kv"][:, :pos + S].to(x.dtype)
                 cr = cache["k_rope"][:, :pos + S].to(x.dtype)
             T = cc.shape[1]
-            k_nope = torch.einsum("btl,lhd->bthd", cc, wk_b)
-            v = torch.einsum("btl,lhd->bthd", cc, wv_b)
+            k_nope = shard(torch.einsum("btl,lhd->bthd", cc, wk_b),
+                           "heads")
+            v = shard(torch.einsum("btl,lhd->bthd", cc, wv_b), "heads")
             k_pe = cr[:, :, None, :].expand(B, T, H, dr)
             k = torch.cat([k_nope, k_pe], dim=-1)
             q = torch.cat([q_nope, q_rope], dim=-1)

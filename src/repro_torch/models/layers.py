@@ -30,6 +30,11 @@ __all__ = ["Dtypes", "normal", "Dense", "dense", "RMSNorm", "rmsnorm",
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _id_shard(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The default activation callback: ``x`` as it is."""
+    return x
+
+
 class Dtypes:
     @staticmethod
     def param(cfg: ModelConfig) -> torch.dtype:
@@ -153,14 +158,16 @@ class MLP(nn.Module):
         if cfg.act == "swiglu":
             self.w_gate = Dense(cfg.d_model, d_ff, pd, **kw)
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        return mlp(self, x, cfg)
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                shard=_id_shard) -> torch.Tensor:
+        return mlp(self, x, cfg, shard)
 
 
-def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    up = p.w_up(x)
+def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig,
+        shard=_id_shard) -> torch.Tensor:
+    up = shard(p.w_up(x), "ffn")
     if cfg.act == "swiglu":
-        h = F.silu(p.w_gate(x)) * up
+        h = F.silu(shard(p.w_gate(x), "ffn")) * up
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(up, approximate="tanh")
@@ -209,12 +216,21 @@ def unembed(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy; logits [..., V] (any leading dims)."""
+                  mask: Optional[torch.Tensor] = None,
+                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits [..., V] (any leading dims).
+    With ``denom`` (a tensor on the logits' device), a data shard's
+    term of the global mean: its summed ``nll * mask`` (or ``nll``) over
+    ``denom``, the global batch's ``clamp_min(mask sum, 1)`` or its
+    label count, so the shards' terms sum to the global mean."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
-        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    return nll.mean()
+        nll = nll * mask
+        if denom is None:
+            denom = torch.clamp_min(mask.sum(), 1.0)
+    elif denom is None:
+        return nll.mean()
+    return nll.sum() / denom

@@ -28,13 +28,22 @@ of a forward pass that builds an autograd graph (training, no cache):
 (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
 outputs of its matrix products (``mm``, ``bmm``, ``addmm``) and
 recomputes the rest (selective checkpointing).  It changes when values
-are computed, never what they are, and has no effect when serving.  The
-reference's ``shard`` callback has no effect; the signatures keep it.
+are computed, never what they are, and has no effect when serving.
+
+The reference's ``shard(x, kind)`` callback is called at the
+reference's sites with its kinds: each segment body's entry and each
+residual add (``resid``), the embedding (``resid``), the MLP's up and
+gate products (``ffn``), GQA's q, k, v and MLA's ``q_nope``,
+``k_nope``, ``v`` (``heads``), Mamba2's ``xh`` and mLSTM's heads and
+``v_num`` (``heads_bhs``) and ``forward``'s logits; its result is used
+as the reference uses it.  The port's callbacks return the tensor itself
+(``sharding.rules.make_shard_fn``), so the values do not change.
 ``mesh`` and ``data_axes`` go to the MoE layers: a mesh whose ``model``
 axis divides the experts maps them over its devices, by EP, or by
 expert-TP under ``cfg.moe_expert_tp`` (``moe.moe_apply``); every other
 layer runs on the model's device.  ``forward`` and ``loss_fn`` sum the
-MoE layers' aux losses.
+MoE layers' aux losses.  ``loss_fn(..., denom=, dp=)`` gives one data
+shard's term of the sharded train step's global loss.
 """
 
 from __future__ import annotations
@@ -49,8 +58,8 @@ from torch import nn
 from ..kernels.common import resolve_device
 from .attention import GQAttention, MLAttention
 from .config import ModelConfig, segments
-from .layers import (Dtypes, Embedding, MLP, RMSNorm, cross_entropy, embed,
-                     rmsnorm, unembed)
+from .layers import (Dtypes, Embedding, MLP, RMSNorm, _id_shard,
+                     cross_entropy, embed, rmsnorm, unembed)
 from .moe import MoE
 from .ssm import MLSTM, SLSTM, Mamba2
 
@@ -62,7 +71,6 @@ __all__ = ["init", "make_cache", "forward", "loss_fn", "prefill",
            "unstack_segments", "block_kinds"]
 
 ShardFn = Callable[[torch.Tensor, str], torch.Tensor]
-_id_shard: ShardFn = lambda x, kind: x
 
 #: The block kinds the port serves.
 KINDS = ("attn", "attn_dense", "attn_moe", "shared_attn", "mamba2",
@@ -94,20 +102,20 @@ class AttnBlock(nn.Module):
             self.mlp = MLP(cfg, **kw)
 
     def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos,
-                mesh=None, data_axes=("data",)):
+                mesh=None, data_axes=("data",), shard: ShardFn = _id_shard):
         """-> (x, new_cache, aux): aux the MoE router loss, None without
         experts."""
         h, new_cache = self.attn(self.ln1(x, cfg.norm_eps), cfg, positions,
-                                 cache, cache_pos)
-        x = x + h
+                                 cache, cache_pos, shard)
+        x = shard(x + h, "resid")
         h2_in = self.ln2(x, cfg.norm_eps)
         aux = None
         if hasattr(self, "moe"):
             h2, aux = self.moe(h2_in, cfg, mesh=mesh, data_axes=data_axes,
                                expert_tp=cfg.moe_expert_tp)
         else:
-            h2 = self.mlp(h2_in, cfg)
-        return x + h2, new_cache, aux
+            h2 = self.mlp(h2_in, cfg, shard)
+        return shard(x + h2, "resid"), new_cache, aux
 
 
 class _MixerBlock(nn.Module):
@@ -123,9 +131,9 @@ class _MixerBlock(nn.Module):
         self.mix = self.MIXER(cfg, generator=generator, device=device)
 
     def forward(self, x, cfg: ModelConfig, positions, cache, cache_pos,
-                mesh=None, data_axes=("data",)):
-        h, new_cache = self.mix(self.ln(x, cfg.norm_eps), cfg, cache)
-        return x + h, new_cache, None
+                mesh=None, data_axes=("data",), shard: ShardFn = _id_shard):
+        h, new_cache = self.mix(self.ln(x, cfg.norm_eps), cfg, cache, shard)
+        return shard(x + h, "resid"), new_cache, None
 
 
 class Mamba2Block(_MixerBlock):
@@ -150,6 +158,14 @@ _MIXER_BLOCKS = {"mamba2": Mamba2Block, "mlstm": MLSTMBlock,
 class SharedAttnSlot(nn.Module):
     """A ``shared_attn`` layer: it applies the model's one shared
     attention block and holds no weights of its own."""
+
+
+def segment_entries(cfg: ModelConfig) -> List[int]:
+    """The layers that begin a segment body (a repeat of a segment's
+    kinds), where the reference's scanned body re-asserts the residual's
+    sharding."""
+    return [seg.start_layer + r * len(seg.kinds)
+            for seg in segments(cfg) for r in range(seg.repeats)]
 
 
 def block_kinds(cfg: ModelConfig) -> List[str]:
@@ -224,7 +240,8 @@ class DecoderLM(nn.Module):
     def run_layers(self, x: torch.Tensor, positions: torch.Tensor,
                    caches: Optional[Dict], cache_pos: Optional[int],
                    mesh=None, data_axes=("data",),
-                   cfg: Optional[ModelConfig] = None
+                   cfg: Optional[ModelConfig] = None,
+                   shard: ShardFn = _id_shard
                    ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Every layer in order (the reference's ``_run_segments``) under
         ``cfg`` (the model's own when None; the caller's may change what
@@ -237,11 +254,14 @@ class DecoderLM(nn.Module):
         shared = getattr(self, "shared_attn", None)
         remat = cfg.remat if caches is None and torch.is_grad_enabled() \
             else "none"
+        entries = set(segment_entries(cfg))
         for i, kind in enumerate(block_kinds(cfg)):
             cache = None if caches is None else caches["layers"][i]
             block = shared if kind == "shared_attn" else self.layers[i]
+            if i in entries:
+                x = shard(x, "resid")
             x, nc, aux = _remat_call(remat, block, x, cfg, positions, cache,
-                                     cache_pos, mesh, data_axes)
+                                     cache_pos, mesh, data_axes, shard)
             if aux is not None:
                 aux_total = aux_total + aux
             if new is not None:
@@ -384,24 +404,32 @@ def forward(model: DecoderLM, tokens, cfg: ModelConfig, *,
     """Scoring forward pass -> (logits [B,S,V*nb], aux_loss): aux the
     MoE layers' router losses summed (0 without experts)."""
     B, S = tokens.shape[:2]
-    x = _embed_inputs(model, tokens, cfg, extra_embeds)
+    x = shard(_embed_inputs(model, tokens, cfg, extra_embeds), "resid")
     if positions is None:
         positions = _default_positions(cfg, B, S, x.device)
     x, _, aux = model.run_layers(
         x, torch.as_tensor(positions, device=x.device), None, None, mesh,
-        data_axes, cfg)
+        data_axes, cfg, shard)
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    logits = unembed(model.embed, x, cfg)
+    logits = shard(unembed(model.embed, x, cfg), "logits")
     return logits, aux
 
 
 def loss_fn(model: DecoderLM, batch: Dict, cfg: ModelConfig, *, mesh=None,
-            data_axes=("data",), shard: ShardFn = _id_shard
+            data_axes=("data",), shard: ShardFn = _id_shard,
+            denom: Optional[torch.Tensor] = None, dp: int = 1
             ) -> Tuple[torch.Tensor, Dict]:
+    """(loss, {"ce", "aux"}) of ``batch``.  With ``denom`` the batch is
+    one of ``dp`` data shards of the global batch: ce is its summed
+    ``nll * mask`` over ``denom`` (``layers.cross_entropy``), aux its
+    own aux (the mean over its model shards) over ``dp``, so the shards'
+    losses, ces and auxes sum to the global ones."""
     logits, aux = forward(model, batch["tokens"], cfg,
                           positions=batch.get("positions"),
                           extra_embeds=batch.get("extra_embeds"),
-                          mesh=mesh, data_axes=data_axes)
+                          mesh=mesh, data_axes=data_axes, shard=shard)
+    if dp > 1:
+        aux = aux / torch.full((), float(dp), device=aux.device)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     if labels.dim() == 3:            # musicgen: [B,S,nb] codebook targets
         nb = labels.shape[-1]
@@ -409,7 +437,7 @@ def loss_fn(model: DecoderLM, batch: Dict, cfg: ModelConfig, *, mesh=None,
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=logits.device)
-    ce = cross_entropy(logits, labels, mask)
+    ce = cross_entropy(logits, labels, mask, denom)
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -426,12 +454,12 @@ def prefill(model: DecoderLM, tokens, cache: Dict, cfg: ModelConfig, *,
     (last_logits [B, V*nb], cache).  Builds no autograd graph, whether
     or not the weights require grad."""
     B, S = tokens.shape[:2]
-    x = _embed_inputs(model, tokens, cfg, extra_embeds)
+    x = shard(_embed_inputs(model, tokens, cfg, extra_embeds), "resid")
     if positions is None:
         positions = _default_positions(cfg, B, S, x.device)
     x, new_cache, _ = model.run_layers(
         x, torch.as_tensor(positions, device=x.device), cache, 0, mesh,
-        data_axes, cfg)
+        data_axes, cfg, shard)
     x = rmsnorm(model.final_norm.scale, x[:, -1:], cfg.norm_eps)
     logits = unembed(model.embed, x, cfg)[:, 0]
     return logits, new_cache
@@ -446,10 +474,10 @@ def decode_step(model: DecoderLM, token, cache: Dict, pos: int,
     token = torch.as_tensor(token, device=model.device)
     tok = token[:, None] if token.dim() == 1 else token[:, None, :]
     B = tok.shape[0]
-    x = embed(model.embed, tok, cfg)
+    x = shard(embed(model.embed, tok, cfg), "resid")
     positions = _default_positions(cfg, B, 1, x.device, offset=int(pos))
     x, new_cache, _ = model.run_layers(x, positions, cache, int(pos),
-                                       mesh, data_axes, cfg)
+                                       mesh, data_axes, cfg, shard)
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = unembed(model.embed, x, cfg)[:, 0]
     return logits, new_cache

@@ -63,10 +63,14 @@ collectives as sums in a fixed order.
 
 In both, aux is the mean of the dp x ep shards' auxes, added in
 row-major order (the ``pmean``): each shard's router statistics over its
-own tokens.  Shared experts run once, on the whole x.  The mapped
-combine rounds each shard's partial sum before the sum over shards, so
-with more than two experts a token it is not bitwise the unmapped
-path's; at top 2 it is.
+own tokens.  The sharded train step (``train.step``) runs each data
+shard's forward on its own rows with its row of the mesh
+(``BankMesh.data_row``: data extent 1), so there EP maps over ``model``
+alone and the (d, m) shard sees the same tokens and experts as here.
+Shared experts run once, on the whole x.  The mapped combine rounds
+each shard's partial sum before the sum over shards, so with more than
+two experts a token it is not bitwise the unmapped path's; at top 2 it
+is.
 """
 
 from __future__ import annotations

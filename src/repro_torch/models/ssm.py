@@ -42,7 +42,7 @@ from torch import nn
 from ..kernels.gla import gla_scan
 from ..kernels.slstm import slstm
 from .config import ModelConfig
-from .layers import Dense, Dtypes, RMSNorm, normal, rmsnorm
+from .layers import Dense, Dtypes, RMSNorm, _id_shard, normal, rmsnorm
 
 __all__ = ["gla_chunked", "gla_step", "mlstm_scan", "Mamba2", "MLSTM",
            "SLSTM"]
@@ -80,7 +80,7 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i_g: torch.Tensor, log_f: torch.Tensor, chunk: int,
-               ssm: Optional[torch.Tensor] = None
+               ssm: Optional[torch.Tensor] = None, shard=_id_shard
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The mLSTM's numerator and normalizer scans as one.  q, k, v
     [B,H,S,dh]; i_g, log_f [B,H,S] float32; ``ssm`` None (no state) or
@@ -95,8 +95,8 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the state keeps the cache's [num | den] layout.  A decode step (S = 1)
     is one ``gla_step`` over the same columns."""
     dh = v.shape[-1]
-    vv = torch.cat([v * i_g[..., None].to(v.dtype),
-                    i_g[..., None].to(v.dtype)], dim=-1)
+    v_num = shard(v * i_g[..., None].to(v.dtype), "heads_bhs")
+    vv = torch.cat([v_num, i_g[..., None].to(v.dtype)], dim=-1)
     if ssm is None:
         o, _ = gla_chunked(q, k, vv, log_f, chunk)
     elif q.shape[2] == 1:
@@ -174,7 +174,7 @@ class Mamba2(nn.Module):
         self.out_proj = Dense(d_inner, D, pd, **kw)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[Dict] = None
+                state: Optional[Dict] = None, shard=_id_shard
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B,S,D].  ``state`` = {"conv": [B,K-1,C], "ssm": [B,H,N,P]}."""
         B, S, _ = x.shape
@@ -191,7 +191,8 @@ class Mamba2(nn.Module):
         A = -torch.exp(self.A_log)                                  # [H]
         log_a = (dt * A).transpose(1, 2)                            # [B,H,S]
 
-        xh = xin.reshape(B, S, H, P_).transpose(1, 2)               # [B,H,S,P]
+        xh = shard(xin.reshape(B, S, H, P_).transpose(1, 2),
+                   "heads_bhs")                                     # [B,H,S,P]
         v = xh * dt.transpose(1, 2)[..., None].to(xh.dtype)
         k = Bc[:, None].expand(B, H, S, N).to(xh.dtype)
         q = Cc[:, None].expand(B, H, S, N).to(xh.dtype)
@@ -258,7 +259,7 @@ class MLSTM(nn.Module):
         self.down_proj = Dense(d_inner, D, pd, **kw)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[Dict] = None
+                state: Optional[Dict] = None, shard=_id_shard
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B,S,D].  ``state`` = {"conv": [B,K-1,d_inner], "ssm":
         [B,H,dh,dh+1]}: the numerator's state and, in its last column,
@@ -271,7 +272,8 @@ class MLSTM(nn.Module):
         c = F.silu(c)
 
         def heads(t):
-            return t.reshape(B, S, H, dh).transpose(1, 2)
+            return shard(t.reshape(B, S, H, dh).transpose(1, 2),
+                         "heads_bhs")
 
         q = heads(self.wq(c)) * (dh ** -0.5)
         k = heads(self.wk(c)) * (dh ** -0.5)
@@ -282,7 +284,7 @@ class MLSTM(nn.Module):
         log_f = (-_softplus(-gates[..., H:])).transpose(1, 2)
         o_num, o_den, ssm = mlstm_scan(
             q, k, v, i_g, log_f, cfg.gla_chunk,
-            None if state is None else state["ssm"])
+            None if state is None else state["ssm"], shard)
         new_state = None if state is None else {"conv": conv_state,
                                                 "ssm": ssm}
 
@@ -323,10 +325,11 @@ class SLSTM(nn.Module):
         self.out_norm = RMSNorm(D, pd, device=device)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[Dict] = None
+                state: Optional[Dict] = None, shard=_id_shard
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B,S,D].  ``state`` = {"h", "c", "n", "m"}: [B,D] float32
-        each (zeros when None)."""
+        each (zeros when None).  ``shard`` is unused: the reference's
+        sLSTM constrains no activation."""
         zifo = self.w_in(x)                                        # [B,S,4D]
         hs, new = slstm(zifo, self.r, state, device=x.device)  # x's dtype
         y = rmsnorm(self.out_norm.scale, hs, cfg.norm_eps)

@@ -1,7 +1,9 @@
 """Device meshes, the tensors split over them, and the sharding rules:
 a 1-D mesh over the reference bank's K axis, a (data, model) mesh for
-the MoE layer's experts (see :mod:`repro_torch.sharding.mesh`), and the
-parameter, optimizer-moment and batch spec maps
+the MoE layer's experts and the sharded train step (its data rows'
+sub-meshes, :meth:`BankMesh.data_row`; see
+:mod:`repro_torch.sharding.mesh`), and the parameter, optimizer-moment,
+batch and cache spec maps and the activation callback
 (:mod:`repro_torch.sharding.rules`)."""
 
 from .mesh import (BankMesh, NamedSharding, PartitionSpec, ShardedTensor,

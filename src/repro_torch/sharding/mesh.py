@@ -18,7 +18,10 @@ card.
   :meth:`BankMesh.device_grid` lays the devices out as [data shards,
   model shards] and :meth:`BankMesh.parts` cuts a tensor along one named
   axis or a tuple of them into views, so a dim-0 slice of a stacked
-  expert weight copies nothing.
+  expert weight copies nothing.  The sharded train step
+  (``train.step.make_train_step``) runs each data shard's forward with
+  its row of that grid, :meth:`BankMesh.data_row`, as the MoE layers'
+  mesh.
 
 The reference's ``sharding/compat.py`` has no counterpart here: it is a
 shim over jax's moving ``shard_map`` API, and the port runs one call a
@@ -153,6 +156,23 @@ class BankMesh:
         kept = [a for a in self.axis_names if a in names]
         grid = grid.transpose([kept.index(a) for a in names])
         return grid.reshape([self.axis_size(g) for g in groups])
+
+    def data_row(self, d: int, data_axes: Axes = ("data",),
+                 model_axis: str = "model") -> "BankMesh":
+        """The sub-mesh of data shard ``d``: the axes ``data_axes``, each
+        of extent 1, then ``model_axis`` over row d of
+        ``device_grid(data_axes, model_axis)`` (no model axis where the
+        mesh has none).  A data shard's forward maps its MoE layers over
+        it, by ``model`` alone."""
+        daxes = _axis_tuple(data_axes)
+        if model_axis in self.axis_names:
+            row = self.device_grid(daxes, model_axis)[d]
+            shape = (1,) * len(daxes) + (row.size,)
+            names = daxes + (model_axis,)
+        else:
+            row = self.device_grid(daxes)[d:d + 1]
+            shape, names = (1,) * len(daxes), daxes
+        return BankMesh(np.asarray(row, dtype=object).reshape(shape), names)
 
     def parts(self, t: torch.Tensor, dim: int, axes: Axes
               ) -> List[torch.Tensor]:

@@ -27,8 +27,17 @@ rule to those shapes, the rule the reference's function gives for an
 unstacked tree; on a stacked leaf the reference's rule may pick the
 layer axis itself, which a layer's own tensor does not have.
 
-The reference's ``cache_specs`` and ``make_shard_fn`` (activation
-sharding constraints) wait for the sharded train step and the dry-run.
+:func:`cache_specs` maps the port's per-layer caches (``{"layers":
+[per-layer dict]}``) the same way: each leaf's spec is the reference's
+for that layer's leaf without the leading None of its stacked layer
+axis.  :func:`make_shard_fn` returns the activation callback the
+models call at the reference's sites (:class:`ActivationShard`).  The
+reference's callback constrains an activation's layout for XLA; a
+constraint changes a layout, never a value, so the port's returns the
+tensor itself (no copy, no launch, no host sync) and exposes the spec
+the reference would constrain it to (:meth:`ActivationShard.spec`).
+The sharded train step keeps the dense layers whole on each data
+shard's device, replicated over ``model``: a deliberate difference.
 ``ExecConfig`` carries the execution parameters the paper's AutoTuner
 transfers between matched workloads; the model configs
 (:mod:`repro_torch.configs`) name one per input shape.
@@ -37,12 +46,14 @@ transfers between matched workloads; the model configs
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+import math
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from .mesh import PartitionSpec as P
 
-__all__ = ["ExecConfig", "param_specs", "batch_specs", "opt_state_specs",
-           "logical_batch_axes", "expert_spec"]
+__all__ = ["ExecConfig", "param_specs", "cache_specs", "batch_specs",
+           "opt_state_specs", "make_shard_fn", "logical_batch_axes",
+           "expert_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +195,46 @@ def opt_state_specs(model, param_spec_tree: Mapping[str, P], mesh,
     return out
 
 
+def cache_specs(cache, cfg, mesh, batch: int) -> Dict[str, List[Dict]]:
+    """Decode/prefill cache specs of the port's ``cache`` (``{"layers":
+    [{leaf name: tensor}]}``, real or on ``meta``): ``{"layers": [{leaf
+    name: PartitionSpec}]}``, each the reference's spec for that layer's
+    leaf without its leading None.  Seq-shard when batch can't shard;
+    ``cfg`` is unused, as in the reference."""
+    daxes = logical_batch_axes(mesh)
+    batch_ok = _div(batch, mesh, daxes)
+
+    def rule(leafname: str, inner) -> P:
+        spec: list = [None] * len(inner)
+        # batch is dim 0 of the inner shape for every cache kind
+        if batch_ok and len(inner) >= 1:
+            spec[0] = daxes
+        if leafname in ("k", "v"):                # [B, S, KV, dh]
+            if not batch_ok and _div(inner[1], mesh, daxes):
+                spec[1] = daxes                   # sequence-sharded cache
+            if _div(inner[2], mesh, "model"):
+                spec[2] = "model"                 # kv heads over model
+            elif _div(inner[1], mesh, "model") and spec[1] is None:
+                spec[1] = "model"                 # else sequence over model
+                                                  # (never dh: contraction)
+        elif leafname in ("c_kv", "k_rope"):      # [B, S, r]
+            if not batch_ok and _div(inner[1], mesh, daxes):
+                spec[1] = daxes
+            if _div(inner[1], mesh, "model") and spec[1] is None:
+                spec[1] = "model"                 # MLA latent cache: seq/TP
+        elif leafname == "ssm":                   # [B, H, dk, dv]
+            if _div(inner[1], mesh, "model"):
+                spec[1] = "model"
+        elif leafname == "conv":                  # [B, K-1, C]
+            if _div(inner[2], mesh, "model"):
+                spec[2] = "model"
+        return P(*spec)
+
+    return {"layers": [{name: rule(name, tuple(t.shape))
+                        for name, t in layer.items()}
+                       for layer in cache["layers"]]}
+
+
 def batch_specs(batch, mesh):
     """Input batch: leading batch dim over data axes when divisible.
     ``batch`` is a mapping (nested or not) of names to tensors or
@@ -207,3 +258,59 @@ def batch_specs(batch, mesh):
         return rule(name, tree)
 
     return walk(batch, None)
+
+
+class ActivationShard:
+    """The port's ``shard(x, kind)`` callback (:func:`make_shard_fn`).
+
+    Calling it returns ``x`` itself.  :meth:`spec` gives the
+    PartitionSpec the reference's callback would constrain ``x`` to, or
+    None where the reference returns ``x`` unconstrained (any other kind
+    or rank, and ``full_seq`` without sequence parallelism)."""
+
+    def __init__(self, mesh, exec_cfg: ExecConfig, batch: int) -> None:
+        daxes = logical_batch_axes(mesh)
+        bsz = math.prod(mesh.shape[a] for a in daxes)
+        batch_ok = batch % bsz == 0 and batch >= bsz
+        self.baxis = daxes if batch_ok else None
+        self.seq_axis = "model" if exec_cfg.seq_shard_activations else None
+        self.m = mesh.shape["model"]
+
+    def spec(self, x, kind: str) -> Optional[P]:
+        shape = tuple(x.shape)
+        m, baxis = self.m, self.baxis
+        if kind == "heads" and len(shape) == 4:
+            # [B, S, H, dh]: heads over "model" when divisible; NEVER the
+            # head_dim, the q.k contraction dim
+            return P(baxis, None, "model" if shape[2] % m == 0 else None,
+                     None)
+        if kind == "heads_bhs" and len(shape) == 4:
+            # [B, H, S, d] (SSM/GLA layout): H over "model" when
+            # divisible, else the channel dim
+            ha = "model" if shape[1] % m == 0 else None
+            da = "model" if ha is None and shape[3] % m == 0 else None
+            return P(baxis, ha, None, da)
+        if kind == "ffn" and len(shape) == 3:
+            return P(baxis, None, "model" if shape[-1] % m == 0 else None)
+        if kind == "full_seq" and len(shape) == 3:
+            # the gather point for sequence parallelism
+            return None if self.seq_axis is None else P(baxis, None, None)
+        if kind == "resid" and len(shape) == 3:
+            sa = self.seq_axis if self.seq_axis and shape[1] % m == 0 \
+                else None
+            return P(baxis, sa, None)
+        if kind == "logits" and len(shape) == 3:
+            return P(baxis, None, "model" if shape[-1] % m == 0 else None)
+        return None
+
+    def __call__(self, x, kind: str):
+        return x
+
+
+def make_shard_fn(mesh, exec_cfg: ExecConfig, batch: int
+                  ) -> ActivationShard:
+    """Activation sharding callback for the models' ``shard=``: the
+    reference's decisions kind by kind (:class:`ActivationShard`), for a
+    global batch of ``batch`` rows.  The batch axis goes over the data
+    axes only where ``batch`` divides them."""
+    return ActivationShard(mesh, exec_cfg, batch)

@@ -26,7 +26,8 @@ Deliberate choices:
   (the reference returns new trees).
 * A host scalar never divides a CUDA tensor (PyTorch takes that as a
   reciprocal multiply on the card): the bias corrections and the
-  schedule's divisors are tensors.
+  schedule's divisors are tensors, filled on the device (no host copy,
+  so no host sync).
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
