@@ -365,7 +365,16 @@ Phases, in order (any failure exits non-zero):
     within TRAIN_NOISE_X times the two sides' own change under a
     one-rounding weight perturbation where that exceeds TRAIN_GRAD_REL);
     (d) ``--arch xlstm-1p3b --smoke --steps 10`` exits 0 with finite
-    losses.
+    losses;
+28. the dry-run (``launch.dryrun``) against phase 27: minitron-4b's
+    phase-27 train step (8 of 32 layers, float32, remat "full") built on
+    ``meta`` and walked on a 1 x 1 mesh, at 1 x 4096 and at
+    ``microbatch=2`` on 2 x 4096: the walk's K9 and K9_bwd op counts
+    equal to the K9 f32 and backward launches phase 27 counted on the
+    card for the same steps (16 / 8, 32 / 16); the walk's largest
+    roofline term printed against phase 27's measured ms a step, and its
+    argument + temp bytes against the measured peak (ratios recorded,
+    not checked).  Host work only; the step is not run again.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
@@ -6465,7 +6474,8 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
                                           for k, v, n in top))
     del model, opt, step
     torch.cuda.empty_cache()
-    return {"launches": want, "ms": ms, "split": split}
+    return {"launches": want, "ms": ms, "split": split,
+            "peak_gb": peak * 2**30 / 1e9}
 
 
 def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
@@ -6981,8 +6991,10 @@ def train_phase(dev, errs: ErrLog, name: str):
     K10 f32's and the sLSTM scan's, (b) minitron-4b, zamba2-7b,
     deepseek-v2 and xlstm-1p3b trained at full width, (c) the card
     against the CPU, (d) the train driver, (e) no fallback, (f) sharded
-    training.  Returns the four backward kernels' table rows and the
-    forward kernels' launches on the sharded step ({key: {path: n}})."""
+    training.  Returns the four backward kernels' table rows, the
+    forward kernels' launches on the sharded step ({key: {path: n}}) and
+    the minitron-4b steps' measurements phase 28 reads ({"1 x 4096":
+    (launches, ms, peak GB), "microbatch=2": ...})."""
     t0 = time.perf_counter()
     times = check_k9_bwd(dev, errs, name)
     mla = check_k9_mla_bwd(dev, errs, name)
@@ -7027,7 +7039,61 @@ def train_phase(dev, errs: ErrLog, name: str):
                 sharded["launches"][count]
         rows.append(row)
     print(f"[train] phase 27 in {time.perf_counter() - t0:.1f} s")
-    return rows, {"K9-f32": {SHARDED_PATH: sharded["launches"]["K9_f32"]}}
+    mini = full["minitron-4b"]
+    measured = {"1 x 4096": (mini["launches"], mini["ms"], mini["peak_gb"]),
+                "microbatch=2": (sharded["launches"], sharded["plain_ms"],
+                                 sharded["peak_gb"]["one"])}
+    return rows, {"K9-f32": {SHARDED_PATH: sharded["launches"]["K9_f32"]}}, \
+        measured
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the dry-run against phase 27
+# ---------------------------------------------------------------------------
+
+def dryrun_phase(name: str, measured: dict) -> None:
+    """Phase 28: minitron-4b's phase-27 train step walked on ``meta`` by
+    ``launch.dryrun`` on a 1 x 1 mesh (8 of 32 layers, float32, its
+    ``train_4k`` exec, remat "full"), at 1 x 4096 and at microbatch 2 on
+    2 x 4096.  The walk's K9 and K9_bwd op counts must equal the K9 f32
+    forward and backward launches phase 27 counted on the card for the
+    same step (``measured``: {label: (launches, ms, peak GB)}); its
+    largest roofline term and its argument + temp bytes are printed
+    against the measured ms a step and peak, as ratios."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    ex = configs.exec_default("minitron-4b", "train_4k")
+    cfg = _train_cfg("minitron-4b", 8, ex.remat)
+    for label, micro, b in (("1 x 4096", 1, 1), ("microbatch=2", 2, 2)):
+        launches, ms, peak_gb = measured[label]
+        exm = dataclasses.replace(ex, microbatch=micro)
+        spec = configs.ShapeSpec("train_4k", 4096, b, "train")
+        fn, args, meta, walker = dryrun.build_cell(
+            "minitron-4b", spec, mesh, exm, cfg=cfg)
+        rec = dryrun.walk_cell(fn, args, meta, walker, exm)
+        walked = rec["walk"]["kernels"]
+        want = {"K9": launches["K9_f32"], "K9_bwd": launches["K9_f32_bwd"]}
+        assert walked == want, (label, walked, want)
+        rf = rec["roofline"]
+        terms = rf["terms_seconds"]
+        top = rf["dominant"]
+        mem = rec["memory_analysis"]
+        walk_gb = (mem["argument_size_in_bytes"]
+                   + mem["temp_size_in_bytes"]) / 1e9
+        print(f"[dryrun] minitron-4b 8 layers, {b} x 4096, microbatch "
+              f"{micro}: walk K9 {walked['K9']} / K9_bwd "
+              f"{walked['K9_bwd']} ops = phase 27's launches; terms "
+              + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in terms.items())
+              + f"; largest ({top}) {1e3 * terms[top]:.1f} ms against "
+              f"{ms:.1f} ms measured, ratio {1e3 * terms[top] / ms:.3f}; "
+              f"argument {mem['argument_size_in_bytes'] / 1e9:.2f} + temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.2f} = {walk_gb:.2f} GB "
+              f"against a {peak_gb:.2f} GB peak, ratio "
+              f"{walk_gb / peak_gb:.3f}; {rec['walk']['ops']} ops [{name}]")
+    print(f"[dryrun] phase 28 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -7110,7 +7176,8 @@ def main() -> int:
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     rows[KERNELS["K2"][0]].setdefault("model_launches", {}).update(
         signature_phase(dev, errs, name))
-    train_rows, train_paths = train_phase(dev, errs, name)
+    train_rows, train_paths, measured = train_phase(dev, errs, name)
+    dryrun_phase(name, measured)
     for row in train_rows:
         rows[row["name"]] = row
     for key in ("K9", "K9-f32"):

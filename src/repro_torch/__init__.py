@@ -14,7 +14,11 @@ scan (``kernels.gla``); and the model zoo's serving path for the
 archs without experts (``configs``, ``models``: GQA attention whose
 prefill runs K9, Mamba2 whose prefill runs K10; ``serve.engine``,
 ``launch.serve``); and training on one device (``data``, ``train``,
-``launch.train``; K9 f32's backward kernel).  Entry points run on the
-GPU unless ``device="cpu"`` is passed, which runs the kernels' plain
-PyTorch versions.  The package imports neither ``jax`` nor ``repro``.
+``launch.train``; K9 f32's backward kernel); and the dry-run of the
+model zoo's cells (``launch.dryrun``, ``launch.diagnose``: steps walked
+on ``meta`` tensors and priced per chip at the H100's rates; the HLO
+text parsers ``core.hloparse`` and ``core.hlocost``).  Entry points run
+on the GPU unless ``device="cpu"`` is passed, which runs the kernels'
+plain PyTorch versions.  The package imports neither ``jax`` nor
+``repro``.
 """

@@ -4,10 +4,11 @@ Pipeline (paper Fig. 3/4): profile -> Chebyshev de-noise -> [0,1]
 normalize -> store in ReferenceDB; match new workloads with DTW +
 correlation (>= 0.9) and transfer the matched workload's best-known
 configuration parameters (AutoTuner).  The names are ``repro.core``'s,
-less ``hloparse`` (not ported yet: ROADMAP.md) and ``jaxpr_costs``,
-whose counterpart is ``signatures.op_costs`` (a walk of the aten
-operators on ``meta`` tensors).  The port's own chip spec is
-``signatures.H100``.
+less ``jaxpr_costs``, whose counterpart is ``signatures.op_costs`` (a
+walk of the aten operators on ``meta`` tensors).  The port's own chip
+spec is ``signatures.H100``.  ``hloparse`` is imported here, as in the
+reference; ``hlocost`` (the HLO cost model the dry-run's ``diagnose``
+reads) only where it is used.
 """
 
 from .filters import (cheby1_design, lfilter, filtfilt, denoise, normalize01,
@@ -31,6 +32,7 @@ from .wavelet import (haar_dwt, haar_idwt, compress, reconstruct,
 from .signatures import (ChipSpec, TPU_V5E, OpCost, utilization_series,
                          signature_of)
 from .tuner import AutoTuner, TuneDecision, OnlineMatcher
+from . import hloparse
 
 __all__ = [
     "cheby1_design", "lfilter", "filtfilt", "denoise", "normalize01",

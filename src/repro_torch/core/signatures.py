@@ -149,12 +149,13 @@ _REDUCE = {"sum", "amax", "amin", "argmax", "argmin", "prod", "any", "all",
            "max", "min"}
 _DOT = {"mm", "bmm", "mv", "dot"}
 _DOT_ADD = {"addmm", "baddbmm", "addmv"}
-_MOVE = {
-    # views
+#: Operators whose outputs are views of an input.
+VIEWS = {
     "view", "_unsafe_view", "_reshape_alias", "t", "transpose", "permute",
     "expand", "expand_as", "slice", "select", "unsqueeze", "squeeze",
     "alias", "detach", "as_strided", "split", "split_with_sizes", "unbind",
-    "narrow", "diagonal", "unfold", "lift_fresh",
+    "narrow", "diagonal", "unfold", "lift_fresh"}
+_MOVE = VIEWS | {
     # casts and copies
     "_to_copy", "clone", "copy", "contiguous",
     # data movement
@@ -233,7 +234,9 @@ class OpWalker(TorchDispatchMode):
     it, in program order (``costs``), priced by the module docstring's
     table; and one per kernel call on ``meta`` tensors, as the kernel
     reports it (``kernels.common.meta_kernel``).  ``kernels`` counts
-    those calls by kernel name."""
+    those calls by kernel name.  Each entry of ``costs`` goes through
+    :meth:`_record` with the op's tensor inputs and outputs, which a
+    subclass may read (the dry-run's per-chip walker)."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -241,8 +244,15 @@ class OpWalker(TorchDispatchMode):
         self.kernels: Dict[str, int] = {}
         self._recorder = None
 
-    def _kernel(self, name: str, flops: float, nbytes: float) -> None:
-        self.costs.append(OpCost(name, flops, nbytes))
+    def _record(self, cost: OpCost, ins: List[torch.Tensor],
+                outs: List[torch.Tensor]) -> None:
+        self.costs.append(cost)
+
+    def _kernel(self, name: str, flops: float, nbytes: float,
+                inputs: Sequence[torch.Tensor] = (),
+                outputs: Sequence[torch.Tensor] = ()) -> None:
+        self._record(OpCost(name, flops, nbytes), list(inputs),
+                     list(outputs))
         self.kernels[name] = self.kernels.get(name, 0) + 1
 
     def __enter__(self):
@@ -265,9 +275,10 @@ class OpWalker(TorchDispatchMode):
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
             flops = _flops(name, func, args, kwargs, ins, outs)
-            self.costs.append(OpCost(
+            self._record(OpCost(
                 name, float(flops),
-                sum(_bytes(t) for t in ins) + sum(_bytes(t) for t in outs)))
+                sum(_bytes(t) for t in ins) + sum(_bytes(t) for t in outs)),
+                ins, outs)
         return result
 
 

@@ -31,7 +31,12 @@ follows the kernel.
   ``LIB.launches`` count the two kernels' launches.  Meta tensors take
   neither: o comes back empty, and the call is reported as one
   operation "K9" of ``2 (dh + dv)`` flops a query-key pair under the
-  mask (:func:`causal_pairs`) through ``common.meta_kernel``.
+  mask (:func:`causal_pairs`) through ``common.meta_kernel``; when a
+  gradient is asked for, through :class:`FlashAttention` as on the other
+  devices, whose backward on meta is one operation "K9_bwd" of ``2 (3
+  dh + 2 dv)`` flops a pair (the K9 f32 backward's bound in
+  ``PERF.md``), q, k, v, o, do and the lse read and dq, dk, dv written
+  once, with empty gradients of the inputs' shapes.
 * :func:`flash_forward_plain` is the reference kernel's block loop: for
   each ``bq`` query block, an online softmax over the ``bk`` kv blocks up
   to the causal frontier, in float32.  Its products go through
@@ -166,16 +171,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient is asked for (grad mode on, an input requiring grad), the
     call goes through :class:`FlashAttention`."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
-    if q.is_meta:
-        o = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
-        meta_kernel("K9", 2 * (dh + dv) * b * h * causal_pairs(s, t, causal),
-                    (q, k, v), (o,))
-        return o
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if q.is_cuda:
             _check_backward(q, dh, dv)
         return FlashAttention.apply(q, k, v, bq, bk, causal)
+    if q.is_meta:
+        return _meta_forward(q, k, v, causal, with_lse=False)[0]
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, bq, bk, causal)
     return _launch_forward(q, k, v, causal, with_lse=False)[0]
@@ -192,6 +194,20 @@ def _check_backward(q: torch.Tensor, dh: int, dv: int) -> None:
         raise NotImplementedError(
             f"K9 backward: no backward kernel for head dims dh = {dh}, dv "
             f"= {dv} (at most {MAX_DH} and {MAX_DV})")
+
+
+def _meta_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, with_lse: bool):
+    """K9 on meta tensors: (empty o, empty lse or None), reported as one
+    operation "K9"; with the lse, its bytes written too."""
+    b, h, s, dh = q.shape
+    t, dv = k.shape[2], v.shape[-1]
+    o = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    meta_kernel("K9", 2 * (dh + dv) * b * h * causal_pairs(s, t, causal),
+                (q, k, v), (o,) if lse is None else (o, lse))
+    return o, lse
 
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -307,11 +323,13 @@ class FlashAttention(torch.autograd.Function):
     """K9 with its backward: ``apply(q, k, v, bq, bk, causal) -> o``.
     CUDA (float32, dh <= MAX_DH, dv <= MAX_DV): the forward kernel
     writing the lse, then the backward kernel of the head; CPU: the two
-    plain versions."""
+    plain versions; meta: "K9" and "K9_bwd", one operation each."""
 
     @staticmethod
     def forward(ctx, q, k, v, bq: int, bk: int, causal: bool):
-        if q.is_cuda:
+        if q.is_meta:
+            o, lse = _meta_forward(q, k, v, causal, with_lse=True)
+        elif q.is_cuda:
             o, lse = _launch_forward(q, k, v, causal, with_lse=True)
         else:
             o, lse = flash_forward_plain(q, k, v, bq, bk, causal,
@@ -337,8 +355,15 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the stream counted as one launch, both split TF32 on the tensor
     cores: at dh, dv <= MAX_BWD_D ``BWD_LIB``, at MLA's head (dh up to
     MAX_DH, dv up to MAX_DV) ``BWD_MLA_LIB``; CPU tensors take
-    :func:`flash_backward_plain`."""
+    :func:`flash_backward_plain`; meta tensors come back empty, reported
+    as one operation "K9_bwd"."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
+    if q.is_meta:
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        meta_kernel("K9_bwd",
+                    2 * (3 * dh + 2 * dv) * b * h * causal_pairs(s, t, causal),
+                    (q, k, v, o, do, lse), grads)
+        return grads
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, do, lse, bq, bk, causal)
     dev = q.device

@@ -166,24 +166,25 @@ def check_no_backward(kernel: str, *tensors: torch.Tensor) -> None:
 _NP = {torch.float32: np.float32, torch.int32: np.int32}
 
 #: The recorders :func:`meta_recorder` installed, innermost last.
-_META_RECORDERS: List[Callable[[str, float, float], None]] = []
+_META_RECORDERS: List[Callable[..., None]] = []
 
 
 def meta_kernel(name: str, flops: float, inputs: Sequence[torch.Tensor],
                 outputs: Sequence[torch.Tensor]) -> None:
     """Report one shape-only kernel call: ``name``, its ``flops`` and its
-    bytes, every input read once and every output written once, to the
-    innermost recorder (none installed: nothing)."""
+    bytes, every input read once and every output written once, with
+    the tensors themselves, to the innermost recorder (none installed:
+    nothing)."""
     if _META_RECORDERS:
         _META_RECORDERS[-1](name, float(flops), float(sum(
-            t.numel() * t.element_size() for t in (*inputs, *outputs))))
+            t.numel() * t.element_size() for t in (*inputs, *outputs))),
+            tuple(inputs), tuple(outputs))
 
 
 @contextlib.contextmanager
-def meta_recorder(record: Callable[[str, float, float], None]
-                  ) -> Iterator[None]:
+def meta_recorder(record: Callable[..., None]) -> Iterator[None]:
     """Within the block, each kernel call on ``meta`` tensors calls
-    ``record(name, flops, bytes)`` once."""
+    ``record(name, flops, bytes, inputs, outputs)`` once."""
     _META_RECORDERS.append(record)
     try:
         yield

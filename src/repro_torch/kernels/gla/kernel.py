@@ -39,7 +39,12 @@ kernel, as the reference's ``jnp.cumsum`` sits outside its kernel.
 * :func:`gla_meta` is what ``ops.gla_scan`` does with meta tensors:
   empty outputs, the call reported as one operation "K10" through
   ``common.meta_kernel`` with the undivided scan's work, whatever route
-  the card would take.
+  the card would take.  When a gradient is asked for, ``ops.gla_scan``
+  takes meta tensors through :class:`GlaChunks`, whose backward on meta
+  is one operation "K10_bwd" of the undivided backward's work (the K10
+  f32 backward's bound in ``PERF.md``: L (L + 1) (3 dk + 2 dv) + 8 L dk
+  dv flops a (head, chunk)), with empty gradients of the inputs'
+  shapes.
 
 The backward (float32, dk and dv <= MAX_HEAD_DIM): when q, k, v or g
 requires grad and grad mode is on, :func:`gla_chunks` on float32 inputs
@@ -321,12 +326,18 @@ class GlaChunks(torch.autograd.Function):
     """K10 with its backward, float32: ``apply(q, k, v, g, chunk) -> (o,
     final state)``.  CUDA (dk, dv <= MAX_HEAD_DIM): the forward kernel,
     its chunk states kept, then the backward kernel; CPU: the two plain
-    versions.  The gradient of the final state is taken when one flows
-    (None otherwise: zero)."""
+    versions; meta (any dtype and width): "K10" and "K10_bwd", one
+    operation each.  The gradient of the final state is taken when one
+    flows (None otherwise: zero)."""
 
     @staticmethod
     def forward(ctx, q, k, v, g, chunk: int):
-        if q.is_cuda:
+        if q.is_meta:
+            o, state = gla_meta(q, k, v, g, chunk)
+            b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+            states = torch.empty((b, h, s // chunk, dk, dv),
+                                 dtype=torch.float32, device=q.device)
+        elif q.is_cuda:
             o, state, states = _launch_forward(q, k, v, g, chunk,
                                                torch.float32)
             states[:, :, -1] = state
@@ -359,8 +370,17 @@ def gla_chunks_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, dk, dv] (None: zero).  CUDA tensors (dk, dv <= MAX_HEAD_DIM)
     launch the backward kernel (``BWD_LIB``: three kernels on the stream,
     counted as one launch); CPU tensors take
-    :func:`gla_chunks_backward_plain`."""
+    :func:`gla_chunks_backward_plain`; meta tensors come back empty,
+    reported as one operation "K10_bwd"."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    if q.is_meta:
+        grads = tuple(torch.empty_like(x) for x in (q, k, v, g))
+        flops = b * h * (s // chunk) * (
+            chunk * (chunk + 1) * (3 * dk + 2 * dv) + 8 * chunk * dk * dv)
+        meta_kernel("K10_bwd", flops,
+                    tuple(t for t in (q, k, v, g, states, do, dstate)
+                          if t is not None), grads)
+        return grads
     if not q.is_cuda:
         return gla_chunks_backward_plain(q, k, v, g, states, do, dstate,
                                          chunk)

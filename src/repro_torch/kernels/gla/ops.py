@@ -22,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..common import as_float_tensor, as_tensor, resolve_device
-from .kernel import (MAX_HEAD_DIM, WIDE_MAX_CHUNK, chunk_cumsum, gla_chunks,
-                     gla_meta, gla_wide)
+from .kernel import (MAX_HEAD_DIM, WIDE_MAX_CHUNK, GlaChunks, chunk_cumsum,
+                     gla_chunks, gla_meta, gla_wide)
 
 __all__ = ["gla_scan", "gla_blocked"]
 
@@ -40,9 +40,11 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
     ``kernel.gla_wide`` (two launches), and otherwise :func:`gla_blocked`
     (ceil(dv / MAX_HEAD_DIM) launches).  Meta tensors take
     ``kernel.gla_meta`` at any width: one operation, the undivided
-    scan.  When a gradient is asked for, float32 launches go through
-    ``kernel.GlaChunks`` (its backward kernel on the card, the plain
-    backward on the CPU); bfloat16 ones on the card raise."""
+    scan (with a gradient asked for, through ``kernel.GlaChunks``, whose
+    backward is one operation too).  When a gradient is asked for,
+    float32 launches go through ``kernel.GlaChunks`` (its backward
+    kernel on the card, the plain backward on the CPU); bfloat16 ones on
+    the card raise."""
     dev = resolve_device(device)
     q, k, v = (as_float_tensor(t, dev) for t in (q, k, v))
     la = as_tensor(log_a, torch.float32, dev)
@@ -51,6 +53,9 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
                          f"chunk = {chunk}, got {tuple(la.shape)}")
     g = chunk_cumsum(la, chunk)
     if q.is_meta:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, g)):
+            return GlaChunks.apply(q, k, v, g, chunk)
         return gla_meta(q, k, v, g, chunk)
     if max(q.shape[-1], v.shape[-1]) <= MAX_HEAD_DIM:
         return gla_chunks(q, k, v, g, chunk)

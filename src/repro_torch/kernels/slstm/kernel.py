@@ -26,7 +26,12 @@ and emits h_t, cast to zifo's dtype; the final state stays float32.
   in ``tests/test_torch_slstm.py``), else reads them from global memory.
 * Meta tensors take neither: empty outputs, and the call reported as
   one operation "sLSTM" through ``common.meta_kernel``, OPS_PER_STEP
-  operations a channel a step.
+  operations a channel a step.  When a gradient is asked for, meta
+  tensors go through :class:`SlstmScan`, whose forward writes empty
+  records and whose backward is one operation "sLSTM_bwd" of
+  BWD_OPS_PER_STEP operations a channel a step (the sLSTM scan
+  backward's bound in ``PERF.md``), with empty gradients of the inputs'
+  shapes.
 * :func:`slstm_scan_plain` loops :func:`slstm_step_plain` over S in
   plain torch, with the kernel's operations in the kernel's order
   (sigmoid as the reciprocal of 1 + e^-o, IEEE division), so on the card
@@ -114,6 +119,12 @@ State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 #: multiplies, 10 adds and subtracts, a negation, 2 max, 3 exp, a tanh,
 #: 2 divisions), each counted as one.
 OPS_PER_STEP = 27
+#: Float32 operations a channel a step of the backward as a function
+#: (its bound's count, without the chunked scan's own work): the
+#: forward's step recomputed (OPS_PER_STEP), the tie weights' 6
+#: compares, the adjoint's 1 division, 22 multiplies and 15 adds,
+#: subtracts and negations, and r's 4 sums of a multiply and an add.
+BWD_OPS_PER_STEP = 27 + 6 + 1 + 22 + 15 + 8
 
 
 def _shapes(zifo: torch.Tensor, r: torch.Tensor, state: State):
@@ -146,26 +157,39 @@ def slstm_scan(zifo: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
     backward kernel on the card, the plain backward on the CPU);
     bfloat16 zifo on the card raises."""
     b, s, d = _shapes(zifo, r, (h, c, n, m))
-    if zifo.is_meta:
-        hs = torch.empty((b, s, d), dtype=zifo.dtype, device=zifo.device)
-        out = tuple(torch.empty((b, d), dtype=torch.float32,
-                                device=zifo.device) for _ in range(4))
-        meta_kernel("sLSTM", OPS_PER_STEP * b * s * d, (zifo, r, h, c, n, m),
-                    (hs,) + out)
-        return hs, out
-    if torch.is_grad_enabled() and zifo.dtype == torch.float32 and any(
-            t.requires_grad for t in (zifo, r, h, c, n, m)):
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (zifo, r, h, c, n, m))
+    if zifo.is_meta and not grad:
+        return _meta_forward(zifo, r, h, c, n, m, False)[:2]
+    if grad and (zifo.dtype == torch.float32 or zifo.is_meta):
         hs, *out = SlstmScan.apply(zifo, r, h, c, n, m)
         return hs, tuple(out)
     if not zifo.is_cuda:
         return slstm_scan_plain(zifo, r, h, c, n, m)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (zifo, r, h, c, n, m)):
+    if grad:
         raise NotImplementedError(
             f"the sLSTM scan backward: no backward kernel for {zifo.dtype} "
             f"inputs on the card yet (float32 only); train in float32 or "
             f"on the CPU")
     return _launch_forward(zifo, r, h, c, n, m, False)[:2]
+
+
+def _meta_forward(zifo: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
+                  c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                  with_states: bool):
+    """The scan on meta tensors, the results of :func:`_launch_forward`
+    empty, reported as one operation "sLSTM" (the records' bytes
+    written too)."""
+    b, s, d = _shapes(zifo, r, (h, c, n, m))
+    hs = torch.empty((b, s, d), dtype=zifo.dtype, device=zifo.device)
+    out = tuple(torch.empty((b, d), dtype=torch.float32, device=zifo.device)
+                for _ in range(4))
+    recs = tuple(torch.empty((b, s, d), dtype=torch.float32,
+                             device=zifo.device)
+                 for _ in range(3)) if with_states else None
+    meta_kernel("sLSTM", OPS_PER_STEP * b * s * d, (zifo, r, h, c, n, m),
+                (hs,) + out + (recs or ()))
+    return hs, out, recs
 
 
 def _launch_forward(zifo: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
@@ -250,12 +274,15 @@ class SlstmScan(torch.autograd.Function):
     """The sLSTM scan with its backward, float32: ``apply(zifo, r, h, c,
     n, m) -> (hs, h, c, n, m)`` (the final state).  CUDA: the forward
     kernel writing its records, then the backward kernel; CPU: the two
-    plain versions.  The gradients of hs and of the final state are
-    taken where they flow (None otherwise: zero)."""
+    plain versions; meta: "sLSTM" and "sLSTM_bwd", one operation each.
+    The gradients of hs and of the final state are taken where they
+    flow (None otherwise: zero)."""
 
     @staticmethod
     def forward(ctx, zifo, r, h, c, n, m):
-        if zifo.is_cuda:
+        if zifo.is_meta:
+            hs, out, recs = _meta_forward(zifo, r, h, c, n, m, True)
+        elif zifo.is_cuda:
             hs, out, recs = _launch_forward(zifo, r, h, c, n, m, True)
         else:
             hs, out, recs = slstm_scan_plain(zifo, r, h, c, n, m,
@@ -303,7 +330,16 @@ def slstm_scan_backward(zifo: torch.Tensor, r: torch.Tensor,
     ns, ms [B, S, D], hs's gradient dhs and the final state's dh, dc, dn,
     dm (each None: zero).  CUDA tensors launch the backward kernels
     (``BWD_LIB``: the chunked scan's phases, counted as one launch); CPU
-    tensors take :func:`slstm_scan_backward_plain`."""
+    tensors take :func:`slstm_scan_backward_plain`; meta tensors come
+    back empty, reported as one operation "sLSTM_bwd"."""
+    if zifo.is_meta:
+        b, s, d = _shapes(zifo, r, (h, c, n, m))
+        grads = tuple(torch.empty_like(t) for t in (zifo, r, h, c, n, m))
+        meta_kernel("sLSTM_bwd", BWD_OPS_PER_STEP * b * s * d,
+                    tuple(t for t in (zifo, r, h, c, n, m, hs, cs, ns, ms,
+                                      dhs, dh, dc, dn, dm)
+                          if t is not None), grads)
+        return grads
     if not zifo.is_cuda:
         return slstm_scan_backward_plain(zifo, r, h, c, n, m, hs, cs, ns, ms,
                                          dhs, dh, dc, dn, dm)

@@ -26,8 +26,9 @@ card.
 The reference's ``sharding/compat.py`` has no counterpart here: it is a
 shim over jax's moving ``shard_map`` API, and the port runs one call a
 shard instead.  Its ``sharding/rules.py`` is ported as
-:mod:`repro_torch.sharding.rules`; ``launch/mesh.py`` waits for the
-model zoo's dry-run.
+:mod:`repro_torch.sharding.rules`, and ``launch/mesh.py`` as
+:mod:`repro_torch.launch.mesh` (the dry-run's production meshes, over
+``meta`` devices).
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ models call at the reference's sites (:class:`ActivationShard`).  The
 reference's callback constrains an activation's layout for XLA; a
 constraint changes a layout, never a value, so the port's returns the
 tensor itself (no copy, no launch, no host sync) and exposes the spec
-the reference would constrain it to (:meth:`ActivationShard.spec`).
+the reference would constrain it to (:meth:`ActivationShard.spec`),
+which the dry-run (``launch/dryrun.py``) reads to tag each activation
+with its shard count; it reads :func:`cache_specs` for the caches.
 The sharded train step keeps the dense layers whole on each data
 shard's device, replicated over ``model``: a deliberate difference.
 ``ExecConfig`` carries the execution parameters the paper's AutoTuner

@@ -79,8 +79,8 @@ def _device(tree: Tree) -> torch.device:
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (through float64 on the
-    CPU)."""
-    if x.is_cuda:
+    CPU; on ``meta``, a walk of the card's step, as on the card)."""
+    if x.is_cuda or x.is_meta:
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
 

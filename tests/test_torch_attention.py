@@ -10,6 +10,7 @@ another order), 5e-2 for bfloat16 inputs (the output is rounded to
 bfloat16).
 """
 
+import _torch_threads  # noqa: F401  (an xdist worker's share of the threads)
 import os
 import re
 

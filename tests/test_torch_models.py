@@ -25,6 +25,7 @@ chunked scan where the reference takes einsums):
   atol 1e-5 (``tests/test_kernels.py``).
 """
 
+import _torch_threads  # noqa: F401  (an xdist worker's share of the threads)
 import dataclasses
 
 import jax

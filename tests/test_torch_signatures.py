@@ -23,6 +23,7 @@ the kernels on the model path (K9, K10, the sLSTM scan).
   the port's own walks.
 """
 
+import _torch_threads  # noqa: F401  (an xdist worker's share of the threads)
 import dataclasses
 import os
 

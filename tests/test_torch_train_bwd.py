@@ -16,6 +16,7 @@ as the decay's gradient; K9 as ``tests/test_torch_attention.py`` holds
 it); the train steps within ``tests/test_torch_train_archs.py``'s
 LOSS_REL, RTOL and SMOKE_ATOL.
 """
+import _torch_threads  # noqa: F401  (an xdist worker's share of the threads)
 import os
 import re
 
