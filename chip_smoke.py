@@ -288,7 +288,7 @@ Phases, in order (any failure exits non-zero):
     to 256) card against CPU; the two layers timed beside the plain
     version, SDPA's backward and the bound; (b) minitron-4b at full
     width in float32 cut to 8 layers (remat "full", its ``train_4k``
-    exec) trained 4 steps on 1 x 4096 tokens: K9 f32 16 and its backward
+    exec) trained 3 steps on 1 x 4096 tokens: K9 f32 16 and its backward
     8 launches a step, ms a step, tokens/s, peak memory, losses and grad
     norms, one step traced (GEMMs, K9 forward, K9 backward, the rest);
     (c) the 100M LM cut to 2 layers, card against CPU from the same
@@ -296,9 +296,8 @@ Phases, in order (any failure exits non-zero):
     TRAIN_PARAM_ATOL); (d) ``python -m repro_torch.launch.train --steps
     60 --ckpt-every 30 --tuner-db ...``: exit 0 with a falling loss, a
     ``--resume`` from step 30 on the same parameters within 1e-6 (bitwise
-    or not, printed), the DB holding the run's signature; (e) a bf16
-    SMOKE train step and a bf16 sLSTM scan with a gradient raise
-    NotImplementedError, launching nothing and calling no plain version;
+    or not, printed), the DB holding the run's signature; ((e), what
+    raises without a backward kernel, is phase 29 (d));
     (f) sharded training on SHARD_MESH of the one card
     (``make_train_step(mesh=, shard=make_shard_fn(...))``): minitron-4b
     (8 layers, full width, float32, remat "full") on 2 x 4096 tokens, a
@@ -335,7 +334,7 @@ Phases, in order (any failure exits non-zero):
     deepseek-v2's) and K10 f32's forward at zamba2's, beside their bounds
     (and SDPA's f32 forward for K9); (b) zamba2-7b (12 of 81 layers: the pattern
     twice) and deepseek-v2 (its first, dense layer) at full width in
-    float32 trained 4 steps on 1 x 4096 tokens (their ``train_4k``
+    float32 trained 3 steps on 1 x 4096 tokens (their ``train_4k``
     execs, remat "full"), each step's launches asserted (K10 2 and its
     backward 1 a Mamba2 layer, K9 f32 2 and a backward 1 an attention
     layer or shared-attention occurrence), one step traced; (c) both at
@@ -357,7 +356,7 @@ Phases, in order (any failure exits non-zero):
     besides; K10 f32's backward at xlstm's blocked shapes in
     K10_BWD_CASES (32 heads of 128, chunk 256, dv 128 and 1); (b)
     xlstm-1p3b at full width cut to 8 layers (one period: 7 mLSTM, 1
-    sLSTM) trained 4 f32 steps on 1 x 4096 tokens (``train_4k``, remat
+    sLSTM) trained 3 f32 steps on 1 x 4096 tokens (``train_4k``, remat
     "full"): K10 18 and its backward 9 an mLSTM layer (9 value blocks),
     the sLSTM scan 2 and its backward 1 an sLSTM layer (one call of its
     four kernels), one step traced; (c) the same 8 layers card against
@@ -375,6 +374,30 @@ Phases, in order (any failure exits non-zero):
     roofline term printed against phase 27's measured ms a step, and its
     argument + temp bytes against the measured peak (ratios recorded,
     not checked).  Host work only; the step is not run again.
+29. bfloat16 training on the card: (a) K9 bf16's backward kernels
+    (``flash_bf16_bwd.cu`` at dh, dv <= 128, ``flash_bf16_bwd_mla.cu`` at
+    MLA's head; ``wgmma``, HGMMA asserted in their SASS) against
+    ``flash_backward_plain`` on K9_BF16_BWD_CASES (minitron-4b's,
+    deepseek-v2's MLA, phi3-mini's (dh 96), zamba2-7b's shared
+    attention (dh 112), the 100M LM's and kimi-k2's layers; S != T both
+    ways, non-causal, element-wise loads, inputs one element into their
+    storage, at both heads), each gradient element within one bf16
+    rounding of the plain element plus K9_BF16_BWD_REL of max |plain|,
+    two launches bitwise, the bf16 forward's o bitwise with and without
+    its lse, the lse within K9_BF16_LSE_TOL of the plain version's; the
+    six training layers timed beside the plain version, SDPA's bf16
+    backward, SDPA's bf16 forward and the bound; (b) minitron-4b (8
+    layers) and deepseek-v2 (its dense layer) at full width in bfloat16
+    (``train_4k``, remat "full") trained 3 steps on 1 x 4096 tokens: K9
+    bf16 forward 2 and its backward 1 an attention layer, no float32 K9
+    launch, no plain call, ms a step, tokens/s and peak beside phase
+    27's float32 step, one step traced; (c) both card against CPU in
+    bfloat16 (2 layers on 1 x 512 tokens, 1 layer on 1 x 128), the first
+    batch's loss and gradients held by TRAIN_NOISE_X times the two sides'
+    own change under a one-rounding (2^-8) weight perturbation; (d) what
+    still raises NotImplementedError without a backward kernel, launching
+    nothing and calling no plain version: zamba2-7b's bf16 SMOKE train
+    step (K10's backward) and a bf16 sLSTM scan with a gradient.
 
 It prints the kernel table as one JSON line (K9's, K9 f32's and K10's
 rows with their launches on phases 23-25's model paths besides, K2's
@@ -383,8 +406,9 @@ K10's row on mLSTM's whole heads, the sLSTM scan's and K9 f32's
 backward's, with its launches on phase 27's minitron-4b step and its
 sharded step (K9 f32's forward row too), and the
 backwards of K9 f32 at MLA's head and of K10 f32 with theirs on phase
-27's deepseek-v2 and zamba2-7b steps, and the sLSTM scan's backward
-with its launches on phase 27's xlstm-1p3b step), the
+27's deepseek-v2 and zamba2-7b steps, the sLSTM scan's backward
+with its launches on phase 27's xlstm-1p3b step, and K9 bf16's two
+backwards with theirs on phase 29's bf16 steps), the
 card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  It needs
 no network and imports nothing of JAX.
@@ -600,6 +624,21 @@ KERNELS = {
                        "flash_f32_bwd_mla.cu",
                        "src/repro/models/attention.py:229 (jax.grad of jnp "
                        "attention in mla_apply; no Pallas kernel)"),
+    "K9-bf16-bwd": ("K9 bf16 backward (dq, dk, dv; wgmma, P and dS in two "
+                    "bf16 parts; not a TPU kernel: the reference "
+                    "differentiates jnp attention)",
+                    "src/repro_torch/kernels/attention/csrc/"
+                    "flash_bf16_bwd.cu",
+                    "src/repro/models/attention.py:121 (jax.grad of jnp "
+                    "attention; no Pallas kernel)"),
+    "K9-bf16-mla-bwd": ("K9 bf16 backward at MLA's head (dh 192, dv 128; "
+                        "dq, dk, dv; wgmma, P and dS in two bf16 parts; "
+                        "not a TPU kernel: the reference differentiates "
+                        "jnp attention under MLA)",
+                        "src/repro_torch/kernels/attention/csrc/"
+                        "flash_bf16_bwd_mla.cu",
+                        "src/repro/models/attention.py:229 (jax.grad of "
+                        "jnp attention in mla_apply; no Pallas kernel)"),
     "K10": ("K10 chunked GLA scan",
             "src/repro_torch/kernels/gla/csrc/gla.cu",
             "src/repro/kernels/gla/kernel.py:22"),
@@ -744,6 +783,8 @@ def counts() -> dict:
             "K9-f32": attention.kernel.LIB.launches,
             "K9-f32-bwd": attention.kernel.BWD_LIB.launches,
             "K9-f32-mla-bwd": attention.kernel.BWD_MLA_LIB.launches,
+            "K9-bf16-bwd": attention.kernel.BF16_BWD_LIB.launches,
+            "K9-bf16-mla-bwd": attention.kernel.BF16_BWD_MLA_LIB.launches,
             "K10": gla.kernel.LIB.launches,
             "K10-f32-bwd": gla.kernel.BWD_LIB.launches,
             "K10-mlstm": gla.kernel.WIDE_LAUNCHES,
@@ -759,6 +800,8 @@ def reset_counts() -> None:
     attention.kernel.BF16_LIB.launches = 0
     attention.kernel.BWD_LIB.launches = 0
     attention.kernel.BWD_MLA_LIB.launches = 0
+    attention.kernel.BF16_BWD_LIB.launches = 0
+    attention.kernel.BF16_BWD_MLA_LIB.launches = 0
     gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
     gla.kernel.BWD_LIB.launches = slstm.kernel.BWD_LIB.launches = 0
     gla.kernel.WIDE_LAUNCHES = 0
@@ -849,6 +892,8 @@ _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"flash_bwd_dot_kernel|flash_bwd_dkdv_kernel|"
                         r"flash_bwd_dq_kernel|flash_bwd_mla_dot_kernel|"
                         r"flash_bwd_mla_dkdv_kernel|flash_bwd_mla_dq_kernel|"
+                        r"flash_bf16_bwd_dot_kernel|"
+                        r"flash_bf16_bwd_dkdv_kernel|flash_bf16_bwd_dq_kernel|"
                         r"flash_wgmma_kernel|"
                         r"flash_mla_kernel|gla_wide_scores_kernel|"
                         r"gla_wide_kernel|"
@@ -965,8 +1010,10 @@ def build_report(libs) -> None:
     its HGMMA and UTMALDG, for K9 f32's backward
     (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) and at MLA's
     head (``flash_bwd_mla_dkdv_kernel``, ``flash_bwd_mla_dq_kernel``)
-    their HGMMA, for K10 f32's backward (``gla_bwd_u_kernel``,
-    ``gla_bwd_dkdv_kernel``, ``gla_bwd_dq_kernel``) theirs, for
+    their HGMMA, for K9 bf16's backward (``flash_bf16_bwd_dkdv_kernel``,
+    ``flash_bf16_bwd_dq_kernel``, at both heads) theirs, for K10 f32's
+    backward (``gla_bwd_u_kernel``, ``gla_bwd_dkdv_kernel``,
+    ``gla_bwd_dq_kernel``) theirs, for
     K10's bf16 kernels (``gla_ws_kernel``,
     ``gla_mma_kernel``, ``gla_wide_scores_kernel``, ``gla_wide_kernel``)
     their warpgroup-MMA count, HGMMA, and for K8 (``iir_kernel``) its
@@ -994,6 +1041,9 @@ def build_report(libs) -> None:
         elif lib is attn.BWD_MLA_LIB:
             ops = {**sass_ops(lib, "flash_bwd_mla_dkdv_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_bwd_mla_dq_kernel", ("HGMMA",))}
+        elif lib in (attn.BF16_BWD_LIB, attn.BF16_BWD_MLA_LIB):
+            ops = {**sass_ops(lib, "flash_bf16_bwd_dkdv_kernel", ("HGMMA",)),
+                   **sass_ops(lib, "flash_bf16_bwd_dq_kernel", ("HGMMA",))}
         elif lib is gla.kernel.BWD_LIB:
             ops = {**sass_ops(lib, "gla_bwd_u_kernel", ("HGMMA",)),
                    **sass_ops(lib, "gla_bwd_dkdv_kernel", ("HGMMA",)),
@@ -6304,46 +6354,48 @@ TRAIN_GRAD_REL = 1e-4
 TRAIN_PARAM_ATOL = 2 * 3e-4
 #: xlstm-1p3b's first gradients (8 layers at full width, 1 x 512 tokens)
 #: carry more float32 noise than TRAIN_GRAD_REL: weights moved by one
-#: rounding (TRAIN_NOISE_EPS) move some leaves' gradients past it on the
-#: card alone, and the CPU's as far as the card's differ from them (the
-#: sLSTM layer's input projection first; PERF.md §6).  So where asked
-#: (``self_noise``), each leaf is held within max(TRAIN_GRAD_REL,
-#: TRAIN_NOISE_X (the card's own change + the CPU's own change)) under
-#: such a perturbation, measured in the same run: two float32 evaluations
-#: of one function differ by about the sum of their rounding noise, and
-#: the factor 2 covers the spread of a maximum over a leaf.
-TRAIN_NOISE_EPS = 2.0 ** -24
+#: rounding (half the weights' machine epsilon: 2^-24 in float32, 2^-8 in
+#: bfloat16) move some leaves' gradients past it on the card alone, and
+#: the CPU's as far as the card's differ from them (the sLSTM layer's
+#: input projection first; PERF.md §6).  So where asked (``self_noise``),
+#: each leaf is held within max(TRAIN_GRAD_REL, TRAIN_NOISE_X (the card's
+#: own change + the CPU's own change)) under such a perturbation,
+#: measured in the same run: two evaluations of one function differ by
+#: about the sum of their rounding noise, and the factor 2 covers the
+#: spread of a maximum over a leaf.  Phase 29 holds its bfloat16 first
+#: batch so, the loss too, and takes no step.
 TRAIN_NOISE_X = 2.0
 
 
 def _rounding_perturbed(model, seed: int):
-    """A copy of ``model`` with every weight w moved to w (1 +
-    TRAIN_NOISE_EPS N(0, 1)), rounded: each weight stays or moves to a
-    neighbouring float32."""
+    """A copy of ``model`` with every weight w moved to w (1 + eps N(0,
+    1)), eps half its dtype's machine epsilon, rounded: each weight stays
+    or moves to a neighbouring value of its dtype."""
     out = copy.deepcopy(model)
     dev = next(out.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for p in out.parameters():
-            p.mul_(1 + TRAIN_NOISE_EPS * torch.randn(
+            p.mul_(1 + torch.finfo(p.dtype).eps / 2 * torch.randn(
                 p.shape, generator=gen, device=dev))
     return out
 
 
-def _train_cfg(arch: str, layers: int, remat: str = "none"):
+def _train_cfg(arch: str, layers: int, remat: str = "none",
+               dtype: str = "float32"):
     from repro_torch import configs
     return dataclasses.replace(configs.get(arch), num_layers=layers,
-                               param_dtype="float32", dtype="float32",
-                               remat=remat)
+                               param_dtype=dtype, dtype=dtype, remat=remat)
 
 
 def _train_launches(cfg, remat: int) -> dict:
     """The kernel launches one train step of ``cfg`` makes (``remat``
     forwards a layer: 2 under remat "full", the forward and its
-    recompute, else 1): K9 f32 a forward and a backward an attention
-    layer or shared-attention occurrence (the backward at MLA's head its
-    own kernel), K10 a forward and a backward a Mamba2 layer, and a
-    forward and a backward a 128-wide value block of an mLSTM layer's dh
+    recompute, else 1): K9 of the config's dtype (f32 or bf16) a forward
+    and a backward an attention layer or shared-attention occurrence (the
+    backward at MLA's head its own kernel), K10 a forward and a backward
+    a Mamba2 layer, and a forward and a backward a 128-wide value block
+    of an mLSTM layer's dh
     + 1 (``gla_blocked``; dh 1024: 9 blocks), the sLSTM scan and its
     backward an sLSTM layer (``BWD_LIB.launches`` counts the backward's
     calls: one a layer, of four kernels at S 4096)."""
@@ -6364,30 +6416,33 @@ def _train_launches(cfg, remat: int) -> dict:
             add("sLSTM", remat)
             add("sLSTM_bwd", 1)
         else:
-            add("K9_f32", remat)
+            dt = "bf16" if cfg.dtype == "bfloat16" else "f32"
+            add("K9" if dt == "bf16" else "K9_f32", remat)
             mla = cfg.attn_kind == "mla" and kind != "shared_attn"
-            add("K9_f32_mla_bwd" if mla else "K9_f32_bwd", 1)
+            add(f"K9_{dt}_mla_bwd" if mla else f"K9_{dt}_bwd", 1)
     return want
 
 
 def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
-               b: int = 1, s: int = 4096, steps: int = 4) -> dict:
-    """Phase 27 (b): ``arch`` at full width in float32, depth cut to
-    ``layers``, its ``train_4k`` exec (remat "full"), trained ``steps``
-    steps on B x S tokens of the port's SyntheticCorpus through
-    ``train.step.make_train_step``, each step's counts set to 0 just
-    before it and read just after (``_train_launches``: K9 f32 forward 2
-    an attention layer, the forward and remat's recompute, its backward
-    1; K10 2 and its backward 1 a Mamba2 layer), no plain version
-    called; ms a step (median), tokens/s, peak memory, each step's loss
-    and grad norm (finite); then one more step traced.  Returns
-    {"launches": per step by key, "ms": ...}."""
+               b: int = 1, s: int = 4096, steps: int = 4,
+               dtype: str = "float32") -> dict:
+    """Phase 27 (b) (and phase 29 (b) in bfloat16): ``arch`` at full
+    width in ``dtype``, depth cut to ``layers``, its ``train_4k`` exec
+    (remat "full"), trained ``steps`` steps on B x S tokens of the port's
+    SyntheticCorpus through ``train.step.make_train_step``, each step's
+    counts set to 0 just before it and read just after
+    (``_train_launches``: K9 of the dtype forward 2 an attention layer,
+    the forward and remat's recompute, its backward 1; K10 2 and its
+    backward 1 a Mamba2 layer), no plain version called; ms a step
+    (median), tokens/s, peak memory, each step's loss and grad norm
+    (finite); then one more step traced.  Returns {"launches": per step
+    by key, "ms": ...}."""
     from repro_torch import configs, models
     from repro_torch.data import DataPipeline, SyntheticCorpus
     from repro_torch.train import (AdamWConfig, adamw_init, cosine_schedule,
                                    make_train_step)
     ex = configs.exec_default(arch, "train_4k")
-    cfg = _train_cfg(arch, layers, ex.remat)
+    cfg = _train_cfg(arch, layers, ex.remat, dtype)
     assert cfg.remat == "full", cfg.remat
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6402,7 +6457,7 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
         cosine_schedule(c, peak_lr=3e-4, warmup=20, total=100)))
     pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=27), s, b)
     print(f"[train full] {arch} at full width, {layers} of "
-          f"{configs.get(arch).num_layers} layers, float32, remat "
+          f"{configs.get(arch).num_layers} layers, {dtype}, remat "
           f"{cfg.remat}: {n_params / 1e9:.3f} B parameters, weights and "
           f"AdamW state {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
           f"built in {time.perf_counter() - t0:.1f} s")
@@ -6428,7 +6483,8 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
     print(f"[train full] {arch}: {steps} steps of {b} x {s} tokens: "
           + "; ".join(f"step {i} loss {l:.4f} grad norm {g:.4f}"
                       for i, (l, g) in enumerate(rows)))
-    print(f"[train full] {arch}: ms a step (median of {steps}) {ms:.1f} "
+    print(f"[train full] {arch} ({dtype}): ms a step (median of {steps}) "
+          f"{ms:.1f} "
           f"(each " + ", ".join(f"{t:.1f}" for t in times)
           + f"); {b * s / ms * 1e3:.0f} tokens/s; peak memory {peak:.1f} "
           f"GiB; launches a step: "
@@ -6452,9 +6508,9 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
             split["sLSTM forward"] += kms
         elif "slstm_bwd_" in key:
             split["sLSTM backward"] += kms
-        elif "flash_tf32" in key:
+        elif "flash_tf32" in key or any(k in key for k in K9_NAMES):
             split["K9 forward"] += kms
-        elif "flash_bwd_" in key:
+        elif "flash_bwd_" in key or "flash_bf16_bwd_" in key:
             split["K9 backward"] += kms
         elif "gla_fma_kernel" in key:
             split["K10 forward"] += kms
@@ -6466,7 +6522,8 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
             split["rest"] += kms
     total = sum(split.values())
     top = sorted(by, key=lambda e: -e[1])[:6]
-    print(f"[train full] {arch} traced step: device {total:.1f} ms of "
+    print(f"[train full] {arch} ({dtype}) traced step: device {total:.1f} ms "
+          f"of "
           f"{wall:.1f} ms wall, "
           + ", ".join(f"{k} {v:.1f} ms ({100 * v / max(total, 1e-9):.1f}%)"
                       for k, v in split.items())
@@ -6475,31 +6532,38 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
     del model, opt, step
     torch.cuda.empty_cache()
     return {"launches": want, "ms": ms, "split": split,
-            "peak_gb": peak * 2**30 / 1e9}
+            "peak_gb": peak * 2**30 / 1e9, "tokens_s": b * s / ms * 1e3}
 
 
 def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
                       s: int = 128, steps: int = 2,
-                      arch: str = "", self_noise: bool = False) -> None:
-    """Phase 27 (c): the driver's default LM (lm-768x12), or ``arch`` at
-    full width in float32, cut to ``layers`` layers, weights drawn once
-    from a seeded generator (the LM's on the CPU, copied to the card; an
-    arch's on the card, copied to the host, whose generator is slow at a
-    billion weights); the first batch's gradients, then ``steps`` train
-    steps (AdamW lr 3e-4) on each device: losses, gradients and
-    parameters held as TRAIN_* say; the card's steps launch what
-    ``_train_launches`` says (remat "none").  With ``self_noise``, each
-    side's first gradients are taken again from weights moved by one
-    rounding (``_rounding_perturbed``), and a leaf's gradients are held
-    as TRAIN_NOISE_X says.  The host's seconds are printed apart."""
+                      arch: str = "", self_noise: bool = False,
+                      dtype: str = "float32") -> None:
+    """Phase 27 (c) (and phase 29 (c) in bfloat16): the driver's default
+    LM (lm-768x12), or ``arch`` at full width in ``dtype``, cut to
+    ``layers`` layers, weights drawn once from a seeded generator (the
+    LM's on the CPU, copied to the card; an arch's on the card, copied to
+    the host, whose generator is slow at a billion weights); the first
+    batch's loss and gradients, then ``steps`` train steps (AdamW lr
+    3e-4) on each device: losses, gradients and parameters held as
+    TRAIN_* say; the card's steps launch what ``_train_launches`` says
+    (remat "none").  With ``self_noise``, each side's first loss and
+    gradients are taken again from weights moved by one rounding
+    (``_rounding_perturbed``, one copy drawn on the card for both
+    sides), and a leaf's gradients (in bfloat16 the loss too) are held
+    as TRAIN_NOISE_X says; bfloat16 takes no step.  The host's seconds
+    are printed apart."""
     from repro_torch import models
     from repro_torch.data import DataPipeline, SyntheticCorpus
     from repro_torch.launch import train as tlaunch
     from repro_torch.sharding.rules import ExecConfig
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
     t0 = time.perf_counter()
-    cfg = _train_cfg(arch, layers) if arch else tlaunch.build_config(
-        tlaunch.parse_args(["--layers", str(layers)]))
+    bf16 = dtype == "bfloat16"
+    assert not bf16 or (self_noise and not steps), \
+        "bfloat16 is held by its own noise, on the first batch alone"
+    cfg = _train_cfg(arch, layers, dtype=dtype) if arch else \
+        tlaunch.build_config(tlaunch.parse_args(["--layers", str(layers)]))
     if arch:
         card = models.init(cfg, generator=torch.Generator(
             device=dev).manual_seed(270), device=dev)
@@ -6511,88 +6575,100 @@ def train_card_vs_cpu(dev, name: str, layers: int = 2, b: int = 2,
             device=dev).manual_seed(0), device=dev)
         card.load_state_dict(cpu.state_dict())
     pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=270), s, b)
-    grads, host_s = [], 0.0
+    firsts, host_s = [], 0.0
 
     def first_grads(m):
         m.requires_grad_(True)
         loss, _ = models.loss_fn(m, pipe.batch_at(0), cfg)
-        return dict(zip([n for n, _ in m.named_parameters()],
-                        torch.autograd.grad(loss, list(m.parameters()))))
+        return float(loss.detach()), dict(zip(
+            [n for n, _ in m.named_parameters()],
+            torch.autograd.grad(loss, list(m.parameters()))))
     for m in (card, cpu):
         t1 = time.perf_counter()
-        grads.append(first_grads(m))
+        firsts.append(first_grads(m))
         if m is cpu:
             host_s += time.perf_counter() - t1
+    (loss0, grads0), (loss1, grads1) = firsts
     # compared on the card: the host's elementwise passes over a billion
     # weights take tens of seconds
-    leaf = {k: _rel(grads[0][k], w.to(dev))
-            for k, w in grads[1].items() if w.abs().max() > 0}
+    leaf = {k: _rel(grads0[k], w.to(dev))
+            for k, w in grads1.items() if w.abs().max() > 0}
     g_err = max(leaf.values())
     bound = dict.fromkeys(leaf, TRAIN_GRAD_REL)
+    first_l = abs(loss0 - loss1) / abs(loss1)
+    l_bound = TRAIN_LOSS_REL
     noise_str = ""
     if self_noise:
-        own = []
-        for i, m in enumerate((card, cpu)):
+        # one perturbed copy, drawn on the card, then moved to the host:
+        # both sides take the same moved weights
+        own, own_l = [], []
+        moved = _rounding_perturbed(card, 271)
+        for i, where in enumerate((dev, "cpu")):
             t1 = time.perf_counter()
-            again = first_grads(_rounding_perturbed(m, 271 + i))
-            own.append({k: _rel(again[k].to(dev), grads[i][k].to(dev))
+            loss_p, again = first_grads(moved.to(where))
+            own.append({k: _rel(again[k].to(dev), firsts[i][1][k].to(dev))
                         for k in leaf})
+            own_l.append(abs(loss_p - firsts[i][0]) / abs(firsts[i][0]))
             del again
-            if m is cpu:
+            if where == "cpu":
                 host_s += time.perf_counter() - t1
+        del moved
         bound = {k: max(TRAIN_GRAD_REL, TRAIN_NOISE_X * (own[0][k]
                                                          + own[1][k]))
                  for k in leaf}
+        if bf16:
+            l_bound = max(TRAIN_LOSS_REL, TRAIN_NOISE_X * sum(own_l))
         worst = sorted(leaf, key=lambda k: -leaf[k] / bound[k])[:3]
         noise_str = (f"; with weights moved by one rounding the card's own "
                      f"gradients move by up to {max(own[0].values()):.3g}, "
-                     f"the CPU's by {max(own[1].values()):.3g}; tightest "
-                     f"leaves " + ", ".join(
+                     f"the CPU's by {max(own[1].values()):.3g} (the loss "
+                     f"{own_l[0]:.3g}, {own_l[1]:.3g}); tightest leaves "
+                     + ", ".join(
                          f"{k} {leaf[k]:.3g} (bound {bound[k]:.3g}: card "
                          f"{own[0][k]:.3g}, CPU {own[1][k]:.3g})"
                          for k in worst))
     g_ok = all(leaf[k] <= bound[k] for k in leaf)
-    del grads
-    losses, opt_cfg = [], AdamWConfig(lr=3e-4)
+    del firsts, grads0, grads1
+    losses, opt_cfg = [[], []], AdamWConfig(lr=3e-4)
     reset_counts()
-    for m in (card, cpu):
+    for m, run in zip((card, cpu), losses) if steps else ():
         t1 = time.perf_counter()
         step, opt = make_train_step(cfg, ExecConfig(), opt_cfg), \
             adamw_init(m, opt_cfg)
-        run = []
         for i in range(steps):
             opt, met = step(m, opt, pipe.batch_at(i))
             run.append(float(met["loss"]))
-        losses.append(run)
         if m is cpu:
             host_s += time.perf_counter() - t1
     torch.cuda.synchronize()
     want_n = {k: n * steps for k, n in _train_launches(cfg, 1).items()}
     launched({k: 0 for k in counts()}, **want_n)
-    l_err = max(abs(a - c) / abs(c) for a, c in zip(*losses))
-    got = {k: p.detach() for k, p in card.named_parameters()}
-    want = {k: p.detach().to(dev) for k, p in cpu.named_parameters()}
-    p_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
-    beyond = sum(int(((got[k] - want[k]).abs() > 1e-5 + 1e-4 * want[k].abs()
-                      ).sum()) for k in want)
-    n = sum(v.numel() for v in want.values())
-    ok = all(bool(((got[k] - want[k]).abs()
-                   <= TRAIN_PARAM_ATOL + 1e-4 * want[k].abs()).all())
-             for k in want)
-    print(f"[train card vs cpu] {cfg.name} cut to {layers} layers, {b} x "
-          f"{s} tokens, {steps} steps: losses card {losses[0]} CPU "
-          f"{losses[1]} (rel err {l_err:.3g}, tol {TRAIN_LOSS_REL:g}); first "
-          f"batch's gradients rel err {g_err:.3g} of a leaf's max (tol "
-          f"{TRAIN_GRAD_REL:g}"
+    l_err = max([first_l] + [abs(a - c) / abs(c) for a, c in zip(*losses)])
+
+    p_abs, beyond, n, ok = 0.0, 0, 0, True
+    for p, q in zip(card.parameters(), cpu.parameters()) if steps else ():
+        got, want = p.detach().float(), q.detach().to(dev).float()
+        p_abs = max(p_abs, float((got - want).abs().max()))
+        beyond += int(((got - want).abs() > 1e-5 + 1e-4 * want.abs()).sum())
+        n += want.numel()
+        ok &= bool(((got - want).abs()
+                    <= TRAIN_PARAM_ATOL + 1e-4 * want.abs()).all())
+    params_str = (f"parameters max abs diff {p_abs:.3g} (tol "
+                  f"{TRAIN_PARAM_ATOL:g} + 1e-4 |p|), "
+                  f"{beyond} of {n} beyond 1e-5 + 1e-4 |p|") if steps \
+        else "no step taken"
+    print(f"[train card vs cpu] {cfg.name} cut to {layers} layers, "
+          f"{dtype}, {b} x {s} tokens, {steps} steps: losses card "
+          f"{losses[0]} CPU {losses[1]} (first batch {loss0} / {loss1}; rel "
+          f"err {l_err:.3g}, tol {l_bound:.3g}); first batch's gradients "
+          f"rel err {g_err:.3g} of a leaf's max (tol {TRAIN_GRAD_REL:g}"
           + (f" or {TRAIN_NOISE_X:g} x the two sides' own noise"
-             if self_noise else "") + f"{noise_str}); parameters max abs "
-          f"diff {p_abs:.3g} (tol "
-          f"{TRAIN_PARAM_ATOL:g} + 1e-4 |p|), {beyond} of {n} beyond 1e-5 "
-          f"+ 1e-4 |p|; launches on the card "
+             if self_noise else "") + f"{noise_str}); {params_str}; "
+          f"launches on the card "
           + ", ".join(f"{k} {n}" for k, n in want_n.items())
           + f"; {time.perf_counter() - t0:.1f} s, the host's steps "
           f"{host_s:.1f} s")
-    assert l_err <= TRAIN_LOSS_REL and g_ok and ok
+    assert l_err <= l_bound and g_ok and ok
 
 
 def _copy_step(src: str, dst: str, step: int) -> None:
@@ -6667,16 +6743,18 @@ def train_driver(steps: int = 60, every: int = 30) -> None:
 
 
 def train_no_fallback(dev) -> None:
-    """Phase 27 (e): a bf16 train step (minitron-4b's SMOKE config in
-    bfloat16) raises NotImplementedError naming K9's missing backward,
-    launching no kernel; a bf16 sLSTM scan with a gradient asked for
-    (xlstm-1p3b's width, 64 steps) raises naming the sLSTM scan's,
-    launching nothing.  Neither calls a plain version."""
+    """Phase 29 (d): a bf16 train step of zamba2-7b's SMOKE config raises
+    NotImplementedError naming K10's missing backward, launching no
+    kernel (its first layer is Mamba2's); a bf16 sLSTM scan with a
+    gradient asked for (xlstm-1p3b's width, 64 steps) raises naming the
+    sLSTM scan's, launching nothing.  Neither calls a plain version.
+    (minitron-4b's bf16 step, which raised here before K9 bf16 had its
+    backward, trains in phase 29 (b).)"""
     from repro_torch import configs, models
     from repro_torch.kernels.slstm import kernel as ks
     from repro_torch.sharding.rules import ExecConfig
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
-    cfg = dataclasses.replace(configs.smoke_config("minitron-4b"),
+    cfg = dataclasses.replace(configs.smoke_config("zamba2-7b"),
                               param_dtype="bfloat16", dtype="bfloat16")
     m = models.init(cfg, generator=torch.Generator(
         device=dev).manual_seed(1), device=dev)
@@ -6687,7 +6765,7 @@ def train_no_fallback(dev) -> None:
     zifo = torch.zeros((1, 64, 4 * d), dtype=torch.bfloat16, device=dev,
                        requires_grad=True)
     st = [torch.zeros((1, d), device=dev) for _ in range(4)]
-    cases = (("minitron-4b SMOKE train step in bfloat16", "K9 backward",
+    cases = (("zamba2-7b SMOKE train step in bfloat16", "K10 backward",
               lambda: step(m, adamw_init(m, AdamWConfig()),
                            {"tokens": toks, "labels": toks})),
              ("xlstm-1p3b's sLSTM scan in bfloat16 with a gradient",
@@ -6990,20 +7068,24 @@ def train_phase(dev, errs: ErrLog, name: str):
     """Phase 27: (a) K9 f32's backward kernels (dh <= 128 and MLA's head),
     K10 f32's and the sLSTM scan's, (b) minitron-4b, zamba2-7b,
     deepseek-v2 and xlstm-1p3b trained at full width, (c) the card
-    against the CPU, (d) the train driver, (e) no fallback, (f) sharded
-    training.  Returns the four backward kernels' table rows, the
-    forward kernels' launches on the sharded step ({key: {path: n}}) and
-    the minitron-4b steps' measurements phase 28 reads ({"1 x 4096":
-    (launches, ms, peak GB), "microbatch=2": ...})."""
+    against the CPU, (d) the train driver, (f) sharded training ((e),
+    no fallback, moved to phase 29 (d) with bf16 training).  Returns the
+    four backward kernels' table rows, the forward kernels' launches on
+    the sharded step ({key: {path: n}}), the minitron-4b steps'
+    measurements phase 28 reads ({"1 x 4096": (launches, ms, peak GB),
+    "microbatch=2": ...}) and (b)'s float32 steps by arch, which phase
+    29 prints its bf16 steps beside."""
     t0 = time.perf_counter()
     times = check_k9_bwd(dev, errs, name)
     mla = check_k9_mla_bwd(dev, errs, name)
     gla = check_k10_bwd(dev, errs, name)
     slstm = check_slstm_bwd(dev, errs, name)
     print(f"[train] phase 27 (a) in {time.perf_counter() - t0:.1f} s")
-    full = {arch: train_full(dev, name, arch, layers) for arch, layers in (
-        ("minitron-4b", 8), ("zamba2-7b", 12), ("deepseek-v2-236b", 1),
-        ("xlstm-1p3b", 8))}
+    # (b) at 3 steps (was 4): phase 29's bf16 training fits the script's
+    # time
+    full = {arch: train_full(dev, name, arch, layers, steps=3)
+            for arch, layers in (("minitron-4b", 8), ("zamba2-7b", 12),
+                                 ("deepseek-v2-236b", 1), ("xlstm-1p3b", 8))}
     train_card_vs_cpu(dev, name)
     train_card_vs_cpu(dev, name, layers=6, b=1, s=512, steps=1,
                       arch="zamba2-7b")
@@ -7013,7 +7095,6 @@ def train_phase(dev, errs: ErrLog, name: str):
                       arch="xlstm-1p3b", self_noise=True)
     train_driver()
     train_driver_xlstm()
-    train_no_fallback(dev)
     t1 = time.perf_counter()
     sharded = train_sharded(dev, name)
     moe_block_backward(dev, name)
@@ -7044,7 +7125,7 @@ def train_phase(dev, errs: ErrLog, name: str):
                 "microbatch=2": (sharded["launches"], sharded["plain_ms"],
                                  sharded["peak_gb"]["one"])}
     return rows, {"K9-f32": {SHARDED_PATH: sharded["launches"]["K9_f32"]}}, \
-        measured
+        measured, full
 
 
 # ---------------------------------------------------------------------------
@@ -7096,6 +7177,221 @@ def dryrun_phase(name: str, measured: dict) -> None:
     print(f"[dryrun] phase 28 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 29: bfloat16 training on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 29 (a): K9 bf16's backward (``flash_bf16_bwd.cu`` at dh, dv <= 128,
+#: ``flash_bf16_bwd_mla.cu`` at MLA's head) against ``flash_backward_plain``
+#: on the same inputs (the bf16 forward's own o and lse): every element of
+#: dq, dk and dv within one bf16 rounding of the plain element
+#: (``_bf16_step``: both sides round a float32 sum once, so a sum near a
+#: rounding boundary may land on either neighbour) plus K9_BF16_BWD_REL of
+#: the gradient's max |plain| (the kernel's float32 sums in another order,
+#: P and dS in two bf16 parts, ~2^-17 of each).  Stated before the first
+#: run.
+K9_BF16_BWD_REL = 1e-4
+#: The bf16 forward's lse against the plain version's, absolute (|lse| up
+#: to ~12 at S = 4096: a float32 step there is ~1e-6; the scores are exact
+#: bf16 products summed in float32).  Stated before the first run.
+K9_BF16_LSE_TOL = 1e-5
+#: (a)'s shapes: (what, B, H, KV, S, T, dh, dv, causal, unaligned, the
+#: wrappers' tile); the first six (the training layers) timed.
+K9_BF16_BWD_CASES = (
+    ("minitron-4b layer", 1, 24, 8, 4096, 4096, 128, 128, True, False, 64),
+    ("deepseek-v2 MLA layer", 1, 128, 128, 4096, 4096, 192, 128, True,
+     False, 64),
+    ("phi3-mini layer (dh 96)", 1, 32, 32, 4096, 4096, 96, 96, True, False,
+     64),
+    ("zamba2-7b shared attention (dh 112)", 1, 32, 32, 4096, 4096, 112,
+     112, True, False, 64),
+    ("lm-768x12 layer (dh 64)", 8, 12, 6, 256, 256, 64, 64, True, False, 64),
+    ("kimi-k2 MLA layer (64 heads)", 1, 64, 64, 4096, 4096, 192, 128, True,
+     False, 64),
+    ("S 128 < T 256", 1, 4, 2, 128, 256, 64, 64, True, False, 64),
+    ("S 256 > T 128", 1, 4, 2, 256, 128, 128, 64, True, False, 64),
+    ("non-causal, dv 32 < dh", 2, 4, 1, 128, 192, 64, 32, False, False, 64),
+    ("dh 18 / dv 10, element-wise loads", 1, 2, 1, 128, 128, 18, 10, True,
+     False, 64),
+    ("one element into storage", 1, 4, 2, 128, 128, 64, 64, True, True, 64),
+    ("MLA, S = T = 328, not whole 64-row tiles", 1, 4, 2, 328, 328, 192,
+     128, True, False, 8),
+    ("MLA, dh 130 / dv 66, element-wise loads", 1, 2, 1, 128, 128, 130, 66,
+     True, False, 64),
+    ("MLA, one element into storage", 1, 4, 2, 128, 128, 192, 128, True,
+     True, 64),
+)
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 rounding at each element of x: the spacing of bfloat16 at
+    |x| (2^(e - 8) for |x| in [2^(e-1), 2^e)), 0 at 0."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8) * (
+        x != 0)
+
+
+def k9_bf16_bwd_bound(name: str, b, h, kv, s, t, dh, dv, causal=True):
+    """(bytes ms, operations ms, operations ms with P and dS in two parts)
+    of K9 bf16's backward: q, k, v, o, do read and dq, dk, dv written once
+    in bf16, the lse in float32, at the card's memory rate; the least work,
+    2 (3 dh + 2 dv) FLOPs a query-key pair under the mask, at the dense
+    bf16 tensor-core peak (the row's bound), and 2 (5 dh + 3 dv) a pair,
+    dV, dK and dQ each taken as two bf16 products (printed beside)."""
+    from repro_torch.kernels.attention.kernel import causal_pairs
+    mem, _, bf16, _ = card_peaks(name)
+    nbytes = 2 * (2 * b * h * s * (dh + dv) + 2 * b * kv * t * (dh + dv)) \
+        + 4 * b * h * s
+    pairs = b * h * causal_pairs(s, t, causal)
+    return (nbytes / mem * 1e3, 2 * (3 * dh + 2 * dv) * pairs / bf16 * 1e3,
+            2 * (5 * dh + 3 * dv) * pairs / bf16 * 1e3)
+
+
+def k9_bf16_bwd_case(dev, errs: ErrLog, what: str, b, h, kv, s, t, dh, dv,
+                     causal: bool, unaligned: bool, tile: int, seed: int):
+    """One shape of (a): o bitwise with and without the lse, the lse
+    within K9_BF16_LSE_TOL of the plain version's, each gradient element
+    within one bf16 rounding of the plain element plus K9_BF16_BWD_REL of
+    the gradient's max |plain|, two backward launches bitwise.  Returns
+    (q, k, v, o, do, lse) for timing."""
+    from repro_torch.kernels.attention import kernel as k9
+    key = "K9-bf16-mla-bwd" if dh > k9.MAX_BWD_D else "K9-bf16-bwd"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = _attn_inputs(gen, dev, b, h, kv, s, t, dh, dv, torch.bfloat16)
+    do = torch.randn((b, h, s, dv), generator=gen, device=dev).bfloat16()
+    if unaligned:
+        q, k, v, do = (_at_offset(x) for x in (q, k, v, do))
+    reset_counts()
+    o0, none = k9._launch_forward(q, k, v, causal, with_lse=False)
+    o, lse = k9._launch_forward(q, k, v, causal, with_lse=True)
+    grads = k9.flash_backward(q, k, v, o, do, lse, tile, tile, causal)
+    again = k9.flash_backward(q, k, v, o, do, lse, tile, tile, causal)
+    torch.cuda.synchronize()
+    launched({k: 0 for k in counts()}, K9=2, **{key.replace("-", "_"): 2})
+    assert none is None and torch.equal(o0, o), \
+        f"{what}: o with the lse is not bitwise o without it"
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
+        f"{what}: two backward launches differ"
+    _, lse_p = k9.flash_forward_plain(q, k, v, tile, tile, causal,
+                                      with_lse=True)
+    e_lse = float((lse - lse_p).abs().max())
+    plain = k9.flash_backward_plain(q, k, v, o, do, lse, tile, tile, causal)
+    worst = []
+    for x, y in zip(grads, plain):
+        errs.diff(key, x, y)
+        assert torch.isfinite(x).all()
+        tol = _bf16_step(y) + K9_BF16_BWD_REL * y.float().abs().max()
+        worst.append(float(((x.float() - y.float()).abs() / tol).max()))
+    rel = [_rel(x, y) for x, y in zip(grads, plain)]
+    assert e_lse <= K9_BF16_LSE_TOL, \
+        f"{what}: lse err {e_lse} > {K9_BF16_LSE_TOL}"
+    assert max(worst) <= 1.0, \
+        f"{what}: dq, dk, dv at {worst} of one bf16 rounding + " \
+        f"{K9_BF16_BWD_REL:g} max |plain|"
+    print(f"[K9 bf16 bwd] {what} (B {b}, H {h}, KV {kv}, S {s}, T {t}, dh "
+          f"{dh}, dv {dv}{', causal' if causal else ''}): dq, dk, dv at "
+          + ", ".join(f"{w:.3f}" for w in worst) + f" of one bf16 rounding "
+          f"+ {K9_BF16_BWD_REL:g} max |plain| (rel err " + ", ".join(
+              f"{r:.3g}" for r in rel) + f"); lse max abs err {e_lse:.3g} "
+          f"(tol {K9_BF16_LSE_TOL:g}); o bitwise with and without the lse; "
+          f"two backward launches bitwise")
+    return q, k, v, o, do, lse
+
+
+def check_k9_bf16_bwd(dev, errs: ErrLog, name: str) -> dict:
+    """Phase 29 (a): both kernels' SASS holds HGMMA; every
+    K9_BF16_BWD_CASES shape held as ``k9_bf16_bwd_case`` holds it; the
+    first six timed beside the plain version, SDPA's bf16 backward and
+    the bound.  Returns {what: (ms, plain ms, library ms, (bytes ms,
+    operations ms))}."""
+    from repro_torch.kernels.attention import kernel as k9
+    for lib in (k9.BF16_BWD_LIB, k9.BF16_BWD_MLA_LIB):
+        for kern in ("flash_bf16_bwd_dkdv_kernel", "flash_bf16_bwd_dq_kernel"):
+            ops = sass_ops(lib, kern, ("HGMMA",))
+            assert ops and all(not o.endswith(" 0 HGMMA")
+                               for o in ops.values()), \
+                f"no HGMMA in {kern}'s SASS: {ops}"
+    times = {}
+    for i, case in enumerate(K9_BF16_BWD_CASES):
+        what, b, h, kv, s, t, dh, dv, causal, unaligned, tile = case
+        q, k, v, o, do, lse = k9_bf16_bwd_case(dev, errs, *case,
+                                               seed=2900 + i)
+        if i < 6:
+            args = (q, k, v, o, do, lse, 64, 64, causal)
+            ms = cuda_ms(lambda: k9.flash_backward(*args), 3)
+            plain_ms = cuda_ms(lambda: k9.flash_backward_plain(*args), 1)
+            lib_ms = _sdpa_bwd_ms(q, k, v, do)
+            *bounds, parts_ms = k9_bf16_bwd_bound(name, b, h, kv, s, t, dh,
+                                                  dv, causal)
+            fwd_ms = cuda_ms(lambda: k9._launch_forward(
+                q, k, v, causal, with_lse=True), 3)
+            times[what] = (ms, plain_ms, lib_ms, tuple(bounds))
+            print(f"[K9 bf16 bwd] {what}: {ms:.3f} ms a launch (plain "
+                  f"{plain_ms:.1f} ms, SDPA's bf16 backward {lib_ms:.3f} ms, "
+                  f"bound {max(bounds):.3f} ms by "
+                  f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}: "
+                  f"bytes {bounds[0]:.3f}, bf16 operations {bounds[1]:.3f}, "
+                  f"with P and dS in two parts {parts_ms:.3f}; the bf16 "
+                  f"forward with the lse {fwd_ms:.3f} ms, SDPA's bf16 "
+                  f"forward {cuda_ms(lambda: _sdpa(q, k, v), 3):.3f} ms) "
+                  f"[{name}]")
+            del args
+        del q, k, v, o, do, lse
+        torch.cuda.empty_cache()
+    return times
+
+
+def bf16_train_phase(dev, errs: ErrLog, name: str, f32_full: dict):
+    """Phase 29: (a) K9 bf16's backward kernels against their plain
+    versions and timed, (b) minitron-4b (8 layers) and deepseek-v2 (its
+    dense layer) trained 3 bf16 steps at full width beside phase 27's
+    float32 steps (``f32_full``), (c) both against the CPU in bf16, (d)
+    what still raises.  Returns the two kernels' table rows and the bf16
+    forwards' launches on the two steps ({key: {path: n}})."""
+    t0 = time.perf_counter()
+    times = check_k9_bf16_bwd(dev, errs, name)
+    print(f"[train bf16] phase 29 (a) in {time.perf_counter() - t0:.1f} s")
+    full = {arch: train_full(dev, name, arch, layers, steps=3,
+                             dtype="bfloat16")
+            for arch, layers in (("minitron-4b", 8), ("deepseek-v2-236b", 1))}
+    for arch, got in full.items():
+        f32 = f32_full[arch]
+        print(f"[train bf16] {arch}: bf16 {got['ms']:.1f} ms a step, "
+              f"{got['tokens_s']:.0f} tokens/s, peak {got['peak_gb']:.2f} "
+              f"GB against phase 27's float32 step at the same depth "
+              f"{f32['ms']:.1f} ms, {f32['tokens_s']:.0f} tokens/s, peak "
+              f"{f32['peak_gb']:.2f} GB [{name}]")
+    t1 = time.perf_counter()
+    # the first batch's loss and gradients only: a step's host AdamW over
+    # the 1.4-1.8 B host weights would not fit the script's time
+    train_card_vs_cpu(dev, name, layers=2, b=1, s=512, steps=0,
+                      arch="minitron-4b", self_noise=True, dtype="bfloat16")
+    train_card_vs_cpu(dev, name, layers=1, b=1, s=128, steps=0,
+                      arch="deepseek-v2-236b", self_noise=True,
+                      dtype="bfloat16")
+    print(f"[train bf16] phase 29 (c) in {time.perf_counter() - t1:.1f} s")
+    train_no_fallback(dev)
+    paths = {"minitron-4b": "minitron-4b bf16 train step (8 layers)",
+             "deepseek-v2-236b": "deepseek-v2 bf16 train step (1 dense "
+                                 "layer)"}
+    rows = []
+    for key, count, what, main in (
+            ("K9-bf16-bwd", "K9_bf16_bwd", "minitron-4b layer",
+             "minitron-4b"),
+            ("K9-bf16-mla-bwd", "K9_bf16_mla_bwd", "deepseek-v2 MLA layer",
+             "deepseek-v2-236b")):
+        ms, plain_ms, lib_ms, bounds = times[what]
+        row = _row(key, full[main]["launches"][count], errs, ms, plain_ms,
+                   bounds, lib_ms)
+        row["model_launches"] = {paths[main]: full[main]["launches"][count]}
+        rows.append(row)
+    # the bf16 forwards' launches on the two steps, by table row
+    fwd_paths = {key: {paths[a]: full[a]["launches"]["K9"]} for key, a in (
+        ("K9", "minitron-4b"), ("K9-mla", "deepseek-v2-236b"))}
+    print(f"[train bf16] phase 29 in {time.perf_counter() - t0:.1f} s")
+    return rows, fwd_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -7109,6 +7405,7 @@ def main() -> int:
     libs = [stream.LIB, score.LIB, matrix.LIB, iir.kernel.LIB,
             attention.kernel.LIB, attention.kernel.BF16_LIB,
             attention.kernel.BWD_LIB, attention.kernel.BWD_MLA_LIB,
+            attention.kernel.BF16_BWD_LIB, attention.kernel.BF16_BWD_MLA_LIB,
             gla.kernel.LIB, gla.kernel.BWD_LIB, slstm.kernel.LIB,
             slstm.kernel.BWD_LIB]
     common.build(libs)
@@ -7176,9 +7473,10 @@ def main() -> int:
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     rows[KERNELS["K2"][0]].setdefault("model_launches", {}).update(
         signature_phase(dev, errs, name))
-    train_rows, train_paths, measured = train_phase(dev, errs, name)
+    train_rows, train_paths, measured, f32_full = train_phase(dev, errs, name)
     dryrun_phase(name, measured)
-    for row in train_rows:
+    bf16_rows, bf16_paths = bf16_train_phase(dev, errs, name, f32_full)
+    for row in train_rows + bf16_rows:
         rows[row["name"]] = row
     for key in ("K9", "K9-f32"):
         # the serving phases assert these counts; phase 27 changed no
@@ -7187,9 +7485,11 @@ def main() -> int:
               f"before: {rows[KERNELS[key][0]]['model_launches']}")
     for key, paths in train_paths.items():
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
+    for key, paths in bf16_paths.items():
+        rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K9-f32-bwd",
-                "K9-f32-mla-bwd", "K10", "K10-mlstm", "K10-f32-bwd",
-                "sLSTM", "sLSTM-bwd"):
+                "K9-f32-mla-bwd", "K9-bf16-bwd", "K9-bf16-mla-bwd", "K10",
+                "K10-mlstm", "K10-f32-bwd", "sLSTM", "sLSTM-bwd"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -5,9 +5,10 @@
 //                * v[b, h / G, t],         G = H / KV,
 //
 // for q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv] in bfloat16, the
-// softmax and every sum in float32, o [B, H, S, dv] in bfloat16. Float32
-// inputs go to flash_tf32.cu, which splits each operand into two TF32
-// parts.
+// softmax and every sum in float32, o [B, H, S, dv] in bfloat16 and, when
+// asked, each row's log-sum-exp [B, H, S] in float32 (the backward's row
+// statistic, flash_bf16_bwd.cuh). Float32 inputs go to flash_tf32.cu,
+// which splits each operand into two TF32 parts.
 //
 // K9 replaces repro/kernels/attention/kernel.py::_flash_kernel (entry
 // flash_attention_kernel_call). Its conventions are kept but one: masked
@@ -27,10 +28,8 @@
 // cp.async, so tile kt + 1 arrives while tile kt is computed. A tile
 // wholly below the diagonal and inside T skips the mask arithmetic.
 // Every tile is stored as 64-column sub-tiles in the 128-byte swizzled
-// layout (16-byte chunk c of row r at chunk c ^ (r % 8), each sub-tile
-// 1024-byte aligned), Q and K zero-padded to the instantiation's DK, V
-// and O to its DV; a zero column adds exact zeros, so padding changes
-// nothing. The instantiations: DK = DV = 64 or 128, the least that holds
+// layout (bf16_tile.cuh), Q and K zero-padded to the instantiation's DK,
+// V and O to its DV. The instantiations: DK = DV = 64 or 128, the least that holds
 // max(dh, dv).
 //
 // MLA's prefill (dh over 128: q and k 128 + 64 wide, v 128, H = KV) runs
@@ -72,151 +71,16 @@
 #include <string.h>
 
 #include "../../csrc/float_io.cuh"
-#include "wgmma.cuh"
+#include "bf16_tile.cuh"
 
 namespace {
+
+using namespace bf16_tile;
 
 constexpr int kBQ = 64;        // query rows per block (one warpgroup)
 constexpr int kBK = 64;        // kv rows per tile
 constexpr int kThreads = 128;  // one warpgroup
 constexpr float kNeg = -1.0e30f;
-constexpr uint32_t kAtom = 64 * 128;  // a 64-row x 64-column bf16 sub-tile
-
-template <int D>
-__host__ __device__ constexpr uint32_t tile_bytes() {
-  return (D / 64) * kAtom;
-}
-
-// Rows [row0, row0 + 64) and columns [col0, col0 + D) (D 64 or 128) of
-// the row-major [nrows, cols] bf16 matrix src into the swizzled sub-tiles
-// at dst, zero past nrows and cols, by NT threads (tid < NT). Thread tid
-// moves chunk tid % CH of rows tid / CH + i * RP: RP is a multiple of 8,
-// so a thread's swizzle and columns are the same in every pass. vec:
-// cols % 8 == 0 and src 16-byte aligned, so whole 16-byte chunks go by
-// cp.async; otherwise element by element.
-template <int D, int NT>
-__device__ __forceinline__ void load_part(uint32_t dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int nrows, int cols, int col0,
-                                          bool vec, int tid) {
-  constexpr int CH = D / 8;    // 16-byte chunks a row
-  constexpr int RP = NT / CH;  // rows a pass
-  static_assert(RP % 8 == 0 && kBK % RP == 0, "tile passes");
-  const int c = tid % CH, r = tid / CH, c0 = col0 + c * 8;
-  const uint32_t d0 =
-      dst + (c / 8) * kAtom + r * 128 + ((uint32_t)((c % 8) ^ (r & 7)) << 4);
-  const bool col_live = c0 < cols;
-  const long long g0 = (long long)(row0 + r) * cols + c0;
-#pragma unroll
-  for (int i = 0; i < kBK / RP; ++i) {
-    const bool live = col_live && row0 + r + i * RP < nrows;
-    const uint32_t d = d0 + i * RP * 128;
-    const long long gi = g0 + (long long)i * RP * cols;
-    if (vec) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                   "l"(live ? src + gi : src), "r"(live ? 16 : 0)
-                   : "memory");
-    } else {
-      const unsigned short* p =
-          reinterpret_cast<const unsigned short*>(src) + gi;
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int a = c0 + 2 * e;
-        const uint32_t lo = live && a < cols ? p[2 * e] : 0u;
-        const uint32_t hi = live && a + 1 < cols ? p[2 * e + 1] : 0u;
-        w[e] = lo | (hi << 16);
-      }
-      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
-                   "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
-                   : "memory");
-    }
-  }
-}
-
-// Rows [row0, row0 + 64) and columns [0, D) of src into the D / 64
-// sub-tiles at dst (load_part); a tile wider than 128 columns goes as a
-// 128-column part and the rest.
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int nrows, int cols, bool vec,
-                                          int tid) {
-  if constexpr (D > 128) {
-    load_part<128, NT>(dst, src, row0, nrows, cols, 0, vec, tid);
-    load_part<D - 128, NT>(dst + 2 * kAtom, src, row0, nrows, cols, 128,
-                           vec, tid);
-  } else {
-    load_part<D, NT>(dst, src, row0, nrows, cols, 0, vec, tid);
-  }
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A and B K-major in shared
-// memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d[64 x N] += A[64 x 16] B[16 x N], A from registers (four bf16x2 a
-// thread), B MN-major in shared memory (transpose bit set).
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : WG_D32(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<128> {
-  static __device__ __forceinline__ void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : WG_D64(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo,
-                                         __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 // Scales a tile's float32 scores (s, in the accumulator layout below),
 // masks them when MASK (the causal mask, t <= s, and the ragged T edge),
@@ -282,9 +146,10 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int BH, int H, int G,
-                       int S, int Tk, int dh, int dv, float scale,
-                       int causal, int vec) {
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int BH, int H, int G, int S,
+                       int Tk, int dh, int dv, float scale, int causal,
+                       int vec) {
   extern __shared__ uint8_t smem_raw[];
   constexpr uint32_t TQ = tile_bytes<DK>(), TV = tile_bytes<DV>();
   const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -382,21 +247,10 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
 #pragma unroll
     for (int i = 0; i < NO; ++i) acc[i] = __fmul_rn(acc[i], alpha[(i / 2) % 2]);
 
-    // P as A fragments of the four k16 steps over the tile's 64 keys:
-    // register r of step kk packs scores 8 kk + 2 r and 8 kk + 2 r + 1
+    // P as the A fragments of the four k16 steps over the tile's 64 keys,
+    // in two bf16 parts
     uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p0 = s[8 * kk + 2 * r], p1 = s[8 * kk + 2 * r + 1];
-        const __nv_bfloat16 h0 = __float2bfloat16_rn(p0);
-        const __nv_bfloat16 h1 = __float2bfloat16_rn(p1);
-        phi[kk][r] = pack(h0, h1);
-        plo[kk][r] =
-            pack(__float2bfloat16_rn(__fsub_rn(p0, __bfloat162float(h0))),
-                 __float2bfloat16_rn(__fsub_rn(p1, __bfloat162float(h1))));
-      }
+    split_fragments(s, phi, plo);
 #pragma unroll
     for (int i = 0; i < NO; ++i) wgmma::pin(acc[i]);
     wgmma::fence();
@@ -422,11 +276,13 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
     }
   }
   wgmma::cp_async_wait<0>();
+  float* lp = lse == nullptr ? nullptr : lse + (long long)bh * S;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
     if (r >= S) continue;
     const float den = fmaxf(l[h], 1e-30f);
+    if (lp != nullptr && qd == 0) lp[r] = __fadd_rn(m[h], logf(den));
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
@@ -440,8 +296,8 @@ __global__ void __launch_bounds__(kThreads* NH, 2)
 }
 
 template <int DK, int DV, int NH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int S, int Tk, int dh, int dv, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int S, int Tk, int dh, int dv, float scale,
            int causal, int vec, cudaStream_t stream) {
   const int blocks = B * H / NH * ((S + kBQ - 1) / kBQ);
   return float_io::launch(
@@ -450,8 +306,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
           2 * ((size_t)tile_bytes<DK>() + tile_bytes<DV>()),
       stream,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B * H, H, H / KV, S, Tk,
-      dh, dv, scale, causal, vec);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, B * H, H, H / KV, S,
+      Tk, dh, dv, scale, causal, vec);
 }
 
 
@@ -520,9 +376,9 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
                      const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int BH, int H, int G,
-                     int S, int Tk, int dh, int dv, float scale, int causal,
-                     int vec) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int BH, int H, int G, int S, int Tk, int dh, int dv,
+                     float scale, int causal, int vec) {
   using Sm = MlaSmem;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (wgmma::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -780,6 +636,8 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
       const int r = r0 + 8 * h;
       if (r >= S) continue;
       const float den = fmaxf(l[h], 1e-30f);
+      if (lse != nullptr && qd == 0)
+        lse[(long long)bh * S + r] = __fadd_rn(m[h], logf(den));
 #pragma unroll
       for (int j = 0; j < kMlaDV / 8; ++j) {
         const int col = 8 * j + 2 * qd;
@@ -805,9 +663,10 @@ bool tile_map(CUtensorMap* map, const void* p, int cols, int rows, int n) {
                          rows, n, 64, 64);
 }
 
-int launch_mla(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int S, int Tk, int dh, int dv, float scale,
-               int causal, int vec, cudaStream_t stream) {
+int launch_mla(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int S, int Tk, int dh,
+               int dv, float scale, int causal, int vec,
+               cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -827,38 +686,42 @@ int launch_mla(const void* q, const void* k, const void* v, void* o, int B,
       flash_mla_kernel, tiles < sms ? tiles : sms, kMlaThreads,
       MlaSmem::bytes, stream, tq, tk, tv, (const __nv_bfloat16*)q,
       (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)o,
-      B * H, H, H / KV, S, Tk, dh, dv, scale, causal, vec);
+      lse, B * H, H, H / KV, S, Tk, dh, dv, scale, causal, vec);
 }
 
 }  // namespace
 
 // K9, bfloat16. q [B, H, S, dh], k [B, KV, T, dh], v [B, KV, T, dv], o [B,
-// H, S, dv], row-major bfloat16; scale is dh^-0.5 rounded to float32;
+// H, S, dv], row-major bfloat16; lse [B, H, S] float32, or null: each
+// row's log-sum-exp of the scaled scores, m + log(max(l, 1e-30)) of the
+// float32 m and l the kernel keeps (the backward's row statistic; o is
+// the same with or without it); scale is dh^-0.5 rounded to float32;
 // dh <= 192, dv <= 128; vec: dh and dv multiples of 8 and q, k, v 16-byte
 // aligned. Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for dh over 192 or dv over 128.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
-                                        const void* v, void* o, int B, int H,
-                                        int KV, int S, int Tk, int dh, int dv,
-                                        float scale, int causal, int vec,
-                                        void* stream) {
+                                        const void* v, void* o, void* lse,
+                                        int B, int H, int KV, int S, int Tk,
+                                        int dh, int dv, float scale,
+                                        int causal, int vec, void* stream) {
   if (B == 0 || H == 0 || S == 0 || dv == 0) return 0;
   if (dh > 192 || dv > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* lf = (float*)lse;
   // MLA's q and k: 192 wide, the warp-specialized persistent kernel
   if (dh > 128)
-    return launch_mla(q, k, v, o, B, H, KV, S, Tk, dh, dv, scale, causal,
+    return launch_mla(q, k, v, o, lf, B, H, KV, S, Tk, dh, dv, scale, causal,
                       vec, s);
   const int d = dh > dv ? dh : dv;
   // two query heads of one kv head a block when the group size is even
   const bool pair = (H / KV) % 2 == 0;
   if (d <= 64)
-    return pair ? launch<64, 64, 2>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+    return pair ? launch<64, 64, 2>(q, k, v, o, lf, B, H, KV, S, Tk, dh, dv,
                                     scale, causal, vec, s)
-                : launch<64, 64, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+                : launch<64, 64, 1>(q, k, v, o, lf, B, H, KV, S, Tk, dh, dv,
                                     scale, causal, vec, s);
-  return pair ? launch<128, 128, 2>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+  return pair ? launch<128, 128, 2>(q, k, v, o, lf, B, H, KV, S, Tk, dh, dv,
                                     scale, causal, vec, s)
-              : launch<128, 128, 1>(q, k, v, o, B, H, KV, S, Tk, dh, dv,
+              : launch<128, 128, 1>(q, k, v, o, lf, B, H, KV, S, Tk, dh, dv,
                                     scale, causal, vec, s);
 }

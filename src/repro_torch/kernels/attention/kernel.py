@@ -42,26 +42,32 @@ follows the kernel.
   to the causal frontier, in float32.  Its products go through
   ``torch.matmul``; the CUDA kernels' never do.
 
-The backward (float32, dh <= MAX_DH, dv <= MAX_DV): when q, k or v
-requires grad and grad mode is on, :func:`flash_forward` goes through
-:class:`FlashAttention`, an ``autograd.Function``.  On CUDA its forward
-launches ``csrc/flash_tf32.cu`` with the rows' log-sum-exp ``lse`` [B, H,
-S] written beside o (o itself is the lse-free launch's, bitwise), and its
-backward launches, at dh and dv <= 128, ``csrc/flash_f32_bwd.cu``
-(:func:`flash_backward`; every product as three TF32 products on the
-tensor cores, as the forward's; ``BWD_LIB.launches`` counts those calls),
-and at MLA's head (dh over 128) ``csrc/flash_f32_bwd_mla.cu`` (split
-TF32 on the tensor cores too, at 16-row steps; ``BWD_MLA_LIB.launches``);
-``LIB.launches`` stays the forward's count.  On the CPU it takes
+The backward (float32 or bfloat16, dh <= MAX_DH, dv <= MAX_DV): when q,
+k or v requires grad and grad mode is on, :func:`flash_forward` goes
+through :class:`FlashAttention`, an ``autograd.Function``.  On CUDA its
+forward launches the kernel of the inputs' dtype with the rows'
+log-sum-exp ``lse`` [B, H, S] (float32) written beside o (o itself is the
+lse-free launch's, bitwise), and its backward (:func:`flash_backward`)
+the backward kernel of the dtype and head, three kernels on the stream
+counted as one launch: float32 at dh and dv <= 128
+``csrc/flash_f32_bwd.cu`` (every product as three TF32 products on the
+tensor cores, as the forward's; ``BWD_LIB.launches``), at MLA's head (dh
+over 128) ``csrc/flash_f32_bwd_mla.cu`` (split TF32 too, at 16-row
+steps; ``BWD_MLA_LIB.launches``); bfloat16 at dh and dv <= 128
+``csrc/flash_bf16_bwd.cu`` (``BF16_BWD_LIB.launches``), at MLA's head
+``csrc/flash_bf16_bwd_mla.cu`` (``BF16_BWD_MLA_LIB.launches``), both
+``csrc/flash_bf16_bwd.cuh``: Q K^T and dO V^T single bf16 products, P and
+dS entering dV, dK and dQ as two bf16 parts, the gradients rounded to
+bfloat16 once, at the end.  ``LIB.launches`` and ``BF16_LIB.launches``
+stay the forwards' counts.  On the CPU it takes
 :func:`flash_forward_plain` with the lse and :func:`flash_backward_plain`.
-CUDA bfloat16 inputs (at MLA's head too) raise ``NotImplementedError``
-when a gradient is asked for: their backward kernels do not exist yet,
-and no plain version runs on the card.  The reference has no backward kernel (jax.grad
-differentiates its jnp attention), so the backward replaces no TPU
-kernel.  It follows the standard flash backward: D = rowsum(do o), P
-recomputed from q k^T and the lse, dP = do v^T, dS = P (dP - D), dq =
-scale dS k, dk = dS^T (q scale), dv = P^T do, with the forward's scale,
-mask and tiling.
+Head dims past MAX_DH / MAX_DV raise ``NotImplementedError`` when a
+gradient is asked for on the card; no plain version runs there.  The
+reference has no backward kernel (jax.grad differentiates its jnp
+attention), so the backward replaces no TPU kernel.  It follows the
+standard flash backward: D = rowsum(do o), P recomputed from q k^T and
+the lse, dP = do v^T, dS = P (dP - D), dq = scale dS k, dk = dS^T (q
+scale), dv = P^T do, with the forward's scale, mask and tiling.
 
 ``bq`` and ``bk`` are the reference's tiling: S and T must be multiples
 of them, as there.  The CUDA kernels tile by 64 query rows and 64 (bf16)
@@ -85,7 +91,8 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
 __all__ = ["flash_forward", "flash_forward_plain", "flash_backward",
            "flash_backward_plain", "FlashAttention", "mla_tiles",
            "causal_pairs", "LIB", "BF16_LIB", "BWD_LIB", "BWD_MLA_LIB",
-           "MAX_DH", "MAX_DV", "MAX_BWD_D", "MLA_BM", "MLA_F32_BM"]
+           "BF16_BWD_LIB", "BF16_BWD_MLA_LIB", "MAX_DH", "MAX_DV",
+           "MAX_BWD_D", "MLA_BM", "MLA_F32_BM"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -106,6 +113,7 @@ MLA_BM = 128
 MLA_F32_BM = 64
 
 _WGMMA_HEADER = os.path.join(_CSRC, "wgmma.cuh")
+_BF16_TILE_HEADER = os.path.join(_CSRC, "bf16_tile.cuh")
 #: The split-TF32 pieces of the float32 backward kernels (K9's and K10's).
 TF32_SPLIT_HEADER = os.path.join(_CSRC, "tf32_split.cuh")
 #: K9 for float32 inputs, on the tensor cores as split TF32.
@@ -134,9 +142,25 @@ BWD_MLA_LIB = KernelLib(
 #: K9 for bfloat16 inputs, on the tensor cores.
 BF16_LIB = KernelLib(
     "flash_wgmma", os.path.join(_CSRC, "flash_wgmma.cu"),
-    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER),
+    headers=(FLOAT_IO_HEADER, _WGMMA_HEADER, _BF16_TILE_HEADER),
     signatures={"flash_attention_fwd_bf16": (
-        [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
+        [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
+_BF16_BWD_HEADERS = (FLOAT_IO_HEADER, _WGMMA_HEADER, _BF16_TILE_HEADER,
+                     os.path.join(_CSRC, "flash_bf16_bwd.cuh"))
+#: The backward of K9 for bfloat16 inputs (dh, dv <= MAX_BWD_D), on the
+#: tensor cores.
+BF16_BWD_LIB = KernelLib(
+    "flash_bf16_bwd", os.path.join(_CSRC, "flash_bf16_bwd.cu"),
+    headers=_BF16_BWD_HEADERS,
+    signatures={"flash_attention_bwd_bf16": (
+        [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
+#: The backward of K9 for bfloat16 inputs at MLA's head (MAX_BWD_D < dh
+#: <= MAX_DH, dv <= MAX_DV), on the tensor cores.
+BF16_BWD_MLA_LIB = KernelLib(
+    "flash_bf16_bwd_mla", os.path.join(_CSRC, "flash_bf16_bwd_mla.cu"),
+    headers=_BF16_BWD_HEADERS,
+    signatures={"flash_attention_bwd_bf16_mla": (
+        [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], ctypes.c_int)})
 
 
 def _shapes(q, k, v, bq: int, bk: int):
@@ -174,7 +198,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if q.is_cuda:
-            _check_backward(q, dh, dv)
+            _check_backward(dh, dv)
         return FlashAttention.apply(q, k, v, bq, bk, causal)
     if q.is_meta:
         return _meta_forward(q, k, v, causal, with_lse=False)[0]
@@ -183,13 +207,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch_forward(q, k, v, causal, with_lse=False)[0]
 
 
-def _check_backward(q: torch.Tensor, dh: int, dv: int) -> None:
+def _check_backward(dh: int, dv: int) -> None:
     """Raise NotImplementedError unless a backward kernel of K9 takes
-    these CUDA inputs (float32; dh <= MAX_DH, dv <= MAX_DV)."""
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"K9 backward: no backward kernel for {q.dtype} inputs on the "
-            f"card yet (float32 only); train in float32 or on the CPU")
+    these CUDA inputs (float32 or bfloat16, as ``_shapes`` checks; dh <=
+    MAX_DH, dv <= MAX_DV)."""
     if dh > MAX_DH or dv > MAX_DV:
         raise NotImplementedError(
             f"K9 backward: no backward kernel for head dims dh = {dh}, dv "
@@ -212,8 +233,8 @@ def _meta_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, with_lse: bool):
-    """One launch of the kernel of q's dtype -> (o, lse or None); the lse
-    [B, H, S] float32 only from the float32 kernels."""
+    """One launch of the kernel of q's dtype -> (o, lse or None): with
+    ``with_lse`` the kernel also writes the lse [B, H, S] float32."""
     b, h, s, dh = q.shape
     kv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
@@ -236,16 +257,13 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per = 16 // q.element_size()
     vec = dh % per == 0 and dv % per == 0 and all(p % 16 == 0
                                                   for p in ptrs[:3])
-    lse = None
-    if q.dtype == torch.bfloat16:
-        lib, fn, args = BF16_LIB, "flash_attention_fwd_bf16", ptrs
-    else:
-        if with_lse:
-            lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-        lib, fn = LIB, "flash_attention_fwd_tf32"
-        args = ptrs + (None if lse is None else lse.data_ptr(),)
-    err = getattr(lib.get(), fn)(*args, b, h, kv, s, t, dh, dv, scale,
-                                 int(causal), int(vec), stream)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
+        if with_lse else None
+    lib, fn = (BF16_LIB, "flash_attention_fwd_bf16") \
+        if q.dtype == torch.bfloat16 else (LIB, "flash_attention_fwd_tf32")
+    err = getattr(lib.get(), fn)(
+        *ptrs, None if lse is None else lse.data_ptr(), b, h, kv, s, t, dh,
+        dv, scale, int(causal), int(vec), stream)
     check_launch(fn, err)
     lib.launches += 1
     return o, lse
@@ -321,9 +339,10 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """K9 with its backward: ``apply(q, k, v, bq, bk, causal) -> o``.
-    CUDA (float32, dh <= MAX_DH, dv <= MAX_DV): the forward kernel
-    writing the lse, then the backward kernel of the head; CPU: the two
-    plain versions; meta: "K9" and "K9_bwd", one operation each."""
+    CUDA (float32 or bfloat16, dh <= MAX_DH, dv <= MAX_DV): the forward
+    kernel of the dtype writing the lse, then the backward kernel of the
+    dtype and head; CPU: the two plain versions; meta: "K9" and "K9_bwd",
+    one operation each."""
 
     @staticmethod
     def forward(ctx, q, k, v, bq: int, bk: int, causal: bool):
@@ -351,10 +370,12 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bq: int = 64, bk: int = 64, causal: bool = True):
     """The gradients (dq, dk, dv) of K9 at q, k, v, given its output o,
     the output's gradient do [B, H, S, dv] and the forward's lse [B, H,
-    S].  CUDA tensors (float32) launch a backward kernel, three kernels
-    on the stream counted as one launch, both split TF32 on the tensor
-    cores: at dh, dv <= MAX_BWD_D ``BWD_LIB``, at MLA's head (dh up to
-    MAX_DH, dv up to MAX_DV) ``BWD_MLA_LIB``; CPU tensors take
+    S].  CUDA tensors launch the backward kernel of their dtype (q, k, v,
+    o and do of one dtype, the lse float32) and head, three kernels on the
+    stream counted as one launch: float32 (split TF32 on the tensor cores)
+    ``BWD_LIB`` at dh, dv <= MAX_BWD_D and ``BWD_MLA_LIB`` at MLA's head
+    (dh up to MAX_DH, dv up to MAX_DV), bfloat16 ``BF16_BWD_LIB`` and
+    ``BF16_BWD_MLA_LIB`` the same; CPU tensors take
     :func:`flash_backward_plain`; meta tensors come back empty, reported
     as one operation "K9_bwd"."""
     b, h, kv, s, t, dh, dv = _shapes(q, k, v, bq, bk)
@@ -368,22 +389,30 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_backward_plain(q, k, v, o, do, lse, bq, bk, causal)
     dev = q.device
     check_kernel_device(q)
-    _check_backward(q, dh, dv)
-    check_tensor(q, "q", torch.float32, (b, h, s, dh), dev)
-    check_tensor(k, "k", torch.float32, (b, kv, t, dh), dev)
-    check_tensor(v, "v", torch.float32, (b, kv, t, dv), dev)
-    check_tensor(o, "o", torch.float32, (b, h, s, dv), dev)
-    check_tensor(do, "do", torch.float32, (b, h, s, dv), dev)
+    _check_backward(dh, dv)
+    check_tensor(q, "q", FLOAT_DTYPES, (b, h, s, dh), dev)
+    check_tensor(k, "k", q.dtype, (b, kv, t, dh), dev)
+    check_tensor(v, "v", q.dtype, (b, kv, t, dv), dev)
+    check_tensor(o, "o", q.dtype, (b, h, s, dv), dev)
+    check_tensor(do, "do", q.dtype, (b, h, s, dv), dev)
     check_tensor(lse, "lse", torch.float32, (b, h, s), dev)
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     scale = float(np.float32(dh ** -0.5))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    vec = dh % 4 == 0 and dv % 4 == 0 and all(
+    # whole 16-byte chunks of a row go by one load; other head dims
+    # element-wise
+    per = 16 // q.element_size()
+    vec = dh % per == 0 and dv % per == 0 and all(
         x.data_ptr() % 16 == 0 for x in (q, k, v, do))
-    lib, fn = (BWD_LIB, "flash_attention_bwd_f32") if dh <= MAX_BWD_D \
-        else (BWD_MLA_LIB, "flash_attention_bwd_f32_mla")
+    mla = dh > MAX_BWD_D
+    if q.dtype == torch.bfloat16:
+        lib, fn = (BF16_BWD_MLA_LIB, "flash_attention_bwd_bf16_mla") if mla \
+            else (BF16_BWD_LIB, "flash_attention_bwd_bf16")
+    else:
+        lib, fn = (BWD_MLA_LIB, "flash_attention_bwd_f32_mla") if mla \
+            else (BWD_LIB, "flash_attention_bwd_f32")
     err = getattr(lib.get(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),

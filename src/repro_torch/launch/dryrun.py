@@ -62,8 +62,10 @@ Roofline terms at the H100 SXM (``PEAKS``): ``compute`` is each op's
 per-chip flops at the peak of the unit that runs it in the port: float32
 on the CUDA cores (66.9e12 FLOP/s: the port trains in float32 with TF32
 off), bfloat16 products on the tensor cores (989.4e12), and the kernels
-at the peak their bounds in ``PERF.md`` use (K9 f32 and the backwards of
-K9 and K10 as three TF32 products at 494.7e12, K10 f32 on the CUDA cores,
+at the peak their bounds in ``PERF.md`` use (K9 f32 and the float32
+backwards of K9 and K10 as three TF32 products at 494.7e12, K9 bf16's
+backward at 989.4e12 over the bf16 products it issues a product of its
+least work (``k9_bf16_bwd_products``), K10 f32 on the CUDA cores,
 the sLSTM scan and its backward at the non-FMA rate, half the float32
 peak); ``memory`` is per-chip bytes at 3.35e12 B/s; ``collective`` is
 per-chip collective bytes at ``core.signatures.H100.ici_bw``.
@@ -87,7 +89,8 @@ import math
 import os
 import time
 import weakref
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -122,10 +125,29 @@ _PRODUCTS = {"mm", "bmm", "mv", "dot", "addmm", "baddbmm", "addmv",
              "convolution", "_convolution"}
 
 
-def op_peak(name: str, dtype: torch.dtype) -> float:
+def k9_bf16_bwd_products(dh: int, dv: int) -> float:
+    """bf16 products K9 bf16's backward kernels issue a product of its
+    least work, 2 (3 dh + 2 dv) FLOPs a causal pair, at head dims dh, dv
+    (``csrc/flash_bf16_bwd.cuh``).  The kernels run at an instantiation
+    DK x DV: 64 x 64 or 128 x 128, the least that holds max(dh, dv), or
+    192 x 128 at MLA's head (dh over 128), zeros past dh and dv.  The
+    dkdv kernel takes S^T and dP^T DK deep (V and dO DK wide there), and
+    dV and dK DK wide, each as two parts of P or dS; the dq kernel takes
+    S (DK), dP (DV) again and dQ (DK) as two parts: 9 DK + DV a pair."""
+    dk_, dv_ = (192, 128) if dh > 128 else \
+        ((64, 64) if max(dh, dv) <= 64 else (128, 128))
+    return (9 * dk_ + dv_) / (3 * dh + 2 * dv)
+
+
+def op_peak(name: str, dtype: torch.dtype,
+            ins: Sequence[torch.Tensor] = ()) -> float:
     """FLOP/s of the unit that runs op ``name`` on ``dtype`` inputs in the
-    port (the module docstring's table)."""
+    port (the module docstring's table); ``ins``, the op's inputs, give
+    K9_bwd's head dims (q [.., dh] first, v [.., dv] third)."""
     half = dtype in _HALF
+    if name == "K9_bwd" and half:
+        return PEAKS["bf16"] / k9_bf16_bwd_products(ins[0].shape[-1],
+                                                    ins[2].shape[-1])
     if name in ("K9_bwd", "K10_bwd") or (name == "K9" and not half):
         return PEAKS["tf32"] / 3          # three TF32 products
     if name == "K9":
@@ -268,7 +290,7 @@ class MeshWalker(OpWalker):
             [self._divs[op]] + [self.count(self.axes_of(t))
                                 for t in ins + outs])
         dtype = ins[0].dtype if ins else outs[0].dtype
-        self._peaks.append(op_peak(cost.name, dtype))
+        self._peaks.append(op_peak(cost.name, dtype, ins))
 
     def retag(self, x: torch.Tensor, spec) -> None:
         """``shard(x, kind)``: ``x`` takes ``spec``'s axes.  Lowering its

@@ -953,25 +953,22 @@ def test_bwd_padded_rows_get_exact_zeros(s):
 
 
 def test_bwd_raises_on_the_card_without_a_kernel(monkeypatch):
-    """CUDA bf16 inputs with a gradient asked for raise
-    NotImplementedError naming K9's backward, before any launch, at dh 64
-    and at MLA's head (dh 192, dv 128), and so do head dims past MAX_DH /
-    MAX_DV; the float32 check passes at dh 128 and at MLA's head, which
-    has its own backward kernel."""
-    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K9 backward"):
-        tkernel._check_backward(q, 64, 64)
-    with pytest.raises(NotImplementedError, match="K9 backward"):
-        tkernel._check_backward(q, 192, 128)
-    with pytest.raises(NotImplementedError, match="K9 backward"):
-        tkernel._check_backward(q.float(), 256, 128)
-    tkernel._check_backward(q.float(), 128, 128)
-    tkernel._check_backward(q.float(), 192, 128)
+    """Head dims past MAX_DH / MAX_DV with a gradient asked for on the
+    card raise NotImplementedError naming K9's backward, before any
+    launch, in float32 and bfloat16; both dtypes pass ``_check_backward``
+    up to MLA's head (dh 192, dv 128) and at dh 64 and 128, each having
+    backward kernels there."""
+    for dh, dv in ((64, 64), (128, 128), (192, 128)):
+        tkernel._check_backward(dh, dv)
+    for dh, dv in ((256, 128), (192, 136)):
+        with pytest.raises(NotImplementedError, match="K9 backward"):
+            tkernel._check_backward(dh, dv)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    xs = [torch.zeros(1, 2, 64, d, dtype=torch.bfloat16, requires_grad=True)
-          for d in (192, 192, 128)]
-    with pytest.raises(NotImplementedError, match="K9 backward"):
-        tkernel.flash_forward(xs[0], xs[1][:, :1], xs[2][:, :1], 64, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [torch.zeros(1, 2, 64, d, dtype=dtype, requires_grad=True)
+              for d in (256, 256, 128)]
+        with pytest.raises(NotImplementedError, match="K9 backward"):
+            tkernel.flash_forward(xs[0], xs[1][:, :1], xs[2][:, :1], 64, 64)
 
 
 # ---- the backward kernel's schedule (csrc/flash_f32_bwd.cu), emulated ----

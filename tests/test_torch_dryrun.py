@@ -409,6 +409,47 @@ def test_meta_k9_backward_priced_by_its_bound():
                               + 2 * b * kv * s * (dh + dv) + b * h * s)
 
 
+def test_bf16_train_cell_prices_k9_backward_at_the_bf16_rate():
+    """A bf16 train cell's K9_bwd ops take K9 bf16's backward rate, the
+    bf16 tensor-core peak over the 2 bf16 products a product it issues
+    at dh = dv = 128, and a float32 cell's the split-TF32 rate:
+    minitron-4b cut to 2 layers, on 1 x 4096 tokens."""
+    spec = tconfigs.ShapeSpec("train_4k", 4096, 1, "train")
+    ex = tconfigs.exec_default("minitron-4b", "train_4k")
+    peaks = {}
+    for dt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(tconfigs.get("minitron-4b"), num_layers=2,
+                                  param_dtype=dt, dtype=dt)
+        fn, args, meta, walker = dryrun.build_cell(
+            "minitron-4b", spec, _local_meta_mesh(), ex, cfg=cfg)
+        dryrun.walk_cell(fn, args, meta, walker, ex)
+        peaks[dt] = {p for c, p in zip(walker.costs, walker._peaks)
+                     if c.name == "K9_bwd"}
+    assert peaks["bfloat16"] == {dryrun.PEAKS["bf16"] / 2}
+    assert peaks["float32"] == {dryrun.PEAKS["tf32"] / 3}
+
+
+@pytest.mark.parametrize("dh,dv,issued", [
+    (64, 64, 9 * 64 + 64), (96, 96, 9 * 128 + 128),
+    (112, 112, 9 * 128 + 128), (128, 128, 9 * 128 + 128),
+    (192, 128, 9 * 192 + 128)])
+def test_bf16_k9_backward_rate_follows_the_kernels_widths(dh, dv, issued):
+    """K9 bf16's backward on meta is priced at the bf16 peak over the
+    products its kernels issue at their instantiation (64, 128, or MLA's
+    192 x 128: 9 DK + DV a causal pair) a product of the least work, 3 dh
+    + 2 dv; float32 inputs keep split TF32's rate."""
+    q, k, o, do = (torch.empty((1, 2, 64, d), device="meta",
+                               dtype=torch.bfloat16)
+                   for d in (dh, dh, dv, dv))
+    v = torch.empty((1, 2, 64, dv), device="meta", dtype=torch.bfloat16)
+    lse = torch.empty((1, 2, 64), device="meta")
+    ins = (q, k, v, o, do, lse)
+    assert dryrun.op_peak("K9_bwd", torch.bfloat16, ins) == pytest.approx(
+        dryrun.PEAKS["bf16"] * (3 * dh + 2 * dv) / issued, rel=1e-12)
+    assert dryrun.op_peak("K9_bwd", torch.float32, ins) == \
+        dryrun.PEAKS["tf32"] / 3
+
+
 @pytest.mark.parametrize("microbatch,b,fwd,bwd", [(1, 1, 16, 8),
                                                   (2, 2, 32, 16)])
 def test_minitron_cut_walk_counts(microbatch, b, fwd, bwd):

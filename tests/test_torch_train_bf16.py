@@ -1,0 +1,281 @@
+"""A bfloat16 train step of the eight archs whose only kernel is K9 (the
+attention archs; zamba2-7b and xlstm-1p3b also need K10's or the sLSTM
+scan's bf16 backward), the port on the CPU against the reference's
+``make_train_step``, both on the SMOKE config with ``param_dtype = dtype
+= "bfloat16"`` from the reference's init weights (bf16-valued).
+
+Neither bf16 step is exact, so both are held to the reference's float32
+step on the same bf16-valued weights: the port's loss, and each of its
+gradient leaves (caught where each step hands them to AdamW), no further
+from the float32 step's than REF_BF16_X times the reference's (jitted)
+bf16 step is, each distance the largest over BATCHES batches (one
+batch's loss is one sample of the rounding noise: phi3-mini's alone sat
+at 7.3x).  Measured on the CPU, the port's distance over the
+reference's: the loss 0.44-1.65, each arch's leaves at most 1.22-1.78
+(deepseek-v2's the largest).
+
+The MoE archs' routing is held apart, from the initialized routers: the
+top-k is discontinuous, and bf16 noise in the hidden states breaks some
+near-ties otherwise than the float32 step in both packages, often at the
+same tokens.  A step's distance then measures which tokens flipped more
+than the step's arithmetic: with its initialized router deepseek-v2's
+port leaves sat at 2.21-2.56x the reference's over 2 to 8 batches, and
+kimi-k2's loss at 2.61x after 2.  So the step test zeroes the MoE routers
+(every token to the first experts in all three steps), and
+``test_bf16_routing_flips_only_at_near_ties`` holds the routing: each
+token the port's bf16 forward routes otherwise than the reference's
+float32 forward is a near-tie, its float32 probabilities at the first
+differing rank and the next within REF_BF16_X times the largest router
+probability error the reference's own bf16 forward makes.  Measured
+(BATCHES batches; 4 in brackets): deepseek-v2 14 such tokens (28), the
+reference's bf16 11 (15), the widest gap 0.654 (0.654) of that error;
+kimi-k2 21 (60) against 22 (58), 0.182 (0.651).  The port rounds the
+router logits to bf16, as the program says; XLA compiles the reference's
+bf16 ``einsum`` and its cast to float32 into one float32 dot.  Float32
+logits in the port (tried) move neither measure: deepseek-v2 16 (30)
+tokens, the widest gap 0.654, its leaves at 2.20-2.61x and kimi-k2's
+loss at 3.5x after 2 batches with the initialized routers.
+"""
+
+import _torch_threads  # noqa: F401  (an xdist worker's share of the threads)
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro.models import model as rmodel
+from repro.models import moe as rmoe
+from repro.sharding.rules import ExecConfig as RefExec
+from repro.train import optim as ropt
+from repro.train import step as rstep_mod
+from repro_torch import configs as tconfigs
+from repro_torch.models import model
+from repro_torch.models import moe as tmoe
+from repro_torch.sharding.rules import ExecConfig
+from repro_torch.train import step as tstep_mod
+from repro_torch.train.optim import AdamWConfig, adamw_init
+
+#: The port's distance to the float32 step over the reference's bf16
+#: step's, for the loss and each gradient leaf.
+REF_BF16_X = 2.0
+#: Batches a step is taken on (``tests/test_arch_smoke.py``'s batch at
+#: seeds 0, 1, ...): one batch's loss is one sample of the rounding noise.
+BATCHES = 2
+#: The archs whose only kernel is K9.
+K9_ARCHS = [a for a in rconfigs.ARCHS if a not in ("zamba2-7b", "xlstm-1p3b")]
+
+
+def _batch(cfg, B=2, S=32, seed=0):
+    """``tests/test_arch_smoke.py``'s batch, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S) if cfg.num_codebooks == 1 else (B, S, cfg.num_codebooks)
+    toks = rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.frontend == "vision":
+        batch["extra_embeds"] = rng.normal(
+            size=(B, S, cfg.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(S)[None, None], (3, B, S))
+        batch["positions"] = np.ascontiguousarray(pos.astype(np.int32))
+    return batch
+
+
+def _ref_stepper(rcfg):
+    """The reference's train step for ``rcfg``, jitted once: a function
+    of (params, batch) -> its loss and the gradients it hands to AdamW
+    (returned from the traced step beside its results), flattened to the
+    port's names, as float32 arrays."""
+    seen = {}
+    real = rstep_mod.adamw_update
+    step = rstep_mod.make_train_step(rcfg, RefExec(),
+                                     ropt.AdamWConfig(lr=1e-3))
+
+    def catch(grads, *args, **kwargs):
+        seen["grads"] = grads
+        return real(grads, *args, **kwargs)
+
+    def run(params, opt, batch):
+        rstep_mod.adamw_update = catch
+        try:
+            _, _, met = step(params, opt, batch)
+        finally:
+            rstep_mod.adamw_update = real
+        return met["loss"], seen["grads"]
+
+    jrun = jax.jit(run)
+
+    def call(params, batch):
+        loss, grads = jrun(params, ropt.adamw_init(params, ropt.AdamWConfig()),
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+        grads = jax.tree.map(lambda x: np.asarray(x, np.float32), grads)
+        return float(loss), model.flat_from_reference(grads, rcfg)
+    return call
+
+
+def _zero_routers(params):
+    """``params`` with every MoE router's weights zero: each token goes to
+    the first experts in every step, whatever the rounding."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, x: jnp.zeros_like(x)
+        if any("router" in str(k) for k in path) else x, params)
+
+
+def _port_step(cfg, params, batch, monkeypatch):
+    """The port's bf16 train step on the CPU from the reference's weights:
+    its loss and the gradients it hands to AdamW, as float32 arrays."""
+    seen = {}
+    real = tstep_mod.adamw_update
+
+    def catch(grads, *args, **kwargs):
+        seen["grads"] = {k: g.float().numpy().copy()
+                         for k, g in grads.items()}
+        return real(grads, *args, **kwargs)
+
+    monkeypatch.setattr(tstep_mod, "adamw_update", catch)
+    m = model.params_from_reference(
+        jax.tree.map(lambda x: np.asarray(x, np.float32), params), cfg,
+        device="cpu")
+    assert next(m.parameters()).dtype == torch.bfloat16
+    step = tstep_mod.make_train_step(cfg, ExecConfig(), AdamWConfig(lr=1e-3))
+    _, met = step(m, adamw_init(m, AdamWConfig()), batch)
+    return float(met["loss"]), seen["grads"]
+
+
+@pytest.mark.parametrize("arch", K9_ARCHS)
+def test_bf16_step_no_further_than_reference_bf16(arch, monkeypatch):
+    """The port's bf16 SMOKE step against the reference's bf16 step,
+    each held to the reference's float32 step on the same bf16-valued
+    weights over BATCHES batches: the loss and every gradient leaf, their
+    largest distance over the batches, within REF_BF16_X times the
+    reference's bf16 distance."""
+    bf16 = dict(param_dtype="bfloat16", dtype="bfloat16")
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), **bf16)
+    # jitted: the same weights as the eager init, in a third of its time
+    params = jax.jit(rmodel.init, static_argnums=1)(jax.random.PRNGKey(0),
+                                                    rcfg)
+    if rcfg.num_experts:
+        params = _zero_routers(params)
+    rcfg32 = dataclasses.replace(rcfg, param_dtype="float32",
+                                 dtype="float32")
+    params32 = jax.tree.map(lambda x: x.astype(jnp.float32), params)
+    cfg = dataclasses.replace(tconfigs.smoke_config(arch), **bf16)
+    step32, step16 = _ref_stepper(rcfg32), _ref_stepper(rcfg)
+    ours, theirs = {}, {}
+    for seed in range(BATCHES):
+        batch = _batch(rcfg, seed=seed)
+        want = step32(params32, batch)
+        ref = step16(params, batch)
+        got = _port_step(cfg, params, batch, monkeypatch)
+        assert np.isfinite(got[0])
+        assert sorted(got[1]) == sorted(want[1]) == sorted(ref[1])
+        for k in ["loss"] + sorted(want[1]):
+            pick = (lambda r: r[0]) if k == "loss" else (lambda r: r[1][k])
+            w = pick(want)
+            ours[k] = max(ours.get(k, 0.0), np.abs(pick(got) - w).max())
+            theirs[k] = max(theirs.get(k, 0.0), np.abs(pick(ref) - w).max())
+    for k in ours:
+        assert ours[k] <= REF_BF16_X * theirs[k], \
+            (k, float(ours[k]), float(theirs[k]))
+
+
+def _ref_routing(rcfg, params, tokens):
+    """The reference's jitted forward of ``tokens``: each MoE call's top-k
+    experts [T, K] (in descending probability) and probabilities [T, E],
+    recomputed inside the jitted program from the call's input by the
+    reference's own routing lines (``repro/models/moe.py:80-82``)."""
+    calls = []
+    real = rmoe._moe_local
+
+    def local(x2d, router_w, *args, **kwargs):
+        logits = jnp.einsum("td,de->te", x2d, router_w.astype(x2d.dtype))
+        probs = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
+        _, top_e = jax.lax.top_k(probs, rcfg.top_k)
+        jax.debug.callback(
+            lambda e, p: calls.append((np.asarray(e), np.asarray(p))),
+            top_e, probs, ordered=True)
+        return real(x2d, router_w, *args, **kwargs)
+
+    rmoe._moe_local = local
+    try:
+        jax.block_until_ready(jax.jit(
+            lambda p, t: rmodel.forward(p, t, rcfg))(params, tokens))
+        jax.effects_barrier()
+    finally:
+        rmoe._moe_local = real
+    return calls
+
+
+def _port_routing(cfg, params, tokens, monkeypatch):
+    """The port's forward of ``tokens`` on the CPU: each MoE call's top-k
+    experts [T, K] (``models.moe.route``'s)."""
+    calls = []
+    real = tmoe.route
+
+    def route(x2d, router_w, c):
+        out = real(x2d, router_w, c)
+        calls.append(out[2].numpy().copy())
+        return out
+
+    monkeypatch.setattr(tmoe, "route", route)
+    m = model.params_from_reference(
+        jax.tree.map(lambda x: np.asarray(x, np.float32), params), cfg,
+        device="cpu")
+    with torch.no_grad():
+        model.forward(m, torch.as_tensor(np.array(tokens)), cfg)
+    monkeypatch.setattr(tmoe, "route", real)
+    return calls
+
+
+def _flips(calls, want):
+    """For each token whose experts in ``calls`` differ from ``want``'s
+    (float32) at some rank, the gap of ``want``'s probabilities at the
+    first differing rank j and the next, p_j - p_j+1."""
+    gaps = []
+    for top_e, (top_w, probs) in zip(calls, want):
+        p = -np.sort(-probs, axis=-1)
+        for t in np.nonzero((top_e != top_w).any(-1))[0]:
+            j = int(np.nonzero(top_e[t] != top_w[t])[0][0])
+            gaps.append(float(p[t, j] - p[t, j + 1]))
+    return gaps
+
+
+@pytest.mark.parametrize("arch", [a for a in K9_ARCHS
+                                  if rconfigs.smoke_config(a).num_experts])
+def test_bf16_routing_flips_only_at_near_ties(arch, monkeypatch):
+    """The MoE archs' bf16 routing from the reference's init weights
+    (routers as initialized), over BATCHES batches: each token the port's
+    bf16 forward routes otherwise than the reference's float32 forward
+    on the same bf16-valued weights is a near-tie, the float32
+    probabilities at the first differing rank and the next within
+    REF_BF16_X times the largest error of a router probability (|bf16 -
+    float32|) that the reference's own bf16 forward makes over the same
+    batches: a swap needs a gap no wider than the two entries' errors.
+    A flip moves its token's hidden state, and attention carries that to
+    the later tokens of the next layer, so the error is taken over every
+    call.  Witnessed: the reference's own bf16 forward routes otherwise
+    somewhere."""
+    bf16 = dict(param_dtype="bfloat16", dtype="bfloat16")
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), **bf16)
+    params = jax.jit(rmodel.init, static_argnums=1)(jax.random.PRNGKey(0),
+                                                    rcfg)
+    rcfg32 = dataclasses.replace(rcfg, param_dtype="float32",
+                                 dtype="float32")
+    params32 = jax.tree.map(lambda x: x.astype(jnp.float32), params)
+    cfg = dataclasses.replace(tconfigs.smoke_config(arch), **bf16)
+    n_ref, gaps, noise = 0, [], 0.0
+    for seed in range(BATCHES):
+        tokens = jnp.asarray(_batch(rcfg, seed=seed)["tokens"])
+        want = _ref_routing(rcfg32, params32, tokens)
+        ref = _ref_routing(rcfg, params, tokens)
+        got = _port_routing(cfg, params, tokens, monkeypatch)
+        assert len(got) == len(ref) == len(want) > 0
+        noise = max([noise] + [float(np.abs(p - w).max())
+                               for (_, p), (_, w) in zip(ref, want)])
+        n_ref += len(_flips([e for e, _ in ref], want))
+        gaps += _flips(got, want)
+    assert n_ref > 0, "the reference's bf16 routing equals its float32 one"
+    assert max(gaps, default=0.0) <= REF_BF16_X * noise, (max(gaps), noise)
