@@ -376,7 +376,10 @@ Phases, in order (any failure exits non-zero):
     not checked).  Host work only; the step is not run again.
 29. bfloat16 training on the card: (a) K9 bf16's backward kernels
     (``flash_bf16_bwd.cu`` at dh, dv <= 128, ``flash_bf16_bwd_mla.cu`` at
-    MLA's head; ``wgmma``, HGMMA asserted in their SASS) against
+    MLA's head; warp-specialized, TMA producers and ``wgmma`` consumers:
+    HGMMA and UTMALDG asserted in their SASS, no wgmma pipeline
+    serialized by ptxas; registers, spills and each kernel's device time
+    at the two training layers printed) against
     ``flash_backward_plain`` on K9_BF16_BWD_CASES (minitron-4b's,
     deepseek-v2's MLA, phi3-mini's (dh 96), zamba2-7b's shared
     attention (dh 112), the 100M LM's and kimi-k2's layers; S != T both
@@ -624,17 +627,20 @@ KERNELS = {
                        "flash_f32_bwd_mla.cu",
                        "src/repro/models/attention.py:229 (jax.grad of jnp "
                        "attention in mla_apply; no Pallas kernel)"),
-    "K9-bf16-bwd": ("K9 bf16 backward (dq, dk, dv; wgmma, P and dS in two "
-                    "bf16 parts; not a TPU kernel: the reference "
+    "K9-bf16-bwd": ("K9 bf16 backward (dq, dk, dv; warp-specialized, TMA "
+                    "producers and wgmma consumers, P and dS in two bf16 "
+                    "parts; not a TPU kernel: the reference "
                     "differentiates jnp attention)",
                     "src/repro_torch/kernels/attention/csrc/"
                     "flash_bf16_bwd.cu",
                     "src/repro/models/attention.py:121 (jax.grad of jnp "
                     "attention; no Pallas kernel)"),
     "K9-bf16-mla-bwd": ("K9 bf16 backward at MLA's head (dh 192, dv 128; "
-                        "dq, dk, dv; wgmma, P and dS in two bf16 parts; "
-                        "not a TPU kernel: the reference differentiates "
-                        "jnp attention under MLA)",
+                        "dq, dk, dv; warp-specialized, TMA producers and "
+                        "wgmma consumers, no zero-padded product, P and dS "
+                        "in two bf16 parts; not a TPU kernel: the "
+                        "reference differentiates jnp attention under "
+                        "MLA)",
                         "src/repro_torch/kernels/attention/csrc/"
                         "flash_bf16_bwd_mla.cu",
                         "src/repro/models/attention.py:229 (jax.grad of "
@@ -1011,7 +1017,8 @@ def build_report(libs) -> None:
     (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) and at MLA's
     head (``flash_bwd_mla_dkdv_kernel``, ``flash_bwd_mla_dq_kernel``)
     their HGMMA, for K9 bf16's backward (``flash_bf16_bwd_dkdv_kernel``,
-    ``flash_bf16_bwd_dq_kernel``, at both heads) theirs, for K10 f32's
+    ``flash_bf16_bwd_dq_kernel``, at both heads) their HGMMA and TMA
+    loads (UTMALDG), for K10 f32's
     backward (``gla_bwd_u_kernel``, ``gla_bwd_dkdv_kernel``,
     ``gla_bwd_dq_kernel``) theirs, for
     K10's bf16 kernels (``gla_ws_kernel``,
@@ -1042,8 +1049,10 @@ def build_report(libs) -> None:
             ops = {**sass_ops(lib, "flash_bwd_mla_dkdv_kernel", ("HGMMA",)),
                    **sass_ops(lib, "flash_bwd_mla_dq_kernel", ("HGMMA",))}
         elif lib in (attn.BF16_BWD_LIB, attn.BF16_BWD_MLA_LIB):
-            ops = {**sass_ops(lib, "flash_bf16_bwd_dkdv_kernel", ("HGMMA",)),
-                   **sass_ops(lib, "flash_bf16_bwd_dq_kernel", ("HGMMA",))}
+            ops = {**sass_ops(lib, "flash_bf16_bwd_dkdv_kernel",
+                              ("HGMMA", "UTMALDG")),
+                   **sass_ops(lib, "flash_bf16_bwd_dq_kernel",
+                              ("HGMMA", "UTMALDG"))}
         elif lib is gla.kernel.BWD_LIB:
             ops = {**sass_ops(lib, "gla_bwd_u_kernel", ("HGMMA",)),
                    **sass_ops(lib, "gla_bwd_dkdv_kernel", ("HGMMA",)),
@@ -7298,19 +7307,116 @@ def k9_bf16_bwd_case(dev, errs: ErrLog, what: str, b, h, kv, s, t, dh, dv,
     return q, k, v, o, do, lse
 
 
+def ptxas_logs(libs) -> dict:
+    """{library name: its build log with ``ptxas -v``'s lines}: the log of
+    this process's build where there was one, else that of a build of the
+    same source with the same flags into a scratch folder of the build
+    directory (one ``nvcc`` a library, all started together), so that a
+    library loaded from the build cache is never checked on an empty
+    log."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import common
+    out = {lib.name: lib.build_log for lib in libs if lib.build_log}
+    todo = [lib for lib in libs if lib.name not in out]
+    if not todo:
+        return out
+    os.makedirs(common.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=common.BUILD_DIR)
+    try:
+        procs = [(lib, subprocess.Popen(
+            [common._nvcc(), *common.NVCC_FLAGS, "-o",
+             os.path.join(tmp, f"{lib.name}.so"), lib.source],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for lib in todo]
+        for lib, p in procs:
+            out[lib.name] = p.communicate()[0]
+            assert p.returncode == 0, \
+                f"nvcc failed for {lib.source}: {out[lib.name]}"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: (registers, spill stores, spill loads)} from the ``ptxas
+    -v`` lines of a build log."""
+    out, kern, spill = {}, None, (None, None)
+    for line in log.splitlines():
+        m = re.search(r"entry function '(.*?)'", line)
+        if m:
+            kern = kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spill = tuple(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif "Used" in line and "registers" in line and kern:
+            out[kern] = (int(re.search(r"Used (\d+) registers",
+                                       line).group(1)), *spill)
+    return out
+
+
+def sass_spills_by_side(lib, kernel: str) -> dict:
+    """{instantiation: (before, consumers, producer)}: the local-memory
+    loads and stores (LDL, STL) of a warp-specialized kernel's SASS before
+    the consumers' register raise (USETMAXREG.TRY_ALLOC), from it to the
+    producer's lowering (USETMAXREG.DEALLOC) and after, in address order
+    (ptxas lays the consumers' code out before the producer's)."""
+    out = {}
+    for name, ins in sass_functions(lib, kernel).items():
+        side, n = 0, [0, 0, 0]
+        for _, text in ins:
+            op = _opcode(text)
+            if op.startswith("USETMAXREG.TRY_ALLOC"):
+                side = max(side, 1)
+            elif op.startswith("USETMAXREG.DEALLOC"):
+                side = 2
+            elif op.startswith(("LDL", "STL")):
+                n[side] += 1
+        out[name] = tuple(n)
+    return out
+
+
+#: K9 bf16 backward's three kernels, in launch order.
+K9_BF16_BWD_KERNELS = ("flash_bf16_bwd_dot_kernel",
+                       "flash_bf16_bwd_dkdv_kernel",
+                       "flash_bf16_bwd_dq_kernel")
+
+
 def check_k9_bf16_bwd(dev, errs: ErrLog, name: str) -> dict:
-    """Phase 29 (a): both kernels' SASS holds HGMMA; every
-    K9_BF16_BWD_CASES shape held as ``k9_bf16_bwd_case`` holds it; the
-    first six timed beside the plain version, SDPA's bf16 backward and
-    the bound.  Returns {what: (ms, plain ms, library ms, (bytes ms,
-    operations ms))}."""
+    """Phase 29 (a): both warp-specialized kernels' SASS holds HGMMA (the
+    products on the tensor cores) and UTMALDG (the producer's TMA loads)
+    at every instantiation, and ptxas serialized none of their wgmma
+    pipelines; each kernel's registers, spills (and the local loads and
+    stores on the consumers' and the producer's side of the register
+    hand-over) printed; every K9_BF16_BWD_CASES shape held as
+    ``k9_bf16_bwd_case`` holds it; the first six timed beside the plain
+    version, SDPA's bf16 backward and the bound, the first two also
+    kernel by kernel on the device.  Returns {what: (ms, plain ms,
+    library ms, (bytes ms, operations ms))}."""
     from repro_torch.kernels.attention import kernel as k9
-    for lib in (k9.BF16_BWD_LIB, k9.BF16_BWD_MLA_LIB):
-        for kern in ("flash_bf16_bwd_dkdv_kernel", "flash_bf16_bwd_dq_kernel"):
-            ops = sass_ops(lib, kern, ("HGMMA",))
-            assert ops and all(not o.endswith(" 0 HGMMA")
-                               for o in ops.values()), \
-                f"no HGMMA in {kern}'s SASS: {ops}"
+    libs = (k9.BF16_BWD_LIB, k9.BF16_BWD_MLA_LIB)
+    logs = ptxas_logs(libs)
+    for lib in libs:
+        regs = ptxas_kernels(logs[lib.name])
+        for kern in K9_BF16_BWD_KERNELS[1:]:
+            ops = sass_ops(lib, kern, ("HGMMA", "UTMALDG"))
+            assert ops and all(
+                not o.endswith(" 0 HGMMA") and " 0 UTMALDG" not in o
+                for o in ops.values()), \
+                f"no HGMMA or no UTMALDG in {kern}'s SASS: {ops}"
+            sides = sass_spills_by_side(lib, kern)
+            for inst, op in ops.items():
+                r = regs.get(inst)
+                assert r, f"no ptxas -v line for {inst} in {lib.name}'s log"
+                print(f"[K9 bf16 bwd] {lib.name} {inst}: {op}; {r[0]} "
+                      f"registers at launch, {r[1]} bytes spill stores, "
+                      f"{r[2]} bytes spill loads; local loads and stores "
+                      "before / on the consumers' side / on the producer's "
+                      "side of the hand-over " + " / ".join(
+                          str(x) for x in sides.get(inst, ())))
+        serial = [line.strip() for line in logs[lib.name].splitlines()
+                  if "serialized" in line]
+        assert not serial, f"ptxas serialized wgmma in {lib.name}: {serial}"
     times = {}
     for i, case in enumerate(K9_BF16_BWD_CASES):
         what, b, h, kv, s, t, dh, dv, causal, unaligned, tile = case
@@ -7335,6 +7441,12 @@ def check_k9_bf16_bwd(dev, errs: ErrLog, name: str) -> dict:
                   f"forward with the lse {fwd_ms:.3f} ms, SDPA's bf16 "
                   f"forward {cuda_ms(lambda: _sdpa(q, k, v), 3):.3f} ms) "
                   f"[{name}]")
+            if i < 2:
+                per = [(kern, device_ms(lambda: k9.flash_backward(*args), 3,
+                                        kern)) for kern in K9_BF16_BWD_KERNELS]
+                print(f"[K9 bf16 bwd] {what}, device time a launch: "
+                      + ", ".join(f"{kern} {_dev_str(d)}" for kern, d in per)
+                      + f" [{name}]")
             del args
         del q, k, v, o, do, lse
         torch.cuda.empty_cache()

@@ -7,8 +7,11 @@
 // at minitron-4b's layer (H 24, S 4096, dh = dv = 128) 257.8 GFLOP, 0.261
 // ms at the 989.4 TFLOP/s dense bf16 tensor-core peak; with P and dS in
 // two parts (dV, dK, dQ twice) 0.417 ms. This design takes S and dP twice
-// (in the dkdv and the dq kernel). Its bytes (q, k, v, o, do in bf16, lse,
-// dq, dk, dv once) take 0.040 ms at 3.35 TB/s.
+// (in the dkdv and the dq kernel): 2 (6 D + 4 D) FLOPs of products a pair,
+// 0.521 ms. Its bytes (q, k, v, o, do in bf16, lse, dq, dk, dv once) take
+// 0.040 ms at 3.35 TB/s. The kernels keep the tensor cores fed by warp
+// specialization: TMA producers, two consumer warpgroups whose products
+// overlap each other's CUDA-core work and their own (flash_bf16_bwd.cuh).
 #include "flash_bf16_bwd.cuh"
 
 // The backward of K9, bfloat16. q [B, H, S, dh], k [B, KV, T, dh], v [B,

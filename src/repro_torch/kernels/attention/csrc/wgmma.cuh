@@ -3,7 +3,7 @@
 // K10's (gla/csrc/gla.cu): the shared-memory matrix descriptor, the wgmma
 // fence / commit / wait and cp.async group calls in PTX, the accumulator
 // pin, the mbarrier and named-barrier calls of the warp-specialized
-// kernels, the TMA load and its host-side tensor map, the register
+// kernels, the TMA loads and their host-side tensor maps, the register
 // hand-over (setmaxnreg), and the operand lists of 16, 32 and 64
 // accumulators.
 //
@@ -100,6 +100,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 __device__ __forceinline__ void named_bar(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// Arrives on named barrier `id` of n threads without waiting (the other
+// side waits with named_bar): this thread's earlier memory accesses are
+// performed before the waiters go on.
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
 // Arrives on `bar` and adds `bytes` to the transaction count its phase
 // waits for (the bytes of the TMA copies that complete on it).
@@ -120,6 +126,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// TMA: the box at coordinate c0 of the 1-D tensor map at `map` into
+// shared memory at dst, its bytes completing on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* map,
+                                            int c0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -180,6 +197,21 @@ inline bool tile_map(CUtensorMap* map, const void* p, CUtensorMapDataType type,
   return f(map, type, 3, const_cast<void*>(p), dim, stride, box, step,
            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The float32 vector [n] at p (16-byte aligned) as boxes of `box`
+// elements (box * 4 a multiple of 16), zero past its end.
+inline bool vec_map(CUtensorMap* map, const float* p, long long n, int box) {
+  const EncodeTiled f = encode_tiled();
+  if (!f) return false;
+  const cuuint64_t dim[1] = {(cuuint64_t)n};
+  const cuuint64_t stride[1] = {(cuuint64_t)n * 4};  // unread at rank 1
+  const cuuint32_t bx[1] = {(cuuint32_t)box};
+  const cuuint32_t step[1] = {1};
+  return f(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(p),
+           dim, stride, bx, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+           CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -131,12 +131,12 @@ def k9_bf16_bwd_products(dh: int, dv: int) -> float:
     (``csrc/flash_bf16_bwd.cuh``).  The kernels run at an instantiation
     DK x DV: 64 x 64 or 128 x 128, the least that holds max(dh, dv), or
     192 x 128 at MLA's head (dh over 128), zeros past dh and dv.  The
-    dkdv kernel takes S^T and dP^T DK deep (V and dO DK wide there), and
-    dV and dK DK wide, each as two parts of P or dS; the dq kernel takes
-    S (DK), dP (DV) again and dQ (DK) as two parts: 9 DK + DV a pair."""
+    dkdv kernel takes S^T DK deep and dP^T DV deep, dV DV wide and dK DK
+    wide, each as two parts of P or dS; the dq kernel takes S (DK), dP
+    (DV) again and dQ (DK) as two parts: 6 DK + 4 DV a pair."""
     dk_, dv_ = (192, 128) if dh > 128 else \
         ((64, 64) if max(dh, dv) <= 64 else (128, 128))
-    return (9 * dk_ + dv_) / (3 * dh + 2 * dv)
+    return (6 * dk_ + 4 * dv_) / (3 * dh + 2 * dv)
 
 
 def op_peak(name: str, dtype: torch.dtype,

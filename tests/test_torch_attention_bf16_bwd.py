@@ -261,3 +261,291 @@ def test_bf16_gradient_reaches_the_bf16_kernels(monkeypatch, dh, dv, lib,
     assert calls[1][1][:7] == [b, h, kv, s, s, dh, dv]
     assert {n: getattr(tkernel, n).launches for n in libs} == {
         n: int(n in ("BF16_LIB", lib)) for n in libs}
+
+
+# ---- the kernels' plan (csrc/flash_bf16_bwd.cuh), checked without a card -
+
+def _cuh() -> str:
+    import os
+    with open(os.path.join(os.path.dirname(tkernel.__file__), "csrc",
+                           "flash_bf16_bwd.cuh")) as f:
+        return f.read()
+
+
+def _consts() -> dict:
+    """``constexpr int NAME = VALUE;`` constants of the kernels' source."""
+    import re
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", _cuh())}
+
+
+def _smem(struct: str, dk: int, dv: int) -> dict:
+    """The members of ``struct<DK, DV>`` at dk x dv, each evaluated from its
+    definition in the source (``tile_bytes<D>()`` a 64-row bf16 tile of D
+    columns in 64-column sub-tiles of 8192 bytes)."""
+    import re
+    body = re.search(rf"struct {struct} \{{(.*?)\n\}};", _cuh(), re.S).group(1)
+    env = {**_consts(), "DK": dk, "DV": dv}
+    for name, expr in re.findall(
+            r"static constexpr uint32_t (\w+) = ([^;]+);", body):
+        expr = re.sub(r"tile_bytes<(\w+)>\(\)",
+                      lambda m: f"({m.group(1)} // 64 * 8192)", expr)
+        env[name] = eval(expr.replace("/", "//").replace("////", "//"), {},
+                         env)
+    return env
+
+
+#: The kernels' instantiations: (DK, DV).
+INSTANTIATIONS = [(64, 64), (128, 128), (192, 128)]
+
+
+@pytest.mark.parametrize("dk,dv", INSTANTIATIONS)
+def test_dkdv_shared_memory_fits(dk, dv):
+    """flash_bf16_bwd_dkdv_kernel's ``DkdvSmem`` evaluated from the source:
+    the resident K (dk wide) and V (dv wide) tiles, a ring of at least two
+    slots of Q and dO tiles, the two float32 P^T hand-over buffers, each
+    slot's 64 lse and D, and the mbarriers, laid end to end (TMA's tiles
+    1024-aligned, its lse and D boxes 128-aligned) with the alignment
+    slack, fit the card's 232,448 bytes a block."""
+    c, m = _consts(), _smem("DkdvSmem", dk, dv)
+    bm, ns = c["kBM"], c["kStages"]
+    assert bm == 64 and ns >= 2
+    tile = lambda d: 64 * d * 2
+    layout = [("kK", tile(dk)), ("kV", tile(dv)), ("kQ", ns * tile(dk)),
+              ("kO", ns * tile(dv)), ("kP", 2 * bm * bm * 4),
+              ("kLse", ns * bm * 4), ("kDelta", ns * bm * 4),
+              ("kBar", (1 + 2 * ns) * 8)]
+    end = 0
+    for name, size in layout:
+        assert m[name] == end, name
+        assert m[name] % (1024 if name in ("kK", "kV", "kQ", "kO") else
+                          128 if name in ("kLse", "kDelta") else 8) == 0
+        end += size
+    assert m["kBytes"] == end + 1024 <= 232448, m["kBytes"]
+
+
+@pytest.mark.parametrize("dk,dv", INSTANTIATIONS)
+def test_dq_shared_memory_fits(dk, dv):
+    """flash_bf16_bwd_dq_kernel's ``DqSmem``: the resident Q (dk) and dO
+    (dv) tiles of a 128-row query tile's two halves, a ring of at least
+    two slots of K and V tiles and the mbarriers fit 232,448 bytes."""
+    c, m = _consts(), _smem("DqSmem", dk, dv)
+    ns = c["kStages"]
+    assert c["kQRows"] == 2 * c["kBM"] == 128
+    tile = lambda d: 64 * d * 2
+    layout = [("kQ", 2 * tile(dk)), ("kO", 2 * tile(dv)),
+              ("kK", ns * tile(dk)), ("kV", ns * tile(dv)),
+              ("kBar", (1 + 2 * ns) * 8)]
+    end = 0
+    for name, size in layout:
+        assert m[name] == end and m[name] % (8 if name == "kBar" else
+                                             1024) == 0, name
+        end += size
+    assert m["kBytes"] == end + 1024 <= 232448, m["kBytes"]
+
+
+@pytest.mark.parametrize("kern", ["flash_bf16_bwd_dkdv_kernel",
+                                  "flash_bf16_bwd_dq_kernel"])
+def test_registers_after_handover_fit(kern):
+    """Both kernels run 384 threads, one block an SM (168 registers a
+    thread at launch); the producer gives up what the two consumers take
+    (128 x (168 - producer) = 256 x (consumer - 168)), each count a
+    multiple of 8, the consumers' at most 255, the three warpgroups'
+    registers after the hand-over within an SM's 65,536; each kernel makes
+    the hand-over (setmaxnreg) on both sides."""
+    c = _consts()
+    nt, wg = c["kThreads"], c["kWG"]
+    prod, cons = c["kProducerRegs"], c["kConsumerRegs"]
+    assert nt == 3 * wg == 384
+    start = 65536 // nt // 8 * 8
+    assert start == 168
+    assert wg * (start - prod) == 2 * wg * (cons - start)
+    assert prod % 8 == 0 and cons % 8 == 0 and 24 <= prod and cons <= 255
+    assert wg * prod + 2 * wg * cons <= 65536
+    text = _cuh()
+    i = text.index(kern + "(const")
+    body = text[i:text.index("\n}\n", i)]
+    assert "reg_dealloc<kProducerRegs>" in body
+    assert "reg_alloc<kConsumerRegs>" in body
+    assert "__syncthreads" not in body[body.index("reg_alloc"):]
+    assert text[text.rindex("__launch_bounds__", 0, i):i].startswith(
+        "__launch_bounds__(kThreads, 1)")
+
+
+def _top_split(text: str) -> list:
+    """``text`` split at its commas outside parentheses."""
+    out, depth, cur = [], 0, ""
+    for ch in text:
+        depth += (ch == "(") - (ch == ")")
+        if ch == "," and depth == 0:
+            out.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    return out + [cur]
+
+
+def _c_expr(expr: str) -> str:
+    """A C integer expression of the kernels' source as Python (its
+    operands are not negative, so C's ``/`` is ``//``; one ``?:`` at
+    most)."""
+    import re
+    e = " ".join(expr.split()).replace("blockIdx.x", "blockIdx_x")
+    e = re.sub(r"\((?:int|long long)\)", "", e)
+    e = re.sub(r"(?<!/)/(?!/)", "//", e)
+    m = re.fullmatch(r"(.+?) \? (.+?) : (.+)", e)
+    return f"(({m.group(2)}) if ({m.group(1)}) else ({m.group(3)}))" if m \
+        else e
+
+
+def _body(fn: str) -> str:
+    """The source of the function ``fn`` of ``flash_bf16_bwd.cuh``."""
+    text = _cuh()
+    i = text.index(fn + "(const")
+    return text[i:text.index("\n}\n", i)]
+
+
+def _ints(fn: str, env: dict) -> dict:
+    """``env`` extended by the ``const int`` values and the one-argument
+    ``auto`` lambdas of ``fn``'s source, evaluated from it in source
+    order; a definition reading a name not known here (a thread's index,
+    shared memory, a loop's variable) or written in C that is not Python
+    as well (an intrinsic's literals) is passed over."""
+    import re
+    env = dict(env)
+    for m in re.finditer(r"const int (\w[^;]*);|auto (\w+) = \[&\]\(int "
+                         r"(\w+)\) \{\s*return ([^;]+);\s*\};", _body(fn)):
+        items = [x.split("=", 1) for x in _top_split(m.group(1))] \
+            if m.group(1) else [(m.group(2), f"lambda {m.group(3)}: "
+                                 + _c_expr(m.group(4)))]
+        for name, expr in items:
+            try:
+                env[name.strip()] = eval(
+                    expr if expr.startswith("lambda") else _c_expr(expr),
+                    {"min": min, **env})
+            except (NameError, SyntaxError):
+                pass
+    return env
+
+
+def _grid(kern: str, env: dict) -> int:
+    """The block count ``launch_bwd`` gives ``kern``, from its source."""
+    import re
+    expr = re.search(rf"float_io::launch\({kern}<DK, DV>, ([^,]+),",
+                     _body("launch_bwd")).group(1)
+    return eval(_c_expr(expr), {}, _ints("launch_bwd", env))
+
+
+def _loop_bounds(kern: str, var: str) -> set:
+    """The bounds of ``kern``'s loops over ``var`` from 0."""
+    import re
+    return set(re.findall(rf"for \(int {var} = 0; {var} < (\w+); "
+                          rf"\+\+{var}\)", _body(kern)))
+
+
+def _dkdv_visits(b, h, kv, s, t, causal):
+    """flash_bf16_bwd_dkdv_kernel's work split, emulated on the host from
+    the expressions of its source (its grid, kt, bkv, qstart, per, steps,
+    head(i), row0(i)): for each block, its steps in order as (b, query
+    head, query tile); and the P^T hand-over on the named barriers, its
+    conditions read from the source: every step's buffer i % 2 filled and
+    read once, and warpgroup 1's wait to refill it (step i) matched by
+    exactly one release by warpgroup 2 (step i - 2)."""
+    import re
+    c = _consts()
+    bm, kern = c["kBM"], "flash_bf16_bwd_dkdv_kernel"
+    env = {**c, "B": b, "H": h, "KV": kv, "S": s, "Tk": t,
+           "causal": int(causal)}
+    body = _body(kern)
+    assert _loop_bounds(kern, "i") == {"steps"}
+    assert body.count("pb = i & 1") == 2
+    for call in ("named_arrive", "named_bar"):  # P^T stored, P^T read
+        assert len(re.findall(rf"\n\s*wgmma::{call}\(kBarPFull \+ pb, ",
+                              body)) == 1
+    wait = re.search(r"if \(([^)]+)\) wgmma::named_bar\(kBarPEmpty \+ pb",
+                     body).group(1)
+    free = re.search(r"if \(([^)]+)\) wgmma::named_arrive\(kBarPEmpty \+ "
+                     r"pb", body).group(1)
+    out = {}
+    for x in range(_grid(kern, env)):
+        e = _ints(kern, {**c, "blockIdx_x": x, "BKV": b * kv, "H": h,
+                         "G": h // kv, "S": s, "Tk": t,
+                         "causal": int(causal)})
+        steps = e["steps"]
+        waits = [i for i in range(steps) if eval(_c_expr(wait), {}, {
+            "i": i, "steps": steps})]
+        frees = [i for i in range(steps) if eval(_c_expr(free), {}, {
+            "i": i, "steps": steps})]
+        assert [i + 2 for i in frees] == waits
+        out[(e["bkv"], e["kt"])] = [
+            (*divmod(e["head"](i), h), e["row0"](i) // bm)
+            for i in range(steps)]
+    return out
+
+
+def _dq_visits(b, h, kv, s, t, causal):
+    """flash_bf16_bwd_dq_kernel's work split, emulated from the expressions
+    of its source (its grid, qt, bh, q0, nkv and each consumer's rows rw):
+    for each block and each of its two consumers (64 rows, past S or not),
+    the kv tiles it takes in order: both take the block's tiles up to its
+    causal frontier, so each frees every ring slot of the block once.
+    Returns ({(bh, 64-row query tile): kv tiles}, the blocks' kv tile
+    counts in launch order)."""
+    c = _consts()
+    bm, kern = c["kBM"], "flash_bf16_bwd_dq_kernel"
+    assert _loop_bounds(kern, "kt") == {"nkv"}
+    env = {**c, "B": b, "H": h, "KV": kv, "S": s, "Tk": t,
+           "causal": int(causal)}
+    out, order = {}, []
+    for x in range(_grid(kern, env)):
+        for cw in range(2):
+            e = _ints(kern, {**c, "blockIdx_x": x, "BH": b * h, "H": h,
+                             "G": h // kv, "S": s, "Tk": t,
+                             "causal": int(causal), "cw": cw})
+            out[(e["bh"], e["rw"] // bm)] = list(range(e["nkv"]))
+        order.append(e["nkv"])
+    return out, order
+
+
+#: Shapes of the emulation: (B, H, KV, S, T, causal).
+SPLITS = [(1, 4, 2, 128, 128, True), (2, 6, 2, 328, 328, True),
+          (1, 4, 2, 128, 256, True), (1, 4, 2, 256, 128, True),
+          (2, 4, 1, 128, 192, False), (1, 3, 3, 64, 64, True),
+          (1, 24, 8, 1000, 1000, True)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,causal", SPLITS)
+def test_work_split_visits_each_pair_once_in_order(b, h, kv, s, t, causal):
+    """Both kernels' work split, emulated on the host: every (64-row kv
+    tile, 64-row query tile) pair of every head holding a query-key pair
+    under the mask (t <= s when causal) is taken exactly once by each
+    kernel (the dq kernel's other pairs are fully masked: they add exact
+    zeros); a kv tile's dK and dV sum over its query heads in order and,
+    for each, its query tiles in rising order (one block: the order that
+    fixes the adds), and a 64-row query tile's dQ over its kv tiles in
+    rising order (one consumer); the dq blocks come longest first."""
+    bm = _consts()["kBM"]
+    nq, ntk = -(-s // bm), -(-t // bm)
+    live = {(bb, hh, qi, kt) for bb in range(b) for hh in range(h)
+            for qi in range(nq) for kt in range(ntk)
+            if not causal or kt * bm <= min(s - 1, qi * bm + bm - 1)}
+    g = h // kv
+    taken = []
+    for (bkv, kt), steps in _dkdv_visits(b, h, kv, s, t, causal).items():
+        assert steps == sorted(steps)
+        taken += [(bb, hh, qi, kt) for bb, hh, qi in steps]
+        assert all(hh // g == bkv % kv for _, hh, _ in steps)
+    assert len(taken) == len(set(taken)) and set(taken) >= live
+    assert all(not causal or (bb, hh, qi, kt) in live
+               for bb, hh, qi, kt in taken)
+    visits, order = _dq_visits(b, h, kv, s, t, causal)
+    taken = []
+    for (bh, qi), kts in visits.items():
+        assert kts == list(range(len(kts)))
+        taken += [(bh // h, bh % h, qi, kt) for kt in kts]
+    assert len(taken) == len(set(taken)) and set(taken) >= live
+    # a pair past a consumer's frontier, or of rows past S, holds no
+    # query-key pair under the mask: its P is 0 and it adds exact zeros
+    for bb, hh, qi, kt in set(taken) - live:
+        assert qi * bm >= s or (causal and kt * bm > qi * bm + bm - 1)
+    assert order == sorted(order, reverse=True)

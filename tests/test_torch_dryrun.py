@@ -430,14 +430,15 @@ def test_bf16_train_cell_prices_k9_backward_at_the_bf16_rate():
 
 
 @pytest.mark.parametrize("dh,dv,issued", [
-    (64, 64, 9 * 64 + 64), (96, 96, 9 * 128 + 128),
-    (112, 112, 9 * 128 + 128), (128, 128, 9 * 128 + 128),
-    (192, 128, 9 * 192 + 128)])
+    (64, 64, 6 * 64 + 4 * 64), (96, 96, 6 * 128 + 4 * 128),
+    (112, 112, 6 * 128 + 4 * 128), (128, 128, 6 * 128 + 4 * 128),
+    (192, 128, 6 * 192 + 4 * 128)])
 def test_bf16_k9_backward_rate_follows_the_kernels_widths(dh, dv, issued):
     """K9 bf16's backward on meta is priced at the bf16 peak over the
     products its kernels issue at their instantiation (64, 128, or MLA's
-    192 x 128: 9 DK + DV a causal pair) a product of the least work, 3 dh
-    + 2 dv; float32 inputs keep split TF32's rate."""
+    192 x 128: 6 DK + 4 DV a causal pair, no zero chunk at MLA's head) a
+    product of the least work, 3 dh + 2 dv; float32 inputs keep split
+    TF32's rate."""
     q, k, o, do = (torch.empty((1, 2, 64, d), device="meta",
                                dtype=torch.bfloat16)
                    for d in (dh, dh, dv, dv))
