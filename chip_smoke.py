@@ -658,6 +658,21 @@ KERNELS = {
                     "src/repro_torch/kernels/gla/csrc/gla_bwd.cu",
                     "src/repro/models/ssm.py:44 (jax.grad of jnp "
                     "gla_chunked; no Pallas kernel)"),
+    "K10-bf16-bwd": ("K10 bf16 backward at dk, dv <= 128 (dq, dk, dv, dg; "
+                     "bf16 wgmma, the float32 operands in two bf16 parts; "
+                     "not a TPU kernel: the reference differentiates its "
+                     "jnp chunked scan)",
+                     "src/repro_torch/kernels/gla/csrc/gla_bf16_bwd.cu",
+                     "src/repro/models/ssm.py:44 (jax.grad of jnp "
+                     "gla_chunked; no Pallas kernel)"),
+    "K10-wide-bwd": ("K10 bf16 backward on the wide route (mLSTM's whole "
+                     "1024-wide heads; P and A formed once a (head, chunk), "
+                     "gradient units per 128-wide column block; not a TPU "
+                     "kernel: the reference differentiates its jnp chunked "
+                     "scan)",
+                     "src/repro_torch/kernels/gla/csrc/gla_wide_bwd.cu",
+                     "src/repro/models/ssm.py:44 (jax.grad of jnp "
+                     "gla_chunked; no Pallas kernel)"),
     "sLSTM": ("sLSTM scan (jnp lax.scan in the reference, not a Pallas "
               "kernel)", "src/repro_torch/kernels/slstm/csrc/slstm.cu",
               "src/repro/models/ssm.py:329"),
@@ -794,6 +809,8 @@ def counts() -> dict:
             "K10": gla.kernel.LIB.launches,
             "K10-f32-bwd": gla.kernel.BWD_LIB.launches,
             "K10-mlstm": gla.kernel.WIDE_LAUNCHES,
+            "K10-bf16-bwd": gla.kernel.BF16_BWD_LIB.launches,
+            "K10-wide-bwd": gla.kernel.WIDE_BWD_LIB.launches,
             "sLSTM": slstm.kernel.LIB.launches,
             "sLSTM-bwd": slstm.kernel.BWD_LIB.launches}
 
@@ -811,6 +828,7 @@ def reset_counts() -> None:
     gla.kernel.LIB.launches = slstm.kernel.LIB.launches = 0
     gla.kernel.BWD_LIB.launches = slstm.kernel.BWD_LIB.launches = 0
     gla.kernel.WIDE_LAUNCHES = 0
+    gla.kernel.BF16_BWD_LIB.launches = gla.kernel.WIDE_BWD_LIB.launches = 0
     stream.DIST_LAUNCHES = score.PAIRS_LAUNCHES = 0
     for d in (stream.VAR_LAUNCHES, score.VAR_LAUNCHES):
         for key in d:
@@ -906,6 +924,9 @@ _KERNEL_RE = re.compile(r"(stream_scored_kernel|score_pairs_kernel|"
                         r"gla_mma_kernel|gla_ws_kernel|gla_fma_kernel|"
                         r"gla_bwd_u_kernel|gla_bwd_scan_kernel|"
                         r"gla_bwd_dkdv_kernel|gla_bwd_dq_kernel|"
+                        r"gla_bf16_bwd_ds_kernel|gla_bf16_bwd_kernel|"
+                        r"gla_wide_bwd_scores_kernel|gla_wide_bwd_kernel|"
+                        r"gla_wide_bwd_dg_kernel|"
                         r"slstm_scan_kernel|slstm_bwd_map_kernel|"
                         r"slstm_bwd_carry_kernel|slstm_bwd_replay_kernel|"
                         r"slstm_bwd_dr_kernel)"
@@ -6403,19 +6424,24 @@ def _train_launches(cfg, remat: int) -> dict:
     recompute, else 1): K9 of the config's dtype (f32 or bf16) a forward
     and a backward an attention layer or shared-attention occurrence (the
     backward at MLA's head its own kernel), K10 a forward and a backward
-    a Mamba2 layer, and a forward and a backward a 128-wide value block
-    of an mLSTM layer's dh
-    + 1 (``gla_blocked``; dh 1024: 9 blocks), the sLSTM scan and its
+    of the dtype a Mamba2 layer; in float32 a forward and a backward a
+    128-wide value block of an mLSTM layer's dh + 1 (``gla_blocked``; dh
+    1024: 9 blocks), in bfloat16 the wide route's two launches a forward
+    and its backward (``GlaWide``); the sLSTM scan and its
     backward an sLSTM layer (``BWD_LIB.launches`` counts the backward's
     calls: one a layer, of four kernels at S 4096)."""
     want: dict = {}
 
     def add(key, n):
         want[key] = want.get(key, 0) + n
+    bf16 = cfg.dtype == "bfloat16"
     for kind in cfg.layer_kinds():
         if kind == "mamba2":
             add("K10", remat)
-            add("K10_f32_bwd", 1)
+            add("K10_bf16_bwd" if bf16 else "K10_f32_bwd", 1)
+        elif kind == "mlstm" and bf16:
+            add("K10_mlstm", 2 * remat)
+            add("K10_wide_bwd", 1)
         elif kind == "mlstm":
             dh = cfg.ssm_expand * cfg.d_model // cfg.num_heads
             blocks = -(-(dh + 1) // 128)
@@ -6472,7 +6498,7 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
           f"built in {time.perf_counter() - t0:.1f} s")
     want = _train_launches(cfg, 2)
     times, rows = [], []
-    blocked = "mlstm" not in cfg.layer_kinds()
+    blocked = "mlstm" not in cfg.layer_kinds() or dtype == "bfloat16"
     for i in range(steps):
         batch = pipe.batch_at(i)
         torch.cuda.synchronize()
@@ -6521,10 +6547,13 @@ def train_full(dev, name: str, arch: str = "minitron-4b", layers: int = 8,
             split["K9 forward"] += kms
         elif "flash_bwd_" in key or "flash_bf16_bwd_" in key:
             split["K9 backward"] += kms
-        elif "gla_fma_kernel" in key:
-            split["K10 forward"] += kms
-        elif "gla_bwd_" in key:
+        elif any(k in key for k in ("gla_bwd_", "gla_bf16_bwd_",
+                                     "gla_wide_bwd_")):
             split["K10 backward"] += kms
+        elif any(k in key for k in ("gla_fma_kernel", "gla_ws_kernel",
+                                     "gla_mma_kernel", "gla_wide_kernel",
+                                     "gla_wide_scores_kernel")):
+            split["K10 forward"] += kms
         elif any(g in key for g in GEMM_NAMES):
             split["gemm"] += kms
         else:
@@ -6752,19 +6781,24 @@ def train_driver(steps: int = 60, every: int = 30) -> None:
 
 
 def train_no_fallback(dev) -> None:
-    """Phase 29 (d): a bf16 train step of zamba2-7b's SMOKE config raises
-    NotImplementedError naming K10's missing backward, launching no
-    kernel (its first layer is Mamba2's); a bf16 sLSTM scan with a
-    gradient asked for (xlstm-1p3b's width, 64 steps) raises naming the
-    sLSTM scan's, launching nothing.  Neither calls a plain version.
-    (minitron-4b's bf16 step, which raised here before K9 bf16 had its
-    backward, trains in phase 29 (b).)"""
+    """Phase 29 (d): a bf16 train step of xlstm-1p3b's SMOKE config (7
+    mLSTM layers, then an sLSTM layer) raises NotImplementedError naming
+    the sLSTM scan's missing backward in its eighth layer's forward,
+    having launched the seven mLSTM layers' K10 forwards (the SMOKE heads
+    take K10's narrow route) and no other kernel, no backward among them;
+    a bf16 sLSTM scan with a gradient asked for (xlstm-1p3b's width, 64
+    steps) raises the same way, launching nothing.  Neither calls a plain
+    version.  (zamba2-7b's bf16 step, which raised here before K10 bf16
+    had its backward, trains in phase 29 (b), as minitron-4b's does since
+    K9 bf16 had its own.)"""
     from repro_torch import configs, models
     from repro_torch.kernels.slstm import kernel as ks
     from repro_torch.sharding.rules import ExecConfig
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
-    cfg = dataclasses.replace(configs.smoke_config("zamba2-7b"),
+    cfg = dataclasses.replace(configs.smoke_config("xlstm-1p3b"),
                               param_dtype="bfloat16", dtype="bfloat16")
+    kinds = tuple(cfg.layer_kinds())
+    assert kinds == ("mlstm",) * 7 + ("slstm",), kinds
     m = models.init(cfg, generator=torch.Generator(
         device=dev).manual_seed(1), device=dev)
     step = make_train_step(cfg, ExecConfig(), AdamWConfig())
@@ -6774,14 +6808,15 @@ def train_no_fallback(dev) -> None:
     zifo = torch.zeros((1, 64, 4 * d), dtype=torch.bfloat16, device=dev,
                        requires_grad=True)
     st = [torch.zeros((1, d), device=dev) for _ in range(4)]
-    cases = (("zamba2-7b SMOKE train step in bfloat16", "K10 backward",
+    cases = (("xlstm-1p3b SMOKE train step in bfloat16 (8 layers)",
+              "the sLSTM scan backward", {"K10": 7},
               lambda: step(m, adamw_init(m, AdamWConfig()),
                            {"tokens": toks, "labels": toks})),
              ("xlstm-1p3b's sLSTM scan in bfloat16 with a gradient",
-              "the sLSTM scan backward",
+              "the sLSTM scan backward", {},
               lambda: ks.slstm_scan(zifo, torch.zeros((4, d), device=dev),
                                     *st)))
-    for what, want, call in cases:
+    for what, want, before, call in cases:
         reset_counts()
         with counting_plain() as seen:
             try:
@@ -6791,10 +6826,13 @@ def train_no_fallback(dev) -> None:
             else:
                 raise AssertionError(f"{what} ran on the card")
         torch.cuda.synchronize()
-        launched({k: 0 for k in counts()})
+        launched({k: 0 for k in counts()}, **before)
         assert want in msg and seen["calls"] == 0, (msg, seen)
         print(f"[train no fallback] {what}: NotImplementedError ({msg}); "
-              f"no kernel launched, no plain version called")
+              + (", ".join(f"{k} {n}" for k, n in before.items())
+                 + " launched before the raise (the mLSTM layers' "
+                 "forwards), no backward" if before else
+                 "no kernel launched") + ", no plain version called")
 
 
 #: Phase 27 (f): the sharded train step on SHARD_MESH of the one card
@@ -7453,53 +7491,315 @@ def check_k9_bf16_bwd(dev, errs: ErrLog, name: str) -> dict:
     return times
 
 
+#: Phase 29 (a) for K10: the bf16 backwards (``gla_bf16_bwd.cu`` at dk,
+#: dv <= 128, ``gla_wide_bwd.cu`` on the wide route) against
+#: ``gla_chunks_backward_plain`` on the same inputs (the forward kernel's
+#: own chunk states): every element of dq, dk and dv within one bf16
+#: rounding of the plain element plus K10_BF16_BWD_REL of the gradient's
+#: max |plain| (both round a float32 sum once; the kernels' sums run in
+#: other orders, their float32 operands in two bf16 parts, ~2^-17 of each
+#: term), dg (float32) within K10_BF16_BWD_REL of its max |plain|; two
+#: launches bitwise.  Stated before the first run.
+K10_BF16_BWD_REL = 1e-4
+#: (what, B, H, S, dk, dv, chunk, a final-state gradient, an input one
+#: element into its storage); the first of each list timed.
+K10_BF16_BWD_CASES = (
+    ("zamba2-7b layer", 1, 112, 4096, 64, 64, 256, False, False),
+    ("dk = dv = 128, chunk 64", 1, 8, 1024, 128, 128, 64, False, False),
+    ("dk 64 / dv 48, chunk 24", 2, 3, 480, 64, 48, 24, False, False),
+    ("one chunk", 2, 4, 256, 64, 64, 256, True, False),
+    ("a final-state gradient, 16 chunks", 1, 8, 4096, 64, 64, 256, True,
+     False),
+    ("dk 20 / dv 36, element-wise loads", 1, 4, 512, 20, 36, 128, True,
+     False),
+    ("one element into storage", 1, 4, 512, 128, 96, 128, False, True),
+)
+K10_WIDE_BWD_CASES = (
+    ("xlstm-1p3b mLSTM layer", 1, 4, 4096, 1024, 1025, 256, False, False),
+    ("dk 200 / dv 129", 1, 2, 512, 200, 129, 128, True, False),
+    ("chunk 64", 1, 2, 1024, 256, 257, 64, False, False),
+    ("one chunk", 2, 2, 256, 256, 136, 256, True, False),
+    ("a final-state gradient at mLSTM's head", 1, 2, 1024, 1024, 1025, 256,
+     True, False),
+    ("misaligned input", 1, 2, 512, 256, 130, 128, False, True),
+)
+#: Both bf16 backwards' kernels, by library, with their launches a call.
+K10_BF16_BWD_KERNELS = {
+    "gla_bf16_bwd": {"gla_bf16_bwd_ds_kernel": 1, "gla_bf16_bwd_kernel": 3},
+    "gla_wide_bwd": {"gla_wide_bwd_scores_kernel": 1,
+                     "gla_bf16_bwd_ds_kernel": 1, "gla_wide_bwd_kernel": 3}}
+
+
+def k10_bf16_bwd_bound(name: str, b, h, s, dk, dv, chunk):
+    """(bytes ms, operations ms, operations ms as the kernels issue them)
+    of K10's bf16 backward: q, k, v, do read and dq, dk, dv written once in
+    bf16, g, the chunk states and dg in float32, at the card's memory
+    rate; the least work, L (L + 1) (3 dk + 2 dv) + 8 L dk dv FLOPs a
+    (head, chunk), at the dense bf16 tensor-core peak (the row's bound);
+    and the products the kernels issue (``launch.dryrun``'s
+    ``k10_bf16_bwd_products``: two bf16 parts a float32 operand, whole
+    tiles on the diagonal), printed beside."""
+    from repro_torch.launch.dryrun import k10_bf16_bwd_products
+    mem, _, bf16, _ = card_peaks(name)
+    nc = s // chunk
+    nbytes = 2 * b * h * s * (4 * dk + 3 * dv) + 4 * b * h * (
+        2 * s + nc * dk * dv)
+    flops = b * h * nc * (chunk * (chunk + 1) * (3 * dk + 2 * dv)
+                          + 8 * chunk * dk * dv)
+    issued = flops * k10_bf16_bwd_products(dk, dv, chunk)
+    return (nbytes / mem * 1e3, flops / bf16 * 1e3, issued / bf16 * 1e3)
+
+
+def k10_bf16_bwd_case(dev, errs: ErrLog, what: str, b, h, s, dk, dv, chunk,
+                      with_dstate: bool, unaligned: bool, seed: int,
+                      wide: bool):
+    """One shape of (a) for K10's bf16 backward (``wide``: the wide
+    route's): o bitwise with and without a gradient asked for (the
+    forward kept its chunk states), the states within GLA_RTOL /
+    GLA_ATOL of the plain forward's, each gradient held as
+    K10_BF16_BWD_REL says, two backward launches bitwise.  Returns the
+    backward's arguments for timing."""
+    from repro_torch.kernels.gla import kernel as k10
+    key = "K10-wide-bwd" if wide else "K10-bf16-bwd"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, la, do = (x.bfloat16() if x.dim() == 4 else x
+                       for x in _gla_bwd_inputs(gen, dev, b, h, s, dk, dv))
+    dst = torch.randn((b, h, dk, dv), generator=gen, device=dev) \
+        if with_dstate else None
+    if unaligned:
+        q, k, v, do = (_at_offset(x) for x in (q, k, v, do))
+    g = k10.chunk_cumsum(la, chunk)
+    reset_counts()
+    if wide:
+        o0, _ = k10.gla_wide(q, k, v, g, chunk)
+        o, state, states = k10._launch_wide(q, k, v, g, chunk)
+        states[:, :, -1, :, :dv] = state
+        bwd = k10.gla_wide_backward
+    else:
+        o0, _ = k10.gla_chunks(q, k, v, g, chunk)
+        o, state, states = k10._launch_forward(q, k, v, g, chunk,
+                                               torch.bfloat16)
+        states[:, :, -1] = state
+        bwd = k10.gla_chunks_backward
+    args = (q, k, v, g, states, do, dst, chunk)
+    grads = bwd(*args)
+    again = bwd(*args)
+    torch.cuda.synchronize()
+    fwd = {"K10_mlstm": 4} if wide else {"K10": 2}
+    launched({n: 0 for n in counts()}, **fwd,
+             **{key.replace("-", "_"): 2})
+    assert torch.equal(o0, o), f"{what}: o with the states kept differs"
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
+        f"{what}: two backward launches differ"
+    _, _, st_p = k10.gla_chunks_plain(q, k, v, g, chunk, with_states=True)
+    st_k = states[..., :dv]
+    assert torch.allclose(st_k, st_p, rtol=GLA_RTOL, atol=GLA_ATOL), \
+        f"{what}: chunk states"
+    plain = k10.gla_chunks_backward_plain(q, k, v, g, st_k, do, dst, chunk)
+    del st_p
+    worst = []
+    for i, (x, y) in enumerate(zip(grads, plain)):
+        errs.diff(key, x, y)
+        assert torch.isfinite(x).all() and x.dtype == y.dtype
+        tol = K10_BF16_BWD_REL * y.float().abs().max()
+        if i < 3:
+            tol = tol + _bf16_step(y)
+        worst.append(float(((x.float() - y.float()).abs() / tol).max()))
+    rel = [_rel(x, y) for x, y in zip(grads, plain)]
+    assert max(worst) <= 1.0, \
+        f"{what}: dq, dk, dv, dg at {worst} of their bounds"
+    print(f"[K10 bf16 bwd] {'wide ' if wide else ''}{what} (B {b}, H {h}, "
+          f"S {s}, dk {dk}, dv {dv}, chunk {chunk}"
+          f"{', final-state gradient' if with_dstate else ''}"
+          f"{', unaligned' if unaligned else ''}): dq, dk, dv at "
+          + ", ".join(f"{w:.3f}" for w in worst[:3]) + " of one bf16 "
+          f"rounding + {K10_BF16_BWD_REL:g} max |plain|, dg at "
+          f"{worst[3]:.3f} of {K10_BF16_BWD_REL:g} max |plain| (rel err "
+          + ", ".join(f"{r:.3g}" for r in rel) + "); o bitwise with the "
+          "states kept; two backward launches bitwise")
+    del plain, grads, again
+    return args
+
+
+def _blocked_f32_backward(q, k, v, g, chunk):
+    """K10 f32's backward on the blocked route's shapes of (q, k, v):
+    ``ops.gla_blocked``'s 128-wide blocks (dk as extra heads, one block
+    of v a call), each block's forward states kept: a function that runs
+    the ceil(dv / 128) backward launches of one training step."""
+    from repro_torch.kernels.gla import kernel as k10
+    b, h, s, dk = q.shape
+    dv, n = v.shape[-1], k10.MAX_HEAD_DIM
+    nk = -(-dk // n)
+
+    def heads(t):
+        t = torch.nn.functional.pad(t.float(), (0, nk * n - dk))
+        return t.reshape(b, h, s, nk, n).transpose(2, 3).reshape(
+            b, h * nk, s, n).contiguous()
+    qb, kb = heads(q), heads(k)
+    gb = g[:, :, None].expand(b, h, nk, s).reshape(b, h * nk, s).contiguous()
+    calls = []
+    for j0 in range(0, dv, n):
+        vj = v[..., j0:j0 + n].float()
+        w = vj.shape[-1]
+        vb = vj[:, :, None].expand(b, h, nk, s, w).reshape(
+            b, h * nk, s, w).contiguous()
+        _, state, states = k10._launch_forward(qb, kb, vb, gb, chunk,
+                                               torch.float32)
+        states[:, :, -1] = state
+        calls.append((qb, kb, vb, gb, states, torch.randn_like(vb), None,
+                      chunk))
+    return lambda: [k10.gla_chunks_backward(*a) for a in calls]
+
+
+def check_k10_bf16_bwd(dev, errs: ErrLog, name: str) -> dict:
+    """Phase 29 (a) for K10: both bf16 backwards' SASS holds HGMMA at
+    every kernel that takes a product, ptxas serialized none of their
+    wgmma, registers and spills printed; every K10_BF16_BWD_CASES and
+    K10_WIDE_BWD_CASES shape held as ``k10_bf16_bwd_case`` holds it; the
+    training layers (zamba2-7b's, xlstm-1p3b's mLSTM) timed beside the
+    plain version, K10 f32's backward at the same shape (the blocked
+    route's launches at mLSTM's) and the bound.  Returns {"K10-bf16-bwd"
+    / "K10-wide-bwd": (ms, plain ms, None, (bytes ms, operations ms))}."""
+    from repro_torch.kernels.gla import kernel as k10
+    libs = (k10.BF16_BWD_LIB, k10.WIDE_BWD_LIB)
+    logs = ptxas_logs(libs)
+    for lib in libs:
+        regs = ptxas_kernels(logs[lib.name])
+        for kern in K10_BF16_BWD_KERNELS[lib.name]:
+            ops = sass_ops(lib, kern, ("HGMMA",))
+            assert ops and all(not o.endswith(" 0 HGMMA")
+                               for o in ops.values()), \
+                f"no HGMMA in {kern}'s SASS: {ops}"
+            for inst, op in ops.items():
+                r = regs.get(inst)
+                assert r, f"no ptxas -v line for {inst} in {lib.name}'s log"
+                print(f"[K10 bf16 bwd] {lib.name} {inst}: {op}; {r[0]} "
+                      f"registers, {r[1]} bytes spill stores, {r[2]} bytes "
+                      f"spill loads")
+        serial = [line.strip() for line in logs[lib.name].splitlines()
+                  if "serialized" in line]
+        assert not serial, f"ptxas serialized wgmma in {lib.name}: {serial}"
+    out = {}
+    for wide, cases, key in ((False, K10_BF16_BWD_CASES, "K10-bf16-bwd"),
+                             (True, K10_WIDE_BWD_CASES, "K10-wide-bwd")):
+        bwd = k10.gla_wide_backward if wide else k10.gla_chunks_backward
+        for i, case in enumerate(cases):
+            args = k10_bf16_bwd_case(dev, errs, *case, seed=2950 + i,
+                                     wide=wide)
+            if i == 0:
+                what, b, h, s, dk, dv, chunk = case[:7]
+                ms = cuda_ms(lambda: bwd(*args), 3)
+                plain_args = args[:4] + (args[4][..., :dv],) + args[5:]
+                plain_ms = cuda_ms(
+                    lambda: k10.gla_chunks_backward_plain(*plain_args), 1)
+                if wide:
+                    f32 = _blocked_f32_backward(*args[:4], chunk)
+                    f32_what = (f"K10 f32's backward on the blocked route "
+                                f"({-(-dv // 128)} launches)")
+                else:
+                    f32_args = tuple(x.float() if torch.is_tensor(x) else x
+                                     for x in args)
+                    f32 = lambda: k10.gla_chunks_backward(*f32_args)
+                    f32_what = "K10 f32's backward"
+                f32_ms = cuda_ms(f32, 3)
+                del f32
+                fwd_ms = cuda_ms(lambda: (k10._launch_wide if wide else (
+                    lambda *a: k10._launch_forward(*a, torch.bfloat16)))(
+                        *args[:4], chunk), 3)
+                *bounds, issued_ms = k10_bf16_bwd_bound(name, b, h, s, dk,
+                                                        dv, chunk)
+                out[key] = (ms, plain_ms, None, tuple(bounds))
+                per = [(kern, n, device_ms(lambda: bwd(*args), 2, kern))
+                       for kern, n in K10_BF16_BWD_KERNELS[
+                           "gla_wide_bwd" if wide else "gla_bf16_bwd"].items()]
+                print(f"[K10 bf16 bwd] {'wide ' if wide else ''}{what}: "
+                      f"{ms:.3f} ms a launch (plain {plain_ms:.1f} ms, "
+                      f"{f32_what} at the same shape {f32_ms:.3f} ms, no "
+                      f"library call, bound {max(bounds):.3f} ms by "
+                      f"{'bytes' if bounds[0] >= bounds[1] else 'operations'}"
+                      f": bytes {bounds[0]:.3f}, bf16 operations "
+                      f"{bounds[1]:.3f}, the products as issued (two parts) "
+                      f"{issued_ms:.3f}; the bf16 forward {fwd_ms:.3f} ms); "
+                      f"device time a call: " + ", ".join(
+                          f"{kern} " + ("not measured (no kernel record)"
+                                        if d[0] is None else
+                                        f"{d[0] * n:.4f} ms ({n} launches "
+                                        f"of {d[0]:.4f}; {d[1]} records "
+                                        f"of {2 * n})")
+                          for kern, n, d in per) + f" [{name}]")
+                del plain_args
+            del args
+            torch.cuda.empty_cache()
+    return out
+
+
 def bf16_train_phase(dev, errs: ErrLog, name: str, f32_full: dict):
-    """Phase 29: (a) K9 bf16's backward kernels against their plain
-    versions and timed, (b) minitron-4b (8 layers) and deepseek-v2 (its
-    dense layer) trained 3 bf16 steps at full width beside phase 27's
-    float32 steps (``f32_full``), (c) both against the CPU in bf16, (d)
-    what still raises.  Returns the two kernels' table rows and the bf16
-    forwards' launches on the two steps ({key: {path: n}})."""
+    """Phase 29: (a) K9 bf16's backward kernels and K10's bf16 backwards
+    (dk, dv <= 128 and the wide route) against their plain versions and
+    timed, (b) minitron-4b (8 layers), deepseek-v2 (its dense layer),
+    zamba2-7b (12 layers) and xlstm-1p3b (7 layers, all mLSTM) trained 3
+    bf16 steps at full width beside phase 27's float32 steps
+    (``f32_full``), (c) each against the CPU in bf16, (d) what still
+    raises.  Returns the four backward kernels' table rows and the bf16
+    forwards' launches on the steps ({key: {path: n}})."""
     t0 = time.perf_counter()
     times = check_k9_bf16_bwd(dev, errs, name)
+    times.update(check_k10_bf16_bwd(dev, errs, name))
     print(f"[train bf16] phase 29 (a) in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
     full = {arch: train_full(dev, name, arch, layers, steps=3,
                              dtype="bfloat16")
-            for arch, layers in (("minitron-4b", 8), ("deepseek-v2-236b", 1))}
+            for arch, layers in (("minitron-4b", 8), ("deepseek-v2-236b", 1),
+                                 ("zamba2-7b", 12), ("xlstm-1p3b", 7))}
     for arch, got in full.items():
         f32 = f32_full[arch]
+        depth = "at the same depth" if arch != "xlstm-1p3b" else \
+            "of 8 layers (7 mLSTM and the sLSTM layer: the bf16 sLSTM " \
+            "scan has no backward on the card yet)"
         print(f"[train bf16] {arch}: bf16 {got['ms']:.1f} ms a step, "
               f"{got['tokens_s']:.0f} tokens/s, peak {got['peak_gb']:.2f} "
-              f"GB against phase 27's float32 step at the same depth "
+              f"GB against phase 27's float32 step {depth} "
               f"{f32['ms']:.1f} ms, {f32['tokens_s']:.0f} tokens/s, peak "
               f"{f32['peak_gb']:.2f} GB [{name}]")
+    print(f"[train bf16] phase 29 (b) in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     # the first batch's loss and gradients only: a step's host AdamW over
     # the 1.4-1.8 B host weights would not fit the script's time
-    train_card_vs_cpu(dev, name, layers=2, b=1, s=512, steps=0,
-                      arch="minitron-4b", self_noise=True, dtype="bfloat16")
-    train_card_vs_cpu(dev, name, layers=1, b=1, s=128, steps=0,
-                      arch="deepseek-v2-236b", self_noise=True,
-                      dtype="bfloat16")
+    for arch, layers, s in (("minitron-4b", 2, 512),
+                            ("deepseek-v2-236b", 1, 128),
+                            ("zamba2-7b", 6, 512), ("xlstm-1p3b", 2, 512)):
+        train_card_vs_cpu(dev, name, layers=layers, b=1, s=s, steps=0,
+                          arch=arch, self_noise=True, dtype="bfloat16")
     print(f"[train bf16] phase 29 (c) in {time.perf_counter() - t1:.1f} s")
     train_no_fallback(dev)
     paths = {"minitron-4b": "minitron-4b bf16 train step (8 layers)",
              "deepseek-v2-236b": "deepseek-v2 bf16 train step (1 dense "
-                                 "layer)"}
+                                 "layer)",
+             "zamba2-7b": "zamba2-7b bf16 train step (12 layers)",
+             "xlstm-1p3b": "xlstm-1p3b bf16 train step (7 mLSTM layers)"}
     rows = []
     for key, count, what, main in (
             ("K9-bf16-bwd", "K9_bf16_bwd", "minitron-4b layer",
              "minitron-4b"),
             ("K9-bf16-mla-bwd", "K9_bf16_mla_bwd", "deepseek-v2 MLA layer",
-             "deepseek-v2-236b")):
+             "deepseek-v2-236b"),
+            ("K10-bf16-bwd", "K10_bf16_bwd", "K10-bf16-bwd", "zamba2-7b"),
+            ("K10-wide-bwd", "K10_wide_bwd", "K10-wide-bwd", "xlstm-1p3b")):
         ms, plain_ms, lib_ms, bounds = times[what]
         row = _row(key, full[main]["launches"][count], errs, ms, plain_ms,
                    bounds, lib_ms)
-        row["model_launches"] = {paths[main]: full[main]["launches"][count]}
+        row["model_launches"] = {paths[a]: f["launches"][count]
+                                 for a, f in full.items()
+                                 if count in f["launches"]}
         rows.append(row)
-    # the bf16 forwards' launches on the two steps, by table row
-    fwd_paths = {key: {paths[a]: full[a]["launches"]["K9"]} for key, a in (
-        ("K9", "minitron-4b"), ("K9-mla", "deepseek-v2-236b"))}
+    # the bf16 forwards' launches on the steps, by table row
+    fwd_paths = {key: {paths[a]: f["launches"][count]
+                       for a, f in full.items() if count in f["launches"]}
+                 for key, count in (("K9", "K9"), ("K10", "K10"),
+                                    ("K10-mlstm", "K10_mlstm"))}
+    fwd_paths["K9-mla"] = {paths["deepseek-v2-236b"]:
+                           full["deepseek-v2-236b"]["launches"]["K9"]}
+    fwd_paths["K9"].pop(paths["deepseek-v2-236b"])
     print(f"[train bf16] phase 29 in {time.perf_counter() - t0:.1f} s")
     return rows, fwd_paths
 
@@ -7518,8 +7818,8 @@ def main() -> int:
             attention.kernel.LIB, attention.kernel.BF16_LIB,
             attention.kernel.BWD_LIB, attention.kernel.BWD_MLA_LIB,
             attention.kernel.BF16_BWD_LIB, attention.kernel.BF16_BWD_MLA_LIB,
-            gla.kernel.LIB, gla.kernel.BWD_LIB, slstm.kernel.LIB,
-            slstm.kernel.BWD_LIB]
+            gla.kernel.LIB, gla.kernel.BWD_LIB, gla.kernel.BF16_BWD_LIB,
+            gla.kernel.WIDE_BWD_LIB, slstm.kernel.LIB, slstm.kernel.BWD_LIB]
     common.build(libs)
     print(f"[build] {len(libs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -7601,7 +7901,8 @@ def main() -> int:
         rows[KERNELS[key][0]].setdefault("model_launches", {}).update(paths)
     for key in ("K2", "K9", "K9-f32", "K9-mla", "K9-f32-mla", "K9-f32-bwd",
                 "K9-f32-mla-bwd", "K9-bf16-bwd", "K9-bf16-mla-bwd", "K10",
-                "K10-mlstm", "K10-f32-bwd", "sLSTM", "sLSTM-bwd"):
+                "K10-mlstm", "K10-f32-bwd", "K10-bf16-bwd", "K10-wide-bwd",
+                "sLSTM", "sLSTM-bwd"):
         rows[KERNELS[key][0]]["max_abs_err"] = errs.err[key]
     table = [rows[KERNELS[key][0]] for key in KERNELS]
     print(json.dumps({"kernels": table}))

@@ -66,10 +66,23 @@ chunk c's rows take
 
 and autograd takes dg back through :func:`chunk_cumsum` to log_a.  The
 reference has no backward kernel (jax.grad differentiates its jnp
-``gla_chunked``), so the backward replaces no TPU kernel.  bfloat16 CUDA
-inputs and :func:`gla_wide` raise ``NotImplementedError`` when a
-gradient is asked for: their backward kernels do not exist yet, and no
-plain version runs on the card.
+``gla_chunked``), so the backward replaces no TPU kernel.
+
+bfloat16 (q, k, v and do in bf16; g, the states and dS in float32; dq,
+dk, dv rounded once to bf16, dg float32): :class:`GlaChunks` takes bf16
+inputs the same way, and on the card its backward launches
+``csrc/gla_bf16_bwd.cu`` (``BF16_BWD_LIB``: four kernels, one launch of
+the count), the float32 operands of its products in two bf16 parts on the
+tensor cores.  :func:`gla_wide` with a gradient asked for goes through
+:class:`GlaWide`: on the card the wide route's two launches, their
+look-back scratch [B, H, nc, dk, ldv] kept as the chunk states, then
+``csrc/gla_wide_bwd.cu`` (``WIDE_BWD_LIB``: six kernels, one launch of
+the count), which forms each (head, chunk)'s P and A once and runs its
+gradient units per 128-wide column block; on the CPU the plain forward
+and backward, undivided.  A float32 o of bfloat16 inputs
+(``ops.gla_blocked``'s partial outputs) has no backward on the card and
+raises ``NotImplementedError`` there: no plain version runs on CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -86,9 +99,10 @@ from ..common import (FLOAT_DTYPES, FLOAT_IO_HEADER, KernelLib,
                       meta_kernel)
 
 __all__ = ["gla_chunks", "gla_chunks_plain", "gla_wide", "gla_meta",
-           "chunk_cumsum", "GlaChunks", "gla_chunks_backward",
-           "gla_chunks_backward_plain",
-           "LIB", "BWD_LIB", "MAX_HEAD_DIM", "WIDE_MAX_CHUNK"]
+           "chunk_cumsum", "GlaChunks", "GlaWide", "gla_chunks_backward",
+           "gla_wide_backward", "gla_chunks_backward_plain",
+           "LIB", "BWD_LIB", "BF16_BWD_LIB", "WIDE_BWD_LIB", "MAX_HEAD_DIM",
+           "WIDE_MAX_CHUNK"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _P = ctypes.c_void_p
@@ -121,6 +135,23 @@ BWD_LIB = KernelLib(
     headers=(FLOAT_IO_HEADER, _WGMMA_HEADER, TF32_SPLIT_HEADER),
     signatures={"gla_scan_bwd_f32": ([_P] * 13 + [_I] * 5 + [_P],
                                      ctypes.c_int)})
+_BF16_TILE_HEADER = os.path.join(_ATTN_CSRC, "bf16_tile.cuh")
+#: The pieces both bfloat16 backwards share.
+BF16_BWD_HEADER = os.path.join(_CSRC, "gla_bf16_bwd.cuh")
+_BF16_BWD_HEADERS = (FLOAT_IO_HEADER, _WGMMA_HEADER, _BF16_TILE_HEADER,
+                     BF16_BWD_HEADER)
+#: The backward of K10 for bfloat16 inputs at dk, dv <= MAX_HEAD_DIM.
+BF16_BWD_LIB = KernelLib(
+    "gla_bf16_bwd", os.path.join(_CSRC, "gla_bf16_bwd.cu"),
+    headers=_BF16_BWD_HEADERS,
+    signatures={"gla_scan_bwd_bf16": ([_P] * 13 + [_I] * 5 + [_P],
+                                      ctypes.c_int)})
+#: The backward of the wide route (:func:`gla_wide`), bfloat16.
+WIDE_BWD_LIB = KernelLib(
+    "gla_wide_bwd", os.path.join(_CSRC, "gla_wide_bwd.cu"),
+    headers=_BF16_BWD_HEADERS,
+    signatures={"gla_wide_bwd": ([_P] * 17 + [_I] * 6 + [_P],
+                                 ctypes.c_int)})
 
 
 def chunk_cumsum(log_a: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -164,17 +195,21 @@ def gla_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     MAX_HEAD_DIM; a float32 o of bfloat16 inputs needs max(dk, dv) > 64,
     which runs ``gla_mma_kernel``); CPU tensors take the plain version.
     When a gradient is asked for (grad mode on, an input requiring grad),
-    float32 inputs go through :class:`GlaChunks`; bfloat16 CUDA inputs
-    raise ``NotImplementedError``."""
+    inputs whose o comes out in v's dtype go through :class:`GlaChunks`;
+    a float32 o of bfloat16 CUDA inputs raises
+    ``NotImplementedError``."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
     odt = _out_dtype(v, out_dtype)
-    if torch.is_grad_enabled() and q.dtype == torch.float32 and any(
-            t.requires_grad for t in (q, k, v, g)):
+    if odt == v.dtype and _wants_grad(q, k, v, g):
         return GlaChunks.apply(q, k, v, g, chunk)
     if not q.is_cuda:
         return gla_chunks_plain(q, k, v, g, chunk, odt)
     check_no_backward("K10", q, k, v, g)
     return _launch_forward(q, k, v, g, chunk, odt)[:2]
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -220,12 +255,28 @@ def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and results of :func:`gla_chunks`.  CUDA tensors launch the wide
     route's two kernels (bfloat16 only, chunk <= WIDE_MAX_CHUNK; v
     padded to a multiple of 8 columns when it is not one, so its rows are
-    whole 16-byte chunks); CPU tensors take the plain version."""
-    global WIDE_LAUNCHES
-    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    whole 16-byte chunks); CPU tensors take the plain version.  When a
+    gradient is asked for, through :class:`GlaWide`."""
+    _shapes(q, k, v, g, chunk)
+    if _wants_grad(q, k, v, g):
+        return GlaWide.apply(q, k, v, g, chunk)
     if not q.is_cuda:
         return gla_chunks_plain(q, k, v, g, chunk)
-    check_no_backward("K10", q, k, v, g)
+    return _launch_wide(q, k, v, g, chunk)[:2]
+
+
+def _wide_ldv(dv: int) -> int:
+    """The row stride of the wide route's padded v, do and chunk states."""
+    return -(-dv // 8) * 8
+
+
+def _launch_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: torch.Tensor, chunk: int):
+    """The wide route's two launches -> (o, final state, the look-back
+    scratch [B, H, nc, dk, ldv]: S_c in slot c for every chunk but the
+    last, columns past dv unwritten)."""
+    global WIDE_LAUNCHES
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
     dev = q.device
     check_kernel_device(q)
     if q.dtype != torch.bfloat16:
@@ -238,14 +289,14 @@ def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_tensor(k, "k", torch.bfloat16, (b, h, s, dk), dev)
     check_tensor(v, "v", torch.bfloat16, (b, h, s, dv), dev)
     check_tensor(g, "g", torch.float32, (b, h, s), dev)
-    ldv = -(-dv // 8) * 8
+    ldv = _wide_ldv(dv)
     vp = v if ldv == dv else torch.nn.functional.pad(v, (0, ldv - dv))
     nc, nt = s // chunk, -(-chunk // 64)
     o = torch.empty((b, h, s, dv), dtype=v.dtype, device=dev)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
     scores = torch.empty((b * h * nc * nt * (nt + 1) // 2 * 64 * 64,),
                          dtype=torch.float32, device=dev)
-    scratch = torch.empty((b * h * nc * dk * ldv,), dtype=torch.float32,
+    scratch = torch.empty((b, h, nc, dk, ldv), dtype=torch.float32,
                           device=dev)
     sync = torch.empty((1 + b * h * nc * -(-dv // 128),), dtype=torch.int32,
                        device=dev)
@@ -256,7 +307,7 @@ def gla_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch("gla_wide_fwd", err)
     WIDE_LAUNCHES += 2
-    return o, state
+    return o, state, scratch
 
 
 def gla_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -322,24 +373,30 @@ def gla_chunks_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, state
 
 
+def _meta_states(q, k, v, g, chunk):
+    """Empty chunk states [B, H, nc, dk, dv] on meta, beside ``gla_meta``'s
+    report of the forward."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    return torch.empty((b, h, s // chunk, dk, dv), dtype=torch.float32,
+                       device=q.device)
+
+
 class GlaChunks(torch.autograd.Function):
-    """K10 with its backward, float32: ``apply(q, k, v, g, chunk) -> (o,
-    final state)``.  CUDA (dk, dv <= MAX_HEAD_DIM): the forward kernel,
-    its chunk states kept, then the backward kernel; CPU: the two plain
-    versions; meta (any dtype and width): "K10" and "K10_bwd", one
-    operation each.  The gradient of the final state is taken when one
-    flows (None otherwise: zero)."""
+    """K10 with its backward, float32 or bfloat16: ``apply(q, k, v, g,
+    chunk) -> (o in v's dtype, final state)``.  CUDA (dk, dv <=
+    MAX_HEAD_DIM): the forward kernel, its chunk states kept, then the
+    backward kernel of the dtype; CPU: the two plain versions; meta (any
+    dtype and width): "K10" and "K10_bwd", one operation each.  The
+    gradient of the final state is taken when one flows (None otherwise:
+    zero)."""
 
     @staticmethod
     def forward(ctx, q, k, v, g, chunk: int):
         if q.is_meta:
             o, state = gla_meta(q, k, v, g, chunk)
-            b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
-            states = torch.empty((b, h, s // chunk, dk, dv),
-                                 dtype=torch.float32, device=q.device)
+            states = _meta_states(q, k, v, g, chunk)
         elif q.is_cuda:
-            o, state, states = _launch_forward(q, k, v, g, chunk,
-                                               torch.float32)
+            o, state, states = _launch_forward(q, k, v, g, chunk, v.dtype)
             states[:, :, -1] = state
         else:
             o, state, states = gla_chunks_plain(q, k, v, g, chunk,
@@ -360,27 +417,72 @@ class GlaChunks(torch.autograd.Function):
         return dq, dk, dv, dg, None
 
 
+class GlaWide(torch.autograd.Function):
+    """The wide route with its backward, bfloat16 heads of any width:
+    ``apply(q, k, v, g, chunk) -> (o, final state)``.  CUDA: the wide
+    route's two launches, their look-back scratch [B, H, nc, dk, ldv] kept
+    as the chunk states (its last slot filled with the final state), then
+    :func:`gla_wide_backward`'s kernel; CPU: :func:`gla_chunks_plain` and
+    :func:`gla_chunks_backward_plain`, undivided; meta: "K10" and
+    "K10_bwd", one operation each, as :class:`GlaChunks`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, chunk: int):
+        if q.is_meta:
+            o, state = gla_meta(q, k, v, g, chunk)
+            states = _meta_states(q, k, v, g, chunk)
+        elif q.is_cuda:
+            o, state, states = _launch_wide(q, k, v, g, chunk)
+            states[:, :, -1, :, :state.shape[-1]] = state
+        else:
+            o, state, states = gla_chunks_plain(q, k, v, g, chunk,
+                                                with_states=True)
+        ctx.save_for_backward(q, k, v, g, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return o, state
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        q, k, v, g, states = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+        dq, dk, dv, dg = gla_wide_backward(
+            q, k, v, g, states, do.contiguous(),
+            None if dstate is None else dstate.contiguous(), ctx.chunk)
+        return dq, dk, dv, dg, None
+
+
+def _backward_meta(q, k, v, g, states, do, dstate, chunk):
+    """The backward on meta tensors: empty gradients, reported as one
+    operation "K10_bwd" of the undivided backward's work."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    grads = tuple(torch.empty_like(x) for x in (q, k, v, g))
+    flops = b * h * (s // chunk) * (
+        chunk * (chunk + 1) * (3 * dk + 2 * dv) + 8 * chunk * dk * dv)
+    meta_kernel("K10_bwd", flops,
+                tuple(t for t in (q, k, v, g, states, do, dstate)
+                      if t is not None), grads)
+    return grads
+
+
 def gla_chunks_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, states: torch.Tensor,
                         do: torch.Tensor, dstate: Optional[torch.Tensor],
                         chunk: int):
-    """The gradients (dq, dk, dv, dg) of K10 at float32 q, k, v, g, given
-    the forward's chunk states [B, H, nc, dk, dv] (S_c after chunk c),
-    o's gradient do [B, H, S, dv] and the final state's gradient dstate
-    [B, H, dk, dv] (None: zero).  CUDA tensors (dk, dv <= MAX_HEAD_DIM)
-    launch the backward kernel (``BWD_LIB``: three kernels on the stream,
+    """The gradients (dq, dk, dv, dg) of K10 at q, k, v (float32, or
+    bfloat16 with do in bfloat16) and g, given the forward's chunk states
+    [B, H, nc, dk, dv] (S_c after chunk c), o's gradient do [B, H, S, dv]
+    and the final state's gradient dstate [B, H, dk, dv] (None: zero).
+    dq, dk, dv come back in the inputs' dtype, dg in float32.  CUDA
+    tensors (dk, dv <= MAX_HEAD_DIM) launch the backward kernel of the
+    dtype (``BWD_LIB`` for float32, ``BF16_BWD_LIB`` for bfloat16, each
     counted as one launch); CPU tensors take
     :func:`gla_chunks_backward_plain`; meta tensors come back empty,
     reported as one operation "K10_bwd"."""
     b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
     if q.is_meta:
-        grads = tuple(torch.empty_like(x) for x in (q, k, v, g))
-        flops = b * h * (s // chunk) * (
-            chunk * (chunk + 1) * (3 * dk + 2 * dv) + 8 * chunk * dk * dv)
-        meta_kernel("K10_bwd", flops,
-                    tuple(t for t in (q, k, v, g, states, do, dstate)
-                          if t is not None), grads)
-        return grads
+        return _backward_meta(q, k, v, g, states, do, dstate, chunk)
     if not q.is_cuda:
         return gla_chunks_backward_plain(q, k, v, g, states, do, dstate,
                                          chunk)
@@ -390,15 +492,33 @@ def gla_chunks_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"K10's backward takes dk, dv up to "
                          f"{MAX_HEAD_DIM}, got {dk}, {dv}")
     nc = s // chunk
-    for t, name, shape in ((q, "q", (b, h, s, dk)), (k, "k", (b, h, s, dk)),
-                           (v, "v", (b, h, s, dv)), (g, "g", (b, h, s)),
-                           (states, "states", (b, h, nc, dk, dv)),
-                           (do, "do", (b, h, s, dv))):
-        check_tensor(t, name, torch.float32, shape, dev)
+    dt = q.dtype
+    for t, name, shape, want in (
+            (q, "q", (b, h, s, dk), dt), (k, "k", (b, h, s, dk), dt),
+            (v, "v", (b, h, s, dv), dt), (g, "g", (b, h, s), torch.float32),
+            (states, "states", (b, h, nc, dk, dv), torch.float32),
+            (do, "do", (b, h, s, dv), dt)):
+        check_tensor(t, name, want, shape, dev)
     if dstate is not None:
         check_tensor(dstate, "dstate", torch.float32, (b, h, dk, dv), dev)
     dq, dk_, dv_ = (torch.empty_like(x) for x in (q, k, v))
     dg = torch.empty_like(g)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.bfloat16:
+        # dS_c, a chunk each, and <dS_c, S_c> a (head, chunk, state tile)
+        d = 64 if max(dk, dv) <= 64 else 128
+        ds = torch.empty_like(states)
+        red = torch.empty((b * h * nc * -(-dk // 64) * -(-dv // d),),
+                          dtype=torch.float32, device=dev)
+        err = BF16_BWD_LIB.get().gla_scan_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            states.data_ptr(), do.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), ds.data_ptr(),
+            red.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+            dg.data_ptr(), b * h, s, chunk, dk, dv, stream)
+        check_launch("gla_scan_bwd_bf16", err)
+        BF16_BWD_LIB.launches += 1
+        return dq, dk_, dv_, dg
     # U_c = sum_t e^{g_t} q_t^T do_t, then dS_c, a chunk each, and dS_c
     # transposed
     u = torch.empty_like(states)
@@ -409,10 +529,68 @@ def gla_chunks_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         states.data_ptr(), do.data_ptr(),
         None if dstate is None else dstate.data_ptr(), u.data_ptr(),
         ds.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
-        dg.data_ptr(), b * h, s, chunk, dk, dv,
-        torch.cuda.current_stream(dev).cuda_stream)
+        dg.data_ptr(), b * h, s, chunk, dk, dv, stream)
     check_launch("gla_scan_bwd_f32", err)
     BWD_LIB.launches += 1
+    return dq, dk_, dv_, dg
+
+
+def gla_wide_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor, states: torch.Tensor,
+                      do: torch.Tensor, dstate: Optional[torch.Tensor],
+                      chunk: int):
+    """The gradients (dq, dk, dv in bfloat16, dg in float32) of the wide
+    route at bfloat16 q, k, v of any width, given :func:`_launch_wide`'s
+    chunk states [B, H, nc, dk, ldv] (S_c after chunk c in its first dv
+    columns, ldv = dv rounded up to a multiple of 8), do [B, H, S, dv]
+    bfloat16 and dstate [B, H, dk, dv] float32 (None: zero).  CUDA tensors
+    launch ``WIDE_BWD_LIB`` (six kernels, counted as one launch); CPU
+    tensors (states [B, H, nc, dk, dv]) take
+    :func:`gla_chunks_backward_plain`, undivided; meta tensors come back
+    empty, reported as one operation "K10_bwd"."""
+    b, h, s, dk, dv = _shapes(q, k, v, g, chunk)
+    if q.is_meta:
+        return _backward_meta(q, k, v, g, states, do, dstate, chunk)
+    if not q.is_cuda:
+        return gla_chunks_backward_plain(q, k, v, g, states, do, dstate,
+                                         chunk)
+    dev = q.device
+    check_kernel_device(q)
+    ldv = _wide_ldv(dv)
+    nc, nt = s // chunk, -(-chunk // 64)
+    for t, name, shape, want in (
+            (q, "q", (b, h, s, dk), torch.bfloat16),
+            (k, "k", (b, h, s, dk), torch.bfloat16),
+            (v, "v", (b, h, s, dv), torch.bfloat16),
+            (g, "g", (b, h, s), torch.float32),
+            (states, "states", (b, h, nc, dk, ldv), torch.float32),
+            (do, "do", (b, h, s, dv), torch.bfloat16)):
+        check_tensor(t, name, want, shape, dev)
+    if dstate is not None:
+        check_tensor(dstate, "dstate", torch.float32, (b, h, dk, dv), dev)
+    pad = (lambda x: x) if ldv == dv else (
+        lambda x: torch.nn.functional.pad(x, (0, ldv - dv)))
+    vp, dop = pad(v), pad(do)
+    dq, dk_ = torch.empty_like(q), torch.empty_like(k)
+    dv_ = torch.empty_like(v)
+    dg = torch.empty_like(g)
+    ds = torch.empty_like(states)
+    red = torch.empty((b * h * nc * -(-dk // 64) * -(-dv // 128),),
+                      dtype=torch.float32, device=dev)
+    tiles = b * h * nc * nt * (nt + 1) // 2 * 64 * 64
+    p = torch.empty((2, tiles), dtype=torch.float32, device=dev)
+    dgp = torch.empty((2, b * h * s * -(-dk // 128)), dtype=torch.float32,
+                      device=dev)
+    err = WIDE_BWD_LIB.get().gla_wide_bwd(
+        q.data_ptr(), k.data_ptr(), vp.data_ptr(), g.data_ptr(),
+        states.data_ptr(), dop.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), ds.data_ptr(),
+        red.data_ptr(), p[0].data_ptr(), p[1].data_ptr(), dgp[0].data_ptr(),
+        dgp[1].data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+        dg.data_ptr(), b * h, s, chunk, dk, dv, ldv,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("gla_wide_bwd", err)
+    WIDE_BWD_LIB.launches += 1
     return dq, dk_, dv_, dg
 
 

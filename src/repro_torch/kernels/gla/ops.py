@@ -5,10 +5,13 @@ runs K10's plain version.
 
 K10 takes head dims up to ``kernel.MAX_HEAD_DIM`` (128) in one launch;
 the reference's kernel takes any.  Wider bfloat16 heads on the card
-(mLSTM's 1024) go whole to ``kernel.gla_wide``.  :func:`gla_blocked`
-runs wider heads of float32 on the card, and every wide head on the CPU,
-on 128-wide blocks of them.  The state is exact under the cut: state
-block (i, j) needs only k's column block i and v's column block j.  o's
+(mLSTM's 1024) go whole to ``kernel.gla_wide``, and so do wider bfloat16
+heads on the CPU when a gradient is asked for (the wide route's
+function, ``kernel.GlaWide``, through its plain versions, undivided).
+:func:`gla_blocked` runs wider heads of float32 on the card, and every
+other wide head on the CPU, on 128-wide blocks of them.  The state is
+exact under the cut: state block (i, j) needs only k's column block i
+and v's column block j.  o's
 column block j needs v's block j and every block of k, since q_i . k_j
 sums over all of dk: the dk blocks give partial outputs, which are
 summed in float32 in rising block order and rounded once to v's dtype.
@@ -22,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..common import as_float_tensor, as_tensor, resolve_device
-from .kernel import (MAX_HEAD_DIM, WIDE_MAX_CHUNK, GlaChunks, chunk_cumsum,
-                     gla_chunks, gla_meta, gla_wide)
+from .kernel import (MAX_HEAD_DIM, WIDE_MAX_CHUNK, GlaChunks, _wants_grad,
+                     chunk_cumsum, gla_chunks, gla_meta, gla_wide)
 
 __all__ = ["gla_scan", "gla_blocked"]
 
@@ -37,14 +40,17 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
     float32).  S must be a multiple of ``chunk``.  After the within-chunk
     cumsum of log_a: one K10 launch when dk, dv <= MAX_HEAD_DIM; else,
     for bfloat16 CUDA tensors and chunk <= WIDE_MAX_CHUNK,
-    ``kernel.gla_wide`` (two launches), and otherwise :func:`gla_blocked`
+    ``kernel.gla_wide`` (two launches; bfloat16 CPU tensors too when a
+    gradient is asked for), and otherwise :func:`gla_blocked`
     (ceil(dv / MAX_HEAD_DIM) launches).  Meta tensors take
     ``kernel.gla_meta`` at any width: one operation, the undivided
     scan (with a gradient asked for, through ``kernel.GlaChunks``, whose
-    backward is one operation too).  When a gradient is asked for,
-    float32 launches go through ``kernel.GlaChunks`` (its backward
-    kernel on the card, the plain backward on the CPU); bfloat16 ones on
-    the card raise."""
+    backward is one operation too).  When a gradient is asked for, the
+    launches go through ``kernel.GlaChunks`` (dk, dv <= MAX_HEAD_DIM) or
+    ``kernel.GlaWide`` (bfloat16 wider heads): their backward kernels on
+    the card, the plain backward on the CPU.  Float32's blocked route
+    goes through ``GlaChunks`` block by block; bfloat16 heads wider than
+    MAX_HEAD_DIM at a chunk over WIDE_MAX_CHUNK raise on the card."""
     dev = resolve_device(device)
     q, k, v = (as_float_tensor(t, dev) for t in (q, k, v))
     la = as_tensor(log_a, torch.float32, dev)
@@ -53,13 +59,13 @@ def gla_scan(q, k, v, log_a, *, chunk: int = 128,
                          f"chunk = {chunk}, got {tuple(la.shape)}")
     g = chunk_cumsum(la, chunk)
     if q.is_meta:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v, g)):
+        if _wants_grad(q, k, v, g):
             return GlaChunks.apply(q, k, v, g, chunk)
         return gla_meta(q, k, v, g, chunk)
     if max(q.shape[-1], v.shape[-1]) <= MAX_HEAD_DIM:
         return gla_chunks(q, k, v, g, chunk)
-    if q.is_cuda and q.dtype == torch.bfloat16 and chunk <= WIDE_MAX_CHUNK:
+    if q.dtype == torch.bfloat16 and chunk <= WIDE_MAX_CHUNK and (
+            q.is_cuda or _wants_grad(q, k, v, g)):
         return gla_wide(q, k, v, g, chunk)
     return gla_blocked(q, k, v, g, chunk)
 

@@ -65,7 +65,8 @@ off), bfloat16 products on the tensor cores (989.4e12), and the kernels
 at the peak their bounds in ``PERF.md`` use (K9 f32 and the float32
 backwards of K9 and K10 as three TF32 products at 494.7e12, K9 bf16's
 backward at 989.4e12 over the bf16 products it issues a product of its
-least work (``k9_bf16_bwd_products``), K10 f32 on the CUDA cores,
+least work (``k9_bf16_bwd_products``), K10 bf16's backwards the same
+way (``k10_bf16_bwd_products``), K10 f32 on the CUDA cores,
 the sLSTM scan and its backward at the non-FMA rate, half the float32
 peak); ``memory`` is per-chip bytes at 3.35e12 B/s; ``collective`` is
 per-chip collective bytes at ``core.signatures.H100.ici_bw``.
@@ -139,15 +140,53 @@ def k9_bf16_bwd_products(dh: int, dv: int) -> float:
     return (6 * dk_ + 4 * dv_) / (3 * dh + 2 * dv)
 
 
+def k10_bf16_bwd_products(dk: int, dv: int, chunk: int) -> float:
+    """bf16 products K10 bf16's backward kernels issue a product of its
+    least work, L (L + 1) (3 dk + 2 dv) + 8 L dk dv FLOPs a (head,
+    chunk), at head dims dk, dv and chunk L (``csrc/gla_bf16_bwd.cu``,
+    ``csrc/gla_wide_bwd.cu``).  Both take whole 64 x 64 tiles on a
+    chunk's diagonal (nt (nt + 1) / 2 of them, nt = ceil(L / 64)), a
+    score product once and every product of a float32 operand as two
+    bf16 parts.  At dk, dv <= 128, zero-padded to D = 64 or 128: the
+    dv, dk and dq kernels each recompute a score (D deep) and take its
+    product (D wide) and a state term (D x D a 64-row tile), and U_c
+    runs over 64-row dk tiles, D wide.  Wider (the wide route): P and A
+    once (dk and dv in 64-column slices), U_c over 64 x 128 tiles of the
+    state, and the dq, dk (128-column blocks of dk) and dv (of dv) units'
+    state terms over 64-column slices and score products."""
+    up = lambda x, m: -(-x // m) * m   # noqa: E731
+    nt = -(-chunk // 64)
+    tiles, rows, pair = nt * (nt + 1) // 2, 64 * nt, 64 * 64
+    least = chunk * (chunk + 1) * (3 * dk + 2 * dv) + 8 * chunk * dk * dv
+    if max(dk, dv) <= 128:
+        d = 64 if max(dk, dv) <= 64 else 128
+        issued = (2 * pair * d * tiles * (3 + 3 * 2)
+                  + 2 * 2 * rows * d * d * 3 + 2 * 2 * rows * up(dk, 64) * d)
+    else:
+        k64, v64, k128, v128 = (up(dk, 64), up(dv, 64), up(dk, 128),
+                                up(dv, 128))
+        issued = (2 * pair * (k64 + v64) * tiles
+                  + 2 * 2 * rows * k64 * v128
+                  + 2 * 2 * rows * (2 * k128 * v64 + v128 * k64)
+                  + 2 * 2 * pair * tiles * (2 * k128 + v128))
+    return issued / least
+
+
 def op_peak(name: str, dtype: torch.dtype,
             ins: Sequence[torch.Tensor] = ()) -> float:
     """FLOP/s of the unit that runs op ``name`` on ``dtype`` inputs in the
     port (the module docstring's table); ``ins``, the op's inputs, give
-    K9_bwd's head dims (q [.., dh] first, v [.., dv] third)."""
+    K9_bwd's head dims (q [.., dh] first, v [.., dv] third) and
+    K10_bwd's (q [.., S, dk], v [.., dv], the chunk states [.., nc, dk,
+    dv] fifth: the chunk S / nc)."""
     half = dtype in _HALF
     if name == "K9_bwd" and half:
         return PEAKS["bf16"] / k9_bf16_bwd_products(ins[0].shape[-1],
                                                     ins[2].shape[-1])
+    if name == "K10_bwd" and half:
+        return PEAKS["bf16"] / k10_bf16_bwd_products(
+            ins[0].shape[-1], ins[2].shape[-1],
+            ins[0].shape[-2] // ins[4].shape[-3])
     if name in ("K9_bwd", "K10_bwd") or (name == "K9" and not half):
         return PEAKS["tf32"] / 3          # three TF32 products
     if name == "K9":

@@ -451,6 +451,61 @@ def test_bf16_k9_backward_rate_follows_the_kernels_widths(dh, dv, issued):
         dryrun.PEAKS["tf32"] / 3
 
 
+@pytest.mark.parametrize("dk,dv,chunk,issued", [
+    # zamba2-7b's heads: D 64, 4 x 4 tiles a chunk, 10 on the diagonal
+    (64, 64, 256, 2 * 64 * 64 * 64 * 10 * 9 + 4 * 256 * 64 * 64 * 4),
+    # dk 128 / dv 96: D 128, chunk 64, one tile
+    (128, 96, 64, 2 * 64 * 64 * 128 * 9 + 4 * 64 * 128 * 128 * 4),
+    # mLSTM's heads on the wide route: P and A, U, the state terms, the
+    # score products of the dq, dk (8 blocks of 128) and dv (9) units
+    (1024, 1025, 256, 2 * 64 * 64 * (1024 + 1088) * 10
+     + 4 * 256 * 1024 * 1152 + 4 * 256 * (2 * 1024 * 1088 + 1152 * 1024)
+     + 4 * 64 * 64 * 10 * (2 * 1024 + 1152))])
+def test_bf16_k10_backward_rate_follows_the_kernels_products(dk, dv, chunk,
+                                                             issued):
+    """K10 bf16's backward on meta (``GlaChunks`` / ``GlaWide``'s
+    "K10_bwd": q, k, v, g, the chunk states, do) is priced at the bf16
+    peak over the products its kernels issue a product of the least work,
+    L (L + 1) (3 dk + 2 dv) + 8 L dk dv a (head, chunk): two bf16 parts a
+    float32 operand, whole tiles on the diagonal, zero-padded widths; not
+    at split TF32's rate, which float32 inputs keep."""
+    b, h, s = 1, 2, 2 * chunk
+    q, k = (torch.empty((b, h, s, dk), device="meta", dtype=torch.bfloat16)
+            for _ in range(2))
+    v, do = (torch.empty((b, h, s, dv), device="meta", dtype=torch.bfloat16)
+             for _ in range(2))
+    g = torch.empty((b, h, s), device="meta")
+    states = torch.empty((b, h, 2, dk, dv), device="meta")
+    ins = (q, k, v, g, states, do)
+    least = chunk * (chunk + 1) * (3 * dk + 2 * dv) + 8 * chunk * dk * dv
+    assert dryrun.op_peak("K10_bwd", torch.bfloat16, ins) == pytest.approx(
+        dryrun.PEAKS["bf16"] * least / issued, rel=1e-12)
+    assert dryrun.op_peak("K10_bwd", torch.float32, ins) == \
+        dryrun.PEAKS["tf32"] / 3
+
+
+def test_bf16_zamba2_cell_prices_k10_backward_at_the_bf16_rate():
+    """A bf16 train cell's K10_bwd ops (zamba2-7b cut to 2 Mamba2 layers,
+    on 1 x 4096 tokens, its train_4k exec) take K10 bf16's backward rate,
+    a float32 cell's the split-TF32 rate."""
+    spec = tconfigs.ShapeSpec("train_4k", 4096, 1, "train")
+    ex = tconfigs.exec_default("zamba2-7b", "train_4k")
+    peaks = {}
+    for dt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(tconfigs.get("zamba2-7b"), num_layers=2,
+                                  param_dtype=dt, dtype=dt)
+        fn, args, meta, walker = dryrun.build_cell(
+            "zamba2-7b", spec, _local_meta_mesh(), ex, cfg=cfg)
+        dryrun.walk_cell(fn, args, meta, walker, ex)
+        peaks[dt] = {p for c, p in zip(walker.costs, walker._peaks)
+                     if c.name == "K10_bwd"}
+    hd = tconfigs.get("zamba2-7b")
+    ratio = dryrun.k10_bf16_bwd_products(hd.ssm_state, hd.ssm_head_dim,
+                                         hd.gla_chunk)
+    assert peaks["bfloat16"] == {dryrun.PEAKS["bf16"] / ratio}
+    assert peaks["float32"] == {dryrun.PEAKS["tf32"] / 3}
+
+
 @pytest.mark.parametrize("microbatch,b,fwd,bwd", [(1, 1, 16, 8),
                                                   (2, 2, 32, 16)])
 def test_minitron_cut_walk_counts(microbatch, b, fwd, bwd):

@@ -1,8 +1,9 @@
 """A bfloat16 train step of the eight archs whose only kernel is K9 (the
-attention archs; zamba2-7b and xlstm-1p3b also need K10's or the sLSTM
-scan's bf16 backward), the port on the CPU against the reference's
-``make_train_step``, both on the SMOKE config with ``param_dtype = dtype
-= "bfloat16"`` from the reference's init weights (bf16-valued).
+attention archs) and of zamba2-7b (K9 and K10, whose bf16 gradient goes
+through ``GlaChunks`` and its plain backward on the CPU), the port on the
+CPU against the reference's ``make_train_step``, both on the SMOKE
+config with ``param_dtype = dtype = "bfloat16"`` from the reference's
+init weights (bf16-valued).
 
 Neither bf16 step is exact, so both are held to the reference's float32
 step on the same bf16-valued weights: the port's loss, and each of its
@@ -12,7 +13,16 @@ bf16 step is, each distance the largest over BATCHES batches (one
 batch's loss is one sample of the rounding noise: phi3-mini's alone sat
 at 7.3x).  Measured on the CPU, the port's distance over the
 reference's: the loss 0.44-1.65, each arch's leaves at most 1.22-1.78
-(deepseek-v2's the largest).
+(deepseek-v2's the largest); zamba2-7b the loss 1.04, its leaves at most
+1.67 (``layers.3.mix.A_log``).  xlstm-1p3b is not held here: its loss
+sits at 3.62x and its leaves at up to 2.36x (``layers.3.mix.w_gates.w``,
+an mLSTM layer's gates), the same to the digit with the mLSTM's bf16
+gradient through autograd of ``gla_chunks_plain`` (before ``GlaChunks``
+took bf16) as through ``GlaChunks``: the excess comes from the bf16
+forward, whose loss is already past the bound, not from K10's backward
+(batch 0's port loss 4.5e-3 from the float32 one, the reference's
+7.4e-4; with the mLSTM gate projection kept in float32, as XLA keeps
+the reference's, tried: the loss 2.70x, the leaf 2.54x).
 
 The MoE archs' routing is held apart, from the initialized routers: the
 top-k is discontinuous, and bf16 noise in the hidden states breaks some
@@ -68,6 +78,10 @@ REF_BF16_X = 2.0
 BATCHES = 2
 #: The archs whose only kernel is K9.
 K9_ARCHS = [a for a in rconfigs.ARCHS if a not in ("zamba2-7b", "xlstm-1p3b")]
+#: The archs whose step is held: the K9 archs and zamba2-7b (K10 through
+#: ``GlaChunks``); xlstm-1p3b's bf16 forward is past the bound (the module
+#: docstring).
+STEP_ARCHS = K9_ARCHS + ["zamba2-7b"]
 
 
 def _batch(cfg, B=2, S=32, seed=0):
@@ -145,7 +159,7 @@ def _port_step(cfg, params, batch, monkeypatch):
     return float(met["loss"]), seen["grads"]
 
 
-@pytest.mark.parametrize("arch", K9_ARCHS)
+@pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_bf16_step_no_further_than_reference_bf16(arch, monkeypatch):
     """The port's bf16 SMOKE step against the reference's bf16 step,
     each held to the reference's float32 step on the same bf16-valued

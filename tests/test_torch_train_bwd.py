@@ -138,8 +138,9 @@ def test_gla_chunks_function_on_the_cpu():
     """``gla_chunks`` on float32 CPU tensors requiring grad goes through
     ``GlaChunks`` (o and the state bitwise the plain forward's, its
     states those of ``gla_chunks_plain(with_states=True)``), launching
-    nothing; without grad, or on bfloat16 CPU tensors, the plain forward
-    as before."""
+    nothing; without grad the plain forward as before; bfloat16 CPU
+    tensors requiring grad go through ``GlaChunks`` too, o bitwise the
+    plain forward's."""
     q, k, v, la, do, _ = _gla_inputs(3, 1, 2, 64, 16, 8)
     g = k10.chunk_cumsum(torch.tensor(la), 16)
     xs = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
@@ -155,7 +156,9 @@ def test_gla_chunks_function_on_the_cpu():
     assert o2.grad_fn is None and torch.equal(o2, want_o)
     xb = [x.detach().bfloat16().requires_grad_() for x in xs]
     ob, _ = k10.gla_chunks(*xb, g, 16)
-    assert "GlaChunks" not in type(ob.grad_fn).__name__
+    assert "GlaChunks" in type(ob.grad_fn).__name__
+    assert ob.dtype == torch.bfloat16 and torch.equal(
+        ob, k10.gla_chunks_plain(*(x.detach() for x in xb), g, 16)[0])
 
 
 @pytest.mark.parametrize("with_dstate", [False, True])
@@ -193,20 +196,28 @@ def test_gla_blocked_backward_vs_jax_grad(with_dstate, monkeypatch):
 
 
 def test_gla_backward_raises_on_the_card_without_a_kernel(monkeypatch):
-    """bfloat16 CUDA inputs to ``gla_chunks``, and ``gla_wide``, with a
-    gradient asked for raise NotImplementedError naming K10's backward
-    before any launch."""
+    """What K10 still has no backward kernel for raises NotImplementedError
+    naming K10's backward before any launch: bfloat16 CUDA inputs to
+    ``gla_chunks`` with a float32 o (``ops.gla_blocked``'s partial
+    outputs) and a gradient asked for, and so bfloat16 heads wider than
+    MAX_HEAD_DIM at a chunk over WIDE_MAX_CHUNK through ``gla_scan``.
+    (bfloat16 o in v's dtype and ``gla_wide`` reach their backward
+    kernels: ``tests/test_torch_gla_bf16_bwd.py``.)"""
+    from repro_torch.kernels.gla import ops
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     g = torch.zeros(1, 2, 64)
     xs = [torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16,
                       requires_grad=True) for _ in range(3)]
-    before = (k10.LIB.launches, k10.BWD_LIB.launches, k10.WIDE_LAUNCHES)
+    libs = (k10.LIB, k10.BWD_LIB, k10.BF16_BWD_LIB, k10.WIDE_BWD_LIB)
+    before = tuple(lib.launches for lib in libs) + (k10.WIDE_LAUNCHES,)
     with pytest.raises(NotImplementedError, match="K10 backward"):
-        k10.gla_chunks(*xs, g, 16)
+        k10.gla_chunks(*xs, g, 16, out_dtype=torch.float32)
+    wide = [torch.zeros(1, 1, 512, 136, dtype=torch.bfloat16,
+                        requires_grad=True) for _ in range(3)]
     with pytest.raises(NotImplementedError, match="K10 backward"):
-        k10.gla_wide(*xs, g, 16)
-    assert (k10.LIB.launches, k10.BWD_LIB.launches,
-            k10.WIDE_LAUNCHES) == before
+        ops.gla_scan(*wide, torch.zeros(1, 1, 512), chunk=512, device="cpu")
+    assert tuple(lib.launches for lib in libs) + (
+        k10.WIDE_LAUNCHES,) == before
 
 
 def _gla_src():
